@@ -7,7 +7,8 @@ JAX package on a ported path becomes a kernel written by hand for Hopper
 (``ops/csrc/``), with its plain PyTorch version beside it.  Entry points run
 on the card unless the caller asks for the CPU.
 
-Ported so far: serving the ViT family (``python -m
-distributed_training_comparison_tpu_torch --serve --model vit_long
---image-size 256 --amp``), with the flash-attention forward kernel.
+Ported so far: training and serving the ViT family on one card
+(``python -m distributed_training_comparison_tpu_torch --model vit_long
+--image-size 256 --amp --synthetic-data``, and the same with ``--serve``),
+with the flash-attention forward and backward kernels.
 """

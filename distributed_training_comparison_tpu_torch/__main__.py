@@ -1,4 +1,4 @@
-"""``python -m distributed_training_comparison_tpu_torch --serve ...``"""
+"""``python -m distributed_training_comparison_tpu_torch [--serve] ...``"""
 
 import sys
 

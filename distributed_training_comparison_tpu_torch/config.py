@@ -1,17 +1,26 @@
-"""Command-line flags of the port: the serving subset of
+"""Command-line flags of the port: the training and serving subset of
 ``distributed_training_comparison_tpu/config.py``.
 
-Same names, defaults and choices as the JAX package's flags, with two
-written deltas: ``--device {cuda,cpu}`` (default ``cuda``) is new, and
-``--serve-shape`` takes only ``auto``/``closed``/``open`` and
-``--serve-replicas`` only 1 until the router and the fleet's load shapes
-are ported.
+Same names, defaults and choices as the JAX package's flags (its ``single``
+backend: one device, ``--epoch`` 200), with the written deltas of
+``WRITTEN_DELTAS``.  The JAX package's other flags are not parsed yet.
 """
 
 from __future__ import annotations
 
 import argparse
 from typing import Sequence
+
+# flags that parse as in the JAX package but behave differently on purpose
+# (or are new), until the ROADMAP item named lands
+WRITTEN_DELTAS = {
+    "device": "new: where the model runs, cuda (default) or cpu",
+    "serve_shape": "only auto/closed/open until the fleet's load shapes are ported",
+    "serve_replicas": "only 1 until the router is ported",
+    "data_mode": "both modes take the host loader's numpy (seed, epoch) order; "
+    "the JAX device mode permutes with threefry",
+    "contain_test": "tests the final in-memory state; no checkpoint is written yet",
+}
 
 MODELS = (
     "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
@@ -22,17 +31,41 @@ MODELS = (
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m distributed_training_comparison_tpu_torch",
-        description="PyTorch/CUDA port: serve a zoo model on the card",
+        description="PyTorch/CUDA port: train or serve a zoo model on the card",
     )
+    p.add_argument("--dset", type=str, default="cifar100")
+    p.add_argument("--dpath", type=str, default="data/")
     p.add_argument("--seed", type=int, default=42, help="Seed for reproducibility")
+    p.add_argument("--eval-step", type=int, default=300,
+                   help="Log the batch loss every N global steps")
     p.add_argument("--amp", action="store_true", default=False,
                    help="bfloat16 compute policy")
+    p.add_argument("--contain-test", action="store_true", default=False,
+                   help="Test after fit (on the final state: no checkpoints yet)")
+    p.add_argument("--epoch", type=int, default=200)
+    p.add_argument("--batch-size", type=int, default=128, help="GLOBAL batch size")
+    p.add_argument("--lr", type=float, default=0.1)
+    p.add_argument("--weight-decay", type=float, default=0.0001)
+    p.add_argument("--lr-decay-step-size", type=int, default=60)
+    p.add_argument("--lr-decay-gamma", type=float, default=0.1)
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="Split each global batch into N sequential micro-batches, "
+                   "average their grads, apply ONE update")
+    p.add_argument("--synthetic-data", action="store_true", default=False,
+                   help="Train on generated data (no dataset on disk)")
+    p.add_argument("--synthetic-noise", type=float, default=0.15,
+                   help="Noise sigma around the per-class anchors of --synthetic-data")
+    p.add_argument("--limit-examples", type=int, default=0,
+                   help="Truncate each split to N examples (0 = full dataset)")
+    p.add_argument("--data-mode", type=str, default="device", choices=["device", "host"],
+                   help="Both keep the split resident on the device and take the "
+                   "host loader's numpy epoch order")
     p.add_argument("--precision", type=str, default=None, choices=["fp32", "bf16"],
                    help="Compute precision; overrides --amp when set")
     p.add_argument("--model", type=str, default="resnet18", choices=list(MODELS),
-                   help="Model zoo entry (the port serves the vit_* models)")
+                   help="Model zoo entry (the port runs the vit_* models)")
     p.add_argument("--image-size", type=int, default=32,
-                   help="Request image edge length (vit_long: 256)")
+                   help="Image edge length (synthetic data and requests; vit_long: 256)")
     p.add_argument("--patch-size", type=int, default=0,
                    help="ViT patch size override (0 = model default)")
     p.add_argument("--block-fusion", type=str, default="auto",
@@ -75,6 +108,10 @@ def load_config(argv: Sequence[str] | None = None) -> argparse.Namespace:
     """Parse flags (``argv=None`` reads ``sys.argv``)."""
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.limit_examples < 0:
+        parser.error(f"--limit-examples must be >= 0, got {args.limit_examples}")
+    if args.grad_accum < 1:
+        parser.error(f"--grad-accum must be >= 1, got {args.grad_accum}")
     if args.precision is None:
         args.precision = "bf16" if args.amp else "fp32"
     try:

@@ -1,6 +1,8 @@
-"""Entry point (``distributed_training_comparison_tpu/entry.py:57-63``).
+"""Entry point (``distributed_training_comparison_tpu/entry.py``).
 
-``--serve`` runs the serving subsystem.  Training is not ported yet.
+Without ``--serve``: build the ``Trainer``, ``fit()``, then under
+``--contain-test`` ``test()`` the final state.  With ``--serve``: the
+serving subsystem.  There is no supervisor and no preemption handling yet.
 """
 
 from __future__ import annotations
@@ -12,16 +14,19 @@ from .config import load_config
 
 
 def run(argv: Sequence[str] | None = None) -> dict:
-    """Parse flags and run; prints and returns the report."""
+    """Parse flags and run; prints and returns the results."""
     hparams = load_config(argv)
-    if not hparams.serve:
-        raise NotImplementedError(
-            "training is not ported to PyTorch yet (ROADMAP.md queue 1); "
-            "pass --serve"
-        )
-    from .serve import serve_main
-
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    results = serve_main(hparams)
+    if hparams.serve:
+        from .serve import serve_main
+
+        results = serve_main(hparams)
+    else:
+        from .train import Trainer
+
+        trainer = Trainer(hparams)
+        results = {"fit": trainer.fit()}
+        if hparams.contain_test:
+            results.update(trainer.test())
     print(results)
     return results

@@ -10,8 +10,9 @@ fp32 (``norms.py``), the MLP's gelu is the tanh approximation (flax's
 default) and the logits are fp32.
 
 Attention goes through ``ops.attention`` with the (B, S, H, D) layout: on
-the card at long sequences that is the CUDA flash-attention kernel, read
-in place through a transposed view.  The fused whole-block kernel of the
+the card at long sequences that is the CUDA flash-attention forward, and
+under autograd its dq and dk/dv kernels, all reading the projections in
+place through transposed views.  The fused whole-block kernel of the
 JAX package (``ops/vit_block.py``, K5) is not ported yet, so
 ``block_fusion="auto"`` always composes, also in the 128-512 token window
 where the JAX package would take K5, and ``"force"`` raises.

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` exposes a plain C function ``<name>`` and compiles on
-its own into ``build/kernels/lib<name>-<hash>.so`` at the repository root.
+Each ``csrc/<name>.cu`` exposes plain C functions and compiles on its own
+into ``build/kernels/lib<name>-<hash>.so`` at the repository root.
 The hash covers the source and the compiler flags, so an edited source never
 loads a stale library.  A build starts on first use (or through
 :func:`build`) and writes through a temporary file that is renamed into
 place, so concurrent builds never see a half-written library.
+:func:`build_all` runs one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module, and a
 machine without ``nvcc`` only fails when a kernel is actually asked for.
@@ -19,11 +20,12 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("flash_attention_fwd",)
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -31,6 +33,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_functions: dict[tuple[str, str], object] = {}
 _lock = threading.Lock()
 
 
@@ -78,15 +81,26 @@ def build(name: str) -> Path:
     return path
 
 
-def load(name: str, argtypes: list, restype=ctypes.c_int) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (built first if needed), with
-    its C function's ``argtypes`` and ``restype`` declared."""
+def build_all(names=KERNELS) -> dict[str, Path]:
+    """Build every library in ``names`` at once (one ``nvcc`` process per
+    source, started together) and return their paths by name."""
+    names = tuple(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
+
+
+def load(name: str, argtypes: list, restype=ctypes.c_int, symbol: str | None = None):
+    """C function ``symbol`` (default ``name``) of kernel library ``name``,
+    built first if needed, with its ``argtypes`` and ``restype`` declared."""
+    symbol = symbol or name
     with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            fn = getattr(lib, name)
+        fn = _functions.get((name, symbol))
+        if fn is None:
+            lib = _loaded.get(name)
+            if lib is None:
+                lib = _loaded[name] = ctypes.CDLL(str(build(name)))
+            fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = restype
-            _loaded[name] = lib
-        return lib
+            _functions[(name, symbol)] = fn
+        return fn

@@ -109,3 +109,99 @@ def test_vit_kernel_path_matches_reference_path(cuda_device):
     assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 3e-2 + 3e-2 * scale
+
+
+def _row_share(got, want, rtol):
+    """The least share of each row's rms under which ``got`` holds against
+    ``want`` elementwise with ``rtol`` (a row: one query's or key's D values)."""
+    w = want.float()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+    return float((((got.float() - w).abs() - rtol * w.abs()) / rms).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "dtype,b,h,s,d,causal,with_dlse",
+    [
+        (torch.bfloat16, 2, 4, 1024, 128, False, False),
+        (torch.bfloat16, 1, 3, 130, 64, True, True),
+        (torch.float32, 1, 2, 200, 128, True, True),
+        (torch.float32, 2, 2, 77, 64, False, False),
+    ],
+)
+def test_backward_kernels_match_plain_on_card(cuda_device, dtype, b, h, s, d, causal, with_dlse):
+    """dq (K3) and dk/dv (K4) against ``flash_attention_bwd_reference`` on
+    the same forward residuals, (B, S, H, D) views read in place.  Bounds
+    as in chip_smoke.py, where they are derived: per row, bf16 2^-5 of the
+    row's rms plus 2^-6·|x| (one bf16 rounding of each gradient), fp32
+    2^-10 of the rms (summation order only)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d)
+    q, k, v, do = (
+        torch.randn(b, s, h, d, generator=gen, device=cuda_device).to(dtype)
+        for _ in range(4)
+    )
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    out, lse = port.flash_attention(qt, kt, vt, causal=causal, return_lse=True)
+    dlse = torch.randn(b, h, s, generator=gen, device=cuda_device) if with_dlse else None
+    before = (port.flash_attention_dq.launches, port.flash_attention_dkv.launches)
+    scale = d ** -0.5
+    got = port.flash_attention_bwd(qt, kt, vt, out, lse, dot, dlse, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert (port.flash_attention_dq.launches, port.flash_attention_dkv.launches) == (
+        before[0] + 1, before[1] + 1,
+    )
+    want = port.flash_attention_bwd_reference(
+        qt, kt, vt, out, lse, dot, dlse, causal=causal, scale=scale
+    )
+    share, rtol = (2**-5, 2**-6) if dtype == torch.bfloat16 else (2**-10, 0.0)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (qt, kt, vt)):
+        assert g.dtype == dtype and g.stride() == x.stride(), name  # layout kept
+        assert bool(torch.isfinite(g).all()), name
+        assert _row_share(g, w, rtol) <= share, (name, _row_share(g, w, rtol))
+
+
+def grad_errors(model, reference) -> dict[str, float]:
+    """Each parameter gradient's relative L2 error against the reference
+    model's.  ``k_proj.bias`` is the exception: its exact gradient is zero
+    (softmax ignores a shift shared by a row's scores), so both paths hold
+    rounding noise there, measured against the same block's
+    ``k_proj.weight`` gradient instead."""
+    ref = dict(reference.named_parameters())
+    out = {}
+    for name, p in model.named_parameters():
+        r = ref[name].grad
+        if name.endswith("k_proj.bias"):
+            scale = ref[name.replace("bias", "weight")].grad.norm()
+        else:
+            scale = r.norm()
+        out[name] = float((p.grad - r).norm() / scale.clamp_min(1e-30))
+    return out
+
+
+@pytest.mark.gpu
+def test_vit_training_step_through_kernels_matches_reference(cuda_device):
+    """A 2-block ViT at 1024 tokens (128 px, patch 4; head dim 64), bf16:
+    loss.backward() through the kernels launches the forward, dq and dk/dv
+    kernels once per block, and every parameter gradient agrees with the
+    same weights through the reference attention within 2^-5 relative L2
+    (the bound chip_smoke.py's train phase derives: the paths round P and
+    ds to bf16 at different points, a 2^-9 relative difference carried
+    through bf16 GEMMs)."""
+    kw = dict(depth=2, dim=128, heads=2, image_size=128, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    model = vit.ViT(**kw)
+    model.init_weights(gen)
+    reference = vit.ViT(**kw, attn_impl="reference")
+    reference.load_state_dict(model.state_dict())
+    model, reference = model.to(cuda_device), reference.to(cuda_device)
+    x = torch.randn(2, 128, 128, 3, generator=gen).to(cuda_device)
+    labels = torch.tensor([3, 7], device=cuda_device)
+    counters = (port.flash_attention, port.flash_attention_dq, port.flash_attention_dkv)
+    before = [c.launches for c in counters]
+    torch.nn.functional.cross_entropy(model(x), labels).backward()
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [2, 2, 2]
+    torch.nn.functional.cross_entropy(reference(x), labels).backward()
+    assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+    errors = grad_errors(model, reference)
+    assert max(errors.values()) <= 2**-5, errors
