@@ -16,7 +16,11 @@ last line:
              stated beside each and held against a planted fault it must
              reject; CUDA-event times of the kernel, the plain version and
              the one-call library yardstick: the flash-attention forward
-             (K1/K2), then its dq (K3) and dk/dv (K4) kernels;
+             (K1/K2), then its dq (K3) and dk/dv (K4) kernels, then the
+             fused ViT block chain (K5: ``block_gemm`` x 4 and
+             ``block_attention``) against ``fused_vit_block_reference``,
+             stage by stage and whole, with the composed cuBLAS + SDPA
+             block as its library yardstick;
 4. serve   — the port's main path through its user entry point
              (``entry.run``): ``vit_long`` at 256 px (4096 tokens), bf16,
              buckets 1,2,4,8, closed loop of 64 requests at concurrency 8,
@@ -28,6 +32,13 @@ last line:
              timed with both attentions and profiled (device busy time,
              idle share, largest device consumers); the same batch in
              fp32 (the default without ``--amp``) is checked and timed too;
+   serve_tiny — the same entry with ``vit_tiny --patch-size 2`` (12 blocks,
+             dim 192, 256 tokens), bf16, buckets 1..32, 256 requests at
+             concurrency 32: every block of every dispatched batch runs the
+             fused K5 chain and no flash-attention kernel runs; the bucket-32
+             logits are held against the composed reference engine in bf16
+             and fp32, a bucket-32 dispatch is timed fused and with
+             ``--block-fusion off`` and profiled;
 5. train   — the port's training path through ``entry.run``: ``vit_long``
              at 256 px, bf16, batch 16, two epochs over 144 synthetic
              training images (18 steps) and 16 validation images.  The
@@ -352,6 +363,265 @@ def backward_checks(attn) -> list[dict]:
     return out
 
 
+def bound(flops: float, nbytes: float, dname: str) -> tuple[float, str]:
+    """Least time in ms: operations over the dtype's peak against bytes over
+    the memory rate, and which of the two bounds it."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def block_bounds(b, s, dim, heads, hidden, dname) -> dict[str, tuple[float, str]]:
+    """Bounds of one fused block (K5) on the card: the whole chain, the four
+    ``block_gemm`` launches together and ``block_attention``.  Each
+    function's inputs are read once and its outputs written once: the chain
+    reads x and the fp32 parameters and writes out; each GEMM launch reads
+    its A, residual and parameters and writes its C; attention reads qkv
+    and writes o."""
+    rows, item = b * s, 2 if dname == "bfloat16" else 4
+    params = (4 * dim * dim + 2 * dim * hidden + 9 * dim + hidden) * 4
+    gemm_flops = 2 * rows * (4 * dim * dim + 2 * dim * hidden)
+    attn_flops = 4 * rows * s * dim
+    # (x in, qkv out), (o, x in, r1 out), (r1 in, hmid out), (hmid, r1 in, out)
+    gemm_act = rows * (4 * dim + 3 * dim + dim + hidden + hidden + 2 * dim)
+    return {
+        "chain": bound(gemm_flops + attn_flops, 2 * rows * dim * item + params, dname),
+        "gemm": bound(gemm_flops, gemm_act * item + params, dname),
+        "attention": bound(attn_flops, 4 * rows * dim * item, dname),
+    }
+
+
+# (label, dtype, B, S, dim, heads); mlp ratio 4.  The first two are one
+# block of the vit_tiny --patch-size 2 serve path at bucket 32 (bf16 with
+# --amp, fp32 without), then a ragged S (a multiple of 8, not of 64) and
+# the top of the gate's 128-512 token window.
+BLOCK_CASES = [
+    ("slice: vit_tiny p2 serve, bucket 32", "bfloat16", 32, 256, 192, 3),
+    ("fp32 serve shape: vit_tiny p2 bucket 32 without --amp", "float32", 32, 256, 192, 3),
+    ("ragged S", "bfloat16", 3, 136, 128, 2),
+    ("window top: S 512", "bfloat16", 2, 512, 192, 3),
+]
+# Each output (the block's, each GEMM launch's, attention's) holds against
+# its plain version per row: |kernel - plain| <= atol_share * rms(row) +
+# rtol * |plain|, with the flash kernels' TOLERANCES and for the same
+# reasons.  bf16: the kernel and the plain version round at the same points
+# (each GEMM's product, bias add, gelu and residual add; P; attention's
+# output), so they differ by fp32 summation order and exp/tanh (~1e-6
+# relative), by the rare one-ulp bf16 flip that causes in an intermediate,
+# which the next stage carries as 2^-8 of one term among dim or S, and by
+# one bf16 rounding of the output itself (2^-8 |out|, held by rtol 2^-6);
+# 2^-5 of the row's rms leaves room for the flips.  fp32: summation order
+# and exp/tanh only.  The planted faults, each of which must need more than
+# the tolerance: the block and attention with the first FAULT_KEYS keys of
+# every item left out of the attention (one key tile of the kernel), each
+# GEMM launch with the first 64 input columns of W zeroed (one K stage).
+
+
+def _seeded_block_params(dim, heads, gen) -> dict:
+    """A ``ViTBlock``'s parameters, seeded: xavier-uniform weights (the
+    init) and non-trivial LayerNorm scales and biases, so every term of
+    the block is exercised."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch.models.vit import ViTBlock
+
+    params = {}
+    for name, p in ViTBlock(dim, heads).named_parameters():
+        if p.dim() == 2:
+            limit = math.sqrt(6.0 / sum(p.shape))
+            t = (torch.rand(p.shape, generator=gen) * 2 - 1) * limit
+        elif name.startswith("ln") and name.endswith("weight"):
+            t = 1 + 0.1 * torch.randn(p.shape, generator=gen)
+        else:
+            t = 0.1 * torch.randn(p.shape, generator=gen)
+        params[name] = t.cuda()
+    return params
+
+
+def attention_without_first_tile(qkv, *, seq, heads, n=FAULT_KEYS):
+    """``packed_attention_reference`` with the first ``n`` keys of every
+    item left out: the planted fault of the attention stage."""
+    import torch
+
+    rows, three_dim = qkv.shape
+    dim = three_dim // 3
+    d = dim // heads
+    items = rows // seq
+    outs = []
+    for h in range(heads):
+        q, k, v = (
+            qkv[:, j * dim + h * d:j * dim + (h + 1) * d].reshape(items, seq, d).float()
+            for j in range(3)
+        )
+        s = torch.einsum("bqd,bkd->bqk", q, k[:, n:]) * d**-0.5
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = (e / e.sum(-1, keepdim=True)).to(qkv.dtype).float()
+        outs.append(torch.einsum("bqk,bkd->bqd", p, v[:, n:]).to(qkv.dtype).reshape(rows, d))
+    return torch.cat(outs, dim=1)
+
+
+def composed_library_block(x, params, heads):
+    """The library yardstick of one block (timed here, never called by the
+    port): the composed block with cuBLAS GEMMs (``F.linear``, weights cast
+    beforehand), ``F.layer_norm`` and ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    cd = x.dtype
+    b, s, dim = x.shape
+    w = {k: v.to(cd) for k, v in params.items() if not k.startswith("ln")}
+    wqkv = torch.cat([w[f"{n}_proj.weight"] for n in "qkv"])
+    bqkv = torch.cat([w[f"{n}_proj.bias"] for n in "qkv"])
+    ln = {k: v for k, v in params.items() if k.startswith("ln")}
+
+    def norm(t, name):
+        return F.layer_norm(
+            t.float(), (dim,), ln[f"{name}.weight"], ln[f"{name}.bias"], eps=1e-6
+        ).to(cd)
+
+    def run():
+        qkv = F.linear(norm(x, "ln_attn"), wqkv, bqkv).view(b, s, 3, heads, dim // heads)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, s, dim)
+        r1 = x + F.linear(o, w["proj.weight"], w["proj.bias"])
+        h = F.gelu(F.linear(norm(r1, "ln_mlp"), w["mlp_up.weight"], w["mlp_up.bias"]),
+                   approximate="tanh")
+        return r1 + F.linear(h, w["mlp_down.weight"], w["mlp_down.bias"])
+
+    return run
+
+
+def _agreement(got, want, fault, rtol) -> dict:
+    import torch
+
+    return {
+        "max_abs_err": (got.float() - want.float()).abs().max().item(),
+        "atol_share_needed": atol_share_needed(got, want, rtol),
+        "fault_atol_share_needed": atol_share_needed(fault, want, rtol),
+        "finite": bool(torch.isfinite(got).all()),
+    }
+
+
+def timed(fn, iters: int = 20) -> tuple[float, float]:
+    """(device-busy ms per call under torch.profiler, CUDA-event ms per call
+    of back-to-back calls), both warmed up.  The first is the kernels' own
+    time; the second adds the gaps the host's launch overhead leaves on the
+    card between calls, which dominate calls of sub-0.1 ms kernels."""
+    event_ms = cuda_ms(fn, iters)
+    return profile_device(fn, iters)["device_busy_ms"], event_ms
+
+
+def fused_block_checks(vb) -> list[dict]:
+    """The K5 chain (``ops/vit_block.py``) against its plain version at
+    ``BLOCK_CASES``: each ``block_gemm`` launch and ``block_attention`` on
+    the plain chain's own intermediates, then the whole block; agreement,
+    the planted faults, and the device times (``timed``) of the kernels,
+    the plain versions and the library yardsticks."""
+    import torch
+    import torch.nn.functional as F
+
+    from distributed_training_comparison_tpu_torch.ops.attention_small import (
+        packed_attention_reference,
+    )
+
+    gen = torch.Generator().manual_seed(2)
+    out = []
+    for label, dname, b, s, dim, heads in BLOCK_CASES:
+        dtype = getattr(torch, dname)
+        atol_share, rtol, _ = TOLERANCES[dname]
+        params = _seeded_block_params(dim, heads, gen)
+        x = torch.randn((b, s, dim), generator=gen).to(device="cuda", dtype=dtype)
+        rows, hidden = b * s, 4 * dim
+        p = params
+        x2 = x.reshape(rows, dim)
+        # the plain chain's intermediates: every stage is checked on them
+        stages = [
+            dict(a=x2, weights=[p[f"{n}.weight"] for n in vb.QKV],
+                 biases=[p[f"{n}.bias"] for n in vb.QKV],
+                 ln=(p["ln_attn.weight"], p["ln_attn.bias"])),
+            None,  # out-proj: a = o, residual = x
+            None,  # up: a = r1, LN2, gelu
+            None,  # down: a = hmid, residual = r1
+        ]
+        qkv = vb.block_gemm_reference(**stages[0])
+        o = packed_attention_reference(qkv, seq=s, heads=heads)
+        stages[1] = dict(a=o, weights=[p["proj.weight"]], biases=[p["proj.bias"]], residual=x2)
+        r1 = vb.block_gemm_reference(**stages[1])
+        stages[2] = dict(a=r1, weights=[p["mlp_up.weight"]], biases=[p["mlp_up.bias"]],
+                         ln=(p["ln_mlp.weight"], p["ln_mlp.bias"]), gelu=True)
+        hmid = vb.block_gemm_reference(**stages[2])
+        stages[3] = dict(a=hmid, weights=[p["mlp_down.weight"]], biases=[p["mlp_down.bias"]],
+                         residual=r1)
+        names = ("ln1_qkv", "proj_residual", "ln2_up_gelu", "down_residual")
+
+        gemm = {}
+        for name, st in zip(names, stages):
+            got = vb.block_gemm(**st)
+            torch.cuda.synchronize()
+            want = vb.block_gemm_reference(**st)
+            faulty = dict(st, weights=[w.clone() for w in st["weights"]])
+            for w in faulty["weights"]:
+                w[:, :64] = 0
+            gemm[name] = _agreement(got, want, vb.block_gemm_reference(**faulty), rtol)
+            gemm[name]["ms"], gemm[name]["event_ms"] = timed(lambda: vb.block_gemm(**st))
+            gemm[name]["plain_ms"], _ = timed(lambda: vb.block_gemm_reference(**st))
+        attn_got = vb.block_attention(qkv, seq=s, heads=heads)
+        torch.cuda.synchronize()
+        attention = _agreement(
+            attn_got, o, attention_without_first_tile(qkv, seq=s, heads=heads), rtol
+        )
+        attention["ms"], attention["event_ms"] = timed(
+            lambda: vb.block_attention(qkv, seq=s, heads=heads)
+        )
+        attention["plain_ms"], _ = timed(
+            lambda: packed_attention_reference(qkv, seq=s, heads=heads)
+        )
+        q, k, v = (t.transpose(1, 2) for t in qkv.view(b, s, 3, heads, dim // heads).unbind(2))
+        attention["library_ms"], _ = timed(lambda: F.scaled_dot_product_attention(q, k, v))
+        # the four GEMMs through cuBLAS alone (F.linear with cast weights and
+        # bias): no LayerNorm prologue, gelu or residual epilogue
+        linear_args = [
+            (st["a"], torch.cat(st["weights"]).to(dtype), torch.cat(st["biases"]).to(dtype))
+            for st in stages
+        ]
+        gemm_library_ms, _ = timed(lambda: [F.linear(*args) for args in linear_args])
+
+        got = vb.fused_vit_block(x, params, heads=heads)
+        torch.cuda.synchronize()
+        want = vb.fused_vit_block_reference(x, params, heads=heads)
+        fault = vb._chain(x, params, heads, True, vb.block_gemm_reference,
+                          attention_without_first_tile)
+        chain = _agreement(got.reshape(rows, dim), want.reshape(rows, dim),
+                           fault.reshape(rows, dim), rtol)
+        chain["ms"], chain["event_ms"] = timed(lambda: vb.fused_vit_block(x, params, heads=heads))
+        chain["plain_ms"], _ = timed(lambda: vb.fused_vit_block_reference(x, params, heads=heads))
+        chain["library_ms"], chain["library_event_ms"] = timed(
+            composed_library_block(x, params, heads)
+        )
+        chain["library"] = "composed block: F.layer_norm, F.linear (cuBLAS), SDPA, gelu, adds"
+        bounds = block_bounds(b, s, dim, heads, hidden, dname)
+        for rec, key in ((chain, "chain"), (attention, "attention")):
+            rec["bound_ms"], rec["bound_by"] = bounds[key]
+        checked = [chain, attention, *gemm.values()]
+        out.append({
+            "case": label, "dtype": dname, "shape": [b, s, dim, heads], "rows": rows,
+            "atol_share": atol_share, "rtol": rtol, "fault_keys": FAULT_KEYS,
+            "chain": chain, "attention": attention, "gemm_launches": gemm,
+            "gemm_ms": sum(g["ms"] for g in gemm.values()),
+            "gemm_event_ms": sum(g["event_ms"] for g in gemm.values()),
+            "gemm_plain_ms": sum(g["plain_ms"] for g in gemm.values()),
+            "gemm_library_ms": gemm_library_ms,
+            "gemm_library": "4 x F.linear (cuBLAS GEMM + bias); LayerNorm, gelu and residual excluded",
+            "gemm_bound_ms": bounds["gemm"][0], "gemm_bound_by": bounds["gemm"][1],
+            "ok": all(
+                c["finite"] and c["atol_share_needed"] <= atol_share < c["fault_atol_share_needed"]
+                for c in checked
+            ),
+        })
+        del params, x, qkv, o, r1, hmid, got, want, fault, stages, linear_args
+        torch.cuda.empty_cache()
+    return out
+
+
 def profile_device(fn, reps: int) -> dict:
     """Device time of ``reps`` calls of ``fn`` under torch.profiler: busy
     ms per call (the union of device activity), the idle share of the
@@ -484,6 +754,112 @@ def serve_phase(attn) -> dict:
         "bucket8_batch_ms_reference_attention": forward_ms["reference"],
         "bucket8_profile": profiled,
         "fp32_bucket8": fp32,
+    }
+
+
+SERVE_TINY_ARGV = [
+    "--serve", "--model", "vit_tiny", "--patch-size", "2", "--amp",
+    "--serve-buckets", "1,2,4,8,16,32", "--serve-shape", "closed",
+    "--serve-requests", "256", "--serve-concurrency", "32", "--seed", "0",
+]
+
+
+def _block_counters(vb, attn) -> dict:
+    return {"fused_vit_block": vb.fused_vit_block, "block_gemm": vb.block_gemm,
+            "block_attention": vb.block_attention, "flash_attention": attn.flash_attention}
+
+
+def serve_tiny_phase(vb, attn) -> dict:
+    """``vit_tiny --patch-size 2`` served through ``entry.run``: every block
+    of every dispatched batch through the fused K5 chain; the bucket-32
+    logits against the composed reference engine in bf16 and fp32; one
+    bucket-32 dispatch timed fused and composed, and profiled."""
+    import numpy as np
+
+    from distributed_training_comparison_tpu_torch import entry
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.serve import build_engine, request_pool
+
+    counters = _block_counters(vb, attn)
+    for c in counters.values():
+        c.launches = 0
+    report = entry.run(SERVE_TINY_ARGV)
+    launches = {name: c.launches for name, c in counters.items()}
+
+    # the same seeded weights through the fused chain and through the
+    # composed reference engine (attn_impl="reference" pins attention, so
+    # the gate declines and every block composes), one batch of 32.
+    # Bound, bf16: the paths round at different points (the composed Dense
+    # adds its bias inside cuBLAS before rounding, its LayerNorm takes the
+    # two-pass variance), each of the 12 blocks adds that ~2^-8 relative
+    # difference to a bf16 residual stream, so the logits agree to a few
+    # bf16 ulps of their scale: 3e-2 absolute plus 3e-2 of the largest.
+    # fp32: summation order and the variance formula only, 1e-3 of the scale.
+    checks = {}
+    for precision, argv in (("bf16", SERVE_TINY_ARGV),
+                            ("fp32", [a for a in SERVE_TINY_ARGV if a != "--amp"])):
+        hp = load_config(argv)
+        images = request_pool(32, image_size=hp.image_size, seed=hp.seed, fold=("check", 0))
+        fused, reference = build_engine(hp), build_engine(hp, attn_impl="reference")
+        before = vb.fused_vit_block.launches
+        got = fused.predict_logits(images)
+        fused_launches = vb.fused_vit_block.launches - before
+        before = vb.fused_vit_block.launches
+        want = reference.predict_logits(images)
+        scale = float(np.abs(want).max())
+        tol = 3e-2 + 3e-2 * scale if precision == "bf16" else 1e-3 * (1.0 + scale)
+        rec = {
+            "launches_fused": fused_launches,
+            "launches_reference": vb.fused_vit_block.launches - before,
+            "logits_finite": bool(np.isfinite(got).all() and np.isfinite(want).all()),
+            "logits_max_abs_err_vs_reference": float(np.abs(got - want).max()),
+            "logits_scale": scale, "logits_tol": tol,
+        }
+        if precision == "bf16":
+            # one bucket-32 dispatch end to end (uint8 upload, forward,
+            # logits download), fused and with --block-fusion off
+            off = build_engine(load_config(argv + ["--block-fusion", "off"]))
+            for name, eng in (("fused", fused), ("off", off), ("fused_again", fused),
+                              ("off_again", off)):
+                eng.predict_logits(images)
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    eng.predict_logits(images)
+                rec[f"bucket32_batch_ms_{name}"] = (time.perf_counter() - t0) / 5 * 1e3
+            prof = profile_device(lambda: fused.predict_logits(images), 5)
+            k5 = sum(ms for name, ms in prof["device_ms_by_name"].items() if "vit_block_" in name)
+            top = sorted(prof["device_ms_by_name"].items(), key=lambda kv: -kv[1])[:8]
+            rec["bucket32_profile"] = {
+                "wall_ms_per_batch": prof["wall_ms"],
+                "device_busy_ms_per_batch": prof["device_busy_ms"],
+                "device_idle_share": prof["device_idle_share"],
+                "k5_device_ms_per_batch": k5,
+                "k5_share_of_device_busy": k5 / prof["device_busy_ms"],
+                "top_device_ms_per_batch": {name[:60]: ms for name, ms in top},
+            }
+            del off
+        checks[precision] = rec
+        depth = len(fused.model.blocks)
+        del fused, reference
+    return {
+        "phase": "serve_tiny",
+        "argv": SERVE_TINY_ARGV,
+        "offered": report["offered"],
+        "completed": report["completed"],
+        "failed": report["failed"],
+        "shed": report["shed"],
+        "expired": report["expired"],
+        "throughput_rps": report["throughput_rps"],
+        "p50_ms": report["latency_ms"]["p50"],
+        "p99_ms": report["latency_ms"]["p99"],
+        "duration_s": report["duration_s"],
+        "bucket_counts": report["engine"]["bucket_counts"],
+        "engine_batches": sum(report["engine"]["bucket_counts"].values()),
+        "mean_batch_size": report["batcher"]["mean_batch_size"],
+        "mean_service_ms": report["batcher"]["mean_service_ms"],
+        "depth": depth,
+        "launches": launches,
+        "bucket32": checks,
     }
 
 
@@ -759,6 +1135,7 @@ def main() -> int:
 
     # the module, not the ``attention`` function the package re-exports
     attn = importlib.import_module(f"{PKG}.ops.attention")
+    vb = importlib.import_module(f"{PKG}.ops.vit_block")
 
     t0 = time.monotonic()
     paths = _build.build_all()
@@ -782,6 +1159,12 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"flash-attention backward kernels disagree with the plain version: {bad}")
 
+    blocks = fused_block_checks(vb)
+    emit({"phase": "fused_block_checks", "nvidia_smi": smi, "checks": blocks})
+    bad = [c["case"] for c in blocks if not c["ok"]]
+    if bad:
+        raise RuntimeError(f"the fused block kernels disagree with the plain version: {bad}")
+
     serve = serve_phase(attn)
     emit(serve)
     if serve["completed"] != serve["offered"] or serve["failed"]:
@@ -803,6 +1186,23 @@ def main() -> int:
         fp32["logits_max_abs_err_vs_reference"] > fp32["logits_tol"]
     ):
         raise RuntimeError(f"fp32 kernel-path logits disagree with the reference: {fp32}")
+
+    tiny = serve_tiny_phase(vb, attn)
+    emit(tiny)
+    if tiny["completed"] != tiny["offered"] or tiny["failed"]:
+        raise RuntimeError(f"serve_tiny phase lost requests: {tiny}")
+    blocks_run = tiny["depth"] * tiny["engine_batches"]
+    want = {"fused_vit_block": blocks_run, "block_gemm": 4 * blocks_run,
+            "block_attention": blocks_run, "flash_attention": 0}
+    if tiny["launches"] != want:
+        raise RuntimeError(f"serve_tiny launches {tiny['launches']}, expected {want}")
+    for precision, rec in tiny["bucket32"].items():
+        if (rec["launches_fused"], rec["launches_reference"]) != (tiny["depth"], 0):
+            raise RuntimeError(f"serve_tiny {precision} bucket-32 batch: launches {rec}")
+        if not rec["logits_finite"] or rec["logits_max_abs_err_vs_reference"] > rec["logits_tol"]:
+            raise RuntimeError(
+                f"serve_tiny {precision}: fused logits disagree with the composed reference: {rec}"
+            )
 
     train = train_phase(attn, smi)
     emit(train)
@@ -868,6 +1268,49 @@ def main() -> int:
                 "library_ms": case["library_ms"],
                 "pair_floor_ms_with_atomic_dq": case["pair_floor_ms_with_atomic_dq"],
             })
+    # K5: per case, block_gemm (its four launches of one block together)
+    # and block_attention, with the whole chain's numbers beside them.
+    # ``launches`` is the kernel's count on the serve_tiny path.
+    for case in blocks:
+        gemm = case["gemm_launches"].values()
+        chain = case["chain"]
+        common = {
+            "route": "cuda", "source": f"{csrc}/vit_block_fwd.cu",
+            "replaces": "distributed_training_comparison_tpu/ops/vit_block.py:166",
+            "regime": "K5", "case": case["case"], "dtype": case["dtype"],
+            "shape_b_s_dim_heads": case["shape"],
+            "launches_counted": "serve_tiny main path, one counter for every case",
+            "atol_share": case["atol_share"], "rtol": case["rtol"],
+            "chain_ms": chain["ms"], "chain_event_ms": chain["event_ms"],
+            "chain_plain_ms": chain["plain_ms"],
+            "chain_bound_ms": chain["bound_ms"], "chain_bound_by": chain["bound_by"],
+            "chain_library_ms": chain["library_ms"], "chain_library": chain["library"],
+            "chain_atol_share_needed": chain["atol_share_needed"],
+            "chain_fault_atol_share_needed": chain["fault_atol_share_needed"],
+        }
+        kernels.append({
+            "name": "block_gemm", **common,
+            "launches": tiny["launches"]["block_gemm"],
+            "per_block_launches": 4,
+            "max_abs_err": max(g["max_abs_err"] for g in gemm),
+            "atol_share_needed": max(g["atol_share_needed"] for g in gemm),
+            "fault_atol_share_needed": min(g["fault_atol_share_needed"] for g in gemm),
+            "ms": case["gemm_ms"], "event_ms": case["gemm_event_ms"],
+            "plain_ms": case["gemm_plain_ms"],
+            "bound_ms": case["gemm_bound_ms"], "bound_by": case["gemm_bound_by"],
+            "library_ms": case["gemm_library_ms"], "library": case["gemm_library"],
+        })
+        att = case["attention"]
+        kernels.append({
+            "name": "block_attention", **common,
+            "launches": tiny["launches"]["block_attention"],
+            "per_block_launches": 1,
+            "max_abs_err": att["max_abs_err"], "atol_share_needed": att["atol_share_needed"],
+            "fault_atol_share_needed": att["fault_atol_share_needed"],
+            "ms": att["ms"], "event_ms": att["event_ms"], "plain_ms": att["plain_ms"],
+            "bound_ms": att["bound_ms"], "bound_by": att["bound_by"],
+            "library_ms": att["library_ms"], "library": "F.scaled_dot_product_attention",
+        })
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,20 +12,99 @@ default) and the logits are fp32.
 Attention goes through ``ops.attention`` with the (B, S, H, D) layout: on
 the card at long sequences that is the CUDA flash-attention forward, and
 under autograd its dq and dk/dv kernels, all reading the projections in
-place through transposed views.  The fused whole-block kernel of the
-JAX package (``ops/vit_block.py``, K5) is not ported yet, so
-``block_fusion="auto"`` always composes, also in the 128-512 token window
-where the JAX package would take K5, and ``"force"`` raises.
+place through transposed views.
+
+``block_fusion`` selects the fused block (``ops/vit_block.py``, K5) with
+the JAX package's gate (:func:`block_fusion_path`): ``"auto"`` takes it on
+the card for dense blocks at 128-512 tokens whose weights fit the JAX
+package's budget, ``"force"`` also on the CPU through its plain version,
+``"off"`` always composes.  Until the fused backward (K6) is ported, a
+block call that autograd records on the card composes under ``"auto"`` and
+raises under ``"force"``.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
+from ..ops.vit_block import fused_vit_block
+from ..ops.vmem import fits_weight_budget, fused_block_weight_bytes
 from .norms import LayerNorm
+
+BLOCK_FUSIONS = ("auto", "force", "off")
+
+# reasons already warned about when block_fusion="force" composed (one
+# warning per distinct reason per process; tests may clear this)
+_FUSION_FORCE_WARNED: set[str] = set()
+
+
+def _warn_force_composed(reason: str) -> None:
+    """One warning per distinct reason when ``block_fusion="force"`` is
+    declined and the block composes (the JAX package's rule)."""
+    if reason in _FUSION_FORCE_WARNED:
+        return
+    _FUSION_FORCE_WARNED.add(reason)
+    warnings.warn(
+        "--block-fusion force: the fused block kernel was declined "
+        f"({reason}); this block runs the composed path",
+        UserWarning,
+        stacklevel=3,
+    )
+
+
+def block_fusion_path(
+    block_fusion: str,
+    device_type: str,
+    seq: int,
+    dim: int,
+    heads: int,
+    mlp_ratio: int,
+    dtype: torch.dtype,
+    attn_impl: str,
+    grad_recorded: bool,
+) -> tuple[str, str | None]:
+    """The fused-block gate as a pure function: ``("fused" | "composed",
+    the first reason the fused block was declined, or None)``.
+
+    The JAX package's conditions, in its order: ``attn_impl`` not pinned,
+    S and the head dim multiples of 8, 128 <= S <= 512, the weight budget of
+    ``ops/vmem.py``; then ``"auto"`` fuses on the card and ``"force"`` also
+    on the CPU.  Until the fused backward (K6) is ported, a call that
+    autograd records on the card composes under ``"auto"`` and raises
+    ``NotImplementedError`` under ``"force"``.
+    """
+    if block_fusion not in BLOCK_FUSIONS:
+        raise ValueError(f"unknown block_fusion {block_fusion!r}")
+    if block_fusion == "off":
+        return "composed", None
+    hd = dim // heads
+    if attn_impl != "auto":
+        return "composed", f"attn_impl={attn_impl!r} pins attention"
+    if seq % 8 or hd % 8:
+        return "composed", f"tokens ({seq}) and head dim ({hd}) must be multiples of 8"
+    if not 128 <= seq <= 512:
+        return "composed", f"{seq} tokens outside the measured 128-512 window"
+    wbytes = fused_block_weight_bytes(dim, mlp_ratio, dtype)
+    if not fits_weight_budget(wbytes):
+        return "composed", (
+            f"static VMEM weight footprint {wbytes / 2**20:.1f} MiB exceeds the kernel budget"
+        )
+    if device_type == "cuda" and grad_recorded:
+        if block_fusion == "force":
+            raise NotImplementedError(
+                "block_fusion='force' under autograd on the card needs the fused block "
+                "backward (K6, ops/vit_block.py::_block_bwd_kernel), which is not ported "
+                "yet (ROADMAP.md queue 2); use 'auto', which composes here"
+            )
+        return "composed", None
+    if device_type == "cuda" or block_fusion == "force":
+        return "fused", None
+    return "composed", None
 
 
 class Dense(nn.Linear):
@@ -43,7 +122,11 @@ class Dense(nn.Linear):
 
 
 class ViTBlock(nn.Module):
-    """Pre-LN transformer block with separate q/k/v projections."""
+    """Pre-LN transformer block with separate q/k/v projections; the fused
+    block (``ops.vit_block.fused_vit_block``) where :func:`block_fusion_path`
+    takes it, on the same parameters."""
+
+    _SUBLAYERS = ("ln_attn", "q_proj", "k_proj", "v_proj", "proj", "ln_mlp", "mlp_up", "mlp_down")
 
     def __init__(
         self,
@@ -53,10 +136,15 @@ class ViTBlock(nn.Module):
         dtype: torch.dtype = torch.float32,
         norm_dtype: torch.dtype | None = torch.float32,
         attn_impl: str = "auto",
+        block_fusion: str = "auto",
     ) -> None:
         super().__init__()
         self.heads = heads
+        self.mlp_ratio = mlp_ratio
+        self.dtype = dtype
+        self.norm_f32 = norm_dtype is not None
         self.attn_impl = attn_impl
+        self.block_fusion = block_fusion
         self.ln_attn = LayerNorm(dim, dtype, norm_dtype)
         self.q_proj = Dense(dim, dim, dtype)
         self.k_proj = Dense(dim, dim, dtype)
@@ -68,6 +156,23 @@ class ViTBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, dim = x.shape
+        grad_recorded = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters())
+        )
+        path, declined = block_fusion_path(
+            self.block_fusion, x.device.type, s, dim, self.heads, self.mlp_ratio,
+            self.dtype, self.attn_impl, grad_recorded,
+        )
+        if self.block_fusion == "force" and declined:
+            _warn_force_composed(declined)
+        if path == "fused":
+            params = {
+                f"{m}.{p}": getattr(getattr(self, m), p)
+                for m in self._SUBLAYERS for p in ("weight", "bias")
+            }  # named_parameters() costs several times this per call
+            return fused_vit_block(
+                x.to(self.dtype), params, heads=self.heads, norm_f32=self.norm_f32
+            )
         hd = dim // self.heads
         h = self.ln_attn(x)
         q = self.q_proj(h).view(b, s, self.heads, hd)
@@ -105,13 +210,7 @@ class ViT(nn.Module):
                 f"ViT dim ({dim}) must be divisible by heads ({heads}); "
                 "per-head dim would not be integral"
             )
-        if block_fusion == "force":
-            raise NotImplementedError(
-                "block_fusion='force' needs the fused ViT block kernel "
-                "(K5, ops/vit_block.py::_block_fwd_kernel), which is not "
-                "ported yet (ROADMAP.md queue 2); use 'auto' or 'off'"
-            )
-        if block_fusion not in ("auto", "off"):
+        if block_fusion not in BLOCK_FUSIONS:
             raise ValueError(f"unknown block_fusion {block_fusion!r}")
         self.patch = patch
         self.dim = dim
@@ -122,7 +221,7 @@ class ViT(nn.Module):
         tokens = (image_size // patch) ** 2
         self.pos_emb = nn.Parameter(torch.zeros(1, tokens, dim))
         self.blocks = nn.ModuleList(
-            ViTBlock(dim, heads, mlp_ratio, dtype, norm_dtype, attn_impl)
+            ViTBlock(dim, heads, mlp_ratio, dtype, norm_dtype, attn_impl, block_fusion)
             for _ in range(depth)
         )
         self.ln_head = LayerNorm(dim, dtype, norm_dtype)

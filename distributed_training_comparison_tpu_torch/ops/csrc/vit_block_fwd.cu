@@ -1,0 +1,688 @@
+// The fused pre-LN ViT block forward for Hopper (sm_90a), bound through
+// plain C functions and loaded with ctypes (ops/vit_block.py).
+//
+// Replaces the TPU kernel distributed_training_comparison_tpu/ops/vit_block.py
+// ::_block_fwd_kernel (K5, vit_block.py:166), which keeps a 512-row tile and
+// every block weight in VMEM and runs LN1 -> qkv -> MHA -> out-proj + x ->
+// LN2 -> gelu MLP + r1 in one body.  On Hopper neither fits in a block's
+// 227 KB of shared memory (vit_tiny's bf16 weights alone are ~0.84 MiB, one
+// item's K/V 192 KiB), so K5 is a chain of two kernels with its numerics:
+//
+// - block_gemm: C = epilogue(prologue(A) . W^T), launched four times per
+//   block (LN1 + qkv; out-proj + bias + x; LN2 + up + gelu; down + bias + r1).
+//   Prologue: LayerNorm over whole rows with fp32 statistics by
+//   E[x^2] - mu^2 (eps 1e-6), gamma/beta in fp32, the row rounded to the
+//   compute dtype before the product.  W is read as the fp32 nn.Linear
+//   weight (N, K) and rounded to the compute dtype as it is staged, in up to
+//   three row segments (the q/k/v projections, without a concatenation).
+//   Epilogue: fp32 accumulator -> compute dtype -> + bias (rounded to the
+//   compute dtype) -> optionally the tanh gelu (fp32, rounded once) or
+//   + residual.  bf16 runs on mma.sync m16n8k16 (fp32 accumulate), fp32 on
+//   a SIMT tile with no TF32.
+// - block_attention: one block per (item, head, query tile), q/k/v read as
+//   column slices of the packed (B*S, 3*dim) qkv.  The softmax is exact, as
+//   _softmax_small's: a first sweep over the key tiles finds each row's max
+//   and sum, a second forms P = exp(s - max) / sum, rounds it to the compute
+//   dtype and accumulates P.V in fp32.  Keys past S are masked; non-causal.
+//
+// What bounds it: at the vit_tiny --patch-size 2 serve shape (bucket 32:
+// 8192 rows, S 256, dim 192, bf16) the block is 8.86 GFLOP against ~8 MB of
+// input, output and weights, so operations bound it (~9 us at 989 TFLOP/s).
+// The chain is far from that: it round-trips qkv (B*S x 3*dim) and the MLP
+// activation hmid (B*S x 4*dim) through device memory, which a later change
+// fuses away, its tiles are synchronously staged (no cp.async pipeline in
+// the GEMM), and the tensor cores are fed by mma.sync; wgmma and TMA are
+// later work too.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kNegInf = -1e30f;  // finite "-inf": exp gives exactly 0
+constexpr float kLnEps = 1e-6f;
+constexpr int kThreads = 128;
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// jax.nn.gelu's tanh approximation, in fp32
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float inner = 0.7978845608028654f * (x + 0.044715f * (x * x * x));
+  return x * (0.5f * (1.f + tanhf(inner)));
+}
+
+__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_f32_to_bf16(float lo, float hi) {
+  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+}
+
+__device__ __forceinline__ uint32_t lds32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// ------------------------------------------------------------ block_gemm
+
+struct GemmParams {
+  const void* a;        // (m, k) compute dtype, contiguous
+  const float* w[3];    // row segments of W (n, k): seg rows each, fp32
+  const float* bias[3]; // their biases, fp32
+  const float* ln_g;    // LayerNorm prologue (fp32, k) or null
+  const float* ln_b;
+  const void* res;      // residual (m, n) compute dtype, or null
+  void* c;              // (m, n) compute dtype
+  int m, n, k, seg;
+  int gelu;
+};
+
+// row n of the matrix whose rows are split over arr[0..2], seg rows each,
+// ld elements a row (compares, not a division by the runtime seg)
+__device__ __forceinline__ const float* segment_row(const float* const* arr, int n, int seg,
+                                                    int ld) {
+  if (n < seg) return arr[0] + static_cast<long long>(n) * ld;
+  if (n < 2 * seg) return arr[1] + static_cast<long long>(n - seg) * ld;
+  return arr[2] + static_cast<long long>(n - 2 * seg) * ld;
+}
+
+constexpr int kBM = 128;          // output rows per block (8 warps x 16 for mma)
+constexpr int kGemmThreads = 256;
+constexpr int kBN = 64;  // output columns per block
+
+// the 16 bytes of `v` as floats: 8 bf16 or 4 fp32
+__device__ __forceinline__ void chunk_floats(uint4 v, float (&out)[8], bf16) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // a bf16 is the high half of its fp32
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void chunk_floats(uint4 v, float (&out)[8], float) {
+  out[0] = __uint_as_float(v.x);
+  out[1] = __uint_as_float(v.y);
+  out[2] = __uint_as_float(v.z);
+  out[3] = __uint_as_float(v.w);
+}
+
+// LayerNorm statistics of rows [m0, m0 + kBM): fp32, var = E[x^2] - mu^2.
+// Two threads per row, each summing alternate 16-byte chunks.
+template <typename T>
+__device__ void ln_stats(const GemmParams& p, const T* a, int m0, float* mu_s, float* rs_s) {
+  constexpr int kPer = 16 / sizeof(T);  // elements per chunk
+  static_assert(kGemmThreads == 2 * kBM, "two threads per row");
+  const int r = threadIdx.x / 2, half = threadIdx.x % 2;
+  const int row = m0 + r;
+  float s = 0.f, ss = 0.f;
+  if (row < p.m) {
+    const T* ar = a + static_cast<long long>(row) * p.k;
+#pragma unroll 4
+    for (int c = half * kPer; c < p.k; c += 2 * kPer) {
+      float x[8];
+      chunk_floats(*reinterpret_cast<const uint4*>(ar + c), x, T());
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        s += x[i];
+        ss += x[i] * x[i];
+      }
+    }
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+  if (half == 0) {
+    const float mu = s / p.k;
+    const float var = ss / p.k - mu * mu;
+    mu_s[r] = mu;
+    rs_s[r] = 1.f / sqrtf(var + kLnEps);
+  }
+}
+
+// bias, gelu, residual on one output element; `rnd` rounds to the compute dtype
+template <bool kBf16>
+__device__ __forceinline__ float epilogue(const GemmParams& p, float acc, int row, int col) {
+  auto rnd = [](float x) { return kBf16 ? round_bf16(x) : x; };
+  const float bias = *segment_row(p.bias, col, p.seg, 1);
+  float v = rnd(rnd(acc) + rnd(bias));
+  if (p.gelu) v = rnd(gelu_tanh(v));
+  if (p.res) {
+    const long long i = static_cast<long long>(row) * p.n + col;
+    const float r = kBf16 ? __bfloat162float(static_cast<const bf16*>(p.res)[i])
+                          : static_cast<const float*>(p.res)[i];
+    v = rnd(v + r);
+  }
+  return v;
+}
+
+constexpr int kBK = 64;          // bf16: K per stage
+constexpr int kLdsG = kBK + 8;   // padded row: a quad's fragment rows on distinct banks
+
+__global__ void __launch_bounds__(kGemmThreads) vit_block_gemm_bf16(const GemmParams p) {
+  __shared__ __align__(16) bf16 as[kBM * kLdsG];
+  __shared__ __align__(16) bf16 ws[kBN * kLdsG];
+  __shared__ float mu_s[kBM], rs_s[kBM];
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column pair
+  const bf16* a = static_cast<const bf16*>(p.a);
+  if (p.ln_g) {
+    ln_stats(p, a, m0, mu_s, rs_s);
+    __syncthreads();
+  }
+  float acc[kBN / 8][4];
+#pragma unroll
+  for (int n = 0; n < kBN / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  constexpr int kChunks = kBK / 8;  // 16-byte chunks per tile row
+  for (int k0 = 0; k0 < p.k; k0 += kBK) {
+    // A rows (normalised by the prologue), zero past m and k
+    for (int c = tid; c < kBM * kChunks; c += kGemmThreads) {
+      const int r = c / kChunks, col = (c % kChunks) * 8;
+      const int row = m0 + r, kk = k0 + col;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (row < p.m && kk < p.k) {
+        v = *reinterpret_cast<const uint4*>(a + static_cast<long long>(row) * p.k + kk);
+        if (p.ln_g) {
+          float x[8], gb[16];
+          chunk_floats(v, x, bf16());
+          const float4* g4 = reinterpret_cast<const float4*>(p.ln_g + kk);
+          const float4* b4 = reinterpret_cast<const float4*>(p.ln_b + kk);
+          *reinterpret_cast<float4*>(gb) = g4[0];
+          *reinterpret_cast<float4*>(gb + 4) = g4[1];
+          *reinterpret_cast<float4*>(gb + 8) = b4[0];
+          *reinterpret_cast<float4*>(gb + 12) = b4[1];
+          const float mu = mu_s[r], rs = rs_s[r];
+          float y[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) y[i] = (x[i] - mu) * rs * gb[i] + gb[8 + i];
+          v = make_uint4(pack_f32_to_bf16(y[0], y[1]), pack_f32_to_bf16(y[2], y[3]),
+                         pack_f32_to_bf16(y[4], y[5]), pack_f32_to_bf16(y[6], y[7]));
+        }
+      }
+      *reinterpret_cast<uint4*>(as + r * kLdsG + col) = v;
+    }
+    // W rows (output features), fp32 rounded to bf16, zero past n and k
+    for (int c = tid; c < kBN * kChunks; c += kGemmThreads) {
+      const int r = c / kChunks, col = (c % kChunks) * 8;
+      const int n = n0 + r, kk = k0 + col;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (n < p.n && kk < p.k) {
+        const float* wr = segment_row(p.w, n, p.seg, p.k) + kk;
+        const float4 lo = *reinterpret_cast<const float4*>(wr);
+        const float4 hi = *reinterpret_cast<const float4*>(wr + 4);
+        v = make_uint4(pack_f32_to_bf16(lo.x, lo.y), pack_f32_to_bf16(lo.z, lo.w),
+                       pack_f32_to_bf16(hi.x, hi.y), pack_f32_to_bf16(hi.z, hi.w));
+      }
+      *reinterpret_cast<uint4*>(ws + r * kLdsG + col) = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const bf16* a0 = as + (warp * 16 + g) * kLdsG + kk * 16 + t * 2;
+      const uint32_t af[4] = {lds32(a0), lds32(a0 + 8 * kLdsG), lds32(a0 + 8),
+                              lds32(a0 + 8 * kLdsG + 8)};
+#pragma unroll
+      for (int n = 0; n < kBN / 8; ++n) {
+        // W's (n, k) rows are exactly mma's column-major B operand
+        const bf16* b0 = ws + (n * 8 + g) * kLdsG + kk * 16 + t * 2;
+        const uint32_t bf[2] = {lds32(b0), lds32(b0 + 8)};
+        mma_16816(acc[n], af, bf);
+      }
+    }
+    __syncthreads();
+  }
+
+  bf16* c = static_cast<bf16*>(p.c);
+#pragma unroll
+  for (int n = 0; n < kBN / 8; ++n) {
+    const int col = n0 + n * 8 + t * 2;  // p.n is even: col < p.n keeps col + 1 in range
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = m0 + warp * 16 + g + 8 * i;
+      if (row >= p.m || col >= p.n) continue;
+      const float v0 = epilogue<true>(p, acc[n][2 * i], row, col);
+      const float v1 = epilogue<true>(p, acc[n][2 * i + 1], row, col + 1);
+      *reinterpret_cast<uint32_t*>(c + static_cast<long long>(row) * p.n + col) =
+          pack_f32_to_bf16(v0, v1);
+    }
+  }
+}
+
+constexpr int kFBK = 16;  // fp32: K per stage
+
+// fp32: each thread owns 4 rows x 8 columns of the 128 x 64 tile
+__global__ void __launch_bounds__(kGemmThreads) vit_block_gemm_f32(const GemmParams p) {
+  __shared__ __align__(16) float as[kFBK][kBM + 4];  // k-major
+  __shared__ __align__(16) float ws[kFBK][kBN + 4];
+  __shared__ float mu_s[kBM], rs_s[kBM];
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
+  const float* a = static_cast<const float*>(p.a);
+  if (p.ln_g) {
+    ln_stats(p, a, m0, mu_s, rs_s);
+    __syncthreads();
+  }
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < p.k; k0 += kFBK) {
+    for (int c = tid; c < kBM * kFBK; c += kGemmThreads) {
+      const int r = c / kFBK, kc = c % kFBK;
+      const int row = m0 + r, kk = k0 + kc;
+      float x = 0.f;
+      if (row < p.m && kk < p.k) {
+        x = a[static_cast<long long>(row) * p.k + kk];
+        if (p.ln_g) x = (x - mu_s[r]) * rs_s[r] * p.ln_g[kk] + p.ln_b[kk];
+      }
+      as[kc][r] = x;
+    }
+    for (int c = tid; c < kBN * kFBK; c += kGemmThreads) {
+      const int r = c / kFBK, kc = c % kFBK;
+      const int n = n0 + r, kk = k0 + kc;
+      ws[kc][r] = n < p.n && kk < p.k ? segment_row(p.w, n, p.seg, p.k)[kk] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kc = 0; kc < kFBK; ++kc) {
+      const float4 av = *reinterpret_cast<const float4*>(&as[kc][ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&ws[kc][tx * 8]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&ws[kc][tx * 8 + 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float* c = static_cast<float*>(p.c);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty * 4 + i;
+    if (row >= p.m) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + tx * 8 + j;
+      if (col < p.n) c[static_cast<long long>(row) * p.n + col] = epilogue<false>(p, acc[i][j], row, col);
+    }
+  }
+}
+
+// ------------------------------------------------------- block_attention
+
+struct AttnParams {
+  const void* qkv;  // (batch * seq, 3 * dim), q | k | v, heads head-major in each
+  void* o;          // (batch * seq, dim)
+  int seq, dim;
+  float scale;
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+constexpr int kAM = 64;  // bf16: query rows per block (4 warps x 16)
+constexpr int kAN = 64;  // bf16: keys per tile
+
+// rows [row0, row0 + ROWS) of one head's (seq, D) column slice (row stride
+// ld) into shared memory with row stride D + 8; rows past seq zero-filled
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(bf16* smem, const bf16* g, long long ld, int row0,
+                                          int len) {
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const bool valid = row0 + r < len;
+    cp_async16(smem + r * (D + 8) + col, g + (valid ? (row0 + r) * ld : 0) + col, valid);
+  }
+}
+
+// scaled scores of this warp's 16 query rows against one 64-key tile, keys
+// at or past `len` set to kNegInf
+template <int D>
+__device__ __forceinline__ void tile_scores(float s[kAN / 8][4], const uint32_t qf[D / 16][4],
+                                            const bf16* ks, int n0, int len, float scale) {
+  constexpr int LDS = D + 8;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < kAN / 8; ++n) {
+    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const bf16* k0 = ks + (n * 8 + g) * LDS + kk * 16 + t * 2;
+      const uint32_t bf[2] = {lds32(k0), lds32(k0 + 8)};
+      mma_16816(s[n], qf[kk], bf);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = n0 + n * 8 + t * 2 + (e & 1);
+      s[n][e] = col < len ? s[n][e] * scale : kNegInf;
+    }
+  }
+}
+
+template <int D>
+constexpr int attn_bf16_smem() {
+  return (kAM + 2 * kAN) * (D + 8) * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) vit_block_attn_bf16(const AttnParams p) {
+  constexpr int LDS = D + 8;
+  constexpr int NS = kAN / 8;  // 8-wide score tiles per key tile
+  constexpr int NO = D / 8;    // 8-wide output tiles over the head dim
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + kAM * LDS;
+  bf16* vs = ks + kAN * LDS;
+
+  const int m0 = blockIdx.x * kAM, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
+  const long long ld = 3LL * p.dim;
+  const bf16* item = static_cast<const bf16*>(p.qkv) + static_cast<long long>(b) * p.seq * ld;
+  const bf16* qg = item + h * D;
+  const bf16* kg = item + p.dim + h * D;
+  const bf16* vg = item + 2 * p.dim + h * D;
+
+  load_rows<D, kAM>(qs, qg, ld, m0, p.seq);
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const bf16* q0 = qs + (wr + g) * LDS + kk * 16 + t * 2;
+    qf[kk][0] = lds32(q0);
+    qf[kk][1] = lds32(q0 + 8 * LDS);
+    qf[kk][2] = lds32(q0 + 8);
+    qf[kk][3] = lds32(q0 + 8 * LDS + 8);
+  }
+
+  // sweep 1: each row's max and sum of exp(s - max) over every key tile
+  float mx[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f};  // sum: this thread's share
+  for (int n0 = 0; n0 < p.seq; n0 += kAN) {
+    load_rows<D, kAN>(ks, kg, ld, n0, p.seq);
+    cp_async_wait_all();
+    __syncthreads();
+    float s[NS][4];
+    tile_scores<D>(s, qf, ks, n0, p.seq, p.scale);
+    __syncthreads();  // every warp is done with this K tile
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float m = mx[i];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) m = fmaxf(m, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+      m = quad_max(m);
+      float add = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) add += expf(s[n][2 * i] - m) + expf(s[n][2 * i + 1] - m);
+      sum[i] = sum[i] * expf(mx[i] - m) + add;
+      mx[i] = m;
+    }
+  }
+  const float total[2] = {quad_sum(sum[0]), quad_sum(sum[1])};
+
+  // sweep 2: P = exp(s - max) / sum rounded to bf16, accumulated P.V in fp32
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n0 = 0; n0 < p.seq; n0 += kAN) {
+    load_rows<D, kAN>(ks, kg, ld, n0, p.seq);
+    load_rows<D, kAN>(vs, vg, ld, n0, p.seq);
+    cp_async_wait_all();
+    __syncthreads();
+    float s[NS][4];
+    tile_scores<D>(s, qf, ks, n0, p.seq, p.scale);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = expf(s[n][e] - mx[e >> 1]) / total[e >> 1];
+#pragma unroll
+    for (int kk = 0; kk < kAN / 16; ++kk) {
+      // two adjacent 8-key score tiles are exactly the A fragment of a 16-key step
+      const uint32_t pa[4] = {
+          pack_f32_to_bf16(s[2 * kk][0], s[2 * kk][1]),
+          pack_f32_to_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_f32_to_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_f32_to_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
+      };
+      const bf16* v0 = vs + (kk * 16 + t * 2) * LDS + g;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const bf16* vn = v0 + n * 8;
+        const uint32_t bf[2] = {pack_bf16(vn[0], vn[LDS]), pack_bf16(vn[8 * LDS], vn[9 * LDS])};
+        mma_16816(acc[n], pa, bf);
+      }
+    }
+    __syncthreads();  // every warp is done with this K and V tile
+  }
+
+  bf16* og = static_cast<bf16*>(p.o) + static_cast<long long>(b) * p.seq * p.dim + h * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = m0 + wr + g + 8 * i;
+    if (row >= p.seq) continue;
+    bf16* orow = og + static_cast<long long>(row) * p.dim + t * 2;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<uint32_t*>(orow + n * 8) = pack_f32_to_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
+    }
+  }
+}
+
+constexpr int kFM = 32;  // fp32: query rows per block, 4 threads per row
+constexpr int kFN = 32;  // fp32: keys per tile
+
+template <int D>
+constexpr int attn_f32_smem() {
+  return (kFM * (D + 1) + 2 * kFN * (D + 1) + kFM * (kFN + 1)) * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) vit_block_attn_f32(const AttnParams p) {
+  constexpr int LD = D + 1;  // odd stride: a warp's 8 rows fall on distinct banks
+  constexpr int PER = kFN / 4;
+  constexpr int OUT = D / 4;
+  extern __shared__ float fsmem[];
+  float* qs = fsmem;
+  float* ks = qs + kFM * LD;
+  float* vs = ks + kFN * LD;
+  float* ps = vs + kFN * LD;
+
+  const int m0 = blockIdx.x * kFM, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, r = tid / 4, t = tid % 4;  // row of the tile, lane of its quad
+  const long long ld = 3LL * p.dim;
+  const float* item = static_cast<const float*>(p.qkv) + static_cast<long long>(b) * p.seq * ld;
+  const float* qg = item + h * D;
+  const float* kg = item + p.dim + h * D;
+  const float* vg = item + 2 * p.dim + h * D;
+
+  for (int c = tid; c < kFM * D; c += kThreads) {
+    const int rr = c / D, d = c % D;
+    qs[rr * LD + d] = m0 + rr < p.seq ? qg[(m0 + rr) * ld + d] : 0.f;
+  }
+  auto scores = [&](float s[PER], int n0) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int c = t + 4 * i;
+      float x = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) x = fmaf(qs[r * LD + d], ks[c * LD + d], x);
+      s[i] = n0 + c < p.seq ? x * p.scale : kNegInf;
+    }
+  };
+
+  // sweep 1: the row's max and sum of exp(s - max)
+  float mx = kNegInf, sum = 0.f;
+  for (int n0 = 0; n0 < p.seq; n0 += kFN) {
+    __syncthreads();
+    for (int c = tid; c < kFN * D; c += kThreads) {
+      const int rr = c / D, d = c % D;
+      ks[rr * LD + d] = n0 + rr < p.seq ? kg[(n0 + rr) * ld + d] : 0.f;
+    }
+    __syncthreads();
+    float s[PER];
+    scores(s, n0);
+    float m = mx;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) m = fmaxf(m, s[i]);
+    m = quad_max(m);
+    float add = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) add += expf(s[i] - m);
+    sum = sum * expf(mx - m) + add;
+    mx = m;
+  }
+  const float total = quad_sum(sum);
+
+  // sweep 2: P = exp(s - max) / sum, accumulated P.V
+  float acc[OUT];
+#pragma unroll
+  for (int i = 0; i < OUT; ++i) acc[i] = 0.f;
+  for (int n0 = 0; n0 < p.seq; n0 += kFN) {
+    __syncthreads();
+    for (int c = tid; c < kFN * D; c += kThreads) {
+      const int rr = c / D, d = c % D;
+      const bool ok = n0 + rr < p.seq;
+      ks[rr * LD + d] = ok ? kg[(n0 + rr) * ld + d] : 0.f;
+      vs[rr * LD + d] = ok ? vg[(n0 + rr) * ld + d] : 0.f;
+    }
+    __syncthreads();
+    float s[PER];
+    scores(s, n0);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) ps[r * (kFN + 1) + t + 4 * i] = expf(s[i] - mx) / total;
+    __syncwarp();  // a row's quad lives in one warp: its P row is visible now
+    for (int c = 0; c < kFN; ++c) {
+      const float pc = ps[r * (kFN + 1) + c];
+#pragma unroll
+      for (int i = 0; i < OUT; ++i) acc[i] = fmaf(pc, vs[c * LD + t + 4 * i], acc[i]);
+    }
+  }
+  if (m0 + r < p.seq) {
+    float* og = static_cast<float*>(p.o) + (static_cast<long long>(b) * p.seq + m0 + r) * p.dim + h * D;
+#pragma unroll
+    for (int i = 0; i < OUT; ++i) og[t + 4 * i] = acc[i];
+  }
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, const AttnParams& p) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_attention(const AttnParams& p, int batch, int heads, int is_bf16,
+                             cudaStream_t s) {
+  if (is_bf16) {
+    const dim3 grid((p.seq + kAM - 1) / kAM, heads, batch);
+    return launch(vit_block_attn_bf16<D>, grid, attn_bf16_smem<D>(), s, p);
+  }
+  const dim3 grid((p.seq + kFM - 1) / kFM, heads, batch);
+  return launch(vit_block_attn_f32<D>, grid, attn_f32_smem<D>(), s, p);
+}
+
+}  // namespace
+
+// C = epilogue(prologue(A) . W^T) over contiguous row-major tensors: A (m, k)
+// and C, res (m, n) in the compute dtype (bf16 when is_bf16, else fp32); W's
+// rows n come from w0/w1/w2 (seg rows each, fp32 (seg, k)), with biases
+// b0/b1/b2; ln_g/ln_b (fp32, k) or null; res or null; gelu 0/1.  k and n are
+// multiples of 16 and every pointer 16-byte aligned (checked by the caller).
+// Returns the launch's cudaError_t (0 on success).
+extern "C" int vit_block_gemm(const void* a, const void* w0, const void* w1, const void* w2,
+                              const void* b0, const void* b1, const void* b2, const void* ln_g,
+                              const void* ln_b, const void* res, void* c, int m, int n, int k,
+                              int seg, int gelu, int is_bf16, void* stream) {
+  GemmParams p{};
+  p.a = a;
+  p.w[0] = static_cast<const float*>(w0);
+  p.w[1] = static_cast<const float*>(w1);
+  p.w[2] = static_cast<const float*>(w2);
+  p.bias[0] = static_cast<const float*>(b0);
+  p.bias[1] = static_cast<const float*>(b1);
+  p.bias[2] = static_cast<const float*>(b2);
+  p.ln_g = static_cast<const float*>(ln_g);
+  p.ln_b = static_cast<const float*>(ln_b);
+  p.res = res;
+  p.c = c;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  p.seg = seg;
+  p.gelu = gelu;
+  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    vit_block_gemm_bf16<<<grid, kGemmThreads, 0, s>>>(p);
+  } else {
+    vit_block_gemm_f32<<<grid, kGemmThreads, 0, s>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+// Attention of the packed qkv (batch * seq, 3 * heads * head_dim) into o
+// (batch * seq, heads * head_dim), both contiguous; head_dim a multiple of 16
+// up to 128.  Returns the launch's cudaError_t (0 on success).
+extern "C" int vit_block_attention(const void* qkv, void* o, int batch, int seq, int heads,
+                                   int head_dim, float scale, int is_bf16, void* stream) {
+  const AttnParams p{qkv, o, seq, heads * head_dim, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16: return launch_attention<16>(p, batch, heads, is_bf16, s);
+    case 32: return launch_attention<32>(p, batch, heads, is_bf16, s);
+    case 48: return launch_attention<48>(p, batch, heads, is_bf16, s);
+    case 64: return launch_attention<64>(p, batch, heads, is_bf16, s);
+    case 80: return launch_attention<80>(p, batch, heads, is_bf16, s);
+    case 96: return launch_attention<96>(p, batch, heads, is_bf16, s);
+    case 112: return launch_attention<112>(p, batch, heads, is_bf16, s);
+    case 128: return launch_attention<128>(p, batch, heads, is_bf16, s);
+    default: return cudaErrorInvalidValue;
+  }
+}

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card (``gpu`` marker).
 
-These tests need an NVIDIA Hopper card: the CUDA kernels have no
-interpret mode.  Each skips inside its fixture where
-``torch.cuda.is_available()`` is false.  The file imports no JAX, so it
+These tests need an NVIDIA Hopper card: the CUDA kernels (flash
+attention, K1-K4; the fused block chain, K5) have no interpret mode.
+Each skips inside its fixture where ``torch.cuda.is_available()`` is
+false.  The file imports no JAX, so it
 also runs where JAX is not installed; there, skip ``tests/conftest.py``
 (which imports JAX):
 
@@ -16,6 +17,7 @@ import torch
 
 port = importlib.import_module("distributed_training_comparison_tpu_torch.ops.attention")
 vit = importlib.import_module("distributed_training_comparison_tpu_torch.models.vit")
+vb = importlib.import_module("distributed_training_comparison_tpu_torch.ops.vit_block")
 
 
 @pytest.fixture
@@ -205,3 +207,106 @@ def test_vit_training_step_through_kernels_matches_reference(cuda_device):
     assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
     errors = grad_errors(model, reference)
     assert max(errors.values()) <= 2**-5, errors
+
+
+
+def _block_params(dim, heads, gen, device):
+    """A ``ViTBlock``'s parameters with non-trivial LayerNorm and biases."""
+    params = {}
+    for name, p in vit.ViTBlock(dim, heads).named_parameters():
+        if p.dim() == 2:
+            t = (torch.rand(p.shape, generator=gen) * 2 - 1) * (6.0 / sum(p.shape)) ** 0.5
+        elif name.startswith("ln") and name.endswith("weight"):
+            t = 1 + 0.1 * torch.randn(p.shape, generator=gen)
+        else:
+            t = 0.1 * torch.randn(p.shape, generator=gen)
+        params[name] = t.to(device)
+    return params
+
+
+def _k5_counts():
+    return [c.launches for c in (vb.fused_vit_block, vb.block_gemm, vb.block_attention)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "dtype,b,s,dim,heads",
+    [
+        (torch.bfloat16, 32, 256, 192, 3),
+        (torch.float32, 32, 256, 192, 3),
+        (torch.bfloat16, 3, 136, 128, 2),
+    ],
+)
+def test_fused_block_chain_matches_plain_on_card(cuda_device, dtype, b, s, dim, heads):
+    """The K5 chain against ``fused_vit_block_reference`` at the vit_tiny
+    p2 serve shape (bf16 and fp32) and a ragged S, per row as in
+    chip_smoke.py, where the bounds are derived: bf16 2^-5 of the row's rms
+    plus 2^-6·|out|, fp32 2^-10 of the rms."""
+    gen = torch.Generator().manual_seed(s)
+    params = _block_params(dim, heads, gen, cuda_device)
+    x = torch.randn(b, s, dim, generator=gen).to(device=cuda_device, dtype=dtype)
+    before = _k5_counts()
+    got = vb.fused_vit_block(x, params, heads=heads)
+    torch.cuda.synchronize()
+    assert [n - m for n, m in zip(_k5_counts(), before)] == [1, 4, 1]
+    want = vb.fused_vit_block_reference(x, params, heads=heads)
+    assert got.dtype == dtype and got.shape == x.shape and bool(torch.isfinite(got).all())
+    share, rtol = (2**-5, 2**-6) if dtype == torch.bfloat16 else (2**-10, 0.0)
+    assert _row_share(got, want, rtol) <= share, _row_share(got, want, rtol)
+
+
+@pytest.mark.gpu
+def test_fused_block_raises_on_what_the_kernels_do_not_take(cuda_device):
+    gen = torch.Generator().manual_seed(0)
+    x = torch.zeros(1, 128, 32, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):  # head dim 8
+        vb.fused_vit_block(x, _block_params(32, 4, gen, cuda_device), heads=4)
+    x = torch.zeros(1, 128, 256, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 128"):  # head dim 256
+        vb.fused_vit_block(x, _block_params(256, 1, gen, cuda_device), heads=1)
+    x = torch.zeros(1, 128, 64, device=cuda_device, dtype=torch.bfloat16)
+    params = _block_params(64, 2, gen, cuda_device)
+    with pytest.raises(NotImplementedError, match="norm_dtype=None"):
+        vb.fused_vit_block(x, params, heads=2, norm_f32=False)
+    block = vit.ViTBlock(64, 2, dtype=torch.bfloat16, block_fusion="force").to(cuda_device)
+    with pytest.raises(NotImplementedError, match="K6"):
+        block(x)  # parameters require grad: autograd would record the call
+
+
+@pytest.mark.gpu
+def test_vit_fused_path_matches_composed_on_card(cuda_device):
+    """A 2-block ViT at 256 tokens (32 px, patch 2) under inference mode:
+    ``auto`` runs every block through the K5 chain, and the logits agree
+    with the same weights through the composed reference path (the bf16
+    bound of chip_smoke.py's serve_tiny phase)."""
+    kw = dict(depth=2, dim=192, heads=3, patch=2, image_size=32, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    model = vit.ViT(**kw)
+    model.init_weights(gen)
+    reference = vit.ViT(**kw, attn_impl="reference")
+    reference.load_state_dict(model.state_dict())
+    model, reference = model.to(cuda_device), reference.to(cuda_device)
+    x = torch.randn(8, 32, 32, 3, generator=gen).to(cuda_device)
+    before = _k5_counts()
+    with torch.inference_mode():
+        got = model(x)
+        want = reference(x)
+    torch.cuda.synchronize()
+    assert [n - m for n, m in zip(_k5_counts(), before)] == [2, 8, 2]
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 3e-2 + 3e-2 * scale
+
+
+@pytest.mark.gpu
+def test_vit_tiny_p2_train_step_on_card_composes(cuda_device):
+    """Until the fused backward (K6) is ported, a ``vit_tiny --patch-size 2``
+    train step on the card under ``auto`` composes every block: no K5
+    launch, finite gradients for every parameter."""
+    model = vit.ViTTiny(patch=2, dtype=torch.bfloat16).to(cuda_device)
+    x = torch.randn(4, 32, 32, 3, device=cuda_device)
+    labels = torch.tensor([1, 2, 3, 4], device=cuda_device)
+    before = _k5_counts()
+    torch.nn.functional.cross_entropy(model(x), labels).backward()
+    torch.cuda.synchronize()
+    assert _k5_counts() == before
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in model.parameters())

@@ -127,10 +127,34 @@ def test_zoo_names_and_unported_models():
         port_models.get_model("vit_huge")
 
 
-def test_block_fusion_force_raises_naming_k5():
-    with pytest.raises(NotImplementedError, match="K5"):
-        port_models.ViT(**SMALL, block_fusion="force")
-    port_models.ViT(**SMALL, block_fusion="off")  # composes, as 'auto' does
+def test_block_fusion_force_runs_the_fused_plain_version_on_cpu(monkeypatch):
+    """At patch 2 (256 tokens, inside the gate's window) ``force`` runs every
+    block through ``fused_vit_block``, which on the CPU is its plain
+    version, and gives the composed model's logits on the same weights
+    (fp32: the two differ by LayerNorm's variance formula and summation
+    order, 1e-5 on logits ~1); ``auto`` and ``off`` compose on the CPU."""
+    vit_mod = importlib.import_module("distributed_training_comparison_tpu_torch.models.vit")
+    seen = []
+    real = vit_mod.fused_vit_block
+
+    def spy(x, params, **kw):
+        seen.append(tuple(x.shape))
+        return real(x, params, **kw)
+
+    monkeypatch.setattr(vit_mod, "fused_vit_block", spy)
+    kw = dict(SMALL, patch=2)
+    fused = port_models.ViT(**kw, block_fusion="force")
+    x = torch.from_numpy(_images(2))
+    with torch.no_grad():
+        got = fused(x)
+        assert seen == [(2, 256, 64)] * 2
+        for mode in ("auto", "off"):
+            composed = port_models.ViT(**kw, block_fusion=mode)
+            composed.load_state_dict(fused.state_dict())
+            torch.testing.assert_close(composed(x), got, atol=1e-5, rtol=0)
+    assert seen == [(2, 256, 64)] * 2
+    with pytest.raises(ValueError, match="unknown block_fusion"):
+        port_models.ViT(**SMALL, block_fusion="always")
 
 
 def test_normalize_images_matches_jax():
