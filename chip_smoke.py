@@ -20,7 +20,17 @@ last line:
              fused ViT block chain (K5: ``block_gemm`` x 4 and
              ``block_attention``) against ``fused_vit_block_reference``,
              stage by stage and whole, with the composed cuBLAS + SDPA
-             block as its library yardstick;
+             block as its library yardstick; then the fused block backward
+             chain (K6: ``block_ln``, ``block_gemm_dgrad``,
+             ``block_ln_bwd``, ``block_attention_bwd``,
+             ``block_gemm_wgrad``, ``block_grad_reduce``, with K5's kernels
+             for the recompute) against ``fused_vit_block_bwd_reference``,
+             each wrapper against its plain version and the chain's dx and
+             twelve gradients whole, two faults planted on the kernels'
+             results (a row chunk dropped from the gradient reductions, a
+             key tile left out of the attention backward), bit-identical
+             results across two calls, with the composed block's autograd
+             forward and backward as its library yardstick;
 4. serve   — the port's main path through its user entry point
              (``entry.run``): ``vit_long`` at 256 px (4096 tokens), bf16,
              buckets 1,2,4,8, closed loop of 64 requests at concurrency 8,
@@ -51,6 +61,15 @@ last line:
              weights and batch through the reference attention (bf16, and
              fp32 without ``--amp``), with a bound that rejects a planted
              fault; images/s and ms/step, and a profile of one step;
+   train_tiny — ``vit_tiny --patch-size 2`` at batch 128, bf16, two epochs
+             over 1152 synthetic training images (18 steps) and 128
+             validation images: every block's forward through K5 and its
+             backward through K6, the launch counters of every wrapper
+             checked against the chain (zero flash launches), every loss
+             finite, no step skipped; one step's loss and gradients held
+             against ``--block-fusion off`` and against the plain chains
+             (bf16 and fp32) with a bound that rejects a planted fault; ms
+             per step fused and off, and a step profile;
 6. the ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -60,9 +79,11 @@ the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -622,26 +643,371 @@ def fused_block_checks(vb) -> list[dict]:
     return out
 
 
+def block_bwd_bounds(vb, b, s, dim, heads, hidden, dname) -> dict[str, tuple[float, str]]:
+    """Bounds of one fused block backward (K6) on the card: the whole chain
+    (x and dy read, dx written, the fp32 parameters read and their fp32
+    gradients written) and each kernel over its launches in one chain, each
+    launch's inputs read once and outputs written once.  Operations: the
+    forward recompute (GEMMs and attention), the data and weight gradient
+    GEMMs (twice the forward's), the attention backward's five products
+    (QKᵀ, dO·Vᵀ, Pᵀ·dO, dS·K, dSᵀ·Q)."""
+    rows, item = b * s, 2 if dname == "bfloat16" else 4
+    nparams = 4 * dim * dim + 2 * dim * hidden + 9 * dim + hidden
+    wparams = 4 * dim * dim + 2 * dim * hidden  # the weight matrices
+    gemm_flops = 2 * rows * (4 * dim * dim + 2 * dim * hidden)
+    attn_fwd, attn_bwd = 4 * rows * s * dim, 10 * rows * s * dim
+    chunks = -(-rows // vb.WGRAD_CHUNK_ROWS)
+    act = lambda *widths: rows * sum(widths) * item  # noqa: E731
+    f32 = lambda *widths: rows * sum(widths) * 4  # noqa: E731
+    return {
+        "chain": bound(gemm_flops + attn_fwd + 2 * gemm_flops + attn_bwd,
+                       3 * rows * dim * item + 2 * nparams * 4, dname),
+        # LN1(x), LN2(r1): a row in, a row out each
+        "block_ln": bound(2 * 8 * rows * dim, act(dim, dim, dim, dim) + 4 * dim * 4, dname),
+        # qkv (ln1 in, qkv out), proj (o, x in, r1 out), up (ln2 in, up out)
+        "block_gemm": bound(2 * rows * (4 * dim * dim + dim * hidden),
+                            act(dim, 3 * dim, dim, dim, dim, dim, hidden)
+                            + (4 * dim * dim + dim * hidden) * 4, dname),
+        "block_attention": bound(attn_fwd, act(3 * dim, dim), dname),
+        # dy·W_dn (dy, up in; dup, hmid out), dup·W_up (dup in, dLN2 fp32 out),
+        # dr1c·W_o (in, dO out), dqkv·W_qkv (in, dLN1 fp32 out)
+        "block_gemm_dgrad": bound(gemm_flops, act(dim, hidden, hidden, hidden, hidden, dim, dim, 3 * dim)
+                                  + f32(dim, dim) + wparams * 4, dname),
+        # (dLN2 fp32, r1, dy in; dr1 fp32, dr1c out), (dLN1 fp32, x in, dr1 fp32 in; dx out)
+        "block_ln_bwd": bound(2 * 12 * rows * dim, act(dim, dim, dim, dim, dim)
+                              + f32(dim, dim, dim, dim), dname),
+        "block_attention_bwd": bound(attn_bwd, act(3 * dim, dim, 3 * dim), dname),
+        # (dqkv, ln1), (dr1c, o, dr1 fp32), (dup, ln2), (dy, hmid) in; partials out
+        "block_gemm_wgrad": bound(gemm_flops, act(3 * dim, dim, dim, dim, hidden, dim, dim, hidden)
+                                  + f32(dim) + chunks * (wparams + 6 * dim + hidden) * 4, dname),
+        "block_grad_reduce": bound(chunks * nparams, (chunks + 1) * nparams * 4, dname),
+    }
+
+
+# (label, dtype, B, S, dim, heads); mlp ratio 4.  The first two are one
+# block of the vit_tiny --patch-size 2 train step at batch 128 (bf16 with
+# --amp, fp32 without), then the top of the gate's token window and a
+# ragged S with 2 heads (tiles cut by S and dim).
+BWD_CASES = [
+    ("slice: vit_tiny p2 train step, batch 128", "bfloat16", 128, 256, 192, 3),
+    ("fp32 train shape: batch 128 without --amp", "float32", 128, 256, 192, 3),
+    ("window top: S 512", "bfloat16", 16, 512, 192, 3),
+    ("ragged S, dim 128, 2 heads", "bfloat16", 3, 136, 128, 2),
+]
+# dx holds against the plain backward per row as the forward's output does
+# (TOLERANCES: bf16 2^-5 of the row's rms plus 2^-6·|dx|, fp32 2^-10 of the
+# rms): the kernels and the plain version round at the same points, so
+# they differ by fp32 summation order and exp/tanh, by the rare one-ulp
+# bf16 flip that causes in an intermediate (2^-8 of one term of a sum) and
+# by dx's own rounding.  Each parameter gradient holds against its own
+# leaf's scale: max |kernel - plain| <= tol · max |plain|, tol 2^-7 in bf16
+# (the flips above, averaged over a sum of up to 32768 rows, sit far
+# below one bf16 ulp of the largest entry; 2^-7 is two such ulps) and 2^-14
+# in fp32 (summation order over up to 32768 rows, ~1e-6 relative, with
+# margin).  k_proj.bias is measured against k_proj.weight's scale: its exact
+# gradient is zero (Σ_j ds_ij = 0 by softmax shift invariance), so both
+# hold rounding noise there, and it compares absolutely.  Two faults are
+# planted on the kernels' own results (``k6_fault``), and each must be
+# rejected: the first row chunk's partials dropped from every reduction of
+# more than one chunk (the weight gradients must reject it; in the ragged
+# case of 408 rows only the LayerNorm partials have more than one), and dk
+# and dv of each item's first key tile left zero in the attention backward
+# (dx and the weight gradients must each reject it).
+BWD_GRAD_TOL = {"bfloat16": 2**-7, "float32": 2**-14}
+
+
+@contextlib.contextmanager
+def k6_fault(vb, kind: str):
+    """Context in which the K6 chain on the card returns a planted fault:
+    ``"chunk"`` sums each partial of more than one chunk without its first
+    chunk; ``"key_tile"`` zeroes dk and dv of the first ``FAULT_KEYS`` keys
+    of every item in ``block_attention_bwd``'s result."""
+    reduce, attention_bwd = vb.block_grad_reduce, vb.block_attention_bwd
+
+    def reduce_without_first_chunk(partials, **kw):
+        return reduce([t[1:] if t.shape[0] > 1 else t for t in partials], **kw)
+
+    def attention_bwd_without_first_tile(qkv, do, *, seq, heads, **kw):
+        out = attention_bwd(qkv, do, seq=seq, heads=heads, **kw)
+        dim = qkv.shape[1] // 3
+        out.view(-1, seq, 3 * dim)[:, :FAULT_KEYS, dim:] = 0
+        return out
+
+    # the wrapper counts its launch on the name it is bound to, the fault's
+    # while it stands in, so the fault's launches leave the counters alone
+    reduce_without_first_chunk.launches = attention_bwd_without_first_tile.launches = 0
+    if kind == "chunk":
+        vb.block_grad_reduce = reduce_without_first_chunk
+    else:
+        vb.block_attention_bwd = attention_bwd_without_first_tile
+    try:
+        yield
+    finally:
+        vb.block_grad_reduce, vb.block_attention_bwd = reduce, attention_bwd
+
+
+def grad_leaf_errors(got: dict, want: dict) -> dict[str, float]:
+    """max |got - want| / max |want| per leaf, ``k_proj.bias`` against
+    ``k_proj.weight``'s scale (see ``BWD_GRAD_TOL``)."""
+    out = {}
+    for name, w in want.items():
+        key = "k_proj.weight" if name == "k_proj.bias" else name
+        scale = want[key].abs().max().clamp_min(1e-30)
+        out[name] = ((got[name] - w).abs().max() / scale).item()
+    return out
+
+
+def composed_library_block_fwd_bwd(x, params, heads, dy):
+    """The library yardstick of one block's backward (timed here, never
+    called by the port): the composed block of ``composed_library_block``
+    (cuBLAS ``F.linear``, SDPA) under autograd, forward and backward, so
+    the forward the fused backward recomputes is inside it too."""
+    import torch
+
+    xl = x.detach().requires_grad_()
+    pl = {k: v.detach().requires_grad_() for k, v in params.items()}
+    run = composed_library_block(xl, pl, heads)
+
+    def fwd_bwd():
+        torch.autograd.grad(run(), (xl, *pl.values()), dy)
+
+    return fwd_bwd
+
+
+K6_KERNELS = {  # the CUDA kernels' own symbols, by wrapper
+    "block_ln": ("ln_rows",),
+    "block_gemm": ("vit_block_gemm_bf16", "vit_block_gemm_f32"),
+    "block_attention": ("vit_block_attn_bf16", "vit_block_attn_f32"),
+    "block_gemm_dgrad": ("dgrad_bf16", "dgrad_f32"),
+    "block_ln_bwd": ("ln_bwd",),
+    "block_attention_bwd": ("attn_dq_bf16", "attn_dq_f32", "attn_dkv_bf16", "attn_dkv_f32"),
+    "block_gemm_wgrad": ("wgrad_bf16", "wgrad_f32"),
+    "block_grad_reduce": ("grad_reduce",),
+}
+# the profiler's name of a kernel of the vit_block libraries, all defined in
+# an anonymous namespace: "[void ](anonymous namespace)::<symbol>[<...>](...)";
+# a library kernel (cuDNN's *wgrad*/*dgrad* convolution kernels, ATen's) does
+# not match
+_KERNEL_SYMBOL = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)[<(]")
+
+
+def kernel_ms(device_ms_by_name: dict, wrappers) -> float:
+    """Device ms of the profiled kernels whose symbol is one of the
+    ``wrappers``' kernels (``K6_KERNELS``)."""
+    symbols = {sym for w in wrappers for sym in K6_KERNELS[w]}
+    total = 0.0
+    for name, ms in device_ms_by_name.items():
+        m = _KERNEL_SYMBOL.match(name)
+        if m and m.group(1) in symbols:
+            total += ms
+    return total
+
+
+def k6_stages(vb, x2, dy2, params, seq, heads) -> list[tuple]:
+    """Every K6 launch of one block backward as (wrapper name, wrapper,
+    plain version, args, kwargs, library call), its inputs the plain
+    chain's own intermediates, in the chain's order
+    (``ops/vit_block.py::_bwd_chain``).  The library calls are yardsticks
+    of the same work: cuBLAS products, SDPA, ATen's LayerNorm forward and
+    backward (its statistics taken outside the timed call), ``torch.sum``
+    over the chunks of each partial."""
+    import torch
+    import torch.nn.functional as F
+
+    p = params
+    cd = x2.dtype
+    qkvn = vb.QKV
+    wqkv = [p[f"{n}.weight"] for n in qkvn]
+    ln1 = vb.block_ln_reference(x2, p["ln_attn.weight"], p["ln_attn.bias"])
+    qkv = vb.block_gemm_reference(ln1, wqkv, [p[f"{n}.bias"] for n in qkvn])
+    o = vb.packed_attention_reference(qkv, seq=seq, heads=heads)
+    r1 = vb.block_gemm_reference(o, [p["proj.weight"]], [p["proj.bias"]], residual=x2)
+    ln2 = vb.block_ln_reference(r1, p["ln_mlp.weight"], p["ln_mlp.bias"])
+    up = vb.block_gemm_reference(ln2, [p["mlp_up.weight"]], [p["mlp_up.bias"]])
+    dup, hmid = vb.block_gemm_dgrad_reference(dy2, [p["mlp_down.weight"]], gelu_of=up)
+    dln2 = vb.block_gemm_dgrad_reference(dup, [p["mlp_up.weight"]], out_f32=True)
+    dr1, dr1c, *_ = vb.block_ln_bwd_reference(dln2, r1, p["ln_mlp.weight"], dy2)
+    do = vb.block_gemm_dgrad_reference(dr1c, [p["proj.weight"]])
+    dqkv = vb.packed_attention_bwd_reference(qkv, do, seq=seq, heads=heads)
+    dln1 = vb.block_gemm_dgrad_reference(dqkv, wqkv, out_f32=True)
+    wg = [(dqkv, ln1, dqkv), (dr1c, o, dr1), (dup, ln2, dup), (dy2, hmid, dy2)]
+    partials = [t for args in wg for t in vb.block_gemm_wgrad_reference(*args)]
+    cast = {n: p[f"{n}.weight"].to(cd) for n in vb.DENSE}
+    ln = lambda t, n: lambda: F.layer_norm(  # noqa: E731
+        t.float(), t.shape[-1:], p[f"{n}.weight"], p[f"{n}.bias"], eps=1e-6)
+    ql, kl, vl = (t.view(-1, seq, heads, t.shape[1] // heads).transpose(1, 2).detach()
+                  .requires_grad_() for t in qkv.chunk(3, dim=1))
+    dol = do.view(-1, seq, heads, do.shape[1] // heads).transpose(1, 2)
+
+    def sdpa_bwd():  # the library yardstick: SDPA's forward and backward
+        torch.autograd.grad(F.scaled_dot_product_attention(ql, kl, vl), (ql, kl, vl), dol)
+
+    def ln_bwd(dln, xin, n):  # the yardstick: ATen's LayerNorm backward (dx, dγ, dβ)
+        xf, gamma, beta = xin.float(), p[f"{n}.weight"], p[f"{n}.bias"]
+        _, mean, rstd = torch.ops.aten.native_layer_norm(xf, xf.shape[-1:], gamma, beta, 1e-6)
+        return lambda: torch.ops.aten.native_layer_norm_backward(
+            dln, xf, xf.shape[-1:], mean, rstd, gamma, beta, [True, True, True])
+
+    return [
+        ("block_ln", vb.block_ln, vb.block_ln_reference,
+         (x2, p["ln_attn.weight"], p["ln_attn.bias"]), {}, ln(x2, "ln_attn")),
+        ("block_ln", vb.block_ln, vb.block_ln_reference,
+         (r1, p["ln_mlp.weight"], p["ln_mlp.bias"]), {}, ln(r1, "ln_mlp")),
+        ("block_gemm_dgrad", vb.block_gemm_dgrad, vb.block_gemm_dgrad_reference,
+         (dy2, [p["mlp_down.weight"]]), {"gelu_of": up}, lambda: dy2 @ cast["mlp_down"]),
+        ("block_gemm_dgrad", vb.block_gemm_dgrad, vb.block_gemm_dgrad_reference,
+         (dup, [p["mlp_up.weight"]]), {"out_f32": True}, lambda: dup @ cast["mlp_up"]),
+        ("block_ln_bwd", vb.block_ln_bwd, vb.block_ln_bwd_reference,
+         (dln2, r1, p["ln_mlp.weight"], dy2), {}, ln_bwd(dln2, r1, "ln_mlp")),
+        ("block_gemm_dgrad", vb.block_gemm_dgrad, vb.block_gemm_dgrad_reference,
+         (dr1c, [p["proj.weight"]]), {}, lambda: dr1c @ cast["proj"]),
+        ("block_attention_bwd", vb.block_attention_bwd, vb.packed_attention_bwd_reference,
+         (qkv, do), {"seq": seq, "heads": heads}, sdpa_bwd),
+        ("block_gemm_dgrad", vb.block_gemm_dgrad, vb.block_gemm_dgrad_reference,
+         (dqkv, wqkv), {"out_f32": True},
+         lambda: dqkv @ torch.cat([cast[n] for n in qkvn])),
+        ("block_ln_bwd", vb.block_ln_bwd, vb.block_ln_bwd_reference,
+         (dln1, x2, p["ln_attn.weight"], dr1), {}, ln_bwd(dln1, x2, "ln_attn")),
+        *[("block_gemm_wgrad", vb.block_gemm_wgrad, vb.block_gemm_wgrad_reference, args, {},
+           (lambda g=args[0], a=args[1]: g.T @ a)) for args in wg],
+        ("block_grad_reduce", vb.block_grad_reduce, vb.block_grad_reduce_reference,
+         (partials,), {}, lambda: [torch.sum(t, 0) for t in partials]),
+    ]
+
+
+def k6_stage_checks(vb, x, dy, params, heads, rtol) -> dict[str, dict]:
+    """Each K6 wrapper on the card against its plain version on the same
+    inputs (``k6_stages``), per kernel over its launches in one block
+    backward: the least atol share (of each output row's rms) it needs with
+    ``rtol``, and the plain version's and the library call's device time."""
+    import torch
+
+    b, s, dim = x.shape
+    out: dict[str, dict] = {}
+    for name, wrapper, plain, args, kw, library in k6_stages(
+        vb, x.view(b * s, dim), dy.view(b * s, dim), params, s, heads
+    ):
+        got = wrapper(*args, **kw)
+        torch.cuda.synchronize()
+        want = plain(*args, **kw)
+        pairs = [(g, w) for g, w in zip(
+            got if isinstance(got, (tuple, list)) else [got],
+            want if isinstance(want, (tuple, list)) else [want],
+        ) if g is not None]
+        rec = out.setdefault(name, {"launches_checked": 0, "max_abs_err": 0.0,
+                                    "atol_share_needed": 0.0, "finite": True,
+                                    "plain_ms": 0.0, "library_ms": 0.0})
+        rec["launches_checked"] += 1
+        for g, w in pairs:
+            rec["max_abs_err"] = max(rec["max_abs_err"], (g.float() - w.float()).abs().max().item())
+            rec["atol_share_needed"] = max(rec["atol_share_needed"], atol_share_needed(g, w, rtol))
+            rec["finite"] = rec["finite"] and bool(torch.isfinite(g).all())
+        rec["plain_ms"] += timed(lambda: plain(*args, **kw), 5)[0]
+        rec["library_ms"] += timed(library, 10)[0]
+        del got, want, pairs
+    return out
+
+
+def fused_block_bwd_checks(vb) -> list[dict]:
+    """The K6 chain (``ops/vit_block.py::fused_vit_block_bwd``) against
+    ``fused_vit_block_bwd_reference`` at ``BWD_CASES``: dx and each of the
+    twelve gradients, the planted faults, bit-identical results across two
+    calls, and the device time of the chain and of each kernel (summed over
+    its launches in one chain), the CUDA-event time, the plain version's and
+    the library yardstick's."""
+    import torch
+
+    gen = torch.Generator().manual_seed(3)
+    out = []
+    for label, dname, b, s, dim, heads in BWD_CASES:
+        dtype = getattr(torch, dname)
+        atol_share, rtol, _ = TOLERANCES[dname]
+        tol = BWD_GRAD_TOL[dname]
+        params = _seeded_block_params(dim, heads, gen)
+        x = torch.randn((b, s, dim), generator=gen).to(device="cuda", dtype=dtype)
+        dy = torch.randn((b, s, dim), generator=gen).to(device="cuda", dtype=dtype)
+        rows = b * s
+
+        def run():
+            return vb.fused_vit_block_bwd(x, dy, params, heads=heads)
+
+        dx, grads = run()
+        dx2, grads2 = run()
+        torch.cuda.synchronize()
+        identical = torch.equal(dx, dx2) and all(torch.equal(grads[n], grads2[n]) for n in grads)
+        del dx2, grads2
+        want_dx, want = vb.fused_vit_block_bwd_reference(x, dy, params, heads=heads)
+        with k6_fault(vb, "chunk"):
+            _, fault_chunk = run()
+        with k6_fault(vb, "key_tile"):
+            fault_dx, fault_tile = run()
+        dx_rec = _agreement(dx.view(rows, dim), want_dx.view(rows, dim),
+                            fault_dx.view(rows, dim), rtol)
+        errors = grad_leaf_errors(grads, want)
+        fault_errors = {"chunk": grad_leaf_errors(fault_chunk, want),
+                        "key_tile": grad_leaf_errors(fault_tile, want)}
+        finite = dx_rec["finite"] and all(bool(torch.isfinite(g).all()) for g in grads.values())
+        del want, want_dx, fault_dx, fault_chunk, fault_tile
+
+        stages = k6_stage_checks(vb, x, dy, params, heads, rtol)
+        prof = profile_device(run, 10)
+        per_kernel = {name: kernel_ms(prof["device_ms_by_name"], [name]) for name in K6_KERNELS}
+        event_ms = cuda_ms(run, 10)
+        plain_ms, _ = timed(lambda: vb.fused_vit_block_bwd_reference(x, dy, params, heads=heads), 5)
+        library_ms, library_event_ms = timed(composed_library_block_fwd_bwd(x, params, heads, dy), 10)
+        bounds = block_bwd_bounds(vb, b, s, dim, heads, 4 * dim, dname)
+        ok = (
+            finite and identical
+            and dx_rec["atol_share_needed"] <= atol_share < dx_rec["fault_atol_share_needed"]
+            and all(max(errors.values()) <= tol < max(f.values()) for f in fault_errors.values())
+            and all(st["finite"] and st["atol_share_needed"] <= atol_share for st in stages.values())
+        )
+        out.append({
+            "case": label, "dtype": dname, "shape": [b, s, dim, heads], "rows": rows,
+            "atol_share": atol_share, "rtol": rtol, "grad_tol": tol,
+            "dx": dx_rec, "grad_errors": errors, "stages": stages,
+            "grad_error_max": max(errors.values()),
+            "fault_grad_error_max": {k: max(f.values()) for k, f in fault_errors.items()},
+            "bit_identical_across_calls": identical, "finite": finite,
+            "chain_ms": prof["device_busy_ms"], "chain_event_ms": event_ms,
+            "kernel_ms": per_kernel, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_event_ms": library_event_ms,
+            "library": "composed block under autograd, forward and backward: F.layer_norm, "
+                       "F.linear (cuBLAS), SDPA",
+            "bound_ms": {k: v[0] for k, v in bounds.items()},
+            "bound_by": {k: v[1] for k, v in bounds.items()},
+            "ok": ok,
+        })
+        del params, x, dy, dx, grads
+        torch.cuda.empty_cache()
+    return out
+
+
 def profile_device(fn, reps: int) -> dict:
     """Device time of ``reps`` calls of ``fn`` under torch.profiler: busy
     ms per call (the union of device activity), the idle share of the
-    host-clock wall time, and device ms per call by kernel name."""
+    host-clock wall time, and device ms per call by kernel name.  A trace
+    that holds no device activity at all (the tracer now and then delivers
+    none for a short run) is taken again, at most three times in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    if not spans:
-        raise RuntimeError("the profiler saw no device activity")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans, by_name = [], {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                spans.append((e.time_range.start, e.time_range.end))
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        if spans:
+            break
+    else:
+        raise RuntimeError("the profiler saw no device activity in three traces")
     busy, start, end = 0.0, None, None
     for s0, s1 in sorted(spans):  # union of the device intervals
         if end is not None and s0 <= end:
@@ -1103,6 +1469,274 @@ def train_phase(attn, smi: str) -> dict:
     }
 
 
+TRAIN_TINY_ARGV = [
+    "--model", "vit_tiny", "--patch-size", "2", "--amp", "--synthetic-data",
+    "--limit-examples", "1280", "--batch-size", "128", "--epoch", "2",
+    "--lr-decay-step-size", "1",
+]
+K6_COUNTERS = ("fused_vit_block_bwd", "block_ln", "block_gemm_dgrad", "block_ln_bwd",
+               "block_attention_bwd", "block_gemm_wgrad", "block_grad_reduce")
+# launches of each K6 wrapper per block backward
+K6_PER_BLOCK = {"fused_vit_block_bwd": 1, "block_ln": 2, "block_gemm_dgrad": 4, "block_ln_bwd": 2,
+                "block_attention_bwd": 1, "block_gemm_wgrad": 4, "block_grad_reduce": 1}
+
+
+def _tiny_counters(vb, attn) -> dict:
+    return {**_block_counters(vb, attn), **{n: getattr(vb, n) for n in K6_COUNTERS},
+            "flash_attention_dq": attn.flash_attention_dq,
+            "flash_attention_dkv": attn.flash_attention_dkv}
+
+
+def plain_block_chains(vb, fault: bool):
+    """Context that swaps the fused block's K5 forward and K6 backward on
+    the card for their plain versions (the autograd Function stays).
+    ``fault`` plants one missing tile in the attention backward of every
+    block: dk and dv of the first ``FAULT_KEYS`` keys of every item left
+    zero, as a dk/dv kernel that skipped its first key tile would leave
+    them."""
+    def forward(x, params, heads, norm_f32):
+        return vb.fused_vit_block_reference(x, params, heads=heads, norm_f32=norm_f32)
+
+    def attention_bwd(qkv, do, *, seq, heads):
+        out = saved_attn(qkv, do, seq=seq, heads=heads)
+        dim = qkv.shape[1] // 3
+        out.view(-1, seq, 3 * dim)[:, :FAULT_KEYS, dim:] = 0
+        return out
+
+    saved = (vb._block_forward, vb.fused_vit_block_bwd, vb.packed_attention_bwd_reference)
+    saved_attn = saved[2]
+
+    @contextlib.contextmanager
+    def swapped():
+        vb._block_forward, vb.fused_vit_block_bwd = forward, vb.fused_vit_block_bwd_reference
+        if fault:
+            vb.packed_attention_bwd_reference = attention_bwd
+        try:
+            yield
+        finally:
+            vb._block_forward, vb.fused_vit_block_bwd, vb.packed_attention_bwd_reference = saved
+
+    return swapped()
+
+
+# One train step of vit_tiny --patch-size 2 through the kernels (K: every
+# block's forward through K5, its backward through K6) against the same
+# seeded weights and batch through --block-fusion off (R: the composed
+# blocks, whose attention at 256 tokens is the plain mha_reference under
+# autograd) and against P: the fused block's autograd Function with the
+# plain forward and backward (no kernel).  precision -> (argv edit, loss
+# bound relative, bound on K vs R, bound on K vs P), gradient bounds as
+# relative L2 per parameter.  bf16: R rounds at other points than the
+# fused block (its Dense adds the bias inside cuBLAS before rounding, its
+# LayerNorm takes the two-pass variance, and autograd through
+# mha_reference rounds the cotangent of P to bf16 before the softmax
+# backward), 12 blocks deep; P vs R is the floor any correct kernel meets,
+# as in the vit_long train phase, so K vs R is held to 2^-4 and K vs P,
+# which differ only by summation order and the bf16 flips it causes, to
+# 2^-6.  The planted fault (P with dk and dv of the first FAULT_KEYS keys of
+# every item left zero in every block) must exceed both.  The loss only
+# sees the forward: 2^-6.  fp32: summation order and the variance formula
+# only: 1e-5 on the loss, 2^-13 on the gradients.  Batch 128, the train
+# command's.
+TINY_STEP_CHECKS = {
+    "bf16": (lambda argv: argv, 2**-6, 2**-4, 2**-6),
+    "fp32": (lambda argv: [a for a in argv if a != "--amp"], 1e-5, 2**-13, 2**-13),
+}
+
+
+def tiny_step_check(vb, attn, precision: str) -> dict:
+    import torch
+
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.data import get_datasets
+    from distributed_training_comparison_tpu_torch.train import build_model, forward_backward
+    from distributed_training_comparison_tpu_torch.train.step import COMPUTE_DTYPES
+
+    edit, loss_tol, ref_tol, plain_tol = TINY_STEP_CHECKS[precision]
+    hp = load_config(edit(TRAIN_TINY_ARGV))
+    hp_off = load_config(edit(TRAIN_TINY_ARGV) + ["--block-fusion", "off"])
+    images, labels = get_datasets(hp)[0]
+    images = torch.from_numpy(images[:hp.batch_size]).cuda()
+    labels = torch.from_numpy(labels[:hp.batch_size]).long().cuda()
+    counters = (vb.fused_vit_block, vb.fused_vit_block_bwd)
+    torch.manual_seed(hp.seed)
+    state = build_model(hp).state_dict()
+    runs = {}
+    for name, h, swap in (
+        ("kernel", hp, None), ("reference", hp_off, None),
+        ("plain", hp, lambda: plain_block_chains(vb, fault=False)),
+        ("fault", hp, lambda: plain_block_chains(vb, fault=True)),
+    ):
+        model = build_model(h)
+        model.load_state_dict(state)
+        model = model.cuda()
+        before = [c.launches for c in counters]
+        with swap() if swap else contextlib.nullcontext():
+            loss, _ = forward_backward(
+                model, images, labels, compute_dtype=COMPUTE_DTYPES[h.precision]
+            )
+            torch.cuda.synchronize()
+        runs[name] = {
+            "loss": loss.item(),
+            "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            "launches": [c.launches - n for c, n in zip(counters, before)],
+            "depth": len(model.blocks),
+        }
+        del model, loss
+        torch.cuda.empty_cache()
+    ref, plain = runs["reference"]["grads"], runs["plain"]["grads"]
+    errors = {name: grad_errors(runs[name]["grads"], ref) for name in ("kernel", "plain", "fault")}
+    errors["kernel_vs_plain"] = grad_errors(runs["kernel"]["grads"], plain)
+    errors["fault_vs_plain"] = grad_errors(runs["fault"]["grads"], plain)
+    worst = {name: max(e.values()) for name, e in errors.items()}
+    finite = all(bool(torch.isfinite(g).all()) for g in runs["kernel"]["grads"].values())
+    loss_ref = runs["reference"]["loss"]
+    loss_err = abs(runs["kernel"]["loss"] - loss_ref) / abs(loss_ref)
+    depth = runs["kernel"]["depth"]
+    return {
+        "precision": precision, "batch": hp.batch_size,
+        "loss_kernel": runs["kernel"]["loss"], "loss_reference": loss_ref,
+        "loss_plain": runs["plain"]["loss"], "loss_rel_err": loss_err, "loss_tol": loss_tol,
+        "grad_rel_l2_tol": ref_tol,
+        "grad_rel_l2_max": worst["kernel"], "grad_rel_l2_worst": _worst(errors["kernel"]),
+        "plain_grad_rel_l2_max": worst["plain"], "plain_grad_rel_l2_worst": _worst(errors["plain"]),
+        "kernel_vs_plain_tol": plain_tol,
+        "kernel_vs_plain_grad_rel_l2_max": worst["kernel_vs_plain"],
+        "kernel_vs_plain_worst": _worst(errors["kernel_vs_plain"]),
+        "fault_grad_rel_l2_max": worst["fault"],
+        "fault_vs_plain_grad_rel_l2_max": worst["fault_vs_plain"],
+        "grads_finite": finite,
+        "launches_kernel": runs["kernel"]["launches"],
+        "launches_reference": runs["reference"]["launches"],
+        "launches_plain": runs["plain"]["launches"],
+        "depth": depth,
+        "ok": (
+            finite and loss_err <= loss_tol
+            and worst["kernel"] <= ref_tol < worst["fault"]
+            and worst["kernel_vs_plain"] <= plain_tol < worst["fault_vs_plain"]
+            and runs["kernel"]["launches"] == [depth, depth]
+            and runs["reference"]["launches"] == [0, 0]
+            and runs["plain"]["launches"] == [0, 0]
+        ),
+    }
+
+
+def tiny_step_times(reps: int = 5) -> dict:
+    """ms per train step (host clock around ``reps`` steps ending in a
+    synchronise) of the train command's trainer, fused and with
+    ``--block-fusion off``, in turns (fused, off, fused, off), and a
+    profile of two fused steps: the K5 and K6 kernels' shares of the
+    device's busy time, and its idle share."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.data import draw_crop_flip
+    from distributed_training_comparison_tpu_torch.train import Trainer
+    from distributed_training_comparison_tpu_torch.utils import step_generator
+
+    trainers = {
+        "fused": Trainer(load_config(TRAIN_TINY_ARGV)),
+        "off": Trainer(load_config(TRAIN_TINY_ARGV + ["--block-fusion", "off"])),
+    }
+    hp = trainers["fused"].hparams
+    images, labels = next(trainers["fused"].train_split.epoch_batches(hp.batch_size, hp.seed, 0))
+    draws = draw_crop_flip(len(labels), step_generator(hp.seed, 0, 0))
+    out = {}
+    for rnd in range(2):
+        for name, tr in trainers.items():
+            tr.step(images, labels, draws)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                tr.step(images, labels, draws)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / reps * 1e3
+            out[f"ms_per_step_{name}" + ("_again" if rnd else "")] = ms
+            out[f"images_per_s_{name}" + ("_again" if rnd else "")] = hp.batch_size / ms * 1e3
+    prof = profile_device(lambda: trainers["fused"].step(images, labels, draws), 2)
+    names = prof["device_ms_by_name"]
+    k6 = kernel_ms(names, K6_COUNTERS[1:])
+    k5 = kernel_ms(names, ["block_gemm", "block_attention"])
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+    out["profile"] = {
+        "wall_ms_per_step": prof["wall_ms"],
+        "device_busy_ms_per_step": prof["device_busy_ms"],
+        "device_idle_share": prof["device_idle_share"],
+        "k5_kernels_device_ms_per_step": k5,
+        "k5_kernels_share_of_busy": k5 / prof["device_busy_ms"],
+        "k6_only_kernels_device_ms_per_step": k6,
+        "k6_only_kernels_share_of_busy": k6 / prof["device_busy_ms"],
+        "note": "K6's recompute runs K5's kernels, counted under k5",
+        "top_device_ms_per_step": {n[:60]: ms for n, ms in top},
+    }
+    del trainers
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_tiny_phase(vb, attn, smi: str) -> dict:
+    """``vit_tiny --patch-size 2`` trained through ``entry.run``: every
+    block's forward through K5 and backward through K6, the launch counters
+    zeroed just before and read just after; one step's loss and gradients
+    against the composed path (bf16 and fp32); ms per step fused and
+    composed; a step profile."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch import entry
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.data import get_datasets
+
+    counters = _tiny_counters(vb, attn)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = entry.run(TRAIN_TINY_ARGV)
+    seconds = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hp = load_config(TRAIN_TINY_ARGV)
+    epochs = report["fit"]["epochs"]
+    val_examples = len(get_datasets(hp)[1][1])
+    last = epochs[-1]
+    checks = {p: tiny_step_check(vb, attn, p) for p in TINY_STEP_CHECKS}
+    return {
+        "phase": "train_tiny",
+        "nvidia_smi": smi,
+        "argv": TRAIN_TINY_ARGV,
+        "run_seconds": seconds,
+        "train_steps": sum(e["steps"] for e in epochs),
+        "eval_batches": len(epochs) * math.ceil(val_examples / hp.batch_size),
+        "depth": checks["bf16"]["depth"],
+        "launches": launches,
+        "losses_finite": all(e["nonfinite_losses"] == 0 for e in epochs),
+        "skipped_steps": sum(e["skipped"] for e in epochs),
+        "epochs": epochs,
+        "peak_memory_gb": peak_gb,
+        "last_epoch_images_per_s": last["images_per_s"],
+        "last_epoch_ms_per_step": last["seconds"] / last["steps"] * 1e3,
+        "step_checks": checks,
+        "step_times": tiny_step_times(),
+    }
+
+
+def check_train_tiny(tiny: dict) -> None:
+    depth, steps = tiny["depth"], tiny["train_steps"]
+    fwd = depth * (steps + tiny["eval_batches"])
+    bwd = depth * steps
+    want = {"fused_vit_block": fwd, "block_gemm": 4 * fwd + 3 * bwd,
+            "block_attention": fwd + bwd, "flash_attention": 0,
+            "flash_attention_dq": 0, "flash_attention_dkv": 0,
+            **{n: k * bwd for n, k in K6_PER_BLOCK.items()}}
+    if tiny["launches"] != want:
+        raise RuntimeError(f"train_tiny launches {tiny['launches']}, expected {want}")
+    if not tiny["losses_finite"] or tiny["skipped_steps"]:
+        raise RuntimeError("train_tiny: a non-finite loss or a skipped step")
+    bad = {p: c for p, c in tiny["step_checks"].items() if not c["ok"]}
+    if bad:
+        raise RuntimeError(f"a vit_tiny p2 train step through K5/K6 disagrees: {bad}")
+
+
 def main() -> int:
     if not (ROOT / PKG).is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
@@ -1165,6 +1799,12 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"the fused block kernels disagree with the plain version: {bad}")
 
+    bwd_blocks = fused_block_bwd_checks(vb)
+    emit({"phase": "fused_block_bwd_checks", "nvidia_smi": smi, "checks": bwd_blocks})
+    bad = [c["case"] for c in bwd_blocks if not c["ok"]]
+    if bad:
+        raise RuntimeError(f"the fused block backward kernels disagree with the plain version: {bad}")
+
     serve = serve_phase(attn)
     emit(serve)
     if serve["completed"] != serve["offered"] or serve["failed"]:
@@ -1216,6 +1856,10 @@ def main() -> int:
     bad = {p: c for p, c in train["step_checks"].items() if not c["ok"]}
     if bad:
         raise RuntimeError(f"a train step through the kernels disagrees with the reference: {bad}")
+
+    tiny_train = train_tiny_phase(vb, attn, smi)
+    emit(tiny_train)
+    check_train_tiny(tiny_train)
 
     csrc = f"{PKG}/ops/csrc"
     replaces = {
@@ -1311,6 +1955,40 @@ def main() -> int:
             "bound_ms": att["bound_ms"], "bound_by": att["bound_by"],
             "library_ms": att["library_ms"], "library": "F.scaled_dot_product_attention",
         })
+    # K6: per case, each kernel of the backward chain (its launches in one
+    # block backward together), with the whole chain's numbers beside it.
+    # ``launches`` is the kernel's count on the train_tiny path; the
+    # recompute's block_gemm and block_attention are K5's kernels, listed
+    # above, and their train_tiny counts are in that phase's line.
+    for case in bwd_blocks:
+        common = {
+            "route": "cuda", "source": f"{csrc}/vit_block_bwd.cu",
+            "replaces": "distributed_training_comparison_tpu/ops/vit_block.py:181",
+            "regime": "K6", "case": case["case"], "dtype": case["dtype"],
+            "shape_b_s_dim_heads": case["shape"],
+            "launches_counted": "train_tiny main path, one counter for every case",
+            "chain_max_abs_err_dx": case["dx"]["max_abs_err"],
+            "dx_atol_share_needed": case["dx"]["atol_share_needed"],
+            "grad_error_max": case["grad_error_max"], "grad_tol": case["grad_tol"],
+            "fault_grad_error_max": case["fault_grad_error_max"],
+            "bit_identical_across_calls": case["bit_identical_across_calls"],
+            "chain_ms": case["chain_ms"], "chain_event_ms": case["chain_event_ms"],
+            "chain_plain_ms": case["plain_ms"], "chain_library_ms": case["library_ms"],
+            "chain_library": case["library"],
+            "chain_bound_ms": case["bound_ms"]["chain"], "chain_bound_by": case["bound_by"]["chain"],
+        }
+        for name in K6_COUNTERS[1:]:
+            kernels.append({
+                "name": name, **common,
+                "launches": tiny_train["launches"][name],
+                "per_block_launches": K6_PER_BLOCK[name],
+                "max_abs_err": case["stages"][name]["max_abs_err"],
+                "atol_share_needed": case["stages"][name]["atol_share_needed"],
+                "plain_ms": case["stages"][name]["plain_ms"],
+                "library_ms": case["stages"][name]["library_ms"],
+                "ms": case["kernel_ms"][name],
+                "bound_ms": case["bound_ms"][name], "bound_by": case["bound_by"][name],
+            })
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

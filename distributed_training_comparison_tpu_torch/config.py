@@ -70,11 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ViT patch size override (0 = model default)")
     p.add_argument("--block-fusion", type=str, default="auto",
                    choices=["auto", "force", "off"],
-                   help="Fused ViT block (the CUDA K5 chain): 'auto' takes it on the "
-                   "card for dense blocks at 128-512 tokens within the weight budget, "
-                   "'force' also on the CPU (plain version), 'off' composes; until the "
-                   "fused backward is ported, a block under autograd on the card "
-                   "composes ('auto') or raises ('force')")
+                   help="Fused ViT block (the CUDA K5 forward and K6 backward chains): "
+                   "'auto' takes it on the card for dense blocks at 128-512 tokens "
+                   "within the weight budget, 'force' also on the CPU (plain "
+                   "versions), 'off' composes")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="Where the model runs; cuda without a card raises")
     p.add_argument("--serve", action="store_true", default=False,

@@ -14,13 +14,13 @@ the card at long sequences that is the CUDA flash-attention forward, and
 under autograd its dq and dk/dv kernels, all reading the projections in
 place through transposed views.
 
-``block_fusion`` selects the fused block (``ops/vit_block.py``, K5) with
-the JAX package's gate (:func:`block_fusion_path`): ``"auto"`` takes it on
-the card for dense blocks at 128-512 tokens whose weights fit the JAX
-package's budget, ``"force"`` also on the CPU through its plain version,
-``"off"`` always composes.  Until the fused backward (K6) is ported, a
-block call that autograd records on the card composes under ``"auto"`` and
-raises under ``"force"``.
+``block_fusion`` selects the fused block (``ops/vit_block.py``: the K5
+forward, and under autograd the K6 backward) with the JAX package's gate
+(:func:`block_fusion_path`): ``"auto"`` takes it on the card for dense
+blocks at 128-512 tokens whose weights fit the JAX package's budget,
+``"force"`` also on the CPU through its plain versions, ``"off"`` always
+composes.  Training and inference take the same path, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -66,7 +66,6 @@ def block_fusion_path(
     mlp_ratio: int,
     dtype: torch.dtype,
     attn_impl: str,
-    grad_recorded: bool,
 ) -> tuple[str, str | None]:
     """The fused-block gate as a pure function: ``("fused" | "composed",
     the first reason the fused block was declined, or None)``.
@@ -74,9 +73,8 @@ def block_fusion_path(
     The JAX package's conditions, in its order: ``attn_impl`` not pinned,
     S and the head dim multiples of 8, 128 <= S <= 512, the weight budget of
     ``ops/vmem.py``; then ``"auto"`` fuses on the card and ``"force"`` also
-    on the CPU.  Until the fused backward (K6) is ported, a call that
-    autograd records on the card composes under ``"auto"`` and raises
-    ``NotImplementedError`` under ``"force"``.
+    on the CPU.  Like the JAX gate it has no autograd input: a block that
+    trains takes the path it takes when it serves.
     """
     if block_fusion not in BLOCK_FUSIONS:
         raise ValueError(f"unknown block_fusion {block_fusion!r}")
@@ -94,14 +92,6 @@ def block_fusion_path(
         return "composed", (
             f"static VMEM weight footprint {wbytes / 2**20:.1f} MiB exceeds the kernel budget"
         )
-    if device_type == "cuda" and grad_recorded:
-        if block_fusion == "force":
-            raise NotImplementedError(
-                "block_fusion='force' under autograd on the card needs the fused block "
-                "backward (K6, ops/vit_block.py::_block_bwd_kernel), which is not ported "
-                "yet (ROADMAP.md queue 2); use 'auto', which composes here"
-            )
-        return "composed", None
     if device_type == "cuda" or block_fusion == "force":
         return "fused", None
     return "composed", None
@@ -156,12 +146,9 @@ class ViTBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, dim = x.shape
-        grad_recorded = torch.is_grad_enabled() and (
-            x.requires_grad or any(p.requires_grad for p in self.parameters())
-        )
         path, declined = block_fusion_path(
             self.block_fusion, x.device.type, s, dim, self.heads, self.mlp_ratio,
-            self.dtype, self.attn_impl, grad_recorded,
+            self.dtype, self.attn_impl,
         )
         if self.block_fusion == "force" and declined:
             _warn_force_composed(declined)

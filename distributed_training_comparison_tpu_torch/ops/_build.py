@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "vit_block_fwd")
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "vit_block_fwd", "vit_block_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,0 +1,1157 @@
+// The fused pre-LN ViT block backward for Hopper (sm_90a), bound through
+// plain C functions and loaded with ctypes (ops/vit_block.py).
+//
+// Replaces the TPU kernel distributed_training_comparison_tpu/ops/vit_block.py
+// ::_block_bwd_kernel (K6, vit_block.py:181), which recomputes the block's
+// forward from x, then produces dx and all twelve parameter gradients, the
+// gradients in fp32 VMEM accumulators carried across a sequential row grid.
+// Hopper's blocks run in parallel in no order, and no reduction of a
+// training kernel here uses atomics (two calls must give bit-identical
+// gradients), so every parameter gradient is a two-pass reduction: fp32
+// partials per row chunk, then a fixed-order sum over the chunks.  The
+// chain (ops/vit_block.py::_bwd_chain) is, per block:
+//
+// - block_ln: LayerNorm rows (fp32 statistics by E[x^2] - mu^2, eps 1e-6),
+//   rounded to the compute dtype: LN1(x) and LN2(r1), which the weight
+//   gradients read; K5's block_gemm and block_attention recompute qkv, o,
+//   r1 and the pre-gelu up.
+// - block_gemm_dgrad: C = G . W (W the fp32 nn.Linear weight (K, N),
+//   rounded to the compute dtype as it is staged, in up to three row
+//   segments).  Epilogues: round (dO); gelu backward against up, rounded,
+//   with gelu(up) rounded as a second output (dup and the recomputed hmid);
+//   fp32 (dLN2, dLN1).
+// - block_ln_bwd: per row, base + (dxhat - mean(dxhat) - xhat mean(dxhat
+//   xhat)) / sigma with dxhat = dln gamma, fp32, written in fp32 and/or
+//   rounded (dr1 and its rounded copy; dx), and per block of rows the
+//   partials of dgamma = sum dln xhat and dbeta = sum dln.
+// - block_gemm_wgrad: dW = G^T . A per chunk of rows into fp32 partials
+//   (one block per output tile and chunk), with the bias column sums of a
+//   second source taken by the blocks of the first input tile.
+// - block_attention_bwd: per (item, head) with P recomputed by the exact
+//   two-sweep softmax of K5: one kernel owns 64 query rows (the row max and
+//   sum, then delta = sum_j dp P, then dq = round(ds scale) . K) and writes
+//   each row's statistics; a second owns 64 keys and walks the query tiles
+//   for dk = ds^T . Q and dv = round(P)^T . dO.  No atomics.
+// - block_grad_reduce: every partial summed over its chunks in order, one
+//   launch for all twelve gradients.
+//
+// bf16 products run on mma.sync m16n8k16 with fp32 accumulation; fp32 on
+// SIMT tiles with no TF32.
+//
+// What bounds it: at the vit_tiny --patch-size 2 train shape (B 128, S 256,
+// dim 192, 3 heads, bf16: 32768 rows) a block's backward is ~110 GFLOP
+// (forward recompute 35.4, data and weight gradients 58.0, attention
+// backward 16.1) against ~41 MB of x, dy, dx, parameters and gradients, so
+// operations bound it (~0.111 ms at 989 TFLOP/s).  The chain is far from
+// that: its intermediates round-trip through device memory, its GEMM tiles
+// are staged synchronously (the transposed stagings of the weight-gradient
+// GEMM are uncoalesced), the attention backward reloads fragments from
+// shared memory and recomputes the scores three times for dq and once more
+// for dk/dv; wgmma, TMA and pipelining are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kNegInf = -1e30f;  // finite "-inf": exp gives exactly 0
+constexpr float kLnEps = 1e-6f;
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+// rounded to T and back
+template <typename T>
+__device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
+
+constexpr float kGeluC = 0.7978845608028654f, kGeluA = 0.044715f;
+
+// jax.nn.gelu's tanh approximation and its derivative, in fp32
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float inner = kGeluC * (x + kGeluA * (x * x * x));
+  return x * (0.5f * (1.f + tanhf(inner)));
+}
+
+__device__ __forceinline__ float gelu_tanh_grad(float x) {
+  const float t = tanhf(kGeluC * (x + kGeluA * (x * x * x)));
+  return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * kGeluC * (1.f + 3.f * kGeluA * x * x);
+}
+
+__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_f32_to_bf16(float lo, float hi) {
+  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+}
+
+__device__ __forceinline__ uint32_t lds32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// ------------------------------------------------------------- block_ln
+
+constexpr int kRowWarps = 8;  // rows per block of the row kernels: one warp each
+
+template <typename T>
+__global__ void __launch_bounds__(kRowWarps * 32)
+    ln_rows(const T* x, const float* g, const float* b, T* y, int m, int n) {
+  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= m) return;
+  const T* xr = x + static_cast<long long>(row) * n;
+  float s = 0.f, ss = 0.f;
+  for (int c = lane; c < n; c += 32) {
+    const float v = to_f(xr[c]);
+    s += v;
+    ss += v * v;
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const float mu = s / n;
+  const float rs = 1.f / sqrtf(ss / n - mu * mu + kLnEps);
+  T* yr = y + static_cast<long long>(row) * n;
+  for (int c = lane; c < n; c += 32) yr[c] = from_f<T>((to_f(xr[c]) - mu) * rs * g[c] + b[c]);
+}
+
+// ------------------------------------------------------ the GEMM mainloops
+
+constexpr int kBM = 128;  // output rows per block (8 warps x 16 for mma)
+constexpr int kBN = 64;   // output columns per block
+constexpr int kGemmThreads = 256;
+constexpr int kBK = 64;         // bf16: K per stage
+constexpr int kLdsG = kBK + 8;  // padded row: a quad's fragment rows on distinct banks
+constexpr int kFBK = 16;        // fp32: K per stage
+
+// bf16: acc (this warp's 16 rows x kBN) += A . B^T over k in [0, kdim), the
+// stagers filling as[kBM][kLdsG] and bs[kBN][kLdsG] (row-major in k) with
+// the k0 stage, zero where out of range
+template <typename StageA, typename StageB>
+__device__ __forceinline__ void mainloop_bf16(float (&acc)[kBN / 8][4], bf16* as, bf16* bs,
+                                              int kdim, StageA stage_a, StageB stage_b) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < kBN / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int k0 = 0; k0 < kdim; k0 += kBK) {
+    stage_a(k0);
+    stage_b(k0);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const bf16* a0 = as + (warp * 16 + g) * kLdsG + kk * 16 + t * 2;
+      const uint32_t af[4] = {lds32(a0), lds32(a0 + 8 * kLdsG), lds32(a0 + 8),
+                              lds32(a0 + 8 * kLdsG + 8)};
+#pragma unroll
+      for (int n = 0; n < kBN / 8; ++n) {
+        const bf16* b0 = bs + (n * 8 + g) * kLdsG + kk * 16 + t * 2;
+        const uint32_t bf[2] = {lds32(b0), lds32(b0 + 8)};
+        mma_16816(acc[n], af, bf);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// fp32: each thread owns 4 rows x 8 columns of the kBM x kBN tile; the
+// stagers fill as[kFBK][kBM + 4] and bs[kFBK][kBN + 4] (k-major)
+template <typename StageA, typename StageB>
+__device__ __forceinline__ void mainloop_f32(float (&acc)[4][8], float (*as)[kBM + 4],
+                                             float (*bs)[kBN + 4], int kdim, StageA stage_a,
+                                             StageB stage_b) {
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < kdim; k0 += kFBK) {
+    stage_a(k0);
+    stage_b(k0);
+    __syncthreads();
+#pragma unroll
+    for (int kc = 0; kc < kFBK; ++kc) {
+      const float4 av = *reinterpret_cast<const float4*>(&as[kc][ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&bs[kc][tx * 8]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&bs[kc][tx * 8 + 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// (row, col) of accumulator element (n, e) of the bf16 mainloop, in the tile
+__device__ __forceinline__ int frag_row(int e) {
+  return (threadIdx.x / 32) * 16 + ((threadIdx.x % 32) >> 2) + 8 * (e >> 1);
+}
+__device__ __forceinline__ int frag_col(int n, int e) {
+  return n * 8 + ((threadIdx.x % 32) & 3) * 2 + (e & 1);
+}
+
+// ------------------------------------------------------ block_gemm_dgrad
+
+struct DgradParams {
+  const void* g;     // (m, k) compute dtype
+  const float* w[3]; // rows of W (k, n): seg rows each, fp32
+  const void* up;    // (m, n) compute dtype, mode 1
+  void* hmid;        // (m, n) compute dtype, mode 1
+  void* c;           // (m, n): compute dtype (modes 0, 1) or fp32 (mode 2)
+  int m, n, k, seg, mode;
+};
+
+__device__ __forceinline__ const float* w_row(const DgradParams& p, int kr) {
+  if (kr < p.seg) return p.w[0] + static_cast<long long>(kr) * p.n;
+  if (kr < 2 * p.seg) return p.w[1] + static_cast<long long>(kr - p.seg) * p.n;
+  return p.w[2] + static_cast<long long>(kr - 2 * p.seg) * p.n;
+}
+
+template <typename T>
+__device__ __forceinline__ void dgrad_store(const DgradParams& p, float acc, int row, int col) {
+  const long long i = static_cast<long long>(row) * p.n + col;
+  if (p.mode == 2) {
+    static_cast<float*>(p.c)[i] = acc;
+    return;
+  }
+  const float v = rnd<T>(acc);
+  if (p.mode == 0) {
+    static_cast<T*>(p.c)[i] = from_f<T>(v);
+    return;
+  }
+  const float u = to_f(static_cast<const T*>(p.up)[i]);
+  static_cast<T*>(p.c)[i] = from_f<T>(gelu_tanh_grad(u) * v);
+  static_cast<T*>(p.hmid)[i] = from_f<T>(gelu_tanh(u));
+}
+
+__global__ void __launch_bounds__(kGemmThreads) dgrad_bf16(const DgradParams p) {
+  __shared__ __align__(16) bf16 as[kBM * kLdsG];
+  __shared__ __align__(16) bf16 bs[kBN * kLdsG];
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN, tid = threadIdx.x;
+  const bf16* g = static_cast<const bf16*>(p.g);
+  auto stage_a = [&](int k0) {  // G rows as they are
+    for (int c = tid; c < kBM * (kBK / 8); c += kGemmThreads) {
+      const int r = c / (kBK / 8), col = (c % (kBK / 8)) * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (m0 + r < p.m && k0 + col < p.k)
+        v = *reinterpret_cast<const uint4*>(g + static_cast<long long>(m0 + r) * p.k + k0 + col);
+      *reinterpret_cast<uint4*>(as + r * kLdsG + col) = v;
+    }
+  };
+  auto stage_b = [&](int k0) {  // bs[n][k] = W[k][n], rounded; k fastest across threads
+    for (int c = tid; c < kBK * (kBN / 8); c += kGemmThreads) {
+      const int kk = c % kBK, nc = (c / kBK) * 8;
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (k0 + kk < p.k && n0 + nc < p.n) {
+        const float* wr = w_row(p, k0 + kk) + n0 + nc;
+        const float4 lo = *reinterpret_cast<const float4*>(wr);
+        const float4 hi = *reinterpret_cast<const float4*>(wr + 4);
+        v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+        v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bs[(nc + j) * kLdsG + kk] = __float2bfloat16_rn(v[j]);
+    }
+  };
+  float acc[kBN / 8][4];
+  mainloop_bf16(acc, as, bs, p.k, stage_a, stage_b);
+#pragma unroll
+  for (int n = 0; n < kBN / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = m0 + frag_row(e), col = n0 + frag_col(n, e);
+      if (row < p.m && col < p.n) dgrad_store<bf16>(p, acc[n][e], row, col);
+    }
+}
+
+__global__ void __launch_bounds__(kGemmThreads) dgrad_f32(const DgradParams p) {
+  __shared__ __align__(16) float as[kFBK][kBM + 4];
+  __shared__ __align__(16) float bs[kFBK][kBN + 4];
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN, tid = threadIdx.x;
+  const float* g = static_cast<const float*>(p.g);
+  auto stage_a = [&](int k0) {
+    for (int c = tid; c < kBM * kFBK; c += kGemmThreads) {
+      const int r = c / kFBK, kc = c % kFBK;
+      as[kc][r] = m0 + r < p.m && k0 + kc < p.k ? g[static_cast<long long>(m0 + r) * p.k + k0 + kc] : 0.f;
+    }
+  };
+  auto stage_b = [&](int k0) {
+    for (int c = tid; c < kBN * kFBK; c += kGemmThreads) {
+      const int kc = c / kBN, nn = c % kBN;
+      bs[kc][nn] = k0 + kc < p.k && n0 + nn < p.n ? w_row(p, k0 + kc)[n0 + nn] : 0.f;
+    }
+  };
+  float acc[4][8];
+  mainloop_f32(acc, as, bs, p.k, stage_a, stage_b);
+  const int tx = tid % 8, ty = tid / 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int row = m0 + ty * 4 + i, col = n0 + tx * 8 + j;
+      if (row < p.m && col < p.n) dgrad_store<float>(p, acc[i][j], row, col);
+    }
+}
+
+// ------------------------------------------------------ block_gemm_wgrad
+
+struct WgradParams {
+  const void* g;     // (m, n_out) compute dtype
+  const void* a;     // (m, n_in) compute dtype
+  const void* bsrc;  // (m, n_out): fp32 when bsrc_f32, else compute dtype
+  int bsrc_f32;
+  float* part_w;     // (chunks, n_out, n_in)
+  float* part_b;     // (chunks, n_out)
+  int m, n_out, n_in, chunk;
+};
+
+// the bias column sums of rows [r0, r1) for columns [o0, o0 + kBM), by
+// the blocks of the first input tile: two threads a column, each taking
+// alternate rows, combined in a fixed order
+__device__ void bias_partial(const WgradParams& p, int r0, int r1, int o0, float* red) {
+  const int o = threadIdx.x % kBM, half = threadIdx.x / kBM;
+  float s = 0.f;
+  if (o0 + o < p.n_out) {
+    for (int r = r0 + half; r < r1; r += 2) {
+      const long long i = static_cast<long long>(r) * p.n_out + o0 + o;
+      s += p.bsrc_f32 ? static_cast<const float*>(p.bsrc)[i]
+                      : to_f(static_cast<const bf16*>(p.bsrc)[i]);
+    }
+  }
+  red[threadIdx.x] = s;
+  __syncthreads();
+  if (half == 0 && o0 + o < p.n_out)
+    p.part_b[static_cast<long long>(blockIdx.z) * p.n_out + o0 + o] = red[o] + red[o + kBM];
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kGemmThreads) wgrad_bf16(const WgradParams p) {
+  __shared__ __align__(16) bf16 as[kBM * kLdsG];
+  __shared__ __align__(16) bf16 bs[kBN * kLdsG];
+  __shared__ float red[kGemmThreads];
+  const int o0 = blockIdx.y * kBM, i0 = blockIdx.x * kBN, tid = threadIdx.x;
+  const int r0 = blockIdx.z * p.chunk, r1 = min(r0 + p.chunk, p.m);
+  const bf16* g = static_cast<const bf16*>(p.g);
+  const bf16* a = static_cast<const bf16*>(p.a);
+  if (blockIdx.x == 0 && p.part_b) bias_partial(p, r0, r1, o0, red);
+  // as[o][r] = G[r][o] and bs[i][r] = A[r][i]: transposed, rows fastest
+  // across threads so the shared-memory writes are conflict-free
+  auto stage = [&](bf16* s, const bf16* src, int ld, int c0, int cols, int tile_cols, int k0) {
+    for (int c = tid; c < kBK * (tile_cols / 8); c += kGemmThreads) {
+      const int kk = c % kBK, cc = (c / kBK) * 8;
+      const int r = r0 + k0 + kk;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < r1 && c0 + cc < cols)
+        v = *reinterpret_cast<const uint4*>(src + static_cast<long long>(r) * ld + c0 + cc);
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[(cc + j) * kLdsG + kk] = e[j];
+    }
+  };
+  float acc[kBN / 8][4];
+  mainloop_bf16(
+      acc, as, bs, r1 - r0,
+      [&](int k0) { stage(as, g, p.n_out, o0, p.n_out, kBM, k0); },
+      [&](int k0) { stage(bs, a, p.n_in, i0, p.n_in, kBN, k0); });
+  float* out = p.part_w + static_cast<long long>(blockIdx.z) * p.n_out * p.n_in;
+#pragma unroll
+  for (int n = 0; n < kBN / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = o0 + frag_row(e), i = i0 + frag_col(n, e);
+      if (o < p.n_out && i < p.n_in) out[static_cast<long long>(o) * p.n_in + i] = acc[n][e];
+    }
+}
+
+__global__ void __launch_bounds__(kGemmThreads) wgrad_f32(const WgradParams p) {
+  __shared__ __align__(16) float as[kFBK][kBM + 4];
+  __shared__ __align__(16) float bs[kFBK][kBN + 4];
+  __shared__ float red[kGemmThreads];
+  const int o0 = blockIdx.y * kBM, i0 = blockIdx.x * kBN, tid = threadIdx.x;
+  const int r0 = blockIdx.z * p.chunk, r1 = min(r0 + p.chunk, p.m);
+  const float* g = static_cast<const float*>(p.g);
+  const float* a = static_cast<const float*>(p.a);
+  if (blockIdx.x == 0 && p.part_b) bias_partial(p, r0, r1, o0, red);
+  auto stage_a = [&](int k0) {  // as[r][o] = G[r][o]: coalesced in o
+    for (int c = tid; c < kBM * kFBK; c += kGemmThreads) {
+      const int kc = c / kBM, o = c % kBM, r = r0 + k0 + kc;
+      as[kc][o] = r < r1 && o0 + o < p.n_out ? g[static_cast<long long>(r) * p.n_out + o0 + o] : 0.f;
+    }
+  };
+  auto stage_b = [&](int k0) {
+    for (int c = tid; c < kBN * kFBK; c += kGemmThreads) {
+      const int kc = c / kBN, i = c % kBN, r = r0 + k0 + kc;
+      bs[kc][i] = r < r1 && i0 + i < p.n_in ? a[static_cast<long long>(r) * p.n_in + i0 + i] : 0.f;
+    }
+  };
+  float acc[4][8];
+  mainloop_f32(acc, as, bs, r1 - r0, stage_a, stage_b);
+  float* out = p.part_w + static_cast<long long>(blockIdx.z) * p.n_out * p.n_in;
+  const int tx = tid % 8, ty = tid / 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int o = o0 + ty * 4 + i, in = i0 + tx * 8 + j;
+      if (o < p.n_out && in < p.n_in) out[static_cast<long long>(o) * p.n_in + in] = acc[i][j];
+    }
+}
+
+// ---------------------------------------------------------- block_ln_bwd
+
+struct LnBwdParams {
+  const float* dln;  // (m, n) fp32
+  const void* xin;   // (m, n) compute dtype: the LayerNorm's input
+  const float* gamma;
+  const void* base;  // (m, n): fp32 when base_f32, else compute dtype
+  int base_f32;
+  float* out_f32;    // (m, n) or null
+  void* out_c;       // (m, n) compute dtype
+  float* part_g;     // (chunks, n)
+  float* part_b;
+  int m, n, chunk;
+};
+
+// one block per chunk of rows, a warp per row; lane owns columns lane + 32 j
+template <typename T, int NJ>
+__global__ void __launch_bounds__(kRowWarps * 32) ln_bwd(const LnBwdParams p) {
+  __shared__ float red[kRowWarps * 1024];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = blockIdx.x * p.chunk, r1 = min(r0 + p.chunk, p.m);
+  float pg[NJ], pb[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) pg[j] = pb[j] = 0.f;
+  for (int row = r0 + warp; row < r1; row += kRowWarps) {
+    const long long base = static_cast<long long>(row) * p.n;
+    const T* xr = static_cast<const T*>(p.xin) + base;
+    float x[NJ], dl[NJ];
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = lane + 32 * j;
+      x[j] = c < p.n ? to_f(xr[c]) : 0.f;
+      dl[j] = c < p.n ? p.dln[base + c] : 0.f;
+      s += x[j];
+      ss += x[j] * x[j];
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mu = s / p.n;
+    const float rs = 1.f / sqrtf(ss / p.n - mu * mu + kLnEps);
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = lane + 32 * j;
+      x[j] = (x[j] - mu) * rs;  // xhat
+      const float dxh = c < p.n ? dl[j] * p.gamma[c] : 0.f;
+      m1 += dxh;
+      m2 += dxh * x[j];
+      if (c < p.n) {
+        pg[j] += dl[j] * x[j];
+        pb[j] += dl[j];
+      }
+    }
+    m1 = warp_sum(m1) / p.n;
+    m2 = warp_sum(m2) / p.n;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = lane + 32 * j;
+      if (c >= p.n) continue;
+      const float dxh = dl[j] * p.gamma[c];
+      const float b = p.base_f32 ? static_cast<const float*>(p.base)[base + c]
+                                 : to_f(static_cast<const T*>(p.base)[base + c]);
+      const float v = b + (dxh - m1 - x[j] * m2) * rs;
+      if (p.out_f32) p.out_f32[base + c] = v;
+      static_cast<T*>(p.out_c)[base + c] = from_f<T>(v);
+    }
+  }
+  // the warps' partials summed in warp order
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = lane + 32 * j;
+      if (c < p.n) red[warp * p.n + c] = pass ? pb[j] : pg[j];
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < p.n; c += kRowWarps * 32) {
+      float t = 0.f;
+      for (int w = 0; w < kRowWarps; ++w) t += red[w * p.n + c];
+      (pass ? p.part_b : p.part_g)[static_cast<long long>(blockIdx.x) * p.n + c] = t;
+    }
+    __syncthreads();
+  }
+}
+
+// --------------------------------------------------- block_attention_bwd
+
+struct AttnBwdParams {
+  const void* qkv;  // (batch * seq, 3 * dim), q | k | v, heads head-major in each
+  const void* dout; // (batch * seq, dim)
+  void* dqkv;       // (batch * seq, 3 * dim)
+  float* stats;     // (batch * seq, heads, 3): row max, row sum, delta = sum dp P
+  int seq, dim, heads;
+  float scale;
+};
+
+constexpr int kAttnThreads = 128;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// rows [row0, row0 + ROWS) of a (seq, D) column slice (row stride ld) into
+// shared memory with row stride D + 8; rows past len zero-filled
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(bf16* smem, const bf16* g, long long ld, int row0,
+                                          int len) {
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kAttnThreads) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const bool valid = row0 + r < len;
+    cp_async16(smem + r * (D + 8) + col, g + (valid ? (row0 + r) * ld : 0) + col, valid);
+  }
+}
+
+// c (16 rows x NT*8) = A . B^T: A this warp's 16 rows at `a`, B NT*8 rows
+// at `b`, both (rows, D) in shared memory with row stride D + 8
+template <int D, int NT>
+__device__ __forceinline__ void mma_abt(float (&c)[NT][4], const bf16* a, const bf16* b) {
+  constexpr int LDS = D + 8;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const bf16* a0 = a + g * LDS + kk * 16 + t * 2;
+    const uint32_t af[4] = {lds32(a0), lds32(a0 + 8 * LDS), lds32(a0 + 8), lds32(a0 + 8 * LDS + 8)};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const bf16* b0 = b + (n * 8 + g) * LDS + kk * 16 + t * 2;
+      const uint32_t bf[2] = {lds32(b0), lds32(b0 + 8)};
+      mma_16816(c[n], af, bf);
+    }
+  }
+}
+
+// c (16 rows x D) += round(x) . B: x this warp's 16 x KN accumulator tile
+// (rounded to bf16 here), B (KN rows, D) in shared memory, stride D + 8
+template <int D, int KN>
+__device__ __forceinline__ void mma_xb(float (&c)[D / 8][4], const float (&x)[KN / 8][4],
+                                       const bf16* b) {
+  constexpr int LDS = D + 8;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < KN / 16; ++kk) {
+    // two adjacent 8-wide accumulator tiles are exactly the A fragment of a 16-deep step
+    const uint32_t xa[4] = {
+        pack_f32_to_bf16(x[2 * kk][0], x[2 * kk][1]),
+        pack_f32_to_bf16(x[2 * kk][2], x[2 * kk][3]),
+        pack_f32_to_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+        pack_f32_to_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]),
+    };
+    const bf16* b0 = b + (kk * 16 + t * 2) * LDS + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const bf16* bn = b0 + n * 8;
+      const uint32_t bf[2] = {pack_bf16(bn[0], bn[LDS]), pack_bf16(bn[8 * LDS], bn[9 * LDS])};
+      mma_16816(c[n], xa, bf);
+    }
+  }
+}
+
+template <int D, int KN>
+constexpr int dq_bf16_smem() {
+  return (2 * 64 + 2 * KN) * (D + 8) * 2;
+}
+
+// dq for 64 query rows of one (item, head), and the rows' statistics
+template <int D, int KN>
+__global__ void __launch_bounds__(kAttnThreads) attn_dq_bf16(const AttnBwdParams p) {
+  constexpr int LDS = D + 8, NS = KN / 8, NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + 64 * LDS;
+  bf16* ks = dos + 64 * LDS;
+  bf16* vs = ks + KN * LDS;
+  const int m0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane & 3, wr = warp * 16;
+  const long long ld = 3LL * p.dim;
+  const bf16* item = static_cast<const bf16*>(p.qkv) + static_cast<long long>(b) * p.seq * ld;
+  const bf16* kg = item + p.dim + h * D;
+  const bf16* vg = item + 2 * p.dim + h * D;
+  const bf16* dog = static_cast<const bf16*>(p.dout) + static_cast<long long>(b) * p.seq * p.dim + h * D;
+  load_rows<D, 64>(qs, item + h * D, ld, m0, p.seq);
+  load_rows<D, 64>(dos, dog, p.dim, m0, p.seq);
+
+  // scaled scores of this warp's rows against the key tile at n0, masked
+  auto scores = [&](float (&s)[NS][4], int n0) {
+    mma_abt<D, NS>(s, qs + wr * LDS, ks);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = n0 + frag_col(n, e) < p.seq ? s[n][e] * p.scale : kNegInf;
+  };
+
+  // sweep 1: each row's max and sum of exp(s - max), as the forward's
+  float mx[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f};
+  for (int n0 = 0; n0 < p.seq; n0 += KN) {
+    load_rows<D, KN>(ks, kg, ld, n0, p.seq);
+    cp_async_wait_all();
+    __syncthreads();
+    float s[NS][4];
+    scores(s, n0);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float m = mx[i];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) m = fmaxf(m, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+      m = quad_max(m);
+      float add = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) add += expf(s[n][2 * i] - m) + expf(s[n][2 * i + 1] - m);
+      sum[i] = sum[i] * expf(mx[i] - m) + add;
+      mx[i] = m;
+    }
+  }
+  const float total[2] = {quad_sum(sum[0]), quad_sum(sum[1])};
+
+  // P = exp(s - max) / sum (fp32) and dp = dO . V^T of the key tile at n0
+  auto probs = [&](float (&s)[NS][4], float (&dp)[NS][4], int n0) {
+    load_rows<D, KN>(ks, kg, ld, n0, p.seq);
+    load_rows<D, KN>(vs, vg, ld, n0, p.seq);
+    cp_async_wait_all();
+    __syncthreads();
+    scores(s, n0);
+    mma_abt<D, NS>(dp, dos + wr * LDS, vs);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = expf(s[n][e] - mx[e >> 1]) / total[e >> 1];
+  };
+
+  // sweep 2: delta = sum_j dp P
+  float dl[2] = {0.f, 0.f};
+  for (int n0 = 0; n0 < p.seq; n0 += KN) {
+    float s[NS][4], dp[NS][4];
+    probs(s, dp, n0);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dl[e >> 1] += s[n][e] * dp[n][e];
+    __syncthreads();
+  }
+  const float delta[2] = {quad_sum(dl[0]), quad_sum(dl[1])};
+
+  // sweep 3: dq = round(P (dp - delta) scale) . K
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n0 = 0; n0 < p.seq; n0 += KN) {
+    float s[NS][4], dp[NS][4];
+    probs(s, dp, n0);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * (dp[n][e] - delta[e >> 1]) * p.scale;
+    mma_xb<D, KN>(acc, s, ks);
+    __syncthreads();
+  }
+
+  bf16* dq = static_cast<bf16*>(p.dqkv) + static_cast<long long>(b) * p.seq * ld + h * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = m0 + frag_row(2 * i);
+    if (row >= p.seq) continue;
+    bf16* dr = dq + static_cast<long long>(row) * ld + t * 2;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(dr + n * 8) = pack_f32_to_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
+    if (t == 0) {
+      float* st = p.stats + ((static_cast<long long>(b) * p.seq + row) * p.heads + h) * 3;
+      st[0] = mx[i];
+      st[1] = total[i];
+      st[2] = delta[i];
+    }
+  }
+}
+
+template <int D, int QN>
+constexpr int dkv_bf16_smem() {
+  return (2 * 64 + 2 * QN) * (D + 8) * 2 + QN * 3 * 4;
+}
+
+// dk and dv for 64 keys of one (item, head), walking the query tiles in
+// the transposed frame: rows are keys, columns queries
+template <int D, int QN>
+__global__ void __launch_bounds__(kAttnThreads) attn_dkv_bf16(const AttnBwdParams p) {
+  constexpr int LDS = D + 8, NS = QN / 8, NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + 64 * LDS;
+  bf16* qs = vs + 64 * LDS;
+  bf16* dos = qs + QN * LDS;
+  float* st = reinterpret_cast<float*>(dos + QN * LDS);
+  const int n0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane & 3, wr = warp * 16;
+  const long long ld = 3LL * p.dim;
+  const bf16* item = static_cast<const bf16*>(p.qkv) + static_cast<long long>(b) * p.seq * ld;
+  const bf16* dog = static_cast<const bf16*>(p.dout) + static_cast<long long>(b) * p.seq * p.dim + h * D;
+  const float* stats = p.stats + static_cast<long long>(b) * p.seq * p.heads * 3 + h * 3;
+  load_rows<D, 64>(ks, item + p.dim + h * D, ld, n0, p.seq);
+  load_rows<D, 64>(vs, item + 2 * p.dim + h * D, ld, n0, p.seq);
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  for (int q0 = 0; q0 < p.seq; q0 += QN) {
+    load_rows<D, QN>(qs, item + h * D, ld, q0, p.seq);
+    load_rows<D, QN>(dos, dog, p.dim, q0, p.seq);
+    for (int i = threadIdx.x; i < QN * 3; i += kAttnThreads) {
+      const int r = i / 3;
+      st[i] = q0 + r < p.seq ? stats[static_cast<long long>(q0 + r) * p.heads * 3 + i % 3] : 1.f;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    float s[NS][4], dp[NS][4];
+    mma_abt<D, NS>(s, ks + wr * LDS, qs);
+    mma_abt<D, NS>(dp, vs + wr * LDS, dos);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = frag_col(n, e);
+        const float pr = q0 + i < p.seq ? expf(s[n][e] * p.scale - st[3 * i]) / st[3 * i + 1] : 0.f;
+        s[n][e] = pr;
+        dp[n][e] = pr * (dp[n][e] - st[3 * i + 2]) * p.scale;
+      }
+    mma_xb<D, QN>(dv, s, dos);
+    mma_xb<D, QN>(dk, dp, qs);
+    __syncthreads();
+  }
+  bf16* dkg = static_cast<bf16*>(p.dqkv) + static_cast<long long>(b) * p.seq * ld + p.dim + h * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = n0 + frag_row(2 * i);
+    if (row >= p.seq) continue;
+    bf16* kr = dkg + static_cast<long long>(row) * ld + t * 2;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<uint32_t*>(kr + n * 8) = pack_f32_to_bf16(dk[n][2 * i], dk[n][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(kr + p.dim + n * 8) =
+          pack_f32_to_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
+    }
+  }
+}
+
+constexpr int kFM = 32;  // fp32: rows (queries or keys) per block, 4 threads per row
+constexpr int kFN = 32;  // fp32: keys or queries per tile
+
+template <int D>
+constexpr int attn_f32_smem() {
+  return (4 * kFM * (D + 1) + 2 * kFM * (kFN + 1) + kFN * 3) * 4;
+}
+
+// fp32 dq and statistics: 32 query rows, a quad of threads per row
+template <int D>
+__global__ void __launch_bounds__(kAttnThreads) attn_dq_f32(const AttnBwdParams p) {
+  constexpr int LD = D + 1, PER = kFN / 4, OUT = D / 4;
+  extern __shared__ float fsmem[];
+  float* qs = fsmem;
+  float* dos = qs + kFM * LD;
+  float* ks = dos + kFM * LD;
+  float* vs = ks + kFN * LD;
+  float* ps = vs + kFN * LD;
+  const int m0 = blockIdx.x * kFM, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, r = tid / 4, t = tid % 4;
+  const long long ld = 3LL * p.dim;
+  const float* item = static_cast<const float*>(p.qkv) + static_cast<long long>(b) * p.seq * ld;
+  const float* qg = item + h * D;
+  const float* kg = item + p.dim + h * D;
+  const float* vg = item + 2 * p.dim + h * D;
+  const float* dog = static_cast<const float*>(p.dout) + static_cast<long long>(b) * p.seq * p.dim + h * D;
+  for (int c = tid; c < kFM * D; c += kAttnThreads) {
+    const int rr = c / D, d = c % D;
+    const bool ok = m0 + rr < p.seq;
+    qs[rr * LD + d] = ok ? qg[(m0 + rr) * ld + d] : 0.f;
+    dos[rr * LD + d] = ok ? dog[static_cast<long long>(m0 + rr) * p.dim + d] : 0.f;
+  }
+  auto load_kv = [&](int n0, bool with_v) {
+    __syncthreads();
+    for (int c = tid; c < kFN * D; c += kAttnThreads) {
+      const int rr = c / D, d = c % D;
+      const bool ok = n0 + rr < p.seq;
+      ks[rr * LD + d] = ok ? kg[(n0 + rr) * ld + d] : 0.f;
+      if (with_v) vs[rr * LD + d] = ok ? vg[(n0 + rr) * ld + d] : 0.f;
+    }
+    __syncthreads();
+  };
+  auto dots = [&](float (&s)[PER], const float* a, const float* bm) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int c = t + 4 * i;
+      float x = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) x = fmaf(a[r * LD + d], bm[c * LD + d], x);
+      s[i] = x;
+    }
+  };
+  auto scores = [&](float (&s)[PER], int n0) {
+    dots(s, qs, ks);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) s[i] = n0 + t + 4 * i < p.seq ? s[i] * p.scale : kNegInf;
+  };
+  float mx = kNegInf, sum = 0.f;
+  for (int n0 = 0; n0 < p.seq; n0 += kFN) {
+    load_kv(n0, false);
+    float s[PER];
+    scores(s, n0);
+    float m = mx;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) m = fmaxf(m, s[i]);
+    m = quad_max(m);
+    float add = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) add += expf(s[i] - m);
+    sum = sum * expf(mx - m) + add;
+    mx = m;
+  }
+  const float total = quad_sum(sum);
+  auto probs = [&](float (&s)[PER], float (&dp)[PER], int n0) {
+    load_kv(n0, true);
+    scores(s, n0);
+    dots(dp, dos, vs);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) s[i] = expf(s[i] - mx) / total;
+  };
+  float dl = 0.f;
+  for (int n0 = 0; n0 < p.seq; n0 += kFN) {
+    float s[PER], dp[PER];
+    probs(s, dp, n0);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) dl += s[i] * dp[i];
+  }
+  const float delta = quad_sum(dl);
+  float acc[OUT];
+#pragma unroll
+  for (int i = 0; i < OUT; ++i) acc[i] = 0.f;
+  for (int n0 = 0; n0 < p.seq; n0 += kFN) {
+    float s[PER], dp[PER];
+    probs(s, dp, n0);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) ps[r * (kFN + 1) + t + 4 * i] = s[i] * (dp[i] - delta) * p.scale;
+    __syncwarp();  // a row's quad lives in one warp
+    for (int c = 0; c < kFN; ++c) {
+      const float pc = ps[r * (kFN + 1) + c];
+#pragma unroll
+      for (int i = 0; i < OUT; ++i) acc[i] = fmaf(pc, ks[c * LD + t + 4 * i], acc[i]);
+    }
+    __syncwarp();
+  }
+  if (m0 + r < p.seq) {
+    const long long row = static_cast<long long>(b) * p.seq + m0 + r;
+    float* dq = static_cast<float*>(p.dqkv) + row * ld + h * D;
+#pragma unroll
+    for (int i = 0; i < OUT; ++i) dq[t + 4 * i] = acc[i];
+    if (t == 0) {
+      float* st = p.stats + (row * p.heads + h) * 3;
+      st[0] = mx;
+      st[1] = total;
+      st[2] = delta;
+    }
+  }
+}
+
+// fp32 dk and dv: 32 keys, a quad of threads per key, walking query tiles
+template <int D>
+__global__ void __launch_bounds__(kAttnThreads) attn_dkv_f32(const AttnBwdParams p) {
+  constexpr int LD = D + 1, PER = kFN / 4, OUT = D / 4;
+  extern __shared__ float fsmem[];
+  float* ks = fsmem;
+  float* vs = ks + kFM * LD;
+  float* qs = vs + kFM * LD;
+  float* dos = qs + kFN * LD;
+  float* ps = dos + kFN * LD;
+  float* dss = ps + kFM * (kFN + 1);
+  float* st = dss + kFM * (kFN + 1);
+  const int n0 = blockIdx.x * kFM, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, r = tid / 4, t = tid % 4;
+  const long long ld = 3LL * p.dim;
+  const float* item = static_cast<const float*>(p.qkv) + static_cast<long long>(b) * p.seq * ld;
+  const float* qg = item + h * D;
+  const float* kg = item + p.dim + h * D;
+  const float* vg = item + 2 * p.dim + h * D;
+  const float* dog = static_cast<const float*>(p.dout) + static_cast<long long>(b) * p.seq * p.dim + h * D;
+  const float* stats = p.stats + static_cast<long long>(b) * p.seq * p.heads * 3 + h * 3;
+  for (int c = tid; c < kFM * D; c += kAttnThreads) {
+    const int rr = c / D, d = c % D;
+    const bool ok = n0 + rr < p.seq;
+    ks[rr * LD + d] = ok ? kg[(n0 + rr) * ld + d] : 0.f;
+    vs[rr * LD + d] = ok ? vg[(n0 + rr) * ld + d] : 0.f;
+  }
+  float dk[OUT], dv[OUT];
+#pragma unroll
+  for (int i = 0; i < OUT; ++i) dk[i] = dv[i] = 0.f;
+  for (int q0 = 0; q0 < p.seq; q0 += kFN) {
+    __syncthreads();
+    for (int c = tid; c < kFN * D; c += kAttnThreads) {
+      const int rr = c / D, d = c % D;
+      const bool ok = q0 + rr < p.seq;
+      qs[rr * LD + d] = ok ? qg[(q0 + rr) * ld + d] : 0.f;
+      dos[rr * LD + d] = ok ? dog[static_cast<long long>(q0 + rr) * p.dim + d] : 0.f;
+    }
+    for (int i = tid; i < kFN * 3; i += kAttnThreads) {
+      const int rr = i / 3;
+      st[i] = q0 + rr < p.seq ? stats[static_cast<long long>(q0 + rr) * p.heads * 3 + i % 3] : 1.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int c = t + 4 * i;
+      float s = 0.f, dp = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) {
+        s = fmaf(ks[r * LD + d], qs[c * LD + d], s);
+        dp = fmaf(vs[r * LD + d], dos[c * LD + d], dp);
+      }
+      const float pr = q0 + c < p.seq ? expf(s * p.scale - st[3 * c]) / st[3 * c + 1] : 0.f;
+      ps[r * (kFN + 1) + c] = pr;
+      dss[r * (kFN + 1) + c] = pr * (dp - st[3 * c + 2]) * p.scale;
+    }
+    __syncwarp();
+    for (int c = 0; c < kFN; ++c) {
+      const float pc = ps[r * (kFN + 1) + c], dc = dss[r * (kFN + 1) + c];
+#pragma unroll
+      for (int i = 0; i < OUT; ++i) {
+        dv[i] = fmaf(pc, dos[c * LD + t + 4 * i], dv[i]);
+        dk[i] = fmaf(dc, qs[c * LD + t + 4 * i], dk[i]);
+      }
+    }
+  }
+  if (n0 + r < p.seq) {
+    float* kr = static_cast<float*>(p.dqkv) + (static_cast<long long>(b) * p.seq + n0 + r) * ld +
+                p.dim + h * D;
+#pragma unroll
+    for (int i = 0; i < OUT; ++i) {
+      kr[t + 4 * i] = dk[i];
+      kr[p.dim + t + 4 * i] = dv[i];
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, const AttnBwdParams& p) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kAttnThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_attention_bwd(const AttnBwdParams& p, int batch, int is_bf16, cudaStream_t s) {
+  if (is_bf16) {
+    constexpr int KN = D <= 64 ? 64 : 32;  // key (query) tile: fewer accumulators at large D
+    const dim3 grid((p.seq + 63) / 64, p.heads, batch);
+    cudaError_t err = launch(attn_dq_bf16<D, KN>, grid, dq_bf16_smem<D, KN>(), s, p);
+    if (err != cudaSuccess) return err;
+    return launch(attn_dkv_bf16<D, KN>, grid, dkv_bf16_smem<D, KN>(), s, p);
+  }
+  const dim3 grid((p.seq + kFM - 1) / kFM, p.heads, batch);
+  cudaError_t err = launch(attn_dq_f32<D>, grid, attn_f32_smem<D>(), s, p);
+  if (err != cudaSuccess) return err;
+  return launch(attn_dkv_f32<D>, grid, attn_f32_smem<D>(), s, p);
+}
+
+// ----------------------------------------------------- block_grad_reduce
+
+constexpr int kMaxSegments = 16;
+
+struct ReduceParams {
+  long long src[kMaxSegments], dst[kMaxSegments], chunks[kMaxSegments], size[kMaxSegments];
+};
+
+// dst[i] = sum over c in order of src[c * size + i], one thread per element
+__global__ void __launch_bounds__(256) grad_reduce(const ReduceParams p) {
+  const int seg = blockIdx.y;
+  const float* src = reinterpret_cast<const float*>(p.src[seg]);
+  float* dst = reinterpret_cast<float*>(p.dst[seg]);
+  const long long size = p.size[seg], chunks = p.chunks[seg];
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < size; i += gridDim.x * 256LL) {
+    float acc = 0.f;
+    for (long long c = 0; c < chunks; ++c) acc += src[c * size + i];
+    dst[i] = acc;
+  }
+}
+
+template <typename Kernel, typename Params>
+cudaError_t launch_gemm(Kernel kernel, dim3 grid, cudaStream_t s, const Params& p) {
+  kernel<<<grid, kGemmThreads, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// y = LayerNorm(x) rounded to the compute dtype, rows of n (fp32 gamma, beta).
+// Returns the launch's cudaError_t (0 on success), as every function here.
+extern "C" int vit_block_ln(const void* x, const void* g, const void* b, void* y, int m, int n,
+                            int is_bf16, void* stream) {
+  const dim3 grid((m + kRowWarps - 1) / kRowWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* gf = static_cast<const float*>(g);
+  const float* bf = static_cast<const float*>(b);
+  if (is_bf16)
+    ln_rows<bf16><<<grid, kRowWarps * 32, 0, s>>>(static_cast<const bf16*>(x), gf, bf,
+                                                  static_cast<bf16*>(y), m, n);
+  else
+    ln_rows<float><<<grid, kRowWarps * 32, 0, s>>>(static_cast<const float*>(x), gf, bf,
+                                                   static_cast<float*>(y), m, n);
+  return cudaGetLastError();
+}
+
+// c (m, n) = g (m, k) . W (k, n), W's rows from w0/w1/w2 (seg rows each,
+// fp32 (seg, n)); mode 0 rounds, 1 applies the gelu backward against up
+// and writes gelu(up) to hmid, 2 writes fp32.  k and n multiples of 16.
+extern "C" int vit_block_dgrad(const void* g, const void* w0, const void* w1, const void* w2,
+                               const void* up, void* hmid, void* c, int m, int n, int k, int seg,
+                               int mode, int is_bf16, void* stream) {
+  DgradParams p{};
+  p.g = g;
+  p.w[0] = static_cast<const float*>(w0);
+  p.w[1] = static_cast<const float*>(w1);
+  p.w[2] = static_cast<const float*>(w2);
+  p.up = up;
+  p.hmid = hmid;
+  p.c = c;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  p.seg = seg;
+  p.mode = mode;
+  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_gemm(dgrad_bf16, grid, s, p) : launch_gemm(dgrad_f32, grid, s, p);
+}
+
+// out = base + LayerNorm-backward(dln) for the LayerNorm of xin with scale
+// gamma, in fp32 (out_f32, may be null) and rounded (out_c); per chunk of
+// rows the partials of dgamma and dbeta.  n up to 1024.
+extern "C" int vit_block_ln_bwd(const void* dln, const void* xin, const void* gamma,
+                                const void* base, int base_f32, void* out_f32, void* out_c,
+                                void* part_g, void* part_b, int m, int n, int chunk, int is_bf16,
+                                void* stream) {
+  LnBwdParams p{static_cast<const float*>(dln), xin, static_cast<const float*>(gamma), base,
+                base_f32, static_cast<float*>(out_f32), out_c, static_cast<float*>(part_g),
+                static_cast<float*>(part_b), m, n, chunk};
+  if (n > 1024) return cudaErrorInvalidValue;
+  const dim3 grid((m + chunk - 1) / chunk);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nj = (n + 31) / 32;
+#define LN_BWD_CASE(NJ)                                                           \
+  if (nj <= NJ) {                                                                 \
+    if (is_bf16) ln_bwd<bf16, NJ><<<grid, kRowWarps * 32, 0, s>>>(p);             \
+    else ln_bwd<float, NJ><<<grid, kRowWarps * 32, 0, s>>>(p);                    \
+    return cudaGetLastError();                                                    \
+  }
+  LN_BWD_CASE(2)
+  LN_BWD_CASE(4)
+  LN_BWD_CASE(8)
+  LN_BWD_CASE(16)
+  LN_BWD_CASE(32)
+#undef LN_BWD_CASE
+  return cudaErrorInvalidValue;
+}
+
+// per chunk of rows, part_w = g^T . a (fp32 (chunks, n_out, n_in)) and
+// part_b = the column sums of bsrc (fp32 (chunks, n_out)).  n_out and n_in
+// multiples of 16, chunk a multiple of 64.
+extern "C" int vit_block_wgrad(const void* g, const void* a, const void* bsrc, int bsrc_f32,
+                               void* part_w, void* part_b, int m, int n_out, int n_in, int chunk,
+                               int is_bf16, void* stream) {
+  WgradParams p{g, a, bsrc, bsrc_f32, static_cast<float*>(part_w), static_cast<float*>(part_b),
+                m, n_out, n_in, chunk};
+  const dim3 grid((n_in + kBN - 1) / kBN, (n_out + kBM - 1) / kBM, (m + chunk - 1) / chunk);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_gemm(wgrad_bf16, grid, s, p) : launch_gemm(wgrad_f32, grid, s, p);
+}
+
+// dqkv (batch * seq, 3 * heads * head_dim) of the packed attention for the
+// output cotangent dout (batch * seq, heads * head_dim); stats is fp32
+// scratch (batch * seq, heads, 3).  Launches the dq kernel, then dk/dv.
+extern "C" int vit_block_attention_bwd(const void* qkv, const void* dout, void* dqkv, void* stats,
+                                       int batch, int seq, int heads, int head_dim, float scale,
+                                       int is_bf16, void* stream) {
+  const AttnBwdParams p{qkv, dout, dqkv, static_cast<float*>(stats), seq, heads * head_dim,
+                        heads, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16: return launch_attention_bwd<16>(p, batch, is_bf16, s);
+    case 32: return launch_attention_bwd<32>(p, batch, is_bf16, s);
+    case 48: return launch_attention_bwd<48>(p, batch, is_bf16, s);
+    case 64: return launch_attention_bwd<64>(p, batch, is_bf16, s);
+    case 80: return launch_attention_bwd<80>(p, batch, is_bf16, s);
+    case 96: return launch_attention_bwd<96>(p, batch, is_bf16, s);
+    case 112: return launch_attention_bwd<112>(p, batch, is_bf16, s);
+    case 128: return launch_attention_bwd<128>(p, batch, is_bf16, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// desc: n groups of (src pointer, dst pointer, chunks, size); dst[i] = sum
+// over c in order of src[c * size + i].  n up to 16.
+extern "C" int vit_block_grad_reduce(const long long* desc, int n, void* stream) {
+  if (n < 1 || n > kMaxSegments) return cudaErrorInvalidValue;
+  ReduceParams p{};
+  long long most = 1;
+  for (int i = 0; i < n; ++i) {
+    p.src[i] = desc[4 * i];
+    p.dst[i] = desc[4 * i + 1];
+    p.chunks[i] = desc[4 * i + 2];
+    p.size[i] = desc[4 * i + 3];
+    most = p.size[i] > most ? p.size[i] : most;
+  }
+  const long long blocks = (most + 255) / 256;
+  const dim3 grid(static_cast<unsigned>(blocks < 2048 ? blocks : 2048), n);
+  grad_reduce<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
+}

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (``gpu`` marker).
 
 These tests need an NVIDIA Hopper card: the CUDA kernels (flash
-attention, K1-K4; the fused block chain, K5) have no interpret mode.
+attention, K1-K4; the fused block chains, K5 and K6) have no interpret
+mode.
 Each skips inside its fixture where ``torch.cuda.is_available()`` is
 false.  The file imports no JAX, so it
 also runs where JAX is not installed; there, skip ``tests/conftest.py``
@@ -268,9 +269,6 @@ def test_fused_block_raises_on_what_the_kernels_do_not_take(cuda_device):
     params = _block_params(64, 2, gen, cuda_device)
     with pytest.raises(NotImplementedError, match="norm_dtype=None"):
         vb.fused_vit_block(x, params, heads=2, norm_f32=False)
-    block = vit.ViTBlock(64, 2, dtype=torch.bfloat16, block_fusion="force").to(cuda_device)
-    with pytest.raises(NotImplementedError, match="K6"):
-        block(x)  # parameters require grad: autograd would record the call
 
 
 @pytest.mark.gpu
@@ -297,16 +295,139 @@ def test_vit_fused_path_matches_composed_on_card(cuda_device):
     assert float((got - want).abs().max()) <= 3e-2 + 3e-2 * scale
 
 
+def _k6_counts():
+    return [c.launches for c in (vb.fused_vit_block, vb.fused_vit_block_bwd, vb.block_gemm,
+                                 vb.block_attention, vb.block_attention_bwd)]
+
+
 @pytest.mark.gpu
-def test_vit_tiny_p2_train_step_on_card_composes(cuda_device):
-    """Until the fused backward (K6) is ported, a ``vit_tiny --patch-size 2``
-    train step on the card under ``auto`` composes every block: no K5
-    launch, finite gradients for every parameter."""
-    model = vit.ViTTiny(patch=2, dtype=torch.bfloat16).to(cuda_device)
-    x = torch.randn(4, 32, 32, 3, device=cuda_device)
+def test_vit_tiny_p2_train_step_on_card_fuses(cuda_device):
+    """A ``vit_tiny --patch-size 2`` train step on the card under ``auto``
+    runs every block's forward through K5 and its backward through K6 (12
+    of each, no flash launch), and its gradients agree with the same
+    weights through the composed path (``--block-fusion off``) within the
+    bound chip_smoke.py's train_tiny phase derives for bf16: 2^-4 relative
+    L2 per parameter, ``k_proj.bias`` against its weight's scale."""
+    gen = torch.Generator().manual_seed(1)
+    model = vit.ViTTiny(patch=2, dtype=torch.bfloat16)
+    model.init_weights(gen)
+    composed = vit.ViTTiny(patch=2, dtype=torch.bfloat16, block_fusion="off")
+    composed.load_state_dict(model.state_dict())
+    model, composed = model.to(cuda_device), composed.to(cuda_device)
+    x = torch.randn(4, 32, 32, 3, generator=gen).to(cuda_device)
     labels = torch.tensor([1, 2, 3, 4], device=cuda_device)
-    before = _k5_counts()
+    before, flash = _k6_counts(), port.flash_attention.launches
     torch.nn.functional.cross_entropy(model(x), labels).backward()
     torch.cuda.synchronize()
-    assert _k5_counts() == before
+    assert [n - m for n, m in zip(_k6_counts(), before)] == [12, 12, 12 * 4 + 12 * 3, 24, 12]
+    assert port.flash_attention.launches == flash
+    torch.nn.functional.cross_entropy(composed(x), labels).backward()
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+    errors = grad_errors(model, composed)
+    assert max(errors.values()) <= 2**-4, errors
+
+
+# (dtype, B, S, dim, heads): chip_smoke.py's BWD_CASES at a batch the test
+# file runs quickly, the train shape in bf16 and fp32, the window top, a
+# ragged S with 2 heads
+BWD_SHAPES = [
+    (torch.bfloat16, 32, 256, 192, 3),
+    (torch.float32, 8, 256, 192, 3),
+    (torch.bfloat16, 2, 512, 192, 3),
+    (torch.bfloat16, 3, 136, 128, 2),
+]
+
+
+def _leaf_errors(got, want):
+    """max |got - want| / max |want| per gradient, ``k_proj.bias`` against
+    ``k_proj.weight``'s scale (its exact gradient is zero)."""
+    return {
+        n: float((got[n] - w).abs().max()
+                 / want["k_proj.weight" if n == "k_proj.bias" else n].abs().max())
+        for n, w in want.items()
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,s,dim,heads", BWD_SHAPES)
+def test_fused_block_bwd_matches_plain_on_card(cuda_device, dtype, b, s, dim, heads):
+    """The K6 chain against ``fused_vit_block_bwd_reference``, with the
+    bounds chip_smoke.py derives (``BWD_CASES``): dx per row, bf16 2^-5 of
+    the row's rms plus 2^-6·|dx|, fp32 2^-10 of the rms; each parameter
+    gradient within 2^-7 (bf16) or 2^-14 (fp32) of its leaf's largest
+    entry."""
+    gen = torch.Generator().manual_seed(s + dim)
+    params = _block_params(dim, heads, gen, cuda_device)
+    x = torch.randn(b, s, dim, generator=gen).to(device=cuda_device, dtype=dtype)
+    dy = torch.randn(b, s, dim, generator=gen).to(device=cuda_device, dtype=dtype)
+    before = vb.fused_vit_block_bwd.launches
+    dx, grads = vb.fused_vit_block_bwd(x, dy, params, heads=heads)
+    torch.cuda.synchronize()
+    assert vb.fused_vit_block_bwd.launches == before + 1
+    want_dx, want = vb.fused_vit_block_bwd_reference(x, dy, params, heads=heads)
+    assert dx.dtype == dtype and dx.shape == x.shape and bool(torch.isfinite(dx).all())
+    share, rtol = (2**-5, 2**-6) if dtype == torch.bfloat16 else (2**-10, 0.0)
+    assert _row_share(dx, want_dx, rtol) <= share, _row_share(dx, want_dx, rtol)
+    errors = _leaf_errors(grads, want)
+    assert max(errors.values()) <= (2**-7 if dtype == torch.bfloat16 else 2**-14), errors
+
+
+@pytest.mark.gpu
+def test_fused_block_bwd_is_bitwise_deterministic(cuda_device):
+    """No atomics: two calls on the same inputs give bit-identical dx and
+    gradients (the partials are summed over the row chunks in order)."""
+    gen = torch.Generator().manual_seed(5)
+    params = _block_params(192, 3, gen, cuda_device)
+    x = torch.randn(16, 256, 192, generator=gen).to(device=cuda_device, dtype=torch.bfloat16)
+    dy = torch.randn(16, 256, 192, generator=gen).to(device=cuda_device, dtype=torch.bfloat16)
+    dx1, g1 = vb.fused_vit_block_bwd(x, dy, params, heads=3)
+    dx2, g2 = vb.fused_vit_block_bwd(x, dy, params, heads=3)
+    assert torch.equal(dx1, dx2)
+    assert all(torch.equal(g1[n], g2[n]) for n in g1)
+
+
+@pytest.mark.gpu
+def test_fused_block_bwd_raises_on_what_the_kernels_do_not_take(cuda_device):
+    gen = torch.Generator().manual_seed(0)
+    x = torch.zeros(1, 128, 32, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):  # head dim 8
+        vb.fused_vit_block_bwd(x, x, _block_params(32, 4, gen, cuda_device), heads=4)
+    x = torch.zeros(1, 128, 64, device=cuda_device, dtype=torch.bfloat16)
+    params = _block_params(64, 2, gen, cuda_device)
+    with pytest.raises(NotImplementedError, match="norm_dtype=None"):
+        vb.fused_vit_block_bwd(x, x, params, heads=2, norm_f32=False)
+    with pytest.raises(ValueError, match="dy must match"):
+        vb.fused_vit_block_bwd(x, x.float(), params, heads=2)
+    h = x.half()
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        vb.block_ln(h.view(128, 64), params["ln_attn.weight"], params["ln_attn.bias"])
+
+
+@pytest.mark.gpu
+def test_fused_block_under_autograd_reaches_x_and_every_parameter(cuda_device):
+    """The repaired fault: ``fused_vit_block`` under autograd on the card
+    used to return an output with no autograd history.  Gradients now reach
+    x and every parameter through K5 and K6, and agree with the composed
+    ``ViTBlock`` on the same weights within 2^-4 relative L2 (bf16; the
+    composed block's own attention backward rounds differently, as
+    chip_smoke.py's train phase finds), ``k_proj.bias`` against its
+    weight's scale."""
+    gen = torch.Generator().manual_seed(9)
+    composed = vit.ViTBlock(192, 3, dtype=torch.bfloat16, block_fusion="off").to(cuda_device)
+    params = {n: p for n, p in composed.named_parameters()}
+    x = torch.randn(8, 256, 192, generator=gen).to(device=cuda_device, dtype=torch.bfloat16)
+    dy = torch.randn(8, 256, 192, generator=gen).to(device=cuda_device, dtype=torch.bfloat16)
+    xf, xc = x.clone().requires_grad_(), x.clone().requires_grad_()
+    before = _k6_counts()
+    out = vb.fused_vit_block(xf, params, heads=3)
+    assert out.grad_fn is not None
+    fused = torch.autograd.grad(out, (xf, *params.values()), dy)
+    assert [n - m for n, m in zip(_k6_counts(), before)] == [1, 1, 7, 2, 1]
+    want = torch.autograd.grad(composed(xc), (xc, *params.values()), dy)
+    names = ["x", *params]
+    scale = dict(zip(names, want))
+    for name, g, w in zip(names, fused, want):
+        assert g is not None and g.dtype == w.dtype and bool(torch.isfinite(g).all()), name
+        ref = scale["k_proj.weight"] if name == "k_proj.bias" else w
+        err = float((g.float() - w.float()).norm() / ref.float().norm())
+        assert err <= 2**-4, (name, err)

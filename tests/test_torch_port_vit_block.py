@@ -221,8 +221,12 @@ def test_weight_bytes_equal_the_jax_gate(dim, mlp_ratio, dtype):
 
 def _path(block_fusion="auto", device="cuda", seq=256, dim=192, heads=3, mlp_ratio=4,
           dtype=torch.bfloat16, attn_impl="auto", grad=False):
-    return block_fusion_path(block_fusion, device, seq, dim, heads, mlp_ratio, dtype,
-                             attn_impl, grad)
+    """The gate's answer, asked with autograd recording (``grad``) or not:
+    like the JAX gate it reads no autograd state, so a block that trains
+    takes the path it takes when it serves."""
+    with torch.set_grad_enabled(grad):
+        return block_fusion_path(block_fusion, device, seq, dim, heads, mlp_ratio, dtype,
+                                 attn_impl)
 
 
 @pytest.mark.parametrize(
@@ -241,7 +245,7 @@ def _path(block_fusion="auto", device="cuda", seq=256, dim=192, heads=3, mlp_rat
         (dict(block_fusion="force", device="cpu"), "fused", None),
         (dict(block_fusion="force", device="cpu", grad=True), "fused", None),
         (dict(block_fusion="force", seq=64), "composed", "outside the measured"),
-        (dict(grad=True), "composed", None),  # auto under autograd on the card
+        (dict(grad=True), "fused", None),  # auto under autograd on the card: K5 + K6
         (dict(block_fusion="off"), "composed", None),
     ],
 )
@@ -251,9 +255,17 @@ def test_gate_regimes(kw, want, reason):
     assert (declined is None) if reason is None else (reason in declined), declined
 
 
-def test_gate_force_under_autograd_on_the_card_raises_naming_k6():
-    with pytest.raises(NotImplementedError, match="K6"):
-        _path(block_fusion="force", grad=True)
+def test_gate_ignores_autograd_as_the_jax_gate_does():
+    """Under autograd the gate answers as it does without it, on the card
+    (``auto`` and ``force`` fuse) and on the CPU (``auto`` composes,
+    ``force`` fuses); a ``force`` block whose parameters require grad
+    records the fused block's autograd Function on the CPU."""
+    for kw in (dict(), dict(block_fusion="force"), dict(device="cpu"),
+               dict(device="cpu", block_fusion="force")):
+        assert _path(grad=True, **kw) == _path(grad=False, **kw), kw
+    block = port_models.ViTBlock(DIM, HEADS, block_fusion="force")
+    out = block(torch.zeros(1, 128, DIM))
+    assert type(out.grad_fn).__name__ == "_FusedViTBlockBackward"
     with pytest.raises(ValueError, match="unknown block_fusion"):
         _path(block_fusion="always")
 
