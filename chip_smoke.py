@@ -70,7 +70,34 @@ last line:
              against ``--block-fusion off`` and against the plain chains
              (bf16 and fp32) with a bound that rejects a planted fault; ms
              per step fused and off, and a step profile;
-6. the ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, then
+6. vit_moe  — ``moe_gmm_checks``: the grouped expert FFN's kernels (K7
+             forward, K8 dx, K9 dW) against their plain versions at the
+             serve shape (bf16, n 2048, cap 320), the train shape (bf16 and
+             fp32, n 16384, cap 2560) and a ragged case (n 1000: an empty
+             group, two over capacity, the last ending at n): kept rows to
+             a per-row tolerance, dropped and padding rows exactly 0, the
+             gradients per leaf, K8/K9 bit-identical across two calls, two
+             planted faults rejected (a start shifted by a row, a row tile
+             left out of K9's walk), CUDA-event ms of each kernel, its plain
+             version and the composed cuBLAS form of the gather dispatch;
+   serve_moe — ``vit_moe --amp`` (8 blocks, dim 192, 3 heads, 8 experts of
+             hidden 768, 64 tokens) served through ``entry.run``, buckets
+             1..32, 256 requests at concurrency 32: K7 in every block of
+             every dispatched batch, no flash, K5 or K6 launch; the
+             bucket-32 logits against ``--moe-dispatch gather`` within 2^-10
+             of the largest, which a planted K7 fault exceeds; a bucket-32
+             dispatch timed under gmm and gather and profiled, and the MoE
+             layer's device time split into K7 and routing/permutation;
+   train_moe — ``vit_moe --amp`` trained at batch 256 (the JAX package's
+             ``vit_moe_bf16_bs256``), 2304 synthetic training images (18
+             steps) and 256 validation images: K7 in every forward, K8 and
+             K9 in every backward, every loss finite, no step skipped, the
+             routing health reported; one step's loss and every gradient
+             (the router's included) against ``--moe-dispatch gather`` and
+             the plain kernels (bf16 and fp32) with a bound that rejects a
+             planted fault, and in fp32 (2^-13) a TF32 control; ms per step
+             under gmm and gather, profiles;
+7. the ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX.  Without a CUDA device, or outside a checkout of
@@ -1339,7 +1366,7 @@ def step_check(attn, precision: str) -> dict:
         saved = vit.attention
         vit.attention = swap or saved
         try:
-            loss, _ = forward_backward(
+            loss, _, _ = forward_backward(
                 model, images, labels, compute_dtype=COMPUTE_DTYPES[hp.precision]
             )
             torch.cuda.synchronize()
@@ -1572,7 +1599,7 @@ def tiny_step_check(vb, attn, precision: str) -> dict:
         model = model.cuda()
         before = [c.launches for c in counters]
         with swap() if swap else contextlib.nullcontext():
-            loss, _ = forward_backward(
+            loss, _, _ = forward_backward(
                 model, images, labels, compute_dtype=COMPUTE_DTYPES[h.precision]
             )
             torch.cuda.synchronize()
@@ -1737,6 +1764,628 @@ def check_train_tiny(tiny: dict) -> None:
         raise RuntimeError(f"a vit_tiny p2 train step through K5/K6 disagrees: {bad}")
 
 
+# ------------------------------------------------- vit_moe: K7, K8, K9
+
+MOE_DIMS = (8, 192, 768)  # vit_moe: experts, dim, hidden
+# expert shares of a skewed routing, so that the first experts overflow
+MOE_SKEW = (0.2, 0.16, 0.14, 0.12, 0.1, 0.1, 0.09, 0.09)
+# (label, dtype, n, cap, group counts or None for a skewed draw of n tokens)
+MOE_GMM_CASES = [
+    ("slice: vit_moe serve, bucket 32", "bfloat16", 2048, 320, None),
+    ("slice: vit_moe train, batch 256", "bfloat16", 16384, 2560, None),
+    ("fp32 train shape (--moe-dispatch gmm without --amp)", "float32", 16384, 2560, None),
+    ("ragged: an empty group, two over capacity, the last ending at n", "bfloat16", 1000, 160,
+     (150, 0, 200, 90, 110, 120, 130, 200)),
+]
+# Each output (K7's y, K8's dx) holds against its plain version on the kept
+# rows per row, with the flash kernels' TOLERANCES and for the same
+# reasons: the kernel and the plain version round at the same points (each
+# product, each bias add, the gelu and its derivative), so they differ by
+# fp32 summation order and tanh (~1e-6 relative), by the rare one-ulp bf16
+# flip that causes in h1, g or dh, which the next product carries as 2^-8
+# of one term among 192 or 768, and by the output's own rounding (held by
+# rtol).  The rows no expert keeps must be exactly 0.  K9's four gradients
+# hold in relative L2 against their leaf, bf16 2^-7 (the K6 bound: fp32
+# sums of the same rounded dh and g in another order), fp32 2^-14.  Two
+# planted faults must exceed those bounds: one expert's start shifted by one
+# row (on all three) and K9 with the first 64-row tile of the first kept
+# group left out of its walk.
+GMM_GRAD_TOL = {"bfloat16": 2**-7, "float32": 2**-14}
+
+
+def moe_gmm_bounds(n, d, h, ne, kept, dname) -> dict[str, tuple[float, str]]:
+    """Least times of K7, K8 and K9 on the card, counting the kept rows'
+    products only: K7 4·K·d·h operations against xs and y (n rows each) and
+    the weights; K8 6·K·d·h against xs, dy, dx and the weights; K9 8·K·d·h
+    against xs, dy, the weights read and the fp32 gradients written."""
+    item = 2 if dname == "bfloat16" else 4
+    weights = ne * (2 * d * h + h + d)
+    return {
+        "fwd": bound(4 * kept * d * h, (2 * n * d + weights) * item, dname),
+        "dx": bound(6 * kept * d * h, (3 * n * d + weights) * item, dname),
+        "dw": bound(8 * kept * d * h, (2 * n * d + weights) * item + weights * 4, dname),
+    }
+
+
+def composed_library_ffn(gm, xs, w1, b1, w2, b2, starts, cap, dy):
+    """The library yardstick (timed here, never called on the gmm path):
+    the gather dispatch's composed form on the same routing, two
+    ``torch.bmm`` over the (E, cap, d) capacity buffer with bias and gelu,
+    and its autograd backward.  Returns ``(forward, backward)`` callables."""
+    import torch
+    import torch.nn.functional as F
+
+    ne, d, _ = w1.shape
+    buf, dbuf = (xs.new_zeros((ne, cap, d)) for _ in range(2))
+    for e, (lo, hi) in enumerate(gm.kept_ranges(starts, cap, xs.shape[0])):
+        buf[e, :hi - lo], dbuf[e, :hi - lo] = xs[lo:hi], dy[lo:hi]
+
+    def forward(a=buf, u=w1, bu=b1, v=w2, bv=b2):
+        return torch.bmm(F.gelu(torch.bmm(a, u) + bu[:, None], approximate="tanh"), v) + bv[:, None]
+
+    leaves = [t.detach().requires_grad_() for t in (buf, w1, b1, w2, b2)]
+    out = forward(*leaves)
+    return forward, lambda: torch.autograd.grad(out, leaves, dbuf, retain_graph=True)
+
+
+def _first_kept(gm, starts, cap, n) -> tuple[int, int]:
+    return next((lo, hi) for lo, hi in gm.kept_ranges(starts, cap, n) if hi > lo)
+
+
+def moe_gmm_checks(gm) -> list[dict]:
+    """K7, K8 and K9 (``ops/moe_gmm.py``) against their plain versions on
+    the card at ``MOE_GMM_CASES``: agreement, exact zeros, bitwise replay,
+    the two planted faults, CUDA-event ms of each kernel, its plain version
+    and the composed cuBLAS yardstick, beside its bound."""
+    import torch
+
+    out = []
+    ne, d, h = MOE_DIMS
+    for label, dname, n, cap, counts in MOE_GMM_CASES:
+        dtype = getattr(torch, dname)
+        atol_share, rtol, _ = TOLERANCES[dname]
+        gen = torch.Generator().manual_seed(5)
+        if counts is None:
+            draw = torch.multinomial(torch.tensor(MOE_SKEW), n, replacement=True, generator=gen)
+            counts = torch.bincount(draw, minlength=ne).tolist()
+        starts = torch.tensor([0, *torch.tensor(counts).cumsum(0).tolist()], dtype=torch.int32).cuda()
+        limit = math.sqrt(6.0 / (d + h))  # the experts' xavier init
+        w1, w2 = ((torch.rand(s, generator=gen) * 2 - 1) * limit for s in ((ne, d, h), (ne, h, d)))
+        b1, b2 = (0.1 * torch.randn(s, generator=gen) for s in ((ne, h), (ne, d)))
+        xs, dy = (torch.randn(n, d, generator=gen) for _ in range(2))
+        xs, dy, w1, b1, w2, b2 = (t.to(device="cuda", dtype=dtype) for t in (xs, dy, w1, b1, w2, b2))
+        kept = gm.kept_mask(starts, cap, n)
+        k_rows = int(kept.sum())
+
+        y = gm.grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap)
+        dx = gm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap)
+        dw = gm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap)
+        torch.cuda.synchronize()
+        replay = (gm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap),
+                  *gm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap))
+        bitwise = all(torch.equal(a, b) for a, b in zip((dx, *dw), replay))
+        want_y = gm.grouped_ffn_reference(xs, w1, b1, w2, b2, starts, cap)
+        want_dx = gm.grouped_ffn_dx_reference(xs, dy, w1, b1, w2, starts, cap)
+        want_dw = gm.grouped_ffn_dw_reference(xs, dy, w1, b1, w2, starts, cap)
+        # fault 1: the first non-empty expert past expert 0 starts a row late
+        shifted = starts.clone()
+        e_shift = next(e for e in range(1, ne) if counts[e] > 0)
+        shifted[e_shift] += 1
+        # fault 2: K9's walk misses the first row tile of the first kept group
+        lo, _ = _first_kept(gm, starts, cap, n)
+        dy_tile = dy.clone()
+        dy_tile[lo:lo + 64] = 0
+
+        def leaf_errors(got):
+            return [float((g - w).norm() / w.norm().clamp_min(1e-30)) for g, w in zip(got, want_dw)]
+
+        rec = {
+            "case": label, "dtype": dname, "n": n, "cap": cap, "experts": ne, "dim": d,
+            "hidden": h, "counts": counts, "kept_rows": k_rows,
+            "atol_share": atol_share, "rtol": rtol, "grad_tol": GMM_GRAD_TOL[dname],
+            "fwd": _agreement(y[kept], want_y[kept],
+                              gm.grouped_ffn_reference(xs, w1, b1, w2, b2, shifted, cap)[kept], rtol),
+            "dx": _agreement(dx[kept], want_dx[kept],
+                             gm.grouped_ffn_dx_reference(xs, dy, w1, b1, w2, shifted, cap)[kept], rtol),
+            "dropped_rows_exact_zero": bool((y[~kept] == 0).all() and (dx[~kept] == 0).all()),
+            "dw_errors": leaf_errors(dw),
+            "dw_max_abs_err": max(float((g - w).abs().max()) for g, w in zip(dw, want_dw)),
+            "dw_fault_shifted_start": leaf_errors(
+                gm.grouped_ffn_dw_reference(xs, dy, w1, b1, w2, shifted, cap)),
+            "dw_fault_row_tile": leaf_errors(
+                gm.grouped_ffn_dw_reference(xs, dy_tile, w1, b1, w2, starts, cap)),
+            "bit_identical_across_calls": bitwise,
+        }
+        lib_fwd, lib_bwd = composed_library_ffn(gm, xs, w1, b1, w2, b2, starts, cap, dy)
+        big = n >= 16384
+        rec["ms"] = {
+            "fwd": cuda_ms(lambda: gm.grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap), 20),
+            "dx": cuda_ms(lambda: gm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap), 20),
+            "dw": cuda_ms(lambda: gm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap), 20),
+        }
+        rec["plain_ms"] = {
+            "fwd": cuda_ms(lambda: gm.grouped_ffn_reference(xs, w1, b1, w2, b2, starts, cap),
+                           3 if big else 10, warmup=1),
+            "dx": cuda_ms(lambda: gm.grouped_ffn_dx_reference(xs, dy, w1, b1, w2, starts, cap),
+                          3 if big else 10, warmup=1),
+            "dw": cuda_ms(lambda: gm.grouped_ffn_dw_reference(xs, dy, w1, b1, w2, starts, cap),
+                          3 if big else 10, warmup=1),
+        }
+        rec["library_ms"] = {"fwd": cuda_ms(lib_fwd, 20), "bwd": cuda_ms(lib_bwd, 20)}
+        rec["library"] = ("gather dispatch's composed form on the same routing: "
+                          "2 x torch.bmm over (E, cap, d) with bias and tanh gelu; bwd its autograd")
+        bounds = moe_gmm_bounds(n, d, h, ne, k_rows, dname)
+        rec["bound_ms"] = {k: v[0] for k, v in bounds.items()}
+        rec["bound_by"] = {k: v[1] for k, v in bounds.items()}
+        tol = GMM_GRAD_TOL[dname]
+        rec["ok"] = (
+            all(r["finite"] and r["atol_share_needed"] <= atol_share < r["fault_atol_share_needed"]
+                for r in (rec["fwd"], rec["dx"]))
+            and rec["dropped_rows_exact_zero"] and bitwise
+            and max(rec["dw_errors"]) <= tol < max(rec["dw_fault_shifted_start"])
+            and tol < max(rec["dw_fault_row_tile"])
+            and all(bool(torch.isfinite(g).all()) for g in dw)
+        )
+        out.append(rec)
+        del xs, dy, w1, b1, w2, b2, y, dx, dw, replay, want_y, want_dx, want_dw, dy_tile
+        del lib_fwd, lib_bwd
+        torch.cuda.empty_cache()
+    return out
+
+
+SERVE_MOE_ARGV = [
+    "--serve", "--model", "vit_moe", "--amp",
+    "--serve-buckets", "1,2,4,8,16,32", "--serve-shape", "closed",
+    "--serve-requests", "256", "--serve-concurrency", "32", "--seed", "0",
+]
+MOE_COUNTERS = ("grouped_ffn_fwd", "grouped_ffn_dx", "grouped_ffn_dw")
+
+
+def _moe_path_counters(gm, vb, attn) -> dict:
+    """Every kernel counter of the port: the MoE kernels' and the ones the
+    vit_moe paths must not launch."""
+    return {**{n: getattr(gm, n) for n in MOE_COUNTERS}, **_tiny_counters(vb, attn)}
+
+
+def _kernel_device_ms(by_name: dict, fragment: str) -> float:
+    return sum(ms for name, ms in by_name.items() if fragment in name)
+
+
+def moe_layer_profile(engine, images) -> dict:
+    """Device time of block 0's MoE layer alone on its input for the
+    bucket-32 ``images``, split into K7 and the rest (routing: the fp32 router,
+    softmax, argmax, one-hot and cumsums; permutation: the row scatter and
+    gather and the gate multiply) or, under gather, the cuBLAS GEMMs and
+    the rest."""
+    import torch
+
+    moe = engine.model.blocks[0].moe
+    seen = []
+    handle = moe.register_forward_pre_hook(lambda mod, args: seen.append(args[0]))
+    try:
+        engine.predict_logits(images)
+    finally:
+        handle.remove()
+    h = seen[-1]
+    with torch.inference_mode():
+        prof = profile_device(lambda: moe(h), 20)
+    names = prof["device_ms_by_name"]
+    k7 = _kernel_device_ms(names, "moe_gmm_fwd_kernel")
+    gemm = sum(ms for n, ms in names.items()
+               if any(t in n.lower() for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "device_busy_ms": prof["device_busy_ms"],
+        "k7_ms": k7, "cublas_gemm_ms": gemm,
+        "routing_and_permutation_ms": prof["device_busy_ms"] - k7 - gemm,
+        "top_device_ms": {n[:60]: ms for n, ms in top},
+    }
+
+
+@contextlib.contextmanager
+def shifted_k7(gm):
+    """K7 launched with the first non-empty expert past expert 0 starting a
+    row late (the moe_gmm_checks fault), in every call while the context
+    lasts; these launches are not the path's."""
+    real = gm.grouped_ffn_fwd
+
+    def shifted(xs, w1, b1, w2, b2, starts, cap):
+        st = starts.tolist()
+        e = next(e for e in range(1, len(st) - 1) if st[e + 1] > st[e])
+        starts = starts.clone()
+        starts[e] += 1
+        return real(xs, w1, b1, w2, b2, starts, cap)
+
+    # the wrapper counts into the module name it runs under, which is now
+    # ``shifted``: these launches stay off the path's counter
+    shifted.launches = 0
+    gm.grouped_ffn_fwd = shifted
+    try:
+        yield
+    finally:
+        gm.grouped_ffn_fwd = real
+
+
+def serve_moe_phase(gm, vb, attn) -> dict:
+    """``vit_moe`` served through ``entry.run``: every block of every
+    dispatched batch through K7 and no flash, K5 or K6 kernel; the bucket-32
+    logits against the same weights under ``--moe-dispatch gather``; one
+    bucket-32 dispatch timed under gmm and gather, profiled, and the MoE
+    layer's device time split."""
+    import numpy as np
+
+    from distributed_training_comparison_tpu_torch import entry
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.serve import build_engine, request_pool
+
+    counters = _moe_path_counters(gm, vb, attn)
+    for c in counters.values():
+        c.launches = 0
+    report = entry.run(SERVE_MOE_ARGV)
+    launches = {name: c.launches for name, c in counters.items()}
+
+    # the same seeded weights under gmm (auto, bf16) and under gather, one
+    # padded batch of 32: the first block routes the same tokens by
+    # construction, and K7 and the gather's cuBLAS GEMMs accumulate each
+    # product in fp32 and round at the same points, so later blocks see the
+    # same inputs unless a summation order flips a bf16 rounding that sends
+    # a near-tie token to another expert.  At this seed none does: the
+    # bound, 2^-10 of the largest logit, is set from that reading.  The
+    # planted fault (every K7 launch with one expert's start a row late:
+    # one token a block takes the wrong expert or none) must exceed it.
+    hp = load_config(SERVE_MOE_ARGV)
+    images = request_pool(32, image_size=hp.image_size, seed=hp.seed, fold=("check", 0))
+    engines = {"gmm": build_engine(hp),
+               "gather": build_engine(load_config(SERVE_MOE_ARGV + ["--moe-dispatch", "gather"]))}
+    rec = {}
+    for name, eng in engines.items():
+        before = gm.grouped_ffn_fwd.launches
+        rec[f"logits_{name}"] = eng.predict_logits(images)
+        rec[f"k7_launches_{name}"] = gm.grouped_ffn_fwd.launches - before
+    with shifted_k7(gm):
+        fault = engines["gmm"].predict_logits(images)
+    got, want = rec.pop("logits_gmm"), rec.pop("logits_gather")
+    scale = float(np.abs(want).max())
+    rec.update({
+        "logits_finite": bool(np.isfinite(got).all() and np.isfinite(want).all()),
+        "logits_max_abs_err_vs_gather": float(np.abs(got - want).max()),
+        "logits_scale": scale, "logits_tol": 2**-10 * scale,
+        "fault_logits_max_abs_err_vs_gather": float(np.abs(fault - want).max()),
+    })
+    for rnd in ("", "_again"):
+        for name, eng in engines.items():
+            eng.predict_logits(images)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                eng.predict_logits(images)
+            rec[f"bucket32_batch_ms_{name}{rnd}"] = (time.perf_counter() - t0) / 5 * 1e3
+    prof = profile_device(lambda: engines["gmm"].predict_logits(images), 5)
+    k7 = _kernel_device_ms(prof["device_ms_by_name"], "moe_gmm_fwd_kernel")
+    top = sorted(prof["device_ms_by_name"].items(), key=lambda kv: -kv[1])[:8]
+    rec["bucket32_profile_gmm"] = {
+        "wall_ms_per_batch": prof["wall_ms"],
+        "device_busy_ms_per_batch": prof["device_busy_ms"],
+        "device_idle_share": prof["device_idle_share"],
+        "k7_device_ms_per_batch": k7,
+        "k7_share_of_device_busy": k7 / prof["device_busy_ms"],
+        "top_device_ms_per_batch": {n[:60]: ms for n, ms in top},
+    }
+    rec["moe_layer_profile"] = {name: moe_layer_profile(eng, images) for name, eng in engines.items()}
+    depth = len(engines["gmm"].model.blocks)
+    del engines
+    return {
+        "phase": "serve_moe",
+        "argv": SERVE_MOE_ARGV,
+        "offered": report["offered"],
+        "completed": report["completed"],
+        "failed": report["failed"],
+        "shed": report["shed"],
+        "expired": report["expired"],
+        "throughput_rps": report["throughput_rps"],
+        "p50_ms": report["latency_ms"]["p50"],
+        "p99_ms": report["latency_ms"]["p99"],
+        "duration_s": report["duration_s"],
+        "bucket_counts": report["engine"]["bucket_counts"],
+        "engine_batches": sum(report["engine"]["bucket_counts"].values()),
+        "mean_batch_size": report["batcher"]["mean_batch_size"],
+        "mean_service_ms": report["batcher"]["mean_service_ms"],
+        "depth": depth,
+        "launches": launches,
+        "bucket32": rec,
+    }
+
+
+def check_serve_moe(serve: dict) -> None:
+    if serve["completed"] != serve["offered"] or serve["failed"]:
+        raise RuntimeError(f"serve_moe lost requests: {serve}")
+    want = {n: 0 for n in serve["launches"]}
+    want["grouped_ffn_fwd"] = serve["depth"] * serve["engine_batches"]
+    if serve["launches"] != want:
+        raise RuntimeError(f"serve_moe launches {serve['launches']}, expected {want}")
+    rec = serve["bucket32"]
+    if (rec["k7_launches_gmm"], rec["k7_launches_gather"]) != (serve["depth"], 0):
+        raise RuntimeError(f"serve_moe bucket-32 batch: launches {rec}")
+    if not rec["logits_finite"] or rec["logits_max_abs_err_vs_gather"] > rec["logits_tol"]:
+        raise RuntimeError(f"serve_moe: gmm logits disagree with gather: {rec}")
+    if not rec["fault_logits_max_abs_err_vs_gather"] > rec["logits_tol"]:
+        raise RuntimeError(f"serve_moe: the planted K7 fault passes the logits bound: {rec}")
+
+
+TRAIN_MOE_ARGV = [
+    "--model", "vit_moe", "--amp", "--synthetic-data", "--batch-size", "256",
+    "--limit-examples", "2560", "--epoch", "2", "--lr-decay-step-size", "1",
+]
+# One train step of vit_moe through K7-K9 (K, --moe-dispatch gmm) against
+# the same seeded weights and batch through --moe-dispatch gather (R: cuBLAS
+# batched GEMMs under autograd) and against P: the same autograd Function
+# with the kernels' plain versions.  precision -> (argv edit, loss bound
+# relative, bound on K vs R, bound on K vs P), gradient bounds as relative
+# L2 per parameter.  The three round at the same points and differ by
+# summation order; in bf16 that flips a rounded element by one ulp here and
+# there, and a router downstream of a flip may send a near-tie token to
+# another expert, which moves that token's share of two experts' gradients
+# (P's products are fp32 SGEMMs, so it flips where K and R do not).  So
+# bf16 holds both to 2^-4 of each whole parameter, and its loss, which only
+# sees the forward, to 2^-6.  fp32 differs by summation order only (a flip
+# needs a router input within ~1e-7 of a tie, and at this seed none is):
+# 2^-13 on the loss and the gradients, the vit_tiny step's fp32 bound.
+# The planted fault (P with every block's K9 walk missing the first 64-row
+# tile of every expert's group: 512 of 16384 rows) must exceed both
+# gradient bounds; in fp32 so must the TF32 control (P with the kernels'
+# operands rounded to TF32, as a gmm path that lost fp32 would compute).
+# Batch 256, the train command's.  precision -> (argv edit, loss bound,
+# K vs R bound, K vs P bound, run the TF32 control).
+MOE_STEP_CHECKS = {
+    "bf16": (lambda argv: argv, 2**-6, 2**-4, 2**-4, False),
+    "fp32": (lambda argv: [a for a in argv if a != "--amp"], 2**-13, 2**-13, 2**-13, True),
+}
+
+
+def tf32(t):
+    """``t`` (fp32) rounded to TF32's 10-bit mantissa, to nearest even."""
+    import torch
+
+    bits = t.contiguous().view(torch.int32)
+    bits = (bits + 0x0FFF + ((bits >> 13) & 1)) & ~0x1FFF
+    return bits.view(t.dtype)
+
+
+def plain_moe_kernels(gm, fault: bool, operands=None):
+    """Context that swaps K7, K8 and K9 for their plain versions (the
+    autograd Function stays).  ``fault`` leaves the first 64-row tile of
+    every expert's kept rows out of every K9 walk; ``operands`` (e.g.
+    :func:`tf32`) is applied to xs, dy, w1 and w2 before each plain call."""
+    saved = tuple(getattr(gm, n) for n in MOE_COUNTERS)
+    op = operands or (lambda t: t)
+
+    def fwd(xs, w1, b1, w2, b2, starts, cap):
+        return gm.grouped_ffn_reference(op(xs), op(w1), b1, op(w2), b2, starts, cap)
+
+    def dx(xs, dy, w1, b1, w2, starts, cap):
+        return gm.grouped_ffn_dx_reference(op(xs), op(dy), op(w1), b1, op(w2), starts, cap)
+
+    def dw(xs, dy, w1, b1, w2, starts, cap):
+        if fault:
+            dy = dy.clone()
+            for lo, hi in gm.kept_ranges(starts, cap, xs.shape[0]):
+                dy[lo:min(lo + 64, hi)] = 0
+        return gm.grouped_ffn_dw_reference(op(xs), op(dy), op(w1), b1, op(w2), starts, cap)
+
+    @contextlib.contextmanager
+    def swapped():
+        gm.grouped_ffn_fwd, gm.grouped_ffn_dx, gm.grouped_ffn_dw = fwd, dx, dw
+        try:
+            yield
+        finally:
+            gm.grouped_ffn_fwd, gm.grouped_ffn_dx, gm.grouped_ffn_dw = saved
+
+    return swapped()
+
+
+def moe_step_check(gm, precision: str) -> dict:
+    import torch
+
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.data import get_datasets
+    from distributed_training_comparison_tpu_torch.train import build_model, forward_backward
+    from distributed_training_comparison_tpu_torch.train.step import COMPUTE_DTYPES
+
+    edit, loss_tol, ref_tol, plain_tol, control = MOE_STEP_CHECKS[precision]
+    hp = load_config(edit(TRAIN_MOE_ARGV) + ["--moe-dispatch", "gmm"])
+    hp_ref = load_config(edit(TRAIN_MOE_ARGV) + ["--moe-dispatch", "gather"])
+    images, labels = get_datasets(hp)[0]
+    images = torch.from_numpy(images[:hp.batch_size]).cuda()
+    labels = torch.from_numpy(labels[:hp.batch_size]).long().cuda()
+    counters = tuple(getattr(gm, n) for n in MOE_COUNTERS)
+    torch.manual_seed(hp.seed)
+    state = build_model(hp).state_dict()
+    runs = {}
+    variants = [
+        ("kernel", hp, None), ("reference", hp_ref, None),
+        ("plain", hp, lambda: plain_moe_kernels(gm, fault=False)),
+        ("fault", hp, lambda: plain_moe_kernels(gm, fault=True)),
+    ]
+    if control:
+        variants.append(("tf32", hp, lambda: plain_moe_kernels(gm, fault=False, operands=tf32)))
+    for name, h, swap in variants:
+        model = build_model(h)
+        model.load_state_dict(state)
+        model = model.cuda()
+        before = [c.launches for c in counters]
+        with swap() if swap else contextlib.nullcontext():
+            loss, _, extras = forward_backward(
+                model, images, labels, compute_dtype=COMPUTE_DTYPES[h.precision]
+            )
+            torch.cuda.synchronize()
+        runs[name] = {
+            "loss": loss.item(),
+            "health": {k: v.item() for k, v in extras.items()},
+            "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            "launches": [c.launches - n for c, n in zip(counters, before)],
+            "depth": len(model.blocks),
+        }
+        del model, loss
+        torch.cuda.empty_cache()
+    ref, plain = runs["reference"]["grads"], runs["plain"]["grads"]
+    controls = ("fault", "tf32") if control else ("fault",)
+    errors = {name: grad_errors(runs[name]["grads"], ref) for name in ("kernel", "plain", *controls)}
+    errors["kernel_vs_plain"] = grad_errors(runs["kernel"]["grads"], plain)
+    for name in controls:
+        errors[f"{name}_vs_plain"] = grad_errors(runs[name]["grads"], plain)
+    worst = {name: max(e.values()) for name, e in errors.items()}
+    finite = all(bool(torch.isfinite(g).all()) for g in runs["kernel"]["grads"].values())
+    loss_ref = runs["reference"]["loss"]
+    loss_err = abs(runs["kernel"]["loss"] - loss_ref) / abs(loss_ref)
+    depth = runs["kernel"]["depth"]
+    return {
+        "precision": precision, "batch": hp.batch_size,
+        "loss_kernel": runs["kernel"]["loss"], "loss_reference": loss_ref,
+        "loss_plain": runs["plain"]["loss"], "loss_rel_err": loss_err, "loss_tol": loss_tol,
+        "health_kernel": runs["kernel"]["health"], "health_reference": runs["reference"]["health"],
+        "grad_rel_l2_tol": ref_tol,
+        "grad_rel_l2_max": worst["kernel"], "grad_rel_l2_worst": _worst(errors["kernel"]),
+        "plain_grad_rel_l2_max": worst["plain"],
+        "kernel_vs_plain_tol": plain_tol,
+        "kernel_vs_plain_grad_rel_l2_max": worst["kernel_vs_plain"],
+        "kernel_vs_plain_worst": _worst(errors["kernel_vs_plain"]),
+        **{f"{name}_grad_rel_l2_max": worst[name] for name in controls},
+        **{f"{name}_vs_plain_grad_rel_l2_max": worst[f"{name}_vs_plain"] for name in controls},
+        "router_grad_rel_l2_max": max(v for k, v in errors["kernel"].items() if ".router." in k),
+        "grads_finite": finite,
+        "launches_kernel": runs["kernel"]["launches"],
+        "launches_reference": runs["reference"]["launches"],
+        "launches_plain": runs["plain"]["launches"],
+        "depth": depth,
+        "ok": (
+            finite and loss_err <= loss_tol
+            and worst["kernel"] <= ref_tol and worst["kernel_vs_plain"] <= plain_tol
+            and all(ref_tol < worst[c] and plain_tol < worst[f"{c}_vs_plain"] for c in controls)
+            and runs["kernel"]["launches"] == [depth] * 3
+            and runs["reference"]["launches"] == [0, 0, 0]
+            and runs["plain"]["launches"] == [0, 0, 0]
+        ),
+    }
+
+
+def moe_step_times(reps: int = 5) -> dict:
+    """ms per train step of the train command's trainer under gmm (auto)
+    and ``--moe-dispatch gather``, in turns (gmm, gather, gmm, gather), and
+    a profile of two gmm steps: K7, K8 and K9's device ms and shares, and
+    the idle share."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.data import draw_crop_flip
+    from distributed_training_comparison_tpu_torch.train import Trainer
+    from distributed_training_comparison_tpu_torch.utils import step_generator
+
+    trainers = {
+        "gmm": Trainer(load_config(TRAIN_MOE_ARGV)),
+        "gather": Trainer(load_config(TRAIN_MOE_ARGV + ["--moe-dispatch", "gather"])),
+    }
+    hp = trainers["gmm"].hparams
+    images, labels = next(trainers["gmm"].train_split.epoch_batches(hp.batch_size, hp.seed, 0))
+    draws = draw_crop_flip(len(labels), step_generator(hp.seed, 0, 0))
+    out = {}
+    for rnd in ("", "_again"):
+        for name, tr in trainers.items():
+            tr.step(images, labels, draws)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                tr.step(images, labels, draws)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / reps * 1e3
+            out[f"ms_per_step_{name}{rnd}"] = ms
+            out[f"images_per_s_{name}{rnd}"] = hp.batch_size / ms * 1e3
+    for name, tr in trainers.items():
+        prof = profile_device(lambda: tr.step(images, labels, draws), 2)
+        names = prof["device_ms_by_name"]
+        kernels = {k: _kernel_device_ms(names, f"moe_gmm_{k}_kernel") for k in ("fwd", "dx", "dw")}
+        gemm = sum(ms for n, ms in names.items()
+                   if any(t in n.lower() for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+        out[f"profile_{name}"] = {
+            "wall_ms_per_step": prof["wall_ms"],
+            "device_busy_ms_per_step": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "moe_kernels_device_ms_per_step": kernels,
+            "moe_kernels_share_of_busy": sum(kernels.values()) / prof["device_busy_ms"],
+            "cublas_gemm_device_ms_per_step": gemm,
+            "top_device_ms_per_step": {n[:60]: ms for n, ms in top},
+        }
+    del trainers
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_moe_phase(gm, vb, attn, smi: str) -> dict:
+    """``vit_moe`` trained through ``entry.run`` (bf16, batch 256, 18
+    steps): every block's forward through K7 and backward through K8 and
+    K9, the counters zeroed just before and read just after; every loss
+    finite, no step skipped, the routing health reported; one step's loss
+    and gradients against ``--moe-dispatch gather`` and the plain kernels
+    (bf16 and fp32); ms per step under gmm and gather, and a step profile."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch import entry
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.data import get_datasets
+
+    counters = _moe_path_counters(gm, vb, attn)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = entry.run(TRAIN_MOE_ARGV)
+    seconds = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hp = load_config(TRAIN_MOE_ARGV)
+    epochs = report["fit"]["epochs"]
+    val_examples = len(get_datasets(hp)[1][1])
+    last = epochs[-1]
+    checks = {p: moe_step_check(gm, p) for p in MOE_STEP_CHECKS}
+    return {
+        "phase": "train_moe",
+        "nvidia_smi": smi,
+        "argv": TRAIN_MOE_ARGV,
+        "run_seconds": seconds,
+        "train_steps": sum(e["steps"] for e in epochs),
+        "eval_batches": len(epochs) * math.ceil(val_examples / hp.batch_size),
+        "depth": checks["bf16"]["depth"],
+        "launches": launches,
+        "losses_finite": all(e["nonfinite_losses"] == 0 for e in epochs),
+        "skipped_steps": sum(e["skipped"] for e in epochs),
+        "routing_health_reported": all(
+            math.isfinite(e.get("moe_dropped_frac", math.nan))
+            and math.isfinite(e.get("moe_load_max", math.nan)) for e in epochs
+        ),
+        "epochs": epochs,
+        "peak_memory_gb": peak_gb,
+        "last_epoch_images_per_s": last["images_per_s"],
+        "last_epoch_ms_per_step": last["seconds"] / last["steps"] * 1e3,
+        "step_checks": checks,
+        "step_times": moe_step_times(),
+    }
+
+
+def check_train_moe(train: dict) -> None:
+    depth, steps = train["depth"], train["train_steps"]
+    want = {n: 0 for n in train["launches"]}
+    want["grouped_ffn_fwd"] = depth * (steps + train["eval_batches"])
+    want["grouped_ffn_dx"] = want["grouped_ffn_dw"] = depth * steps
+    if train["launches"] != want:
+        raise RuntimeError(f"train_moe launches {train['launches']}, expected {want}")
+    if not train["losses_finite"] or train["skipped_steps"]:
+        raise RuntimeError("train_moe: a non-finite loss or a skipped step")
+    if not train["routing_health_reported"]:
+        raise RuntimeError("train_moe: moe_dropped_frac / moe_load_max missing from the epochs")
+    bad = {p: c for p, c in train["step_checks"].items() if not c["ok"]}
+    if bad:
+        raise RuntimeError(f"a vit_moe train step through K7-K9 disagrees: {bad}")
+
+
 def main() -> int:
     if not (ROOT / PKG).is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
@@ -1770,6 +2419,7 @@ def main() -> int:
     # the module, not the ``attention`` function the package re-exports
     attn = importlib.import_module(f"{PKG}.ops.attention")
     vb = importlib.import_module(f"{PKG}.ops.vit_block")
+    gm = importlib.import_module(f"{PKG}.ops.moe_gmm")
 
     t0 = time.monotonic()
     paths = _build.build_all()
@@ -1860,6 +2510,20 @@ def main() -> int:
     tiny_train = train_tiny_phase(vb, attn, smi)
     emit(tiny_train)
     check_train_tiny(tiny_train)
+
+    moe_checks = moe_gmm_checks(gm)
+    emit({"phase": "moe_gmm_checks", "nvidia_smi": smi, "checks": moe_checks})
+    bad = [c["case"] for c in moe_checks if not c["ok"]]
+    if bad:
+        raise RuntimeError(f"the grouped expert FFN kernels disagree with the plain versions: {bad}")
+
+    serve_moe = serve_moe_phase(gm, vb, attn)
+    emit(serve_moe)
+    check_serve_moe(serve_moe)
+
+    train_moe = train_moe_phase(gm, vb, attn, smi)
+    emit(train_moe)
+    check_train_moe(train_moe)
 
     csrc = f"{PKG}/ops/csrc"
     replaces = {
@@ -1989,6 +2653,54 @@ def main() -> int:
                 "ms": case["kernel_ms"][name],
                 "bound_ms": case["bound_ms"][name], "bound_by": case["bound_by"][name],
             })
+    # K7-K9: per case, one entry per kernel.  ``launches`` is K7's count on
+    # the serve_moe path (``launches_train`` on train_moe) and K8's and K9's
+    # on the train_moe path.  K8 and K9 share the library yardstick: the
+    # composed form's whole autograd backward.
+    moe_src = {"fwd": "moe_gmm_fwd.cu", "dx": "moe_gmm_bwd.cu", "dw": "moe_gmm_bwd.cu"}
+    moe_body = {"fwd": 71, "dx": 114, "dw": 144}
+    moe_regime = {"fwd": "K7", "dx": "K8", "dw": "K9"}
+    moe_launches = {
+        "fwd": serve_moe["launches"]["grouped_ffn_fwd"],
+        "dx": train_moe["launches"]["grouped_ffn_dx"],
+        "dw": train_moe["launches"]["grouped_ffn_dw"],
+    }
+    for case in moe_checks:
+        for k in ("fwd", "dx", "dw"):
+            entry = {
+                "name": f"moe_gmm_{k}", "route": "cuda", "source": f"{csrc}/{moe_src[k]}",
+                "replaces": f"distributed_training_comparison_tpu/ops/moe_gmm.py:{moe_body[k]}",
+                "regime": moe_regime[k], "case": case["case"], "dtype": case["dtype"],
+                "n_cap_experts_dim_hidden": [case["n"], case["cap"], case["experts"],
+                                             case["dim"], case["hidden"]],
+                "kept_rows": case["kept_rows"],
+                "launches": moe_launches[k],
+                "launches_counted": ("serve_moe main path" if k == "fwd" else "train_moe main path")
+                + ", one counter for every case",
+                "ms": case["ms"][k], "plain_ms": case["plain_ms"][k],
+                "bound_ms": case["bound_ms"][k], "bound_by": case["bound_by"][k],
+                "library_ms": case["library_ms"]["fwd" if k == "fwd" else "bwd"],
+                "library": case["library"],
+                "bit_identical_across_calls": case["bit_identical_across_calls"],
+                "dropped_rows_exact_zero": case["dropped_rows_exact_zero"],
+            }
+            if k == "fwd":
+                entry["launches_train"] = train_moe["launches"]["grouped_ffn_fwd"]
+            if k == "dw":
+                entry.update({
+                    "max_abs_err": case["dw_max_abs_err"], "grad_rel_l2_max": max(case["dw_errors"]),
+                    "grad_tol": case["grad_tol"],
+                    "fault_shifted_start_rel_l2_max": max(case["dw_fault_shifted_start"]),
+                    "fault_row_tile_rel_l2_max": max(case["dw_fault_row_tile"]),
+                })
+            else:
+                agree = case[k]
+                entry.update({
+                    "max_abs_err": agree["max_abs_err"], "atol_share": case["atol_share"],
+                    "rtol": case["rtol"], "atol_share_needed": agree["atol_share_needed"],
+                    "fault_atol_share_needed": agree["fault_atol_share_needed"],
+                })
+            kernels.append(entry)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,5 +10,6 @@ on the card unless the caller asks for the CPU.
 Ported so far: training and serving the ViT family on one card
 (``python -m distributed_training_comparison_tpu_torch --model vit_long
 --image-size 256 --amp --synthetic-data``, and the same with ``--serve``),
-with the flash-attention forward and backward kernels.
+with the flash-attention forward and backward kernels, the fused ViT block
+chains, and ``vit_moe`` with the grouped expert FFN kernels.
 """

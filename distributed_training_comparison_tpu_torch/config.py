@@ -68,6 +68,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Image edge length (synthetic data and requests; vit_long: 256)")
     p.add_argument("--patch-size", type=int, default=0,
                    help="ViT patch size override (0 = model default)")
+    p.add_argument("--moe-dispatch", type=str, default="auto",
+                   choices=["auto", "gmm", "gather", "onehot"],
+                   help="MoE token dispatch (vit_moe): 'gmm' = the grouped expert FFN "
+                   "over expert-sorted tokens (the CUDA K7-K9 kernels; their plain "
+                   "versions on the CPU); 'gather' = sort/scatter/gather with batched "
+                   "GEMMs; 'onehot' = GShard dispatch/combine contractions; 'auto' "
+                   "(default) = gmm on the card when the experts' weights fit the JAX "
+                   "package's budget (bf16 vit_moe), else gather")
     p.add_argument("--block-fusion", type=str, default="auto",
                    choices=["auto", "force", "off"],
                    help="Fused ViT block (the CUDA K5 forward and K6 backward chains): "

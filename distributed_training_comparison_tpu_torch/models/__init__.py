@@ -1,25 +1,25 @@
-"""Model zoo of the port: the ViT family.
+"""Model zoo of the port: the ViT family, ``vit_moe`` included.
 
-``get_model`` resolves the JAX package's zoo names.  The ResNet family and
-``vit_moe`` are not ported yet and raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+``get_model`` resolves the JAX package's zoo names.  The ResNet family is
+not ported yet and raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.
 """
 
 from .from_jax import VitPortError, vit_from_jax
-from .vit import ViT, ViTBlock, ViTLong, ViTSmall, ViTTiny
+from .moe import SwitchFFN
+from .vit import ViT, ViTBlock, ViTLong, ViTMoE, ViTSmall, ViTTiny
 
-_ZOO = {"vit_tiny": ViTTiny, "vit_small": ViTSmall, "vit_long": ViTLong}
+_ZOO = {
+    "vit_tiny": ViTTiny, "vit_small": ViTSmall, "vit_long": ViTLong, "vit_moe": ViTMoE,
+}
 _NOT_PORTED = {
-    **{
-        name: "ROADMAP.md queue 1, 'ResNet-18 training' (models/resnet.py)"
-        for name in ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")
-    },
-    "vit_moe": "ROADMAP.md queue 1, 'vit_moe' (models/moe.py, kernels K7-K9)",
+    name: "ROADMAP.md queue 1, 'ResNet-18 training' (models/resnet.py)"
+    for name in ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")
 }
 
 
 def get_model(name: str, **kwargs):
-    """Build a zoo model by CLI name (e.g. ``"vit_long"``)."""
+    """Build a zoo model by CLI name (e.g. ``"vit_moe"``)."""
     key = name.lower()
     if key in _NOT_PORTED:
         raise NotImplementedError(
@@ -35,6 +35,6 @@ def get_model(name: str, **kwargs):
 
 
 __all__ = [
-    "ViT", "ViTBlock", "ViTLong", "ViTSmall", "ViTTiny",
+    "SwitchFFN", "ViT", "ViTBlock", "ViTLong", "ViTMoE", "ViTSmall", "ViTTiny",
     "VitPortError", "get_model", "vit_from_jax",
 ]

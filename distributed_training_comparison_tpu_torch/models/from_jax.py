@@ -7,7 +7,10 @@ imports no JAX) and returns the port ``ViT``'s ``state_dict``:
 - the scanned trunk's leading ``depth`` axis splits into ``blocks.{i}``;
 - dense kernels go (in, out) → (out, in), the patch-embed conv kernel
   HWIO → OIHW;
-- LayerNorm ``scale`` becomes ``weight``.
+- LayerNorm ``scale`` becomes ``weight``;
+- an MoE trunk (``blocks/moe``) has no ``mlp_up``/``mlp_down``: its router
+  kernel goes (in, out) → (out, in) like a dense kernel, and the expert
+  stacks ``w_up``, ``b_up``, ``w_down``, ``b_down`` keep their JAX layouts.
 
 Every leaf's shape is checked against the ViT its widths describe, and a
 missing or left-over leaf raises, so a structural mismatch fails loudly
@@ -22,6 +25,12 @@ import numpy as np
 import torch
 
 _DENSE = ("q_proj", "k_proj", "v_proj", "proj", "mlp_up", "mlp_down")
+_EXPERTS = ("w_up", "b_up", "w_down", "b_down")
+
+
+def _dense_names(flat: dict) -> tuple[str, ...]:
+    """The trunk's dense layers: an MoE trunk has no MLP pair."""
+    return _DENSE[:4] if "blocks/moe/w_up" in flat else _DENSE
 
 
 class VitPortError(ValueError):
@@ -51,7 +60,8 @@ def _expected_shapes(flat: dict[str, np.ndarray]) -> dict[str, tuple]:
         raise VitPortError(f"'pos_emb' must be (1, S, dim), got {pos.shape}")
     tokens, dim = pos.shape[1:]
     depth = leaf("blocks/ln_attn/scale").shape[0]
-    hidden = leaf("blocks/mlp_up/kernel").shape[-1]
+    moe = "blocks/moe/w_up" in flat
+    hidden = leaf("blocks/moe/w_up" if moe else "blocks/mlp_up/kernel").shape[-1]
     patch = leaf("patch_embed/kernel").shape[0]
     classes = leaf("head/kernel").shape[-1]
     shapes = {
@@ -66,10 +76,20 @@ def _expected_shapes(flat: dict[str, np.ndarray]) -> dict[str, tuple]:
     for ln in ("ln_attn", "ln_mlp"):
         shapes[f"blocks/{ln}/scale"] = shapes[f"blocks/{ln}/bias"] = (depth, dim)
     fan = {"mlp_up": (dim, hidden), "mlp_down": (hidden, dim)}
-    for name in _DENSE:
+    for name in _dense_names(flat):
         fin, fout = fan.get(name, (dim, dim))
         shapes[f"blocks/{name}/kernel"] = (depth, fin, fout)
         shapes[f"blocks/{name}/bias"] = (depth, fout)
+    if moe:
+        experts = flat["blocks/moe/w_up"].shape[1]
+        shapes.update({
+            "blocks/moe/router/kernel": (depth, dim, experts),
+            "blocks/moe/router/bias": (depth, experts),
+            "blocks/moe/w_up": (depth, experts, dim, hidden),
+            "blocks/moe/b_up": (depth, experts, hidden),
+            "blocks/moe/w_down": (depth, experts, hidden, dim),
+            "blocks/moe/b_down": (depth, experts, dim),
+        })
     return shapes
 
 
@@ -103,7 +123,12 @@ def vit_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
         for ln in ("ln_attn", "ln_mlp"):
             sd[f"blocks.{i}.{ln}.weight"] = t(flat[f"blocks/{ln}/scale"][i])
             sd[f"blocks.{i}.{ln}.bias"] = t(flat[f"blocks/{ln}/bias"][i])
-        for name in _DENSE:
+        for name in _dense_names(flat):
             sd[f"blocks.{i}.{name}.weight"] = t(flat[f"blocks/{name}/kernel"][i].T)
             sd[f"blocks.{i}.{name}.bias"] = t(flat[f"blocks/{name}/bias"][i])
+        if "blocks/moe/w_up" in flat:
+            sd[f"blocks.{i}.moe.router.weight"] = t(flat["blocks/moe/router/kernel"][i].T)
+            sd[f"blocks.{i}.moe.router.bias"] = t(flat["blocks/moe/router/bias"][i])
+            for name in _EXPERTS:
+                sd[f"blocks.{i}.moe.{name}"] = t(flat[f"blocks/moe/{name}"][i])
     return sd

@@ -21,6 +21,13 @@ blocks at 128-512 tokens whose weights fit the JAX package's budget,
 ``"force"`` also on the CPU through its plain versions, ``"off"`` always
 composes.  Training and inference take the same path, as in the JAX
 package.
+
+``num_experts > 0`` replaces every block's MLP with a Switch MoE FFN
+(``models/moe.py``, ``moe_dispatch`` choosing its dispatch); such a block
+always composes.  After a forward, :meth:`ViT.moe_aux_loss` is the summed
+load-balance loss of the blocks and :meth:`ViT.moe_health` their routing
+health, the port's form of the JAX model's sown ``losses`` and
+``moe_metrics`` collections.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from torch import nn
 from ..ops.attention import attention
 from ..ops.vit_block import fused_vit_block
 from ..ops.vmem import fits_weight_budget, fused_block_weight_bytes
+from .moe import SwitchFFN
 from .norms import LayerNorm
 
 BLOCK_FUSIONS = ("auto", "force", "off")
@@ -66,20 +74,23 @@ def block_fusion_path(
     mlp_ratio: int,
     dtype: torch.dtype,
     attn_impl: str,
+    num_experts: int = 0,
 ) -> tuple[str, str | None]:
     """The fused-block gate as a pure function: ``("fused" | "composed",
     the first reason the fused block was declined, or None)``.
 
-    The JAX package's conditions, in its order: ``attn_impl`` not pinned,
-    S and the head dim multiples of 8, 128 <= S <= 512, the weight budget of
-    ``ops/vmem.py``; then ``"auto"`` fuses on the card and ``"force"`` also
-    on the CPU.  Like the JAX gate it has no autograd input: a block that
+    The JAX package's conditions, in its order: a dense block (no experts),
+    ``attn_impl`` not pinned, S and the head dim multiples of 8,
+    128 <= S <= 512, the weight budget of ``ops/vmem.py``; then ``"auto"``
+    fuses on the card and ``"force"`` also on the CPU.  Like the JAX gate it has no autograd input: a block that
     trains takes the path it takes when it serves.
     """
     if block_fusion not in BLOCK_FUSIONS:
         raise ValueError(f"unknown block_fusion {block_fusion!r}")
     if block_fusion == "off":
         return "composed", None
+    if num_experts:
+        return "composed", "MoE block (the kernel has no expert FFN form)"
     hd = dim // heads
     if attn_impl != "auto":
         return "composed", f"attn_impl={attn_impl!r} pins attention"
@@ -114,7 +125,8 @@ class Dense(nn.Linear):
 class ViTBlock(nn.Module):
     """Pre-LN transformer block with separate q/k/v projections; the fused
     block (``ops.vit_block.fused_vit_block``) where :func:`block_fusion_path`
-    takes it, on the same parameters."""
+    takes it, on the same parameters.  ``num_experts > 0``: a Switch MoE FFN
+    (``moe``) in place of ``mlp_up``/``mlp_down``."""
 
     _SUBLAYERS = ("ln_attn", "q_proj", "k_proj", "v_proj", "proj", "ln_mlp", "mlp_up", "mlp_down")
 
@@ -127,6 +139,9 @@ class ViTBlock(nn.Module):
         norm_dtype: torch.dtype | None = torch.float32,
         attn_impl: str = "auto",
         block_fusion: str = "auto",
+        num_experts: int = 0,
+        capacity_factor: float = 1.25,
+        moe_dispatch: str = "auto",
     ) -> None:
         super().__init__()
         self.heads = heads
@@ -135,20 +150,26 @@ class ViTBlock(nn.Module):
         self.norm_f32 = norm_dtype is not None
         self.attn_impl = attn_impl
         self.block_fusion = block_fusion
+        self.num_experts = num_experts
         self.ln_attn = LayerNorm(dim, dtype, norm_dtype)
         self.q_proj = Dense(dim, dim, dtype)
         self.k_proj = Dense(dim, dim, dtype)
         self.v_proj = Dense(dim, dim, dtype)
         self.proj = Dense(dim, dim, dtype)
         self.ln_mlp = LayerNorm(dim, dtype, norm_dtype)
-        self.mlp_up = Dense(dim, mlp_ratio * dim, dtype)
-        self.mlp_down = Dense(mlp_ratio * dim, dim, dtype)
+        self.moe = None
+        if num_experts:
+            self.moe = SwitchFFN(dim, num_experts, mlp_ratio, capacity_factor, dtype,
+                                 dispatch=moe_dispatch)
+        else:
+            self.mlp_up = Dense(dim, mlp_ratio * dim, dtype)
+            self.mlp_down = Dense(mlp_ratio * dim, dim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, dim = x.shape
         path, declined = block_fusion_path(
             self.block_fusion, x.device.type, s, dim, self.heads, self.mlp_ratio,
-            self.dtype, self.attn_impl,
+            self.dtype, self.attn_impl, self.num_experts,
         )
         if self.block_fusion == "force" and declined:
             _warn_force_composed(declined)
@@ -167,6 +188,8 @@ class ViTBlock(nn.Module):
         v = self.v_proj(h).view(b, s, self.heads, hd)
         o = attention(q, k, v, impl=self.attn_impl, layout="bshd")
         x = x + self.proj(o.reshape(b, s, dim))
+        if self.moe is not None:
+            return x + self.moe(self.ln_mlp(x))
         h = F.gelu(self.mlp_up(self.ln_mlp(x)), approximate="tanh")
         return x + self.mlp_down(h)
 
@@ -190,6 +213,9 @@ class ViT(nn.Module):
         norm_dtype: torch.dtype | None = torch.float32,
         attn_impl: str = "auto",
         block_fusion: str = "auto",
+        num_experts: int = 0,
+        capacity_factor: float = 1.25,
+        moe_dispatch: str = "auto",
     ) -> None:
         super().__init__()
         if dim % heads:
@@ -208,7 +234,8 @@ class ViT(nn.Module):
         tokens = (image_size // patch) ** 2
         self.pos_emb = nn.Parameter(torch.zeros(1, tokens, dim))
         self.blocks = nn.ModuleList(
-            ViTBlock(dim, heads, mlp_ratio, dtype, norm_dtype, attn_impl, block_fusion)
+            ViTBlock(dim, heads, mlp_ratio, dtype, norm_dtype, attn_impl, block_fusion,
+                     num_experts, capacity_factor, moe_dispatch)
             for _ in range(depth)
         )
         self.ln_head = LayerNorm(dim, dtype, norm_dtype)
@@ -219,8 +246,9 @@ class ViT(nn.Module):
     def init_weights(self, generator: torch.Generator | None = None) -> None:
         """flax's initializers: xavier-uniform kernels (conv fans include
         the receptive field, as in flax), zero biases, LayerNorm scale 1,
-        ``pos_emb`` ~ N(0, 0.02).  ``generator`` seeds fresh weights; the
-        draws are torch's, not flax's, so only the distributions match."""
+        ``pos_emb`` ~ N(0, 0.02), and the MoE layers' own
+        (:meth:`SwitchFFN.init_weights`).  ``generator`` seeds fresh weights;
+        the draws are torch's, not flax's, so only the distributions match."""
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Conv2d)):
                 nn.init.xavier_uniform_(m.weight, generator=generator)
@@ -229,6 +257,8 @@ class ViT(nn.Module):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
         nn.init.normal_(self.pos_emb, std=0.02, generator=generator)
+        for m in self._moe_layers():  # the router is not xavier
+            m.init_weights(generator)
 
     def embed(self, x: torch.Tensor) -> torch.Tensor:
         """Images (B, H, W, 3) → tokens (B, S, dim) with position added."""
@@ -258,6 +288,28 @@ class ViT(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head_out(self.trunk(self.embed(x)))
 
+    def _moe_layers(self) -> list[SwitchFFN]:
+        return [blk.moe for blk in self.blocks if blk.moe is not None]
+
+    def moe_aux_loss(self) -> torch.Tensor | None:
+        """The last forward's load-balance loss summed over the MoE blocks
+        (the JAX train step's sum of the ``losses`` collection); None for a
+        dense model."""
+        layers = self._moe_layers()
+        return torch.stack([m.aux_loss for m in layers]).sum() if layers else None
+
+    def moe_health(self) -> dict[str, torch.Tensor]:
+        """The last forward's routing health per MoE block, as device
+        tensors: ``dropped_frac`` (depth,) and ``expert_load`` (depth, E);
+        empty for a dense model."""
+        layers = self._moe_layers()
+        if not layers:
+            return {}
+        return {
+            "dropped_frac": torch.stack([m.dropped_frac for m in layers]),
+            "expert_load": torch.stack([m.expert_load for m in layers]),
+        }
+
 
 def ViTTiny(**kw) -> ViT:
     return ViT(depth=12, dim=192, heads=3, **kw)
@@ -265,6 +317,16 @@ def ViTTiny(**kw) -> ViT:
 
 def ViTSmall(**kw) -> ViT:
     return ViT(depth=12, dim=384, heads=6, **kw)
+
+
+def ViTMoE(**kw) -> ViT:
+    """Switch-MoE config: a ViT-Tiny-width trunk of 8 blocks whose every FFN
+    is 8 experts behind a top-1 router."""
+    kw.setdefault("num_experts", 8)
+    kw.setdefault("depth", 8)
+    kw.setdefault("dim", 192)
+    kw.setdefault("heads", 3)
+    return ViT(**kw)
 
 
 def ViTLong(**kw) -> ViT:

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes plain C functions and compiles on its own
 into ``build/kernels/lib<name>-<hash>.so`` at the repository root.
-The hash covers the source and the compiler flags, so an edited source never
-loads a stale library.  A build starts on first use (or through
-:func:`build`) and writes through a temporary file that is renamed into
-place, so concurrent builds never see a half-written library.
+The hash covers the source, the shared headers (``csrc/*.cuh``) and the
+compiler flags, so an edited source never loads a stale library.  A build
+starts on first use (or through :func:`build`) and writes through a
+temporary file that is renamed into place, so concurrent builds never see a
+half-written library.
 :func:`build_all` runs one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module, and a
@@ -25,7 +26,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "vit_block_fwd", "vit_block_bwd")
+KERNELS = (
+    "flash_attention_fwd", "flash_attention_bwd", "vit_block_fwd", "vit_block_bwd",
+    "moe_gmm_fwd", "moe_gmm_bwd",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -54,6 +58,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where ``name``'s library lives for the current source and flags."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -51,7 +51,8 @@ log = logging.getLogger(__name__)
 def build_engine(hparams, attn_impl: str = "auto") -> ServeEngine:
     """A ``ServeEngine`` from a parsed flag namespace (``config.py``), with
     the JAX package's flag→model mapping: dtype from ``--precision`` /
-    ``--amp``, ViT image and patch sizing, the block-fusion policy.  Weights
+    ``--amp``, ViT image and patch sizing, the MoE dispatch, the
+    block-fusion policy.  Weights
     are a fresh initialization seeded by ``--seed`` (no checkpoint reading
     yet).  ``attn_impl`` pins the attention implementation, for holding the
     kernel path against the reference."""
@@ -61,6 +62,7 @@ def build_engine(hparams, attn_impl: str = "auto") -> ServeEngine:
         model_kw["image_size"] = hparams.image_size
         if hparams.patch_size:
             model_kw["patch"] = hparams.patch_size
+        model_kw["moe_dispatch"] = hparams.moe_dispatch
         model_kw["block_fusion"] = hparams.block_fusion
     return ServeEngine(
         model_name=hparams.model,

@@ -4,7 +4,10 @@
 Serving traffic is ragged; the engine owns a fixed ladder of batch-size
 buckets.  A ragged batch rounds up to the nearest bucket with zero rows,
 runs, and the padding is sliced back off; a batch above the largest bucket
-runs in chunks.  ``warmup()`` runs every bucket once.  Images travel to the
+runs in chunks.  Under ``vit_moe`` the padding rows' tokens are routed and
+take expert capacity, as on the TPU, so a request's logits depend on the
+bucket it rides in (and on its batch mates); compare them at one padded
+batch.  ``warmup()`` runs every bucket once.  Images travel to the
 device as uint8 and are normalized there in fp32, then cast to the compute
 dtype; logits come back fp32.
 

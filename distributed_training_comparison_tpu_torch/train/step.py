@@ -1,8 +1,11 @@
 """The train and eval steps (``distributed_training_comparison_tpu/train/step.py``).
 
 ``TrainStep`` is the JAX package's ``_make_step_core``: crop/flip →
-normalize → forward/backward → mean softmax cross-entropy → numerics guard
-→ SGD update, with ``--grad-accum`` micro-batches.  PyTorch runs it eagerly
+normalize → forward/backward → mean softmax cross-entropy plus an MoE
+model's load-balance loss → numerics guard → SGD update, with
+``--grad-accum`` micro-batches; an MoE model's routing health
+(``moe_dropped_frac``, ``moe_load_max``, as ``_moe_health``) comes back
+among the step's metrics.  PyTorch runs it eagerly
 and launches each kernel from the host; the JAX package's one compiled
 program per epoch would be a CUDA graph here, in a later change.
 ``eval_totals`` is the exact eval over padded batches (``_make_eval_core``).
@@ -23,6 +26,20 @@ from .optim import Schedule
 COMPUTE_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
+def moe_health(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The JAX ``_moe_health`` of the last forward: the mean dropped-token
+    fraction over the MoE blocks and the mean over blocks of the largest
+    expert load (1/E at perfect balance, 1 when the router collapses onto
+    one expert), as device scalars; empty for a dense model."""
+    health = model.moe_health() if hasattr(model, "moe_health") else {}
+    if not health:
+        return {}
+    return {
+        "moe_dropped_frac": health["dropped_frac"].mean(),
+        "moe_load_max": health["expert_load"].amax(-1).mean(),
+    }
+
+
 def forward_backward(
     model: torch.nn.Module,
     images: torch.Tensor,
@@ -30,33 +47,42 @@ def forward_backward(
     *,
     compute_dtype: torch.dtype = torch.float32,
     grad_accum: int = 1,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Mean cross-entropy of the uint8 NHWC ``images`` and its gradients,
-    left in each parameter's ``.grad`` (which this sets, not adds to).
+) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
+    """The objective of the uint8 NHWC ``images``, mean cross-entropy plus
+    an MoE model's summed load-balance loss, and its gradients, left in each
+    parameter's ``.grad`` (which this sets, not adds to).
 
     ``grad_accum > 1`` splits the batch into that many sequential
     micro-batches, sums their gradients and divides by their number, and
-    averages their losses, as the JAX package's scan does.  Returns
-    ``(loss, top1_count)`` as device scalars."""
+    averages their losses and routing health, as the JAX package's scan
+    does.  Returns ``(loss, top1_count, moe health)`` as device scalars
+    (the health empty for a dense model)."""
     model.zero_grad(set_to_none=True)
     b = images.shape[0]
     if b % grad_accum:
         raise ValueError(f"batch {b} does not split into {grad_accum} micro-batches")
     micro = b // grad_accum
     losses, top1 = [], torch.zeros((), dtype=torch.int64, device=labels.device)
+    health: list[dict[str, torch.Tensor]] = []
+    aux_of = getattr(model, "moe_aux_loss", lambda: None)
     for i in range(grad_accum):
         x = normalize_images(images[i * micro : (i + 1) * micro], dtype=compute_dtype)
         y = labels[i * micro : (i + 1) * micro]
         logits = model(x)
         loss = F.cross_entropy(logits.float(), y)
+        aux = aux_of()
+        if aux is not None:
+            loss = loss + aux
         loss.backward()
         losses.append(loss.detach())
         top1 += topk_hits(logits.detach(), y)[0].sum()
+        health.append({k: v.detach() for k, v in moe_health(model).items()})
     if grad_accum > 1:
         for p in model.parameters():
             if p.grad is not None:
                 p.grad /= grad_accum
-    return torch.stack(losses).mean(), top1
+    extras = {k: torch.stack([h[k] for h in health]).mean() for k in health[0]}
+    return torch.stack(losses).mean(), top1, extras
 
 
 class TrainStep:
@@ -89,10 +115,11 @@ class TrainStep:
         """``images`` uint8 NHWC and ``labels`` on the model's device;
         ``draws`` the crop offsets and flips (``data.draw_crop_flip``) when
         augmenting.  Returns the step's metrics as device scalars: ``loss``,
-        ``top1_count``, ``count``, ``grad_norm``, ``skipped``."""
+        ``top1_count``, ``count``, ``grad_norm``, ``skipped``, and for an
+        MoE model ``moe_dropped_frac`` and ``moe_load_max``."""
         if self.augment:
             images = random_crop_flip(images, *draws)
-        loss, top1 = forward_backward(
+        loss, top1, extras = forward_backward(
             self.model, images, labels, compute_dtype=self.compute_dtype,
             grad_accum=self.grad_accum,
         )
@@ -113,6 +140,7 @@ class TrainStep:
             "count": labels.shape[0],
             "grad_norm": grad_norm,
             "skipped": (~finite).float(),
+            **extras,
         }
 
 

@@ -2,7 +2,8 @@
 
 ``Trainer`` builds the model with the JAX package's ViT ``model_kw``
 (compute dtype from ``--precision``/``--amp``, LayerNorm in fp32, image and
-patch size, the block-fusion policy), the three splits held on the device,
+patch size, the MoE dispatch, the block-fusion policy), the three splits
+held on the device,
 the SGD and its schedule, and runs the epoch loop of ``Trainer.fit``: train
 steps, the per-epoch mean of the finite losses, the ``--eval-step`` loss
 lines and the per-epoch validation.  ``test`` evaluates the final
@@ -44,6 +45,7 @@ def build_model(hparams, attn_impl: str = "auto") -> torch.nn.Module:
         model_kw["image_size"] = hparams.image_size
         if hparams.patch_size:
             model_kw["patch"] = hparams.patch_size
+        model_kw["moe_dispatch"] = hparams.moe_dispatch
         model_kw["block_fusion"] = hparams.block_fusion
         model_kw["attn_impl"] = attn_impl
     model = get_model(hparams.model, **model_kw)
@@ -83,25 +85,28 @@ class Trainer:
         )
 
     def train_epoch(self, epoch: int) -> dict:
-        """One epoch of guarded steps; per-step metrics come back to the
-        host once, at its end."""
+        """One epoch of guarded steps; per-step metrics (with an MoE model's
+        ``moe_*`` routing health) come back to the host once, at its end."""
         hp = self.hparams
+        keys = ["loss", "top1_count", "grad_norm", "skipped"]
         metrics = []
         for i, (images, labels) in enumerate(
             self.train_split.epoch_batches(hp.batch_size, hp.seed, epoch)
         ):
             draws = draw_crop_flip(len(labels), step_generator(hp.seed, epoch, i))
             m = self.step(images, labels, draws)
-            metrics.append(torch.stack([
-                m["loss"], m["top1_count"].float(), m["grad_norm"], m["skipped"]
-            ]))
-        loss, top1, grad_norm, skipped = torch.stack(metrics).T.cpu().numpy()
-        return {"loss": loss, "top1": top1, "grad_norm": grad_norm, "skipped": skipped}
+            if i == 0:
+                keys += sorted(k for k in m if k.startswith("moe_"))
+            metrics.append(torch.stack([m[k].float() for k in keys]))
+        out = dict(zip(keys, torch.stack(metrics).T.cpu().numpy()))
+        out["top1"] = out.pop("top1_count")
+        return out
 
     def fit(self) -> dict:
         """The epoch loop.  Returns per-epoch records (train loss over the
         finite steps, train and val accuracy, lr, steps, skipped steps,
-        seconds, images/s) under ``epochs``."""
+        seconds, images/s, and for an MoE model the epoch means of
+        ``moe_dropped_frac`` and ``moe_load_max``) under ``epochs``."""
         hp = self.hparams
         log.info(
             f"[TORCH] start training: {hp.epoch} epochs, {self.steps_per_epoch} "
@@ -126,6 +131,8 @@ class Trainer:
             if skipped:
                 log.warning(f"[TORCH Epoch {epoch}] {skipped} non-finite steps skipped")
             val = self.validate()
+            # the JAX trainer's moe/* scalars: the epoch's mean routing health
+            moe = {k: float(np.mean(v)) for k, v in out.items() if k.startswith("moe_")}
             imgs = len(out["loss"]) * hp.batch_size
             lr_now = self.lr_schedule(epoch * self.steps_per_epoch)
             record = {
@@ -136,6 +143,7 @@ class Trainer:
                 "train_loss": meter.avg,
                 "train_acc": 100.0 * float(out["top1"].sum()) / imgs,
                 **val,
+                **moe,
                 "lr": lr_now,
                 "seconds": epoch_time,
                 "images_per_s": imgs / epoch_time,
@@ -146,6 +154,11 @@ class Trainer:
                 f"val acc: {val['val_acc']:.2f}%, lr: {lr_now:.4f}, "
                 f"{record['images_per_s']:.0f} img/s"
             )
+            if moe:
+                log.info(
+                    f"[TORCH Epoch {epoch}] moe: "
+                    + ", ".join(f"{k[len('moe_'):]} {v:.4f}" for k, v in moe.items())
+                )
             history.append(record)
         return {"epochs": history, "applied_steps": self.step.applied}
 

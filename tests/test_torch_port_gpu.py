@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card (``gpu`` marker).
 
 These tests need an NVIDIA Hopper card: the CUDA kernels (flash
-attention, K1-K4; the fused block chains, K5 and K6) have no interpret
-mode.
+attention, K1-K4; the fused block chains, K5 and K6; the grouped expert
+FFN, K7-K9) have no interpret mode.
 Each skips inside its fixture where ``torch.cuda.is_available()`` is
 false.  The file imports no JAX, so it
 also runs where JAX is not installed; there, skip ``tests/conftest.py``
@@ -19,6 +19,7 @@ import torch
 port = importlib.import_module("distributed_training_comparison_tpu_torch.ops.attention")
 vit = importlib.import_module("distributed_training_comparison_tpu_torch.models.vit")
 vb = importlib.import_module("distributed_training_comparison_tpu_torch.ops.vit_block")
+gmm = importlib.import_module("distributed_training_comparison_tpu_torch.ops.moe_gmm")
 
 
 @pytest.fixture
@@ -430,4 +431,135 @@ def test_fused_block_under_autograd_reaches_x_and_every_parameter(cuda_device):
         assert g is not None and g.dtype == w.dtype and bool(torch.isfinite(g).all()), name
         ref = scale["k_proj.weight"] if name == "k_proj.bias" else w
         err = float((g.float() - w.float()).norm() / ref.float().norm())
+        assert err <= 2**-4, (name, err)
+
+
+# ---------------------------------------------------- grouped expert FFN (K7-K9)
+
+# (dtype, E, d, h, group counts, cap, padding rows): the vit_moe serve shape
+# (bucket 32: n 2048, cap 320) with a skewed routing, a ragged fp32 case
+# with an empty group, a group over capacity and a group ending at n, and
+# a bf16 case of 4 experts and hidden 256 with padding rows past starts[E]
+MOE_CASES = [
+    (torch.bfloat16, 8, 192, 768, (400, 100, 300, 0, 250, 320, 350, 328), 320, 0),
+    (torch.float32, 8, 192, 768, (200, 0, 90, 130, 60, 170, 150, 200), 128, 0),
+    (torch.bfloat16, 4, 192, 256, (70, 0, 130, 33), 64, 7),
+]
+
+
+def _moe_inputs(dtype, ne, d, h, counts, pad, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    n = sum(counts) + pad
+    starts = torch.tensor([0, *torch.tensor(counts).cumsum(0).tolist()], dtype=torch.int32)
+    xs = torch.randn(n, d, generator=gen)
+    xs[sum(counts):] = 0
+    w1 = torch.randn(ne, d, h, generator=gen) / d**0.5
+    b1 = 0.1 * torch.randn(ne, h, generator=gen)
+    w2 = torch.randn(ne, h, d, generator=gen) / h**0.5
+    b2 = 0.1 * torch.randn(ne, d, generator=gen)
+    dy = torch.randn(n, d, generator=gen)
+    cast = [t.to(device=device, dtype=dtype) for t in (xs, w1, b1, w2, b2, dy)]
+    return (*cast[:5], starts.to(device), cast[5])
+
+
+def _gmm_counts():
+    return [f.launches for f in (gmm.grouped_ffn_fwd, gmm.grouped_ffn_dx, gmm.grouped_ffn_dw)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,ne,d,h,counts,cap,pad", MOE_CASES)
+def test_grouped_ffn_kernels_match_plain_on_card(cuda_device, dtype, ne, d, h, counts, cap, pad):
+    """K7 (output) and K8 (dx) against their plain versions per row:
+    |kernel - plain| <= atol_share * rms(row) + rtol * |plain|, bf16 2^-5
+    and 2^-6 (the same rounding points, fp32 sums in another order, and the
+    rare one-ulp flip of a rounded intermediate that causes), fp32 2^-10 and
+    0; the rows no expert keeps exactly 0.  K9's four gradients against
+    theirs in relative L2, bf16 2^-7, fp32 2^-14.  One launch each."""
+    xs, w1, b1, w2, b2, starts, dy = _moe_inputs(dtype, ne, d, h, counts, pad, cuda_device)
+    n = xs.shape[0]
+    share, rtol = (2**-5, 2**-6) if dtype == torch.bfloat16 else (2**-10, 0.0)
+    before = _gmm_counts()
+    out = gmm.grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap)
+    dx = gmm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap)
+    dws = gmm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_gmm_counts(), before)] == [1, 1, 1]
+    kept = gmm.kept_mask(starts, cap, n)
+    for got, want in ((out, gmm.grouped_ffn_reference(xs, w1, b1, w2, b2, starts, cap)),
+                      (dx, gmm.grouped_ffn_dx_reference(xs, dy, w1, b1, w2, starts, cap))):
+        assert bool((got[~kept] == 0).all())
+        assert _row_share(got[kept], want[kept], rtol) <= share
+    for got, want in zip(dws, gmm.grouped_ffn_dw_reference(xs, dy, w1, b1, w2, starts, cap)):
+        assert got.dtype == torch.float32
+        err = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        assert err <= (2**-7 if dtype == torch.bfloat16 else 2**-14), err
+
+
+@pytest.mark.gpu
+def test_grouped_ffn_backward_is_bitwise_deterministic(cuda_device):
+    """K8 and K9 sum in a fixed order with no atomics: two calls on the
+    same inputs give bit-identical dx and weight gradients."""
+    args = _moe_inputs(torch.bfloat16, *MOE_CASES[0][1:5], 0, cuda_device, seed=3)
+    xs, w1, b1, w2, _, starts, dy = args
+    cap = MOE_CASES[0][5]
+    first = (gmm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap),
+             *gmm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap))
+    second = (gmm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap),
+              *gmm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_grouped_ffn_raises_on_what_the_kernels_do_not_take(cuda_device):
+    xs, w1, b1, w2, b2, starts, _ = _moe_inputs(torch.bfloat16, 4, 192, 256, (8, 8, 8, 8), 0, cuda_device)
+    with pytest.raises(ValueError, match="d in"):
+        gmm.grouped_ffn_fwd(xs[:, :48].contiguous(), w1[:, :48].contiguous(), b1,
+                            w2[:, :, :48].contiguous(), b2[:, :48].contiguous(), starts, 16)
+    with pytest.raises(ValueError, match="hidden a multiple"):
+        gmm.grouped_ffn_fwd(xs, w1[:, :, :200].contiguous(), b1[:, :200].contiguous(),
+                            w2[:, :200].contiguous(), b2, starts, 16)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        gmm.grouped_ffn_fwd(xs.half(), w1, b1, w2, b2, starts, 16)
+    with pytest.raises(ValueError, match="int32"):
+        gmm.grouped_ffn_fwd(xs, w1, b1, w2, b2, starts.long(), 16)
+    with pytest.raises(ValueError, match="w2 must be"):
+        gmm.grouped_ffn_fwd(xs, w1, b1, w2.float(), b2, starts, 16)
+
+
+@pytest.mark.gpu
+def test_vit_moe_gmm_step_matches_gather_on_card(cuda_device):
+    """A bf16 ``vit_moe`` (full width, 2 blocks) on one batch of 32: one
+    train step's loss and gradients through K7-K9 (``gmm``) against the
+    same weights through ``gather`` (cuBLAS batched GEMMs), which route the
+    same tokens; the loss within 2^-6 relative, the gradients within 2^-4
+    relative L2 per parameter (bf16 rounding at other points in two
+    blocks; ``k_proj.bias``, whose exact gradient is 0, against its
+    weight's scale).  Each MoE block launches K7 once a forward and K8 and
+    K9 once a backward."""
+    from distributed_training_comparison_tpu_torch.models import get_model
+    from distributed_training_comparison_tpu_torch.train import forward_backward
+
+    torch.manual_seed(0)
+    models = {d: get_model("vit_moe", depth=2, dtype=torch.bfloat16, moe_dispatch=d)
+              for d in ("gmm", "gather")}
+    models["gather"].load_state_dict(models["gmm"].state_dict())
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randint(0, 256, (32, 32, 32, 3), generator=gen, dtype=torch.uint8).to(cuda_device)
+    labels = torch.randint(0, 100, (32,), generator=gen).to(cuda_device)
+    out = {}
+    for d, m in models.items():
+        m.to(cuda_device)
+        before = _gmm_counts()
+        loss, _, extras = forward_backward(m, images, labels, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        counts = [a - b for a, b in zip(_gmm_counts(), before)]
+        assert counts == ([2, 2, 2] if d == "gmm" else [0, 0, 0]), (d, counts)
+        assert set(extras) == {"moe_dropped_frac", "moe_load_max"}
+        out[d] = (float(loss), {n: p.grad.float() for n, p in m.named_parameters()})
+    assert abs(out["gmm"][0] - out["gather"][0]) <= 2**-6 * abs(out["gather"][0])
+    ref = out["gather"][1]
+    for name, g in out["gmm"][1].items():
+        scale = ref[name.replace("bias", "weight") if name.endswith("k_proj.bias") else name]
+        err = float((g - ref[name]).norm() / scale.norm().clamp_min(1e-30))
         assert err <= 2**-4, (name, err)

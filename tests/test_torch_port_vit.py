@@ -89,7 +89,8 @@ def test_converter_rejects_wrong_shape(small_jax):
 
 
 @pytest.mark.parametrize(
-    "name,image_size", [("vit_tiny", 32), ("vit_small", 32), ("vit_long", 256)]
+    "name,image_size",
+    [("vit_tiny", 32), ("vit_small", 32), ("vit_long", 256), ("vit_moe", 32)],
 )
 def test_full_width_param_shapes_match_jax(name, image_size):
     """Every leaf of the JAX model's init, by ``jax.eval_shape`` (no JAX
@@ -119,8 +120,25 @@ def test_vit_long_widths_match_jax():
     assert port.blocks[0].q_proj.weight.shape[0] // port.blocks[0].heads == 128
 
 
+def test_vit_moe_widths_match_jax():
+    """``vit_moe`` has the JAX ``ViTMoE``'s widths: 8 blocks of dim 192 and
+    3 heads, each with 8 experts of hidden 768 behind a router, no dense
+    MLP, and capacity factor 1.25."""
+    jax_moe = jax_models.ViTMoE()
+    with torch.device("meta"):
+        port = port_models.get_model("vit_moe")
+    assert (jax_moe.depth, jax_moe.dim, jax_moe.heads, jax_moe.num_experts) == (
+        len(port.blocks), port.dim, port.blocks[0].heads, port.blocks[0].moe.num_experts
+    )
+    blk = port.blocks[0]
+    assert blk.moe.w_up.shape == (8, 192, 768) and blk.moe.w_down.shape == (8, 768, 192)
+    assert blk.moe.router.weight.shape == (8, 192)
+    assert not hasattr(blk, "mlp_up") and blk.moe.capacity_factor == jax_moe.capacity_factor
+    assert blk.moe.dispatch == "auto"
+
+
 def test_zoo_names_and_unported_models():
-    for name in ("resnet18", "resnet50", "vit_moe"):
+    for name in ("resnet18", "resnet50"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_models.get_model(name)
     with pytest.raises(ValueError, match="unknown model"):
