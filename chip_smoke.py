@@ -97,7 +97,34 @@ last line:
              the plain kernels (bf16 and fp32) with a bound that rejects a
              planted fault, and in fp32 (2^-13) a TF32 control; ms per step
              under gmm and gather, profiles;
-7. the ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, then
+7. vit_tiny at 64 tokens — ``small_attention_checks``: the short-sequence
+             attention's kernels (K10 forward, K11 backward: its dq kernel,
+             then its dk/dv kernel) against their plain versions at the
+             serve shape (bf16, B 32, S 64, 3 heads of 64), the train shape
+             (bf16 and fp32, B 256), a ragged causal case (S 24) and a
+             causal multi-tile case (S 256, head dim 128): each output and
+             gradient per row, K11 bit-identical across two calls, two
+             planted faults rejected (the last keys left out of K10, a dk
+             row block dropped from K11), device ms of each kernel, its
+             plain version and SDPA's forward and backward;
+   serve_small — ``vit_tiny --amp`` pinned to ``attn_impl="fused_small"``
+             and served through the library entry points
+             (``build_engine``, ``MicroBatcher``, ``closed_loop``), buckets
+             1..32, 256 requests at concurrency 32: the counters zeroed
+             after the warmup, K10 in every block of every dispatched batch
+             and no other kernel; the bucket-32 logits against
+             ``attn_impl="reference"`` (bf16, fp32) within a bound a planted
+             K10 fault exceeds; a bucket-32 dispatch timed under fused_small
+             and auto, and profiled;
+   train_small — ``vit_tiny --amp`` at batch 256 pinned the same way and
+             trained through ``Trainer(hparams, model=...)``, 18 steps: K10
+             in every block of every step and eval batch, K11 in every
+             block of every step, no other kernel, every loss finite, no
+             step skipped; one step's loss and gradients against the
+             reference attention and the plain kernels (bf16, fp32) with a
+             bound a planted fault exceeds; ms per step under fused_small
+             and auto, and step profiles;
+8. the ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX.  Without a CUDA device, or outside a checkout of
@@ -1571,37 +1598,23 @@ TINY_STEP_CHECKS = {
 }
 
 
-def tiny_step_check(vb, attn, precision: str) -> dict:
+def step_runs(variants, state: dict, counters, images, labels, compute_dtype) -> dict:
+    """One forward and backward of each variant ``(name, build, swap)``:
+    ``build()`` a model, load ``state``, run it on the card, under ``swap()``
+    where given; its loss, every parameter gradient, the launches of each
+    of ``counters`` and its depth, by name."""
     import torch
 
-    from distributed_training_comparison_tpu_torch.config import load_config
-    from distributed_training_comparison_tpu_torch.data import get_datasets
-    from distributed_training_comparison_tpu_torch.train import build_model, forward_backward
-    from distributed_training_comparison_tpu_torch.train.step import COMPUTE_DTYPES
+    from distributed_training_comparison_tpu_torch.train import forward_backward
 
-    edit, loss_tol, ref_tol, plain_tol = TINY_STEP_CHECKS[precision]
-    hp = load_config(edit(TRAIN_TINY_ARGV))
-    hp_off = load_config(edit(TRAIN_TINY_ARGV) + ["--block-fusion", "off"])
-    images, labels = get_datasets(hp)[0]
-    images = torch.from_numpy(images[:hp.batch_size]).cuda()
-    labels = torch.from_numpy(labels[:hp.batch_size]).long().cuda()
-    counters = (vb.fused_vit_block, vb.fused_vit_block_bwd)
-    torch.manual_seed(hp.seed)
-    state = build_model(hp).state_dict()
     runs = {}
-    for name, h, swap in (
-        ("kernel", hp, None), ("reference", hp_off, None),
-        ("plain", hp, lambda: plain_block_chains(vb, fault=False)),
-        ("fault", hp, lambda: plain_block_chains(vb, fault=True)),
-    ):
-        model = build_model(h)
+    for name, build, swap in variants:
+        model = build()
         model.load_state_dict(state)
         model = model.cuda()
         before = [c.launches for c in counters]
         with swap() if swap else contextlib.nullcontext():
-            loss, _, _ = forward_backward(
-                model, images, labels, compute_dtype=COMPUTE_DTYPES[h.precision]
-            )
+            loss, _, _ = forward_backward(model, images, labels, compute_dtype=compute_dtype)
             torch.cuda.synchronize()
         runs[name] = {
             "loss": loss.item(),
@@ -1611,6 +1624,17 @@ def tiny_step_check(vb, attn, precision: str) -> dict:
         }
         del model, loss
         torch.cuda.empty_cache()
+    return runs
+
+
+def step_report(precision: str, batch: int, runs: dict, loss_tol, ref_tol, plain_tol) -> dict:
+    """The step check of ``runs`` (``step_runs`` of kernel, reference,
+    plain and fault): the kernel's loss against the reference's, its
+    gradients against the reference's and the plain path's within their
+    bounds, the fault beyond both, and each kernel counter launched once a
+    block by the kernel run only."""
+    import torch
+
     ref, plain = runs["reference"]["grads"], runs["plain"]["grads"]
     errors = {name: grad_errors(runs[name]["grads"], ref) for name in ("kernel", "plain", "fault")}
     errors["kernel_vs_plain"] = grad_errors(runs["kernel"]["grads"], plain)
@@ -1621,7 +1645,7 @@ def tiny_step_check(vb, attn, precision: str) -> dict:
     loss_err = abs(runs["kernel"]["loss"] - loss_ref) / abs(loss_ref)
     depth = runs["kernel"]["depth"]
     return {
-        "precision": precision, "batch": hp.batch_size,
+        "precision": precision, "batch": batch,
         "loss_kernel": runs["kernel"]["loss"], "loss_reference": loss_ref,
         "loss_plain": runs["plain"]["loss"], "loss_rel_err": loss_err, "loss_tol": loss_tol,
         "grad_rel_l2_tol": ref_tol,
@@ -1646,6 +1670,40 @@ def tiny_step_check(vb, attn, precision: str) -> dict:
             and runs["plain"]["launches"] == [0, 0]
         ),
     }
+
+
+def _first_batch(hp):
+    """The first ``hp.batch_size`` training images and labels, on the card."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch.data import get_datasets
+
+    images, labels = get_datasets(hp)[0]
+    return (torch.from_numpy(images[:hp.batch_size]).cuda(),
+            torch.from_numpy(labels[:hp.batch_size]).long().cuda())
+
+
+def tiny_step_check(vb, attn, precision: str) -> dict:
+    import torch
+
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.train import build_model
+    from distributed_training_comparison_tpu_torch.train.step import COMPUTE_DTYPES
+
+    edit, loss_tol, ref_tol, plain_tol = TINY_STEP_CHECKS[precision]
+    hp = load_config(edit(TRAIN_TINY_ARGV))
+    hp_off = load_config(edit(TRAIN_TINY_ARGV) + ["--block-fusion", "off"])
+    torch.manual_seed(hp.seed)
+    state = build_model(hp).state_dict()
+    runs = step_runs(
+        [("kernel", lambda: build_model(hp), None),
+         ("reference", lambda: build_model(hp_off), None),
+         ("plain", lambda: build_model(hp), lambda: plain_block_chains(vb, fault=False)),
+         ("fault", lambda: build_model(hp), lambda: plain_block_chains(vb, fault=True))],
+        state, (vb.fused_vit_block, vb.fused_vit_block_bwd), *_first_batch(hp),
+        COMPUTE_DTYPES[hp.precision],
+    )
+    return step_report(precision, hp.batch_size, runs, loss_tol, ref_tol, plain_tol)
 
 
 def tiny_step_times(reps: int = 5) -> dict:
@@ -2386,6 +2444,513 @@ def check_train_moe(train: dict) -> None:
         raise RuntimeError(f"a vit_moe train step through K7-K9 disagrees: {bad}")
 
 
+# --------------------------------- vit_tiny at 64 tokens: K10, K11
+
+# (label, dtype, B, S, H, D, causal): the serve path's bucket-32 attention
+# and the train path's batch-256 attention (bf16, and fp32 as vit_tiny
+# trains without --amp), a causal case with a ragged S (one partial key
+# tile) and a causal multi-tile case (S 256: the causal tile skipping of
+# both sweeps and of the dk/dv walk), unit-normal packed (B*S, H*D) inputs.
+SMALL_CASES = [
+    ("serve shape: vit_tiny bucket 32", "bfloat16", 32, 64, 3, 64, False),
+    ("train shape: vit_tiny batch 256", "bfloat16", 256, 64, 3, 64, False),
+    ("train shape fp32: vit_tiny batch 256 without --amp", "float32", 256, 64, 3, 64, False),
+    ("ragged causal", "bfloat16", 6, 24, 2, 64, True),
+    ("multi-tile causal", "bfloat16", 4, 256, 2, 128, True),
+]
+# Each output and gradient holds against the plain version per row (one
+# token's D values of one head) with the flash kernels' TOLERANCES, for the
+# same reasons: K10/K11 and the plain versions form the same fp32 scores,
+# P, dp and ds and round P and ds to bf16 at the same points, so they differ
+# by summation order, the rare bf16 flip it causes in one P or ds term, and
+# one rounding of each result (rtol 2^-6).  The planted faults: K10 run
+# with the values of the last FAULT_KEYS keys of every item zeroed (8 keys
+# where S <= 64: there one tile is the whole item), as a kernel that left
+# those keys out of P.V; K11's dk with the first key tile of item 0, head 0
+# (one dk/dv block's rows) zeroed.  Each must need more than the tolerance.
+SMALL_COUNTERS = ("small_mha_fwd", "small_mha_bwd")
+
+
+def without_last_keys(v, seq: int, n: int):
+    """Packed (B*S, H*D) ``v`` with the last ``n`` keys of every item
+    zeroed: K10 run on it is K10 with those keys left out of P.V."""
+    v = v.clone()
+    v.view(-1, seq, v.shape[1])[:, seq - n:] = 0
+    return v
+
+
+def small_bounds(b, s, h, d, causal, dname) -> dict[str, tuple[float, str]]:
+    """Least times of K10 (q, k, v read, o written; 2 products: s and P.V)
+    and K11 (q, k, v, dO read, dq, dk, dv written; 5 products: s, dp, dq,
+    dk, dv), causal counting only the pairs it needs."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    elems = b * s * h * d * (2 if dname == "bfloat16" else 4)
+    return {"fwd": bound(4 * pairs * d, 4 * elems, dname),
+            "bwd": bound(10 * pairs * d, 7 * elems, dname)}
+
+
+def _small_kernel_ms(device_ms_by_name: dict) -> dict[str, float]:
+    """Device ms of K10's and K11's kernels by symbol (attn_small_fwd,
+    attn_small_dq, attn_small_dkv; both dtypes)."""
+    out = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for name, ms in device_ms_by_name.items():
+        m = _KERNEL_SYMBOL.match(name)
+        if m and m.group(1).startswith("attn_small_"):
+            out[m.group(1).split("_")[2]] += ms
+    return out
+
+
+def small_attention_checks(small) -> list[dict]:
+    """K10 (``small_mha_fwd``) and K11 (``small_mha_bwd``) against
+    ``small_mha_reference`` and ``small_mha_bwd_reference`` at
+    ``SMALL_CASES``: agreement per row, the planted faults, K11's bitwise
+    replay, device times (``timed``) of the kernels, the plain versions and
+    the library yardstick: ``F.scaled_dot_product_attention`` forward, and
+    forward plus backward under autograd."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(6)
+    out = []
+    for label, dname, b, s, h, d, causal in SMALL_CASES:
+        dtype = getattr(torch, dname)
+        atol_share, rtol, _ = TOLERANCES[dname]
+        q, k, v, do = (torch.randn((b * s, h * d), generator=gen).to(device="cuda", dtype=dtype)
+                       for _ in range(4))
+        kw = dict(seq=s, heads=h, causal=causal)
+        o = small.small_mha_fwd(q, k, v, **kw)
+        grads = small.small_mha_bwd(q, k, v, do, **kw)
+        again = small.small_mha_bwd(q, k, v, do, **kw)
+        torch.cuda.synchronize()
+        view = [x.view(b, s, h, d) for x in (q, k, v, do)]
+        want_o = small.small_mha_reference(*view[:3], causal=causal)
+        want = small.small_mha_bwd_reference(*view, causal=causal)
+        n = FAULT_KEYS if s > 64 else 8
+        fault_o = small.small_mha_fwd(q, k, without_last_keys(v, s, n), **kw).view(b, s, h, d)
+        dk_fault = grads[1].clone().view(b, s, h, d)
+        dk_fault[0, :min(s, FAULT_KEYS), 0] = 0
+        faults = {"out": fault_o, "dk": dk_fault}
+        agree = {}
+        for name, got, ref in zip(("out", "dq", "dk", "dv"), (o, *grads), (want_o, *want)):
+            agree[name] = _agreement(got.view(b, s, h, d), ref, faults.get(name, ref), rtol)
+            if name not in faults:
+                del agree[name]["fault_atol_share_needed"]
+        ok = all(a["finite"] and a["atol_share_needed"] <= atol_share for a in agree.values()) and all(
+            atol_share < agree[name]["fault_atol_share_needed"] for name in faults
+        )
+        bitwise = all(torch.equal(x, y) for x, y in zip(grads, again))
+
+        fwd_prof = profile_device(lambda: small.small_mha_fwd(q, k, v, **kw), 20)
+        bwd_prof = profile_device(lambda: small.small_mha_bwd(q, k, v, do, **kw), 20)
+        split = _small_kernel_ms(bwd_prof["device_ms_by_name"])
+        ms = {"fwd": _small_kernel_ms(fwd_prof["device_ms_by_name"])["fwd"],
+              "bwd": split["dq"] + split["dkv"], "dq": split["dq"], "dkv": split["dkv"]}
+        event_ms = {"fwd": cuda_ms(lambda: small.small_mha_fwd(q, k, v, **kw), 50),
+                    "bwd": cuda_ms(lambda: small.small_mha_bwd(q, k, v, do, **kw), 50)}
+        plain_ms = {
+            "fwd": timed(lambda: small.small_mha_reference(*view[:3], causal=causal))[0],
+            "bwd": timed(lambda: small.small_mha_bwd_reference(*view, causal=causal))[0],
+        }
+        # the library yardstick, never called by the port: SDPA on the
+        # (B, H, S, D) views of the same projections
+        ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_() for x in view[:3])
+        dol = view[3].transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (ql, kl, vl), dol)
+
+        lib_fwd, lib_fwd_event = timed(sdpa)
+        lib_fwd_bwd, lib_fwd_bwd_event = timed(sdpa_fwd_bwd)
+        bounds = small_bounds(b, s, h, d, causal, dname)
+        out.append({
+            "case": label, "dtype": dname, "shape_b_s_h_d": [b, s, h, d], "causal": causal,
+            "atol_share": atol_share, "rtol": rtol, "fault_keys_k10": n,
+            "fault_dk_rows": min(s, FAULT_KEYS), "agreement": agree,
+            "k11_bit_identical_across_calls": bitwise,
+            "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+            "library": "F.scaled_dot_product_attention (fwd; fwd+bwd under autograd)",
+            "library_ms": {"fwd": lib_fwd, "bwd": lib_fwd_bwd - lib_fwd,
+                           "fwd_bwd": lib_fwd_bwd},
+            "library_event_ms": {"fwd": lib_fwd_event, "fwd_bwd": lib_fwd_bwd_event},
+            "bound_ms": {key: bounds[key][0] for key in bounds},
+            "bound_by": {key: bounds[key][1] for key in bounds},
+            "ok": ok and bitwise,
+        })
+        del q, k, v, do, o, grads, again, want_o, want, fault_o, dk_fault, ql, kl, vl
+        torch.cuda.empty_cache()
+    return out
+
+
+SERVE_SMALL_ARGV = [
+    "--serve", "--model", "vit_tiny", "--amp",
+    "--serve-buckets", "1,2,4,8,16,32", "--serve-shape", "closed",
+    "--serve-requests", "256", "--serve-concurrency", "32", "--seed", "0",
+]
+
+
+def _small_path_counters(small, gm, vb, attn) -> dict:
+    """Every kernel counter of the port: K10's and K11's, and the ones the
+    fused_small paths must not launch."""
+    return {**{n: getattr(small, n) for n in SMALL_COUNTERS}, **_moe_path_counters(gm, vb, attn)}
+
+
+@contextlib.contextmanager
+def dropped_keys_k10(small, n: int = 8):
+    """Every K10 launch with the values of the last ``n`` keys of every item
+    zeroed (the small_attention_checks fault), while the context lasts;
+    these launches are not the path's."""
+    real = small.small_mha_fwd
+
+    def faulty(q, k, v, *, seq, heads, causal=False, scale=None):
+        return real(q, k, without_last_keys(v, seq, n), seq=seq, heads=heads, causal=causal,
+                    scale=scale)
+
+    # the wrapper counts into the module name it runs under, which is now
+    # ``faulty``: these launches stay off the path's counter
+    faulty.launches = 0
+    small.small_mha_fwd = faulty
+    try:
+        yield
+    finally:
+        small.small_mha_fwd = real
+
+
+# The bucket-32 logits of vit_tiny pinned to fused_small (K10 in every
+# block) against the same seeded weights with attn_impl="reference"
+# (mha_reference: einsum scores, fp32 softmax, P rounded to the compute
+# dtype before P.V, the same rounding points as K10).  precision -> (argv
+# edit, bound as a share of the largest reference logit).  bf16: the paths
+# differ by summation order, which flips a bf16 rounding of P or of an
+# output now and then, and each of 12 blocks adds such flips to a bf16
+# residual stream: 2^-6 of the largest logit (two bf16 ulps of it; at
+# seed 0 they differ by one).  fp32: summation order only, through 12
+# blocks: 2^-18 (at seed 0, ~2^-21.7).  The planted fault (every K10 launch
+# with its last 8 keys' values zeroed) must exceed both.
+SMALL_LOGIT_CHECKS = {
+    "bf16": (lambda argv: argv, 2**-6),
+    "fp32": (lambda argv: [a for a in argv if a != "--amp"], 2**-18),
+}
+
+
+def serve_small_phase(small, gm, vb, attn) -> dict:
+    """``vit_tiny --amp`` at 32 px (64 tokens) served through the port's
+    library entry points: ``build_engine(hparams, attn_impl="fused_small")``
+    warmed, then ``MicroBatcher`` and ``closed_loop`` as ``serve_main``
+    composes them.  The counters are zeroed after the warmup; every block of
+    every dispatched batch runs K10 and no other kernel.  The bucket-32
+    logits against ``attn_impl="reference"`` in bf16 and fp32 with a bound
+    a planted K10 fault exceeds; a bucket-32 dispatch timed under fused_small
+    and auto (the reference attention at 64 tokens) and profiled."""
+    import numpy as np
+
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.serve import (
+        MicroBatcher,
+        build_engine,
+        closed_loop,
+        request_pool,
+    )
+
+    hp = load_config(SERVE_SMALL_ARGV)
+    engine = build_engine(hp, attn_impl="fused_small")
+    engine.warmup()
+    warm_batches = sum(engine.bucket_counts.values())
+    images = request_pool(max(256, engine.max_bucket), image_size=engine.image_size,
+                          seed=hp.seed, fold=("serve", 0))
+    counters = _small_path_counters(small, gm, vb, attn)
+    for c in counters.values():
+        c.launches = 0
+    batcher = MicroBatcher(engine, mode=hp.serve_mode, max_wait_ms=hp.max_wait_ms,
+                           queue_limit=hp.queue_limit)
+    try:
+        report = closed_loop(batcher, images, num_requests=hp.serve_requests,
+                             concurrency=hp.serve_concurrency, deadline_ms=hp.deadline_ms or None)
+    finally:
+        batcher.close()
+    launches = {name: c.launches for name, c in counters.items()}
+    batches = sum(engine.bucket_counts.values()) - warm_batches
+    depth = len(engine.model.blocks)
+    summary = batcher.metrics.summary()
+    del engine
+
+    checks = {}
+    for precision, (edit, share) in SMALL_LOGIT_CHECKS.items():
+        h = load_config(edit(SERVE_SMALL_ARGV))
+        batch = request_pool(32, image_size=h.image_size, seed=h.seed, fold=("check", 0))
+        engines = {"fused_small": build_engine(h, attn_impl="fused_small"),
+                   "reference": build_engine(h, attn_impl="reference")}
+        rec = {}
+        for name, eng in engines.items():
+            before = small.small_mha_fwd.launches
+            rec[f"logits_{name}"] = eng.predict_logits(batch)
+            rec[f"k10_launches_{name}"] = small.small_mha_fwd.launches - before
+        with dropped_keys_k10(small):
+            fault = engines["fused_small"].predict_logits(batch)
+        got, want = rec.pop("logits_fused_small"), rec.pop("logits_reference")
+        scale = float(np.abs(want).max())
+        rec.update({
+            "logits_finite": bool(np.isfinite(got).all() and np.isfinite(want).all()),
+            "logits_max_abs_err_vs_reference": float(np.abs(got - want).max()),
+            "logits_scale": scale, "logits_tol": share * scale, "logits_tol_share": share,
+            "fault_logits_max_abs_err_vs_reference": float(np.abs(fault - want).max()),
+        })
+        if precision == "bf16":
+            engines["auto"] = build_engine(h)
+            for rnd in ("", "_again"):
+                for name in ("fused_small", "auto"):
+                    eng = engines[name]
+                    eng.predict_logits(batch)
+                    t0 = time.perf_counter()
+                    for _ in range(5):
+                        eng.predict_logits(batch)
+                    rec[f"bucket32_batch_ms_{name}{rnd}"] = (time.perf_counter() - t0) / 5 * 1e3
+            for name in ("fused_small", "auto"):
+                prof = profile_device(lambda: engines[name].predict_logits(batch), 5)
+                k10 = _small_kernel_ms(prof["device_ms_by_name"])["fwd"]
+                top = sorted(prof["device_ms_by_name"].items(), key=lambda kv: -kv[1])[:8]
+                rec[f"bucket32_profile_{name}"] = {
+                    "wall_ms_per_batch": prof["wall_ms"],
+                    "device_busy_ms_per_batch": prof["device_busy_ms"],
+                    "device_idle_share": prof["device_idle_share"],
+                    "k10_device_ms_per_batch": k10,
+                    "k10_share_of_device_busy": k10 / prof["device_busy_ms"],
+                    "top_device_ms_per_batch": {n[:60]: ms for n, ms in top},
+                }
+        checks[precision] = rec
+        del engines
+    return {
+        "phase": "serve_small",
+        "argv": SERVE_SMALL_ARGV,
+        "attn_impl": "fused_small",
+        "offered": report["offered"],
+        "completed": report["completed"],
+        "failed": report["failed"],
+        "shed": report["shed"],
+        "expired": report["expired"],
+        "throughput_rps": report["throughput_rps"],
+        "p50_ms": report["latency_ms"]["p50"],
+        "p99_ms": report["latency_ms"]["p99"],
+        "duration_s": report["duration_s"],
+        "engine_batches": batches,
+        "warmup_batches": warm_batches,
+        "mean_batch_size": summary["mean_batch_size"],
+        "mean_service_ms": summary["mean_service_ms"],
+        "depth": depth,
+        "launches": launches,
+        "bucket32": checks,
+    }
+
+
+def check_serve_small(serve: dict) -> None:
+    if serve["completed"] != serve["offered"] or serve["failed"]:
+        raise RuntimeError(f"serve_small lost requests: {serve}")
+    want = {n: 0 for n in serve["launches"]}
+    want["small_mha_fwd"] = serve["depth"] * serve["engine_batches"]
+    if serve["launches"] != want:
+        raise RuntimeError(f"serve_small launches {serve['launches']}, expected {want}")
+    for precision, rec in serve["bucket32"].items():
+        if (rec["k10_launches_fused_small"], rec["k10_launches_reference"]) != (serve["depth"], 0):
+            raise RuntimeError(f"serve_small {precision} bucket-32 batch: launches {rec}")
+        if not rec["logits_finite"] or rec["logits_max_abs_err_vs_reference"] > rec["logits_tol"]:
+            raise RuntimeError(f"serve_small {precision}: K10 logits disagree with the reference: {rec}")
+        if not rec["fault_logits_max_abs_err_vs_reference"] > rec["logits_tol"]:
+            raise RuntimeError(f"serve_small {precision}: the planted K10 fault passes the bound: {rec}")
+
+
+TRAIN_SMALL_ARGV = [
+    "--model", "vit_tiny", "--amp", "--synthetic-data", "--batch-size", "256",
+    "--limit-examples", "2560", "--epoch", "2", "--lr-decay-step-size", "1",
+]
+# One train step of vit_tiny pinned to fused_small (K: K10 forward and K11
+# backward in every block) against the same seeded weights and batch with
+# attn_impl="reference" (R: mha_reference under autograd) and against P:
+# the same autograd Function with K10 and K11 swapped for their plain
+# versions.  precision -> (argv edit, loss bound relative, bound on K vs R,
+# bound on K vs P), gradient bounds as relative L2 per parameter.  bf16:
+# R's autograd rounds the cotangent of P to bf16 before the softmax
+# backward subtracts its row mean, where K and P keep it in fp32 (the JAX
+# head_bwd).  K and P differ only by summation order and the bf16 flips of
+# P and ds it causes; the worst parameters are the last blocks' q and k
+# projections, whose gradients are a cancelling sum of ds terms at
+# initialisation (near-uniform P), so one flip moves them by ~1%: K vs P is
+# held to 2^-6 and K vs R to 2^-5 (at seed 0 both read ~1.4%, P vs R
+# ~0.5%).  fp32: summation order only, 2^-13, and 1e-5 on the loss.  The
+# planted fault (P with dk of the last 8 keys of every item zeroed in every
+# block: rows a dk/dv kernel would leave unwritten) must exceed every
+# gradient bound.  Batch 256, the train command's.
+SMALL_STEP_CHECKS = {
+    "bf16": (lambda argv: argv, 2**-6, 2**-5, 2**-6),
+    "fp32": (lambda argv: [a for a in argv if a != "--amp"], 1e-5, 2**-13, 2**-13),
+}
+
+
+def plain_small_kernels(small, fault: bool):
+    """Context that swaps K10 and K11 for their plain versions on the card
+    (the autograd Function stays).  ``fault`` zeroes dk of the last 8 keys
+    of every item."""
+    saved = tuple(getattr(small, n) for n in SMALL_COUNTERS)
+    unpack = small._unpacked
+
+    def fwd(q, k, v, *, seq, heads, causal=False, scale=None):
+        o = small.small_mha_reference(*(unpack(t, seq, heads) for t in (q, k, v)),
+                                      causal=causal, scale=scale)
+        return o.reshape(q.shape)
+
+    def bwd(q, k, v, do, *, seq, heads, causal=False, scale=None):
+        dq, dk, dv = small.small_mha_bwd_reference(
+            *(unpack(t, seq, heads) for t in (q, k, v, do)), causal=causal, scale=scale
+        )
+        if fault:
+            dk[:, seq - 8:] = 0
+        return dq.reshape(q.shape), dk.reshape(q.shape), dv.reshape(q.shape)
+
+    @contextlib.contextmanager
+    def swapped():
+        small.small_mha_fwd, small.small_mha_bwd = fwd, bwd
+        try:
+            yield
+        finally:
+            small.small_mha_fwd, small.small_mha_bwd = saved
+
+    return swapped()
+
+
+def small_step_check(small, precision: str) -> dict:
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.train import build_model
+    from distributed_training_comparison_tpu_torch.train.step import COMPUTE_DTYPES
+
+    edit, loss_tol, ref_tol, plain_tol = SMALL_STEP_CHECKS[precision]
+    hp = load_config(edit(TRAIN_SMALL_ARGV))
+    state = build_model(hp).state_dict()
+
+    def pinned():
+        return build_model(hp, attn_impl="fused_small")
+
+    runs = step_runs(
+        [("kernel", pinned, None),
+         ("reference", lambda: build_model(hp, attn_impl="reference"), None),
+         ("plain", pinned, lambda: plain_small_kernels(small, fault=False)),
+         ("fault", pinned, lambda: plain_small_kernels(small, fault=True))],
+        state, tuple(getattr(small, n) for n in SMALL_COUNTERS), *_first_batch(hp),
+        COMPUTE_DTYPES[hp.precision],
+    )
+    return step_report(precision, hp.batch_size, runs, loss_tol, ref_tol, plain_tol)
+
+
+def small_step_times(trainer, reps: int = 5) -> dict:
+    """ms per train step (host clock around ``reps`` steps ending in a
+    synchronise) of the fused_small ``trainer`` and of a trainer of the same
+    command under auto (the reference attention at 64 tokens), in turns,
+    and a profile of two steps of each: K10's and K11's device ms and
+    shares, and the idle share."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch.data import draw_crop_flip
+    from distributed_training_comparison_tpu_torch.train import Trainer
+    from distributed_training_comparison_tpu_torch.utils import step_generator
+
+    hp = trainer.hparams
+    trainers = {"fused_small": trainer, "auto": Trainer(hp)}
+    images, labels = next(trainer.train_split.epoch_batches(hp.batch_size, hp.seed, 0))
+    draws = draw_crop_flip(len(labels), step_generator(hp.seed, 0, 0))
+    out = {}
+    for rnd in ("", "_again"):
+        for name, tr in trainers.items():
+            tr.step(images, labels, draws)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                tr.step(images, labels, draws)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / reps * 1e3
+            out[f"ms_per_step_{name}{rnd}"] = ms
+            out[f"images_per_s_{name}{rnd}"] = hp.batch_size / ms * 1e3
+    for name, tr in trainers.items():
+        prof = profile_device(lambda: tr.step(images, labels, draws), 2)
+        names = prof["device_ms_by_name"]
+        kernels = _small_kernel_ms(names)
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+        out[f"profile_{name}"] = {
+            "wall_ms_per_step": prof["wall_ms"],
+            "device_busy_ms_per_step": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "k10_k11_device_ms_per_step": kernels,
+            "k10_k11_share_of_busy": sum(kernels.values()) / prof["device_busy_ms"],
+            "top_device_ms_per_step": {n[:60]: ms for n, ms in top},
+        }
+    del trainers["auto"]
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_small_phase(small, gm, vb, attn, smi: str) -> dict:
+    """``vit_tiny --amp`` at batch 256 (the JAX kernels' design point)
+    trained through the port's library entry points:
+    ``Trainer(hparams, model=build_model(hparams, attn_impl="fused_small"))``
+    and ``fit``, the counters zeroed just before and read just after: K10
+    in every block of every train step and eval batch, K11 in every block
+    of every train step, no other kernel; every loss finite, no step
+    skipped; one step's loss and gradients against the reference attention
+    and the plain kernels (bf16 and fp32); ms per step under fused_small and
+    auto, and step profiles."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.train import Trainer, build_model
+
+    hp = load_config(TRAIN_SMALL_ARGV)
+    trainer = Trainer(hp, model=build_model(hp, attn_impl="fused_small"))
+    counters = _small_path_counters(small, gm, vb, attn)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fit = trainer.fit()
+    seconds = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    epochs = fit["epochs"]
+    last = epochs[-1]
+    checks = {p: small_step_check(small, p) for p in SMALL_STEP_CHECKS}
+    return {
+        "phase": "train_small",
+        "nvidia_smi": smi,
+        "argv": TRAIN_SMALL_ARGV,
+        "attn_impl": "fused_small",
+        "run_seconds": seconds,
+        "train_steps": sum(e["steps"] for e in epochs),
+        "eval_batches": len(epochs) * math.ceil(len(trainer.val_split) / hp.batch_size),
+        "depth": len(trainer.model.blocks),
+        "launches": launches,
+        "losses_finite": all(e["nonfinite_losses"] == 0 for e in epochs),
+        "skipped_steps": sum(e["skipped"] for e in epochs),
+        "epochs": epochs,
+        "peak_memory_gb": peak_gb,
+        "last_epoch_images_per_s": last["images_per_s"],
+        "last_epoch_ms_per_step": last["seconds"] / last["steps"] * 1e3,
+        "step_checks": checks,
+        "step_times": small_step_times(trainer),
+    }
+
+
+def check_train_small(train: dict) -> None:
+    depth, steps = train["depth"], train["train_steps"]
+    want = {n: 0 for n in train["launches"]}
+    want["small_mha_fwd"] = depth * (steps + train["eval_batches"])
+    want["small_mha_bwd"] = depth * steps
+    if train["launches"] != want:
+        raise RuntimeError(f"train_small launches {train['launches']}, expected {want}")
+    if not train["losses_finite"] or train["skipped_steps"]:
+        raise RuntimeError("train_small: a non-finite loss or a skipped step")
+    bad = {p: c for p, c in train["step_checks"].items() if not c["ok"]}
+    if bad:
+        raise RuntimeError(f"a vit_tiny train step through K10/K11 disagrees: {bad}")
+
+
 def main() -> int:
     if not (ROOT / PKG).is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
@@ -2420,6 +2985,7 @@ def main() -> int:
     attn = importlib.import_module(f"{PKG}.ops.attention")
     vb = importlib.import_module(f"{PKG}.ops.vit_block")
     gm = importlib.import_module(f"{PKG}.ops.moe_gmm")
+    small = importlib.import_module(f"{PKG}.ops.attention_small")
 
     t0 = time.monotonic()
     paths = _build.build_all()
@@ -2524,6 +3090,20 @@ def main() -> int:
     train_moe = train_moe_phase(gm, vb, attn, smi)
     emit(train_moe)
     check_train_moe(train_moe)
+
+    small_checks = small_attention_checks(small)
+    emit({"phase": "small_attention_checks", "nvidia_smi": smi, "checks": small_checks})
+    bad = [c["case"] for c in small_checks if not c["ok"]]
+    if bad:
+        raise RuntimeError(f"the short-sequence attention kernels disagree with the plain versions: {bad}")
+
+    serve_small = serve_small_phase(small, gm, vb, attn)
+    emit(serve_small)
+    check_serve_small(serve_small)
+
+    train_small = train_small_phase(small, gm, vb, attn, smi)
+    emit(train_small)
+    check_train_small(train_small)
 
     csrc = f"{PKG}/ops/csrc"
     replaces = {
@@ -2699,6 +3279,45 @@ def main() -> int:
                     "max_abs_err": agree["max_abs_err"], "atol_share": case["atol_share"],
                     "rtol": case["rtol"], "atol_share_needed": agree["atol_share_needed"],
                     "fault_atol_share_needed": agree["fault_atol_share_needed"],
+                })
+            kernels.append(entry)
+    # K10/K11: per case, one entry per kernel.  K10's ``launches`` is its
+    # count on the serve_small path (``launches_train`` on train_small);
+    # K11's, on train_small, counts calls, each launching its two kernels
+    # (attn_small_dq, then attn_small_dkv) once.
+    small_launches = {"fwd": serve_small["launches"]["small_mha_fwd"],
+                      "bwd": train_small["launches"]["small_mha_bwd"]}
+    for case in small_checks:
+        for key, regime, body, results in (("fwd", "K10", 160, ("out",)),
+                                           ("bwd", "K11", 168, ("dq", "dk", "dv"))):
+            agree = [case["agreement"][r] for r in results]
+            entry = {
+                "name": f"small_mha_{key}", "route": "cuda",
+                "source": f"{csrc}/attention_small.cu",
+                "replaces": f"distributed_training_comparison_tpu/ops/attention_small.py:{body}",
+                "regime": regime, "case": case["case"], "dtype": case["dtype"],
+                "shape_b_s_h_d": case["shape_b_s_h_d"], "causal": case["causal"],
+                "launches": small_launches[key],
+                "launches_counted": ("serve_small main path" if key == "fwd"
+                                     else "train_small main path") + ", one counter for every case",
+                "max_abs_err": max(a["max_abs_err"] for a in agree),
+                "atol_share": case["atol_share"], "rtol": case["rtol"],
+                "atol_share_needed": max(a["atol_share_needed"] for a in agree),
+                "fault_atol_share_needed": case["agreement"]["out" if key == "fwd" else "dk"][
+                    "fault_atol_share_needed"],
+                "ms": case["ms"][key], "event_ms": case["event_ms"][key],
+                "plain_ms": case["plain_ms"][key],
+                "bound_ms": case["bound_ms"][key], "bound_by": case["bound_by"][key],
+                "library_ms": case["library_ms"][key], "library": case["library"],
+            }
+            if key == "fwd":
+                entry["launches_train"] = train_small["launches"]["small_mha_fwd"]
+            else:
+                entry.update({
+                    "kernels": ["attn_small_dq", "attn_small_dkv"],
+                    "dq_ms": case["ms"]["dq"], "dkv_ms": case["ms"]["dkv"],
+                    "library_fwd_bwd_ms": case["library_ms"]["fwd_bwd"],
+                    "bit_identical_across_calls": case["k11_bit_identical_across_calls"],
                 })
             kernels.append(entry)
     emit({"kernels": kernels})

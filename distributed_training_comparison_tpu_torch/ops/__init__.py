@@ -7,8 +7,9 @@ from .attention import (
     flash_attention_bwd_reference,
     mha_reference,
 )
+from .attention_small import small_mha
 
 __all__ = [
     "attention", "auto_impl", "flash_attention", "flash_attention_bwd_reference",
-    "mha_reference",
+    "mha_reference", "small_mha",
 ]

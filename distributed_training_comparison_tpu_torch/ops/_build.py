@@ -28,7 +28,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = (
     "flash_attention_fwd", "flash_attention_bwd", "vit_block_fwd", "vit_block_bwd",
-    "moe_gmm_fwd", "moe_gmm_bwd",
+    "moe_gmm_fwd", "moe_gmm_bwd", "attention_small",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -26,6 +26,8 @@ import math
 
 import torch
 
+from .attention_small import small_mha
+
 _NEG_INF = -1e30  # finite "-inf": keeps fully-masked rows NaN-free
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -388,18 +390,21 @@ def attention(
     return_lse: bool = False,
     layout: str = "bhsd",
 ):
-    """Dispatch between the kernel and ``mha_reference``.
+    """Dispatch between the kernels and ``mha_reference``.
 
     ``impl``: ``"auto"`` (:func:`auto_impl`), ``"kernel"`` (``"pallas"`` is
-    kept as an alias), or ``"reference"``.  The sequence-parallel and
-    short-sequence implementations of the JAX package are not ported yet.
-    ``layout="bshd"`` takes (B, S, H, D): the kernel reads it through a
-    transposed view, with no copy."""
+    kept as an alias), ``"reference"``, or ``"fused_small"``: the
+    short-sequence kernels (``attention_small.small_mha``, K10 and K11),
+    ``bshd`` only and without lse, which ``auto`` never selects, as in the
+    JAX package.  The sequence-parallel implementations of the JAX package
+    are not ported yet.  ``layout="bshd"`` takes (B, S, H, D): the flash
+    kernel reads it through a transposed view, the short-sequence kernels
+    as packed rows, with no copy."""
     if layout not in ("bhsd", "bshd"):
         raise ValueError(f"unknown attention layout {layout!r}")
     seq_ax = 1 if layout == "bshd" else 2
     kind = impl.partition(":")[0]
-    if kind in ("ring", "ulysses", "fused_small"):
+    if kind in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention(impl={impl!r}) is not ported yet (ROADMAP.md, queue 1)"
         )
@@ -407,6 +412,12 @@ def attention(
         impl = auto_impl(
             q.device.type, q.shape[seq_ax], k.shape[seq_ax], q.shape[-1], causal
         )
+    if impl == "fused_small":
+        if return_lse:
+            raise ValueError("impl='fused_small' does not return lse")
+        if layout != "bshd":
+            raise ValueError("impl='fused_small' requires layout='bshd'")
+        return small_mha(q, k, v, causal=causal, scale=scale)
     if impl in ("kernel", "pallas"):
 
         def to_bhsd(x):

@@ -1,28 +1,44 @@
-"""Short-sequence attention over the packed projection layout: the numerics
-of ``distributed_training_comparison_tpu/ops/attention_small.py``
-(``_softmax_small``, ``_head_probs``, ``head_fwd``, ``head_bwd``) as plain
-PyTorch.
+"""Short-sequence multi-head attention over the packed projection layout:
+the plain PyTorch versions of ``distributed_training_comparison_tpu/ops/
+attention_small.py`` (``_softmax_small``, ``_head_probs``, ``head_fwd``,
+``head_bwd``, ``small_mha``) and the CUDA kernels that replace its Pallas
+kernels ``_fwd_kernel`` (K10) and ``_bwd_kernel`` (K11).
 
-Per (item, head): fp32 scores times 1/√d, a max-shifted fp32 softmax
+Per (item, head): fp32 scores times the scale, under ``causal`` the keys
+past the row set to -1e30 before the max, a max-shifted fp32 softmax
 ``e / Σe``, P rounded to the compute dtype, P·V accumulated in fp32 and
 rounded once.  The backward recomputes P the same way: ``dp = dO·Vᵀ`` in
 fp32, ``ds = P∘(dp − Σ dp∘P)`` on the unrounded P, ``ds·scale`` rounded to
-the compute dtype, and dq, dk, dv each accumulated in fp32 and rounded once.
-This is the attention stage of the fused ViT block (K5, K6) and the plain
-version its CUDA kernels ``block_attention`` and ``block_attention_bwd``
-are held against.
+the compute dtype, and dq, dk, dv each accumulated in fp32 and rounded
+once, dv from the rounded P.  These are also the attention stage of the
+fused ViT block (K5, K6) and the plain versions its CUDA kernels
+``block_attention`` and ``block_attention_bwd`` are held against.
 
 The TPU kernel stacks ``tb`` items into one ``(tb·S, tb·S)`` score matmul
 masked block-diagonally to fill its matrix unit; off-diagonal blocks add
 exact zeros, so per-item attention is the same function, and that is what
-this module computes.  Non-causal only, as K5 is.
+this module and its kernels (``csrc/attention_small.cu``) compute.
+
+:func:`small_mha` is ``attention(impl="fused_small")``: q, k and v
+``(B, S, H, D)`` go to the kernels as the packed ``(B·S, H·D)`` rows (a
+free reshape of the contiguous projections), through ``_SmallMHA``, the
+counterpart of the JAX ``_small_core`` custom VJP, which saves q, k and v
+only.  A CPU tensor takes the plain versions; a CUDA tensor launches
+:func:`small_mha_fwd` (K10) and, under autograd, :func:`small_mha_bwd`
+(K11) or raises.  The kernels take bf16 or fp32 and head dims 64 and 128
+(the zoo's); the plain versions take any S and D.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
+
+_NEG_INF = -1e30  # finite "-inf", as the JAX ``_softmax_small``
+KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _items(t: torch.Tensor, seq: int) -> torch.Tensor:
@@ -31,39 +47,85 @@ def _items(t: torch.Tensor, seq: int) -> torch.Tensor:
     return t.reshape(rows // seq, seq, d).float()
 
 
-def _probs(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+def _probs(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool = False) -> torch.Tensor:
     """fp32 (B, S, S) softmax probabilities of fp32 (B, S, D) q and k
-    (``_head_probs``): scores times ``scale``, max-shifted, ``e / Σe``."""
+    (``_head_probs``): scores times ``scale``, under ``causal`` the keys
+    past each row set to -1e30, max-shifted, ``e / Σe``."""
     s = torch.einsum("bqd,bkd->bqk", q, k) * scale
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).tril()
+        s = torch.where(keep, s, torch.full((), _NEG_INF, device=s.device))
     e = torch.exp(s - s.amax(-1, keepdim=True))
     return e / e.sum(-1, keepdim=True)
 
 
-def head_fwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, seq: int,
-             scale: float) -> torch.Tensor:
-    """One head's attention: ``qh``/``kh``/``vh`` are (B·S, D) rows of
-    ``B`` items of ``seq`` tokens each; returns (B·S, D) in ``qh``'s dtype."""
-    q, k, v = (_items(t, seq) for t in (qh, kh, vh))
-    p = _probs(q, k, scale).to(qh.dtype)
-    o = torch.einsum("bqk,bkd->bqd", p.float(), v)
-    return o.to(qh.dtype).reshape(qh.shape)
+def _fwd_items(q, k, v, scale: float, causal: bool, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 (B, S, D) output of fp32 items whose values are ``dtype``'s,
+    before its rounding to ``dtype``."""
+    p = _probs(q, k, scale, causal).to(dtype).float()
+    return torch.einsum("bqk,bkd->bqd", p, v)
 
 
-def head_bwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, doh: torch.Tensor,
-             seq: int, scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One head's (dq, dk, dv) for the output cotangent ``doh``, all (B·S, D)
-    in ``qh``'s dtype, with P recomputed as :func:`head_fwd` forms it."""
-    cd = qh.dtype
-    q, k, v, do = (_items(t, seq) for t in (qh, kh, vh, doh))
-    pf = _probs(q, k, scale)
+def _bwd_items(q, k, v, do, scale: float, causal: bool, dtype: torch.dtype):
+    """fp32 (dq, dk, dv) of fp32 items, before their rounding to ``dtype``."""
+    pf = _probs(q, k, scale, causal)
     dp = torch.einsum("bqd,bkd->bqk", do, v)
     ds = pf * (dp - (dp * pf).sum(-1, keepdim=True))
-    ds = (ds * scale).to(cd).float()
-    p = pf.to(cd).float()
+    ds = (ds * scale).to(dtype).float()
+    p = pf.to(dtype).float()
     dq = torch.einsum("bqk,bkd->bqd", ds, k)
     dk = torch.einsum("bqk,bqd->bkd", ds, q)
     dv = torch.einsum("bqk,bqd->bkd", p, do)
-    return tuple(t.to(cd).reshape(qh.shape) for t in (dq, dk, dv))
+    return dq, dk, dv
+
+
+def head_fwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, seq: int,
+             scale: float, causal: bool = False) -> torch.Tensor:
+    """One head's attention: ``qh``/``kh``/``vh`` are (B·S, D) rows of
+    ``B`` items of ``seq`` tokens each; returns (B·S, D) in ``qh``'s dtype."""
+    q, k, v = (_items(t, seq) for t in (qh, kh, vh))
+    return _fwd_items(q, k, v, scale, causal, qh.dtype).to(qh.dtype).reshape(qh.shape)
+
+
+def head_bwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, doh: torch.Tensor,
+             seq: int, scale: float, causal: bool = False
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One head's (dq, dk, dv) for the output cotangent ``doh``, all (B·S, D)
+    in ``qh``'s dtype, with P recomputed as :func:`head_fwd` forms it."""
+    grads = _bwd_items(*(_items(t, seq) for t in (qh, kh, vh, doh)), scale, causal, qh.dtype)
+    return tuple(t.to(qh.dtype).reshape(qh.shape) for t in grads)
+
+
+def _heads_first(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) → (B·H, S, D) fp32 items."""
+    b, s, h, d = t.shape
+    return t.float().transpose(1, 2).reshape(b * h, s, d)
+
+
+def _bshd(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(B·H, S, D) fp32 items → (B, S, H, D) contiguous in ``like``'s dtype."""
+    b, s, h, d = like.shape
+    return t.reshape(b, h, s, d).transpose(1, 2).to(like.dtype).contiguous()
+
+
+def small_mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = False, scale: float | None = None) -> torch.Tensor:
+    """Self-attention over ``(B, S, H, D)`` with the numerics of the JAX
+    ``head_fwd``, per (item, head): the plain version of K10."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    o = _fwd_items(*(_heads_first(t) for t in (q, k, v)), scale, causal, q.dtype)
+    return _bshd(o, q)
+
+
+def small_mha_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = False,
+                            scale: float | None = None):
+    """``(dq, dk, dv)`` of :func:`small_mha_reference` for the output
+    cotangent ``do``, all ``(B, S, H, D)`` in ``q``'s dtype, with the
+    numerics of the JAX ``head_bwd``: the plain version of K11."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    grads = _bwd_items(*(_heads_first(t) for t in (q, k, v, do)), scale, causal, q.dtype)
+    return tuple(_bshd(g, q) for g in grads)
 
 
 def _heads(qkv: torch.Tensor, seq: int, heads: int) -> tuple[int, int]:
@@ -108,3 +170,166 @@ def packed_attention_bwd_reference(
         for h in range(heads)
     ]
     return torch.cat([g[j] for j in range(3) for g in grads], dim=1)
+
+
+# ------------------------------------------------------------------ card
+
+
+def _packed_head_dim(name: str, tensors, seq: int, heads: int) -> int:
+    """The head dim of packed ``(B·S, H·D)`` tensors of one shape, checked."""
+    shape = tensors[0].shape
+    if len(shape) != 2 or any(t.shape != shape for t in tensors):
+        raise ValueError(f"{name} takes 2-D tensors of one shape, got {[tuple(t.shape) for t in tensors]}")
+    rows, dim = shape
+    if seq <= 0 or rows % seq or dim % heads:
+        raise ValueError(
+            f"{name}: ({rows}, {dim}) rows are not whole items of {seq} tokens "
+            f"and {heads} heads"
+        )
+    return dim // heads
+
+
+def _unpacked(t: torch.Tensor, seq: int, heads: int) -> torch.Tensor:
+    rows, dim = t.shape
+    return t.reshape(rows // seq, seq, heads, dim // heads)
+
+
+def _check_card(name: str, tensors, d: int) -> None:
+    """Raise on what the CUDA kernels do not take."""
+    q = tensors[0]
+    if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
+        raise ValueError(f"{name} runs on one CUDA device, got {[str(t.device) for t in tensors]}")
+    if q.dtype not in KERNEL_DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise ValueError(
+            f"{name} kernels take bf16 or fp32 tensors of one dtype, got "
+            + "/".join(str(t.dtype) for t in tensors)
+        )
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name} kernels take head dims {KERNEL_HEAD_DIMS}, got {d}")
+
+
+def _c_args(n_ptr: int) -> list:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    return [ptr] * n_ptr + [i32] * 4 + [ctypes.c_float, i32, i32, ptr]
+
+
+def small_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, seq: int,
+                  heads: int, causal: bool = False, scale: float | None = None) -> torch.Tensor:
+    """K10: attention of the packed ``(B·S, H·D)`` q, k, v rows, returned
+    in that layout.  On the card the CUDA kernel ``attn_small_fwd`` (one
+    block per item, head and 64-query tile; 32 in fp32); a CPU tensor takes
+    :func:`small_mha_reference`.  ``small_mha_fwd.launches`` counts the
+    kernel's launches."""
+    from . import _build
+
+    d = _packed_head_dim("small_mha_fwd", (q, k, v), seq, heads)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    if q.device.type == "cpu":
+        o = small_mha_reference(*(_unpacked(t, seq, heads) for t in (q, k, v)),
+                                causal=causal, scale=scale)
+        return o.reshape(q.shape)
+    from .vit_block import _operand, _stream
+
+    _check_card("small_mha_fwd", (q, k, v), d)
+    q, k, v = (_operand(t) for t in (q, k, v))
+    out = torch.empty_like(q)
+    fn = _build.load("attention_small", _c_args(4), symbol="attention_small_fwd")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 q.shape[0] // seq, seq, heads, d, float(scale), int(causal),
+                 int(q.dtype == torch.bfloat16), _stream(q))
+    if err != 0:
+        raise RuntimeError(f"attention_small_fwd launch failed: CUDA error {err}")
+    small_mha_fwd.launches += 1
+    return out
+
+
+small_mha_fwd.launches = 0
+
+
+def small_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
+                  seq: int, heads: int, causal: bool = False, scale: float | None = None):
+    """K11: ``(dq, dk, dv)`` of :func:`small_mha_fwd` for the output
+    cotangent ``do``, all packed ``(B·S, H·D)``.  On the card one call
+    launches two CUDA kernels: ``attn_small_dq`` (dq and each query row's
+    softmax statistics, into a scratch buffer) and then ``attn_small_dkv``
+    (dk and dv, reading them).  No atomics: each block owns its output
+    rows.  A CPU tensor takes :func:`small_mha_bwd_reference`.
+    ``small_mha_bwd.launches`` counts the calls that launched both."""
+    from . import _build
+
+    d = _packed_head_dim("small_mha_bwd", (q, k, v, do), seq, heads)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    if q.device.type == "cpu":
+        grads = small_mha_bwd_reference(*(_unpacked(t, seq, heads) for t in (q, k, v, do)),
+                                        causal=causal, scale=scale)
+        return tuple(g.reshape(q.shape) for g in grads)
+    from .vit_block import _operand, _stream
+
+    _check_card("small_mha_bwd", (q, k, v, do), d)
+    q, k, v, do = (_operand(t) for t in (q, k, v, do))  # autograd may hand a strided do
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty((q.shape[0], heads, 3), device=q.device)  # max, sum, Σ dp·P per query
+    fn = _build.load("attention_small", _c_args(8), symbol="attention_small_bwd")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), q.shape[0] // seq, seq,
+                 heads, d, float(scale), int(causal), int(q.dtype == torch.bfloat16), _stream(q))
+    if err != 0:
+        raise RuntimeError(f"attention_small_bwd launch failed: CUDA error {err}")
+    small_mha_bwd.launches += 1
+    return dq, dk, dv
+
+
+small_mha_bwd.launches = 0
+
+
+class _SmallMHA(torch.autograd.Function):
+    """The JAX ``_small_core`` custom VJP over the packed rows: saves q, k
+    and v only (no lse, no P), and recomputes P in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seq: int, heads: int, causal: bool, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(seq=seq, heads=heads, causal=causal, scale=scale)
+        return small_mha_fwd(q, k, v, **ctx.args)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*small_mha_bwd(q, k, v, do, **ctx.args), None, None, None, None)
+
+
+def small_mha(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    scale: float | None = None,
+    block_items: int | None = None,
+) -> torch.Tensor:
+    """Short-sequence self-attention over ``(B, S, H, D)`` (bshd),
+    differentiable in q, k and v: K10 forward and K11 backward on the card,
+    their plain versions on the CPU.  Requires ``S % 8 == 0`` and
+    ``D % 8 == 0``, and q, k, v of one shape (self-attention).
+
+    ``block_items`` is the TPU kernel's stacking factor ``tb``, accepted for
+    the JAX signature; it has no effect on the result, because per-item
+    attention is the same function for every ``tb``.
+    """
+    del block_items
+    b, s, h, d = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"small_mha is self-attention only: q {tuple(q.shape)} vs k {tuple(k.shape)} "
+            f"/ v {tuple(v.shape)}"
+        )
+    if s % 8 or d % 8:
+        raise ValueError(f"small_mha needs S, D multiples of 8; got {s}, {d}")
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+
+    def pack(x):
+        return x.reshape(b * s, h * d)  # adjacent dims: free for the projections
+
+    return _SmallMHA.apply(pack(q), pack(k), pack(v), s, h, causal, scale).reshape(b, s, h, d)

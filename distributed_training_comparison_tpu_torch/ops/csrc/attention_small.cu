@@ -1,0 +1,849 @@
+// Short-sequence multi-head self-attention for Hopper (sm_90a): forward
+// (K10) and backward (K11), bound through plain C functions and loaded with
+// ctypes (ops/attention_small.py).
+//
+// Replaces the TPU kernels distributed_training_comparison_tpu/ops/
+// attention_small.py::_fwd_kernel (K10, attention_small.py:160) and
+// ::_bwd_kernel (K11, :168), both launched through the one pl.pallas_call
+// in _call (:186).  The TPU kernels stack tb items into one (tb*S, tb*S)
+// score matmul, masked block-diagonally, to fill a 128x128 matrix unit.
+// The cross-item blocks are exact zeros, so per-(item, head) attention is
+// the same function, and that is what these kernels compute.  q, k, v, the
+// output and the gradients are the packed (B*S, H*D) row-major views of the
+// (B, S, H, D) projections (row stride H*D): no head-split copy is made.
+//
+// - attn_small_fwd (K10): one block per (item, head, query tile), with an
+//   exact two-sweep softmax as _softmax_small's.  Sweep 1 finds each row's
+//   max and sum of exp(s - max) over the key tiles; sweep 2 forms
+//   P = exp(s - max) / sum, rounds it to the compute dtype and accumulates
+//   P.V in fp32, rounded once.  Keys past S are masked, and under causal
+//   the keys past the row (-1e30 before the max, as _softmax_small).  Both
+//   sweeps walk the same key tiles and stop after the tile that holds the
+//   block's last row: a tile past it is masked whole, adds exp(-1e30 - max)
+//   = 0 to the sum and 0 to P.V, so the max and the sum see exactly the
+//   masked set.  Every row keeps at least its diagonal.
+// - attn_small_dq / attn_small_dkv (K11), one C call launching both: P is
+//   recomputed from q and k (the residuals are q, k and v only).  The first
+//   kernel owns a query tile: the row max and sum as the forward's, then
+//   delta = sum_j dp P on the fp32 P, then dq = round(P (dp - delta) scale)
+//   . K, and each row's statistics into a scratch buffer.  The second owns
+//   a key tile and walks the query tiles (under causal, from the tile that
+//   holds its first key) for dk = round(ds)^T . Q and dv = round(P)^T . dO.
+//   ds uses the fp32 P and dv the rounded P, as head_bwd.  Each block owns
+//   its output rows: no atomics, bit-identical across calls.
+//
+// bf16 runs on mma.sync m16n8k16 with fp32 accumulation; fp32 on SIMT tiles
+// with no TF32.  Head dims 64 and 128, the zoo's.  The tile code is K5's
+// block_attention (vit_block_fwd.cu) and K6's block_attention_bwd
+// (vit_block_bwd.cu) with q, k, v as three pointers and the causal mask.
+//
+// What bounds it: at vit_tiny's train shape (B 256, S 64, H 3, D 64, bf16)
+// the forward is 4 S^2 D B H = 0.81 GFLOP (0.8 us at 989 TFLOP/s) against
+// 25.2 MB of q, k, v and o (7.5 us at 3.35 TB/s), and the backward 2.0
+// GFLOP against 44 MB (13 us): bytes bound both.  The kernels read each
+// input row once from device memory at S 64 (one key tile), so they meet
+// that bound in traffic.  What keeps them from it is time on chip: the
+// sweeps stage K again and recompute the scores (twice in the forward,
+// three times for dq and once more for dk/dv), the mma.sync B fragments
+// of P.V are gathered element by element from shared memory, and each
+// 128-thread block holds one 64-query tile with nothing overlapping its
+// synchronous loads.  fp32 (vit_tiny without --amp) is bound by operations
+// on the SIMT cores.  wgmma and TMA are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kNegInf = -1e30f;  // finite "-inf": exp gives exactly 0
+constexpr int kThreads = 128;
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_f32_to_bf16(float lo, float hi) {
+  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+}
+
+__device__ __forceinline__ uint32_t lds32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// row and column of accumulator element e of 8-wide tile n in this thread's
+// mma fragment, within the block's 64 rows (4 warps x 16)
+__device__ __forceinline__ int frag_row(int e) {
+  return (threadIdx.x / 32) * 16 + ((threadIdx.x % 32) >> 2) + 8 * (e >> 1);
+}
+__device__ __forceinline__ int frag_col(int n, int e) {
+  return n * 8 + ((threadIdx.x % 32) & 3) * 2 + (e & 1);
+}
+
+struct Params {
+  const void* q;     // (batch * seq, ld) each, one head's D columns at h * D
+  const void* k;
+  const void* v;
+  const void* dout;  // backward: the output cotangent, (batch * seq, ld)
+  void* o;           // forward: the output; backward: dq
+  void* dk;          // backward
+  void* dv;
+  float* stats;      // backward scratch (batch * seq, heads, 3): row max, row sum, delta
+  int seq, heads, ld;
+  float scale;
+  int causal;
+};
+
+// query `row` sees key `col`: inside the item, and at or before the row under causal
+__device__ __forceinline__ bool visible(const Params& p, int row, int col) {
+  return col < p.seq && (!p.causal || col <= row);
+}
+
+// end of the keys that the query rows [row0, row0 + rows) see
+__device__ __forceinline__ int key_end(const Params& p, int row0, int rows) {
+  return p.causal ? min(p.seq, row0 + rows) : p.seq;
+}
+
+// rows [row0, row0 + ROWS) of one head's (seq, D) column slice (row stride
+// ld) into shared memory with row stride D + 8; rows past len zero-filled
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(bf16* smem, const bf16* g, long long ld, int row0,
+                                          int len) {
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const bool valid = row0 + r < len;
+    cp_async16(smem + r * (D + 8) + col, g + (valid ? (row0 + r) * ld : 0) + col, valid);
+  }
+}
+
+// c (16 rows x NT*8) = A . B^T: A this warp's 16 rows at `a`, B NT*8 rows
+// at `b`, both (rows, D) in shared memory with row stride D + 8
+template <int D, int NT>
+__device__ __forceinline__ void mma_abt(float (&c)[NT][4], const bf16* a, const bf16* b) {
+  constexpr int LDS = D + 8;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const bf16* a0 = a + g * LDS + kk * 16 + t * 2;
+    const uint32_t af[4] = {lds32(a0), lds32(a0 + 8 * LDS), lds32(a0 + 8), lds32(a0 + 8 * LDS + 8)};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const bf16* b0 = b + (n * 8 + g) * LDS + kk * 16 + t * 2;
+      const uint32_t bf[2] = {lds32(b0), lds32(b0 + 8)};
+      mma_16816(c[n], af, bf);
+    }
+  }
+}
+
+// c (16 rows x D) += round(x) . B: x this warp's 16 x KN accumulator tile
+// (rounded to bf16 here), B (KN rows, D) in shared memory, stride D + 8
+template <int D, int KN>
+__device__ __forceinline__ void mma_xb(float (&c)[D / 8][4], const float (&x)[KN / 8][4],
+                                       const bf16* b) {
+  constexpr int LDS = D + 8;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < KN / 16; ++kk) {
+    // two adjacent 8-wide accumulator tiles are exactly the A fragment of a 16-deep step
+    const uint32_t xa[4] = {
+        pack_f32_to_bf16(x[2 * kk][0], x[2 * kk][1]),
+        pack_f32_to_bf16(x[2 * kk][2], x[2 * kk][3]),
+        pack_f32_to_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+        pack_f32_to_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]),
+    };
+    const bf16* b0 = b + (kk * 16 + t * 2) * LDS + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const bf16* bn = b0 + n * 8;
+      const uint32_t bf[2] = {pack_bf16(bn[0], bn[LDS]), pack_bf16(bn[8 * LDS], bn[9 * LDS])};
+      mma_16816(c[n], xa, bf);
+    }
+  }
+}
+
+// this warp's 16 rows (starting at m0 + frag_row) of a (16 x D) accumulator
+// into the bf16 rows of g (row stride ld), rows past seq left alone
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* g, const float (&acc)[D / 8][4], int m0,
+                                           const Params& p) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = m0 + frag_row(2 * i);
+    if (row >= p.seq) continue;
+    bf16* r = g + static_cast<long long>(row) * p.ld + t * 2;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(r + n * 8) = pack_f32_to_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+__device__ __forceinline__ long long head_base(const Params& p, int b, int h, int d) {
+  return static_cast<long long>(b) * p.seq * p.ld + h * d;
+}
+
+// ------------------------------------------------------------- K10 forward
+
+constexpr int kTile = 64;  // bf16: query rows per block (4 warps x 16), keys per tile
+
+template <int D>
+constexpr int fwd_bf16_smem() {
+  return 3 * kTile * (D + 8) * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) attn_small_fwd_bf16(const Params p) {
+  constexpr int LDS = D + 8, NS = kTile / 8, NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + kTile * LDS;
+  bf16* vs = ks + kTile * LDS;
+  const int m0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int wr = (threadIdx.x / 32) * 16, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const long long base = head_base(p, b, h, D);
+  const bf16* kg = static_cast<const bf16*>(p.k) + base;
+  const bf16* vg = static_cast<const bf16*>(p.v) + base;
+  const int kend = key_end(p, m0, kTile);
+
+  load_rows<D, kTile>(qs, static_cast<const bf16*>(p.q) + base, p.ld, m0, p.seq);
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const bf16* q0 = qs + (wr + g) * LDS + kk * 16 + t * 2;
+    qf[kk][0] = lds32(q0);
+    qf[kk][1] = lds32(q0 + 8 * LDS);
+    qf[kk][2] = lds32(q0 + 8);
+    qf[kk][3] = lds32(q0 + 8 * LDS + 8);
+  }
+  // scaled scores of this warp's rows against the key tile at n0, masked
+  auto scores = [&](float (&s)[NS][4], int n0) {
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const bf16* k0 = ks + (n * 8 + g) * LDS + kk * 16 + t * 2;
+        const uint32_t bf[2] = {lds32(k0), lds32(k0 + 8)};
+        mma_16816(s[n], qf[kk], bf);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = visible(p, m0 + frag_row(e), n0 + frag_col(n, e)) ? s[n][e] * p.scale : kNegInf;
+    }
+  };
+
+  // sweep 1: each row's max and sum of exp(s - max) over the key tiles
+  float mx[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f};  // sum: this thread's share
+  for (int n0 = 0; n0 < kend; n0 += kTile) {
+    load_rows<D, kTile>(ks, kg, p.ld, n0, p.seq);
+    cp_async_wait_all();
+    __syncthreads();
+    float s[NS][4];
+    scores(s, n0);
+    __syncthreads();  // every warp is done with this K tile
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float m = mx[i];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) m = fmaxf(m, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+      m = quad_max(m);
+      float add = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) add += expf(s[n][2 * i] - m) + expf(s[n][2 * i + 1] - m);
+      sum[i] = sum[i] * expf(mx[i] - m) + add;
+      mx[i] = m;
+    }
+  }
+  const float total[2] = {quad_sum(sum[0]), quad_sum(sum[1])};
+
+  // sweep 2: P = exp(s - max) / sum rounded to bf16, P.V accumulated in fp32
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n0 = 0; n0 < kend; n0 += kTile) {
+    load_rows<D, kTile>(ks, kg, p.ld, n0, p.seq);
+    load_rows<D, kTile>(vs, vg, p.ld, n0, p.seq);
+    cp_async_wait_all();
+    __syncthreads();
+    float s[NS][4];
+    scores(s, n0);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = expf(s[n][e] - mx[e >> 1]) / total[e >> 1];
+    mma_xb<D, kTile>(acc, s, vs);
+    __syncthreads();  // every warp is done with this K and V tile
+  }
+  store_rows<D>(static_cast<bf16*>(p.o) + base, acc, m0, p);
+}
+
+constexpr int kFM = 32;  // fp32: rows (queries or keys) per block, 4 threads per row
+constexpr int kFN = 32;  // fp32: keys or queries per tile
+
+template <int D>
+constexpr int fwd_f32_smem() {
+  return (kFM * (D + 1) + 2 * kFN * (D + 1) + kFM * (kFN + 1)) * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) attn_small_fwd_f32(const Params p) {
+  constexpr int LD = D + 1;  // odd stride: a warp's 8 rows fall on distinct banks
+  constexpr int PER = kFN / 4, OUT = D / 4;
+  extern __shared__ float fsmem[];
+  float* qs = fsmem;
+  float* ks = qs + kFM * LD;
+  float* vs = ks + kFN * LD;
+  float* ps = vs + kFN * LD;
+  const int m0 = blockIdx.x * kFM, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, r = tid / 4, t = tid % 4;  // row of the tile, lane of its quad
+  const long long base = head_base(p, b, h, D);
+  const float* qg = static_cast<const float*>(p.q) + base;
+  const float* kg = static_cast<const float*>(p.k) + base;
+  const float* vg = static_cast<const float*>(p.v) + base;
+  const int kend = key_end(p, m0, kFM);
+
+  for (int c = tid; c < kFM * D; c += kThreads) {
+    const int rr = c / D, d = c % D;
+    qs[rr * LD + d] = m0 + rr < p.seq ? qg[static_cast<long long>(m0 + rr) * p.ld + d] : 0.f;
+  }
+  auto scores = [&](float (&s)[PER], int n0) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int c = t + 4 * i;
+      float x = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) x = fmaf(qs[r * LD + d], ks[c * LD + d], x);
+      s[i] = visible(p, m0 + r, n0 + c) ? x * p.scale : kNegInf;
+    }
+  };
+
+  // sweep 1: the row's max and sum of exp(s - max)
+  float mx = kNegInf, sum = 0.f;
+  for (int n0 = 0; n0 < kend; n0 += kFN) {
+    __syncthreads();
+    for (int c = tid; c < kFN * D; c += kThreads) {
+      const int rr = c / D, d = c % D;
+      ks[rr * LD + d] = n0 + rr < p.seq ? kg[static_cast<long long>(n0 + rr) * p.ld + d] : 0.f;
+    }
+    __syncthreads();
+    float s[PER];
+    scores(s, n0);
+    float m = mx;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) m = fmaxf(m, s[i]);
+    m = quad_max(m);
+    float add = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) add += expf(s[i] - m);
+    sum = sum * expf(mx - m) + add;
+    mx = m;
+  }
+  const float total = quad_sum(sum);
+
+  // sweep 2: P = exp(s - max) / sum, accumulated P.V
+  float acc[OUT];
+#pragma unroll
+  for (int i = 0; i < OUT; ++i) acc[i] = 0.f;
+  for (int n0 = 0; n0 < kend; n0 += kFN) {
+    __syncthreads();
+    for (int c = tid; c < kFN * D; c += kThreads) {
+      const int rr = c / D, d = c % D;
+      const bool ok = n0 + rr < p.seq;
+      const long long off = static_cast<long long>(n0 + rr) * p.ld + d;
+      ks[rr * LD + d] = ok ? kg[off] : 0.f;
+      vs[rr * LD + d] = ok ? vg[off] : 0.f;
+    }
+    __syncthreads();
+    float s[PER];
+    scores(s, n0);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) ps[r * (kFN + 1) + t + 4 * i] = expf(s[i] - mx) / total;
+    __syncwarp();  // a row's quad lives in one warp: its P row is visible now
+    for (int c = 0; c < kFN; ++c) {
+      const float pc = ps[r * (kFN + 1) + c];
+#pragma unroll
+      for (int i = 0; i < OUT; ++i) acc[i] = fmaf(pc, vs[c * LD + t + 4 * i], acc[i]);
+    }
+  }
+  if (m0 + r < p.seq) {
+    float* og = static_cast<float*>(p.o) + base + static_cast<long long>(m0 + r) * p.ld;
+#pragma unroll
+    for (int i = 0; i < OUT; ++i) og[t + 4 * i] = acc[i];
+  }
+}
+
+// ------------------------------------------------------------ K11 backward
+
+template <int D, int KN>
+constexpr int bwd_bf16_smem() {
+  return (2 * kTile + 2 * KN) * (D + 8) * 2 + KN * 3 * 4;
+}
+
+// dq for 64 query rows of one (item, head), and the rows' statistics
+template <int D, int KN>
+__global__ void __launch_bounds__(kThreads) attn_small_dq_bf16(const Params p) {
+  constexpr int LDS = D + 8, NS = KN / 8, NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + kTile * LDS;
+  bf16* ks = dos + kTile * LDS;
+  bf16* vs = ks + KN * LDS;
+  const int m0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int wr = (threadIdx.x / 32) * 16;
+  const long long base = head_base(p, b, h, D);
+  const bf16* kg = static_cast<const bf16*>(p.k) + base;
+  const bf16* vg = static_cast<const bf16*>(p.v) + base;
+  const int kend = key_end(p, m0, kTile);
+  load_rows<D, kTile>(qs, static_cast<const bf16*>(p.q) + base, p.ld, m0, p.seq);
+  load_rows<D, kTile>(dos, static_cast<const bf16*>(p.dout) + base, p.ld, m0, p.seq);
+
+  // scaled scores of this warp's rows against the key tile at n0, masked
+  auto scores = [&](float (&s)[NS][4], int n0) {
+    mma_abt<D, NS>(s, qs + wr * LDS, ks);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = visible(p, m0 + frag_row(e), n0 + frag_col(n, e)) ? s[n][e] * p.scale : kNegInf;
+  };
+
+  // sweep 1: each row's max and sum of exp(s - max), as the forward's
+  float mx[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f};
+  for (int n0 = 0; n0 < kend; n0 += KN) {
+    load_rows<D, KN>(ks, kg, p.ld, n0, p.seq);
+    cp_async_wait_all();
+    __syncthreads();
+    float s[NS][4];
+    scores(s, n0);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float m = mx[i];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) m = fmaxf(m, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+      m = quad_max(m);
+      float add = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) add += expf(s[n][2 * i] - m) + expf(s[n][2 * i + 1] - m);
+      sum[i] = sum[i] * expf(mx[i] - m) + add;
+      mx[i] = m;
+    }
+  }
+  const float total[2] = {quad_sum(sum[0]), quad_sum(sum[1])};
+
+  // P = exp(s - max) / sum (fp32) and dp = dO . V^T of the key tile at n0
+  auto probs = [&](float (&s)[NS][4], float (&dp)[NS][4], int n0) {
+    load_rows<D, KN>(ks, kg, p.ld, n0, p.seq);
+    load_rows<D, KN>(vs, vg, p.ld, n0, p.seq);
+    cp_async_wait_all();
+    __syncthreads();
+    scores(s, n0);
+    mma_abt<D, NS>(dp, dos + wr * LDS, vs);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = expf(s[n][e] - mx[e >> 1]) / total[e >> 1];
+  };
+
+  // sweep 2: delta = sum_j dp P
+  float dl[2] = {0.f, 0.f};
+  for (int n0 = 0; n0 < kend; n0 += KN) {
+    float s[NS][4], dp[NS][4];
+    probs(s, dp, n0);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dl[e >> 1] += s[n][e] * dp[n][e];
+    __syncthreads();
+  }
+  const float delta[2] = {quad_sum(dl[0]), quad_sum(dl[1])};
+
+  // sweep 3: dq = round(P (dp - delta) scale) . K
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n0 = 0; n0 < kend; n0 += KN) {
+    float s[NS][4], dp[NS][4];
+    probs(s, dp, n0);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * (dp[n][e] - delta[e >> 1]) * p.scale;
+    mma_xb<D, KN>(acc, s, ks);
+    __syncthreads();
+  }
+  store_rows<D>(static_cast<bf16*>(p.o) + base, acc, m0, p);
+  if ((threadIdx.x & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = m0 + frag_row(2 * i);
+      if (row >= p.seq) continue;
+      float* st = p.stats + ((static_cast<long long>(b) * p.seq + row) * p.heads + h) * 3;
+      st[0] = mx[i];
+      st[1] = total[i];
+      st[2] = delta[i];
+    }
+  }
+}
+
+// dk and dv for 64 keys of one (item, head), walking the query tiles in
+// the transposed frame: rows are keys, columns queries
+template <int D, int QN>
+__global__ void __launch_bounds__(kThreads) attn_small_dkv_bf16(const Params p) {
+  constexpr int LDS = D + 8, NS = QN / 8, NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + kTile * LDS;
+  bf16* qs = vs + kTile * LDS;
+  bf16* dos = qs + QN * LDS;
+  float* st = reinterpret_cast<float*>(dos + QN * LDS);
+  const int n0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int wr = (threadIdx.x / 32) * 16;
+  const long long base = head_base(p, b, h, D);
+  const bf16* qg = static_cast<const bf16*>(p.q) + base;
+  const bf16* dog = static_cast<const bf16*>(p.dout) + base;
+  const float* stats = p.stats + static_cast<long long>(b) * p.seq * p.heads * 3 + h * 3;
+  load_rows<D, kTile>(ks, static_cast<const bf16*>(p.k) + base, p.ld, n0, p.seq);
+  load_rows<D, kTile>(vs, static_cast<const bf16*>(p.v) + base, p.ld, n0, p.seq);
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  // under causal no query before this block's first key sees any of its keys
+  for (int q0 = p.causal ? n0 / QN * QN : 0; q0 < p.seq; q0 += QN) {
+    load_rows<D, QN>(qs, qg, p.ld, q0, p.seq);
+    load_rows<D, QN>(dos, dog, p.ld, q0, p.seq);
+    for (int i = threadIdx.x; i < QN * 3; i += kThreads) {
+      const int r = i / 3;
+      st[i] = q0 + r < p.seq ? stats[static_cast<long long>(q0 + r) * p.heads * 3 + i % 3] : 1.f;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    float s[NS][4], dp[NS][4];
+    mma_abt<D, NS>(s, ks + wr * LDS, qs);
+    mma_abt<D, NS>(dp, vs + wr * LDS, dos);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = frag_col(n, e);
+        const bool seen = q0 + i < p.seq && visible(p, q0 + i, n0 + frag_row(e));
+        const float pr = seen ? expf(s[n][e] * p.scale - st[3 * i]) / st[3 * i + 1] : 0.f;
+        s[n][e] = pr;
+        dp[n][e] = pr * (dp[n][e] - st[3 * i + 2]) * p.scale;
+      }
+    mma_xb<D, QN>(dv, s, dos);
+    mma_xb<D, QN>(dk, dp, qs);
+    __syncthreads();
+  }
+  store_rows<D>(static_cast<bf16*>(p.dk) + base, dk, n0, p);
+  store_rows<D>(static_cast<bf16*>(p.dv) + base, dv, n0, p);
+}
+
+template <int D>
+constexpr int bwd_f32_smem() {
+  return (4 * kFM * (D + 1) + 2 * kFM * (kFN + 1) + kFN * 3) * 4;
+}
+
+// fp32 dq and statistics: 32 query rows, a quad of threads per row
+template <int D>
+__global__ void __launch_bounds__(kThreads) attn_small_dq_f32(const Params p) {
+  constexpr int LD = D + 1, PER = kFN / 4, OUT = D / 4;
+  extern __shared__ float fsmem[];
+  float* qs = fsmem;
+  float* dos = qs + kFM * LD;
+  float* ks = dos + kFM * LD;
+  float* vs = ks + kFN * LD;
+  float* ps = vs + kFN * LD;
+  const int m0 = blockIdx.x * kFM, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, r = tid / 4, t = tid % 4;
+  const long long base = head_base(p, b, h, D);
+  const float* qg = static_cast<const float*>(p.q) + base;
+  const float* kg = static_cast<const float*>(p.k) + base;
+  const float* vg = static_cast<const float*>(p.v) + base;
+  const float* dog = static_cast<const float*>(p.dout) + base;
+  const int kend = key_end(p, m0, kFM);
+  for (int c = tid; c < kFM * D; c += kThreads) {
+    const int rr = c / D, d = c % D;
+    const bool ok = m0 + rr < p.seq;
+    const long long off = static_cast<long long>(m0 + rr) * p.ld + d;
+    qs[rr * LD + d] = ok ? qg[off] : 0.f;
+    dos[rr * LD + d] = ok ? dog[off] : 0.f;
+  }
+  auto load_kv = [&](int n0, bool with_v) {
+    __syncthreads();
+    for (int c = tid; c < kFN * D; c += kThreads) {
+      const int rr = c / D, d = c % D;
+      const bool ok = n0 + rr < p.seq;
+      const long long off = static_cast<long long>(n0 + rr) * p.ld + d;
+      ks[rr * LD + d] = ok ? kg[off] : 0.f;
+      if (with_v) vs[rr * LD + d] = ok ? vg[off] : 0.f;
+    }
+    __syncthreads();
+  };
+  auto dots = [&](float (&s)[PER], const float* a, const float* bm) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int c = t + 4 * i;
+      float x = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) x = fmaf(a[r * LD + d], bm[c * LD + d], x);
+      s[i] = x;
+    }
+  };
+  auto scores = [&](float (&s)[PER], int n0) {
+    dots(s, qs, ks);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) s[i] = visible(p, m0 + r, n0 + t + 4 * i) ? s[i] * p.scale : kNegInf;
+  };
+  float mx = kNegInf, sum = 0.f;
+  for (int n0 = 0; n0 < kend; n0 += kFN) {
+    load_kv(n0, false);
+    float s[PER];
+    scores(s, n0);
+    float m = mx;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) m = fmaxf(m, s[i]);
+    m = quad_max(m);
+    float add = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) add += expf(s[i] - m);
+    sum = sum * expf(mx - m) + add;
+    mx = m;
+  }
+  const float total = quad_sum(sum);
+  auto probs = [&](float (&s)[PER], float (&dp)[PER], int n0) {
+    load_kv(n0, true);
+    scores(s, n0);
+    dots(dp, dos, vs);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) s[i] = expf(s[i] - mx) / total;
+  };
+  float dl = 0.f;
+  for (int n0 = 0; n0 < kend; n0 += kFN) {
+    float s[PER], dp[PER];
+    probs(s, dp, n0);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) dl += s[i] * dp[i];
+  }
+  const float delta = quad_sum(dl);
+  float acc[OUT];
+#pragma unroll
+  for (int i = 0; i < OUT; ++i) acc[i] = 0.f;
+  for (int n0 = 0; n0 < kend; n0 += kFN) {
+    float s[PER], dp[PER];
+    probs(s, dp, n0);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) ps[r * (kFN + 1) + t + 4 * i] = s[i] * (dp[i] - delta) * p.scale;
+    __syncwarp();  // a row's quad lives in one warp
+    for (int c = 0; c < kFN; ++c) {
+      const float pc = ps[r * (kFN + 1) + c];
+#pragma unroll
+      for (int i = 0; i < OUT; ++i) acc[i] = fmaf(pc, ks[c * LD + t + 4 * i], acc[i]);
+    }
+    __syncwarp();
+  }
+  if (m0 + r < p.seq) {
+    const long long row = static_cast<long long>(b) * p.seq + m0 + r;
+    float* dq = static_cast<float*>(p.o) + base + static_cast<long long>(m0 + r) * p.ld;
+#pragma unroll
+    for (int i = 0; i < OUT; ++i) dq[t + 4 * i] = acc[i];
+    if (t == 0) {
+      float* st = p.stats + (row * p.heads + h) * 3;
+      st[0] = mx;
+      st[1] = total;
+      st[2] = delta;
+    }
+  }
+}
+
+// fp32 dk and dv: 32 keys, a quad of threads per key, walking query tiles
+template <int D>
+__global__ void __launch_bounds__(kThreads) attn_small_dkv_f32(const Params p) {
+  constexpr int LD = D + 1, PER = kFN / 4, OUT = D / 4;
+  extern __shared__ float fsmem[];
+  float* ks = fsmem;
+  float* vs = ks + kFM * LD;
+  float* qs = vs + kFM * LD;
+  float* dos = qs + kFN * LD;
+  float* ps = dos + kFN * LD;
+  float* dss = ps + kFM * (kFN + 1);
+  float* st = dss + kFM * (kFN + 1);
+  const int n0 = blockIdx.x * kFM, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, r = tid / 4, t = tid % 4;
+  const long long base = head_base(p, b, h, D);
+  const float* qg = static_cast<const float*>(p.q) + base;
+  const float* kg = static_cast<const float*>(p.k) + base;
+  const float* vg = static_cast<const float*>(p.v) + base;
+  const float* dog = static_cast<const float*>(p.dout) + base;
+  const float* stats = p.stats + static_cast<long long>(b) * p.seq * p.heads * 3 + h * 3;
+  for (int c = tid; c < kFM * D; c += kThreads) {
+    const int rr = c / D, d = c % D;
+    const bool ok = n0 + rr < p.seq;
+    const long long off = static_cast<long long>(n0 + rr) * p.ld + d;
+    ks[rr * LD + d] = ok ? kg[off] : 0.f;
+    vs[rr * LD + d] = ok ? vg[off] : 0.f;
+  }
+  float dk[OUT], dv[OUT];
+#pragma unroll
+  for (int i = 0; i < OUT; ++i) dk[i] = dv[i] = 0.f;
+  // under causal no query before this block's first key sees any of its keys
+  for (int q0 = p.causal ? n0 / kFN * kFN : 0; q0 < p.seq; q0 += kFN) {
+    __syncthreads();
+    for (int c = tid; c < kFN * D; c += kThreads) {
+      const int rr = c / D, d = c % D;
+      const bool ok = q0 + rr < p.seq;
+      const long long off = static_cast<long long>(q0 + rr) * p.ld + d;
+      qs[rr * LD + d] = ok ? qg[off] : 0.f;
+      dos[rr * LD + d] = ok ? dog[off] : 0.f;
+    }
+    for (int i = tid; i < kFN * 3; i += kThreads) {
+      const int rr = i / 3;
+      st[i] = q0 + rr < p.seq ? stats[static_cast<long long>(q0 + rr) * p.heads * 3 + i % 3] : 1.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int c = t + 4 * i;
+      float s = 0.f, dp = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) {
+        s = fmaf(ks[r * LD + d], qs[c * LD + d], s);
+        dp = fmaf(vs[r * LD + d], dos[c * LD + d], dp);
+      }
+      const bool seen = q0 + c < p.seq && visible(p, q0 + c, n0 + r);
+      const float pr = seen ? expf(s * p.scale - st[3 * c]) / st[3 * c + 1] : 0.f;
+      ps[r * (kFN + 1) + c] = pr;
+      dss[r * (kFN + 1) + c] = pr * (dp - st[3 * c + 2]) * p.scale;
+    }
+    __syncwarp();
+    for (int c = 0; c < kFN; ++c) {
+      const float pc = ps[r * (kFN + 1) + c], dc = dss[r * (kFN + 1) + c];
+#pragma unroll
+      for (int i = 0; i < OUT; ++i) {
+        dv[i] = fmaf(pc, dos[c * LD + t + 4 * i], dv[i]);
+        dk[i] = fmaf(dc, qs[c * LD + t + 4 * i], dk[i]);
+      }
+    }
+  }
+  if (n0 + r < p.seq) {
+    const long long off = base + static_cast<long long>(n0 + r) * p.ld;
+    float* kr = static_cast<float*>(p.dk) + off;
+    float* vr = static_cast<float*>(p.dv) + off;
+#pragma unroll
+    for (int i = 0; i < OUT; ++i) {
+      kr[t + 4 * i] = dk[i];
+      vr[t + 4 * i] = dv[i];
+    }
+  }
+}
+
+// ----------------------------------------------------------------- launch
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, const Params& p) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_fwd(const Params& p, int batch, int is_bf16, cudaStream_t s) {
+  if (is_bf16) {
+    const dim3 grid((p.seq + kTile - 1) / kTile, p.heads, batch);
+    return launch(attn_small_fwd_bf16<D>, grid, fwd_bf16_smem<D>(), s, p);
+  }
+  const dim3 grid((p.seq + kFM - 1) / kFM, p.heads, batch);
+  return launch(attn_small_fwd_f32<D>, grid, fwd_f32_smem<D>(), s, p);
+}
+
+template <int D>
+cudaError_t launch_bwd(const Params& p, int batch, int is_bf16, cudaStream_t s) {
+  if (is_bf16) {
+    constexpr int KN = D <= 64 ? 64 : 32;  // key (query) tile: fewer accumulators at large D
+    const dim3 grid((p.seq + kTile - 1) / kTile, p.heads, batch);
+    cudaError_t err = launch(attn_small_dq_bf16<D, KN>, grid, bwd_bf16_smem<D, KN>(), s, p);
+    if (err != cudaSuccess) return err;
+    return launch(attn_small_dkv_bf16<D, KN>, grid, bwd_bf16_smem<D, KN>(), s, p);
+  }
+  const dim3 grid((p.seq + kFM - 1) / kFM, p.heads, batch);
+  cudaError_t err = launch(attn_small_dq_f32<D>, grid, bwd_f32_smem<D>(), s, p);
+  if (err != cudaSuccess) return err;
+  return launch(attn_small_dkv_f32<D>, grid, bwd_f32_smem<D>(), s, p);
+}
+
+}  // namespace
+
+// K10: o = attention(q, k, v) per (item, head) over the packed rows: q, k,
+// v and o are contiguous (batch * seq, heads * head_dim) in the compute
+// dtype (bf16 when is_bf16, else fp32), 16-byte aligned; head_dim 64 or
+// 128; causal 0/1.  Returns the launch's cudaError_t (0 on success).
+extern "C" int attention_small_fwd(const void* q, const void* k, const void* v, void* o,
+                                   int batch, int seq, int heads, int head_dim, float scale,
+                                   int causal, int is_bf16, void* stream) {
+  const Params p{q, k, v, nullptr, o, nullptr, nullptr, nullptr,
+                 seq, heads, heads * head_dim, scale, causal};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64: return launch_fwd<64>(p, batch, is_bf16, s);
+    case 128: return launch_fwd<128>(p, batch, is_bf16, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K11: dq, dk, dv of attention_small_fwd for the output cotangent dout, all
+// laid out as q; stats is fp32 scratch (batch * seq, heads, 3).  Launches
+// the dq kernel, then the dk/dv kernel, which reads the statistics the
+// first wrote.  Returns the first failing launch's cudaError_t (0 on success).
+extern "C" int attention_small_bwd(const void* q, const void* k, const void* v, const void* dout,
+                                   void* dq, void* dk, void* dv, void* stats, int batch, int seq,
+                                   int heads, int head_dim, float scale, int causal, int is_bf16,
+                                   void* stream) {
+  const Params p{q, k, v, dout, dq, dk, dv, static_cast<float*>(stats),
+                 seq, heads, heads * head_dim, scale, causal};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64: return launch_bwd<64>(p, batch, is_bf16, s);
+    case 128: return launch_bwd<128>(p, batch, is_bf16, s);
+    default: return cudaErrorInvalidValue;
+  }
+}

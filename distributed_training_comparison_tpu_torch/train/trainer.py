@@ -54,9 +54,13 @@ def build_model(hparams, attn_impl: str = "auto") -> torch.nn.Module:
 
 
 class Trainer:
-    """Trains one run on one device (``--device``, the card by default)."""
+    """Trains one run on one device (``--device``, the card by default).
 
-    def __init__(self, hparams) -> None:
+    ``model`` (the JAX ``Trainer(hparams, model=...)``) is trained in place
+    of :func:`build_model`'s, moved to the device: for example a zoo model
+    with a pinned ``attn_impl``."""
+
+    def __init__(self, hparams, model: torch.nn.Module | None = None) -> None:
         self.hparams = hparams
         if hparams.batch_size % hparams.grad_accum:
             raise ValueError(
@@ -65,7 +69,7 @@ class Trainer:
             )
         self.device = resolve_device(hparams.device)
         self.precision = hparams.precision
-        self.model = build_model(hparams).to(self.device)
+        self.model = (build_model(hparams) if model is None else model).to(self.device)
         trn, val, tst = get_datasets(hparams)
         self.train_split = DeviceSplit(*trn, self.device)
         self.val_split = DeviceSplit(*val, self.device)

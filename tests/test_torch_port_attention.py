@@ -132,7 +132,7 @@ def test_auto_dispatch_choice(device, q_len, kv_len, head_dim, causal, want):
 
 def test_unported_impls_and_bad_arguments_raise():
     q = torch.zeros(1, 1, 8, 16)
-    for impl in ("ring", "ulysses:model", "fused_small"):
+    for impl in ("ring", "ulysses:model"):
         with pytest.raises(NotImplementedError):
             port.attention(q, q, q, impl=impl)
     with pytest.raises(ValueError, match="unknown attention impl"):

@@ -2,7 +2,8 @@
 
 These tests need an NVIDIA Hopper card: the CUDA kernels (flash
 attention, K1-K4; the fused block chains, K5 and K6; the grouped expert
-FFN, K7-K9) have no interpret mode.
+FFN, K7-K9; the short-sequence attention, K10 and K11) have no interpret
+mode.
 Each skips inside its fixture where ``torch.cuda.is_available()`` is
 false.  The file imports no JAX, so it
 also runs where JAX is not installed; there, skip ``tests/conftest.py``
@@ -20,6 +21,7 @@ port = importlib.import_module("distributed_training_comparison_tpu_torch.ops.at
 vit = importlib.import_module("distributed_training_comparison_tpu_torch.models.vit")
 vb = importlib.import_module("distributed_training_comparison_tpu_torch.ops.vit_block")
 gmm = importlib.import_module("distributed_training_comparison_tpu_torch.ops.moe_gmm")
+small = importlib.import_module("distributed_training_comparison_tpu_torch.ops.attention_small")
 
 
 @pytest.fixture
@@ -563,3 +565,94 @@ def test_vit_moe_gmm_step_matches_gather_on_card(cuda_device):
         scale = ref[name.replace("bias", "weight") if name.endswith("k_proj.bias") else name]
         err = float((g - ref[name]).norm() / scale.norm().clamp_min(1e-30))
         assert err <= 2**-4, (name, err)
+
+
+# (dtype, B, S, H, D, causal): vit_tiny's serve bucket and train batch at 64
+# tokens, a ragged causal S of 24, a multi-tile S of 256 at head dim 128
+SMALL_CASES = [
+    (torch.bfloat16, 32, 64, 3, 64, False),
+    (torch.float32, 16, 64, 3, 64, True),
+    (torch.bfloat16, 6, 24, 2, 64, True),
+    (torch.bfloat16, 4, 256, 2, 128, True),
+    (torch.float32, 2, 256, 2, 128, False),
+]
+
+
+def _packed_qkvdo(gen, b, s, h, d, dtype, device):
+    return [torch.randn(b * s, h * d, generator=gen).to(device=device, dtype=dtype)
+            for _ in range(4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,s,h,d,causal", SMALL_CASES)
+def test_small_mha_kernels_match_plain_on_card(cuda_device, dtype, b, s, h, d, causal):
+    """K10 and K11 against ``small_mha_reference`` and
+    ``small_mha_bwd_reference`` per row (one token's D values of one head),
+    with the flash kernels' bounds from chip_smoke.py: bf16 2^-5 of the
+    row's rms plus 2^-6·|x| (the same rounding points; a summation-order
+    flip of one P or ds rounding, and each result's own rounding), fp32
+    2^-10 of the rms (summation order and expf only)."""
+    gen = torch.Generator().manual_seed(b * s + d)
+    q, k, v, do = _packed_qkvdo(gen, b, s, h, d, dtype, cuda_device)
+    kw = dict(seq=s, heads=h, causal=causal)
+    before = (small.small_mha_fwd.launches, small.small_mha_bwd.launches)
+    out = small.small_mha_fwd(q, k, v, **kw)
+    grads = small.small_mha_bwd(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    assert (small.small_mha_fwd.launches, small.small_mha_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    unpack = [x.view(b, s, h, d) for x in (q, k, v, do)]
+    want = [small.small_mha_reference(*unpack[:3], causal=causal),
+            *small.small_mha_bwd_reference(*unpack, causal=causal)]
+    share, rtol = (2**-5, 2**-6) if dtype == torch.bfloat16 else (2**-10, 0.0)
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), (out, *grads), want):
+        assert got.dtype == dtype and got.shape == q.shape, name
+        assert bool(torch.isfinite(got).all()), name
+        got = got.view(b, s, h, d)
+        assert _row_share(got, ref, rtol) <= share, (name, _row_share(got, ref, rtol))
+
+
+@pytest.mark.gpu
+def test_small_mha_backward_is_bitwise_deterministic(cuda_device):
+    """No atomics in K11: two calls give bit-identical dq, dk and dv."""
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, do = _packed_qkvdo(gen, 64, 64, 3, 64, torch.bfloat16, cuda_device)
+    first = small.small_mha_bwd(q, k, v, do, seq=64, heads=3, causal=True)
+    second = small.small_mha_bwd(q, k, v, do, seq=64, heads=3, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_small_mha_raises_on_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(2, 64, 3, 32, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        small.small_mha(q, q, q)
+    h = torch.zeros(2, 64, 3, 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        small.small_mha(h, h, h)
+    x = torch.zeros(128, 192, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 or fp32"):  # mixed dtypes
+        small.small_mha_bwd(x, x, x, x.float(), seq=64, heads=3)
+
+
+@pytest.mark.gpu
+def test_fused_small_reaches_q_k_v_under_autograd(cuda_device):
+    """``attention(impl="fused_small")`` on the card: K10 forward, and K11
+    under autograd, whose gradients reach q, k and v (projections seen as
+    (B, S, H, D), as the ViT block hands them over) and agree with the
+    plain backward within the bf16 row bound above."""
+    gen = torch.Generator().manual_seed(4)
+    b, s, h, d = 8, 64, 3, 64
+    q, k, v, do = (x.view(b, s, h, d) for x in
+                   _packed_qkvdo(gen, b, s, h, d, torch.bfloat16, cuda_device))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (small.small_mha_fwd.launches, small.small_mha_bwd.launches)
+    out = port.attention(*leaves, impl="fused_small", layout="bshd")
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (small.small_mha_fwd.launches, small.small_mha_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = small.small_mha_bwd_reference(q, k, v, do)
+    for leaf, ref in zip(leaves, want):
+        assert leaf.grad is not None and leaf.grad.shape == leaf.shape
+        assert _row_share(leaf.grad, ref, 2**-6) <= 2**-5
