@@ -134,15 +134,18 @@ def _bwd_plain(q, k, v, do, lse, adj, *, causal: bool, scale: float):
 
 def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
     """``x`` as the kernels read it: unit stride over D, the other strides
-    whole 16-byte rows and a 16-byte aligned base (their vector copies need
-    both).  A strided view that already meets that is passed as it is."""
+    whole 16-byte rows and a 16-byte aligned base (their vector copies and
+    the bf16 forward's TMA maps need both).  A dimension of size 1 is never
+    stepped, so its stride does not count.  A strided view that already
+    meets that is passed as it is; anything else is copied, a contiguous
+    tensor with an unaligned base too."""
     item = x.element_size()
     if (
         x.stride(-1) != 1
-        or any(s * item % 16 for s in x.stride()[:3])
+        or any(s * item % 16 for n, s in zip(x.shape[:3], x.stride()[:3]) if n > 1)
         or x.data_ptr() % 16
     ):
-        x = x.contiguous()
+        x = x.clone(memory_format=torch.contiguous_format)
     return x
 
 
@@ -205,6 +208,8 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float):
             float(scale), int(causal), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
+    if err < 0:
+        raise RuntimeError(f"flash_attention_fwd: a TMA tensor map did not encode: CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
     flash_attention.launches += 1

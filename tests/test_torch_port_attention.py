@@ -52,12 +52,15 @@ def _port(fn, *arrays, **kw):
 
 
 # (b, h, sq, skv, d, causal): ragged lengths (40, 130), cross-attention,
-# causal and not, head dims 16 and 32, bh <= 4
+# causal and not, head dims 16 and 32, bh <= 4; lengths that straddle the
+# CUDA kernel's 128-row tiles (129 non-causal, 200 causal) at head dim 64
 CASES = [
     (1, 2, 40, 40, 16, False),
     (1, 2, 40, 40, 16, True),
     (2, 2, 130, 130, 32, True),
     (2, 1, 64, 130, 32, False),
+    (1, 2, 129, 129, 64, False),
+    (1, 1, 200, 200, 64, True),
 ]
 
 
@@ -109,6 +112,61 @@ def test_bf16_reference_matches_jax_bf16():
     )
     assert out_p.dtype == torch.bfloat16
     np.testing.assert_allclose(out_p.float().numpy(), out_j, atol=2 * 2**-7, rtol=0)
+
+
+def _bshd_view(b, s, h, d):
+    """A (B, H, S, D) view of a (B, S, H·D) projection, as the ViT hands it over."""
+    return torch.empty(b, s, h * d, dtype=torch.bfloat16).view(b, s, h, d).transpose(1, 2)
+
+
+def _tma_ready(x: torch.Tensor) -> bool:
+    """What the bf16 forward's TMA maps (and the kernels' vector copies)
+    take: unit stride over D, the B, H and S strides whole 16-byte rows
+    where the dimension is stepped (size above 1), a 16-byte aligned base."""
+    item = x.element_size()
+    return (
+        x.stride(-1) == 1
+        and all(s * item % 16 == 0 for n, s in zip(x.shape[:3], x.stride()[:3]) if n > 1)
+        and x.data_ptr() % 16 == 0
+    )
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        # vit_long's bucket 8: (8, 4096, 4 heads of 128) read in place
+        lambda: _bshd_view(8, 4096, 4, 128),
+        # head dim 64 at chip_smoke.py's ragged causal length
+        lambda: _bshd_view(2, 1030, 4, 64),
+        # contiguous (B, H, S, D)
+        lambda: torch.empty(2, 4, 1000, 128, dtype=torch.bfloat16),
+        # the K2 case: one batch, two heads of 16384 keys
+        lambda: torch.empty(1, 2, 16384, 128, dtype=torch.bfloat16),
+        # a size-1 batch dimension whose stride (3 elements) is no whole row:
+        # never stepped, so the kernel's TMA map gives it a row's stride
+        lambda: torch.empty(2, 100, 64, dtype=torch.bfloat16).as_strided(
+            (1, 2, 100, 64), (3, 6400, 64, 1)),
+    ],
+)
+def test_kernel_operand_reads_aligned_views_in_place(make):
+    """The views the ViT and the K2 case hand over reach the kernels as
+    they are, strides and storage kept."""
+    x = make()
+    y = port._kernel_operand(x)
+    assert y is x and _tma_ready(x)
+
+
+def test_kernel_operand_copies_what_tma_refuses():
+    """A row stride of 68 bf16 (136 bytes, not a multiple of 16), D not
+    unit-stride, and a base 2 bytes past 16-byte alignment: each is copied
+    into a contiguous tensor with the same values."""
+    padded = torch.randn(1, 2, 10, 68).to(torch.bfloat16)[..., :64]
+    strided_d = torch.randn(1, 2, 64, 64).to(torch.bfloat16).transpose(2, 3)
+    unaligned = torch.randn(1 + 2 * 10 * 64).to(torch.bfloat16)[1:].view(1, 2, 10, 64)
+    for x in (padded, strided_d, unaligned):
+        assert not _tma_ready(x)
+        y = port._kernel_operand(x)
+        assert y.is_contiguous() and _tma_ready(y) and torch.equal(y, x)
 
 
 @pytest.mark.parametrize(

@@ -34,39 +34,102 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _qkv_views(gen, dtype, b, h, sq, skv, d, layout, device):
+    """q, k, v as (B, H, S, D) views: of (B, S, H, D) tensors for bshd (the
+    ViT's projections, read in place), contiguous for bhsd."""
+    def one(s):
+        shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
+        x = torch.randn(shape, generator=gen, device=device).to(dtype)
+        return x.transpose(1, 2) if layout == "bshd" else x
+
+    return one(sq), one(skv), one(skv)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "dtype,b,h,s,d,causal",
+    "dtype,b,h,sq,skv,d,causal,layout",
     [
-        (torch.bfloat16, 2, 4, 1024, 128, False),
-        (torch.bfloat16, 1, 3, 130, 64, True),
-        (torch.float32, 1, 2, 200, 128, True),
-        (torch.float32, 2, 2, 77, 64, False),
+        (torch.bfloat16, 2, 4, 1024, 1024, 128, False, "bshd"),
+        (torch.bfloat16, 1, 3, 130, 130, 64, True, "bshd"),
+        (torch.float32, 1, 2, 200, 200, 128, True, "bshd"),
+        (torch.float32, 2, 2, 77, 77, 64, False, "bshd"),
+        # the bf16 kernel's 128-row tile edges: one row, one short of a
+        # tile, a whole tile, one past it, and S 1000 ending inside a tile
+        (torch.bfloat16, 1, 2, 1, 1, 128, False, "bshd"),
+        (torch.bfloat16, 2, 2, 127, 127, 128, False, "bshd"),
+        (torch.bfloat16, 2, 2, 128, 128, 128, False, "bshd"),
+        (torch.bfloat16, 2, 2, 129, 129, 128, False, "bshd"),
+        (torch.bfloat16, 2, 4, 1000, 1000, 128, False, "bshd"),
+        # causal past one tile at D 64 (V's 64 columns against 128-key tiles)
+        (torch.bfloat16, 2, 2, 257, 257, 64, True, "bshd"),
+        (torch.bfloat16, 2, 3, 300, 300, 128, True, "bhsd"),
+        # cross attention: more keys than queries, neither a tile multiple
+        (torch.bfloat16, 2, 2, 100, 300, 128, False, "bshd"),
     ],
 )
-def test_kernel_matches_reference_on_card(cuda_device, dtype, b, h, s, d, causal):
+def test_kernel_matches_reference_on_card(cuda_device, dtype, b, h, sq, skv, d, causal, layout):
     """Tolerances as in chip_smoke.py, where they are derived: out within
     atol_share · rms(row) + rtol · |out| per element, a row being one
     query's D outputs; bf16 2^-5 and 2^-6 (P and out rounded to bf16),
     lse 1e-3; fp32 2^-10 and 0, lse 1e-4."""
-    gen = torch.Generator(device=cuda_device).manual_seed(s)
-    q, k, v = (
-        torch.randn(b, s, h, d, generator=gen, device=cuda_device).to(dtype)
-        for _ in range(3)
-    )
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    gen = torch.Generator(device=cuda_device).manual_seed(sq + skv)
+    qt, kt, vt = _qkv_views(gen, dtype, b, h, sq, skv, d, layout, cuda_device)
     before = port.flash_attention.launches
     out, lse = port.flash_attention(qt, kt, vt, causal=causal, return_lse=True)
     torch.cuda.synchronize()
     assert port.flash_attention.launches == before + 1
     assert out.shape == qt.shape and out.stride() == qt.stride()  # layout kept
-    ref, ref_lse = port.mha_reference(q, k, v, causal=causal, return_lse=True, layout="bshd")
+    ref, ref_lse = port.mha_reference(qt, kt, vt, causal=causal, return_lse=True)
     share, rtol = (2**-5, 2**-6) if dtype == torch.bfloat16 else (2**-10, 0.0)
     want = ref.float()
     rms = want.pow(2).mean(-1, keepdim=True).sqrt()
-    diff = (out.transpose(1, 2).float() - want).abs()
+    diff = (out.float() - want).abs()
     assert bool((diff <= share * rms + rtol * want.abs()).all()), float(diff.max())
     assert float((lse - ref_lse).abs().max()) <= (1e-3 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_is_bitwise_deterministic(cuda_device, dtype):
+    """Each output row is one block's fixed-order sum: two calls on the same
+    inputs give bit-identical out and lse."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    qt, kt, vt = _qkv_views(gen, dtype, 2, 4, 1000, 1000, 128, "bshd", cuda_device)
+    first = port.flash_attention(qt, kt, vt, causal=True, return_lse=True)
+    second = port.flash_attention(qt, kt, vt, causal=True, return_lse=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_kernel_launch_counter_moves_by_one_a_call(cuda_device):
+    """``flash_attention.launches`` counts kernel launches: one per forward
+    call, none for a backward (its kernels have their own counters)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    qt, kt, vt = (x.requires_grad_() for x in
+                  _qkv_views(gen, torch.bfloat16, 1, 2, 256, 256, 64, "bhsd", cuda_device))
+    before = port.flash_attention.launches
+    for n in range(1, 4):
+        out = port.flash_attention(qt, kt, vt)
+        assert port.flash_attention.launches == before + n
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert port.flash_attention.launches == before + 3
+
+
+@pytest.mark.gpu
+def test_failed_tensor_map_encode_raises(cuda_device, monkeypatch):
+    """A TMA map that CUDA refuses (here q's row stride of 12 elements, 24
+    bytes, planted past ``_kernel_operand``) makes the wrapper raise;
+    nothing falls back to another path and the counter does not move."""
+    q = torch.zeros(1, 1, 128, 64, device=cuda_device, dtype=torch.bfloat16)
+    strides = port._strides
+    monkeypatch.setattr(
+        port, "_strides", lambda *xs: [12 if i == 2 else n for i, n in enumerate(strides(*xs))]
+    )
+    before = port.flash_attention.launches
+    with pytest.raises(RuntimeError, match="did not encode"):
+        port.flash_attention(q, q, q)
+    assert port.flash_attention.launches == before
 
 
 @pytest.mark.gpu
