@@ -10,8 +10,9 @@ last line:
              (Hopper, 9.0, is required);
 2. build   — compiles every CUDA library of the port from ``ops/csrc/``,
              one ``nvcc`` per source, all started together, and reports
-             the flash forward's registers and spills (``ptxas -v``) and
-             the bf16 kernel's dynamic shared memory;
+             the flash forward's and backward's registers and spills
+             (``ptxas -v``; a bf16 flash kernel that spills fails the run)
+             and each bf16 kernel's dynamic shared memory;
 3. kernel checks — each kernel against its plain PyTorch version on the
              card, at the shapes of the serve and train paths (bf16 and
              fp32) and the other regimes it covers, with the tolerance
@@ -20,7 +21,8 @@ last line:
              the one-call library yardstick: the flash-attention forward
              (K1/K2, with TFLOP/s and the bound's share of its time; a
              bf16 case whose S ends inside a 128-row tile), then its dq
-             (K3) and dk/dv (K4) kernels, then the
+             (K3) and dk/dv (K4) kernels (bf16 cases at the tiles' edges,
+             each replayed for bit-identical gradients), then the
              fused ViT block chain (K5: ``block_gemm`` x 4 and
              ``block_attention``) against ``fused_vit_block_reference``,
              stage by stage and whole, with the composed cuBLAS + SDPA
@@ -262,30 +264,43 @@ def atol_share_needed(got, want, rtol) -> float:
     return (((got.float() - w).abs() - rtol * w.abs()) / rms).max().item()
 
 
-_PTXAS_ENTRY = re.compile(r"Compiling entry function '\w*?(flash_fwd_\w+?)ILi(\d+)E(\w*?)EEv")
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '\w*?(flash_(?:fwd|bwd)_\w+?)ILi(\d+)E(\w*?)EEv")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_USED = re.compile(r"Used (\d+) registers")
 _PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
 
 
-def flash_build_report(build, log_path) -> dict:
-    """Each forward kernel instantiation's registers, static shared memory
-    and spill bytes as ``ptxas -v`` logged them, with the dynamic shared
-    memory the bf16 kernel asks for at each head dim."""
-    report, name = {}, None
-    for line in log_path.read_text().splitlines():
-        if m := _PTXAS_ENTRY.search(line):
-            name = f"{m.group(1)}<{m.group(2)}{',' + m.group(3) if m.group(3) else ''}>"
-            report[name] = {}
-        elif name and (m := _PTXAS_SPILL.search(line)):
-            report[name]["spill_store_bytes"] = int(m.group(1))
-            report[name]["spill_load_bytes"] = int(m.group(2))
-        elif name and (m := _PTXAS_USED.search(line)):
-            report[name]["registers"] = int(m.group(1))
-            smem = _PTXAS_SMEM.search(line)
-            report[name]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
-    smem = build.load("flash_attention_fwd", [ctypes.c_int], symbol="flash_attention_fwd_smem")
-    return {"kernels": report, "bf16_dynamic_smem_bytes": {d: smem(d) for d in (64, 128)}}
+def flash_build_report(build, paths) -> dict:
+    """Each flash-attention kernel instantiation's registers, static shared
+    memory and spill bytes as ``ptxas -v`` logged them (the forward's and
+    the backward's libraries), with the dynamic shared memory each bf16
+    kernel asks for at each head dim."""
+    report = {}
+    for lib in ("flash_attention_fwd", "flash_attention_bwd"):
+        name = None
+        for line in paths[lib].with_suffix(".log").read_text().splitlines():
+            if m := _PTXAS_ENTRY.search(line):
+                name = f"{m.group(1)}<{m.group(2)}{',' + m.group(3) if m.group(3) else ''}>"
+                report[name] = {}
+            elif name and (m := _PTXAS_SPILL.search(line)):
+                report[name]["spill_store_bytes"] = int(m.group(1))
+                report[name]["spill_load_bytes"] = int(m.group(2))
+            elif name and (m := _PTXAS_USED.search(line)):
+                report[name]["registers"] = int(m.group(1))
+                smem = _PTXAS_SMEM.search(line)
+                report[name]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    smem = {
+        kernel: build.load(lib, [ctypes.c_int], symbol=symbol)
+        for kernel, lib, symbol in (
+            ("flash_fwd_bf16", "flash_attention_fwd", "flash_attention_fwd_smem"),
+            ("flash_bwd_dq_bf16", "flash_attention_bwd", "flash_attention_bwd_dq_smem"),
+            ("flash_bwd_dkv_bf16", "flash_attention_bwd", "flash_attention_bwd_dkv_smem"),
+        )
+    }
+    return {
+        "kernels": report,
+        "bf16_dynamic_smem_bytes": {k: {d: fn(d) for d in (64, 128)} for k, fn in smem.items()},
+    }
 
 
 def kernel_checks(attn) -> list[dict]:
@@ -377,6 +392,9 @@ def backward_bound(b, h, sq, skv, d, causal, dtype, kernel) -> tuple[float, str]
 BACKWARD_CASES = [
     ("slice: vit_long train step, batch 16", "bfloat16", 16, 4, 4096, 128, False, "bshd", False),
     ("ragged causal, dlse", "bfloat16", 2, 4, 1030, 64, True, "bhsd", True),
+    ("bf16 tile edges: S 1000, a multiple of neither 128 keys nor 64 queries",
+     "bfloat16", 2, 4, 1000, 128, False, "bshd", False),
+    ("bf16 causal S 257 at D 64, dlse", "bfloat16", 2, 2, 257, 64, True, "bshd", True),
     ("fp32, dlse", "float32", 1, 4, 1000, 128, False, "bhsd", True),
     ("fp32 train step shape: batch 2 without --amp", "float32", 2, 4, 4096, 128, False, "bshd", False),
 ]
@@ -391,12 +409,15 @@ BACKWARD_CASES = [
 # 2^-5 of the row's rms leaves room for the flips.  fp32: summation order
 # and expf only.  The planted faults: dq with the first FAULT_KEYS keys left
 # out of its sum, dk/dv with the first FAULT_KEYS queries left out of
-# theirs; each must need more than the tolerance.
+# theirs; each must need more than the tolerance.  Each kernel owns its
+# output rows and sums in a fixed order (no atomics), so a second call on
+# the same inputs must give bit-identical gradients.
 
 
 def backward_checks(attn) -> list[dict]:
     """K3 and K4 against ``flash_attention_bwd_reference`` at
-    ``BACKWARD_CASES``: agreement, the planted faults, and times."""
+    ``BACKWARD_CASES``: agreement, the planted faults, a bitwise replay, and
+    times."""
     import torch
     import torch.nn.functional as F
 
@@ -421,7 +442,15 @@ def backward_checks(attn) -> list[dict]:
         kw = dict(causal=causal, scale=scale)
         dq = attn.flash_attention_dq(qt, kt, vt, dot, lse, adj, **kw)
         dk, dv = attn.flash_attention_dkv(qt, kt, vt, dot, lse, adj, **kw)
+        replay = (
+            attn.flash_attention_dq(qt, kt, vt, dot, lse, adj, **kw),
+            *attn.flash_attention_dkv(qt, kt, vt, dot, lse, adj, **kw),
+        )
         torch.cuda.synchronize()
+        bit_identical = {
+            name: torch.equal(a, b) for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), replay)
+        }
+        del replay
         want = attn.flash_attention_bwd_reference(qt, kt, vt, o, lse, dot, dlse, **kw)
         fault_dq = attn.flash_attention_bwd_reference(
             qt, bhsd(dropped_rows(k, layout)), vt, o, lse, dot, dlse, **kw
@@ -441,7 +470,7 @@ def backward_checks(attn) -> list[dict]:
                 "finite": bool(torch.isfinite(got).all()),
             }
         del want, fault_dq, fault_dkv
-        ok = all(
+        ok = all(bit_identical.values()) and all(
             g["finite"] and g["atol_share_needed"] <= atol_share < g["fault_atol_share_needed"]
             for g in grads.values()
         )
@@ -471,7 +500,7 @@ def backward_checks(attn) -> list[dict]:
         out.append({
             "case": label, "dtype": dname, "layout": layout, "shape": [b, h, s, d],
             "causal": causal, "dlse": with_dlse, "atol_share": atol_share, "rtol": rtol,
-            "grads": grads, "ok": ok,
+            "grads": grads, "bit_identical_across_calls": bit_identical, "ok": ok,
             "dq_ms": dq_ms, "dkv_ms": dkv_ms, "plain_ms": plain_ms,
             "library_ms": library_ms,
             "dq_bound_ms": bound["dq"][0], "dq_bound_by": bound["dq"][1],
@@ -3088,15 +3117,21 @@ def main() -> int:
 
     t0 = time.monotonic()
     paths = _build.build_all()
+    flash_build = flash_build_report(_build, paths)
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
           "libraries": {n: str(p.relative_to(ROOT)) for n, p in paths.items()},
-          "flash_attention_fwd": flash_build_report(
-              _build, paths["flash_attention_fwd"].with_suffix(".log"))})
+          "flash_attention": flash_build})
     for path in paths.values():
         log = path.with_suffix(".log")
         for line in (log.read_text() if log.exists() else "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {path.stem}: {line.strip()}", file=sys.stderr)
+    spilled = {
+        name: r for name, r in flash_build["kernels"].items()
+        if "bf16" in name and r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
+    }
+    if spilled:
+        raise RuntimeError(f"bf16 flash-attention kernels spill registers: {spilled}")
 
     checks = kernel_checks(attn)
     emit({"phase": "kernel_checks", "nvidia_smi": smi, "checks": checks})
@@ -3258,6 +3293,9 @@ def main() -> int:
                 "ms": case[f"{kernel}_ms"], "plain_ms": case["plain_ms"],
                 "bound_ms": case[f"{kernel}_bound_ms"], "bound_by": case[f"{kernel}_bound_by"],
                 "library_ms": case["library_ms"],
+                "bit_identical_across_calls": all(
+                    case["bit_identical_across_calls"][g] for g in grads
+                ),
                 "pair_floor_ms_with_atomic_dq": case["pair_floor_ms_with_atomic_dq"],
             })
     # K5: per case, block_gemm (its four launches of one block together)

@@ -252,6 +252,8 @@ def flash_attention_dq(q, k, v, do, lse, adj, *, causal: bool, scale: float):
             float(scale), int(causal), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
+    if err < 0:
+        raise RuntimeError(f"flash_attention_bwd_dq: a TMA tensor map did not encode: CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA error {err}")
     flash_attention_dq.launches += 1
@@ -282,6 +284,8 @@ def flash_attention_dkv(q, k, v, do, lse, adj, *, causal: bool, scale: float):
             float(scale), int(causal), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
+    if err < 0:
+        raise RuntimeError(f"flash_attention_bwd_dkv: a TMA tensor map did not encode: CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA error {err}")
     flash_attention_dkv.launches += 1

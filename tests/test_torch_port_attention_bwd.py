@@ -56,8 +56,14 @@ def _jax_vjp(fn, q, k, v, do, dlse):
 
 
 # (b, h, s, d, causal): a multiple of the Pallas blocks, a ragged causal
-# length, head dim 128
-CASES = [(2, 2, 256, 64, False), (1, 2, 130, 64, True), (1, 2, 128, 128, False)]
+# length, head dim 128; then the shapes the bf16 CUDA kernels tile
+# differently: a ragged causal length at head dim 128 (inside dq's second
+# 128-key tile, past dk/dv's third 64-query tile) and S 320 (five 64-query
+# tiles, two and a half 128-key tiles)
+CASES = [
+    (2, 2, 256, 64, False), (1, 2, 130, 64, True), (1, 2, 128, 128, False),
+    (1, 2, 200, 128, True), (1, 1, 320, 64, False),
+]
 
 
 @pytest.mark.parametrize("b,h,s,d,causal", CASES)

@@ -196,6 +196,13 @@ def _row_share(got, want, rtol):
         (torch.bfloat16, 1, 3, 130, 64, True, True),
         (torch.float32, 1, 2, 200, 128, True, True),
         (torch.float32, 2, 2, 77, 64, False, False),
+        # the bf16 kernels' tile edges: S 1000 is a multiple of neither dq's
+        # 128-key tiles nor dk/dv's 64-query tiles; causal S 257 at D 64 with
+        # dlse (one row and one key past two tiles); one head at S 4096 (the
+        # size-1 batch and head strides of the TMA maps)
+        (torch.bfloat16, 2, 4, 1000, 128, False, False),
+        (torch.bfloat16, 2, 2, 257, 64, True, True),
+        (torch.bfloat16, 1, 1, 4096, 128, False, False),
     ],
 )
 def test_backward_kernels_match_plain_on_card(cuda_device, dtype, b, h, s, d, causal, with_dlse):
@@ -227,6 +234,28 @@ def test_backward_kernels_match_plain_on_card(cuda_device, dtype, b, h, s, d, ca
         assert g.dtype == dtype and g.stride() == x.stride(), name  # layout kept
         assert bool(torch.isfinite(g).all()), name
         assert _row_share(g, w, rtol) <= share, (name, _row_share(g, w, rtol))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_kernels_are_bitwise_deterministic(cuda_device, causal):
+    """Each dq row and each dk/dv row is one block's fixed-order sum (no
+    atomics): two calls on the same bf16 inputs give bit-identical dq, dk
+    and dv."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9 + causal)
+    q, k, v, do = (
+        torch.randn(2, 1000, 4, 128, generator=gen, device=cuda_device).to(torch.bfloat16)
+        for _ in range(4)
+    )
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    out, lse = port.flash_attention(qt, kt, vt, causal=causal, return_lse=True)
+    dlse = torch.randn(2, 4, 1000, generator=gen, device=cuda_device)
+    kw = dict(causal=causal, scale=128 ** -0.5)
+    first = port.flash_attention_bwd(qt, kt, vt, out, lse, dot, dlse, **kw)
+    second = port.flash_attention_bwd(qt, kt, vt, out, lse, dot, dlse, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 def grad_errors(model, reference) -> dict[str, float]:
