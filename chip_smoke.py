@@ -10,9 +10,11 @@ last line:
              (Hopper, 9.0, is required);
 2. build   — compiles every CUDA library of the port from ``ops/csrc/``,
              one ``nvcc`` per source, all started together, and reports
-             the flash forward's and backward's registers and spills
-             (``ptxas -v``; a bf16 flash kernel that spills fails the run)
-             and each bf16 kernel's dynamic shared memory;
+             the registers and spills of the flash forward's and
+             backward's kernels and of the short-sequence attention's
+             (``ptxas -v``; a bf16 flash kernel or a one-tile kernel that
+             spills fails the run) and each such kernel's dynamic shared
+             memory;
 3. kernel checks — each kernel against its plain PyTorch version on the
              card, at the shapes of the serve and train paths (bf16 and
              fp32) and the other regimes it covers, with the tolerance
@@ -108,32 +110,38 @@ last line:
              planted fault, and in fp32 (2^-13) a TF32 control; ms per step
              under gmm and gather, profiles;
 7. vit_tiny at 64 tokens — ``small_attention_checks``: the short-sequence
-             attention's kernels (K10 forward, K11 backward: its dq kernel,
-             then its dk/dv kernel) against their plain versions at the
-             serve shape (bf16, B 32, S 64, 3 heads of 64), the train shape
-             (bf16 and fp32, B 256), a ragged causal case (S 24) and a
-             causal multi-tile case (S 256, head dim 128): each output and
-             gradient per row, K11 bit-identical across two calls, two
-             planted faults rejected (the last keys left out of K10, a dk
-             row block dropped from K11), device ms of each kernel, its
-             plain version and SDPA's forward and backward;
+             attention's kernels (K10 forward, K11 backward; bf16 at S <= 64
+             one wgmma kernel each way, longer items and fp32 a forward
+             kernel and a dq, then dk/dv, pair) against their plain
+             versions at the serve shape (bf16, B 32, S 64, 3 heads of 64),
+             the train shape (bf16 and fp32, B 256), a ragged causal case
+             (S 24), one tile at head dim 128 (causal), a ragged one-tile
+             case (S 40) and a causal multi-tile case (S 256, head dim 128):
+             each output and gradient per row, K11 bit-identical across two
+             calls, two planted faults rejected (the last keys left out of
+             K10, a dk row block dropped from K11), the kernels each call
+             launched by symbol (those the rule on S names, no other),
+             device ms of each kernel, its plain version and SDPA's forward
+             and backward;
    serve_small — ``vit_tiny --amp`` pinned to ``attn_impl="fused_small"``
              and served through the library entry points
              (``build_engine``, ``MicroBatcher``, ``closed_loop``), buckets
              1..32, 256 requests at concurrency 32: the counters zeroed
              after the warmup, K10 in every block of every dispatched batch
-             and no other kernel; the bucket-32 logits against
-             ``attn_impl="reference"`` (bf16, fp32) within a bound a planted
-             K10 fault exceeds; a bucket-32 dispatch timed under fused_small
-             and auto, and profiled;
+             and no other kernel (counters, and by symbol in the bucket-32
+             profile: ``attn_small_fwd_onetile`` alone); the bucket-32
+             logits against ``attn_impl="reference"`` (bf16, fp32) within a
+             bound a planted K10 fault exceeds; a bucket-32 dispatch timed
+             under fused_small and auto, and profiled;
    train_small — ``vit_tiny --amp`` at batch 256 pinned the same way and
              trained through ``Trainer(hparams, model=...)``, 18 steps: K10
              in every block of every step and eval batch, K11 in every
-             block of every step, no other kernel, every loss finite, no
-             step skipped; one step's loss and gradients against the
-             reference attention and the plain kernels (bf16, fp32) with a
-             bound a planted fault exceeds; ms per step under fused_small
-             and auto, and step profiles;
+             block of every step, no other kernel (counters, and by symbol
+             in the step profile: the two one-tile kernels alone), every
+             loss finite, no step skipped; one step's loss and gradients
+             against the reference attention and the plain kernels (bf16,
+             fp32) with a bound a planted fault exceeds; ms per step under
+             fused_small and auto, and step profiles;
 8. the ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -264,19 +272,22 @@ def atol_share_needed(got, want, rtol) -> float:
     return (((got.float() - w).abs() - rtol * w.abs()) / rms).max().item()
 
 
-_PTXAS_ENTRY = re.compile(r"Compiling entry function '\w*?(flash_(?:fwd|bwd)_\w+?)ILi(\d+)E(\w*?)EEv")
+_PTXAS_ENTRY = re.compile(
+    r"Compiling entry function '\w*?(flash_(?:fwd|bwd)_\w+?|attn_small_\w+?)ILi(\d+)E(\w*?)EEv"
+)
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_USED = re.compile(r"Used (\d+) registers")
 _PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
 
 
-def flash_build_report(build, paths) -> dict:
-    """Each flash-attention kernel instantiation's registers, static shared
-    memory and spill bytes as ``ptxas -v`` logged them (the forward's and
-    the backward's libraries), with the dynamic shared memory each bf16
-    kernel asks for at each head dim."""
+def attention_build_report(build, paths) -> dict:
+    """Each attention kernel instantiation's registers, static shared
+    memory and spill bytes as ``ptxas -v`` logged them (the flash forward's
+    and backward's libraries and the short-sequence attention's), with the
+    dynamic shared memory each bf16 flash kernel and each one-tile kernel
+    asks for at each head dim."""
     report = {}
-    for lib in ("flash_attention_fwd", "flash_attention_bwd"):
+    for lib in ("flash_attention_fwd", "flash_attention_bwd", "attention_small"):
         name = None
         for line in paths[lib].with_suffix(".log").read_text().splitlines():
             if m := _PTXAS_ENTRY.search(line):
@@ -297,10 +308,12 @@ def flash_build_report(build, paths) -> dict:
             ("flash_bwd_dkv_bf16", "flash_attention_bwd", "flash_attention_bwd_dkv_smem"),
         )
     }
-    return {
-        "kernels": report,
-        "bf16_dynamic_smem_bytes": {k: {d: fn(d) for d in (64, 128)} for k, fn in smem.items()},
-    }
+    onetile = build.load("attention_small", [ctypes.c_int, ctypes.c_int],
+                         symbol="attention_small_onetile_smem")
+    dynamic = {k: {d: fn(d) for d in (64, 128)} for k, fn in smem.items()}
+    for backward, kernel in enumerate(("attn_small_fwd_onetile", "attn_small_bwd_onetile")):
+        dynamic[kernel] = {d: onetile(backward, d) for d in (64, 128)}
+    return {"kernels": report, "bf16_dynamic_smem_bytes": dynamic}
 
 
 def kernel_checks(attn) -> list[dict]:
@@ -2584,6 +2597,8 @@ SMALL_CASES = [
     ("train shape: vit_tiny batch 256", "bfloat16", 256, 64, 3, 64, False),
     ("train shape fp32: vit_tiny batch 256 without --amp", "float32", 256, 64, 3, 64, False),
     ("ragged causal", "bfloat16", 6, 24, 2, 64, True),
+    ("one tile at head dim 128, causal", "bfloat16", 8, 64, 2, 128, True),
+    ("ragged one tile", "bfloat16", 6, 40, 3, 64, False),
     ("multi-tile causal", "bfloat16", 4, 256, 2, 128, True),
 ]
 # Each output and gradient holds against the plain version per row (one
@@ -2597,6 +2612,9 @@ SMALL_CASES = [
 # those keys out of P.V; K11's dk with the first key tile of item 0, head 0
 # (one dk/dv block's rows) zeroed.  Each must need more than the tolerance.
 SMALL_COUNTERS = ("small_mha_fwd", "small_mha_bwd")
+# the kernels of the serve_small and train_small paths (bf16, 64 tokens),
+# as small.kernel_symbols names them for that shape
+SMALL_PATH_KERNELS = {"fwd": ("attn_small_fwd_onetile",), "bwd": ("attn_small_bwd_onetile",)}
 
 
 def without_last_keys(v, seq: int, n: int):
@@ -2617,24 +2635,40 @@ def small_bounds(b, s, h, d, causal, dname) -> dict[str, tuple[float, str]]:
             "bwd": bound(10 * pairs * d, 7 * elems, dname)}
 
 
-def _small_kernel_ms(device_ms_by_name: dict) -> dict[str, float]:
-    """Device ms of K10's and K11's kernels by symbol (attn_small_fwd,
-    attn_small_dq, attn_small_dkv; both dtypes)."""
-    out = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+_GLOBAL_FN = re.compile(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(")
+
+
+def _port_kernel_ms(device_ms_by_name: dict) -> dict[str, float]:
+    """Device ms of the port's kernels (every ``__global__`` function its
+    ``csrc`` sources define) by symbol, template arguments summed."""
+    names = {m.group(1) for f in (ROOT / PKG / "ops" / "csrc").glob("*.cu")
+             for m in _GLOBAL_FN.finditer(f.read_text())}
+    out = {}
     for name, ms in device_ms_by_name.items():
-        m = _KERNEL_SYMBOL.match(name)
-        if m and m.group(1).startswith("attn_small_"):
-            out[m.group(1).split("_")[2]] += ms
+        if (m := _KERNEL_SYMBOL.match(name)) and m.group(1) in names:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + ms
     return out
+
+
+def _small_kernel_ms(device_ms_by_name: dict) -> dict[str, float]:
+    """Device ms of K10's and K11's kernels by symbol: the one-tile kernels
+    (``attn_small_fwd_onetile``, ``attn_small_bwd_onetile``) and the tiled
+    and fp32 ones (``attn_small_fwd_*``, ``attn_small_dq_*``,
+    ``attn_small_dkv_*``); ``small.kernel_symbols`` says which a call
+    launches."""
+    return {n: ms for n, ms in _port_kernel_ms(device_ms_by_name).items()
+            if n.startswith("attn_small_")}
 
 
 def small_attention_checks(small) -> list[dict]:
     """K10 (``small_mha_fwd``) and K11 (``small_mha_bwd``) against
     ``small_mha_reference`` and ``small_mha_bwd_reference`` at
     ``SMALL_CASES``: agreement per row, the planted faults, K11's bitwise
-    replay, device times (``timed``) of the kernels, the plain versions and
-    the library yardstick: ``F.scaled_dot_product_attention`` forward, and
-    forward plus backward under autograd."""
+    replay, the kernels each call launched (by symbol, under torch.profiler:
+    those ``small.kernel_symbols`` names for the case, and no other), device
+    times (``timed``) of the kernels, the plain versions and the library
+    yardstick: ``F.scaled_dot_product_attention`` forward, and forward plus
+    backward under autograd."""
     import torch
     import torch.nn.functional as F
 
@@ -2668,11 +2702,14 @@ def small_attention_checks(small) -> list[dict]:
         )
         bitwise = all(torch.equal(x, y) for x, y in zip(grads, again))
 
-        fwd_prof = profile_device(lambda: small.small_mha_fwd(q, k, v, **kw), 20)
-        bwd_prof = profile_device(lambda: small.small_mha_bwd(q, k, v, do, **kw), 20)
-        split = _small_kernel_ms(bwd_prof["device_ms_by_name"])
-        ms = {"fwd": _small_kernel_ms(fwd_prof["device_ms_by_name"])["fwd"],
-              "bwd": split["dq"] + split["dkv"], "dq": split["dq"], "dkv": split["dkv"]}
+        # each call launches the kernels the rule on S names, and no other
+        launched = {}
+        for key, fn in (("fwd", lambda: small.small_mha_fwd(q, k, v, **kw)),
+                        ("bwd", lambda: small.small_mha_bwd(q, k, v, do, **kw))):
+            launched[key] = _port_kernel_ms(profile_device(fn, 20)["device_ms_by_name"])
+        kernels = small.kernel_symbols(dtype, s)
+        named = all(set(launched[key]) == set(kernels[key]) for key in kernels)
+        ms = {key: sum(by.values()) for key, by in launched.items()}
         event_ms = {"fwd": cuda_ms(lambda: small.small_mha_fwd(q, k, v, **kw), 50),
                     "bwd": cuda_ms(lambda: small.small_mha_bwd(q, k, v, do, **kw), 50)}
         plain_ms = {
@@ -2698,14 +2735,16 @@ def small_attention_checks(small) -> list[dict]:
             "atol_share": atol_share, "rtol": rtol, "fault_keys_k10": n,
             "fault_dk_rows": min(s, FAULT_KEYS), "agreement": agree,
             "k11_bit_identical_across_calls": bitwise,
-            "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+            "kernels": {key: list(names) for key, names in kernels.items()},
+            "kernels_as_named": named,
+            "ms": ms, "kernel_ms": launched, "event_ms": event_ms, "plain_ms": plain_ms,
             "library": "F.scaled_dot_product_attention (fwd; fwd+bwd under autograd)",
             "library_ms": {"fwd": lib_fwd, "bwd": lib_fwd_bwd - lib_fwd,
                            "fwd_bwd": lib_fwd_bwd},
             "library_event_ms": {"fwd": lib_fwd_event, "fwd_bwd": lib_fwd_bwd_event},
             "bound_ms": {key: bounds[key][0] for key in bounds},
             "bound_by": {key: bounds[key][1] for key in bounds},
-            "ok": ok and bitwise,
+            "ok": ok and bitwise and named,
         })
         del q, k, v, do, o, grads, again, want_o, want, fault_o, dk_fault, ql, kl, vl
         torch.cuda.empty_cache()
@@ -2837,12 +2876,14 @@ def serve_small_phase(small, gm, vb, attn) -> dict:
                     rec[f"bucket32_batch_ms_{name}{rnd}"] = (time.perf_counter() - t0) / 5 * 1e3
             for name in ("fused_small", "auto"):
                 prof = profile_device(lambda: engines[name].predict_logits(batch), 5)
-                k10 = _small_kernel_ms(prof["device_ms_by_name"])["fwd"]
+                port = _port_kernel_ms(prof["device_ms_by_name"])
+                k10 = sum(_small_kernel_ms(prof["device_ms_by_name"]).values())
                 top = sorted(prof["device_ms_by_name"].items(), key=lambda kv: -kv[1])[:8]
                 rec[f"bucket32_profile_{name}"] = {
                     "wall_ms_per_batch": prof["wall_ms"],
                     "device_busy_ms_per_batch": prof["device_busy_ms"],
                     "device_idle_share": prof["device_idle_share"],
+                    "port_kernels": sorted(port),
                     "k10_device_ms_per_batch": k10,
                     "k10_share_of_device_busy": k10 / prof["device_busy_ms"],
                     "top_device_ms_per_batch": {n[:60]: ms for n, ms in top},
@@ -2886,6 +2927,11 @@ def check_serve_small(serve: dict) -> None:
             raise RuntimeError(f"serve_small {precision}: K10 logits disagree with the reference: {rec}")
         if not rec["fault_logits_max_abs_err_vs_reference"] > rec["logits_tol"]:
             raise RuntimeError(f"serve_small {precision}: the planted K10 fault passes the bound: {rec}")
+    # no other kernel of the port, by name: a bf16 dispatch at 64 tokens runs K10's one-tile kernel
+    want_kernels = list(SMALL_PATH_KERNELS["fwd"])
+    got_kernels = serve["bucket32"]["bf16"]["bucket32_profile_fused_small"]["port_kernels"]
+    if got_kernels != want_kernels:
+        raise RuntimeError(f"serve_small bucket-32 dispatch ran {got_kernels}, expected {want_kernels}")
 
 
 TRAIN_SMALL_ARGV = [
@@ -3006,6 +3052,7 @@ def small_step_times(trainer, reps: int = 5) -> dict:
             "wall_ms_per_step": prof["wall_ms"],
             "device_busy_ms_per_step": prof["device_busy_ms"],
             "device_idle_share": prof["device_idle_share"],
+            "port_kernels": sorted(_port_kernel_ms(names)),
             "k10_k11_device_ms_per_step": kernels,
             "k10_k11_share_of_busy": sum(kernels.values()) / prof["device_busy_ms"],
             "top_device_ms_per_step": {n[:60]: ms for n, ms in top},
@@ -3077,6 +3124,11 @@ def check_train_small(train: dict) -> None:
     bad = {p: c for p, c in train["step_checks"].items() if not c["ok"]}
     if bad:
         raise RuntimeError(f"a vit_tiny train step through K10/K11 disagrees: {bad}")
+    # no other kernel of the port, by name: K10's and K11's one-tile kernels
+    want_kernels = sorted(SMALL_PATH_KERNELS["fwd"] + SMALL_PATH_KERNELS["bwd"])
+    got_kernels = train["step_times"]["profile_fused_small"]["port_kernels"]
+    if got_kernels != want_kernels:
+        raise RuntimeError(f"a train_small step ran {got_kernels}, expected {want_kernels}")
 
 
 def main() -> int:
@@ -3117,21 +3169,22 @@ def main() -> int:
 
     t0 = time.monotonic()
     paths = _build.build_all()
-    flash_build = flash_build_report(_build, paths)
+    attention_build = attention_build_report(_build, paths)
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
           "libraries": {n: str(p.relative_to(ROOT)) for n, p in paths.items()},
-          "flash_attention": flash_build})
+          "attention": attention_build})
     for path in paths.values():
         log = path.with_suffix(".log")
         for line in (log.read_text() if log.exists() else "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {path.stem}: {line.strip()}", file=sys.stderr)
     spilled = {
-        name: r for name, r in flash_build["kernels"].items()
-        if "bf16" in name and r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
+        name: r for name, r in attention_build["kernels"].items()
+        if ("flash_" in name and "bf16" in name or "onetile" in name)
+        and r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
     }
     if spilled:
-        raise RuntimeError(f"bf16 flash-attention kernels spill registers: {spilled}")
+        raise RuntimeError(f"bf16 attention kernels spill registers: {spilled}")
 
     checks = kernel_checks(attn)
     emit({"phase": "kernel_checks", "nvidia_smi": smi, "checks": checks})
@@ -3423,10 +3476,11 @@ def main() -> int:
                     "fault_atol_share_needed": agree["fault_atol_share_needed"],
                 })
             kernels.append(entry)
-    # K10/K11: per case, one entry per kernel.  K10's ``launches`` is its
-    # count on the serve_small path (``launches_train`` on train_small);
-    # K11's, on train_small, counts calls, each launching its two kernels
-    # (attn_small_dq, then attn_small_dkv) once.
+    # K10/K11: per case, one entry per wrapper, with the kernels the case
+    # launched (``kernels``, by symbol; ``kernel_ms`` each one's device ms).
+    # K10's ``launches`` is its count on the serve_small path
+    # (``launches_train`` on train_small); K11's, on train_small, counts
+    # calls, each launching attn_small_bwd_onetile once at 64 tokens.
     small_launches = {"fwd": serve_small["launches"]["small_mha_fwd"],
                       "bwd": train_small["launches"]["small_mha_bwd"]}
     for case in small_checks:
@@ -3447,6 +3501,7 @@ def main() -> int:
                 "atol_share_needed": max(a["atol_share_needed"] for a in agree),
                 "fault_atol_share_needed": case["agreement"]["out" if key == "fwd" else "dk"][
                     "fault_atol_share_needed"],
+                "kernels": case["kernels"][key], "kernel_ms": case["kernel_ms"][key],
                 "ms": case["ms"][key], "event_ms": case["event_ms"][key],
                 "plain_ms": case["plain_ms"][key],
                 "bound_ms": case["bound_ms"][key], "bound_by": case["bound_by"][key],
@@ -3456,8 +3511,6 @@ def main() -> int:
                 entry["launches_train"] = train_small["launches"]["small_mha_fwd"]
             else:
                 entry.update({
-                    "kernels": ["attn_small_dq", "attn_small_dkv"],
-                    "dq_ms": case["ms"]["dq"], "dkv_ms": case["ms"]["dkv"],
                     "library_fwd_bwd_ms": case["library_ms"]["fwd_bwd"],
                     "bit_identical_across_calls": case["k11_bit_identical_across_calls"],
                 })

@@ -26,7 +26,12 @@ counterpart of the JAX ``_small_core`` custom VJP, which saves q, k and v
 only.  A CPU tensor takes the plain versions; a CUDA tensor launches
 :func:`small_mha_fwd` (K10) and, under autograd, :func:`small_mha_bwd`
 (K11) or raises.  The kernels take bf16 or fp32 and head dims 64 and 128
-(the zoo's); the plain versions take any S and D.
+(the zoo's); the plain versions take any S and D.  Which CUDA kernels a
+call launches is one rule on the dtype and S (:func:`kernel_symbols`): bf16
+items of at most ``ONE_TILE`` tokens (every shape the zoo sends here) run
+one ``wgmma`` kernel each way, the longer ones and fp32 a forward kernel and
+a backward pair that passes each query row's softmax statistics through an
+fp32 scratch.
 """
 
 from __future__ import annotations
@@ -39,6 +44,32 @@ import torch
 _NEG_INF = -1e30  # finite "-inf", as the JAX ``_softmax_small``
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+ONE_TILE = 64  # the longest bf16 item the one-tile kernels take: one 64-key wgmma tile
+
+
+def one_tile(dtype: torch.dtype, seq: int) -> bool:
+    """The rule of the C entry points (``csrc/attention_small.cu``): bf16
+    items of at most ``ONE_TILE`` tokens run the one-tile kernels."""
+    return dtype == torch.bfloat16 and seq <= ONE_TILE
+
+
+def kernel_symbols(dtype: torch.dtype, seq: int) -> dict[str, tuple[str, ...]]:
+    """The CUDA kernels one call of :func:`small_mha_fwd` (``"fwd"``) and of
+    :func:`small_mha_bwd` (``"bwd"``) launches for items of ``seq`` tokens
+    in ``dtype``, in launch order."""
+    if one_tile(dtype, seq):
+        return {"fwd": ("attn_small_fwd_onetile",), "bwd": ("attn_small_bwd_onetile",)}
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    return {"fwd": (f"attn_small_fwd_{kind}",),
+            "bwd": (f"attn_small_dq_{kind}", f"attn_small_dkv_{kind}")}
+
+
+def row_stats_shape(dtype: torch.dtype, rows: int, heads: int, seq: int):
+    """Shape of the fp32 scratch :func:`small_mha_bwd` hands its kernels
+    for each query row's max, sum and ``Σ dp·P`` (``rows`` packed rows of
+    items of ``seq`` tokens), or None where one kernel computes all of K11
+    and no statistic leaves it."""
+    return None if one_tile(dtype, seq) else (rows, heads, 3)
 
 
 def _items(t: torch.Tensor, seq: int) -> torch.Tensor:
@@ -216,10 +247,12 @@ def _c_args(n_ptr: int) -> list:
 def small_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, seq: int,
                   heads: int, causal: bool = False, scale: float | None = None) -> torch.Tensor:
     """K10: attention of the packed ``(B·S, H·D)`` q, k, v rows, returned
-    in that layout.  On the card the CUDA kernel ``attn_small_fwd`` (one
-    block per item, head and 64-query tile; 32 in fp32); a CPU tensor takes
-    :func:`small_mha_reference`.  ``small_mha_fwd.launches`` counts the
-    kernel's launches."""
+    in that layout.  On the card one CUDA kernel (:func:`kernel_symbols`):
+    bf16 at S ≤ ``ONE_TILE`` ``attn_small_fwd_onetile``, one warpgroup per
+    item and head; longer bf16 items ``attn_small_fwd_bf16`` and fp32
+    ``attn_small_fwd_f32``, a block per item, head and 64-query tile (32 in
+    fp32).  A CPU tensor takes :func:`small_mha_reference`.
+    ``small_mha_fwd.launches`` counts the kernel's launches."""
     from . import _build
 
     d = _packed_head_dim("small_mha_fwd", (q, k, v), seq, heads)
@@ -250,12 +283,15 @@ small_mha_fwd.launches = 0
 def small_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
                   seq: int, heads: int, causal: bool = False, scale: float | None = None):
     """K11: ``(dq, dk, dv)`` of :func:`small_mha_fwd` for the output
-    cotangent ``do``, all packed ``(B·S, H·D)``.  On the card one call
-    launches two CUDA kernels: ``attn_small_dq`` (dq and each query row's
-    softmax statistics, into a scratch buffer) and then ``attn_small_dkv``
-    (dk and dv, reading them).  No atomics: each block owns its output
-    rows.  A CPU tensor takes :func:`small_mha_bwd_reference`.
-    ``small_mha_bwd.launches`` counts the calls that launched both."""
+    cotangent ``do``, all packed ``(B·S, H·D)``.  On the card
+    (:func:`kernel_symbols`): bf16 at S ≤ ``ONE_TILE`` one CUDA kernel,
+    ``attn_small_bwd_onetile``, computes all three gradients of an item
+    and head, and no scratch is allocated; longer bf16 items and fp32
+    launch two, ``attn_small_dq_*`` (dq and each query row's softmax
+    statistics, into a scratch buffer) and then ``attn_small_dkv_*`` (dk
+    and dv, reading them).  No atomics: each block owns its output rows.
+    A CPU tensor takes :func:`small_mha_bwd_reference`.
+    ``small_mha_bwd.launches`` counts the calls."""
     from . import _build
 
     d = _packed_head_dim("small_mha_bwd", (q, k, v, do), seq, heads)
@@ -264,16 +300,17 @@ def small_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.T
         grads = small_mha_bwd_reference(*(_unpacked(t, seq, heads) for t in (q, k, v, do)),
                                         causal=causal, scale=scale)
         return tuple(g.reshape(q.shape) for g in grads)
-    from .vit_block import _operand, _stream
+    from .vit_block import _operand, _ptr, _stream
 
     _check_card("small_mha_bwd", (q, k, v, do), d)
     q, k, v, do = (_operand(t) for t in (q, k, v, do))  # autograd may hand a strided do
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = torch.empty((q.shape[0], heads, 3), device=q.device)  # max, sum, Σ dp·P per query
+    stats_shape = row_stats_shape(q.dtype, q.shape[0], heads, seq)
+    stats = None if stats_shape is None else torch.empty(stats_shape, device=q.device)
     fn = _build.load("attention_small", _c_args(8), symbol="attention_small_bwd")
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), q.shape[0] // seq, seq,
+                 dk.data_ptr(), dv.data_ptr(), _ptr(stats), q.shape[0] // seq, seq,
                  heads, d, float(scale), int(causal), int(q.dtype == torch.bfloat16), _stream(q))
     if err != 0:
         raise RuntimeError(f"attention_small_bwd launch failed: CUDA error {err}")

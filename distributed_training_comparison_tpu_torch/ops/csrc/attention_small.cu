@@ -5,54 +5,68 @@
 // Replaces the TPU kernels distributed_training_comparison_tpu/ops/
 // attention_small.py::_fwd_kernel (K10, attention_small.py:160) and
 // ::_bwd_kernel (K11, :168), both launched through the one pl.pallas_call
-// in _call (:186).  The TPU kernels stack tb items into one (tb*S, tb*S)
-// score matmul, masked block-diagonally, to fill a 128x128 matrix unit.
-// The cross-item blocks are exact zeros, so per-(item, head) attention is
-// the same function, and that is what these kernels compute.  q, k, v, the
-// output and the gradients are the packed (B*S, H*D) row-major views of the
-// (B, S, H, D) projections (row stride H*D): no head-split copy is made.
+// in _call (:186) under the custom VJP _small_core (:202-224).  The TPU
+// kernels stack tb items into one (tb*S, tb*S) score matmul, masked
+// block-diagonally, to fill a 128x128 matrix unit.  The cross-item blocks
+// are exact zeros, so per-(item, head) attention is the same function, and
+// that is what these kernels compute.  q, k, v, the output and the
+// gradients are the packed (B*S, H*D) row-major views of the (B, S, H, D)
+// projections (row stride H*D): no head-split copy is made.
 //
-// - attn_small_fwd (K10): one block per (item, head, query tile), with an
-//   exact two-sweep softmax as _softmax_small's.  Sweep 1 finds each row's
-//   max and sum of exp(s - max) over the key tiles; sweep 2 forms
-//   P = exp(s - max) / sum, rounds it to the compute dtype and accumulates
-//   P.V in fp32, rounded once.  Keys past S are masked, and under causal
-//   the keys past the row (-1e30 before the max, as _softmax_small).  Both
-//   sweeps walk the same key tiles and stop after the tile that holds the
-//   block's last row: a tile past it is masked whole, adds exp(-1e30 - max)
-//   = 0 to the sum and 0 to P.V, so the max and the sum see exactly the
-//   masked set.  Every row keeps at least its diagonal.
-// - attn_small_dq / attn_small_dkv (K11), one C call launching both: P is
-//   recomputed from q and k (the residuals are q, k and v only).  The first
-//   kernel owns a query tile: the row max and sum as the forward's, then
-//   delta = sum_j dp P on the fp32 P, then dq = round(P (dp - delta) scale)
-//   . K, and each row's statistics into a scratch buffer.  The second owns
-//   a key tile and walks the query tiles (under causal, from the tile that
-//   holds its first key) for dk = round(ds)^T . Q and dv = round(P)^T . dO.
-//   ds uses the fp32 P and dv the rounded P, as head_bwd.  Each block owns
-//   its output rows: no atomics, bit-identical across calls.
+// Semantics, those of head_fwd / head_bwd: fp32 scores times the scale,
+// keys past S and (under causal) past the row at -1e30 before the max, the
+// exact softmax e / sum(e) over the row's whole key set after its max, P
+// rounded to bf16 before P.V and before P^T.dO, dp and ds in fp32 with
+// ds = P (dp - sum_j dp P) on the fp32 P, ds.scale rounded to bf16 before
+// dS.K and dS^T.Q, each output and gradient accumulated in fp32 and rounded
+// once.  Each output element is written by one block in a fixed order (no
+// atomics), so K11 is bit-identical from call to call.
 //
-// bf16 runs on mma.sync m16n8k16 with fp32 accumulation; fp32 on SIMT tiles
-// with no TF32.  Head dims 64 and 128, the zoo's.  The tile code is K5's
-// block_attention (vit_block_fwd.cu) and K6's block_attention_bwd
-// (vit_block_bwd.cu) with q, k, v as three pointers and the causal mask.
+// The rule on S, the same in both C entry points: bf16 items of S <= 64 (one
+// 64-key tile: vit_tiny and vit_small at 32 px and patch 4, every shape the
+// zoo sends to fused_small) run the one-tile kernels; bf16 items of S > 64
+// (tests and the smoke script's multi-tile case only) run the tiled
+// kernels; fp32 runs the SIMT kernels.  A rule on the shape, not a fallback.
 //
-// What bounds it: at vit_tiny's train shape (B 256, S 64, H 3, D 64, bf16)
-// the forward is 4 S^2 D B H = 0.81 GFLOP (0.8 us at 989 TFLOP/s) against
-// 25.2 MB of q, k, v and o (7.5 us at 3.35 TB/s), and the backward 2.0
-// GFLOP against 44 MB (13 us): bytes bound both.  The kernels read each
-// input row once from device memory at S 64 (one key tile), so they meet
-// that bound in traffic.  What keeps them from it is time on chip: the
-// sweeps stage K again and recompute the scores (twice in the forward,
-// three times for dq and once more for dk/dv), the mma.sync B fragments
-// of P.V are gathered element by element from shared memory, and each
-// 128-thread block holds one 64-query tile with nothing overlapping its
-// synchronous loads.  fp32 (vit_tiny without --amp) is bound by operations
-// on the SIMT cores.  wgmma and TMA are later work.
+// What bounds the one-tile kernels (bf16, S 64, D 64, 3 heads): bytes.  The
+// forward reads q, k, v and writes o, 4 S D B H x 2 bytes against 4 S^2 D
+// B H flops: 25.2 MB (7.5 us at 3.35 TB/s) against 0.81 GFLOP (0.8 us at
+// 989 TFLOP/s) at the train shape (B 256), 3.1 MB (0.94 us) at the serve
+// shape (B 32), where 96 (item, head) pairs leave the card latency-bound.
+// The backward reads q, k, v, dO and writes dq, dk, dv: 44 MB (13.1 us)
+// against 2.0 GFLOP.  The design reads each input once and keeps everything
+// else on chip:
+// - attn_small_fwd_onetile (K10): one warpgroup (128 threads) per (item,
+//   head) owns the item's 64 query rows and its whole key range.  Q, K and V
+//   are fetched together by cp.async (16 bytes a thread, every load in
+//   flight at once, one wait) into 64-row tiles under the 128-byte swizzle a
+//   wgmma descriptor reads; rows past S are zero-filled.  S = Q.K^T by wgmma
+//   m64n64k16 from shared memory (both K-major); the masks, the row max and
+//   sum in registers (quad shuffles), in one pass with no rescaling; P =
+//   e / sum rounded to bf16 is the A fragment of O = P.V (wgmma, A from
+//   registers, V MN-major).  The scores are computed once.
+// - attn_small_bwd_onetile (K11): one kernel, one warpgroup per (item,
+//   head), as the TPU's _bwd_kernel computes all three gradients of a head.
+//   Q, K, V and dO are fetched together.  S = Q.K^T and dP = dO.V^T (wgmma,
+//   one commit group); P in fp32 as in K10, delta = sum_j dp P and dS in
+//   registers; round(P) and round(dS) go to two swizzled 64 x 64 tiles
+//   (each lane applies the XOR swizzle itself, then the proxy fence and a
+//   barrier); dQ = dS.K (A from registers, K MN-major), dV = P^T.dO and
+//   dK = dS^T.Q (both operands MN-major from shared memory, A read
+//   transposed).  The scores are computed once; no statistic leaves the
+//   block, so no scratch is allocated.
+// - Query rows past S compute P = 0 and are not written; keys past S take
+//   p = exp(-1e30 - max) = 0 exactly.  Shared memory: 3 (forward) or 4
+//   (backward) D-wide 64-row tiles, plus 16 KB of P and dS tiles, and 1 KB
+//   of alignment slack: 25 / 49 KB at D 64, several blocks an SM.
+//
+// The tiled bf16 kernels (S > 64) run on mma.sync m16n8k16: a block per
+// (item, head, 64-query tile) with an exact two-sweep softmax, the backward
+// as a dq kernel that writes each row's max, sum and delta to an fp32
+// scratch and a dk/dv kernel that reads them.  fp32 (vit_tiny without
+// --amp) runs on SIMT tiles with no TF32 and is bound by operations.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -84,16 +98,12 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-__device__ __forceinline__ uint32_t pack_f32_to_bf16(float lo, float hi) {
-  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
-}
-
 __device__ __forceinline__ uint32_t lds32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+// 16 bytes from gmem to the shared address dst
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* gmem, bool valid) {
   const int n = valid ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
 }
@@ -145,7 +155,7 @@ __device__ __forceinline__ void load_rows(bf16* smem, const bf16* g, long long l
   for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
     const int r = c / kChunks, col = (c % kChunks) * 8;
     const bool valid = row0 + r < len;
-    cp_async16(smem + r * (D + 8) + col, g + (valid ? (row0 + r) * ld : 0) + col, valid);
+    cp_async16(smem_u32(smem + r * (D + 8) + col), g + (valid ? (row0 + r) * ld : 0) + col, valid);
   }
 }
 
@@ -776,6 +786,263 @@ __global__ void __launch_bounds__(kThreads) attn_small_dkv_f32(const Params p) {
   }
 }
 
+// ----------------------------------------------- bf16, one key tile (S <= 64)
+
+constexpr int kOneTile = 64;  // the longest item the one-tile kernels take: one 64-key tile
+constexpr int kTileBox = box_bytes<kOneTile>();  // 64 rows x 128 bytes: 8 KB
+
+// rows [0, 64) of one head's (seq, D) column slice (row stride ld) into a
+// tile of D / 64 boxes of 64 rows under 128-byte swizzle, the layout a
+// wgmma descriptor reads: 16-byte chunk c of row r at byte (c / 8) * 8 KB +
+// r * 128 + ((c % 8) ^ (r % 8)) * 16.  Rows past seq are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_swizzled(uint32_t tile, const bf16* g, long long ld, int seq) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int j = 0; j < kOneTile * kChunks / kThreads; ++j) {
+    const int i = threadIdx.x + j * kThreads, r = i / kChunks, c = i % kChunks;
+    const bool valid = r < seq;
+    cp_async16(tile + (c / 8) * kTileBox + r * 128 + (((c % 8) ^ (r % 8)) << 4),
+               g + (valid ? r * ld : 0) + c * 8, valid);
+  }
+}
+
+// every cp.async of this thread landed and, after the barrier, every
+// thread's, visible to the async proxy the wgmma products read through
+__device__ __forceinline__ void tiles_landed() {
+  cp_async_wait_all();
+  fence_proxy_async();
+  __syncthreads();
+}
+
+// descriptor of k-step kk of a tile read K-major (the tile's columns are the
+// depth): 16 columns, 32 bytes along the swizzled row, the next 64 columns
+// one box on; SBO steps 8 rows
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  return smem_desc(tile + (kk / 4) * kTileBox + (kk % 4) * 32, 16, 1024);
+}
+
+// descriptor of k-step kk of a tile read MN-major (the tile's rows are the
+// depth): 16 rows, 2 KB on; LBO steps the next 64 columns (one box), SBO 8 rows
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  return smem_desc(tile + kk * 16 * 128, kTileBox, 1024);
+}
+
+// S (64 x 64 fp32 accumulator) = A.B^T over D: A's and B's 64 rows, both K-major
+template <int D>
+__device__ __forceinline__ void wgmma_abt(float* s, uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n64k16_ss(s, desc_kmajor(a, kk), desc_kmajor(b, kk), kk > 0);
+}
+
+// Per thread of the warpgroup, accumulator element 4n + 2i + e is row
+// 16 warp + g + 8i, column 8n + 2t + e (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ int acc_row(int i) { return 16 * (threadIdx.x / 32) + (threadIdx.x % 32) / 4 + 8 * i; }
+__device__ __forceinline__ int acc_col(int n, int e) { return 8 * n + 2 * (threadIdx.x % 4) + e; }
+
+// s (raw scores of query rows against the item's keys) -> the exact fp32
+// P of head_fwd: times the scale, masked at -1e30, e = exp(s - max) over the
+// whole row, e / sum(e).  With `zero_pad`, rows past seq take P = 0.
+__device__ __forceinline__ void softmax_rows(const Params& p, float (&s)[32], bool zero_pad) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = acc_row(i);
+    float mx = kNegInf;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * n + 2 * i + e];
+        x = visible(p, row, acc_col(n, e)) ? x * p.scale : kNegInf;
+        mx = fmaxf(mx, x);
+      }
+    mx = quad_max(mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * n + 2 * i + e];
+        x = expf(x - mx);
+        sum += x;
+      }
+    sum = quad_sum(sum);
+    const bool pad = zero_pad && row >= p.seq;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * n + 2 * i + e];
+        x = pad ? 0.f : x / sum;
+      }
+  }
+}
+
+// the 64 x 64 accumulator rounded to bf16: two adjacent 8-column blocks are
+// exactly the A fragment of a 16-deep step
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[kk][j] = pack_f32_to_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
+}
+
+// the 64 x 64 accumulator rounded to bf16 into a swizzled 64-row tile (row =
+// the accumulator's row); the eight rows of a warp's store fall on distinct
+// 16-byte chunks, so a store has no bank conflict
+__device__ __forceinline__ void store_swizzled(uint32_t tile, const float (&x)[32]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = acc_row(i);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const uint32_t dst = tile + row * 128 + ((n ^ (row % 8)) << 4) + (threadIdx.x % 4) * 4;
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(dst), "r"(pack_f32_to_bf16(x[4 * n + 2 * i], x[4 * n + 2 * i + 1]))
+                   : "memory");
+    }
+  }
+}
+
+// a 64 x D accumulator rounded to bf16 into rows [0, seq) of g (row stride ld)
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* g, const float (&x)[D / 2], const Params& p) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = acc_row(i);
+    if (row >= p.seq) continue;
+    bf16* r = g + static_cast<long long>(row) * p.ld;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(r + acc_col(n, 0)) = pack_f32_to_bf16(x[4 * n + 2 * i], x[4 * n + 2 * i + 1]);
+  }
+}
+
+template <int D>
+__host__ __device__ constexpr int onetile_fwd_smem() {
+  return 3 * tile_bytes<D, kOneTile>() + 1024;  // Q, K, V; alignment slack
+}
+
+template <int D>
+__host__ __device__ constexpr int onetile_bwd_smem() {
+  return 4 * tile_bytes<D, kOneTile>() + 2 * kTileBox + 1024;  // Q, K, V, dO; P, dS; slack
+}
+
+// K10 for one (item, head) of S <= 64: blockIdx.x = item * heads + head
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 3) attn_small_fwd_onetile(const Params p) {
+  constexpr int kT = tile_bytes<D, kOneTile>();
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u, ks = qs + kT, vs = ks + kT;
+  const int h = blockIdx.x % p.heads, b = blockIdx.x / p.heads;
+  const long long base = head_base(p, b, h, D);
+  load_swizzled<D>(qs, static_cast<const bf16*>(p.q) + base, p.ld, p.seq);
+  load_swizzled<D>(ks, static_cast<const bf16*>(p.k) + base, p.ld, p.seq);
+  load_swizzled<D>(vs, static_cast<const bf16*>(p.v) + base, p.ld, p.seq);
+  tiles_landed();
+
+  float s[32];
+  wgmma_fence();
+  wgmma_abt<D>(s, qs, ks);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<32>(s);
+  softmax_rows(p, s, false);  // rows past seq are not written
+  uint32_t pa[4][4];
+  pack_a(pa, s);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  fence_regs<D / 2>(o);
+  fence_regs<16>(&pa[0][0]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(o, pa[kk], desc_mnmajor(vs, kk));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<D / 2>(o);
+  fence_regs<16>(&pa[0][0]);
+  store_acc<D>(static_cast<bf16*>(p.o) + base, o, p);
+}
+
+// K11 for one (item, head) of S <= 64: dq, dk and dv in one kernel
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 2) attn_small_bwd_onetile(const Params p) {
+  constexpr int kT = tile_bytes<D, kOneTile>();
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u, ks = qs + kT, vs = ks + kT, dos = vs + kT;
+  const uint32_t ps = dos + kT, dss = ps + kTileBox;
+  const int h = blockIdx.x % p.heads, b = blockIdx.x / p.heads;
+  const long long base = head_base(p, b, h, D);
+  load_swizzled<D>(qs, static_cast<const bf16*>(p.q) + base, p.ld, p.seq);
+  load_swizzled<D>(ks, static_cast<const bf16*>(p.k) + base, p.ld, p.seq);
+  load_swizzled<D>(vs, static_cast<const bf16*>(p.v) + base, p.ld, p.seq);
+  load_swizzled<D>(dos, static_cast<const bf16*>(p.dout) + base, p.ld, p.seq);
+  tiles_landed();
+
+  // S = Q.K^T and dP = dO.V^T in one commit group
+  float s[32], dp[32];
+  wgmma_fence();
+  wgmma_abt<D>(s, qs, ks);
+  wgmma_abt<D>(dp, dos, vs);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<32>(s);
+  fence_regs<32>(dp);
+  softmax_rows(p, s, true);  // P = 0 on rows past seq: they add nothing to dK, dV
+  // ds = P (dp - delta) scale, delta = sum_j dp P on the fp32 P
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float dl = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) dl += s[4 * n + 2 * i] * dp[4 * n + 2 * i] + s[4 * n + 2 * i + 1] * dp[4 * n + 2 * i + 1];
+    const float delta = quad_sum(dl);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = 4 * n + 2 * i + e;
+        dp[j] = s[j] * (dp[j] - delta) * p.scale;
+      }
+  }
+  // round(P) and round(dS) into swizzled tiles for the transposed products,
+  // round(dS) as the A fragments of dQ
+  store_swizzled(ps, s);
+  store_swizzled(dss, dp);
+  uint32_t da[4][4];
+  pack_a(da, dp);
+  fence_proxy_async();
+  __syncthreads();
+
+  // dQ = dS.K (K MN-major: keys are the depth) and dV = P^T.dO
+  float dq[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  fence_regs<D / 2>(dq);
+  fence_regs<16>(&da[0][0]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dq, da[kk], desc_mnmajor(ks, kk));
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss_mn<D>(dv, desc_mnmajor(ps, kk), desc_mnmajor(dos, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<D / 2>(dq);
+  fence_regs<D / 2>(dv);
+  fence_regs<16>(&da[0][0]);
+  store_acc<D>(static_cast<bf16*>(p.o) + base, dq, p);
+  store_acc<D>(static_cast<bf16*>(p.dv) + base, dv, p);
+
+  // dK = dS^T.Q
+  float dk[D / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss_mn<D>(dk, desc_mnmajor(dss, kk), desc_mnmajor(qs, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<D / 2>(dk);
+  store_acc<D>(static_cast<bf16*>(p.dk) + base, dk, p);
+}
+
 // ----------------------------------------------------------------- launch
 
 template <typename Kernel>
@@ -786,8 +1053,13 @@ cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, cons
   return cudaGetLastError();
 }
 
+// the rule on S (see the header): one key tile in bf16 takes the one-tile kernels
+bool one_tile(const Params& p, int is_bf16) { return is_bf16 && p.seq <= kOneTile; }
+
 template <int D>
 cudaError_t launch_fwd(const Params& p, int batch, int is_bf16, cudaStream_t s) {
+  if (one_tile(p, is_bf16))
+    return launch(attn_small_fwd_onetile<D>, dim3(batch * p.heads), onetile_fwd_smem<D>(), s, p);
   if (is_bf16) {
     const dim3 grid((p.seq + kTile - 1) / kTile, p.heads, batch);
     return launch(attn_small_fwd_bf16<D>, grid, fwd_bf16_smem<D>(), s, p);
@@ -798,6 +1070,9 @@ cudaError_t launch_fwd(const Params& p, int batch, int is_bf16, cudaStream_t s) 
 
 template <int D>
 cudaError_t launch_bwd(const Params& p, int batch, int is_bf16, cudaStream_t s) {
+  if (one_tile(p, is_bf16))
+    return launch(attn_small_bwd_onetile<D>, dim3(batch * p.heads), onetile_bwd_smem<D>(), s, p);
+  if (p.stats == nullptr) return cudaErrorInvalidValue;  // the tiled and fp32 kernels need it
   if (is_bf16) {
     constexpr int KN = D <= 64 ? 64 : 32;  // key (query) tile: fewer accumulators at large D
     const dim3 grid((p.seq + kTile - 1) / kTile, p.heads, batch);
@@ -831,9 +1106,11 @@ extern "C" int attention_small_fwd(const void* q, const void* k, const void* v, 
 }
 
 // K11: dq, dk, dv of attention_small_fwd for the output cotangent dout, all
-// laid out as q; stats is fp32 scratch (batch * seq, heads, 3).  Launches
-// the dq kernel, then the dk/dv kernel, which reads the statistics the
-// first wrote.  Returns the first failing launch's cudaError_t (0 on success).
+// laid out as q.  bf16 at seq <= 64: one kernel, and stats is not read (may
+// be null).  Otherwise stats is fp32 scratch (batch * seq, heads, 3), and
+// the call launches the dq kernel, then the dk/dv kernel, which reads the
+// statistics the first wrote.  Returns the first failing launch's
+// cudaError_t (0 on success).
 extern "C" int attention_small_bwd(const void* q, const void* k, const void* v, const void* dout,
                                    void* dq, void* dk, void* dv, void* stats, int batch, int seq,
                                    int heads, int head_dim, float scale, int causal, int is_bf16,
@@ -846,4 +1123,12 @@ extern "C" int attention_small_bwd(const void* q, const void* k, const void* v, 
     case 128: return launch_bwd<128>(p, batch, is_bf16, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// dynamic shared memory of the one-tile kernels at head dim `head_dim` (0 if
+// it is not taken): the forward's, or with `backward` the backward's
+extern "C" int attention_small_onetile_smem(int backward, int head_dim) {
+  if (head_dim == 64) return backward ? onetile_bwd_smem<64>() : onetile_fwd_smem<64>();
+  if (head_dim == 128) return backward ? onetile_bwd_smem<128>() : onetile_fwd_smem<128>();
+  return 0;
 }

@@ -148,6 +148,45 @@ def test_block_items_has_no_effect_on_the_result():
         assert torch.equal(small_mha(q, k, v, causal=True, block_items=tb), want)
 
 
+ONE_TILE_KERNELS = ("attn_small_fwd_onetile",), ("attn_small_bwd_onetile",)
+TILED_BF16_KERNELS = ("attn_small_fwd_bf16",), ("attn_small_dq_bf16", "attn_small_dkv_bf16")
+F32_KERNELS = ("attn_small_fwd_f32",), ("attn_small_dq_f32", "attn_small_dkv_f32")
+
+
+@pytest.mark.parametrize(
+    "dtype,seq,kernels",
+    [(torch.bfloat16, 64, ONE_TILE_KERNELS), (torch.bfloat16, 8, ONE_TILE_KERNELS),
+     (torch.bfloat16, 40, ONE_TILE_KERNELS), (torch.bfloat16, 72, TILED_BF16_KERNELS),
+     (torch.bfloat16, 256, TILED_BF16_KERNELS), (torch.float32, 64, F32_KERNELS),
+     (torch.float32, 256, F32_KERNELS)],
+)
+def test_the_rule_on_s_picks_the_kernels_and_the_scratch(dtype, seq, kernels):
+    """The wrappers' rule: bf16 items of at most 64 tokens run one kernel
+    each way and allocate no statistics scratch; longer bf16 items and fp32
+    run a forward kernel and a dq, dk/dv pair that passes each query row's
+    (max, sum, Σ dp·P) through an fp32 scratch of (rows, heads, 3)."""
+    fwd, bwd = kernels
+    assert small.kernel_symbols(dtype, seq) == {"fwd": fwd, "bwd": bwd}
+    want = None if len(bwd) == 1 else (5 * seq, 3, 3)
+    assert small.row_stats_shape(dtype, 5 * seq, 3, seq) == want
+
+
+def test_the_c_entry_points_apply_the_same_rule_on_s():
+    """The C source holds the same bound on S and defines every kernel the
+    rule names (the card's launches are checked by name on the card)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(small.__file__).parent / "csrc" / "attention_small.cu").read_text()
+    assert int(re.search(r"constexpr int kOneTile = (\d+);", src).group(1)) == small.ONE_TILE
+    assert "return is_bf16 && p.seq <= kOneTile;" in src
+    for dtype in (torch.bfloat16, torch.float32):
+        for seq in (small.ONE_TILE, small.ONE_TILE + 8):
+            for names in small.kernel_symbols(dtype, seq).values():
+                for name in names:
+                    assert re.search(rf"__global__ void __launch_bounds__\([^)]*\) {name}\(", src), name
+
+
 def test_small_mha_and_the_dispatch_raise_as_the_jax_package_does():
     q = torch.zeros(2, 64, 3, 64)
     with pytest.raises(ValueError, match="self-attention only"):

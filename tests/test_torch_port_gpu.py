@@ -660,13 +660,18 @@ def test_vit_moe_gmm_step_matches_gather_on_card(cuda_device):
 
 
 # (dtype, B, S, H, D, causal): vit_tiny's serve bucket and train batch at 64
-# tokens, a ragged causal S of 24, a multi-tile S of 256 at head dim 128
+# tokens, a ragged causal S of 24, a multi-tile S of 256 at head dim 128;
+# and for the bf16 one-tile kernels (S <= 64) the tile at head dim 128, the
+# smallest tile (S 8) and a ragged S of 40 without the causal mask
 SMALL_CASES = [
     (torch.bfloat16, 32, 64, 3, 64, False),
     (torch.float32, 16, 64, 3, 64, True),
     (torch.bfloat16, 6, 24, 2, 64, True),
     (torch.bfloat16, 4, 256, 2, 128, True),
     (torch.float32, 2, 256, 2, 128, False),
+    (torch.bfloat16, 8, 64, 2, 128, True),
+    (torch.bfloat16, 16, 8, 3, 64, False),
+    (torch.bfloat16, 6, 40, 3, 64, False),
 ]
 
 
@@ -712,6 +717,29 @@ def test_small_mha_backward_is_bitwise_deterministic(cuda_device):
     first = small.small_mha_bwd(q, k, v, do, seq=64, heads=3, causal=True)
     second = small.small_mha_bwd(q, k, v, do, seq=64, heads=3, causal=True)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_small_mha_backward_is_one_kernel_at_one_tile(cuda_device):
+    """bf16 at S 64: one ``small_mha_bwd`` call runs exactly one kernel on
+    the card, ``attn_small_bwd_onetile``, by torch.profiler's kernel names
+    (the tracer now and then delivers no device event for so short a run:
+    it is taken again, at most three times, as chip_smoke.py does)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, do = _packed_qkvdo(gen, 32, 64, 3, 64, torch.bfloat16, cuda_device)
+    small.small_mha_bwd(q, k, v, do, seq=64, heads=3)  # builds and loads outside the trace
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            small.small_mha_bwd(q, k, v, do, seq=64, heads=3)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "attn_small_bwd_onetile" in kernels[0], kernels
 
 
 @pytest.mark.gpu
