@@ -11,10 +11,12 @@ last line:
 2. build   — compiles every CUDA library of the port from ``ops/csrc/``,
              one ``nvcc`` per source, all started together, and reports
              the registers and spills of the flash forward's and
-             backward's kernels and of the short-sequence attention's
-             (``ptxas -v``; a bf16 flash kernel or a one-tile kernel that
-             spills fails the run) and each such kernel's dynamic shared
-             memory;
+             backward's kernels, of the short-sequence attention's and of
+             the fused block chains' bf16 GEMMs (``block_gemm_wgmma``,
+             ``dgrad_wgmma``, ``wgrad_wgmma``) (``ptxas -v``; a bf16 flash
+             kernel, a one-tile kernel or a GEMM kernel that spills fails
+             the run) and each such kernel's dynamic shared memory at the
+             main paths' shapes;
 3. kernel checks — each kernel against its plain PyTorch version on the
              card, at the shapes of the serve and train paths (bf16 and
              fp32) and the other regimes it covers, with the tolerance
@@ -27,8 +29,9 @@ last line:
              each replayed for bit-identical gradients), then the
              fused ViT block chain (K5: ``block_gemm`` x 4 and
              ``block_attention``) against ``fused_vit_block_reference``,
-             stage by stage and whole, with the composed cuBLAS + SDPA
-             block as its library yardstick; then the fused block backward
+             stage by stage and whole, each launch's kernels by symbol,
+             with the composed cuBLAS + SDPA block as its library
+             yardstick; then the fused block backward
              chain (K6: ``block_ln``, ``block_gemm_dgrad``,
              ``block_ln_bwd``, ``block_attention_bwd``,
              ``block_gemm_wgrad``, ``block_grad_reduce``, with K5's kernels
@@ -37,8 +40,10 @@ last line:
              twelve gradients whole, two faults planted on the kernels'
              results (a row chunk dropped from the gradient reductions, a
              key tile left out of the attention backward), bit-identical
-             results across two calls, with the composed block's autograd
-             forward and backward as its library yardstick;
+             results across two calls, the kernels each wrapper ran by
+             symbol (the GEMMs the dtype's only), with the composed
+             block's autograd forward and backward as its library
+             yardstick;
 4. serve   — the port's main path through its user entry point
              (``entry.run``): ``vit_long`` at 256 px (4096 tokens), bf16,
              buckets 1,2,4,8, closed loop of 64 requests at concurrency 8,
@@ -60,7 +65,8 @@ last line:
              fused K5 chain and no flash-attention kernel runs; the bucket-32
              logits are held against the composed reference engine in bf16
              and fp32, a bucket-32 dispatch is timed fused and with
-             ``--block-fusion off`` and profiled;
+             ``--block-fusion off`` and profiled (``dispatch_times``; its
+             port GEMM by symbol must be ``block_gemm_wgmma`` alone);
 5. train   — the port's training path through ``entry.run``: ``vit_long``
              at 256 px, bf16, batch 16, two epochs over 144 synthetic
              training images (18 steps) and 16 validation images.  The
@@ -81,7 +87,9 @@ last line:
              finite, no step skipped; one step's loss and gradients held
              against ``--block-fusion off`` and against the plain chains
              (bf16 and fp32) with a bound that rejects a planted fault; ms
-             per step fused and off, and a step profile;
+             per step fused and off, and a step profile whose port GEMMs
+             by symbol must be ``block_gemm_wgmma``, ``dgrad_wgmma`` and
+             ``wgrad_wgmma`` alone;
 6. vit_moe  — ``moe_gmm_checks``: the grouped expert FFN's kernels (K7
              forward, K8 dx, K9 dW) against their plain versions at the
              serve shape (bf16, n 2048, cap 320), the train shape (bf16 and
@@ -273,11 +281,35 @@ def atol_share_needed(got, want, rtol) -> float:
 
 
 _PTXAS_ENTRY = re.compile(
-    r"Compiling entry function '\w*?(flash_(?:fwd|bwd)_\w+?|attn_small_\w+?)ILi(\d+)E(\w*?)EEv"
+    r"Compiling entry function '\w*?(flash_(?:fwd|bwd)_\w+?|attn_small_\w+?|"
+    r"(?:block_gemm|dgrad|wgrad)_wgmma)ILi(\d+)E(\w*?)EEv"
 )
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_USED = re.compile(r"Used (\d+) registers")
 _PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def ptxas_report(paths, libraries) -> dict:
+    """Registers, static shared memory and spill bytes of each Hopper kernel
+    instantiation (``_PTXAS_ENTRY``) of ``libraries``, as ``ptxas -v``
+    logged them."""
+    report = {}
+    for lib in libraries:
+        name = None
+        for line in paths[lib].with_suffix(".log").read_text().splitlines():
+            if m := _PTXAS_ENTRY.search(line):
+                name = f"{m.group(1)}<{m.group(2)}{',' + m.group(3) if m.group(3) else ''}>"
+                report[name] = {}
+            elif "Compiling entry function" in line:
+                name = None  # a kernel the report does not cover: its lines are not ours
+            elif name and (m := _PTXAS_SPILL.search(line)):
+                report[name]["spill_store_bytes"] = int(m.group(1))
+                report[name]["spill_load_bytes"] = int(m.group(2))
+            elif name and (m := _PTXAS_USED.search(line)):
+                report[name]["registers"] = int(m.group(1))
+                smem = _PTXAS_SMEM.search(line)
+                report[name]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return report
 
 
 def attention_build_report(build, paths) -> dict:
@@ -286,20 +318,7 @@ def attention_build_report(build, paths) -> dict:
     and backward's libraries and the short-sequence attention's), with the
     dynamic shared memory each bf16 flash kernel and each one-tile kernel
     asks for at each head dim."""
-    report = {}
-    for lib in ("flash_attention_fwd", "flash_attention_bwd", "attention_small"):
-        name = None
-        for line in paths[lib].with_suffix(".log").read_text().splitlines():
-            if m := _PTXAS_ENTRY.search(line):
-                name = f"{m.group(1)}<{m.group(2)}{',' + m.group(3) if m.group(3) else ''}>"
-                report[name] = {}
-            elif name and (m := _PTXAS_SPILL.search(line)):
-                report[name]["spill_store_bytes"] = int(m.group(1))
-                report[name]["spill_load_bytes"] = int(m.group(2))
-            elif name and (m := _PTXAS_USED.search(line)):
-                report[name]["registers"] = int(m.group(1))
-                smem = _PTXAS_SMEM.search(line)
-                report[name]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    report = ptxas_report(paths, ("flash_attention_fwd", "flash_attention_bwd", "attention_small"))
     smem = {
         kernel: build.load(lib, [ctypes.c_int], symbol=symbol)
         for kernel, lib, symbol in (
@@ -314,6 +333,40 @@ def attention_build_report(build, paths) -> dict:
     for backward, kernel in enumerate(("attn_small_fwd_onetile", "attn_small_bwd_onetile")):
         dynamic[kernel] = {d: onetile(backward, d) for d in (64, 128)}
     return {"kernels": report, "bf16_dynamic_smem_bytes": dynamic}
+
+
+# (depth k, output columns n) of the fused block's bf16 GEMM launches on the
+# main paths: block_gemm's qkv, proj, up, down; block_gemm_dgrad's dy·W_dn,
+# dup·W_up, dr1c·W_o, dqkv·W_qkv; block_gemm_wgrad's input widths
+GEMM_PATH_SHAPES = {
+    "block_gemm": ((192, 576), (192, 192), (192, 768), (768, 192)),
+    "block_gemm_dgrad": ((192, 768), (768, 192), (192, 192), (576, 192)),
+    "block_gemm_wgrad": (192, 768),
+}
+
+
+def gemm_build_report(build, paths, vb) -> dict:
+    """The fused block's bf16 GEMM kernels (``block_gemm_wgmma``,
+    ``dgrad_wgmma``, ``wgrad_wgmma``, one instantiation per tile width):
+    registers, static shared memory and spills from ``ptxas -v``, and the
+    dynamic shared memory each launch of the main paths asks for."""
+    i32 = ctypes.c_int
+    smem = {
+        "block_gemm": build.load("vit_block_fwd", [i32, i32], symbol="vit_block_gemm_smem"),
+        "block_gemm_dgrad": build.load("vit_block_bwd", [i32, i32], symbol="vit_block_dgrad_smem"),
+    }
+    dynamic = {
+        name: {f"k{k}_n{n}_bn{vb.slab_width(k, n)}": fn(k, vb.slab_width(k, n))
+               for k, n in GEMM_PATH_SHAPES[name]}
+        for name, fn in smem.items()
+    }
+    wgrad = build.load("vit_block_bwd", [i32], symbol="vit_block_wgrad_smem")
+    dynamic["block_gemm_wgrad"] = {
+        f"n_in{n}_bn{vb.wgrad_width(n)}": wgrad(vb.wgrad_width(n))
+        for n in GEMM_PATH_SHAPES["block_gemm_wgrad"]
+    }
+    return {"kernels": ptxas_report(paths, ("vit_block_fwd", "vit_block_bwd")),
+            "dynamic_smem_bytes": dynamic}
 
 
 def kernel_checks(attn) -> list[dict]:
@@ -663,13 +716,20 @@ def _agreement(got, want, fault, rtol) -> dict:
     }
 
 
-def timed(fn, iters: int = 20) -> tuple[float, float]:
+def timed_kernels(fn, iters: int = 20) -> tuple[float, float, list[str]]:
     """(device-busy ms per call under torch.profiler, CUDA-event ms per call
-    of back-to-back calls), both warmed up.  The first is the kernels' own
-    time; the second adds the gaps the host's launch overhead leaves on the
-    card between calls, which dominate calls of sub-0.1 ms kernels."""
+    of back-to-back calls, the port's kernels by symbol that the profiled
+    calls ran), warmed up.  The first is the kernels' own time; the second
+    adds the gaps the host's launch overhead leaves on the card between
+    calls, which dominate calls of sub-0.1 ms kernels."""
     event_ms = cuda_ms(fn, iters)
-    return profile_device(fn, iters)["device_busy_ms"], event_ms
+    prof = profile_device(fn, iters)
+    return prof["device_busy_ms"], event_ms, sorted(_port_kernel_ms(prof["device_ms_by_name"]))
+
+
+def timed(fn, iters: int = 20) -> tuple[float, float]:
+    """``timed_kernels``' two times."""
+    return timed_kernels(fn, iters)[:2]
 
 
 def fused_block_checks(vb) -> list[dict]:
@@ -724,7 +784,8 @@ def fused_block_checks(vb) -> list[dict]:
             for w in faulty["weights"]:
                 w[:, :64] = 0
             gemm[name] = _agreement(got, want, vb.block_gemm_reference(**faulty), rtol)
-            gemm[name]["ms"], gemm[name]["event_ms"] = timed(lambda: vb.block_gemm(**st))
+            gemm[name]["ms"], gemm[name]["event_ms"], gemm[name]["kernels"] = timed_kernels(
+                lambda: vb.block_gemm(**st))
             gemm[name]["plain_ms"], _ = timed(lambda: vb.block_gemm_reference(**st))
         attn_got = vb.block_attention(qkv, seq=s, heads=heads)
         torch.cuda.synchronize()
@@ -764,6 +825,9 @@ def fused_block_checks(vb) -> list[dict]:
         for rec, key in ((chain, "chain"), (attention, "attention")):
             rec["bound_ms"], rec["bound_by"] = bounds[key]
         checked = [chain, attention, *gemm.values()]
+        # by symbol: the launches ran the dtype's GEMM kernel and no other
+        gemm_kernels = sorted({k for g in gemm.values() for k in g["kernels"]})
+        want_gemm = [K6_KERNELS["block_gemm"][0 if dname == "bfloat16" else 1]]
         out.append({
             "case": label, "dtype": dname, "shape": [b, s, dim, heads], "rows": rows,
             "atol_share": atol_share, "rtol": rtol, "fault_keys": FAULT_KEYS,
@@ -774,7 +838,8 @@ def fused_block_checks(vb) -> list[dict]:
             "gemm_library_ms": gemm_library_ms,
             "gemm_library": "4 x F.linear (cuBLAS GEMM + bias); LayerNorm, gelu and residual excluded",
             "gemm_bound_ms": bounds["gemm"][0], "gemm_bound_by": bounds["gemm"][1],
-            "ok": all(
+            "gemm_kernels": gemm_kernels,
+            "ok": gemm_kernels == want_gemm and all(
                 c["finite"] and c["atol_share_needed"] <= atol_share < c["fault_atol_share_needed"]
                 for c in checked
             ),
@@ -915,16 +980,20 @@ def composed_library_block_fwd_bwd(x, params, heads, dy):
     return fwd_bwd
 
 
-K6_KERNELS = {  # the CUDA kernels' own symbols, by wrapper
+K6_KERNELS = {  # the CUDA kernels' own symbols, by wrapper (bf16 first, then fp32)
     "block_ln": ("ln_rows",),
-    "block_gemm": ("vit_block_gemm_bf16", "vit_block_gemm_f32"),
+    "block_gemm": ("block_gemm_wgmma", "vit_block_gemm_f32"),
     "block_attention": ("vit_block_attn_bf16", "vit_block_attn_f32"),
-    "block_gemm_dgrad": ("dgrad_bf16", "dgrad_f32"),
+    "block_gemm_dgrad": ("dgrad_wgmma", "dgrad_f32"),
     "block_ln_bwd": ("ln_bwd",),
     "block_attention_bwd": ("attn_dq_bf16", "attn_dq_f32", "attn_dkv_bf16", "attn_dkv_f32"),
-    "block_gemm_wgrad": ("wgrad_bf16", "wgrad_f32"),
+    "block_gemm_wgrad": ("wgrad_wgmma", "wgrad_f32"),
     "block_grad_reduce": ("grad_reduce",),
 }
+GEMM_WRAPPERS = ("block_gemm", "block_gemm_dgrad", "block_gemm_wgrad")
+# every GEMM kernel of the fused block chains; the bf16 paths run the first
+# of each wrapper's symbols only
+GEMM_SYMBOLS = frozenset(s for w in GEMM_WRAPPERS for s in K6_KERNELS[w])
 # the profiler's name of a kernel of the vit_block libraries, all defined in
 # an anonymous namespace: "[void ](anonymous namespace)::<symbol>[<...>](...)";
 # a library kernel (cuDNN's *wgrad*/*dgrad* convolution kernels, ATen's) does
@@ -1093,12 +1162,17 @@ def fused_block_bwd_checks(vb) -> list[dict]:
         stages = k6_stage_checks(vb, x, dy, params, heads, rtol)
         prof = profile_device(run, 10)
         per_kernel = {name: kernel_ms(prof["device_ms_by_name"], [name]) for name in K6_KERNELS}
+        ran = _port_kernel_ms(prof["device_ms_by_name"])
+        kernels = {name: sorted(s for s in syms if s in ran) for name, syms in K6_KERNELS.items()}
+        # by symbol: the chain's GEMMs ran the dtype's kernels and no other
+        gemm_ok = all(kernels[w] == [K6_KERNELS[w][0 if dname == "bfloat16" else 1]]
+                      for w in GEMM_WRAPPERS)
         event_ms = cuda_ms(run, 10)
         plain_ms, _ = timed(lambda: vb.fused_vit_block_bwd_reference(x, dy, params, heads=heads), 5)
         library_ms, library_event_ms = timed(composed_library_block_fwd_bwd(x, params, heads, dy), 10)
         bounds = block_bwd_bounds(vb, b, s, dim, heads, 4 * dim, dname)
         ok = (
-            finite and identical
+            finite and identical and gemm_ok
             and dx_rec["atol_share_needed"] <= atol_share < dx_rec["fault_atol_share_needed"]
             and all(max(errors.values()) <= tol < max(f.values()) for f in fault_errors.values())
             and all(st["finite"] and st["atol_share_needed"] <= atol_share for st in stages.values())
@@ -1111,7 +1185,7 @@ def fused_block_bwd_checks(vb) -> list[dict]:
             "fault_grad_error_max": {k: max(f.values()) for k, f in fault_errors.items()},
             "bit_identical_across_calls": identical, "finite": finite,
             "chain_ms": prof["device_busy_ms"], "chain_event_ms": event_ms,
-            "kernel_ms": per_kernel, "plain_ms": plain_ms,
+            "kernel_ms": per_kernel, "kernels": kernels, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_event_ms": library_event_ms,
             "library": "composed block under autograd, forward and backward: F.layer_norm, "
                        "F.linear (cuBLAS), SDPA",
@@ -1129,14 +1203,17 @@ def profile_device(fn, reps: int) -> dict:
     ms per call (the union of device activity), the idle share of the
     host-clock wall time, and device ms per call by kernel name.  A trace
     that holds no device activity at all (the tracer now and then delivers
-    none for a short run) is taken again, at most three times in all."""
+    none for a short run, at times several in a row) is taken again after a
+    pause, twice as long each time, at most five times in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for attempt in range(5):
+        time.sleep(0.5 * attempt)
+        reps_run = reps << attempt
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(reps):
+            for _ in range(reps_run):
                 fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
@@ -1148,7 +1225,8 @@ def profile_device(fn, reps: int) -> dict:
         if spans:
             break
     else:
-        raise RuntimeError("the profiler saw no device activity in three traces")
+        raise RuntimeError("the profiler saw no device activity in five traces")
+    reps = reps_run
     busy, start, end = 0.0, None, None
     for s0, s1 in sorted(spans):  # union of the device intervals
         if end is not None and s0 <= end:
@@ -1330,6 +1408,53 @@ def _block_counters(vb, attn) -> dict:
             "block_attention": vb.block_attention, "flash_attention": attn.flash_attention}
 
 
+def dispatch_times(fused, off, images) -> dict:
+    """One bucket-32 dispatch end to end (uint8 upload, forward, logits
+    download) through the ``fused`` engine and the ``off`` one
+    (``--block-fusion off``) in turns, host-clock ms over 5 each, and a
+    profile of the fused one: device busy ms, idle share, K5's kernels'
+    device ms, the port's kernels that ran and which of them are GEMMs."""
+    rec = {}
+    for name, eng in (("fused", fused), ("off", off), ("fused_again", fused), ("off_again", off)):
+        eng.predict_logits(images)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            eng.predict_logits(images)
+        rec[f"bucket32_batch_ms_{name}"] = (time.perf_counter() - t0) / 5 * 1e3
+    prof = profile_device(lambda: fused.predict_logits(images), 5)
+    names = prof["device_ms_by_name"]
+    port = _port_kernel_ms(names)
+    # the port's kernels on this path are K5's; matched by the namespace, so
+    # that a parent's symbols count too
+    k5 = sum(ms for name, ms in names.items() if _KERNEL_SYMBOL.match(name))
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+    rec["bucket32_profile"] = {
+        "wall_ms_per_batch": prof["wall_ms"],
+        "device_busy_ms_per_batch": prof["device_busy_ms"],
+        "device_idle_share": prof["device_idle_share"],
+        "k5_device_ms_per_batch": k5,
+        "k5_share_of_device_busy": k5 / prof["device_busy_ms"],
+        "port_kernels": sorted(port),
+        "gemm_kernels": sorted(GEMM_SYMBOLS & set(port)),
+        "top_device_ms_per_batch": {name[:60]: ms for name, ms in top},
+    }
+    return rec
+
+
+def tiny_dispatch() -> dict:
+    """``dispatch_times`` of ``serve_tiny``'s engine (bf16) on one seeded
+    batch of 32, built from whichever checkout of the port is first on
+    ``sys.path``: run with a parent's unpacked checkout put there, it times
+    the parent's kernels in the same call."""
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.serve import build_engine, request_pool
+
+    hp = load_config(SERVE_TINY_ARGV)
+    images = request_pool(32, image_size=hp.image_size, seed=hp.seed, fold=("check", 0))
+    off = build_engine(load_config(SERVE_TINY_ARGV + ["--block-fusion", "off"]))
+    return dispatch_times(build_engine(hp), off, images)
+
+
 def serve_tiny_phase(vb, attn) -> dict:
     """``vit_tiny --patch-size 2`` served through ``entry.run``: every block
     of every dispatched batch through the fused K5 chain; the bucket-32
@@ -1377,27 +1502,8 @@ def serve_tiny_phase(vb, attn) -> dict:
             "logits_scale": scale, "logits_tol": tol,
         }
         if precision == "bf16":
-            # one bucket-32 dispatch end to end (uint8 upload, forward,
-            # logits download), fused and with --block-fusion off
             off = build_engine(load_config(argv + ["--block-fusion", "off"]))
-            for name, eng in (("fused", fused), ("off", off), ("fused_again", fused),
-                              ("off_again", off)):
-                eng.predict_logits(images)
-                t0 = time.perf_counter()
-                for _ in range(5):
-                    eng.predict_logits(images)
-                rec[f"bucket32_batch_ms_{name}"] = (time.perf_counter() - t0) / 5 * 1e3
-            prof = profile_device(lambda: fused.predict_logits(images), 5)
-            k5 = sum(ms for name, ms in prof["device_ms_by_name"].items() if "vit_block_" in name)
-            top = sorted(prof["device_ms_by_name"].items(), key=lambda kv: -kv[1])[:8]
-            rec["bucket32_profile"] = {
-                "wall_ms_per_batch": prof["wall_ms"],
-                "device_busy_ms_per_batch": prof["device_busy_ms"],
-                "device_idle_share": prof["device_idle_share"],
-                "k5_device_ms_per_batch": k5,
-                "k5_share_of_device_busy": k5 / prof["device_busy_ms"],
-                "top_device_ms_per_batch": {name[:60]: ms for name, ms in top},
-            }
+            rec.update(dispatch_times(fused, off, images))
             del off
         checks[precision] = rec
         depth = len(fused.model.blocks)
@@ -1884,7 +1990,11 @@ def tiny_step_times(reps: int = 5) -> dict:
     k6 = kernel_ms(names, K6_COUNTERS[1:])
     k5 = kernel_ms(names, ["block_gemm", "block_attention"])
     top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+    port = _port_kernel_ms(names)
     out["profile"] = {
+        "port_kernels": sorted(port),
+        "gemm_kernels": sorted(GEMM_SYMBOLS & set(port)),
+        "gemm_kernels_device_ms_per_step": kernel_ms(names, GEMM_WRAPPERS),
         "wall_ms_per_step": prof["wall_ms"],
         "device_busy_ms_per_step": prof["device_busy_ms"],
         "device_idle_share": prof["device_idle_share"],
@@ -1958,6 +2068,9 @@ def check_train_tiny(tiny: dict) -> None:
         raise RuntimeError(f"train_tiny launches {tiny['launches']}, expected {want}")
     if not tiny["losses_finite"] or tiny["skipped_steps"]:
         raise RuntimeError("train_tiny: a non-finite loss or a skipped step")
+    gemms = tiny["step_times"]["profile"]["gemm_kernels"]
+    if gemms != sorted(K6_KERNELS[w][0] for w in GEMM_WRAPPERS):
+        raise RuntimeError(f"train_tiny's step ran the GEMM kernels {gemms}")
     bad = {p: c for p, c in tiny["step_checks"].items() if not c["ok"]}
     if bad:
         raise RuntimeError(f"a vit_tiny p2 train step through K5/K6 disagrees: {bad}")
@@ -3170,21 +3283,22 @@ def main() -> int:
     t0 = time.monotonic()
     paths = _build.build_all()
     attention_build = attention_build_report(_build, paths)
+    gemm_build = gemm_build_report(_build, paths, vb)
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
           "libraries": {n: str(p.relative_to(ROOT)) for n, p in paths.items()},
-          "attention": attention_build})
+          "attention": attention_build, "block_gemm": gemm_build})
     for path in paths.values():
         log = path.with_suffix(".log")
         for line in (log.read_text() if log.exists() else "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {path.stem}: {line.strip()}", file=sys.stderr)
     spilled = {
-        name: r for name, r in attention_build["kernels"].items()
-        if ("flash_" in name and "bf16" in name or "onetile" in name)
+        name: r for name, r in {**attention_build["kernels"], **gemm_build["kernels"]}.items()
+        if ("flash_" in name and "bf16" in name or "onetile" in name or "_wgmma" in name)
         and r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
     }
     if spilled:
-        raise RuntimeError(f"bf16 attention kernels spill registers: {spilled}")
+        raise RuntimeError(f"bf16 attention or GEMM kernels spill registers: {spilled}")
 
     checks = kernel_checks(attn)
     emit({"phase": "kernel_checks", "nvidia_smi": smi, "checks": checks})
@@ -3243,6 +3357,9 @@ def main() -> int:
             "block_attention": blocks_run, "flash_attention": 0}
     if tiny["launches"] != want:
         raise RuntimeError(f"serve_tiny launches {tiny['launches']}, expected {want}")
+    gemms = tiny["bucket32"]["bf16"]["bucket32_profile"]["gemm_kernels"]
+    if gemms != [K6_KERNELS["block_gemm"][0]]:
+        raise RuntimeError(f"serve_tiny's bucket-32 dispatch ran the GEMM kernels {gemms}")
     for precision, rec in tiny["bucket32"].items():
         if (rec["launches_fused"], rec["launches_reference"]) != (tiny["depth"], 0):
             raise RuntimeError(f"serve_tiny {precision} bucket-32 batch: launches {rec}")
@@ -3378,6 +3495,7 @@ def main() -> int:
             "max_abs_err": max(g["max_abs_err"] for g in gemm),
             "atol_share_needed": max(g["atol_share_needed"] for g in gemm),
             "fault_atol_share_needed": min(g["fault_atol_share_needed"] for g in gemm),
+            "kernels": case["gemm_kernels"],
             "ms": case["gemm_ms"], "event_ms": case["gemm_event_ms"],
             "plain_ms": case["gemm_plain_ms"],
             "bound_ms": case["gemm_bound_ms"], "bound_by": case["gemm_bound_by"],
@@ -3425,7 +3543,7 @@ def main() -> int:
                 "atol_share_needed": case["stages"][name]["atol_share_needed"],
                 "plain_ms": case["stages"][name]["plain_ms"],
                 "library_ms": case["stages"][name]["library_ms"],
-                "ms": case["kernel_ms"][name],
+                "ms": case["kernel_ms"][name], "kernels": case["kernels"][name],
                 "bound_ms": case["bound_ms"][name], "bound_by": case["bound_by"][name],
             })
     # K7-K9: per case, one entry per kernel.  ``launches`` is K7's count on

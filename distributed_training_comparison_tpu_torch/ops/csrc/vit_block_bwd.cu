@@ -15,18 +15,19 @@
 //   rounded to the compute dtype: LN1(x) and LN2(r1), which the weight
 //   gradients read; K5's block_gemm and block_attention recompute qkv, o,
 //   r1 and the pre-gelu up.
-// - block_gemm_dgrad: C = G . W (W the fp32 nn.Linear weight (K, N),
-//   rounded to the compute dtype as it is staged, in up to three row
-//   segments).  Epilogues: round (dO); gelu backward against up, rounded,
-//   with gelu(up) rounded as a second output (dup and the recomputed hmid);
-//   fp32 (dLN2, dLN1).
+// - block_gemm_dgrad: C = G . W, the TPU kernel's _gemm_T (vit_block.py:113;
+//   W the fp32 nn.Linear weight (K, N), rounded to the compute dtype, in up
+//   to three row segments).  Epilogues: round (dO); gelu backward against
+//   up, rounded, with gelu(up) rounded as a second output (dup and the
+//   recomputed hmid); fp32 (dLN2, dLN1).
 // - block_ln_bwd: per row, base + (dxhat - mean(dxhat) - xhat mean(dxhat
 //   xhat)) / sigma with dxhat = dln gamma, fp32, written in fp32 and/or
 //   rounded (dr1 and its rounded copy; dx), and per block of rows the
 //   partials of dgamma = sum dln xhat and dbeta = sum dln.
-// - block_gemm_wgrad: dW = G^T . A per chunk of rows into fp32 partials
-//   (one block per output tile and chunk), with the bias column sums of a
-//   second source taken by the blocks of the first input tile.
+// - block_gemm_wgrad: dW = G^T . A, the TPU kernel's _acc_T (vit_block.py:
+//   120), per chunk of rows into fp32 partials (one block per output tile
+//   and chunk), with the bias column sums of a second source taken by the
+//   blocks of the first input tile.
 // - block_attention_bwd: per (item, head) with P recomputed by the exact
 //   two-sweep softmax of K5: one kernel owns 64 query rows (the row max and
 //   sum, then delta = sum_j dp P, then dq = round(ds scale) . K) and writes
@@ -35,23 +36,31 @@
 // - block_grad_reduce: every partial summed over its chunks in order, one
 //   launch for all twelve gradients.
 //
-// bf16 products run on mma.sync m16n8k16 with fp32 accumulation; fp32 on
-// SIMT tiles with no TF32.
-//
 // What bounds it: at the vit_tiny --patch-size 2 train shape (B 128, S 256,
 // dim 192, 3 heads, bf16: 32768 rows) a block's backward is ~110 GFLOP
 // (forward recompute 35.4, data and weight gradients 58.0, attention
 // backward 16.1) against ~41 MB of x, dy, dx, parameters and gradients, so
-// operations bound it (~0.111 ms at 989 TFLOP/s).  The chain is far from
-// that: its intermediates round-trip through device memory, its GEMM tiles
-// are staged synchronously (the transposed stagings of the weight-gradient
-// GEMM are uncoalesced), the attention backward reloads fragments from
-// shared memory and recomputes the scores three times for dq and once more
-// for dk/dv; wgmma, TMA and pipelining are later work.
+// operations bound the whole (~0.111 ms at 989 TFLOP/s).  Each launch alone
+// is bound by bytes: a GEMM does NK / (N + K) = 96-154 FLOP a byte of its
+// operands, under the H100's ~295, and its intermediates round-trip
+// through device memory.  The bf16 GEMMs are built for that
+// (block_gemm.cuh):
+// - block_gemm_dgrad (dgrad_wgmma) is weight-stationary, as block_gemm: a
+//   block converts its slab of W to bf16 once (gathering 8 rows of k for a
+//   column into one 16-byte chunk, the loads coalesced along n) and streams
+//   G through a 4-stage TMA ring a consumer warpgroup; every product a
+//   wgmma, the epilogue on the accumulators.
+// - block_gemm_wgrad (wgrad_wgmma) lands each 64-row step of G and A as TMA
+//   boxes in their row-major layout, and wgmma reads both MN-major (the
+//   transpose bits): no transposed staging.  A 4-stage ring, one producer
+//   warp, two consumer warpgroups of 64 output rows; the bias column sums
+//   are read from the landed G tile (from global memory, a step ahead, for
+//   another source) under the products and added in a fixed order.
+// The attention backward still runs mma.sync m16n8k16 from padded shared
+// tiles and recomputes the scores three times for dq and once more for
+// dk/dv; fp32 runs SIMT tiles with no TF32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "block_gemm.cuh"
 
 namespace {
 
@@ -114,10 +123,6 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-__device__ __forceinline__ uint32_t pack_f32_to_bf16(float lo, float hi) {
-  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
-}
-
 __device__ __forceinline__ uint32_t lds32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -146,43 +151,12 @@ __global__ void __launch_bounds__(kRowWarps * 32)
   for (int c = lane; c < n; c += 32) yr[c] = from_f<T>((to_f(xr[c]) - mu) * rs * g[c] + b[c]);
 }
 
-// ------------------------------------------------------ the GEMM mainloops
+// ------------------------------------------------ the fp32 GEMM mainloop
 
-constexpr int kBM = 128;  // output rows per block (8 warps x 16 for mma)
+constexpr int kBM = 128;  // the fp32 kernels: output rows per block
 constexpr int kBN = 64;   // output columns per block
 constexpr int kGemmThreads = 256;
-constexpr int kBK = 64;         // bf16: K per stage
-constexpr int kLdsG = kBK + 8;  // padded row: a quad's fragment rows on distinct banks
 constexpr int kFBK = 16;        // fp32: K per stage
-
-// bf16: acc (this warp's 16 rows x kBN) += A . B^T over k in [0, kdim), the
-// stagers filling as[kBM][kLdsG] and bs[kBN][kLdsG] (row-major in k) with
-// the k0 stage, zero where out of range
-template <typename StageA, typename StageB>
-__device__ __forceinline__ void mainloop_bf16(float (&acc)[kBN / 8][4], bf16* as, bf16* bs,
-                                              int kdim, StageA stage_a, StageB stage_b) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < kBN / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int k0 = 0; k0 < kdim; k0 += kBK) {
-    stage_a(k0);
-    stage_b(k0);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const bf16* a0 = as + (warp * 16 + g) * kLdsG + kk * 16 + t * 2;
-      const uint32_t af[4] = {lds32(a0), lds32(a0 + 8 * kLdsG), lds32(a0 + 8),
-                              lds32(a0 + 8 * kLdsG + 8)};
-#pragma unroll
-      for (int n = 0; n < kBN / 8; ++n) {
-        const bf16* b0 = bs + (n * 8 + g) * kLdsG + kk * 16 + t * 2;
-        const uint32_t bf[2] = {lds32(b0), lds32(b0 + 8)};
-        mma_16816(acc[n], af, bf);
-      }
-    }
-    __syncthreads();
-  }
-}
 
 // fp32: each thread owns 4 rows x 8 columns of the kBM x kBN tile; the
 // stagers fill as[kFBK][kBM + 4] and bs[kFBK][kBN + 4] (k-major)
@@ -215,7 +189,7 @@ __device__ __forceinline__ void mainloop_f32(float (&acc)[4][8], float (*as)[kBM
   }
 }
 
-// (row, col) of accumulator element (n, e) of the bf16 mainloop, in the tile
+// (row, col) in a warp's 16-row tile of mma.sync accumulator element (n, e)
 __device__ __forceinline__ int frag_row(int e) {
   return (threadIdx.x / 32) * 16 + ((threadIdx.x % 32) >> 2) + 8 * (e >> 1);
 }
@@ -257,44 +231,55 @@ __device__ __forceinline__ void dgrad_store(const DgradParams& p, float acc, int
   static_cast<T*>(p.hmid)[i] = from_f<T>(gelu_tanh(u));
 }
 
-__global__ void __launch_bounds__(kGemmThreads) dgrad_bf16(const DgradParams p) {
-  __shared__ __align__(16) bf16 as[kBM * kLdsG];
-  __shared__ __align__(16) bf16 bs[kBN * kLdsG];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN, tid = threadIdx.x;
-  const bf16* g = static_cast<const bf16*>(p.g);
-  auto stage_a = [&](int k0) {  // G rows as they are
-    for (int c = tid; c < kBM * (kBK / 8); c += kGemmThreads) {
-      const int r = c / (kBK / 8), col = (c % (kBK / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < p.m && k0 + col < p.k)
-        v = *reinterpret_cast<const uint4*>(g + static_cast<long long>(m0 + r) * p.k + k0 + col);
-      *reinterpret_cast<uint4*>(as + r * kLdsG + col) = v;
-    }
-  };
-  auto stage_b = [&](int k0) {  // bs[n][k] = W[k][n], rounded; k fastest across threads
-    for (int c = tid; c < kBK * (kBN / 8); c += kGemmThreads) {
-      const int kk = c % kBK, nc = (c / kBK) * 8;
-      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (k0 + kk < p.k && n0 + nc < p.n) {
-        const float* wr = w_row(p, k0 + kk) + n0 + nc;
-        const float4 lo = *reinterpret_cast<const float4*>(wr);
-        const float4 hi = *reinterpret_cast<const float4*>(wr + 4);
-        v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-        v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+// K6's data-gradient products in bf16, weight-stationary (block_gemm.cuh):
+// C = G . W with W (k, n) converted once per block into the K-major slab of
+// BN columns (8 rows of k gathered a chunk), G streamed through the rings;
+// the epilogue is dgrad_store's on pairs of columns.
+template <int BN>
+__global__ void __launch_bounds__(bgemm::kThreads, 1)
+    dgrad_wgmma(const DgradParams p, const __grid_constant__ CUtensorMap tg) {
+  using namespace bgemm;
+  extern __shared__ __align__(1024) unsigned char gemm_smem[];
+  const WsBlock B(gemm_smem, p.m, p.k, BN);
+  ws_start<BN, false>(B, &tg, p.w, p.seg, p.n, p.k);
+
+  const int tid = threadIdx.x, n0 = B.n0;
+  const int lane = tid % 32, wq = tid % 128 / 32, g = lane / 4, t4 = lane % 4;
+  auto begin = [](int) {};
+  auto multiply = [&](float* acc, uint32_t stage, int kc) { mma_ss<BN>(acc, B.base, stage, kc); };
+  auto epilogue = [&](float (&acc)[BN / 2], int m0) {
+    // this thread's rows 16 wq + g + 8 i, columns n0 + 8 j + 2 t4 and + 1
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = m0 + 16 * wq + g + 8 * i;
+      const bool ok = row < p.m;
+      const long long at = static_cast<long long>(row) * p.n + n0;
+      if (p.mode == 2) {  // fp32: a quad's float2 stores cover whole 32-byte sectors
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          if (ok && n0 + 8 * j + 2 * t4 < p.n)
+            *reinterpret_cast<float2*>(static_cast<float*>(p.c) + at + 8 * j + 2 * t4) =
+                make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        continue;
       }
+      uint32_t u2[BN / 8], out[BN / 8], hm[BN / 8];  // up is loaded before any store
+      if (p.mode == 1) load_row<BN>(u2, static_cast<const bf16*>(p.up) + at, p.n - n0, ok);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) bs[(nc + j) * kLdsG + kk] = __float2bfloat16_rn(v[j]);
+      for (int j = 0; j < BN / 8; ++j) {
+        const float v0 = rnd<bf16>(acc[4 * j + 2 * i]), v1 = rnd<bf16>(acc[4 * j + 2 * i + 1]);
+        if (p.mode == 0) {
+          out[j] = pack_f32_to_bf16(v0, v1);
+          continue;
+        }
+        const float x0 = __uint_as_float(u2[j] << 16), x1 = __uint_as_float(u2[j] & 0xffff0000u);
+        out[j] = pack_f32_to_bf16(gelu_tanh_grad(x0) * v0, gelu_tanh_grad(x1) * v1);
+        hm[j] = pack_f32_to_bf16(gelu_tanh(x0), gelu_tanh(x1));
+      }
+      store_row<BN>(out, static_cast<bf16*>(p.c) + at, p.n - n0, ok);
+      if (p.mode == 1) store_row<BN>(hm, static_cast<bf16*>(p.hmid) + at, p.n - n0, ok);
     }
   };
-  float acc[kBN / 8][4];
-  mainloop_bf16(acc, as, bs, p.k, stage_a, stage_b);
-#pragma unroll
-  for (int n = 0; n < kBN / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = m0 + frag_row(e), col = n0 + frag_col(n, e);
-      if (row < p.m && col < p.n) dgrad_store<bf16>(p, acc[n][e], row, col);
-    }
+  ws_consume<BN>(B, &tg, begin, multiply, epilogue);
 }
 
 __global__ void __launch_bounds__(kGemmThreads) dgrad_f32(const DgradParams p) {
@@ -358,42 +343,173 @@ __device__ void bias_partial(const WgradParams& p, int r0, int r1, int o0, float
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kGemmThreads) wgrad_bf16(const WgradParams p) {
-  __shared__ __align__(16) bf16 as[kBM * kLdsG];
-  __shared__ __align__(16) bf16 bs[kBN * kLdsG];
-  __shared__ float red[kGemmThreads];
-  const int o0 = blockIdx.y * kBM, i0 = blockIdx.x * kBN, tid = threadIdx.x;
+// K6's weight-gradient products in bf16: per row chunk (blockIdx.z), an
+// output tile of 128 rows of out (two consumer warpgroups of 64) by BN
+// columns of in.  Each 64-row step of the chunk lands as TMA boxes of G (64
+// rows x 64 out, one a warpgroup) and of A (64 rows x BN in) in their
+// row-major layout, and wgmma reads both MN-major (dW = G^T . A): no
+// transposed staging.  A 4-stage ring, one producer warp.  The blocks of
+// the first input tile also take the bias column sums of their 128 out
+// columns: each thread sums 4 columns over every 8th row of a step, under
+// the step's products, from the landed G tile where the source is G, else
+// from global memory, its loads for the next step in flight; the 8 row
+// phases are added in order.
+constexpr int kWgStages = 4;
+constexpr int kWgConsumers = 2;  // warpgroups of 64 output rows
+constexpr int kWgThreads = 128 * kWgConsumers + 32;
+
+template <int BN>
+__host__ __device__ constexpr int wgrad_stage_bytes() {
+  return (kWgConsumers + BN / 64) * bgemm::kStageBytes;  // G boxes, then A boxes
+}
+
+template <int BN>
+__host__ __device__ constexpr int wgrad_smem() {  // ring, bias sums, barriers, alignment slack
+  return kWgStages * wgrad_stage_bytes<BN>() + 8 * 128 * 4 + 2 * kWgStages * 8 + 1024;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    wgrad_wgmma(const WgradParams p, const __grid_constant__ CUtensorMap tg,
+                const __grid_constant__ CUtensorMap ta) {
+  using namespace bgemm;
+  constexpr int kStage = wgrad_stage_bytes<BN>();
+  extern __shared__ __align__(1024) unsigned char gemm_smem[];
+  const uint32_t raw = smem_u32(gemm_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  float* red = reinterpret_cast<float*>(gemm_smem + (base - raw) + kWgStages * kStage);
+  const uint32_t full = base + kWgStages * kStage + 8 * 128 * 4;
+  const uint32_t empty = full + 8 * kWgStages;
+  const int tid = threadIdx.x;
+  const int i0 = blockIdx.x * BN, o0 = blockIdx.y * kRows * kWgConsumers;
   const int r0 = blockIdx.z * p.chunk, r1 = min(r0 + p.chunk, p.m);
-  const bf16* g = static_cast<const bf16*>(p.g);
-  const bf16* a = static_cast<const bf16*>(p.a);
-  if (blockIdx.x == 0 && p.part_b) bias_partial(p, r0, r1, o0, red);
-  // as[o][r] = G[r][o] and bs[i][r] = A[r][i]: transposed, rows fastest
-  // across threads so the shared-memory writes are conflict-free
-  auto stage = [&](bf16* s, const bf16* src, int ld, int c0, int cols, int tile_cols, int k0) {
-    for (int c = tid; c < kBK * (tile_cols / 8); c += kGemmThreads) {
-      const int kk = c % kBK, cc = (c / kBK) * 8;
-      const int r = r0 + k0 + kk;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < r1 && c0 + cc < cols)
-        v = *reinterpret_cast<const uint4*>(src + static_cast<long long>(r) * ld + c0 + cc);
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
+  const int steps = (r1 - r0 + kRows - 1) / kRows;
+
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kWgConsumers);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid >= 128 * kWgConsumers) {  // the producer warp
+    if (tid == 128 * kWgConsumers) {
+      for (int st = 0; st < steps; ++st) {
+        const int s = st % kWgStages, r = r0 + st * kRows;
+        const uint32_t stage = base + s * kStage;
+        if (st >= kWgStages) mbar_wait(empty + 8 * s, ((st / kWgStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, kStage);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[(cc + j) * kLdsG + kk] = e[j];
+        for (int w = 0; w < kWgConsumers; ++w)
+          tma_load(stage + w * kStageBytes, &tg, o0 + w * kRows, r, 0, 0, full + 8 * s);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load(stage + (kWgConsumers + j) * kStageBytes, &ta, i0 + 64 * j, r, 0, 0, full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  const int w = tid / 128, lane = tid % 32, wq = tid % 128 / 32, g = lane / 4, t4 = lane % 4;
+  // the bias sums: 4 columns from ocol, rows ph + 8 j of each step; where
+  // the source is G itself, read from the landed stage, else loaded from
+  // global memory a step ahead
+  const bool bias = blockIdx.x == 0 && p.part_b != nullptr;
+  const bool from_g = p.bsrc == p.g && !p.bsrc_f32;
+  const int ph = tid % 128 / 16, ocol = o0 + w * kRows + 4 * (tid % 16);
+  float bsum[4] = {0.f, 0.f, 0.f, 0.f};
+  uint4 buf[8];
+  auto load_bias = [&](int st) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int row = r0 + st * kRows + ph + 8 * j;
+      buf[j] = make_uint4(0u, 0u, 0u, 0u);
+      if (row >= r1 || ocol >= p.n_out) continue;
+      const long long at = static_cast<long long>(row) * p.n_out + ocol;
+      if (p.bsrc_f32) {
+        buf[j] = *reinterpret_cast<const uint4*>(static_cast<const float*>(p.bsrc) + at);
+      } else {
+        const uint2 v = *reinterpret_cast<const uint2*>(static_cast<const bf16*>(p.bsrc) + at);
+        buf[j] = make_uint4(v.x << 16, v.x & 0xffff0000u, v.y << 16, v.y & 0xffff0000u);
+      }
     }
   };
-  float acc[kBN / 8][4];
-  mainloop_bf16(
-      acc, as, bs, r1 - r0,
-      [&](int k0) { stage(as, g, p.n_out, o0, p.n_out, kBM, k0); },
-      [&](int k0) { stage(bs, a, p.n_in, i0, p.n_in, kBN, k0); });
+  auto add_stage = [&](uint32_t gbox, int st) {  // this warpgroup's G box: 64 rows x 64 columns, swizzled
+    const int c = 4 * (tid % 16);  // the box column of this thread's 4
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = ph + 8 * j;
+      if (r0 + st * kRows + r >= r1) continue;  // rows of the next chunk, or past m: zeros
+      uint2 v;
+      asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                   : "=r"(v.x), "=r"(v.y)
+                   : "r"(gbox + r * 128 + (((c / 8) ^ (r % 8)) << 4) + (c % 8) * 2));
+      bsum[0] += __uint_as_float(v.x << 16);
+      bsum[1] += __uint_as_float(v.x & 0xffff0000u);
+      bsum[2] += __uint_as_float(v.y << 16);
+      bsum[3] += __uint_as_float(v.y & 0xffff0000u);
+    }
+  };
+  auto add_bias = [&]() {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      bsum[0] += __uint_as_float(buf[j].x);
+      bsum[1] += __uint_as_float(buf[j].y);
+      bsum[2] += __uint_as_float(buf[j].z);
+      bsum[3] += __uint_as_float(buf[j].w);
+    }
+  };
+
+  float acc[BN / 2];
+  if (bias && !from_g) load_bias(0);
+  for (int st = 0; st < steps; ++st) {
+    const int s = st % kWgStages;
+    mbar_wait(full + 8 * s, (st / kWgStages) & 1);
+    const uint32_t stage = base + s * kStage;
+    fence_regs<BN / 2>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {  // 16 rows, 2 KB, a k-step
+      wgmma_ss<BN, 1, 1>(acc, smem_desc(stage + w * kStageBytes + kk * 2048, kStageBytes, 1024),
+                         smem_desc(stage + kWgConsumers * kStageBytes + kk * 2048, kStageBytes, 1024),
+                         st > 0 || kk > 0);
+    }
+    wgmma_commit();
+    if (bias && from_g) {  // under the products
+      add_stage(stage + w * kStageBytes, st);
+    } else if (bias) {
+      add_bias();
+      if (st + 1 < steps) load_bias(st + 1);
+    }
+    wgmma_wait<0>();
+    fence_regs<BN / 2>(acc);
+    if (lane == 0) mbar_arrive(empty + 8 * s);  // this warp is done with the stage
+  }
+
   float* out = p.part_w + static_cast<long long>(blockIdx.z) * p.n_out * p.n_in;
 #pragma unroll
-  for (int n = 0; n < kBN / 8; ++n)
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = i0 + 8 * j + 2 * t4;
+    if (col >= p.n_in) continue;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int o = o0 + frag_row(e), i = i0 + frag_col(n, e);
-      if (o < p.n_out && i < p.n_in) out[static_cast<long long>(o) * p.n_in + i] = acc[n][e];
+    for (int i = 0; i < 2; ++i) {
+      const int o = o0 + w * kRows + 16 * wq + g + 8 * i;
+      if (o < p.n_out)
+        *reinterpret_cast<float2*>(out + static_cast<long long>(o) * p.n_in + col) =
+            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
     }
+  }
+  if (bias) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) red[ph * 128 + w * kRows + 4 * (tid % 16) + q] = bsum[q];
+    named_sync(1, 128 * kWgConsumers);
+    if (tid < 128 && o0 + tid < p.n_out) {
+      float total = 0.f;
+      for (int q = 0; q < 8; ++q) total += red[q * 128 + tid];
+      p.part_b[static_cast<long long>(blockIdx.z) * p.n_out + o0 + tid] = total;
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kGemmThreads) wgrad_f32(const WgradParams p) {
@@ -1030,6 +1146,40 @@ cudaError_t launch_gemm(Kernel kernel, dim3 grid, cudaStream_t s, const Params& 
   return cudaGetLastError();
 }
 
+// the bf16 GEMMs: their tensor maps encoded here, per call; 0 on success,
+// a cudaError_t, or minus the CUresult of a map that failed to encode
+template <int BN>
+int launch_dgrad_bf16(const DgradParams& p, cudaStream_t s) {
+  using namespace bgemm;
+  const int kpad = padded_depth(p.k);
+  if (kpad * BN * 2 > kSlabBytes) return cudaErrorInvalidValue;
+  alignas(64) CUtensorMap tg;
+  const CUresult r = encode_rows(&tg, p.g, p.m, p.k);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  int sms = 0;
+  const cudaError_t err = prepare<&dgrad_wgmma<BN>>(ws_most_bytes(BN), &sms);
+  if (err != cudaSuccess) return err;
+  dgrad_wgmma<BN><<<ws_grid(p.m, p.n, BN, sms), kThreads, WsLayout(kpad, BN).bytes, s>>>(p, tg);
+  return cudaGetLastError();
+}
+
+template <int BN>
+int launch_wgrad_bf16(const WgradParams& p, cudaStream_t s) {
+  using namespace bgemm;
+  if (p.chunk % kRows) return cudaErrorInvalidValue;
+  alignas(64) CUtensorMap tg, ta;
+  CUresult r = encode_rows(&tg, p.g, p.m, p.n_out);
+  if (r == CUDA_SUCCESS) r = encode_rows(&ta, p.a, p.m, p.n_in);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  int sms = 0;
+  const cudaError_t err = prepare<&wgrad_wgmma<BN>>(wgrad_smem<BN>(), &sms);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.n_in + BN - 1) / BN, (p.n_out + kRows * kWgConsumers - 1) / (kRows * kWgConsumers),
+                  (p.m + p.chunk - 1) / p.chunk);
+  wgrad_wgmma<BN><<<grid, kWgThreads, wgrad_smem<BN>(), s>>>(p, tg, ta);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // y = LayerNorm(x) rounded to the compute dtype, rows of n (fp32 gamma, beta).
@@ -1052,9 +1202,12 @@ extern "C" int vit_block_ln(const void* x, const void* g, const void* b, void* y
 // c (m, n) = g (m, k) . W (k, n), W's rows from w0/w1/w2 (seg rows each,
 // fp32 (seg, n)); mode 0 rounds, 1 applies the gelu backward against up
 // and writes gelu(up) to hmid, 2 writes fp32.  k and n multiples of 16.
+// bf16 runs the weight-stationary kernel with slabs of bn columns (8, 16,
+// 32 or 64; a bf16 slab of padded k by bn at most kSlabBytes); fp32
+// ignores bn.  0 on success, a cudaError_t, or minus a map's CUresult.
 extern "C" int vit_block_dgrad(const void* g, const void* w0, const void* w1, const void* w2,
                                const void* up, void* hmid, void* c, int m, int n, int k, int seg,
-                               int mode, int is_bf16, void* stream) {
+                               int mode, int is_bf16, int bn, void* stream) {
   DgradParams p{};
   p.g = g;
   p.w[0] = static_cast<const float*>(w0);
@@ -1068,9 +1221,18 @@ extern "C" int vit_block_dgrad(const void* g, const void* w0, const void* w1, co
   p.k = k;
   p.seg = seg;
   p.mode = mode;
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_gemm(dgrad_bf16, grid, s, p) : launch_gemm(dgrad_f32, grid, s, p);
+  if (is_bf16) {
+    switch (bn) {
+      case 8: return launch_dgrad_bf16<8>(p, s);
+      case 16: return launch_dgrad_bf16<16>(p, s);
+      case 32: return launch_dgrad_bf16<32>(p, s);
+      case 64: return launch_dgrad_bf16<64>(p, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  return launch_gemm(dgrad_f32, grid, s, p);
 }
 
 // out = base + LayerNorm-backward(dln) for the LayerNorm of xin with scale
@@ -1104,15 +1266,36 @@ extern "C" int vit_block_ln_bwd(const void* dln, const void* xin, const void* ga
 
 // per chunk of rows, part_w = g^T . a (fp32 (chunks, n_out, n_in)) and
 // part_b = the column sums of bsrc (fp32 (chunks, n_out)).  n_out and n_in
-// multiples of 16, chunk a multiple of 64.
+// multiples of 16, chunk a multiple of 64.  bf16 runs tiles of bn input
+// columns (64, 128 or 192); fp32 ignores bn.
 extern "C" int vit_block_wgrad(const void* g, const void* a, const void* bsrc, int bsrc_f32,
                                void* part_w, void* part_b, int m, int n_out, int n_in, int chunk,
-                               int is_bf16, void* stream) {
+                               int is_bf16, int bn, void* stream) {
   WgradParams p{g, a, bsrc, bsrc_f32, static_cast<float*>(part_w), static_cast<float*>(part_b),
                 m, n_out, n_in, chunk};
-  const dim3 grid((n_in + kBN - 1) / kBN, (n_out + kBM - 1) / kBM, (m + chunk - 1) / chunk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_gemm(wgrad_bf16, grid, s, p) : launch_gemm(wgrad_f32, grid, s, p);
+  if (is_bf16) {
+    switch (bn) {
+      case 64: return launch_wgrad_bf16<64>(p, s);
+      case 128: return launch_wgrad_bf16<128>(p, s);
+      case 192: return launch_wgrad_bf16<192>(p, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  const dim3 grid((n_in + kBN - 1) / kBN, (n_out + kBM - 1) / kBM, (m + chunk - 1) / chunk);
+  return launch_gemm(wgrad_f32, grid, s, p);
+}
+
+// dynamic shared memory of the bf16 block_gemm_dgrad kernel at depth k and
+// slab width bn (0 if the slab is above kSlabBytes), and of
+// block_gemm_wgrad's at tile width bn
+extern "C" int vit_block_dgrad_smem(int k, int bn) {
+  const int kpad = bgemm::padded_depth(k);
+  return kpad * bn * 2 > bgemm::kSlabBytes ? 0 : bgemm::WsLayout(kpad, bn).bytes;
+}
+
+extern "C" int vit_block_wgrad_smem(int bn) {
+  return bn == 64 ? wgrad_smem<64>() : bn == 128 ? wgrad_smem<128>() : bn == 192 ? wgrad_smem<192>() : 0;
 }
 
 // dqkv (batch * seq, 3 * heads * head_dim) of the packed attention for the

@@ -8,35 +8,43 @@
 // 227 KB of shared memory (vit_tiny's bf16 weights alone are ~0.84 MiB, one
 // item's K/V 192 KiB), so K5 is a chain of two kernels with its numerics:
 //
-// - block_gemm: C = epilogue(prologue(A) . W^T), launched four times per
-//   block (LN1 + qkv; out-proj + bias + x; LN2 + up + gelu; down + bias + r1).
-//   Prologue: LayerNorm over whole rows with fp32 statistics by
-//   E[x^2] - mu^2 (eps 1e-6), gamma/beta in fp32, the row rounded to the
-//   compute dtype before the product.  W is read as the fp32 nn.Linear
-//   weight (N, K) and rounded to the compute dtype as it is staged, in up to
-//   three row segments (the q/k/v projections, without a concatenation).
-//   Epilogue: fp32 accumulator -> compute dtype -> + bias (rounded to the
-//   compute dtype) -> optionally the tanh gelu (fp32, rounded once) or
-//   + residual.  bf16 runs on mma.sync m16n8k16 (fp32 accumulate), fp32 on
-//   a SIMT tile with no TF32.
+// - block_gemm: C = epilogue(prologue(A) . W^T), the TPU kernel's _gemm
+//   (vit_block.py:105), launched four times per block (LN1 + qkv; out-proj
+//   + bias + x; LN2 + up + gelu; down + bias + r1).  Prologue: LayerNorm
+//   over whole rows with fp32 statistics by E[x^2] - mu^2 (eps 1e-6),
+//   gamma/beta in fp32, the row rounded to the compute dtype before the
+//   product.  W is read as the fp32 nn.Linear weight (N, K), rounded to the
+//   compute dtype, in up to three row segments (the q/k/v projections,
+//   without a concatenation).  Epilogue: fp32 accumulator -> compute dtype
+//   -> + bias (rounded to the compute dtype) -> optionally the tanh gelu
+//   (fp32, rounded once) or + residual.
 // - block_attention: one block per (item, head, query tile), q/k/v read as
 //   column slices of the packed (B*S, 3*dim) qkv.  The softmax is exact, as
 //   _softmax_small's: a first sweep over the key tiles finds each row's max
 //   and sum, a second forms P = exp(s - max) / sum, rounds it to the compute
 //   dtype and accumulates P.V in fp32.  Keys past S are masked; non-causal.
 //
-// What bounds it: at the vit_tiny --patch-size 2 serve shape (bucket 32:
-// 8192 rows, S 256, dim 192, bf16) the block is 8.86 GFLOP against ~8 MB of
-// input, output and weights, so operations bound it (~9 us at 989 TFLOP/s).
-// The chain is far from that: it round-trips qkv (B*S x 3*dim) and the MLP
-// activation hmid (B*S x 4*dim) through device memory, which a later change
-// fuses away, its tiles are synchronously staged (no cp.async pipeline in
-// the GEMM), and the tensor cores are fed by mma.sync; wgmma and TMA are
-// later work too.
+// What bounds block_gemm: at the vit_tiny --patch-size 2 shapes (M 8192 rows
+// at serve bucket 32, 32768 in training; K and N 192-768) a product does
+// 2MNK operations on the 2M(K + N) bytes of A and C, NK / (N + K) = 96-154
+// FLOP a byte, under the H100's ~295: every launch is bound by bytes (the
+// four together move ~56 MB at the serve shape, 0.017 ms at 3.35 TB/s).
+// The bf16 design (block_gemm_wgmma, block_gemm.cuh) answers that:
+// - weight-stationary: a block owns one slab of up to 192 output columns for
+//   the whole call and converts its fp32 W to bf16 once, into shared memory
+//   in the swizzled layout wgmma reads; its grid is at most one block an SM,
+//   each walking row tiles in an order fixed by its index;
+// - A streams through one 4-stage TMA ring a consumer warpgroup (64 rows x
+//   64 columns a stage, 128-byte swizzle), fed by a producer warp, so loads
+//   run ahead of the products; rows past M and columns past K land as zeros;
+// - every product is a wgmma m64nBNk16 from shared memory, fp32 in registers;
+// - the LayerNorm prologue reads a tile's row statistics once (not once per
+//   64-column block) and normalises each landed chunk in place;
+// - the epilogue runs on the accumulators and stores the rounded result.
+// fp32 runs a SIMT tile with no TF32.  The chain still round-trips qkv and
+// the MLP activation hmid through device memory; fusing those is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "block_gemm.cuh"
 
 namespace {
 
@@ -85,10 +93,6 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-__device__ __forceinline__ uint32_t pack_f32_to_bf16(float lo, float hi) {
-  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
-}
-
 __device__ __forceinline__ uint32_t lds32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -116,7 +120,7 @@ __device__ __forceinline__ const float* segment_row(const float* const* arr, int
   return arr[2] + static_cast<long long>(n - 2 * seg) * ld;
 }
 
-constexpr int kBM = 128;          // output rows per block (8 warps x 16 for mma)
+constexpr int kBM = 128;          // the fp32 kernel: output rows per block
 constexpr int kGemmThreads = 256;
 constexpr int kBN = 64;  // output columns per block
 
@@ -185,98 +189,122 @@ __device__ __forceinline__ float epilogue(const GemmParams& p, float acc, int ro
   return v;
 }
 
-constexpr int kBK = 64;          // bf16: K per stage
-constexpr int kLdsG = kBK + 8;   // padded row: a quad's fragment rows on distinct banks
+// K5's products in bf16, weight-stationary (block_gemm.cuh): blockIdx.x owns
+// the slab of output columns [BN * blockIdx.x, + BN), converted from W once;
+// each warpgroup walks its 64-row tiles of A through its ring.  With the
+// LayerNorm prologue the A fragments are normalised in registers: a quad's
+// four threads share two rows, whose fp32 statistics (E[x^2] - mu^2) they
+// take from the rows in global memory, each a quarter of the columns; each
+// k-step's fragment is read from the landed stage, normalised (gamma, beta
+// fp32), rounded to bf16 and fed to wgmma from registers, so no thread
+// waits on another's.  The epilogue loads its residual before any store,
+// then rounds the accumulator, adds the rounded bias, rounds, and applies
+// the gelu or adds the residual, rounded.
+template <int BN>
+__global__ void __launch_bounds__(bgemm::kThreads, 1)
+    block_gemm_wgmma(const GemmParams p, const __grid_constant__ CUtensorMap ta) {
+  using namespace bgemm;
+  extern __shared__ __align__(1024) unsigned char gemm_smem[];
+  const WsBlock B(gemm_smem, p.m, p.k, BN);
+  float* bias = reinterpret_cast<float*>(B.smem + B.L.bias);  // the slab's rounded bias
+  if (threadIdx.x < BN) {
+    const int col = B.n0 + threadIdx.x;
+    bias[threadIdx.x] = col < p.n ? round_bf16(__ldg(weight_row(p.bias, p.seg, col, 1))) : 0.f;
+  }
+  ws_start<BN, true>(B, &ta, p.w, p.seg, p.n, p.k);  // its closing barrier covers the bias
 
-__global__ void __launch_bounds__(kGemmThreads) vit_block_gemm_bf16(const GemmParams p) {
-  __shared__ __align__(16) bf16 as[kBM * kLdsG];
-  __shared__ __align__(16) bf16 ws[kBN * kLdsG];
-  __shared__ float mu_s[kBM], rs_s[kBM];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column pair
+  const int tid = threadIdx.x, n0 = B.n0;
+  const int lane = tid % 32, wq = tid % 128 / 32, g = lane / 4, t4 = lane % 4;
   const bf16* a = static_cast<const bf16*>(p.a);
-  if (p.ln_g) {
-    ln_stats(p, a, m0, mu_s, rs_s);
-    __syncthreads();
-  }
-  float acc[kBN / 8][4];
-#pragma unroll
-  for (int n = 0; n < kBN / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  constexpr int kChunks = kBK / 8;  // 16-byte chunks per tile row
-  for (int k0 = 0; k0 < p.k; k0 += kBK) {
-    // A rows (normalised by the prologue), zero past m and k
-    for (int c = tid; c < kBM * kChunks; c += kGemmThreads) {
-      const int r = c / kChunks, col = (c % kChunks) * 8;
-      const int row = m0 + r, kk = k0 + col;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row < p.m && kk < p.k) {
-        v = *reinterpret_cast<const uint4*>(a + static_cast<long long>(row) * p.k + kk);
-        if (p.ln_g) {
-          float x[8], gb[16];
-          chunk_floats(v, x, bf16());
-          const float4* g4 = reinterpret_cast<const float4*>(p.ln_g + kk);
-          const float4* b4 = reinterpret_cast<const float4*>(p.ln_b + kk);
-          *reinterpret_cast<float4*>(gb) = g4[0];
-          *reinterpret_cast<float4*>(gb + 4) = g4[1];
-          *reinterpret_cast<float4*>(gb + 8) = b4[0];
-          *reinterpret_cast<float4*>(gb + 12) = b4[1];
-          const float mu = mu_s[r], rs = rs_s[r];
-          float y[8];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) y[i] = (x[i] - mu) * rs * gb[i] + gb[8 + i];
-          v = make_uint4(pack_f32_to_bf16(y[0], y[1]), pack_f32_to_bf16(y[2], y[3]),
-                         pack_f32_to_bf16(y[4], y[5]), pack_f32_to_bf16(y[6], y[7]));
-        }
-      }
-      *reinterpret_cast<uint4*>(as + r * kLdsG + col) = v;
-    }
-    // W rows (output features), fp32 rounded to bf16, zero past n and k
-    for (int c = tid; c < kBN * kChunks; c += kGemmThreads) {
-      const int r = c / kChunks, col = (c % kChunks) * 8;
-      const int n = n0 + r, kk = k0 + col;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (n < p.n && kk < p.k) {
-        const float* wr = segment_row(p.w, n, p.seg, p.k) + kk;
-        const float4 lo = *reinterpret_cast<const float4*>(wr);
-        const float4 hi = *reinterpret_cast<const float4*>(wr + 4);
-        v = make_uint4(pack_f32_to_bf16(lo.x, lo.y), pack_f32_to_bf16(lo.z, lo.w),
-                       pack_f32_to_bf16(hi.x, hi.y), pack_f32_to_bf16(hi.z, hi.w));
-      }
-      *reinterpret_cast<uint4*>(ws + r * kLdsG + col) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const bf16* a0 = as + (warp * 16 + g) * kLdsG + kk * 16 + t * 2;
-      const uint32_t af[4] = {lds32(a0), lds32(a0 + 8 * kLdsG), lds32(a0 + 8),
-                              lds32(a0 + 8 * kLdsG + 8)};
-#pragma unroll
-      for (int n = 0; n < kBN / 8; ++n) {
-        // W's (n, k) rows are exactly mma's column-major B operand
-        const bf16* b0 = ws + (n * 8 + g) * kLdsG + kk * 16 + t * 2;
-        const uint32_t bf[2] = {lds32(b0), lds32(b0 + 8)};
-        mma_16816(acc[n], af, bf);
-      }
-    }
-    __syncthreads();
-  }
-
-  bf16* c = static_cast<bf16*>(p.c);
-#pragma unroll
-  for (int n = 0; n < kBN / 8; ++n) {
-    const int col = n0 + n * 8 + t * 2;  // p.n is even: col < p.n keeps col + 1 in range
+  float mu[2], rs[2];  // LayerNorm statistics of this thread's rows 16 wq + g + 8 i
+  auto begin = [&](int m0) {
+    if (!p.ln_g) return;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int row = m0 + warp * 16 + g + 8 * i;
-      if (row >= p.m || col >= p.n) continue;
-      const float v0 = epilogue<true>(p, acc[n][2 * i], row, col);
-      const float v1 = epilogue<true>(p, acc[n][2 * i + 1], row, col + 1);
-      *reinterpret_cast<uint32_t*>(c + static_cast<long long>(row) * p.n + col) =
-          pack_f32_to_bf16(v0, v1);
+      const int row = m0 + 16 * wq + g + 8 * i;
+      float s = 0.f, ss = 0.f;
+      if (row < p.m) {
+        const bf16* ar = a + static_cast<long long>(row) * p.k;
+#pragma unroll 6
+        for (int c = 8 * t4; c < p.k; c += 32) {
+          float x[8];
+          chunk_floats(*reinterpret_cast<const uint4*>(ar + c), x, bf16());
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            s += x[e];
+            ss += x[e] * x[e];
+          }
+        }
+      }
+      s = quad_sum(s);
+      ss = quad_sum(ss);
+      mu[i] = s / p.k;
+      rs[i] = 1.f / sqrtf(ss / p.k - mu[i] * mu[i] + kLnEps);
     }
-  }
+  };
+  auto multiply = [&](float* acc, uint32_t stage, int kc) {
+    if (!p.ln_g) {
+      mma_ss<BN>(acc, B.base, stage, kc);
+      return;
+    }
+    // A's fragment of k-step kk: rows 16 wq + g + 8 i, columns 16 kk + 2 t4 + 8 h
+    // (+ 0, 1), i.e. 16-byte chunk 2 kk + h of the swizzled row, bytes 4 t4 on
+    uint32_t frag[kDepth / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kDepth / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = kc * kDepth + 16 * kk + 8 * h + 2 * t4;
+        const float2 gm = k < p.k ? __ldg(reinterpret_cast<const float2*>(p.ln_g + k)) : float2{0.f, 0.f};
+        const float2 bt = k < p.k ? __ldg(reinterpret_cast<const float2*>(p.ln_b + k)) : float2{0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = 16 * wq + g + 8 * i;
+          uint32_t x2;
+          asm volatile("ld.shared.u32 %0, [%1];\n"
+                       : "=r"(x2)
+                       : "r"(stage + r * 128 + (((2 * kk + h) ^ (r % 8)) << 4) + 4 * t4));
+          const float x0 = __uint_as_float(x2 << 16), x1 = __uint_as_float(x2 & 0xffff0000u);
+          frag[kk][2 * h + i] = pack_f32_to_bf16((x0 - mu[i]) * rs[i] * gm.x + bt.x,
+                                                 (x1 - mu[i]) * rs[i] * gm.y + bt.y);
+        }
+      }
+    }
+    fence_regs<kDepth / 4>(&frag[0][0]);
+#pragma unroll
+    for (int kk = 0; kk < kDepth / 16; ++kk) {
+      wgmma_rs<BN, 0>(acc, frag[kk], smem_desc(B.base + kc * BN * 128 + kk * 32, 16, 1024),
+                      kc > 0 || kk > 0);
+    }
+    fence_regs<kDepth / 4>(&frag[0][0]);
+  };
+  auto epilogue = [&](float (&acc)[BN / 2], int m0) {
+    // this thread's rows 16 wq + g + 8 i, columns n0 + 8 j + 2 t4 and + 1
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = m0 + 16 * wq + g + 8 * i;
+      const long long at = static_cast<long long>(row) * p.n + n0;
+      uint32_t r2[BN / 8], out[BN / 8];  // the residual is loaded before any store
+      if (p.res) load_row<BN>(r2, static_cast<const bf16*>(p.res) + at, p.n - n0, row < p.m);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * t4);
+        float v0 = round_bf16(round_bf16(acc[4 * j + 2 * i]) + b.x);
+        float v1 = round_bf16(round_bf16(acc[4 * j + 2 * i + 1]) + b.y);
+        if (p.gelu) {
+          v0 = round_bf16(gelu_tanh(v0));
+          v1 = round_bf16(gelu_tanh(v1));
+        }
+        if (p.res) {
+          v0 = round_bf16(v0 + __uint_as_float(r2[j] << 16));
+          v1 = round_bf16(v1 + __uint_as_float(r2[j] & 0xffff0000u));
+        }
+        out[j] = pack_f32_to_bf16(v0, v1);
+      }
+      store_row<BN>(out, static_cast<bf16*>(p.c) + at, p.n - n0, row < p.m);
+    }
+  };
+  ws_consume<BN>(B, &ta, begin, multiply, epilogue);
 }
 
 constexpr int kFBK = 16;  // fp32: K per stage
@@ -609,6 +637,22 @@ __global__ void __launch_bounds__(kThreads) vit_block_attn_f32(const AttnParams 
   }
 }
 
+// the bf16 block_gemm: A's map encoded here, per call
+template <int BN>
+int launch_gemm_bf16(const GemmParams& p, cudaStream_t s) {
+  using namespace bgemm;
+  const int kpad = padded_depth(p.k);
+  if (kpad * BN * 2 > kSlabBytes) return cudaErrorInvalidValue;
+  alignas(64) CUtensorMap ta;
+  const CUresult r = encode_rows(&ta, p.a, p.m, p.k);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  int sms = 0;
+  const cudaError_t err = prepare<&block_gemm_wgmma<BN>>(ws_most_bytes(BN), &sms);
+  if (err != cudaSuccess) return err;
+  block_gemm_wgmma<BN><<<ws_grid(p.m, p.n, BN, sms), bgemm::kThreads, WsLayout(kpad, BN).bytes, s>>>(p, ta);
+  return cudaGetLastError();
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, const AttnParams& p) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -635,11 +679,14 @@ cudaError_t launch_attention(const AttnParams& p, int batch, int heads, int is_b
 // rows n come from w0/w1/w2 (seg rows each, fp32 (seg, k)), with biases
 // b0/b1/b2; ln_g/ln_b (fp32, k) or null; res or null; gelu 0/1.  k and n are
 // multiples of 16 and every pointer 16-byte aligned (checked by the caller).
-// Returns the launch's cudaError_t (0 on success).
+// bf16 runs the weight-stationary kernel with slabs of bn columns (8, 16,
+// 32 or 64; a bf16 slab of padded k by bn at most kSlabBytes); fp32
+// ignores bn.  Returns 0 on success, the launch's cudaError_t, or minus the
+// CUresult of a tensor map that failed to encode.
 extern "C" int vit_block_gemm(const void* a, const void* w0, const void* w1, const void* w2,
                               const void* b0, const void* b1, const void* b2, const void* ln_g,
                               const void* ln_b, const void* res, void* c, int m, int n, int k,
-                              int seg, int gelu, int is_bf16, void* stream) {
+                              int seg, int gelu, int is_bf16, int bn, void* stream) {
   GemmParams p{};
   p.a = a;
   p.w[0] = static_cast<const float*>(w0);
@@ -657,14 +704,26 @@ extern "C" int vit_block_gemm(const void* a, const void* w0, const void* w1, con
   p.k = k;
   p.seg = seg;
   p.gelu = gelu;
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    vit_block_gemm_bf16<<<grid, kGemmThreads, 0, s>>>(p);
-  } else {
-    vit_block_gemm_f32<<<grid, kGemmThreads, 0, s>>>(p);
+    switch (bn) {
+      case 8: return launch_gemm_bf16<8>(p, s);
+      case 16: return launch_gemm_bf16<16>(p, s);
+      case 32: return launch_gemm_bf16<32>(p, s);
+      case 64: return launch_gemm_bf16<64>(p, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  vit_block_gemm_f32<<<grid, kGemmThreads, 0, s>>>(p);
   return cudaGetLastError();
+}
+
+// dynamic shared memory of the bf16 block_gemm kernel at depth k and slab
+// width bn (0 if the slab is above kSlabBytes)
+extern "C" int vit_block_gemm_smem(int k, int bn) {
+  const int kpad = bgemm::padded_depth(k);
+  return kpad * bn * 2 > bgemm::kSlabBytes ? 0 : bgemm::WsLayout(kpad, bn).bytes;
 }
 
 // Attention of the packed qkv (batch * seq, 3 * heads * head_dim) into o

@@ -18,9 +18,18 @@ Hopper neither fits in a block's 227 KB of shared memory, so K5 is a chain
 of two CUDA kernels (``csrc/vit_block_fwd.cu``): ``block_gemm``, launched
 four times per block (LN₁ + qkv, out-proj + bias + x, LN₂ + up + gelu,
 down + bias + r1), and ``block_attention``, once.  The GEMMs read the fp32
-parameters and round them to the compute dtype as they stage them, which
-is the arithmetic of casting first, with no cast kernel per call; the q, k
-and v projections are read as three weight pointers, not concatenated.
+parameters and round them to the compute dtype themselves, which is the
+arithmetic of casting first, with no cast kernel per call; the q, k and v
+projections are read as three weight pointers, not concatenated.
+
+The bf16 GEMMs (``block_gemm``, ``block_gemm_dgrad``, ``block_gemm_wgrad``;
+``csrc/block_gemm.cuh``) are bound by bytes at the block's shapes and are
+built for Hopper: every product is a ``wgmma``, fed by a multi-stage TMA
+ring.  ``block_gemm`` and ``block_gemm_dgrad`` are weight-stationary: a
+block converts one slab of W (all of K by :func:`slab_width` output
+columns) to bf16 once per call and streams the activation's row tiles past
+it; ``block_gemm_wgrad`` reads G and A MN-major as they land, with no
+transposed staging, in tiles of :func:`wgrad_width` input columns.
 
 The backward (K6, ``_block_bwd_kernel``) recomputes the forward from x
 alone, then produces dx and the twelve parameter gradients at the TPU
@@ -75,6 +84,13 @@ BLOCK_PARAMS = tuple(
 # rows per partial of the two-pass parameter-gradient reductions on the card
 WGRAD_CHUNK_ROWS = 1024  # block_gemm_wgrad: one partial per chunk of rows
 LN_CHUNK_ROWS = 128  # block_ln_bwd: one partial per block of rows
+# The bf16 GEMM kernels' tile widths (csrc/block_gemm.cuh): block_gemm and
+# block_gemm_dgrad hold a bf16 slab of B, all of K by a slab width of output
+# columns, of at most SLAB_BYTES (the kernel's kSlabBytes); block_gemm_wgrad
+# takes tiles of 64, 128 or 192 input columns
+SLAB_BYTES = 96 * 1024
+SLAB_WIDTHS = (64, 32, 16, 8)
+WGRAD_WIDTHS = (192, 128, 64)
 _GELU_C, _GELU_A = 0.7978845608028654, 0.044715
 
 
@@ -208,9 +224,32 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _tile_width(n: int, widths: Sequence[int]) -> int:
+    """The width of ``widths`` whose tiles cover ``n`` columns with the least
+    padding, the widest of those."""
+    return min(widths, key=lambda w: (-(-n // w) * w, -w))
+
+
+@functools.lru_cache(maxsize=None)
+def slab_width(k: int, n: int) -> int:
+    """``block_gemm``'s and ``block_gemm_dgrad``'s slab width on the card
+    for a product of depth ``k`` and ``n`` output columns: of the widths
+    whose bf16 slab (``k`` padded to whole 64-column boxes) fits in
+    SLAB_BYTES, the one covering ``n`` with the least padding."""
+    kpad = -(-k // 64) * 64
+    return _tile_width(n, [w for w in SLAB_WIDTHS if kpad * w * 2 <= SLAB_BYTES])
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_width(n_in: int) -> int:
+    """``block_gemm_wgrad``'s tile width on the card for ``n_in`` input
+    columns: the one of WGRAD_WIDTHS covering them with the least padding."""
+    return _tile_width(n_in, WGRAD_WIDTHS)
+
+
 def _gemm_c_args() -> list:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    return [ptr] * 11 + [i32] * 6 + [ptr]
+    return [ptr] * 11 + [i32] * 7 + [ptr]
 
 
 def block_gemm(
@@ -270,10 +309,12 @@ def block_gemm(
     g, beta = (_operand(t, torch.float32) for t in ln) if ln is not None else (None, None)
     res = None if residual is None else _operand(residual)
     out = torch.empty((m, n), device=a.device, dtype=a.dtype)
+    bf16 = a.dtype == torch.bfloat16
     fn = _build.load("vit_block_fwd", _gemm_c_args(), symbol="vit_block_gemm")
     err = fn(
         a.data_ptr(), *map(_ptr, ws), *map(_ptr, bs), _ptr(g), _ptr(beta), _ptr(res),
-        out.data_ptr(), m, n, k, seg, int(gelu), int(a.dtype == torch.bfloat16), stream,
+        out.data_ptr(), m, n, k, seg, int(gelu), int(bf16), slab_width(k, n) if bf16 else 0,
+        stream,
     )
     if err != 0:
         raise RuntimeError(f"block_gemm launch failed: CUDA error {err}")
@@ -579,7 +620,7 @@ def block_gemm_dgrad_reference(
 
 def _dgrad_c_args() -> list:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    return [ptr] * 7 + [i32] * 6 + [ptr]
+    return [ptr] * 7 + [i32] * 7 + [ptr]
 
 
 def block_gemm_dgrad(
@@ -610,9 +651,10 @@ def block_gemm_dgrad(
     out = torch.empty((m, n), device=g.device, dtype=torch.float32 if out_f32 else g.dtype)
     hmid = None if up is None else torch.empty_like(up)
     mode = 2 if out_f32 else (1 if up is not None else 0)
+    bf16 = g.dtype == torch.bfloat16
     _cuda_call("block_gemm_dgrad", "vit_block_dgrad", _dgrad_c_args(),
                g.data_ptr(), *map(_ptr, ws), _ptr(up), _ptr(hmid), out.data_ptr(),
-               m, n, k, seg, mode, int(g.dtype == torch.bfloat16),
+               m, n, k, seg, mode, int(bf16), slab_width(k, n) if bf16 else 0,
                stream if stream is not None else _stream(g))
     block_gemm_dgrad.launches += 1
     return out if up is None else (out, hmid)
@@ -713,10 +755,11 @@ def block_gemm_wgrad(
     part_w = torch.empty((nc, n_out, n_in), device=g.device)
     part_b = torch.empty((nc, n_out), device=g.device)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    _cuda_call("block_gemm_wgrad", "vit_block_wgrad", [ptr] * 3 + [i32] + [ptr] * 2 + [i32] * 5 + [ptr],
+    bf16 = g.dtype == torch.bfloat16
+    _cuda_call("block_gemm_wgrad", "vit_block_wgrad", [ptr] * 3 + [i32] + [ptr] * 2 + [i32] * 6 + [ptr],
                g.data_ptr(), a.data_ptr(), bias_src.data_ptr(),
                int(bias_src.dtype == torch.float32), part_w.data_ptr(), part_b.data_ptr(),
-               m, n_out, n_in, WGRAD_CHUNK_ROWS, int(g.dtype == torch.bfloat16),
+               m, n_out, n_in, WGRAD_CHUNK_ROWS, int(bf16), wgrad_width(n_in) if bf16 else 0,
                stream if stream is not None else _stream(g))
     block_gemm_wgrad.launches += 1
     return part_w, part_b

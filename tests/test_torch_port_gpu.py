@@ -528,6 +528,134 @@ def test_fused_block_under_autograd_reaches_x_and_every_parameter(cuda_device):
         assert err <= 2**-4, (name, err)
 
 
+# The bf16 GEMM kernels of the fused block chains, launch by launch: (wrapper,
+# M, K or out, N or in, weight segments, epilogue).  The vit_tiny p2 serve
+# shape (bucket 32: 8192 rows) and train shape (batch 128: 32768 rows, 32
+# weight-gradient chunks), a ragged M of 408 rows at dim 128, three weight
+# segments of 48 rows (K 144 ends inside a 64-column chunk), K 768 and K
+# 512, dim 1024's K 4096, 3072 and 1024 (slabs of 8, 16 and 32 columns),
+# 64 weight-gradient input columns (its 64-column tile), every epilogue:
+# LayerNorm, gelu, residual; dgrad modes 0 (rounded), 1 (gelu backward) and
+# 2 (fp32); the weight gradient's fp32 and bf16 bias sources and a ragged
+# last chunk.
+GEMM_CASES = [
+    ("block_gemm", 8192, 192, 576, 3, "ln"),
+    ("block_gemm", 8192, 192, 192, 1, "residual"),
+    ("block_gemm", 8192, 192, 768, 1, "ln_gelu"),
+    ("block_gemm", 8192, 768, 192, 1, "residual"),
+    ("block_gemm", 32768, 192, 576, 3, ""),
+    ("block_gemm", 32768, 192, 768, 1, ""),
+    ("block_gemm", 408, 128, 384, 3, "ln"),
+    ("block_gemm", 408, 512, 128, 1, "residual"),
+    ("block_gemm", 408, 128, 512, 1, "ln_gelu"),
+    ("block_gemm", 408, 128, 144, 3, "ln"),
+    ("block_gemm", 200, 4096, 1024, 1, "residual"),
+    ("block_gemm_dgrad", 32768, 192, 768, 1, "gelu"),
+    ("block_gemm_dgrad", 32768, 768, 192, 1, "f32"),
+    ("block_gemm_dgrad", 32768, 192, 192, 1, ""),
+    ("block_gemm_dgrad", 32768, 576, 192, 3, "f32"),
+    ("block_gemm_dgrad", 408, 384, 128, 3, "f32"),
+    ("block_gemm_dgrad", 408, 128, 512, 1, "gelu"),
+    ("block_gemm_dgrad", 408, 512, 128, 1, ""),
+    ("block_gemm_dgrad", 408, 144, 128, 3, "f32"),
+    ("block_gemm_dgrad", 200, 3072, 1024, 3, ""),
+    ("block_gemm_dgrad", 200, 1024, 512, 1, "gelu"),
+    ("block_gemm_wgrad", 32768, 576, 192, 1, ""),
+    ("block_gemm_wgrad", 32768, 192, 192, 1, "f32"),
+    ("block_gemm_wgrad", 32768, 768, 192, 1, ""),
+    ("block_gemm_wgrad", 32768, 192, 768, 1, ""),
+    ("block_gemm_wgrad", 408, 384, 128, 1, ""),
+    ("block_gemm_wgrad", 2100, 128, 512, 1, "f32"),
+    ("block_gemm_wgrad", 408, 128, 64, 1, ""),
+]
+
+
+def _gemm_call(gen, device, name, m, k, n, segs, epilogue):
+    """The wrapper's arguments for one GEMM_CASES case, seeded: (args,
+    kwargs).  Weights xavier-uniform, LayerNorm scales near 1, biases and
+    activations of the block's scale."""
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(device)
+
+    def xavier(rows, cols):
+        limit = (6.0 / (rows + cols)) ** 0.5
+        return ((torch.rand((rows, cols), generator=gen) * 2 - 1) * limit).to(device)
+
+    bf = torch.bfloat16
+    if name == "block_gemm":
+        seg = n // segs
+        kw = {}
+        if "ln" in epilogue:
+            kw["ln"] = (1 + randn(k, scale=0.1), randn(k, scale=0.1))
+        if "gelu" in epilogue:
+            kw["gelu"] = True
+        if epilogue == "residual":
+            kw["residual"] = randn(m, n).to(bf)
+        args = (randn(m, k).to(bf), [xavier(seg, k) for _ in range(segs)],
+                [randn(seg, scale=0.1) for _ in range(segs)])
+        return args, kw
+    if name == "block_gemm_dgrad":
+        seg = k // segs
+        kw = {"gelu_of": randn(m, n).to(bf)} if epilogue == "gelu" else {"out_f32": epilogue == "f32"}
+        return (randn(m, k).to(bf), [xavier(seg, n) for _ in range(segs)]), kw
+    g, a = randn(m, k).to(bf), randn(m, n).to(bf)
+    return (g, a, randn(m, k) if epilogue == "f32" else g), {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,m,k,n,segs,epilogue", GEMM_CASES)
+def test_block_gemm_kernels_match_plain_on_card(cuda_device, name, m, k, n, segs, epilogue):
+    """Each bf16 GEMM kernel of the fused chains against its plain version
+    on the same inputs, per row (a row: one output row's columns, or one
+    weight-gradient partial row), within chip_smoke.py's bf16 tolerances:
+    2^-5 of the row's rms plus 2^-6 of each value.  Both round at the same
+    points; they differ by the fp32 summation order and the one-ulp flips
+    of a rounding that order causes.  Each call launches its kernel once."""
+    gen = torch.Generator().manual_seed(m + k + n)
+    args, kw = _gemm_call(gen, cuda_device, name, m, k, n, segs, epilogue)
+    wrapper, plain = getattr(vb, name), getattr(vb, f"{name}_reference")
+    before = wrapper.launches
+    got = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = plain(*args, **kw)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    assert len(got) == len(want)
+    if name == "block_gemm_wgrad":
+        assert got[0].shape == (-(-m // vb.WGRAD_CHUNK_ROWS), k, n)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert _row_share(g, w, 2**-6) <= 2**-5, _row_share(g, w, 2**-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slab", [32, 64])
+def test_block_gemm_slabs_across_segment_edges(cuda_device, monkeypatch, slab):
+    """Slabs that straddle the q/k/v segments: three segments of 48 rows
+    (N 144, K 128, LayerNorm prologue, ragged M 408) through slabs of 32 or
+    64 columns, forced (the width rule pads least and so takes 16, which
+    divides 48).  Each slab row reads its own segment's weight and bias."""
+    gen = torch.Generator().manual_seed(slab)
+    args, kw = _gemm_call(gen, cuda_device, "block_gemm", 408, 128, 144, 3, "ln")
+    monkeypatch.setattr(vb, "slab_width", lambda k, n: slab)
+    got = vb.block_gemm(*args, **kw)
+    torch.cuda.synchronize()
+    want = vb.block_gemm_reference(*args, **kw)
+    assert bool(torch.isfinite(got).all())
+    assert _row_share(got, want, 2**-6) <= 2**-5, _row_share(got, want, 2**-6)
+
+
+@pytest.mark.gpu
+def test_block_gemm_wgrad_is_bitwise_deterministic(cuda_device):
+    """No atomics: every partial and every bias column sum is one block's
+    fixed-order sum, so two calls give bit-identical results."""
+    gen = torch.Generator().manual_seed(11)
+    args, _ = _gemm_call(gen, cuda_device, "block_gemm_wgrad", 32768, 192, 768, 1, "f32")
+    first = vb.block_gemm_wgrad(*args)
+    second = vb.block_gemm_wgrad(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 # ---------------------------------------------------- grouped expert FFN (K7-K9)
 
 # (dtype, E, d, h, group counts, cap, padding rows): the vit_moe serve shape

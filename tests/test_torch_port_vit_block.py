@@ -284,3 +284,61 @@ def test_gate_matches_the_jax_gate_at_model_level():
     jax_block = JaxViTBlock(dim=DIM, heads=HEADS, block_fusion="force")
     jax_vars = jax_block.init(jax.random.key(0), jnp.zeros((1, 64, DIM)))
     assert "q_proj" in jax_vars["params"]  # composed there too: same leaves either way
+
+
+# The bf16 GEMM kernels' tile widths on the card (``csrc/block_gemm.cuh``),
+# pure Python: block_gemm and block_gemm_dgrad hold a bf16 slab of all of K
+# by a slab width of output columns, at most SLAB_BYTES; block_gemm_wgrad
+# takes tiles of 64, 128 or 192 input columns.
+@pytest.mark.parametrize(
+    "k,n,want",
+    [
+        (192, 576, 64),  # vit_tiny's qkv: nine slabs of 64
+        (192, 768, 64),  # its up, and dy·W_dn
+        (768, 192, 64),  # its down and dup·W_up: a 768-deep slab of 64 is the largest, 96 KB
+        (576, 192, 64),  # dqkv·W_qkv
+        (128, 144, 16),  # three segments of 48 rows: 16 pads least (64 would pad to 192)
+        (1024, 512, 32),  # a 1024-deep slab of 64 is 128 KB
+        (3072, 1024, 16),  # dim 1024's dqkv·W_qkv
+        (4096, 1024, 8),  # dim 1024's down: only the narrowest slab fits
+    ],
+)
+def test_slab_width_fits_and_pads_least(k, n, want):
+    got = vb.slab_width(k, n)
+    assert got == want
+    kpad = -(-k // 64) * 64
+    assert kpad * got * 2 <= vb.SLAB_BYTES
+    fitting = [w for w in vb.SLAB_WIDTHS if kpad * w * 2 <= vb.SLAB_BYTES]
+    assert -(-n // got) * got == min(-(-n // w) * w for w in fitting)
+
+
+def test_every_gemm_the_wrappers_take_has_a_slab():
+    """K and N multiples of 16, dim up to 1024 (MLP ratio 4): K and N up to
+    4096.  Each has a slab width that fits."""
+    widths = set()
+    for k in range(16, 4097, 16):
+        for n in (16, 48, 192, 576, 1024, 3072, 4096):
+            w = vb.slab_width(k, n)
+            assert -(-k // 64) * 64 * w * 2 <= vb.SLAB_BYTES, (k, n, w)
+            widths.add(w)
+    assert widths == set(vb.SLAB_WIDTHS)
+
+
+@pytest.mark.parametrize(
+    "n_in,want", [(192, 192), (768, 192), (576, 192), (128, 128), (512, 128), (48, 64), (80, 128)]
+)
+def test_wgrad_width_pads_least(n_in, want):
+    assert vb.wgrad_width(n_in) == want
+
+
+def test_wgrad_partials_are_whole_64_row_steps():
+    """The weight-gradient kernel walks a chunk in 64-row steps, so the chunk
+    is a multiple of 64; the plain version's partials are one a chunk, the
+    last ragged."""
+    assert vb.WGRAD_CHUNK_ROWS % 64 == 0
+    m = 2 * vb.WGRAD_CHUNK_ROWS + 52
+    g, a = torch.randn(m, 32), torch.randn(m, 48)
+    part_w, part_b = vb.block_gemm_wgrad(g, a, g)
+    assert part_w.shape == (3, 32, 48) and part_b.shape == (3, 32)
+    torch.testing.assert_close(part_w.sum(0), g.T @ a, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(part_b.sum(0), g.sum(0), rtol=1e-5, atol=1e-4)
