@@ -13,10 +13,12 @@ last line:
              the registers and spills of the flash forward's and
              backward's kernels, of the short-sequence attention's and of
              the fused block chains' bf16 GEMMs (``block_gemm_wgmma``,
-             ``dgrad_wgmma``, ``wgrad_wgmma``) (``ptxas -v``; a bf16 flash
-             kernel, a one-tile kernel or a GEMM kernel that spills fails
-             the run) and each such kernel's dynamic shared memory at the
-             main paths' shapes;
+             ``dgrad_wgmma``, ``wgrad_wgmma``) and attention kernels
+             (``block_attn_wgmma``, ``attn_dq_wgmma``, ``attn_dkv_wgmma``)
+             (``ptxas -v``; a bf16 flash kernel, a one-tile kernel or a
+             fused block GEMM or attention kernel that spills fails the
+             run) and each such kernel's dynamic shared memory at the main
+             paths' shapes;
 3. kernel checks — each kernel against its plain PyTorch version on the
              card, at the shapes of the serve and train paths (bf16 and
              fp32) and the other regimes it covers, with the tolerance
@@ -29,7 +31,8 @@ last line:
              each replayed for bit-identical gradients), then the
              fused ViT block chain (K5: ``block_gemm`` x 4 and
              ``block_attention``) against ``fused_vit_block_reference``,
-             stage by stage and whole, each launch's kernels by symbol,
+             stage by stage and whole, each launch's kernels by symbol
+             (bf16: ``block_gemm_wgmma`` and ``block_attn_wgmma`` alone),
              with the composed cuBLAS + SDPA block as its library
              yardstick; then the fused block backward
              chain (K6: ``block_ln``, ``block_gemm_dgrad``,
@@ -41,7 +44,8 @@ last line:
              results (a row chunk dropped from the gradient reductions, a
              key tile left out of the attention backward), bit-identical
              results across two calls, the kernels each wrapper ran by
-             symbol (the GEMMs the dtype's only), with the composed
+             symbol (the GEMMs' and the attention's the dtype's only; bf16
+             ``attn_dq_wgmma`` then ``attn_dkv_wgmma``), with the composed
              block's autograd forward and backward as its library
              yardstick;
 4. serve   — the port's main path through its user entry point
@@ -66,7 +70,8 @@ last line:
              logits are held against the composed reference engine in bf16
              and fp32, a bucket-32 dispatch is timed fused and with
              ``--block-fusion off`` and profiled (``dispatch_times``; its
-             port GEMM by symbol must be ``block_gemm_wgmma`` alone);
+             port GEMM and attention by symbol must be ``block_gemm_wgmma``
+             and ``block_attn_wgmma`` alone);
 5. train   — the port's training path through ``entry.run``: ``vit_long``
              at 256 px, bf16, batch 16, two epochs over 144 synthetic
              training images (18 steps) and 16 validation images.  The
@@ -89,7 +94,8 @@ last line:
              (bf16 and fp32) with a bound that rejects a planted fault; ms
              per step fused and off, and a step profile whose port GEMMs
              by symbol must be ``block_gemm_wgmma``, ``dgrad_wgmma`` and
-             ``wgrad_wgmma`` alone;
+             ``wgrad_wgmma`` alone, and its attention kernels
+             ``block_attn_wgmma``, ``attn_dq_wgmma`` and ``attn_dkv_wgmma``;
 6. vit_moe  — ``moe_gmm_checks``: the grouped expert FFN's kernels (K7
              forward, K8 dx, K9 dW) against their plain versions at the
              serve shape (bf16, n 2048, cap 320), the train shape (bf16 and
@@ -152,6 +158,10 @@ last line:
              fused_small and auto, and step profiles;
 8. the ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
+
+``python3 chip_smoke.py --turn CHECKOUT LABEL`` instead times one checkout
+of the port (this one or a parent unpacked beside it) through the same
+functions, for comparisons made in turns within one call (``turn``).
 
 It imports nothing of JAX.  Without a CUDA device, or outside a checkout of
 the repository, it exits non-zero and prints no result.
@@ -282,7 +292,7 @@ def atol_share_needed(got, want, rtol) -> float:
 
 _PTXAS_ENTRY = re.compile(
     r"Compiling entry function '\w*?(flash_(?:fwd|bwd)_\w+?|attn_small_\w+?|"
-    r"(?:block_gemm|dgrad|wgrad)_wgmma)ILi(\d+)E(\w*?)EEv"
+    r"(?:block_gemm|dgrad|wgrad|block_attn|attn_dq|attn_dkv)_wgmma)ILi(\d+)E(\w*?)EEv"
 )
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_USED = re.compile(r"Used (\d+) registers")
@@ -345,11 +355,19 @@ GEMM_PATH_SHAPES = {
 }
 
 
+# items the fused block's bf16 attention kernels are reported at: the
+# ragged case, the vit_tiny p2 paths and the window top
+ATTENTION_BUILD_SEQS = (136, 256, 512)
+
+
 def gemm_build_report(build, paths, vb) -> dict:
-    """The fused block's bf16 GEMM kernels (``block_gemm_wgmma``,
-    ``dgrad_wgmma``, ``wgrad_wgmma``, one instantiation per tile width):
-    registers, static shared memory and spills from ``ptxas -v``, and the
-    dynamic shared memory each launch of the main paths asks for."""
+    """The fused block's bf16 Hopper kernels: the GEMMs
+    (``block_gemm_wgmma``, ``dgrad_wgmma``, ``wgrad_wgmma``, one
+    instantiation per tile width) and the attention's
+    (``block_attn_wgmma``, ``attn_dq_wgmma``, ``attn_dkv_wgmma``, one per
+    count of key tiles): registers, static shared memory and spills from
+    ``ptxas -v``, and the dynamic shared memory each launch of the main
+    paths asks for (the attention's at ``ATTENTION_BUILD_SEQS``)."""
     i32 = ctypes.c_int
     smem = {
         "block_gemm": build.load("vit_block_fwd", [i32, i32], symbol="vit_block_gemm_smem"),
@@ -365,6 +383,11 @@ def gemm_build_report(build, paths, vb) -> dict:
         f"n_in{n}_bn{vb.wgrad_width(n)}": wgrad(vb.wgrad_width(n))
         for n in GEMM_PATH_SHAPES["block_gemm_wgrad"]
     }
+    attn = build.load("vit_block_fwd", [i32], symbol="vit_block_attention_smem")
+    attn_bwd = build.load("vit_block_bwd", [i32, i32], symbol="vit_block_attention_bwd_smem")
+    dynamic["block_attn_wgmma"] = {f"s{s}": attn(s) for s in ATTENTION_BUILD_SEQS}
+    for kernel, name in enumerate(("attn_dq_wgmma", "attn_dkv_wgmma")):
+        dynamic[name] = {f"s{s}": attn_bwd(kernel, s) for s in ATTENTION_BUILD_SEQS}
     return {"kernels": ptxas_report(paths, ("vit_block_fwd", "vit_block_bwd")),
             "dynamic_smem_bytes": dynamic}
 
@@ -792,7 +815,7 @@ def fused_block_checks(vb) -> list[dict]:
         attention = _agreement(
             attn_got, o, attention_without_first_tile(qkv, seq=s, heads=heads), rtol
         )
-        attention["ms"], attention["event_ms"] = timed(
+        attention["ms"], attention["event_ms"], attention["kernels"] = timed_kernels(
             lambda: vb.block_attention(qkv, seq=s, heads=heads)
         )
         attention["plain_ms"], _ = timed(
@@ -825,9 +848,10 @@ def fused_block_checks(vb) -> list[dict]:
         for rec, key in ((chain, "chain"), (attention, "attention")):
             rec["bound_ms"], rec["bound_by"] = bounds[key]
         checked = [chain, attention, *gemm.values()]
-        # by symbol: the launches ran the dtype's GEMM kernel and no other
+        # by symbol: the launches ran the dtype's GEMM kernel and attention
+        # kernel and no other
         gemm_kernels = sorted({k for g in gemm.values() for k in g["kernels"]})
-        want_gemm = [K6_KERNELS["block_gemm"][0 if dname == "bfloat16" else 1]]
+        want_gemm = path_symbols("block_gemm", dname)
         out.append({
             "case": label, "dtype": dname, "shape": [b, s, dim, heads], "rows": rows,
             "atol_share": atol_share, "rtol": rtol, "fault_keys": FAULT_KEYS,
@@ -839,7 +863,8 @@ def fused_block_checks(vb) -> list[dict]:
             "gemm_library": "4 x F.linear (cuBLAS GEMM + bias); LayerNorm, gelu and residual excluded",
             "gemm_bound_ms": bounds["gemm"][0], "gemm_bound_by": bounds["gemm"][1],
             "gemm_kernels": gemm_kernels,
-            "ok": gemm_kernels == want_gemm and all(
+            "ok": gemm_kernels == want_gemm
+            and attention["kernels"] == path_symbols("block_attention", dname) and all(
                 c["finite"] and c["atol_share_needed"] <= atol_share < c["fault_atol_share_needed"]
                 for c in checked
             ),
@@ -980,20 +1005,28 @@ def composed_library_block_fwd_bwd(x, params, heads, dy):
     return fwd_bwd
 
 
-K6_KERNELS = {  # the CUDA kernels' own symbols, by wrapper (bf16 first, then fp32)
+K6_KERNELS = {  # the CUDA kernels' own symbols, by wrapper: the Hopper (bf16) ones end in _wgmma
     "block_ln": ("ln_rows",),
     "block_gemm": ("block_gemm_wgmma", "vit_block_gemm_f32"),
-    "block_attention": ("vit_block_attn_bf16", "vit_block_attn_f32"),
+    "block_attention": ("block_attn_wgmma", "vit_block_attn_f32"),
     "block_gemm_dgrad": ("dgrad_wgmma", "dgrad_f32"),
     "block_ln_bwd": ("ln_bwd",),
-    "block_attention_bwd": ("attn_dq_bf16", "attn_dq_f32", "attn_dkv_bf16", "attn_dkv_f32"),
+    "block_attention_bwd": ("attn_dq_wgmma", "attn_dkv_wgmma", "attn_dq_f32", "attn_dkv_f32"),
     "block_gemm_wgrad": ("wgrad_wgmma", "wgrad_f32"),
     "block_grad_reduce": ("grad_reduce",),
 }
 GEMM_WRAPPERS = ("block_gemm", "block_gemm_dgrad", "block_gemm_wgrad")
-# every GEMM kernel of the fused block chains; the bf16 paths run the first
-# of each wrapper's symbols only
+ATTENTION_WRAPPERS = ("block_attention", "block_attention_bwd")
+# every GEMM and attention kernel of the fused block chains
 GEMM_SYMBOLS = frozenset(s for w in GEMM_WRAPPERS for s in K6_KERNELS[w])
+ATTENTION_SYMBOLS = frozenset(s for w in ATTENTION_WRAPPERS for s in K6_KERNELS[w])
+
+
+def path_symbols(wrapper: str, dname: str) -> list[str]:
+    """The kernels, by symbol, that a GEMM or attention ``wrapper`` of the
+    fused block launches in ``dname``: its Hopper (``_wgmma``) kernels in
+    bf16, its SIMT ones in fp32."""
+    return sorted(s for s in K6_KERNELS[wrapper] if s.endswith("_wgmma") == (dname == "bfloat16"))
 # the profiler's name of a kernel of the vit_block libraries, all defined in
 # an anonymous namespace: "[void ](anonymous namespace)::<symbol>[<...>](...)";
 # a library kernel (cuDNN's *wgrad*/*dgrad* convolution kernels, ATen's) does
@@ -1164,9 +1197,9 @@ def fused_block_bwd_checks(vb) -> list[dict]:
         per_kernel = {name: kernel_ms(prof["device_ms_by_name"], [name]) for name in K6_KERNELS}
         ran = _port_kernel_ms(prof["device_ms_by_name"])
         kernels = {name: sorted(s for s in syms if s in ran) for name, syms in K6_KERNELS.items()}
-        # by symbol: the chain's GEMMs ran the dtype's kernels and no other
-        gemm_ok = all(kernels[w] == [K6_KERNELS[w][0 if dname == "bfloat16" else 1]]
-                      for w in GEMM_WRAPPERS)
+        # by symbol: the chain's GEMMs and attention (its recompute and its
+        # backward) ran the dtype's kernels and no other
+        gemm_ok = all(kernels[w] == path_symbols(w, dname) for w in (*GEMM_WRAPPERS, *ATTENTION_WRAPPERS))
         event_ms = cuda_ms(run, 10)
         plain_ms, _ = timed(lambda: vb.fused_vit_block_bwd_reference(x, dy, params, heads=heads), 5)
         library_ms, library_event_ms = timed(composed_library_block_fwd_bwd(x, params, heads, dy), 10)
@@ -1411,16 +1444,20 @@ def _block_counters(vb, attn) -> dict:
 def dispatch_times(fused, off, images) -> dict:
     """One bucket-32 dispatch end to end (uint8 upload, forward, logits
     download) through the ``fused`` engine and the ``off`` one
-    (``--block-fusion off``) in turns, host-clock ms over 5 each, and a
-    profile of the fused one: device busy ms, idle share, K5's kernels'
-    device ms, the port's kernels that ran and which of them are GEMMs."""
+    (``--block-fusion off``) in turns, the median host-clock ms of 20
+    dispatches each (the host's clock varies from dispatch to dispatch
+    more than the device's time does), and a profile of the fused one:
+    device busy ms, idle share, K5's kernels' device ms, the port's kernels
+    that ran and which of them are GEMMs and attention."""
     rec = {}
     for name, eng in (("fused", fused), ("off", off), ("fused_again", fused), ("off_again", off)):
         eng.predict_logits(images)
-        t0 = time.perf_counter()
-        for _ in range(5):
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
             eng.predict_logits(images)
-        rec[f"bucket32_batch_ms_{name}"] = (time.perf_counter() - t0) / 5 * 1e3
+            times.append((time.perf_counter() - t0) * 1e3)
+        rec[f"bucket32_batch_ms_{name}"] = sorted(times)[len(times) // 2]
     prof = profile_device(lambda: fused.predict_logits(images), 5)
     names = prof["device_ms_by_name"]
     port = _port_kernel_ms(names)
@@ -1436,6 +1473,7 @@ def dispatch_times(fused, off, images) -> dict:
         "k5_share_of_device_busy": k5 / prof["device_busy_ms"],
         "port_kernels": sorted(port),
         "gemm_kernels": sorted(GEMM_SYMBOLS & set(port)),
+        "attention_kernels": sorted(ATTENTION_SYMBOLS & set(port)),
         "top_device_ms_per_batch": {name[:60]: ms for name, ms in top},
     }
     return rec
@@ -1994,6 +2032,8 @@ def tiny_step_times(reps: int = 5) -> dict:
     out["profile"] = {
         "port_kernels": sorted(port),
         "gemm_kernels": sorted(GEMM_SYMBOLS & set(port)),
+        "attention_kernels": sorted(ATTENTION_SYMBOLS & set(port)),
+        "attention_kernels_device_ms_per_step": kernel_ms(names, ATTENTION_WRAPPERS),
         "gemm_kernels_device_ms_per_step": kernel_ms(names, GEMM_WRAPPERS),
         "wall_ms_per_step": prof["wall_ms"],
         "device_busy_ms_per_step": prof["device_busy_ms"],
@@ -2068,9 +2108,12 @@ def check_train_tiny(tiny: dict) -> None:
         raise RuntimeError(f"train_tiny launches {tiny['launches']}, expected {want}")
     if not tiny["losses_finite"] or tiny["skipped_steps"]:
         raise RuntimeError("train_tiny: a non-finite loss or a skipped step")
-    gemms = tiny["step_times"]["profile"]["gemm_kernels"]
-    if gemms != sorted(K6_KERNELS[w][0] for w in GEMM_WRAPPERS):
-        raise RuntimeError(f"train_tiny's step ran the GEMM kernels {gemms}")
+    prof = tiny["step_times"]["profile"]
+    want = {k: sorted(s for w in ws for s in path_symbols(w, "bfloat16"))
+            for k, ws in (("gemm_kernels", GEMM_WRAPPERS), ("attention_kernels", ATTENTION_WRAPPERS))}
+    for key, syms in want.items():
+        if prof[key] != syms:
+            raise RuntimeError(f"train_tiny's step ran the {key} {prof[key]}, expected {syms}")
     bad = {p: c for p, c in tiny["step_checks"].items() if not c["ok"]}
     if bad:
         raise RuntimeError(f"a vit_tiny p2 train step through K5/K6 disagrees: {bad}")
@@ -2748,7 +2791,7 @@ def small_bounds(b, s, h, d, causal, dname) -> dict[str, tuple[float, str]]:
             "bwd": bound(10 * pairs * d, 7 * elems, dname)}
 
 
-_GLOBAL_FN = re.compile(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(")
+_GLOBAL_FN = re.compile(r"__global__ void(?: __launch_bounds__\((?:[^()]|\([^()]*\))*\))?\s+(\w+)\(")
 
 
 def _port_kernel_ms(device_ms_by_name: dict) -> dict[str, float]:
@@ -3294,6 +3337,7 @@ def main() -> int:
                 print(f"ptxas {path.stem}: {line.strip()}", file=sys.stderr)
     spilled = {
         name: r for name, r in {**attention_build["kernels"], **gemm_build["kernels"]}.items()
+        # the bf16 flash, one-tile, and fused block GEMM and attention kernels
         if ("flash_" in name and "bf16" in name or "onetile" in name or "_wgmma" in name)
         and r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
     }
@@ -3357,9 +3401,10 @@ def main() -> int:
             "block_attention": blocks_run, "flash_attention": 0}
     if tiny["launches"] != want:
         raise RuntimeError(f"serve_tiny launches {tiny['launches']}, expected {want}")
-    gemms = tiny["bucket32"]["bf16"]["bucket32_profile"]["gemm_kernels"]
-    if gemms != [K6_KERNELS["block_gemm"][0]]:
-        raise RuntimeError(f"serve_tiny's bucket-32 dispatch ran the GEMM kernels {gemms}")
+    prof = tiny["bucket32"]["bf16"]["bucket32_profile"]
+    for key, wrapper in (("gemm_kernels", "block_gemm"), ("attention_kernels", "block_attention")):
+        if prof[key] != path_symbols(wrapper, "bfloat16"):
+            raise RuntimeError(f"serve_tiny's bucket-32 dispatch ran the {key} {prof[key]}")
     for precision, rec in tiny["bucket32"].items():
         if (rec["launches_fused"], rec["launches_reference"]) != (tiny["depth"], 0):
             raise RuntimeError(f"serve_tiny {precision} bucket-32 batch: launches {rec}")
@@ -3507,7 +3552,7 @@ def main() -> int:
             "launches": tiny["launches"]["block_attention"],
             "per_block_launches": 1,
             "max_abs_err": att["max_abs_err"], "atol_share_needed": att["atol_share_needed"],
-            "fault_atol_share_needed": att["fault_atol_share_needed"],
+            "fault_atol_share_needed": att["fault_atol_share_needed"], "kernels": att["kernels"],
             "ms": att["ms"], "event_ms": att["event_ms"], "plain_ms": att["plain_ms"],
             "bound_ms": att["bound_ms"], "bound_by": att["bound_by"],
             "library_ms": att["library_ms"], "library": "F.scaled_dot_product_attention",
@@ -3640,8 +3685,109 @@ def main() -> int:
     return 0
 
 
+def small_output_hashes(small) -> dict[str, str]:
+    """sha256 of K10's output and K11's gradients at each bf16 case of
+    ``SMALL_CASES`` on seeded inputs: two checkouts whose kernels compute
+    bit-identical results print the same digests."""
+    import hashlib
+
+    import torch
+
+    gen = torch.Generator().manual_seed(11)
+    out = {}
+    for label, dname, b, s, h, d, causal in SMALL_CASES:
+        if dname != "bfloat16":
+            continue
+        q, k, v, do = (torch.randn((b * s, h * d), generator=gen).to(device="cuda", dtype=torch.bfloat16)
+                       for _ in range(4))
+        kw = dict(seq=s, heads=h, causal=causal)
+        for key, res in (("fwd", [small.small_mha_fwd(q, k, v, **kw)]),
+                         ("bwd", list(small.small_mha_bwd(q, k, v, do, **kw)))):
+            digest = hashlib.sha256()
+            for t in res:
+                digest.update(t.view(torch.int16).cpu().numpy().tobytes())
+            out[f"{label}: {key}"] = digest.hexdigest()[:16]
+    return out
+
+
+def turn(checkout: Path, label: str) -> int:
+    """One turn of a comparison of checkouts in one call: the port of
+    ``checkout`` (put first on ``sys.path``; this tree or a parent unpacked
+    by ``git archive``) built and driven through this script's timing
+    functions: the fused block chains (``fused_block_checks``,
+    ``fused_block_bwd_checks``), the ``train_tiny`` step and the bucket-32
+    dispatch (``tiny_step_times``, ``tiny_dispatch``), K10/K11
+    (``small_attention_checks``) and digests of their results
+    (``small_output_hashes``).  Run parent, this tree, this tree, parent:
+
+        python3 chip_smoke.py --turn PARENT_DIR parent
+
+    It writes every record to ``chiprun_out/turns/<label>.json`` and prints
+    a summary line; it checks nothing, so that a parent's kernels, whose
+    symbols this script does not hold, are timed as they are."""
+    import torch
+
+    checkout = checkout.resolve()
+    sys.path.insert(0, str(checkout))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    from distributed_training_comparison_tpu_torch.ops import _build
+
+    if not Path(_build.__file__).resolve().is_relative_to(checkout):
+        raise RuntimeError(f"the port imported from {_build.__file__}, not from {checkout}")
+    vb = importlib.import_module(f"{PKG}.ops.vit_block")
+    small = importlib.import_module(f"{PKG}.ops.attention_small")
+    _build.build_all()
+    # the attention stages at the train shape (B 128), timed whatever their
+    # kernels' symbols: K6's recompute (the forward) and its backward
+    gen = torch.Generator().manual_seed(12)
+    qkv = torch.randn((128 * 256, 576), generator=gen).to(device="cuda", dtype=torch.bfloat16)
+    do = torch.randn((128 * 256, 192), generator=gen).to(device="cuda", dtype=torch.bfloat16)
+    b128 = {"block_attention_ms": timed(lambda: vb.block_attention(qkv, seq=256, heads=3))[0],
+            "block_attention_bwd_ms": timed(lambda: vb.block_attention_bwd(qkv, do, seq=256, heads=3))[0]}
+    del qkv, do
+    rec = {"turn": label, "checkout": str(checkout), "nvidia_smi": smi, "attention_b128": b128,
+           "fused_block_checks": fused_block_checks(vb),
+           "fused_block_bwd_checks": fused_block_bwd_checks(vb),
+           "tiny_step_times": tiny_step_times(), "tiny_dispatch": tiny_dispatch(),
+           "small_attention_checks": small_attention_checks(small),
+           "small_output_hashes": small_output_hashes(small)}
+    out = ROOT / "chiprun_out" / "turns"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"{label}.json").write_text(json.dumps(rec, indent=1))
+    serve, train = rec["fused_block_checks"][0], rec["fused_block_bwd_checks"][0]
+    step, disp = rec["tiny_step_times"], rec["tiny_dispatch"]["bucket32_profile"]
+    emit({
+        "turn": label, "nvidia_smi": smi,
+        "k5_serve_chain_ms": serve["chain"]["ms"],
+        "block_attention_serve_ms": serve["attention"]["ms"],
+        "block_attention_serve_sdpa_ms": serve["attention"]["library_ms"],
+        "block_attention_serve_kernels": serve["attention"].get("kernels"),
+        "k6_chain_ms": train["chain_ms"],
+        "block_attention_b128_ms": b128["block_attention_ms"],
+        "block_attention_bwd_b128_ms": b128["block_attention_bwd_ms"],
+        "block_attention_bwd_sdpa_fwd_bwd_ms": train["stages"]["block_attention_bwd"]["library_ms"],
+        "train_tiny_busy_ms": step["profile"]["device_busy_ms_per_step"],
+        "train_tiny_idle_share": step["profile"]["device_idle_share"],
+        "train_tiny_images_per_s": [step["images_per_s_fused"], step["images_per_s_fused_again"]],
+        "bucket32_ms": [rec["tiny_dispatch"]["bucket32_batch_ms_fused"],
+                        rec["tiny_dispatch"]["bucket32_batch_ms_fused_again"]],
+        "bucket32_busy_ms": disp["device_busy_ms_per_batch"],
+        "bucket32_idle_share": disp["device_idle_share"],
+        "k10_k11_ms": {c["case"]: [c["ms"]["fwd"], c["ms"]["bwd"]] for c in rec["small_attention_checks"]},
+        "small_output_hashes": rec["small_output_hashes"],
+    })
+    return 0
+
+
 if __name__ == "__main__":
     try:
+        if len(sys.argv) == 4 and sys.argv[1] == "--turn":
+            sys.exit(turn(Path(sys.argv[2]), sys.argv[3]))
         sys.exit(main())
     except Exception:
         traceback.print_exc()

@@ -60,30 +60,23 @@
 //   (backward) D-wide 64-row tiles, plus 16 KB of P and dS tiles, and 1 KB
 //   of alignment slack: 25 / 49 KB at D 64, several blocks an SM.
 //
+// The one-tile kernels' device helpers (the swizzled loads, descriptors,
+// score product, softmax and stores) are attention_tiles.cuh's, shared with
+// the fused ViT block's attention.
+//
 // The tiled bf16 kernels (S > 64) run on mma.sync m16n8k16: a block per
 // (item, head, 64-query tile) with an exact two-sweep softmax, the backward
 // as a dq kernel that writes each row's max, sum and delta to an fp32
 // scratch and a dk/dv kernel that reads them.  fp32 (vit_tiny without
 // --amp) runs on SIMT tiles with no TF32 and is bound by operations.
 
-#include "hopper_common.cuh"
+#include "attention_tiles.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr float kNegInf = -1e30f;  // finite "-inf": exp gives exactly 0
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
   asm volatile(
@@ -100,17 +93,6 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
 
 __device__ __forceinline__ uint32_t lds32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// 16 bytes from gmem to the shared address dst
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* gmem, bool valid) {
-  const int n = valid ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // row and column of accumulator element e of 8-wide tile n in this thread's
@@ -791,132 +773,6 @@ __global__ void __launch_bounds__(kThreads) attn_small_dkv_f32(const Params p) {
 constexpr int kOneTile = 64;  // the longest item the one-tile kernels take: one 64-key tile
 constexpr int kTileBox = box_bytes<kOneTile>();  // 64 rows x 128 bytes: 8 KB
 
-// rows [0, 64) of one head's (seq, D) column slice (row stride ld) into a
-// tile of D / 64 boxes of 64 rows under 128-byte swizzle, the layout a
-// wgmma descriptor reads: 16-byte chunk c of row r at byte (c / 8) * 8 KB +
-// r * 128 + ((c % 8) ^ (r % 8)) * 16.  Rows past seq are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_swizzled(uint32_t tile, const bf16* g, long long ld, int seq) {
-  constexpr int kChunks = D / 8;
-#pragma unroll
-  for (int j = 0; j < kOneTile * kChunks / kThreads; ++j) {
-    const int i = threadIdx.x + j * kThreads, r = i / kChunks, c = i % kChunks;
-    const bool valid = r < seq;
-    cp_async16(tile + (c / 8) * kTileBox + r * 128 + (((c % 8) ^ (r % 8)) << 4),
-               g + (valid ? r * ld : 0) + c * 8, valid);
-  }
-}
-
-// every cp.async of this thread landed and, after the barrier, every
-// thread's, visible to the async proxy the wgmma products read through
-__device__ __forceinline__ void tiles_landed() {
-  cp_async_wait_all();
-  fence_proxy_async();
-  __syncthreads();
-}
-
-// descriptor of k-step kk of a tile read K-major (the tile's columns are the
-// depth): 16 columns, 32 bytes along the swizzled row, the next 64 columns
-// one box on; SBO steps 8 rows
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
-  return smem_desc(tile + (kk / 4) * kTileBox + (kk % 4) * 32, 16, 1024);
-}
-
-// descriptor of k-step kk of a tile read MN-major (the tile's rows are the
-// depth): 16 rows, 2 KB on; LBO steps the next 64 columns (one box), SBO 8 rows
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
-  return smem_desc(tile + kk * 16 * 128, kTileBox, 1024);
-}
-
-// S (64 x 64 fp32 accumulator) = A.B^T over D: A's and B's 64 rows, both K-major
-template <int D>
-__device__ __forceinline__ void wgmma_abt(float* s, uint32_t a, uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n64k16_ss(s, desc_kmajor(a, kk), desc_kmajor(b, kk), kk > 0);
-}
-
-// Per thread of the warpgroup, accumulator element 4n + 2i + e is row
-// 16 warp + g + 8i, column 8n + 2t + e (g = lane / 4, t = lane % 4).
-__device__ __forceinline__ int acc_row(int i) { return 16 * (threadIdx.x / 32) + (threadIdx.x % 32) / 4 + 8 * i; }
-__device__ __forceinline__ int acc_col(int n, int e) { return 8 * n + 2 * (threadIdx.x % 4) + e; }
-
-// s (raw scores of query rows against the item's keys) -> the exact fp32
-// P of head_fwd: times the scale, masked at -1e30, e = exp(s - max) over the
-// whole row, e / sum(e).  With `zero_pad`, rows past seq take P = 0.
-__device__ __forceinline__ void softmax_rows(const Params& p, float (&s)[32], bool zero_pad) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = acc_row(i);
-    float mx = kNegInf;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float& x = s[4 * n + 2 * i + e];
-        x = visible(p, row, acc_col(n, e)) ? x * p.scale : kNegInf;
-        mx = fmaxf(mx, x);
-      }
-    mx = quad_max(mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float& x = s[4 * n + 2 * i + e];
-        x = expf(x - mx);
-        sum += x;
-      }
-    sum = quad_sum(sum);
-    const bool pad = zero_pad && row >= p.seq;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float& x = s[4 * n + 2 * i + e];
-        x = pad ? 0.f : x / sum;
-      }
-  }
-}
-
-// the 64 x 64 accumulator rounded to bf16: two adjacent 8-column blocks are
-// exactly the A fragment of a 16-deep step
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[kk][j] = pack_f32_to_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
-}
-
-// the 64 x 64 accumulator rounded to bf16 into a swizzled 64-row tile (row =
-// the accumulator's row); the eight rows of a warp's store fall on distinct
-// 16-byte chunks, so a store has no bank conflict
-__device__ __forceinline__ void store_swizzled(uint32_t tile, const float (&x)[32]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = acc_row(i);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const uint32_t dst = tile + row * 128 + ((n ^ (row % 8)) << 4) + (threadIdx.x % 4) * 4;
-      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(dst), "r"(pack_f32_to_bf16(x[4 * n + 2 * i], x[4 * n + 2 * i + 1]))
-                   : "memory");
-    }
-  }
-}
-
-// a 64 x D accumulator rounded to bf16 into rows [0, seq) of g (row stride ld)
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* g, const float (&x)[D / 2], const Params& p) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = acc_row(i);
-    if (row >= p.seq) continue;
-    bf16* r = g + static_cast<long long>(row) * p.ld;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(r + acc_col(n, 0)) = pack_f32_to_bf16(x[4 * n + 2 * i], x[4 * n + 2 * i + 1]);
-  }
-}
-
 template <int D>
 __host__ __device__ constexpr int onetile_fwd_smem() {
   return 3 * tile_bytes<D, kOneTile>() + 1024;  // Q, K, V; alignment slack
@@ -935,20 +791,22 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 3) attn_small_fwd_onet
   const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u, ks = qs + kT, vs = ks + kT;
   const int h = blockIdx.x % p.heads, b = blockIdx.x / p.heads;
   const long long base = head_base(p, b, h, D);
-  load_swizzled<D>(qs, static_cast<const bf16*>(p.q) + base, p.ld, p.seq);
-  load_swizzled<D>(ks, static_cast<const bf16*>(p.k) + base, p.ld, p.seq);
-  load_swizzled<D>(vs, static_cast<const bf16*>(p.v) + base, p.ld, p.seq);
+  load_swizzled<D, kOneTile, kThreads>(qs, static_cast<const bf16*>(p.q) + base, p.ld, p.seq, threadIdx.x);
+  load_swizzled<D, kOneTile, kThreads>(ks, static_cast<const bf16*>(p.k) + base, p.ld, p.seq, threadIdx.x);
+  load_swizzled<D, kOneTile, kThreads>(vs, static_cast<const bf16*>(p.v) + base, p.ld, p.seq, threadIdx.x);
   tiles_landed();
 
-  float s[32];
+  float s[1][32], mx[2], sum[2];
   wgmma_fence();
-  wgmma_abt<D>(s, qs, ks);
+  wgmma_abt<D, kOneTile, kOneTile>(s[0], qs, ks);
   wgmma_commit();
   wgmma_wait<0>();
-  fence_regs<32>(s);
-  softmax_rows(p, s, false);  // rows past seq are not written
+  fence_regs<32>(s[0]);
+  // rows past seq are not written
+  softmax_rows(s, p.scale, [&](int row, int col) { return visible(p, row, col); }, kOneTile,
+               SharedRows<1>{nullptr}, mx, sum);
   uint32_t pa[4][4];
-  pack_a(pa, s);
+  pack_a(pa, s[0]);
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
@@ -956,12 +814,12 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 3) attn_small_fwd_onet
   fence_regs<16>(&pa[0][0]);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(o, pa[kk], desc_mnmajor(vs, kk));
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(o, pa[kk], desc_mnmajor<kOneTile>(vs, kk));
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs<D / 2>(o);
   fence_regs<16>(&pa[0][0]);
-  store_acc<D>(static_cast<bf16*>(p.o) + base, o, p);
+  store_acc<D>(static_cast<bf16*>(p.o) + base, o, p.ld, p.seq);
 }
 
 // K11 for one (item, head) of S <= 64: dq, dk and dv in one kernel
@@ -973,22 +831,25 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 2) attn_small_bwd_onet
   const uint32_t ps = dos + kT, dss = ps + kTileBox;
   const int h = blockIdx.x % p.heads, b = blockIdx.x / p.heads;
   const long long base = head_base(p, b, h, D);
-  load_swizzled<D>(qs, static_cast<const bf16*>(p.q) + base, p.ld, p.seq);
-  load_swizzled<D>(ks, static_cast<const bf16*>(p.k) + base, p.ld, p.seq);
-  load_swizzled<D>(vs, static_cast<const bf16*>(p.v) + base, p.ld, p.seq);
-  load_swizzled<D>(dos, static_cast<const bf16*>(p.dout) + base, p.ld, p.seq);
+  load_swizzled<D, kOneTile, kThreads>(qs, static_cast<const bf16*>(p.q) + base, p.ld, p.seq, threadIdx.x);
+  load_swizzled<D, kOneTile, kThreads>(ks, static_cast<const bf16*>(p.k) + base, p.ld, p.seq, threadIdx.x);
+  load_swizzled<D, kOneTile, kThreads>(vs, static_cast<const bf16*>(p.v) + base, p.ld, p.seq, threadIdx.x);
+  load_swizzled<D, kOneTile, kThreads>(dos, static_cast<const bf16*>(p.dout) + base, p.ld, p.seq, threadIdx.x);
   tiles_landed();
 
   // S = Q.K^T and dP = dO.V^T in one commit group
-  float s[32], dp[32];
+  float s1[1][32], dp[32], mx[2], sum[2];
+  float(&s)[32] = s1[0];
   wgmma_fence();
-  wgmma_abt<D>(s, qs, ks);
-  wgmma_abt<D>(dp, dos, vs);
+  wgmma_abt<D, kOneTile, kOneTile>(s, qs, ks);
+  wgmma_abt<D, kOneTile, kOneTile>(dp, dos, vs);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs<32>(s);
   fence_regs<32>(dp);
-  softmax_rows(p, s, true);  // P = 0 on rows past seq: they add nothing to dK, dV
+  // P = 0 on rows past seq: they add nothing to dK, dV
+  softmax_rows(s1, p.scale, [&](int row, int col) { return visible(p, row, col); }, p.seq,
+               SharedRows<1>{nullptr}, mx, sum);
   // ds = P (dp - delta) scale, delta = sum_j dp P on the fp32 P
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -1021,26 +882,28 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 2) attn_small_bwd_onet
   fence_regs<16>(&da[0][0]);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dq, da[kk], desc_mnmajor(ks, kk));
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dq, da[kk], desc_mnmajor<kOneTile>(ks, kk));
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_ss_mn<D>(dv, desc_mnmajor(ps, kk), desc_mnmajor(dos, kk), kk > 0);
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_mn<D>(dv, desc_mnmajor<kOneTile>(ps, kk), desc_mnmajor<kOneTile>(dos, kk), kk > 0);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs<D / 2>(dq);
   fence_regs<D / 2>(dv);
   fence_regs<16>(&da[0][0]);
-  store_acc<D>(static_cast<bf16*>(p.o) + base, dq, p);
-  store_acc<D>(static_cast<bf16*>(p.dv) + base, dv, p);
+  store_acc<D>(static_cast<bf16*>(p.o) + base, dq, p.ld, p.seq);
+  store_acc<D>(static_cast<bf16*>(p.dv) + base, dv, p.ld, p.seq);
 
   // dK = dS^T.Q
   float dk[D / 2];
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_ss_mn<D>(dk, desc_mnmajor(dss, kk), desc_mnmajor(qs, kk), kk > 0);
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_mn<D>(dk, desc_mnmajor<kOneTile>(dss, kk), desc_mnmajor<kOneTile>(qs, kk), kk > 0);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs<D / 2>(dk);
-  store_acc<D>(static_cast<bf16*>(p.dk) + base, dk, p);
+  store_acc<D>(static_cast<bf16*>(p.dk) + base, dk, p.ld, p.seq);
 }
 
 // ----------------------------------------------------------------- launch

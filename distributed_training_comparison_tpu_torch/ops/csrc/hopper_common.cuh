@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the bf16 flash-attention forward
-// (flash_attention_fwd.cu) and backward (flash_attention_bwd.cu) and the
-// short-sequence attention (attention_small.cu): mbarriers, TMA tile loads,
+// (flash_attention_fwd.cu) and backward (flash_attention_bwd.cu), the
+// per-head attention pieces (attention_tiles.cuh) and the fused block's GEMMs
+// (block_gemm.cuh): mbarriers, TMA tile loads,
 // wgmma descriptors and products, the generic-to-async proxy fence, and the
 // host-side encode of the 4-D tensor maps the loads read through.
 //

@@ -29,10 +29,11 @@
 //   and chunk), with the bias column sums of a second source taken by the
 //   blocks of the first input tile.
 // - block_attention_bwd: per (item, head) with P recomputed by the exact
-//   two-sweep softmax of K5: one kernel owns 64 query rows (the row max and
-//   sum, then delta = sum_j dp P, then dq = round(ds scale) . K) and writes
-//   each row's statistics; a second owns 64 keys and walks the query tiles
-//   for dk = ds^T . Q and dv = round(P)^T . dO.  No atomics.
+//   softmax of K5 (head_bwd's numerics): one kernel owns 64 query rows (P,
+//   delta = sum_j dp P on the fp32 P, dq = round(ds scale) . K) and writes
+//   each row's max, sum and delta to an fp32 scratch; a second owns 64 keys
+//   and walks the query tiles for dk = round(ds scale)^T . Q and dv =
+//   round(P)^T . dO.  No atomics.
 // - block_grad_reduce: every partial summed over its chunks in order, one
 //   launch for all twelve gradients.
 //
@@ -56,33 +57,40 @@
 //   warp, two consumer warpgroups of 64 output rows; the bias column sums
 //   are read from the landed G tile (from global memory, a step ahead, for
 //   another source) under the products and added in a fixed order.
-// The attention backward still runs mma.sync m16n8k16 from padded shared
-// tiles and recomputes the scores three times for dq and once more for
-// dk/dv; fp32 runs SIMT tiles with no TF32.
+// The attention backward is bound by bytes (qkv, dO in, dqkv out: 88 MB at
+// the train shape, 0.026 ms at 3.35 TB/s, against 16.1 GFLOP, 0.016 ms at
+// 989 TFLOP/s).  The bf16 kernels (attn_dq_wgmma, attn_dkv_wgmma, on
+// attention_tiles.cuh) read each input once per block into swizzled tiles
+// and run every product on wgmma.  One kernel cannot hold a key tile's dK
+// and dV accumulators beside the scores and dP of a query tile within the
+// registers of the four warpgroups that S 256 needs (S, dP, dK, dV: 128
+// registers a thread at 512 threads, the whole file), so the backward stays
+// two launches with the statistics scratch.  The dq kernel's warpgroups
+// split the keys (up to S 256 four of one tile each, above two of three or
+// four) and hold P and, up to S 256, dP in registers: Q.K^T and dO.V^T once
+// each (dO.V^T twice above S 256), dS.K; up to S 256 its blocks are
+// persistent, one an SM, and stage the next query tile's inputs under the
+// current one's products.  The dk/dv kernel works in the transposed frame,
+// so P^T and dS^T are A fragments from registers: K.Q^T, V.dO^T, P^T.dO,
+// dS^T.Q; its two warpgroups own 64 keys each and share one staging of Q
+// and dO.  Seven products per (64-query, 64-key) tile pair (eight above S
+// 256), against ten for the mma.sync pair they replace.  The elementwise
+// softmax work, not the products, takes most of their time (PERF.md).
+// fp32 runs SIMT tiles with no TF32.
 
+#include "attention_tiles.cuh"
 #include "block_gemm.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr float kNegInf = -1e30f;  // finite "-inf": exp gives exactly 0
 constexpr float kLnEps = 1e-6f;
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -108,23 +116,6 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 __device__ __forceinline__ float gelu_tanh_grad(float x) {
   const float t = tanhf(kGeluC * (x + kGeluA * (x * x * x)));
   return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * kGeluC * (1.f + 3.f * kGeluA * x * x);
-}
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // ------------------------------------------------------------- block_ln
@@ -187,14 +178,6 @@ __device__ __forceinline__ void mainloop_f32(float (&acc)[4][8], float (*as)[kBM
     }
     __syncthreads();
   }
-}
-
-// (row, col) in a warp's 16-row tile of mma.sync accumulator element (n, e)
-__device__ __forceinline__ int frag_row(int e) {
-  return (threadIdx.x / 32) * 16 + ((threadIdx.x % 32) >> 2) + 8 * (e >> 1);
-}
-__device__ __forceinline__ int frag_col(int n, int e) {
-  return n * 8 + ((threadIdx.x % 32) & 3) * 2 + (e & 1);
 }
 
 // ------------------------------------------------------ block_gemm_dgrad
@@ -642,263 +625,297 @@ struct AttnBwdParams {
   float scale;
 };
 
-constexpr int kAttnThreads = 128;
+constexpr int kAttnThreads = 128;  // the fp32 kernels
+constexpr int kHeadDim = 64;       // bf16: the one head dim of a zoo model the fusion gate fuses
+constexpr int kDkvWarpgroups = 2;  // bf16 dk/dv: 64-key tiles a block, sharing its Q and dO
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
+// acc[i] += sum over a 64-column tile of a.b on this thread's row i
+__device__ __forceinline__ void add_row_dots(float (&acc)[2], const float (&a)[32], const float (&b)[32]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) acc[i] += a[4 * n + 2 * i + e] * b[4 * n + 2 * i + e];
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// rows [row0, row0 + ROWS) of a (seq, D) column slice (row stride ld) into
-// shared memory with row stride D + 8; rows past len zero-filled
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* smem, const bf16* g, long long ld, int row0,
-                                          int len) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kAttnThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool valid = row0 + r < len;
-    cp_async16(smem + r * (D + 8) + col, g + (valid ? (row0 + r) * ld : 0) + col, valid);
-  }
-}
-
-// c (16 rows x NT*8) = A . B^T: A this warp's 16 rows at `a`, B NT*8 rows
-// at `b`, both (rows, D) in shared memory with row stride D + 8
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt(float (&c)[NT][4], const bf16* a, const bf16* b) {
-  constexpr int LDS = D + 8;
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+// d (dP of a tile) <- P (dP - delta) scale: dS of head_bwd before its rounding
+__device__ __forceinline__ void form_ds(float (&d)[32], const float (&pr)[32], const float (&delta)[2],
+                                        float scale) {
 #pragma unroll
-  for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* a0 = a + g * LDS + kk * 16 + t * 2;
-    const uint32_t af[4] = {lds32(a0), lds32(a0 + 8 * LDS), lds32(a0 + 8), lds32(a0 + 8 * LDS + 8)};
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const bf16* b0 = b + (n * 8 + g) * LDS + kk * 16 + t * 2;
-      const uint32_t bf[2] = {lds32(b0), lds32(b0 + 8)};
-      mma_16816(c[n], af, bf);
-    }
-  }
-}
-
-// c (16 rows x D) += round(x) . B: x this warp's 16 x KN accumulator tile
-// (rounded to bf16 here), B (KN rows, D) in shared memory, stride D + 8
-template <int D, int KN>
-__device__ __forceinline__ void mma_xb(float (&c)[D / 8][4], const float (&x)[KN / 8][4],
-                                       const bf16* b) {
-  constexpr int LDS = D + 8;
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < KN / 16; ++kk) {
-    // two adjacent 8-wide accumulator tiles are exactly the A fragment of a 16-deep step
-    const uint32_t xa[4] = {
-        pack_f32_to_bf16(x[2 * kk][0], x[2 * kk][1]),
-        pack_f32_to_bf16(x[2 * kk][2], x[2 * kk][3]),
-        pack_f32_to_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-        pack_f32_to_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]),
-    };
-    const bf16* b0 = b + (kk * 16 + t * 2) * LDS + g;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const bf16* bn = b0 + n * 8;
-      const uint32_t bf[2] = {pack_bf16(bn[0], bn[LDS]), pack_bf16(bn[8 * LDS], bn[9 * LDS])};
-      mma_16816(c[n], xa, bf);
-    }
-  }
-}
-
-template <int D, int KN>
-constexpr int dq_bf16_smem() {
-  return (2 * 64 + 2 * KN) * (D + 8) * 2;
-}
-
-// dq for 64 query rows of one (item, head), and the rows' statistics
-template <int D, int KN>
-__global__ void __launch_bounds__(kAttnThreads) attn_dq_bf16(const AttnBwdParams p) {
-  constexpr int LDS = D + 8, NS = KN / 8, NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + 64 * LDS;
-  bf16* ks = dos + 64 * LDS;
-  bf16* vs = ks + KN * LDS;
-  const int m0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane & 3, wr = warp * 16;
-  const long long ld = 3LL * p.dim;
-  const bf16* item = static_cast<const bf16*>(p.qkv) + static_cast<long long>(b) * p.seq * ld;
-  const bf16* kg = item + p.dim + h * D;
-  const bf16* vg = item + 2 * p.dim + h * D;
-  const bf16* dog = static_cast<const bf16*>(p.dout) + static_cast<long long>(b) * p.seq * p.dim + h * D;
-  load_rows<D, 64>(qs, item + h * D, ld, m0, p.seq);
-  load_rows<D, 64>(dos, dog, p.dim, m0, p.seq);
-
-  // scaled scores of this warp's rows against the key tile at n0, masked
-  auto scores = [&](float (&s)[NS][4], int n0) {
-    mma_abt<D, NS>(s, qs + wr * LDS, ks);
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = n0 + frag_col(n, e) < p.seq ? s[n][e] * p.scale : kNegInf;
-  };
-
-  // sweep 1: each row's max and sum of exp(s - max), as the forward's
-  float mx[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f};
-  for (int n0 = 0; n0 < p.seq; n0 += KN) {
-    load_rows<D, KN>(ks, kg, ld, n0, p.seq);
-    cp_async_wait_all();
-    __syncthreads();
-    float s[NS][4];
-    scores(s, n0);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float m = mx[i];
-#pragma unroll
-      for (int n = 0; n < NS; ++n) m = fmaxf(m, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
-      m = quad_max(m);
-      float add = 0.f;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) add += expf(s[n][2 * i] - m) + expf(s[n][2 * i + 1] - m);
-      sum[i] = sum[i] * expf(mx[i] - m) + add;
-      mx[i] = m;
-    }
-  }
-  const float total[2] = {quad_sum(sum[0]), quad_sum(sum[1])};
-
-  // P = exp(s - max) / sum (fp32) and dp = dO . V^T of the key tile at n0
-  auto probs = [&](float (&s)[NS][4], float (&dp)[NS][4], int n0) {
-    load_rows<D, KN>(ks, kg, ld, n0, p.seq);
-    load_rows<D, KN>(vs, vg, ld, n0, p.seq);
-    cp_async_wait_all();
-    __syncthreads();
-    scores(s, n0);
-    mma_abt<D, NS>(dp, dos + wr * LDS, vs);
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = expf(s[n][e] - mx[e >> 1]) / total[e >> 1];
-  };
-
-  // sweep 2: delta = sum_j dp P
-  float dl[2] = {0.f, 0.f};
-  for (int n0 = 0; n0 < p.seq; n0 += KN) {
-    float s[NS][4], dp[NS][4];
-    probs(s, dp, n0);
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dl[e >> 1] += s[n][e] * dp[n][e];
-    __syncthreads();
-  }
-  const float delta[2] = {quad_sum(dl[0]), quad_sum(dl[1])};
-
-  // sweep 3: dq = round(P (dp - delta) scale) . K
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int n0 = 0; n0 < p.seq; n0 += KN) {
-    float s[NS][4], dp[NS][4];
-    probs(s, dp, n0);
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * (dp[n][e] - delta[e >> 1]) * p.scale;
-    mma_xb<D, KN>(acc, s, ks);
-    __syncthreads();
-  }
-
-  bf16* dq = static_cast<bf16*>(p.dqkv) + static_cast<long long>(b) * p.seq * ld + h * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = m0 + frag_row(2 * i);
-    if (row >= p.seq) continue;
-    bf16* dr = dq + static_cast<long long>(row) * ld + t * 2;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(dr + n * 8) = pack_f32_to_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
-    if (t == 0) {
-      float* st = p.stats + ((static_cast<long long>(b) * p.seq + row) * p.heads + h) * 3;
-      st[0] = mx[i];
-      st[1] = total[i];
-      st[2] = delta[i];
-    }
-  }
-}
-
-template <int D, int QN>
-constexpr int dkv_bf16_smem() {
-  return (2 * 64 + 2 * QN) * (D + 8) * 2 + QN * 3 * 4;
-}
-
-// dk and dv for 64 keys of one (item, head), walking the query tiles in
-// the transposed frame: rows are keys, columns queries
-template <int D, int QN>
-__global__ void __launch_bounds__(kAttnThreads) attn_dkv_bf16(const AttnBwdParams p) {
-  constexpr int LDS = D + 8, NS = QN / 8, NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + 64 * LDS;
-  bf16* qs = vs + 64 * LDS;
-  bf16* dos = qs + QN * LDS;
-  float* st = reinterpret_cast<float*>(dos + QN * LDS);
-  const int n0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane & 3, wr = warp * 16;
-  const long long ld = 3LL * p.dim;
-  const bf16* item = static_cast<const bf16*>(p.qkv) + static_cast<long long>(b) * p.seq * ld;
-  const bf16* dog = static_cast<const bf16*>(p.dout) + static_cast<long long>(b) * p.seq * p.dim + h * D;
-  const float* stats = p.stats + static_cast<long long>(b) * p.seq * p.heads * 3 + h * 3;
-  load_rows<D, 64>(ks, item + p.dim + h * D, ld, n0, p.seq);
-  load_rows<D, 64>(vs, item + 2 * p.dim + h * D, ld, n0, p.seq);
-  float dk[NO][4], dv[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  for (int q0 = 0; q0 < p.seq; q0 += QN) {
-    load_rows<D, QN>(qs, item + h * D, ld, q0, p.seq);
-    load_rows<D, QN>(dos, dog, p.dim, q0, p.seq);
-    for (int i = threadIdx.x; i < QN * 3; i += kAttnThreads) {
-      const int r = i / 3;
-      st[i] = q0 + r < p.seq ? stats[static_cast<long long>(q0 + r) * p.heads * 3 + i % 3] : 1.f;
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    float s[NS][4], dp[NS][4];
-    mma_abt<D, NS>(s, ks + wr * LDS, qs);
-    mma_abt<D, NS>(dp, vs + wr * LDS, dos);
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = frag_col(n, e);
-        const float pr = q0 + i < p.seq ? expf(s[n][e] * p.scale - st[3 * i]) / st[3 * i + 1] : 0.f;
-        s[n][e] = pr;
-        dp[n][e] = pr * (dp[n][e] - st[3 * i + 2]) * p.scale;
+      for (int e = 0; e < 2; ++e) {
+        const int k = 4 * n + 2 * i + e;
+        d[k] = pr[k] * (d[k] - delta[i]) * scale;
       }
-    mma_xb<D, QN>(dv, s, dos);
-    mma_xb<D, QN>(dk, dp, qs);
-    __syncthreads();
-  }
-  bf16* dkg = static_cast<bf16*>(p.dqkv) + static_cast<long long>(b) * p.seq * ld + p.dim + h * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = n0 + frag_row(2 * i);
-    if (row >= p.seq) continue;
-    bf16* kr = dkg + static_cast<long long>(row) * ld + t * 2;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<uint32_t*>(kr + n * 8) = pack_f32_to_bf16(dk[n][2 * i], dk[n][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(kr + p.dim + n * 8) =
-          pack_f32_to_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
+}
+
+// shared memory of attn_dq_wgmma<NTW, WG>: a stage per query tile in
+// flight (Q and dO, 64 rows each; K and V, all of the item's keys, NTW x WG
+// tiles), two where they fit, so that the next tile's loads run under the
+// current one's products; the row exchange (3 slots); the dQ partials of
+// warpgroups past the first; alignment slack
+template <int NTW, int WG>
+struct DqLayout {
+  static constexpr int kKeyRows = 64 * NTW * WG;
+  static constexpr int kStage = 2 * box_bytes<64>() + 2 * box_bytes<kKeyRows>();
+  static constexpr int kRest = 3 * WG * 64 * 4 + (WG - 1) * (kHeadDim / 2) * kWarpgroup * 4 + 1024;
+  static constexpr int kStages = 2 * kStage + kRest <= 227 * 1024 ? 2 : 1;
+  static constexpr int kBytes = kStages * kStage + kRest;
+};
+
+// dynamic shared memory of attn_dkv_wgmma<NT, WG>: K and V (64 rows a
+// warpgroup), Q and dO (all of the item's queries, NT tiles), each query's
+// statistics (float4), alignment slack
+template <int NT, int WG>
+__host__ __device__ constexpr int dkv_wgmma_smem() {
+  return 2 * box_bytes<64 * WG>() + 2 * box_bytes<64 * NT>() + 64 * NT * 16 + 1024;
+}
+
+// K6's attention backward in bf16 at head dim 64, first kernel: for each
+// query tile of 64 rows (one (item, head, query tile) at a time, the block
+// persistent over tiles blockIdx.x, + gridDim.x, ...), dq and each row's
+// max, sum and delta = sum_j dp P into the fp32 scratch.  Q, dO, and K and V
+// of the whole item, come by cp.async into swizzled tiles, once a tile, the
+// next tile's into the other stage under this one's products (where two
+// stages fit).  Each of the WG warpgroups owns NTW 64-key tiles: S = Q.K^T
+// by wgmma into registers, once; P in fp32 by softmax_rows (each row's max
+// and sum combined across the warpgroups in warpgroup order); dP = dO.V^T,
+// held beside P where it fits (NTW <= 2), else formed again for dS; delta
+// on the fp32 P, combined the same way; dS = P (dP - delta) scale rounded to
+// bf16 as the A fragments of dQ = dS.K (K MN-major); the warpgroups' dQ
+// partials added in warpgroup order and rounded once.
+template <int NTW, int WG>
+__global__ void __launch_bounds__(kWarpgroup * WG, 1) attn_dq_wgmma(const AttnBwdParams p, int tiles) {
+  using L = DqLayout<NTW, WG>;
+  constexpr int D = kHeadDim, KROWS = L::kKeyRows, kAll = kWarpgroup * WG;
+  constexpr int kTile = box_bytes<64>();  // one 64-row tile: 8 KB
+  constexpr bool kHoldDp = NTW <= 2;      // dP of every own tile fits beside P: dO.V^T once
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  float* red = reinterpret_cast<float*>(smem_raw + (base + L::kStages * L::kStage - raw));
+  float* part = red + 3 * WG * 64;
+  const int tid = threadIdx.x, t0 = tid / kWarpgroup * NTW, nq = (p.seq + 63) / 64;
+  const long long ld = 3LL * p.dim;
+  // tile u: query tile u % nq of head u / nq % heads of item u / (nq heads);
+  // a stage holds Q, dO, K, V
+  auto issue = [&](int u, uint32_t st) {
+    const int m0 = u % nq * 64, h = u / nq % p.heads;
+    const long long row0 = static_cast<long long>(u / nq / p.heads) * p.seq;
+    const bf16* item = static_cast<const bf16*>(p.qkv) + row0 * ld + h * D;
+    load_swizzled<D, 64, kAll>(st, item + m0 * ld, ld, p.seq - m0, tid);
+    load_swizzled<D, 64, kAll>(st + kTile, static_cast<const bf16*>(p.dout) + (row0 + m0) * p.dim + h * D,
+                               p.dim, p.seq - m0, tid);
+    load_swizzled<D, KROWS, kAll>(st + 2 * kTile, item + p.dim, ld, p.seq, tid);
+    load_swizzled<D, KROWS, kAll>(st + 2 * kTile + box_bytes<KROWS>(), item + 2 * p.dim, ld, p.seq, tid);
+    cp_async_commit();
+  };
+  const SharedRows<WG> rows{red};
+  int u = blockIdx.x;
+  if (L::kStages == 2 && u < tiles) issue(u, base);
+#pragma unroll 1
+  for (int k = 0; u < tiles; ++k, u += gridDim.x) {
+    const uint32_t qs = base + (L::kStages == 2 ? (k & 1) * L::kStage : 0);
+    if constexpr (L::kStages == 2) {
+      if (u + static_cast<int>(gridDim.x) < tiles) {
+        issue(u + gridDim.x, base + ((k + 1) & 1) * L::kStage);  // the stage the last tile freed
+      } else {
+        cp_async_commit();
+      }
+      cp_async_wait<1>();
+    } else {
+      issue(u, qs);
+      cp_async_wait<0>();
     }
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t dos = qs + kTile, ks = qs + 2 * kTile, vs = ks + box_bytes<KROWS>();
+    const int m0 = u % nq * 64, h = u / nq % p.heads;
+    const long long row0 = static_cast<long long>(u / nq / p.heads) * p.seq;
+
+    float s[NTW][32], mx[2], sum[2];
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) wgmma_abt<D, 64, KROWS>(s[j], qs, ks + (t0 + j) * kTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) fence_regs<32>(s[j]);
+    softmax_rows(s, p.scale, [&](int, int col) { return 64 * t0 + col < p.seq; }, 64, rows, mx, sum);
+
+    // delta = sum_j dp P over the row's whole key set, on the fp32 P
+    float delta[2] = {0.f, 0.f};
+    float dp[kHoldDp ? NTW : 1][32];
+    if constexpr (kHoldDp) {
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) wgmma_abt<D, 64, KROWS>(dp[j], dos, vs + (t0 + j) * kTile);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        fence_regs<32>(dp[j]);
+        add_row_dots(delta, s[j], dp[j]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        wgmma_fence();
+        wgmma_abt<D, 64, KROWS>(dp[0], dos, vs + (t0 + j) * kTile);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<32>(dp[0]);
+        add_row_dots(delta, s[j], dp[0]);
+      }
+    }
+    delta[0] = quad_sum(delta[0]);
+    delta[1] = quad_sum(delta[1]);
+    rows.template combine<false>(delta, 2);
+
+    // dS = P (dP - delta) scale, rounded: the A fragments of dQ += dS.K, own tile by tile
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      float(&d)[32] = dp[kHoldDp ? j : 0];
+      if constexpr (!kHoldDp) {
+        wgmma_fence();
+        wgmma_abt<D, 64, KROWS>(d, dos, vs + (t0 + j) * kTile);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<32>(d);
+      }
+      form_ds(d, s[j], delta, p.scale);
+      uint32_t da[4][4];
+      pack_a(da, d);
+      fence_regs<D / 2>(dq);
+      fence_regs<16>(&da[0][0]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dq, da[kk], desc_mnmajor<KROWS>(ks + (t0 + j) * kTile, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(dq);
+      fence_regs<16>(&da[0][0]);
+    }
+    // after its barrier no warp reads this tile's stage: the next issue may refill it
+    sum_partials<WG>(dq, part);
+    if (tid < kWarpgroup) {
+      store_acc<D>(static_cast<bf16*>(p.dqkv) + (row0 + m0) * ld + h * D, dq, ld, p.seq - m0);
+      if (tid % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = m0 + acc_row(i);
+          if (row >= p.seq) continue;
+          float* st = p.stats + ((row0 + row) * p.heads + h) * 3;
+          st[0] = mx[i];
+          st[1] = sum[i];
+          st[2] = delta[i];
+        }
+      }
+    }
+    if constexpr (L::kStages == 1) break;  // a block a tile: no state carried to a next one
   }
+}
+
+// K6's attention backward in bf16 at head dim 64, second kernel: dk and dv
+// of the 64 WG keys [64 WG blockIdx.x, + 64 WG) of item blockIdx.z, head
+// blockIdx.y, warpgroup w owning the w-th 64, in the transposed frame (rows
+// keys, columns queries).  K and V of the block's keys, and Q and dO of the
+// whole item (one cp.async group a query tile, consumed in order as they
+// land), come once for all its warpgroups; the statistics the dq kernel
+// wrote are staged per query with the correctly rounded reciprocal of the
+// sum.  For each query tile: S^T = K.Q^T and dP^T = V.dO^T by wgmma (both
+// K-major), P^T = exp(s scale - max) / sum in fp32 (div_by) and dS^T = P^T
+// (dP^T - delta) scale, each rounded to bf16 as the A fragments of dV +=
+// P^T.dO and dK += dS^T.Q (dO and Q MN-major): four products, no
+// shared-memory round trip for P or dS.  Keys and queries past S take P = 0.
+template <int NT, int WG>
+__global__ void __launch_bounds__(kWarpgroup * WG, 1) attn_dkv_wgmma(const AttnBwdParams p) {
+  constexpr int D = kHeadDim, QROWS = 64 * NT, KROWS = 64 * WG, kAll = kWarpgroup * WG;
+  constexpr int kTile = box_bytes<64>();
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ks = (raw + 1023) & ~1023u, vs = ks + box_bytes<KROWS>(), qs = vs + box_bytes<KROWS>();
+  const uint32_t dos = qs + box_bytes<QROWS>();
+  float4* st = reinterpret_cast<float4*>(smem_raw + (dos + box_bytes<QROWS>() - raw));
+  const int tid = threadIdx.x, w = tid / kWarpgroup, h = blockIdx.y;
+  const int n0 = blockIdx.x * KROWS, k0 = n0 + 64 * w;  // the block's keys, this warpgroup's
+  const long long ld = 3LL * p.dim, row0 = static_cast<long long>(blockIdx.z) * p.seq;
+  const bf16* item = static_cast<const bf16*>(p.qkv) + row0 * ld + h * D;
+  const bf16* dog = static_cast<const bf16*>(p.dout) + row0 * p.dim + h * D;
+  load_swizzled<D, KROWS, kAll>(ks, item + p.dim + n0 * ld, ld, p.seq - n0, tid);
+  load_swizzled<D, KROWS, kAll>(vs, item + 2 * p.dim + n0 * ld, ld, p.seq - n0, tid);
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    load_swizzled<D, 64, kAll>(qs + i * kTile, item + i * 64 * ld, ld, p.seq - i * 64, tid);
+    load_swizzled<D, 64, kAll>(dos + i * kTile, dog + i * 64 * p.dim, p.dim, p.seq - i * 64, tid);
+    cp_async_commit();
+  }
+  const float* stats = p.stats + row0 * p.heads * 3 + h * 3;
+  for (int r = tid; r < QROWS; r += kAll) {
+    const float* sr = stats + static_cast<long long>(r) * p.heads * 3;
+    st[r] = r < p.seq ? make_float4(sr[0], sr[1], 1.f / sr[1], sr[2]) : make_float4(0.f, 1.f, 1.f, 0.f);
+  }
+
+  const uint32_t kw = ks + w * kTile, vw = vs + w * kTile;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    cp_async_wait_at_most(NT - 1 - i);  // query tile i and those before it
+    fence_proxy_async();
+    __syncthreads();
+    float sc[32], dp[32];
+    wgmma_fence();
+    wgmma_abt<D, KROWS, QROWS>(sc, kw, qs + i * kTile);
+    wgmma_abt<D, KROWS, QROWS>(dp, vw, dos + i * kTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<32>(sc);
+    fence_regs<32>(dp);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool key = k0 + acc_row(r) < p.seq;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int q = 64 * i + acc_col(n, e), k = 4 * n + 2 * r + e;
+          const float4 t = st[q];  // max, sum, 1 / sum, delta
+          const float pr = key && q < p.seq ? div_by(expf(sc[k] * p.scale - t.x), t.y, t.z) : 0.f;
+          sc[k] = pr;
+          dp[k] = pr * (dp[k] - t.w) * p.scale;
+        }
+    }
+    uint32_t pa[4][4], da[4][4];
+    pack_a(pa, sc);
+    pack_a(da, dp);
+    fence_regs<D / 2>(dk);
+    fence_regs<D / 2>(dv);
+    fence_regs<16>(&pa[0][0]);
+    fence_regs<16>(&da[0][0]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dv, pa[kk], desc_mnmajor<QROWS>(dos + i * kTile, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dk, da[kk], desc_mnmajor<QROWS>(qs + i * kTile, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(dk);
+    fence_regs<D / 2>(dv);
+    fence_regs<16>(&pa[0][0]);
+    fence_regs<16>(&da[0][0]);
+  }
+  bf16* out = static_cast<bf16*>(p.dqkv) + (row0 + k0) * ld + h * D;
+  store_acc<D>(out + p.dim, dk, ld, p.seq - k0);
+  store_acc<D>(out + 2 * p.dim, dv, ld, p.seq - k0);
 }
 
 constexpr int kFM = 32;  // fp32: rows (queries or keys) per block, 4 threads per row
@@ -1105,18 +1122,65 @@ cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, cons
 }
 
 template <int D>
-cudaError_t launch_attention_bwd(const AttnBwdParams& p, int batch, int is_bf16, cudaStream_t s) {
-  if (is_bf16) {
-    constexpr int KN = D <= 64 ? 64 : 32;  // key (query) tile: fewer accumulators at large D
-    const dim3 grid((p.seq + 63) / 64, p.heads, batch);
-    cudaError_t err = launch(attn_dq_bf16<D, KN>, grid, dq_bf16_smem<D, KN>(), s, p);
-    if (err != cudaSuccess) return err;
-    return launch(attn_dkv_bf16<D, KN>, grid, dkv_bf16_smem<D, KN>(), s, p);
-  }
+cudaError_t launch_attention_bwd_f32(const AttnBwdParams& p, int batch, cudaStream_t s) {
   const dim3 grid((p.seq + kFM - 1) / kFM, p.heads, batch);
   cudaError_t err = launch(attn_dq_f32<D>, grid, attn_f32_smem<D>(), s, p);
   if (err != cudaSuccess) return err;
   return launch(attn_dkv_f32<D>, grid, attn_f32_smem<D>(), s, p);
+}
+
+// bf16: the dq kernel over 64-key tiles split between its WG warpgroups,
+// then the dk/dv kernel over NT query tiles
+template <int NTW, int WG, int NT>
+cudaError_t launch_attention_bwd_wgmma(const AttnBwdParams& p, int batch, cudaStream_t s) {
+  static_assert(NTW * WG >= NT, "the dq kernel's tiles cover the keys");
+  using Dq = DqLayout<NTW, WG>;
+  constexpr int kDkvBytes = dkv_wgmma_smem<NT, kDkvWarpgroups>();
+  int sms = 0;
+  cudaError_t err = bgemm::prepare<&attn_dq_wgmma<NTW, WG>>(Dq::kBytes, &sms);
+  if (err == cudaSuccess) err = bgemm::prepare<&attn_dkv_wgmma<NT, kDkvWarpgroups>>(kDkvBytes, &sms);
+  if (err != cudaSuccess) return err;
+  // dq: with two stages a block an SM, persistent over the tiles; with one, a block a tile
+  const int tiles = (p.seq + 63) / 64 * p.heads * batch;
+  attn_dq_wgmma<NTW, WG><<<Dq::kStages == 2 && sms < tiles ? sms : tiles, kWarpgroup * WG, Dq::kBytes, s>>>(
+      p, tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 kv_grid((p.seq + 64 * kDkvWarpgroups - 1) / (64 * kDkvWarpgroups), p.heads, batch);
+  attn_dkv_wgmma<NT, kDkvWarpgroups><<<kv_grid, kWarpgroup * kDkvWarpgroups, kDkvBytes, s>>>(p);
+  return cudaGetLastError();
+}
+
+// the dq kernel up to four key tiles (S <= 256): four warpgroups of one
+// tile; up to eight (S <= 512): two of three or four
+cudaError_t launch_attention_bwd_bf16(const AttnBwdParams& p, int batch, cudaStream_t s) {
+  switch ((p.seq + 63) / 64) {
+    case 1: return launch_attention_bwd_wgmma<1, 4, 1>(p, batch, s);
+    case 2: return launch_attention_bwd_wgmma<1, 4, 2>(p, batch, s);
+    case 3: return launch_attention_bwd_wgmma<1, 4, 3>(p, batch, s);
+    case 4: return launch_attention_bwd_wgmma<1, 4, 4>(p, batch, s);
+    case 5: return launch_attention_bwd_wgmma<3, 2, 5>(p, batch, s);
+    case 6: return launch_attention_bwd_wgmma<3, 2, 6>(p, batch, s);
+    case 7: return launch_attention_bwd_wgmma<4, 2, 7>(p, batch, s);
+    case 8: return launch_attention_bwd_wgmma<4, 2, 8>(p, batch, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// dynamic shared memory of the bf16 dq kernel (kernel 0) or dk/dv kernel
+// (kernel 1) for items of seq tokens (0 above 512)
+int attention_bwd_bf16_smem(int kernel, int seq) {
+  switch ((seq + 63) / 64) {
+    case 1: return kernel ? dkv_wgmma_smem<1, kDkvWarpgroups>() : DqLayout<1, 4>::kBytes;
+    case 2: return kernel ? dkv_wgmma_smem<2, kDkvWarpgroups>() : DqLayout<1, 4>::kBytes;
+    case 3: return kernel ? dkv_wgmma_smem<3, kDkvWarpgroups>() : DqLayout<1, 4>::kBytes;
+    case 4: return kernel ? dkv_wgmma_smem<4, kDkvWarpgroups>() : DqLayout<1, 4>::kBytes;
+    case 5: return kernel ? dkv_wgmma_smem<5, kDkvWarpgroups>() : DqLayout<3, 2>::kBytes;
+    case 6: return kernel ? dkv_wgmma_smem<6, kDkvWarpgroups>() : DqLayout<3, 2>::kBytes;
+    case 7: return kernel ? dkv_wgmma_smem<7, kDkvWarpgroups>() : DqLayout<4, 2>::kBytes;
+    case 8: return kernel ? dkv_wgmma_smem<8, kDkvWarpgroups>() : DqLayout<4, 2>::kBytes;
+    default: return 0;
+  }
 }
 
 // ----------------------------------------------------- block_grad_reduce
@@ -1300,25 +1364,33 @@ extern "C" int vit_block_wgrad_smem(int bn) {
 
 // dqkv (batch * seq, 3 * heads * head_dim) of the packed attention for the
 // output cotangent dout (batch * seq, heads * head_dim); stats is fp32
-// scratch (batch * seq, heads, 3).  Launches the dq kernel, then dk/dv.
+// scratch (batch * seq, heads, 3).  Launches the dq kernel, which writes
+// each query row's statistics there, then the dk/dv kernel, which reads
+// them.  bf16 takes head_dim 64 and seq up to 512; fp32 head_dim a multiple
+// of 16 up to 128.
 extern "C" int vit_block_attention_bwd(const void* qkv, const void* dout, void* dqkv, void* stats,
                                        int batch, int seq, int heads, int head_dim, float scale,
                                        int is_bf16, void* stream) {
   const AttnBwdParams p{qkv, dout, dqkv, static_cast<float*>(stats), seq, heads * head_dim,
                         heads, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return head_dim == kHeadDim ? launch_attention_bwd_bf16(p, batch, s) : cudaErrorInvalidValue;
   switch (head_dim) {
-    case 16: return launch_attention_bwd<16>(p, batch, is_bf16, s);
-    case 32: return launch_attention_bwd<32>(p, batch, is_bf16, s);
-    case 48: return launch_attention_bwd<48>(p, batch, is_bf16, s);
-    case 64: return launch_attention_bwd<64>(p, batch, is_bf16, s);
-    case 80: return launch_attention_bwd<80>(p, batch, is_bf16, s);
-    case 96: return launch_attention_bwd<96>(p, batch, is_bf16, s);
-    case 112: return launch_attention_bwd<112>(p, batch, is_bf16, s);
-    case 128: return launch_attention_bwd<128>(p, batch, is_bf16, s);
+    case 16: return launch_attention_bwd_f32<16>(p, batch, s);
+    case 32: return launch_attention_bwd_f32<32>(p, batch, s);
+    case 48: return launch_attention_bwd_f32<48>(p, batch, s);
+    case 64: return launch_attention_bwd_f32<64>(p, batch, s);
+    case 80: return launch_attention_bwd_f32<80>(p, batch, s);
+    case 96: return launch_attention_bwd_f32<96>(p, batch, s);
+    case 112: return launch_attention_bwd_f32<112>(p, batch, s);
+    case 128: return launch_attention_bwd_f32<128>(p, batch, s);
     default: return cudaErrorInvalidValue;
   }
 }
+
+// dynamic shared memory of the bf16 attention backward's dq kernel (kernel
+// 0) or dk/dv kernel (kernel 1) for items of seq tokens (0 above 512)
+extern "C" int vit_block_attention_bwd_smem(int kernel, int seq) { return attention_bwd_bf16_smem(kernel, seq); }
 
 // desc: n groups of (src pointer, dst pointer, chunks, size); dst[i] = sum
 // over c in order of src[c * size + i].  n up to 16.

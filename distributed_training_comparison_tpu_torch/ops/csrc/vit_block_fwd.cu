@@ -18,11 +18,12 @@
 //   without a concatenation).  Epilogue: fp32 accumulator -> compute dtype
 //   -> + bias (rounded to the compute dtype) -> optionally the tanh gelu
 //   (fp32, rounded once) or + residual.
-// - block_attention: one block per (item, head, query tile), q/k/v read as
-//   column slices of the packed (B*S, 3*dim) qkv.  The softmax is exact, as
-//   _softmax_small's: a first sweep over the key tiles finds each row's max
-//   and sum, a second forms P = exp(s - max) / sum, rounds it to the compute
-//   dtype and accumulates P.V in fp32.  Keys past S are masked; non-causal.
+// - block_attention: one block per (item, head, 64-query tile), q/k/v read
+//   as column slices of the packed (B*S, 3*dim) qkv.  The softmax is exact,
+//   as _softmax_small's (attention_small.py::head_fwd): fp32 scores times
+//   the scale, keys past S at -1e30, P = exp(s - max) / sum over the row's
+//   whole key set, rounded to the compute dtype before P.V, O accumulated in
+//   fp32 and rounded once.  Non-causal.
 //
 // What bounds block_gemm: at the vit_tiny --patch-size 2 shapes (M 8192 rows
 // at serve bucket 32, 32768 in training; K and N 192-768) a product does
@@ -43,14 +44,29 @@
 // - the epilogue runs on the accumulators and stores the rounded result.
 // fp32 runs a SIMT tile with no TF32.  The chain still round-trips qkv and
 // the MLP activation hmid through device memory; fusing those is later work.
+//
+// What bounds block_attention: bytes.  At the serve shape (B 32, S 256, 3
+// heads of 64) it reads qkv and writes o, 4 B S dim x 2 bytes = 12.6 MB
+// (0.0038 ms at 3.35 TB/s), against 4 B S^2 dim = 1.6 GFLOP (0.0016 ms at
+// 989 TFLOP/s).  The bf16 design (block_attn_wgmma) reads each input once
+// per block and keeps the rest on chip: a block per (item, head, 64-query
+// tile) stages Q, and K and V of the whole item (32 KB each at S 256), once;
+// every product is a wgmma (the helpers of attention_tiles.cuh); a row's
+// every score is held in registers, so Q.K^T runs once and the max, the sum
+// and P come in one pass: up to S 128 in one warpgroup, above in two that
+// split the keys (two tiles each up to S 256, 64 registers of scores a
+// thread, so that two blocks fit an SM; three or four above) and combine
+// each row's max and sum, then their O partials, through shared memory in a
+// fixed order.  Two products per (64-query, 64-key) tile pair: Q.K^T and
+// P.V.
 
+#include "attention_tiles.cuh"
 #include "block_gemm.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr float kNegInf = -1e30f;  // finite "-inf": exp gives exactly 0
 constexpr float kLnEps = 1e-6f;
 constexpr int kThreads = 128;
 
@@ -58,43 +74,10 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // jax.nn.gelu's tanh approximation, in fp32
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float inner = 0.7978845608028654f * (x + 0.044715f * (x * x * x));
   return x * (0.5f * (1.f + tanhf(inner)));
-}
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // ------------------------------------------------------------ block_gemm
@@ -381,164 +364,82 @@ struct AttnParams {
   float scale;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
+constexpr int kHeadDim = 64;     // bf16: the one head dim of a zoo model the fusion gate fuses
+
+// blocks an SM that block_attn_wgmma<NTW, WG> is built for: two of two
+// warpgroups holding two key tiles each (128 registers a thread)
+__host__ __device__ constexpr int attn_blocks_per_sm(int ntw, int wg) { return wg == 2 && ntw <= 2 ? 2 : 1; }
+
+// dynamic shared memory of block_attn_wgmma<NTW, WG>: Q (64 rows), K and V
+// (all of the item's keys, NTW x WG tiles), the row exchange (2 slots), the
+// O partials of warpgroups past the first, alignment slack
+template <int NTW, int WG>
+__host__ __device__ constexpr int attn_wgmma_smem() {
+  return box_bytes<64>() + 2 * box_bytes<64 * NTW * WG>() + 2 * WG * 64 * 4 +
+         (WG - 1) * (kHeadDim / 2) * kWarpgroup * 4 + 1024;
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-constexpr int kAM = 64;  // bf16: query rows per block (4 warps x 16)
-constexpr int kAN = 64;  // bf16: keys per tile
-
-// rows [row0, row0 + ROWS) of one head's (seq, D) column slice (row stride
-// ld) into shared memory with row stride D + 8; rows past seq zero-filled
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* smem, const bf16* g, long long ld, int row0,
-                                          int len) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool valid = row0 + r < len;
-    cp_async16(smem + r * (D + 8) + col, g + (valid ? (row0 + r) * ld : 0) + col, valid);
-  }
-}
-
-// scaled scores of this warp's 16 query rows against one 64-key tile, keys
-// at or past `len` set to kNegInf
-template <int D>
-__device__ __forceinline__ void tile_scores(float s[kAN / 8][4], const uint32_t qf[D / 16][4],
-                                            const bf16* ks, int n0, int len, float scale) {
-  constexpr int LDS = D + 8;
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < kAN / 8; ++n) {
-    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const bf16* k0 = ks + (n * 8 + g) * LDS + kk * 16 + t * 2;
-      const uint32_t bf[2] = {lds32(k0), lds32(k0 + 8)};
-      mma_16816(s[n], qf[kk], bf);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = n0 + n * 8 + t * 2 + (e & 1);
-      s[n][e] = col < len ? s[n][e] * scale : kNegInf;
-    }
-  }
-}
-
-template <int D>
-constexpr int attn_bf16_smem() {
-  return (kAM + 2 * kAN) * (D + 8) * 2;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) vit_block_attn_bf16(const AttnParams p) {
-  constexpr int LDS = D + 8;
-  constexpr int NS = kAN / 8;  // 8-wide score tiles per key tile
-  constexpr int NO = D / 8;    // 8-wide output tiles over the head dim
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + kAM * LDS;
-  bf16* vs = ks + kAN * LDS;
-
-  const int m0 = blockIdx.x * kAM, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
+// K5's attention in bf16 at head dim 64: the 64 query rows [64 blockIdx.x,
+// + 64) of item blockIdx.z, head blockIdx.y, against every key of the item.
+// Q, K and V come by cp.async into 128-byte-swizzled tiles, K and V whole
+// and once (V lands under the score product).  Each of the WG warpgroups
+// owns NTW 64-key tiles: S = Q.K^T by wgmma from shared memory (both
+// K-major) into registers, the scores once; the row max and sum over the
+// row's whole key set (combined across the warpgroups through shared memory
+// in warpgroup order), P = e / sum rounded to bf16 as the A fragments of
+// O = P.V (V MN-major); the warpgroups' O partials are added in warpgroup
+// order and rounded once.  Keys past S are masked; query rows past S are
+// computed on zero rows and not written.
+template <int NTW, int WG>
+__global__ void __launch_bounds__(kWarpgroup * WG, attn_blocks_per_sm(NTW, WG)) block_attn_wgmma(const AttnParams p) {
+  constexpr int D = kHeadDim, KROWS = 64 * NTW * WG, kAll = kWarpgroup * WG;
+  constexpr int kTile = box_bytes<64>();  // one 64-row tile: 8 KB
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t qs = (raw + 1023) & ~1023u, ks = qs + kTile, vs = ks + box_bytes<KROWS>();
+  float* red = reinterpret_cast<float*>(smem_raw + (vs + box_bytes<KROWS>() - raw));
+  float* part = red + 2 * WG * 64;
+  const int m0 = blockIdx.x * 64, h = blockIdx.y, tid = threadIdx.x, t0 = tid / kWarpgroup * NTW;
   const long long ld = 3LL * p.dim;
-  const bf16* item = static_cast<const bf16*>(p.qkv) + static_cast<long long>(b) * p.seq * ld;
-  const bf16* qg = item + h * D;
-  const bf16* kg = item + p.dim + h * D;
-  const bf16* vg = item + 2 * p.dim + h * D;
+  const bf16* item = static_cast<const bf16*>(p.qkv) + static_cast<long long>(blockIdx.z) * p.seq * ld + h * D;
+  load_swizzled<D, 64, kAll>(qs, item + m0 * ld, ld, p.seq - m0, tid);
+  load_swizzled<D, KROWS, kAll>(ks, item + p.dim, ld, p.seq, tid);
+  cp_async_commit();
+  load_swizzled<D, KROWS, kAll>(vs, item + 2 * p.dim, ld, p.seq, tid);
+  tiles_landed<1>();  // Q and K; V may still be in flight
 
-  load_rows<D, kAM>(qs, qg, ld, m0, p.seq);
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t qf[D / 16][4];
+  float s[NTW][32], mx[2], sum[2];
+  wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* q0 = qs + (wr + g) * LDS + kk * 16 + t * 2;
-    qf[kk][0] = lds32(q0);
-    qf[kk][1] = lds32(q0 + 8 * LDS);
-    qf[kk][2] = lds32(q0 + 8);
-    qf[kk][3] = lds32(q0 + 8 * LDS + 8);
-  }
-
-  // sweep 1: each row's max and sum of exp(s - max) over every key tile
-  float mx[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f};  // sum: this thread's share
-  for (int n0 = 0; n0 < p.seq; n0 += kAN) {
-    load_rows<D, kAN>(ks, kg, ld, n0, p.seq);
-    cp_async_wait_all();
-    __syncthreads();
-    float s[NS][4];
-    tile_scores<D>(s, qf, ks, n0, p.seq, p.scale);
-    __syncthreads();  // every warp is done with this K tile
+  for (int j = 0; j < NTW; ++j) wgmma_abt<D, 64, KROWS>(s[j], qs, ks + (t0 + j) * kTile);
+  wgmma_commit();
+  wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float m = mx[i];
+  for (int j = 0; j < NTW; ++j) fence_regs<32>(s[j]);
+  softmax_rows(s, p.scale, [&](int, int col) { return 64 * t0 + col < p.seq; }, 64, SharedRows<WG>{red},
+               mx, sum);
+  uint32_t pa[NTW][4][4];
 #pragma unroll
-      for (int n = 0; n < NS; ++n) m = fmaxf(m, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
-      m = quad_max(m);
-      float add = 0.f;
+  for (int j = 0; j < NTW; ++j) pack_a(pa[j], s[j]);
+  float o[D / 2];
 #pragma unroll
-      for (int n = 0; n < NS; ++n) add += expf(s[n][2 * i] - m) + expf(s[n][2 * i + 1] - m);
-      sum[i] = sum[i] * expf(mx[i] - m) + add;
-      mx[i] = m;
-    }
-  }
-  const float total[2] = {quad_sum(sum[0]), quad_sum(sum[1])};
-
-  // sweep 2: P = exp(s - max) / sum rounded to bf16, accumulated P.V in fp32
-  float acc[NO][4];
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  tiles_landed<0>();  // V
+  fence_regs<D / 2>(o);
+  fence_regs<16 * NTW>(&pa[0][0][0]);
+  wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int n0 = 0; n0 < p.seq; n0 += kAN) {
-    load_rows<D, kAN>(ks, kg, ld, n0, p.seq);
-    load_rows<D, kAN>(vs, vg, ld, n0, p.seq);
-    cp_async_wait_all();
-    __syncthreads();
-    float s[NS][4];
-    tile_scores<D>(s, qf, ks, n0, p.seq, p.scale);
+  for (int j = 0; j < NTW; ++j)
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = expf(s[n][e] - mx[e >> 1]) / total[e >> 1];
-#pragma unroll
-    for (int kk = 0; kk < kAN / 16; ++kk) {
-      // two adjacent 8-key score tiles are exactly the A fragment of a 16-key step
-      const uint32_t pa[4] = {
-          pack_f32_to_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_f32_to_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_f32_to_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_f32_to_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-      const bf16* v0 = vs + (kk * 16 + t * 2) * LDS + g;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const bf16* vn = v0 + n * 8;
-        const uint32_t bf[2] = {pack_bf16(vn[0], vn[LDS]), pack_bf16(vn[8 * LDS], vn[9 * LDS])};
-        mma_16816(acc[n], pa, bf);
-      }
-    }
-    __syncthreads();  // every warp is done with this K and V tile
-  }
-
-  bf16* og = static_cast<bf16*>(p.o) + static_cast<long long>(b) * p.seq * p.dim + h * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = m0 + wr + g + 8 * i;
-    if (row >= p.seq) continue;
-    bf16* orow = og + static_cast<long long>(row) * p.dim + t * 2;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8) = pack_f32_to_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
-    }
-  }
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(o, pa[j][kk], desc_mnmajor<KROWS>(vs + (t0 + j) * kTile, kk));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<D / 2>(o);
+  fence_regs<16 * NTW>(&pa[0][0][0]);
+  sum_partials<WG>(o, part);
+  if (tid < kWarpgroup)
+    store_acc<D>(static_cast<bf16*>(p.o) + (static_cast<long long>(blockIdx.z) * p.seq + m0) * p.dim + h * D, o,
+                 p.dim, p.seq - m0);
 }
 
 constexpr int kFM = 32;  // fp32: query rows per block, 4 threads per row
@@ -662,14 +563,50 @@ cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, cons
 }
 
 template <int D>
-cudaError_t launch_attention(const AttnParams& p, int batch, int heads, int is_bf16,
-                             cudaStream_t s) {
-  if (is_bf16) {
-    const dim3 grid((p.seq + kAM - 1) / kAM, heads, batch);
-    return launch(vit_block_attn_bf16<D>, grid, attn_bf16_smem<D>(), s, p);
-  }
+cudaError_t launch_attention_f32(const AttnParams& p, int batch, int heads, cudaStream_t s) {
   const dim3 grid((p.seq + kFM - 1) / kFM, heads, batch);
   return launch(vit_block_attn_f32<D>, grid, attn_f32_smem<D>(), s, p);
+}
+
+template <int NTW, int WG>
+cudaError_t launch_attention_wgmma(const AttnParams& p, int batch, int heads, cudaStream_t s) {
+  int sms = 0;
+  const cudaError_t err = bgemm::prepare<&block_attn_wgmma<NTW, WG>>(attn_wgmma_smem<NTW, WG>(), &sms);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.seq + 63) / 64, heads, batch);
+  block_attn_wgmma<NTW, WG><<<grid, kWarpgroup * WG, attn_wgmma_smem<NTW, WG>(), s>>>(p);
+  return cudaGetLastError();
+}
+
+// bf16: items of up to two key tiles take one warpgroup, which holds a
+// query row's every score (S <= 128); up to four (S <= 256), two warpgroups
+// of two tiles each; up to eight (S <= 512), two of three or four
+cudaError_t launch_attention_bf16(const AttnParams& p, int batch, int heads, cudaStream_t s) {
+  switch ((p.seq + 63) / 64) {
+    case 1: return launch_attention_wgmma<1, 1>(p, batch, heads, s);
+    case 2: return launch_attention_wgmma<2, 1>(p, batch, heads, s);
+    case 3:
+    case 4: return launch_attention_wgmma<2, 2>(p, batch, heads, s);
+    case 5:
+    case 6: return launch_attention_wgmma<3, 2>(p, batch, heads, s);
+    case 7:
+    case 8: return launch_attention_wgmma<4, 2>(p, batch, heads, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int attention_bf16_smem(int seq) {
+  switch ((seq + 63) / 64) {
+    case 1: return attn_wgmma_smem<1, 1>();
+    case 2: return attn_wgmma_smem<2, 1>();
+    case 3:
+    case 4: return attn_wgmma_smem<2, 2>();
+    case 5:
+    case 6: return attn_wgmma_smem<3, 2>();
+    case 7:
+    case 8: return attn_wgmma_smem<4, 2>();
+    default: return 0;
+  }
 }
 
 }  // namespace
@@ -727,21 +664,27 @@ extern "C" int vit_block_gemm_smem(int k, int bn) {
 }
 
 // Attention of the packed qkv (batch * seq, 3 * heads * head_dim) into o
-// (batch * seq, heads * head_dim), both contiguous; head_dim a multiple of 16
-// up to 128.  Returns the launch's cudaError_t (0 on success).
+// (batch * seq, heads * head_dim), both contiguous and 16-byte aligned.  bf16
+// takes head_dim 64 and seq up to 512; fp32 head_dim a multiple of 16 up to
+// 128.  Returns the launch's cudaError_t (0 on success).
 extern "C" int vit_block_attention(const void* qkv, void* o, int batch, int seq, int heads,
                                    int head_dim, float scale, int is_bf16, void* stream) {
   const AttnParams p{qkv, o, seq, heads * head_dim, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return head_dim == kHeadDim ? launch_attention_bf16(p, batch, heads, s) : cudaErrorInvalidValue;
   switch (head_dim) {
-    case 16: return launch_attention<16>(p, batch, heads, is_bf16, s);
-    case 32: return launch_attention<32>(p, batch, heads, is_bf16, s);
-    case 48: return launch_attention<48>(p, batch, heads, is_bf16, s);
-    case 64: return launch_attention<64>(p, batch, heads, is_bf16, s);
-    case 80: return launch_attention<80>(p, batch, heads, is_bf16, s);
-    case 96: return launch_attention<96>(p, batch, heads, is_bf16, s);
-    case 112: return launch_attention<112>(p, batch, heads, is_bf16, s);
-    case 128: return launch_attention<128>(p, batch, heads, is_bf16, s);
+    case 16: return launch_attention_f32<16>(p, batch, heads, s);
+    case 32: return launch_attention_f32<32>(p, batch, heads, s);
+    case 48: return launch_attention_f32<48>(p, batch, heads, s);
+    case 64: return launch_attention_f32<64>(p, batch, heads, s);
+    case 80: return launch_attention_f32<80>(p, batch, heads, s);
+    case 96: return launch_attention_f32<96>(p, batch, heads, s);
+    case 112: return launch_attention_f32<112>(p, batch, heads, s);
+    case 128: return launch_attention_f32<128>(p, batch, heads, s);
     default: return cudaErrorInvalidValue;
   }
 }
+
+// dynamic shared memory of the bf16 attention kernel for items of seq
+// tokens (0 above 512)
+extern "C" int vit_block_attention_smem(int seq) { return attention_bf16_smem(seq); }

@@ -30,6 +30,11 @@ block converts one slab of W (all of K by :func:`slab_width` output
 columns) to bf16 once per call and streams the activation's row tiles past
 it; ``block_gemm_wgrad`` reads G and A MN-major as they land, with no
 transposed staging, in tiles of :func:`wgrad_width` input columns.
+The bf16 attention stages (``block_attention``, ``block_attention_bwd``;
+``csrc/attention_tiles.cuh``, shared with ``attention_small``) take head
+dim 64, the zoo's only fused one, and up to 512 tokens: a block stages its
+item's K and V once and computes the scores once, every product a
+``wgmma``.
 
 The backward (K6, ``_block_bwd_kernel``) recomputes the forward from x
 alone, then produces dx and the twelve parameter gradients at the TPU
@@ -71,7 +76,9 @@ from .attention_small import packed_attention_bwd_reference, packed_attention_re
 
 LN_EPS = 1e-6
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-MAX_HEAD_DIM = 128  # head dims: multiples of 16 up to this
+MAX_HEAD_DIM = 128  # fp32 head dims: multiples of 16 up to this
+BF16_HEAD_DIM = 64  # bf16: the one head dim of a zoo model the fusion gate fuses
+MAX_BF16_SEQ = 512  # bf16 attention: the top of the gate's token window
 MAX_DIM = 1024
 QKV = ("q_proj", "k_proj", "v_proj")
 DENSE = (*QKV, "proj", "mlp_up", "mlp_down")
@@ -330,11 +337,28 @@ def _attention_c_args() -> list:
     return [ptr] * 2 + [i32] * 4 + [ctypes.c_float, i32, ptr]
 
 
-def _check_head_dim(d: int) -> None:
+def _check_head_dim(d: int, dtype: torch.dtype) -> None:
+    """The head dims the fused block's attention kernels are instantiated
+    for: only the zoo's in bf16 (its Hopper kernels), any multiple of 16 up
+    to MAX_HEAD_DIM in fp32."""
+    if dtype == torch.bfloat16 and d != BF16_HEAD_DIM:
+        raise ValueError(
+            f"the fused block's CUDA kernels take head dim {BF16_HEAD_DIM} in bf16 (the one "
+            f"head dim of a zoo model the fusion gate fuses; fp32 takes multiples of 16 up "
+            f"to {MAX_HEAD_DIM}), got {d}"
+        )
     if d % 16 or not 16 <= d <= MAX_HEAD_DIM:
         raise ValueError(
             f"the fused block's CUDA kernels take head dims that are multiples of 16 "
             f"up to {MAX_HEAD_DIM}, got {d}"
+        )
+
+
+def _check_seq(seq: int, dtype: torch.dtype) -> None:
+    if dtype == torch.bfloat16 and seq > MAX_BF16_SEQ:
+        raise ValueError(
+            f"the fused block's bf16 attention kernels hold an item's keys on chip and take "
+            f"up to {MAX_BF16_SEQ} tokens (the gate's window), got {seq}"
         )
 
 
@@ -343,8 +367,11 @@ def block_attention(
     stream: int | None = None,
 ) -> torch.Tensor:
     """``packed_attention_reference``'s function; on the card the CUDA
-    kernel ``block_attention``: one block per (item, head, 64-query tile)
-    with an exact two-sweep softmax, launched as :func:`block_gemm` is.
+    kernel ``block_attention``, launched as :func:`block_gemm` is: one block
+    per (item, head, 64-query tile).  bf16 (head dim 64, S up to 512) runs
+    ``block_attn_wgmma``, which stages the item's K and V once and computes
+    the scores once on ``wgmma``; fp32 (head dims that are multiples of 16
+    up to 128) a SIMT kernel with an exact two-sweep softmax.
     ``block_attention.launches`` counts its launches."""
     if qkv.device.type == "cpu":
         return packed_attention_reference(qkv, seq=seq, heads=heads, scale=scale)
@@ -363,7 +390,8 @@ def block_attention(
     if seq <= 0 or rows % seq:
         raise ValueError(f"{rows} rows are not whole items of {seq} tokens")
     d = dim // heads
-    _check_head_dim(d)
+    _check_head_dim(d, qkv.dtype)
+    _check_seq(seq, qkv.dtype)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     qkv = _operand(qkv)
     out = torch.empty((rows, dim), device=qkv.device, dtype=qkv.dtype)
@@ -385,15 +413,16 @@ def _check_card_block(x: torch.Tensor, heads: int, norm_f32: bool) -> None:
     """What the fused block's CUDA kernels take, beyond the JAX shape rules."""
     if x.device.type != "cuda":
         raise ValueError(f"the fused block runs on cuda or cpu, not {x.device}")
-    dim = x.shape[-1]
-    _check_head_dim(dim // heads)
-    if dim > MAX_DIM:
-        raise ValueError(f"the fused block's CUDA kernels take dim up to {MAX_DIM}, got {dim}")
     if not norm_f32:
         raise NotImplementedError(
             "the fused block on the card takes fp32 LayerNorm statistics only; "
             "norm_dtype=None runs on the CPU's plain version"
         )
+    dim = x.shape[-1]
+    _check_head_dim(dim // heads, x.dtype)
+    _check_seq(x.shape[1], x.dtype)
+    if dim > MAX_DIM:
+        raise ValueError(f"the fused block's CUDA kernels take dim up to {MAX_DIM}, got {dim}")
 
 
 def _block_forward(x: torch.Tensor, params: Mapping[str, torch.Tensor], heads: int,
@@ -457,8 +486,9 @@ def fused_vit_block(
     (``ln_attn.weight``, ``q_proj.weight``, ... ``mlp_down.bias``), fp32.
     A CPU tensor takes :func:`fused_vit_block_reference`.  On the card the
     chain launches ``block_gemm`` four times and ``block_attention`` once,
-    and raises on head dims that are not multiples of 16 up to 128, on
-    dim above 1024 and on ``norm_f32=False``.  ``fused_vit_block.launches``
+    and raises on a head dim other than 64 in bf16 and than a multiple of
+    16 up to 128 in fp32, on more than 512 tokens in bf16, on dim above
+    1024 and on ``norm_f32=False``.  ``fused_vit_block.launches``
     counts the blocks run through the kernels.  Where autograd records the
     call, it goes through ``_FusedViTBlock``, whose backward is
     :func:`fused_vit_block_bwd`.
@@ -773,10 +803,13 @@ def block_attention_bwd(
 ) -> torch.Tensor:
     """``packed_attention_bwd_reference``'s function; on the card the CUDA
     kernels of ``block_attention_bwd``, one call launching two: dq with
-    each query row's softmax statistics (one block per item, head and
-    64-query tile), then dk and dv (one block per item, head and 64-key
-    tile, reading those statistics).  No atomics: each block owns its
-    output rows.  ``block_attention_bwd.launches`` counts its calls."""
+    each query row's softmax max, sum and ``Σ dp·P`` written to an fp32
+    scratch (per item, head and 64-query tile), then dk and dv (per item,
+    head and 64-key tile, reading that scratch).  bf16
+    (head dim 64, S up to 512) runs ``attn_dq_wgmma`` and ``attn_dkv_wgmma``
+    (K and V, Q and dO staged once a block, every product on ``wgmma``);
+    fp32 SIMT kernels.  No atomics: each block owns its output rows.
+    ``block_attention_bwd.launches`` counts its calls."""
     if qkv.device.type == "cpu":
         return packed_attention_bwd_reference(qkv, do, seq=seq, heads=heads)
     _check_card_operands("block_attention_bwd", qkv.dtype, qkv, do)
@@ -790,7 +823,8 @@ def block_attention_bwd(
     if seq <= 0 or rows % seq:
         raise ValueError(f"{rows} rows are not whole items of {seq} tokens")
     d = dim // heads
-    _check_head_dim(d)
+    _check_head_dim(d, qkv.dtype)
+    _check_seq(seq, qkv.dtype)
     qkv, do = _operand(qkv), _operand(do)
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((rows, heads, 3), device=qkv.device)  # max, sum, Σ dp·P per query

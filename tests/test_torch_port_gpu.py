@@ -528,6 +528,80 @@ def test_fused_block_under_autograd_reaches_x_and_every_parameter(cuda_device):
         assert err <= 2**-4, (name, err)
 
 
+# (B, S, dim, heads) of the fused block's bf16 attention kernels: the
+# vit_tiny p2 paths (S 256, 3 heads of 64), a ragged S (136, 2 heads of 64)
+# and the top of the gate's window (S 512, the keys split between two
+# warpgroups)
+ATTENTION_SHAPES = [(8, 256, 192, 3), (3, 136, 128, 2), (2, 512, 192, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,dim,heads", ATTENTION_SHAPES)
+def test_block_attention_matches_plain_on_card(cuda_device, b, s, dim, heads):
+    """``block_attention`` (bf16, ``block_attn_wgmma``) against
+    ``packed_attention_reference`` per row, with chip_smoke.py's bf16 bound:
+    both round P and the output at the same points, so 2^-5 of the row's
+    rms plus 2^-6·|out|."""
+    gen = torch.Generator().manual_seed(s + dim)
+    qkv = torch.randn(b * s, 3 * dim, generator=gen).to(device=cuda_device, dtype=torch.bfloat16)
+    before = vb.block_attention.launches
+    got = vb.block_attention(qkv, seq=s, heads=heads)
+    torch.cuda.synchronize()
+    assert vb.block_attention.launches == before + 1
+    want = small.packed_attention_reference(qkv, seq=s, heads=heads)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert _row_share(got, want, 2**-6) <= 2**-5, _row_share(got, want, 2**-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,dim,heads", ATTENTION_SHAPES)
+def test_block_attention_bwd_matches_plain_on_card(cuda_device, b, s, dim, heads):
+    """``block_attention_bwd`` (bf16, ``attn_dq_wgmma`` then
+    ``attn_dkv_wgmma``) against ``packed_attention_bwd_reference``: dq, dk
+    and dv each per row within 2^-5 of the row's rms plus 2^-6·|grad|, as
+    chip_smoke.py holds each K6 stage (the same rounding points: P, dS and
+    each gradient)."""
+    gen = torch.Generator().manual_seed(s + dim + 1)
+    qkv = torch.randn(b * s, 3 * dim, generator=gen).to(device=cuda_device, dtype=torch.bfloat16)
+    do = torch.randn(b * s, dim, generator=gen).to(device=cuda_device, dtype=torch.bfloat16)
+    before = vb.block_attention_bwd.launches
+    got = vb.block_attention_bwd(qkv, do, seq=s, heads=heads)
+    torch.cuda.synchronize()
+    assert vb.block_attention_bwd.launches == before + 1
+    want = small.packed_attention_bwd_reference(qkv, do, seq=s, heads=heads)
+    assert got.dtype == torch.bfloat16 and got.shape == qkv.shape and bool(torch.isfinite(got).all())
+    for j, name in enumerate("qkv"):
+        cols = slice(j * dim, (j + 1) * dim)
+        share = _row_share(got[:, cols], want[:, cols], 2**-6)
+        assert share <= 2**-5, (name, share)
+
+
+@pytest.mark.gpu
+def test_block_attention_bwd_is_bitwise_deterministic(cuda_device):
+    """No atomics and every sum in a fixed order: two calls give
+    bit-identical dqkv."""
+    gen = torch.Generator().manual_seed(8)
+    qkv = torch.randn(16 * 256, 576, generator=gen).to(device=cuda_device, dtype=torch.bfloat16)
+    do = torch.randn(16 * 256, 192, generator=gen).to(device=cuda_device, dtype=torch.bfloat16)
+    first = vb.block_attention_bwd(qkv, do, seq=256, heads=3)
+    assert torch.equal(first, vb.block_attention_bwd(qkv, do, seq=256, heads=3))
+
+
+@pytest.mark.gpu
+def test_block_attention_raises_on_a_bf16_head_dim_other_than_64(cuda_device):
+    """bf16 takes head dim 64 only (the one fused zoo head dim); fp32 still
+    takes head dim 32."""
+    qkv = torch.zeros(2 * 128, 3 * 64, device=cuda_device, dtype=torch.bfloat16)
+    do = torch.zeros(2 * 128, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 64 in bf16"):
+        vb.block_attention(qkv, seq=128, heads=2)
+    with pytest.raises(ValueError, match="head dim 64 in bf16"):
+        vb.block_attention_bwd(qkv, do, seq=128, heads=2)
+    got = vb.block_attention(qkv.float(), seq=128, heads=2)
+    torch.cuda.synchronize()
+    assert got.shape == (2 * 128, 64) and got.dtype == torch.float32
+
+
 # The bf16 GEMM kernels of the fused block chains, launch by launch: (wrapper,
 # M, K or out, N or in, weight segments, epilogue).  The vit_tiny p2 serve
 # shape (bucket 32: 8192 rows) and train shape (batch 128: 32768 rows, 32

@@ -151,29 +151,43 @@ def test_vit_patch2_force_matches_jax_through_vit_from_jax():
     np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
 
 
+# (B, S, dim, heads) of the attention stage: the first case, then the shapes
+# the card's bf16 kernels take (head dim 64): the vit_tiny p2 paths (S 256,
+# 3 heads), a ragged S (136, 2 heads) and the gate's window top (S 512)
+ATTENTION_SHAPES = [
+    pytest.param(B, S, DIM, HEADS, id="s256-hd32"),
+    pytest.param(2, 256, 192, 3, id="s256-hd64"),
+    pytest.param(2, 136, 128, 2, id="s136-hd64"),
+    pytest.param(2, 512, 192, 3, id="s512-hd64"),
+]
+
+
+@pytest.mark.parametrize("b,s,dim,heads", ATTENTION_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_stage_matches_jax_head_fwd(dtype):
+def test_attention_stage_matches_jax_head_fwd(dtype, b, s, dim, heads):
     """The port's attention stage against JAX ``head_fwd`` (the stacked
-    block-diagonal form, all ``B`` items in one tile) per head, and the
-    packed multi-head form against the heads side by side.  fp32 at
-    ``highest``: 1e-6 on outputs up to ~0.7 (summation order).  bf16: P and the
-    output each round to bf16 on both sides; a one-ulp flip of P moves an
-    output by 2^-8 of one term of S, and the output's own rounding differs
-    by at most one ulp: 2^-5 of the row's rms plus 2^-6 |out|."""
+    block-diagonal form, all ``b`` items in one tile) per head, and the
+    packed multi-head form against the heads side by side, at each shape the
+    card's kernels take, so that kernel, plain version and JAX hold as a
+    chain.  fp32 at ``highest``: 1e-6 on outputs up to ~0.7 (summation
+    order).  bf16: P and the output each round to bf16 on both sides; a
+    one-ulp flip of P moves an output by 2^-8 of one term of S, and the
+    output's own rounding differs by at most one ulp: 2^-5 of the row's rms
+    plus 2^-6 |out|."""
     rng = np.random.default_rng(3)
-    qkv = rng.standard_normal((B * S, 3 * DIM)).astype(np.float32)
-    d = DIM // HEADS
+    qkv = rng.standard_normal((b * s, 3 * dim)).astype(np.float32)
+    d = dim // heads
     scale = d**-0.5
     qkv_t = torch.from_numpy(qkv).to(dtype)
     qkv_j = jnp.asarray(qkv).astype(JNP[dtype])
-    packed = packed_attention_reference(qkv_t, seq=S, heads=HEADS)
-    assert packed.dtype == dtype and packed.shape == (B * S, DIM)
-    for h in range(HEADS):
-        cols = [slice(j * DIM + h * d, j * DIM + (h + 1) * d) for j in range(3)]
+    packed = packed_attention_reference(qkv_t, seq=s, heads=heads)
+    assert packed.dtype == dtype and packed.shape == (b * s, dim)
+    for h in range(heads):
+        cols = [slice(j * dim + h * d, j * dim + (h + 1) * d) for j in range(3)]
         with jax.default_matmul_precision("highest"):
-            want, _ = jax_head_fwd(*(qkv_j[:, c] for c in cols), B, S, scale, False)
+            want, _ = jax_head_fwd(*(qkv_j[:, c] for c in cols), b, s, scale, False)
         want = _as_np(want)
-        got = head_fwd(*(qkv_t[:, c] for c in cols), S, scale).float().numpy()
+        got = head_fwd(*(qkv_t[:, c] for c in cols), s, scale).float().numpy()
         np.testing.assert_array_equal(packed[:, h * d:(h + 1) * d].float().numpy(), got)
         if dtype == torch.float32:
             np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)

@@ -142,34 +142,46 @@ def _jax_raw_params(jp, cd, norm_f32):
 _SCALE_OF = {3: 2}  # JAX order: packed qkv bias → packed qkv kernel
 
 
+# (B, S, dim, heads) of the attention backward: the first case, then the
+# shapes the card's bf16 kernels take (head dim 64): the vit_tiny p2 paths
+# (S 256, 3 heads), a ragged S (136, 2 heads) and the gate's window top (S 512)
+ATTENTION_SHAPES = [
+    pytest.param(B, S, DIM, HEADS, id="s256-hd32"),
+    pytest.param(2, 256, 192, 3, id="s256-hd64"),
+    pytest.param(2, 136, 128, 2, id="s136-hd64"),
+    pytest.param(2, 512, 192, 3, id="s512-hd64"),
+]
+
+
+@pytest.mark.parametrize("b,s,dim,heads", ATTENTION_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_bwd_matches_jax_head_bwd(dtype):
+def test_attention_bwd_matches_jax_head_bwd(dtype, b, s, dim, heads):
     """The port's ``head_bwd`` (per head) and ``packed_attention_bwd_reference``
     against JAX ``head_bwd`` given its ``_head_probs`` (the stacked
-    block-diagonal form, all ``B`` items in one tile).  fp32 at ``highest``:
-    summation order only, 1e-5 of each gradient's scale.  bf16: both round
-    ds·scale, P and each gradient to bf16 at the same points; a one-ulp flip
-    (2^-8) of one ds or P term moves a gradient by 2^-8 of one term among S,
-    and the gradient's own rounding differs by at most one ulp: 2^-6 of its
-    scale."""
+    block-diagonal form, all ``b`` items in one tile), at each shape the
+    card's kernels take.  fp32 at ``highest``: summation order only, 1e-5 of
+    each gradient's scale.  bf16: both round ds·scale, P and each gradient
+    to bf16 at the same points; a one-ulp flip (2^-8) of one ds or P term
+    moves a gradient by 2^-8 of one term among S, and the gradient's own
+    rounding differs by at most one ulp: 2^-6 of its scale."""
     rng = np.random.default_rng(7)
-    qkv = rng.standard_normal((B * S, 3 * DIM)).astype(np.float32)
-    do = rng.standard_normal((B * S, DIM)).astype(np.float32)
-    d = DIM // HEADS
+    qkv = rng.standard_normal((b * s, 3 * dim)).astype(np.float32)
+    do = rng.standard_normal((b * s, dim)).astype(np.float32)
+    d = dim // heads
     scale = d**-0.5
     qkv_t, do_t = torch.from_numpy(qkv).to(dtype), torch.from_numpy(do).to(dtype)
     qkv_j, do_j = jnp.asarray(qkv).astype(JNP[dtype]), jnp.asarray(do).astype(JNP[dtype])
-    packed = packed_attention_bwd_reference(qkv_t, do_t, seq=S, heads=HEADS)
-    assert packed.dtype == dtype and packed.shape == (B * S, 3 * DIM)
+    packed = packed_attention_bwd_reference(qkv_t, do_t, seq=s, heads=heads)
+    assert packed.dtype == dtype and packed.shape == (b * s, 3 * dim)
     tol = 1e-5 if dtype == torch.float32 else 2**-6
-    for h in range(HEADS):
-        cols = [slice(j * DIM + h * d, j * DIM + (h + 1) * d) for j in range(3)]
+    for h in range(heads):
+        cols = [slice(j * dim + h * d, j * dim + (h + 1) * d) for j in range(3)]
         hs = slice(h * d, (h + 1) * d)
         with jax.default_matmul_precision("highest"):
             qh, kh, vh = (qkv_j[:, c] for c in cols)
-            pf = _head_probs(qh, kh, B, S, scale, False)
-            want = jax_head_bwd(qh, kh, vh, do_j[:, hs], pf, B, S, scale)
-        got = head_bwd(*(qkv_t[:, c] for c in cols), do_t[:, hs], S, scale)
+            pf = _head_probs(qh, kh, b, s, scale, False)
+            want = jax_head_bwd(qh, kh, vh, do_j[:, hs], pf, b, s, scale)
+        got = head_bwd(*(qkv_t[:, c] for c in cols), do_t[:, hs], s, scale)
         for j, (g, w) in enumerate(zip(got, want)):
             np.testing.assert_array_equal(packed[:, cols[j]].float().numpy(), g.float().numpy())
             w = _np(w)
