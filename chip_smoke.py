@@ -15,10 +15,12 @@ last line:
              the fused block chains' bf16 GEMMs (``block_gemm_wgmma``,
              ``dgrad_wgmma``, ``wgrad_wgmma``) and attention kernels
              (``block_attn_wgmma``, ``attn_dq_wgmma``, ``attn_dkv_wgmma``)
-             (``ptxas -v``; a bf16 flash kernel, a one-tile kernel or a
-             fused block GEMM or attention kernel that spills fails the
-             run) and each such kernel's dynamic shared memory at the main
-             paths' shapes;
+             and of the grouped expert FFN's bf16 kernels
+             (``moe_ffn_fwd_wgmma``, ``moe_ffn_dw_wgmma``) (``ptxas -v``; a
+             bf16 flash kernel, a one-tile kernel, a fused block GEMM or
+             attention kernel or an expert FFN kernel that spills fails
+             the run) and each such kernel's dynamic shared memory at the
+             main paths' shapes;
 3. kernel checks — each kernel against its plain PyTorch version on the
              card, at the shapes of the serve and train paths (bf16 and
              fp32) and the other regimes it covers, with the tolerance
@@ -104,8 +106,11 @@ last line:
              a per-row tolerance, dropped and padding rows exactly 0, the
              gradients per leaf, K8/K9 bit-identical across two calls, two
              planted faults rejected (a start shifted by a row, a row tile
-             left out of K9's walk), CUDA-event ms of each kernel, its plain
-             version and the composed cuBLAS form of the gather dispatch;
+             left out of K9's walk), the kernels each wrapper ran by
+             symbol (bf16: ``moe_ffn_fwd_wgmma``, ``moe_gmm_dx_kernel``,
+             ``moe_ffn_dw_wgmma``), device ms under the profiler (and
+             CUDA-event ms) of each kernel, its plain version and the
+             composed cuBLAS form of the gather dispatch;
    serve_moe — ``vit_moe --amp`` (8 blocks, dim 192, 3 heads, 8 experts of
              hidden 768, 64 tokens) served through ``entry.run``, buckets
              1..32, 256 requests at concurrency 32: K7 in every block of
@@ -114,6 +119,8 @@ last line:
              of the largest, which a planted K7 fault exceeds; a bucket-32
              dispatch timed under gmm and gather and profiled, and the MoE
              layer's device time split into K7 and routing/permutation;
+             the expert FFN kernels each profile shows by symbol must be
+             ``moe_ffn_fwd_wgmma`` alone, with device time;
    train_moe — ``vit_moe --amp`` trained at batch 256 (the JAX package's
              ``vit_moe_bf16_bs256``), 2304 synthetic training images (18
              steps) and 256 validation images: K7 in every forward, K8 and
@@ -122,7 +129,10 @@ last line:
              (the router's included) against ``--moe-dispatch gather`` and
              the plain kernels (bf16 and fp32) with a bound that rejects a
              planted fault, and in fp32 (2^-13) a TF32 control; ms per step
-             under gmm and gather, profiles;
+             under gmm and gather, profiles, the gmm step's expert FFN
+             kernels by symbol ``moe_ffn_fwd_wgmma`` (K7),
+             ``moe_gmm_dx_kernel`` (K8) and ``moe_ffn_dw_wgmma`` (K9) alone,
+             each with device time;
 7. vit_tiny at 64 tokens — ``small_attention_checks``: the short-sequence
              attention's kernels (K10 forward, K11 backward; bf16 at S <= 64
              one wgmma kernel each way, longer items and fp32 a forward
@@ -294,6 +304,8 @@ _PTXAS_ENTRY = re.compile(
     r"Compiling entry function '\w*?(flash_(?:fwd|bwd)_\w+?|attn_small_\w+?|"
     r"(?:block_gemm|dgrad|wgrad|block_attn|attn_dq|attn_dkv)_wgmma)ILi(\d+)E(\w*?)EEv"
 )
+# the grouped expert FFN's bf16 Hopper kernels, which are no templates
+_PTXAS_PLAIN_ENTRY = re.compile(r"Compiling entry function '\w*?(moe_ffn_(?:fwd|dw)_wgmma)E")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_USED = re.compile(r"Used (\d+) registers")
 _PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
@@ -309,6 +321,9 @@ def ptxas_report(paths, libraries) -> dict:
         for line in paths[lib].with_suffix(".log").read_text().splitlines():
             if m := _PTXAS_ENTRY.search(line):
                 name = f"{m.group(1)}<{m.group(2)}{',' + m.group(3) if m.group(3) else ''}>"
+                report[name] = {}
+            elif m := _PTXAS_PLAIN_ENTRY.search(line):
+                name = m.group(1)
                 report[name] = {}
             elif "Compiling entry function" in line:
                 name = None  # a kernel the report does not cover: its lines are not ours
@@ -390,6 +405,16 @@ def gemm_build_report(build, paths, vb) -> dict:
         dynamic[name] = {f"s{s}": attn_bwd(kernel, s) for s in ATTENTION_BUILD_SEQS}
     return {"kernels": ptxas_report(paths, ("vit_block_fwd", "vit_block_bwd")),
             "dynamic_smem_bytes": dynamic}
+
+
+def moe_build_report(build, paths) -> dict:
+    """The grouped expert FFN's bf16 Hopper kernels (``moe_ffn_fwd_wgmma``,
+    K7; ``moe_ffn_dw_wgmma``, K9): registers, static shared memory and
+    spills from ``ptxas -v``, and the dynamic shared memory each launch
+    asks for (fixed: it does not depend on the shape)."""
+    smem = {kernel: build.load(lib, [], symbol=f"{kernel}_smem")()
+            for kernel, lib in (("moe_ffn_fwd_wgmma", "moe_gmm_fwd"), ("moe_ffn_dw_wgmma", "moe_gmm_bwd"))}
+    return {"kernels": ptxas_report(paths, ("moe_gmm_fwd", "moe_gmm_bwd")), "dynamic_smem_bytes": smem}
 
 
 def kernel_checks(attn) -> list[dict]:
@@ -2146,6 +2171,27 @@ MOE_GMM_CASES = [
 # row (on all three) and K9 with the first 64-row tile of the first kept
 # group left out of its walk.
 GMM_GRAD_TOL = {"bfloat16": 2**-7, "float32": 2**-14}
+# the kernels K7, K8 and K9 launch, by symbol: in bf16 the Hopper kernels of
+# K7 and K9 and the first port's K8; in fp32 the first port's three
+MOE_SYMBOLS = {
+    "bfloat16": {"fwd": "moe_ffn_fwd_wgmma", "dx": "moe_gmm_dx_kernel", "dw": "moe_ffn_dw_wgmma"},
+    "float32": {"fwd": "moe_gmm_fwd_kernel", "dx": "moe_gmm_dx_kernel", "dw": "moe_gmm_dw_kernel"},
+}
+
+
+def _moe_kernel_ms(device_ms_by_name: dict, csrc: Path | None = None) -> dict[str, float]:
+    """Device ms of the grouped expert FFN's kernels (those
+    ``moe_gmm_*.cu`` defines) by symbol."""
+    return _port_kernel_ms(device_ms_by_name, "moe_gmm_*.cu", csrc)
+
+
+def check_moe_kernels(where: str, kernels: dict, keys) -> None:
+    """``kernels`` (symbol -> device ms) must be the bf16 kernels of
+    ``keys`` ("fwd", "dx", "dw") alone, each with device time: a launched
+    kernel whose symbol the profile does not show would read 0 ms."""
+    want = {MOE_SYMBOLS["bfloat16"][k] for k in keys}
+    if set(kernels) != want or not all(kernels[k] > 0 for k in want):
+        raise RuntimeError(f"{where} ran the expert FFN kernels {kernels}, expected {sorted(want)} with device time")
 
 
 def moe_gmm_bounds(n, d, h, ne, kept, dname) -> dict[str, tuple[float, str]]:
@@ -2187,28 +2233,42 @@ def _first_kept(gm, starts, cap, n) -> tuple[int, int]:
     return next((lo, hi) for lo, hi in gm.kept_ranges(starts, cap, n) if hi > lo)
 
 
+def moe_case_inputs(dname: str, n: int, counts=None):
+    """A case of ``MOE_GMM_CASES`` on the card, from seed 5: ``(counts,
+    starts, xs, dy, w1, b1, w2, b2)``, the group counts drawn with
+    ``MOE_SKEW`` where the case gives none, the experts' weights at their
+    xavier init."""
+    import torch
+
+    ne, d, h = MOE_DIMS
+    dtype = getattr(torch, dname)
+    gen = torch.Generator().manual_seed(5)
+    if counts is None:
+        draw = torch.multinomial(torch.tensor(MOE_SKEW), n, replacement=True, generator=gen)
+        counts = torch.bincount(draw, minlength=ne).tolist()
+    starts = torch.tensor([0, *torch.tensor(counts).cumsum(0).tolist()], dtype=torch.int32).cuda()
+    limit = math.sqrt(6.0 / (d + h))  # the experts' xavier init
+    w1, w2 = ((torch.rand(s, generator=gen) * 2 - 1) * limit for s in ((ne, d, h), (ne, h, d)))
+    b1, b2 = (0.1 * torch.randn(s, generator=gen) for s in ((ne, h), (ne, d)))
+    xs, dy = (torch.randn(n, d, generator=gen) for _ in range(2))
+    xs, dy, w1, b1, w2, b2 = (t.to(device="cuda", dtype=dtype) for t in (xs, dy, w1, b1, w2, b2))
+    return counts, starts, xs, dy, w1, b1, w2, b2
+
+
 def moe_gmm_checks(gm) -> list[dict]:
     """K7, K8 and K9 (``ops/moe_gmm.py``) against their plain versions on
     the card at ``MOE_GMM_CASES``: agreement, exact zeros, bitwise replay,
-    the two planted faults, CUDA-event ms of each kernel, its plain version
-    and the composed cuBLAS yardstick, beside its bound."""
+    the two planted faults, the kernels each wrapper ran by symbol (the
+    dtype's ``MOE_SYMBOLS`` alone), device ms of each kernel, its plain
+    version and the composed cuBLAS yardstick (and CUDA-event ms), beside
+    its bound."""
     import torch
 
     out = []
     ne, d, h = MOE_DIMS
     for label, dname, n, cap, counts in MOE_GMM_CASES:
-        dtype = getattr(torch, dname)
         atol_share, rtol, _ = TOLERANCES[dname]
-        gen = torch.Generator().manual_seed(5)
-        if counts is None:
-            draw = torch.multinomial(torch.tensor(MOE_SKEW), n, replacement=True, generator=gen)
-            counts = torch.bincount(draw, minlength=ne).tolist()
-        starts = torch.tensor([0, *torch.tensor(counts).cumsum(0).tolist()], dtype=torch.int32).cuda()
-        limit = math.sqrt(6.0 / (d + h))  # the experts' xavier init
-        w1, w2 = ((torch.rand(s, generator=gen) * 2 - 1) * limit for s in ((ne, d, h), (ne, h, d)))
-        b1, b2 = (0.1 * torch.randn(s, generator=gen) for s in ((ne, h), (ne, d)))
-        xs, dy = (torch.randn(n, d, generator=gen) for _ in range(2))
-        xs, dy, w1, b1, w2, b2 = (t.to(device="cuda", dtype=dtype) for t in (xs, dy, w1, b1, w2, b2))
+        counts, starts, xs, dy, w1, b1, w2, b2 = moe_case_inputs(dname, n, counts)
         kept = gm.kept_mask(starts, cap, n)
         k_rows = int(kept.sum())
 
@@ -2253,20 +2313,26 @@ def moe_gmm_checks(gm) -> list[dict]:
         }
         lib_fwd, lib_bwd = composed_library_ffn(gm, xs, w1, b1, w2, b2, starts, cap, dy)
         big = n >= 16384
-        rec["ms"] = {
-            "fwd": cuda_ms(lambda: gm.grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap), 20),
-            "dx": cuda_ms(lambda: gm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap), 20),
-            "dw": cuda_ms(lambda: gm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap), 20),
+        # device-busy ms under the profiler (the kernels' own time; CUDA
+        # events over back-to-back calls would time the host's call overhead
+        # where the kernel is faster), the event ms beside them, and the
+        # kernels each call ran by symbol
+        calls = {
+            "fwd": lambda: gm.grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap),
+            "dx": lambda: gm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap),
+            "dw": lambda: gm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap),
         }
+        rec["ms"], rec["event_ms"], rec["kernels"] = {}, {}, {}
+        for k, fn in calls.items():
+            rec["ms"][k], rec["event_ms"][k], rec["kernels"][k] = timed_kernels(fn, 20)
         rec["plain_ms"] = {
-            "fwd": cuda_ms(lambda: gm.grouped_ffn_reference(xs, w1, b1, w2, b2, starts, cap),
-                           3 if big else 10, warmup=1),
-            "dx": cuda_ms(lambda: gm.grouped_ffn_dx_reference(xs, dy, w1, b1, w2, starts, cap),
-                          3 if big else 10, warmup=1),
-            "dw": cuda_ms(lambda: gm.grouped_ffn_dw_reference(xs, dy, w1, b1, w2, starts, cap),
-                          3 if big else 10, warmup=1),
+            "fwd": timed(lambda: gm.grouped_ffn_reference(xs, w1, b1, w2, b2, starts, cap), 3 if big else 10)[0],
+            "dx": timed(lambda: gm.grouped_ffn_dx_reference(xs, dy, w1, b1, w2, starts, cap), 3 if big else 10)[0],
+            "dw": timed(lambda: gm.grouped_ffn_dw_reference(xs, dy, w1, b1, w2, starts, cap), 3 if big else 10)[0],
         }
-        rec["library_ms"] = {"fwd": cuda_ms(lib_fwd, 20), "bwd": cuda_ms(lib_bwd, 20)}
+        rec["library_ms"], rec["library_event_ms"] = {}, {}
+        for k, fn in (("fwd", lib_fwd), ("bwd", lib_bwd)):
+            rec["library_ms"][k], rec["library_event_ms"][k] = timed(fn, 20)
         rec["library"] = ("gather dispatch's composed form on the same routing: "
                           "2 x torch.bmm over (E, cap, d) with bias and tanh gelu; bwd its autograd")
         bounds = moe_gmm_bounds(n, d, h, ne, k_rows, dname)
@@ -2274,8 +2340,9 @@ def moe_gmm_checks(gm) -> list[dict]:
         rec["bound_by"] = {k: v[1] for k, v in bounds.items()}
         tol = GMM_GRAD_TOL[dname]
         rec["ok"] = (
-            all(r["finite"] and r["atol_share_needed"] <= atol_share < r["fault_atol_share_needed"]
-                for r in (rec["fwd"], rec["dx"]))
+            all(rec["kernels"][k] == [MOE_SYMBOLS[dname][k]] for k in calls)
+            and all(r["finite"] and r["atol_share_needed"] <= atol_share < r["fault_atol_share_needed"]
+                    for r in (rec["fwd"], rec["dx"]))
             and rec["dropped_rows_exact_zero"] and bitwise
             and max(rec["dw_errors"]) <= tol < max(rec["dw_fault_shifted_start"])
             and tol < max(rec["dw_fault_row_tile"])
@@ -2302,10 +2369,6 @@ def _moe_path_counters(gm, vb, attn) -> dict:
     return {**{n: getattr(gm, n) for n in MOE_COUNTERS}, **_tiny_counters(vb, attn)}
 
 
-def _kernel_device_ms(by_name: dict, fragment: str) -> float:
-    return sum(ms for name, ms in by_name.items() if fragment in name)
-
-
 def moe_layer_profile(engine, images) -> dict:
     """Device time of block 0's MoE layer alone on its input for the
     bucket-32 ``images``, split into K7 and the rest (routing: the fp32 router,
@@ -2325,13 +2388,14 @@ def moe_layer_profile(engine, images) -> dict:
     with torch.inference_mode():
         prof = profile_device(lambda: moe(h), 20)
     names = prof["device_ms_by_name"]
-    k7 = _kernel_device_ms(names, "moe_gmm_fwd_kernel")
+    moe = _moe_kernel_ms(names)
+    k7 = moe.get(MOE_SYMBOLS["bfloat16"]["fwd"], 0.0)
     gemm = sum(ms for n, ms in names.items()
                if any(t in n.lower() for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
     return {
         "device_busy_ms": prof["device_busy_ms"],
-        "k7_ms": k7, "cublas_gemm_ms": gemm,
+        "moe_kernels": moe, "k7_ms": k7, "cublas_gemm_ms": gemm,
         "routing_and_permutation_ms": prof["device_busy_ms"] - k7 - gemm,
         "top_device_ms": {n[:60]: ms for n, ms in top},
     }
@@ -2414,17 +2478,7 @@ def serve_moe_phase(gm, vb, attn) -> dict:
             for _ in range(5):
                 eng.predict_logits(images)
             rec[f"bucket32_batch_ms_{name}{rnd}"] = (time.perf_counter() - t0) / 5 * 1e3
-    prof = profile_device(lambda: engines["gmm"].predict_logits(images), 5)
-    k7 = _kernel_device_ms(prof["device_ms_by_name"], "moe_gmm_fwd_kernel")
-    top = sorted(prof["device_ms_by_name"].items(), key=lambda kv: -kv[1])[:8]
-    rec["bucket32_profile_gmm"] = {
-        "wall_ms_per_batch": prof["wall_ms"],
-        "device_busy_ms_per_batch": prof["device_busy_ms"],
-        "device_idle_share": prof["device_idle_share"],
-        "k7_device_ms_per_batch": k7,
-        "k7_share_of_device_busy": k7 / prof["device_busy_ms"],
-        "top_device_ms_per_batch": {n[:60]: ms for n, ms in top},
-    }
+    rec["bucket32_profile_gmm"] = moe_dispatch_profile(engines["gmm"], images)
     rec["moe_layer_profile"] = {name: moe_layer_profile(eng, images) for name, eng in engines.items()}
     depth = len(engines["gmm"].model.blocks)
     del engines
@@ -2450,6 +2504,24 @@ def serve_moe_phase(gm, vb, attn) -> dict:
     }
 
 
+def moe_dispatch_profile(engine, images, csrc: Path | None = None) -> dict:
+    """One bucket-32 dispatch of ``engine`` under the profiler: busy ms,
+    idle share, the expert FFN kernels' device ms by symbol and K7's share."""
+    prof = profile_device(lambda: engine.predict_logits(images), 5)
+    moe = _moe_kernel_ms(prof["device_ms_by_name"], csrc)
+    k7 = sum(moe.values())  # the serve path launches K7 alone
+    top = sorted(prof["device_ms_by_name"].items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "wall_ms_per_batch": prof["wall_ms"],
+        "device_busy_ms_per_batch": prof["device_busy_ms"],
+        "device_idle_share": prof["device_idle_share"],
+        "moe_kernels": moe,
+        "k7_device_ms_per_batch": k7,
+        "k7_share_of_device_busy": k7 / prof["device_busy_ms"],
+        "top_device_ms_per_batch": {n[:60]: ms for n, ms in top},
+    }
+
+
 def check_serve_moe(serve: dict) -> None:
     if serve["completed"] != serve["offered"] or serve["failed"]:
         raise RuntimeError(f"serve_moe lost requests: {serve}")
@@ -2464,6 +2536,10 @@ def check_serve_moe(serve: dict) -> None:
         raise RuntimeError(f"serve_moe: gmm logits disagree with gather: {rec}")
     if not rec["fault_logits_max_abs_err_vs_gather"] > rec["logits_tol"]:
         raise RuntimeError(f"serve_moe: the planted K7 fault passes the logits bound: {rec}")
+    check_moe_kernels("serve_moe's bucket-32 dispatch", rec["bucket32_profile_gmm"]["moe_kernels"], ("fwd",))
+    layer = rec["moe_layer_profile"]
+    check_moe_kernels("serve_moe's MoE layer under gmm", layer["gmm"]["moe_kernels"], ("fwd",))
+    check_moe_kernels("serve_moe's MoE layer under gather", layer["gather"]["moe_kernels"], ())
 
 
 TRAIN_MOE_ARGV = [
@@ -2622,11 +2698,12 @@ def moe_step_check(gm, precision: str) -> dict:
     }
 
 
-def moe_step_times(reps: int = 5) -> dict:
+def moe_step_times(reps: int = 5, csrc: Path | None = None) -> dict:
     """ms per train step of the train command's trainer under gmm (auto)
     and ``--moe-dispatch gather``, in turns (gmm, gather, gmm, gather), and
-    a profile of two gmm steps: K7, K8 and K9's device ms and shares, and
-    the idle share."""
+    a profile of two steps of each: the expert FFN kernels' device ms by
+    symbol (``csrc``'s, this checkout's by default), K7, K8 and K9's by
+    their bf16 symbols, their share, and the idle share."""
     import torch
 
     from distributed_training_comparison_tpu_torch.config import load_config
@@ -2656,7 +2733,8 @@ def moe_step_times(reps: int = 5) -> dict:
     for name, tr in trainers.items():
         prof = profile_device(lambda: tr.step(images, labels, draws), 2)
         names = prof["device_ms_by_name"]
-        kernels = {k: _kernel_device_ms(names, f"moe_gmm_{k}_kernel") for k in ("fwd", "dx", "dw")}
+        moe = _moe_kernel_ms(names, csrc)
+        kernels = {k: moe.get(sym, 0.0) for k, sym in MOE_SYMBOLS["bfloat16"].items()}
         gemm = sum(ms for n, ms in names.items()
                    if any(t in n.lower() for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
         top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
@@ -2664,8 +2742,9 @@ def moe_step_times(reps: int = 5) -> dict:
             "wall_ms_per_step": prof["wall_ms"],
             "device_busy_ms_per_step": prof["device_busy_ms"],
             "device_idle_share": prof["device_idle_share"],
+            "moe_kernels": moe,
             "moe_kernels_device_ms_per_step": kernels,
-            "moe_kernels_share_of_busy": sum(kernels.values()) / prof["device_busy_ms"],
+            "moe_kernels_share_of_busy": sum(moe.values()) / prof["device_busy_ms"],
             "cublas_gemm_device_ms_per_step": gemm,
             "top_device_ms_per_step": {n[:60]: ms for n, ms in top},
         }
@@ -2739,6 +2818,9 @@ def check_train_moe(train: dict) -> None:
     bad = {p: c for p, c in train["step_checks"].items() if not c["ok"]}
     if bad:
         raise RuntimeError(f"a vit_moe train step through K7-K9 disagrees: {bad}")
+    times = train["step_times"]
+    check_moe_kernels("train_moe's gmm step", times["profile_gmm"]["moe_kernels"], ("fwd", "dx", "dw"))
+    check_moe_kernels("train_moe's gather step", times["profile_gather"]["moe_kernels"], ())
 
 
 # --------------------------------- vit_tiny at 64 tokens: K10, K11
@@ -2791,13 +2873,14 @@ def small_bounds(b, s, h, d, causal, dname) -> dict[str, tuple[float, str]]:
             "bwd": bound(10 * pairs * d, 7 * elems, dname)}
 
 
-_GLOBAL_FN = re.compile(r"__global__ void(?: __launch_bounds__\((?:[^()]|\([^()]*\))*\))?\s+(\w+)\(")
+_GLOBAL_FN = re.compile(r"__global__ void(?: __(?:cluster_dims|launch_bounds)__\((?:[^()]|\([^()]*\))*\))*\s+(\w+)\(")
 
 
-def _port_kernel_ms(device_ms_by_name: dict) -> dict[str, float]:
+def _port_kernel_ms(device_ms_by_name: dict, sources: str = "*.cu", csrc: Path | None = None) -> dict[str, float]:
     """Device ms of the port's kernels (every ``__global__`` function its
-    ``csrc`` sources define) by symbol, template arguments summed."""
-    names = {m.group(1) for f in (ROOT / PKG / "ops" / "csrc").glob("*.cu")
+    ``csrc`` sources matching ``sources`` define; this checkout's unless
+    ``csrc`` names another's) by symbol, template arguments summed."""
+    names = {m.group(1) for f in (csrc or ROOT / PKG / "ops" / "csrc").glob(sources)
              for m in _GLOBAL_FN.finditer(f.read_text())}
     out = {}
     for name, ms in device_ms_by_name.items():
@@ -3327,22 +3410,28 @@ def main() -> int:
     paths = _build.build_all()
     attention_build = attention_build_report(_build, paths)
     gemm_build = gemm_build_report(_build, paths, vb)
+    moe_build = moe_build_report(_build, paths)
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
           "libraries": {n: str(p.relative_to(ROOT)) for n, p in paths.items()},
-          "attention": attention_build, "block_gemm": gemm_build})
+          "attention": attention_build, "block_gemm": gemm_build, "moe_gmm": moe_build})
     for path in paths.values():
         log = path.with_suffix(".log")
         for line in (log.read_text() if log.exists() else "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {path.stem}: {line.strip()}", file=sys.stderr)
+    built = {**attention_build["kernels"], **gemm_build["kernels"], **moe_build["kernels"]}
+    missing = [k for k in MOE_SYMBOLS["bfloat16"].values() if k.endswith("_wgmma") and k not in built]
+    if missing:
+        raise RuntimeError(f"the build logs hold no ptxas report of {missing}")
     spilled = {
-        name: r for name, r in {**attention_build["kernels"], **gemm_build["kernels"]}.items()
-        # the bf16 flash, one-tile, and fused block GEMM and attention kernels
+        name: r for name, r in built.items()
+        # the bf16 flash, one-tile, fused block GEMM and attention, and
+        # grouped expert FFN kernels
         if ("flash_" in name and "bf16" in name or "onetile" in name or "_wgmma" in name)
         and r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
     }
     if spilled:
-        raise RuntimeError(f"bf16 attention or GEMM kernels spill registers: {spilled}")
+        raise RuntimeError(f"bf16 attention, GEMM or expert FFN kernels spill registers: {spilled}")
 
     checks = kernel_checks(attn)
     emit({"phase": "kernel_checks", "nvidia_smi": smi, "checks": checks})
@@ -3611,13 +3700,15 @@ def main() -> int:
                 "regime": moe_regime[k], "case": case["case"], "dtype": case["dtype"],
                 "n_cap_experts_dim_hidden": [case["n"], case["cap"], case["experts"],
                                              case["dim"], case["hidden"]],
-                "kept_rows": case["kept_rows"],
+                "kept_rows": case["kept_rows"], "kernel": MOE_SYMBOLS[case["dtype"]][k],
                 "launches": moe_launches[k],
                 "launches_counted": ("serve_moe main path" if k == "fwd" else "train_moe main path")
                 + ", one counter for every case",
-                "ms": case["ms"][k], "plain_ms": case["plain_ms"][k],
+                "ms": case["ms"][k], "event_ms": case["event_ms"][k], "kernels": case["kernels"][k],
+                "plain_ms": case["plain_ms"][k],
                 "bound_ms": case["bound_ms"][k], "bound_by": case["bound_by"][k],
                 "library_ms": case["library_ms"]["fwd" if k == "fwd" else "bwd"],
+                "library_event_ms": case["library_event_ms"]["fwd" if k == "fwd" else "bwd"],
                 "library": case["library"],
                 "bit_identical_across_calls": case["bit_identical_across_calls"],
                 "dropped_rows_exact_zero": case["dropped_rows_exact_zero"],
@@ -3710,6 +3801,31 @@ def small_output_hashes(small) -> dict[str, str]:
     return out
 
 
+def moe_dispatch(csrc: Path | None = None, reps: int = 20) -> dict:
+    """One bucket-32 batch of the ``serve_moe`` command's engine (gmm, bf16)
+    as the serve path dispatches it: host ms a dispatch (median of ``reps``
+    after one warm-up, twice), and its profile (``moe_dispatch_profile``)."""
+    import statistics
+
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.serve import build_engine, request_pool
+
+    hp = load_config(SERVE_MOE_ARGV)
+    images = request_pool(32, image_size=hp.image_size, seed=hp.seed, fold=("check", 0))
+    engine = build_engine(hp)
+    out = {}
+    for rnd in ("", "_again"):
+        engine.predict_logits(images)
+        samples = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            engine.predict_logits(images)
+            samples.append((time.perf_counter() - t0) * 1e3)
+        out[f"bucket32_batch_ms{rnd}"] = statistics.median(samples)
+    out["bucket32_profile"] = moe_dispatch_profile(engine, images, csrc)
+    return out
+
+
 def turn(checkout: Path, label: str) -> int:
     """One turn of a comparison of checkouts in one call: the port of
     ``checkout`` (put first on ``sys.path``; this tree or a parent unpacked
@@ -3718,7 +3834,10 @@ def turn(checkout: Path, label: str) -> int:
     ``fused_block_bwd_checks``), the ``train_tiny`` step and the bucket-32
     dispatch (``tiny_step_times``, ``tiny_dispatch``), K10/K11
     (``small_attention_checks``) and digests of their results
-    (``small_output_hashes``).  Run parent, this tree, this tree, parent:
+    (``small_output_hashes``), K7-K9 through their wrappers
+    (``moe_gmm_checks``), the ``vit_moe`` train step (``moe_step_times``)
+    and its bucket-32 dispatch (``moe_dispatch``).  Run parent, this tree,
+    this tree, parent:
 
         python3 chip_smoke.py --turn PARENT_DIR parent
 
@@ -3741,6 +3860,8 @@ def turn(checkout: Path, label: str) -> int:
         raise RuntimeError(f"the port imported from {_build.__file__}, not from {checkout}")
     vb = importlib.import_module(f"{PKG}.ops.vit_block")
     small = importlib.import_module(f"{PKG}.ops.attention_small")
+    gm = importlib.import_module(f"{PKG}.ops.moe_gmm")
+    csrc = checkout / PKG / "ops" / "csrc"
     _build.build_all()
     # the attention stages at the train shape (B 128), timed whatever their
     # kernels' symbols: K6's recompute (the forward) and its backward
@@ -3755,13 +3876,13 @@ def turn(checkout: Path, label: str) -> int:
            "fused_block_bwd_checks": fused_block_bwd_checks(vb),
            "tiny_step_times": tiny_step_times(), "tiny_dispatch": tiny_dispatch(),
            "small_attention_checks": small_attention_checks(small),
-           "small_output_hashes": small_output_hashes(small)}
-    out = ROOT / "chiprun_out" / "turns"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / f"{label}.json").write_text(json.dumps(rec, indent=1))
+           "small_output_hashes": small_output_hashes(small),
+           "moe_gmm_checks": moe_gmm_checks(gm), "moe_step_times": moe_step_times(csrc=csrc),
+           "moe_dispatch": moe_dispatch(csrc)}
     serve, train = rec["fused_block_checks"][0], rec["fused_block_bwd_checks"][0]
     step, disp = rec["tiny_step_times"], rec["tiny_dispatch"]["bucket32_profile"]
-    emit({
+    moe_step, moe_disp = rec["moe_step_times"], rec["moe_dispatch"]
+    summary = {
         "turn": label, "nvidia_smi": smi,
         "k5_serve_chain_ms": serve["chain"]["ms"],
         "block_attention_serve_ms": serve["attention"]["ms"],
@@ -3780,7 +3901,23 @@ def turn(checkout: Path, label: str) -> int:
         "bucket32_idle_share": disp["device_idle_share"],
         "k10_k11_ms": {c["case"]: [c["ms"]["fwd"], c["ms"]["bwd"]] for c in rec["small_attention_checks"]},
         "small_output_hashes": rec["small_output_hashes"],
-    })
+        "k7_k8_k9_ms": {c["case"]: [c["ms"]["fwd"], c["ms"]["dx"], c["ms"]["dw"]] for c in rec["moe_gmm_checks"]},
+        "k7_k8_k9_kernels": {c["case"]: c["kernels"] for c in rec["moe_gmm_checks"]},
+        "moe_gmm_checks_ok": {c["case"]: c["ok"] for c in rec["moe_gmm_checks"]},
+        "moe_train_busy_ms": moe_step["profile_gmm"]["device_busy_ms_per_step"],
+        "moe_train_idle_share": moe_step["profile_gmm"]["device_idle_share"],
+        "moe_train_kernels_ms": moe_step["profile_gmm"]["moe_kernels"],
+        "moe_train_images_per_s": [moe_step["images_per_s_gmm"], moe_step["images_per_s_gmm_again"]],
+        "moe_train_gather_busy_ms": moe_step["profile_gather"]["device_busy_ms_per_step"],
+        "moe_bucket32_ms": [moe_disp["bucket32_batch_ms"], moe_disp["bucket32_batch_ms_again"]],
+        "moe_bucket32_busy_ms": moe_disp["bucket32_profile"]["device_busy_ms_per_batch"],
+        "moe_bucket32_idle_share": moe_disp["bucket32_profile"]["device_idle_share"],
+        "moe_bucket32_k7_ms": moe_disp["bucket32_profile"]["k7_device_ms_per_batch"],
+    }
+    out = ROOT / "chiprun_out" / "turns"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"{label}.json").write_text(json.dumps(rec, indent=1))
+    emit(summary)
     return 0
 
 

@@ -27,7 +27,12 @@ A CPU tensor takes the plain versions (:func:`grouped_ffn_reference`,
 :func:`grouped_ffn_dx_reference`, :func:`grouped_ffn_dw_reference`); a
 CUDA tensor launches the kernels (``csrc/moe_gmm_fwd.cu``,
 ``csrc/moe_gmm_bwd.cu``) or raises.  Each wrapper counts its launches in a
-plain-int ``launches`` attribute.
+plain-int ``launches`` attribute.  In bf16, K7 and K9 are Hopper kernels
+(``moe_ffn_fwd_wgmma``, ``moe_ffn_dw_wgmma``: TMA, ``wgmma``, the
+activation in registers) that read ``starts`` on the card themselves; the
+host sizes their grids from shapes alone, and :func:`expert_tiles` and
+:func:`dw_walks` mirror their schedules in plain Python for the tests.  K8
+and the fp32 kernels are the first port's.
 """
 
 from __future__ import annotations
@@ -40,8 +45,13 @@ from .vit_block import _gelu, _gelu_bwd, _operand, _stream
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_DIMS = (192,)  # the kernels' model widths: vit_moe's
-HIDDEN_CHUNK = 32  # the kernels walk the hidden dimension in chunks of this
+# the hidden width must be a multiple of the chunk the kernels walk it in:
+# 64 columns in bf16 (one TMA box, K7's and K9's wgmma width), 32 in fp32
+HIDDEN_MULTIPLE = {torch.bfloat16: 64, torch.float32: 32}
 MAX_EXPERTS = 64
+TILE_ROWS = 64  # a bf16 consumer warpgroup's rows: the wgmma M
+UNIT_ROWS = 2 * TILE_ROWS  # K7's unit of work: a tile for each of its two warpgroups
+K9_CLUSTER = 2  # CTAs (a cluster) each K9 owner's row walk splits over: kDwCluster
 
 
 def kept_ranges(starts: torch.Tensor, cap: int, n: int) -> list[tuple[int, int]]:
@@ -58,6 +68,41 @@ def kept_mask(starts: torch.Tensor, cap: int, n: int) -> torch.Tensor:
         if hi > lo:
             mask[lo:hi] = True
     return mask
+
+
+def expert_tiles(starts: torch.Tensor, cap: int, n: int) -> list[tuple[int, int, int]]:
+    """K7's bf16 schedule (``csrc/moe_gmm_hopper.cuh::expert_unit``) in plain
+    Python, for the tests; nothing on the card path calls it, the kernel
+    reads ``starts`` itself.  Tile ``2u + v`` is ``(e, lo, hi)``, the rows
+    warpgroup v of unit u takes: units are up to ``UNIT_ROWS`` rows of one
+    expert's kept range, expert by expert, and a unit's second tile is empty
+    (``lo == hi``) where the unit has ``TILE_ROWS`` rows or fewer.  The launch
+    sizes its grid from shapes alone, ``ceil(n / UNIT_ROWS) + E`` units: more
+    than any routing of n rows over E experts needs."""
+    tiles = []
+    for e, (lo, hi) in enumerate(kept_ranges(starts, cap, n)):
+        for u0 in range(lo, hi, UNIT_ROWS):
+            u1 = min(u0 + UNIT_ROWS, hi)
+            for v in range(2):
+                t0 = min(u0 + v * TILE_ROWS, u1)
+                tiles.append((e, t0, min(t0 + TILE_ROWS, u1)))
+    return tiles
+
+
+def dw_walks(starts: torch.Tensor, cap: int, n: int, hidden: int):
+    """K9's bf16 schedule (``csrc/moe_gmm_bwd.cu::moe_ffn_dw_wgmma``) in plain
+    Python, for the tests: for each CTA of the grid, in launch order, ``(e,
+    c, lo, hi)``, the rows ``[lo, hi)`` of expert e's kept range it walks
+    for hidden chunk c, the owner (e, c)'s 64-row steps split over
+    ``K9_CLUSTER`` CTAs in order (a CTA of a short walk may get none)."""
+    out = []
+    for e, (lo, hi) in enumerate(kept_ranges(starts, cap, n)):
+        steps = -(-(hi - lo) // TILE_ROWS) if hi > lo else 0
+        for c in range(hidden // TILE_ROWS):
+            for rank in range(K9_CLUSTER):
+                k0, k1 = rank * steps // K9_CLUSTER, (rank + 1) * steps // K9_CLUSTER
+                out.append((e, c, min(lo + TILE_ROWS * k0, hi), min(lo + TILE_ROWS * k1, hi)))
+    return out
 
 
 def _up(x, w1_e, b1_e):
@@ -123,10 +168,11 @@ def _check_card(name: str, xs, w1, b1, w2, starts, b2=None, dy=None) -> None:
     if w1.dim() != 3:
         raise ValueError(f"{name}: w1 must be (E, d, h), got {tuple(w1.shape)}")
     ne, _, h = w1.shape
-    if d not in KERNEL_DIMS or h % HIDDEN_CHUNK or not 1 <= ne <= MAX_EXPERTS:
+    multiple = HIDDEN_MULTIPLE[xs.dtype]
+    if d not in KERNEL_DIMS or h % multiple or not 1 <= ne <= MAX_EXPERTS:
         raise ValueError(
             f"{name}'s CUDA kernels take d in {KERNEL_DIMS}, hidden a multiple of "
-            f"{HIDDEN_CHUNK} and 1 to {MAX_EXPERTS} experts, got d={d}, h={h}, E={ne}"
+            f"{multiple} in {xs.dtype} and 1 to {MAX_EXPERTS} experts, got d={d}, h={h}, E={ne}"
         )
     want = {"w1": (ne, d, h), "b1": (ne, h), "w2": (ne, h, d)}
     got = {"w1": w1, "b1": b1, "w2": w2}
@@ -144,12 +190,12 @@ def _check_card(name: str, xs, w1, b1, w2, starts, b2=None, dy=None) -> None:
         raise ValueError(f"{name}: starts must be ({ne + 1},) int32 on {xs.device}")
 
 
-def _launch(library: str, symbol: str, args: list, n_ptrs: int) -> None:
+def _launch(library: str, symbol: str, ptrs: list, ints: list, stream: int) -> None:
     from . import _build
 
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = _build.load(library, [ptr] * n_ptrs + [i32] * 6 + [ptr], symbol=symbol)
-    err = fn(*args)
+    fn = _build.load(library, [ptr] * len(ptrs) + [i32] * len(ints) + [ptr], symbol=symbol)
+    err = fn(*ptrs, *ints, stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
 
@@ -162,10 +208,11 @@ def _dims(xs, w1, cap):
 
 def grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap: int) -> torch.Tensor:
     """:func:`grouped_ffn_reference`'s function; on the card the CUDA
-    kernel ``moe_gmm_fwd`` (K7), which takes d of 192 (``KERNEL_DIMS``),
-    hidden a multiple of 32 and up to 64 experts, all operands in the
-    compute dtype and ``starts`` int32 on the card.
-    ``grouped_ffn_fwd.launches`` counts its launches."""
+    kernel ``moe_gmm_fwd`` (K7: ``moe_ffn_fwd_wgmma`` in bf16, one block a
+    unit of :func:`expert_tiles`), which takes d of 192 (``KERNEL_DIMS``),
+    hidden a multiple of 64 in bf16 and 32 in fp32 (``HIDDEN_MULTIPLE``),
+    up to 64 experts, all operands in the compute dtype and ``starts``
+    int32 on the card.  ``grouped_ffn_fwd.launches`` counts its launches."""
     if xs.device.type == "cpu":
         return grouped_ffn_reference(xs, w1, b1, w2, b2, starts, cap)
     _check_card("grouped_ffn_fwd", xs, w1, b1, w2, starts, b2=b2)
@@ -174,8 +221,8 @@ def grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap: int) -> torch.Tensor:
         return out
     ops = [_operand(t) for t in (xs, w1, b1, w2, b2, starts)]
     with torch.cuda.device(xs.device):
-        _launch("moe_gmm_fwd", "moe_gmm_fwd",
-                [t.data_ptr() for t in ops] + [out.data_ptr()] + _dims(xs, w1, cap) + [_stream(xs)], 7)
+        _launch("moe_gmm_fwd", "moe_gmm_fwd", [t.data_ptr() for t in ops] + [out.data_ptr()],
+                _dims(xs, w1, cap), _stream(xs))
     grouped_ffn_fwd.launches += 1
     return out
 
@@ -195,8 +242,8 @@ def grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap: int) -> torch.Tensor:
         return dx
     ops = [_operand(t) for t in (xs, dy, w1, b1, w2, starts)]
     with torch.cuda.device(xs.device):
-        _launch("moe_gmm_bwd", "moe_gmm_dx",
-                [t.data_ptr() for t in ops] + [dx.data_ptr()] + _dims(xs, w1, cap) + [_stream(xs)], 7)
+        _launch("moe_gmm_bwd", "moe_gmm_dx", [t.data_ptr() for t in ops] + [dx.data_ptr()],
+                _dims(xs, w1, cap), _stream(xs))
     grouped_ffn_dx.launches += 1
     return dx
 
@@ -206,20 +253,25 @@ grouped_ffn_dx.launches = 0
 
 def grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap: int):
     """:func:`grouped_ffn_dw_reference`'s function, ``(dw1, db1, dw2,
-    db2)`` in fp32; on the card the CUDA kernel ``moe_gmm_dw`` (K9), one
-    block per (hidden chunk, expert) tile of dW1 or dW2 walking the
-    expert's rows in a fixed order: two calls give bit-identical results.
-    K7's shape rules.  ``grouped_ffn_dw.launches`` counts its launches."""
+    db2)`` in fp32; on the card the CUDA kernel ``moe_gmm_dw`` (K9: in bf16
+    ``moe_ffn_dw_wgmma``, one owner per (expert, 64-column hidden chunk)
+    walking the expert's kept rows, split over a cluster of ``K9_CLUSTER``
+    CTAs whose partials are summed in rank order; in fp32 one block per
+    (32-column chunk, expert) tile of dW1 or dW2), in a fixed order: two
+    calls give bit-identical results.  K7's shape rules.  No rows: zero
+    gradients, no launch.  ``grouped_ffn_dw.launches`` counts its launches."""
     if xs.device.type == "cpu":
         return grouped_ffn_dw_reference(xs, dy, w1, b1, w2, starts, cap)
     _check_card("grouped_ffn_dw", xs, w1, b1, w2, starts, dy=dy)
     ne, d, h = w1.shape
     dev = xs.device
     outs = [torch.empty(s, device=dev) for s in ((ne, d, h), (ne, h), (ne, h, d), (ne, d))]
+    if xs.shape[0] == 0:
+        return tuple(t.zero_() for t in outs)
     ops = [_operand(t) for t in (xs, dy, w1, b1, w2, starts)]
     with torch.cuda.device(dev):
-        _launch("moe_gmm_bwd", "moe_gmm_dw",
-                [t.data_ptr() for t in ops + outs] + _dims(xs, w1, cap) + [_stream(xs)], 10)
+        _launch("moe_gmm_bwd", "moe_gmm_dw", [t.data_ptr() for t in ops + outs],
+                _dims(xs, w1, cap), _stream(xs))
     grouped_ffn_dw.launches += 1
     return tuple(outs)
 

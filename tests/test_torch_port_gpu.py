@@ -734,12 +734,18 @@ def test_block_gemm_wgrad_is_bitwise_deterministic(cuda_device):
 
 # (dtype, E, d, h, group counts, cap, padding rows): the vit_moe serve shape
 # (bucket 32: n 2048, cap 320) with a skewed routing, a ragged fp32 case
-# with an empty group, a group over capacity and a group ending at n, and
-# a bf16 case of 4 experts and hidden 256 with padding rows past starts[E]
+# with an empty group, a group over capacity and a group ending at n, a
+# bf16 case of 4 experts and hidden 256 with padding rows past starts[E],
+# the serve shape at bucket 1 (n 64: every group under one tile, some over
+# capacity), and a bf16 case whose second expert starts mid-tile with
+# fewer than 64 kept rows (in the last two, a walk of one 64-row step
+# leaves one CTA of the bf16 K9's 2-CTA cluster no rows)
 MOE_CASES = [
     (torch.bfloat16, 8, 192, 768, (400, 100, 300, 0, 250, 320, 350, 328), 320, 0),
     (torch.float32, 8, 192, 768, (200, 0, 90, 130, 60, 170, 150, 200), 128, 0),
     (torch.bfloat16, 4, 192, 256, (70, 0, 130, 33), 64, 7),
+    (torch.bfloat16, 8, 192, 768, (12, 9, 0, 15, 8, 7, 6, 7), 10, 0),
+    (torch.bfloat16, 4, 192, 256, (90, 37, 0, 140), 128, 5),
 ]
 
 
@@ -771,7 +777,11 @@ def test_grouped_ffn_kernels_match_plain_on_card(cuda_device, dtype, ne, d, h, c
     rare one-ulp flip of a rounded intermediate that causes), fp32 2^-10 and
     0; the rows no expert keeps exactly 0.  K9's four gradients against
     theirs in relative L2, bf16 2^-7, fp32 2^-14.  One launch each."""
-    xs, w1, b1, w2, b2, starts, dy = _moe_inputs(dtype, ne, d, h, counts, pad, cuda_device)
+    _check_grouped_ffn(dtype, ne, d, h, counts, cap, pad, cuda_device)
+
+
+def _check_grouped_ffn(dtype, ne, d, h, counts, cap, pad, device):
+    xs, w1, b1, w2, b2, starts, dy = _moe_inputs(dtype, ne, d, h, counts, pad, device)
     n = xs.shape[0]
     share, rtol = (2**-5, 2**-6) if dtype == torch.bfloat16 else (2**-10, 0.0)
     before = _gmm_counts()
@@ -789,6 +799,17 @@ def test_grouped_ffn_kernels_match_plain_on_card(cuda_device, dtype, ne, d, h, c
         assert got.dtype == torch.float32
         err = float((got - want).norm() / want.norm().clamp_min(1e-30))
         assert err <= (2**-7 if dtype == torch.bfloat16 else 2**-14), err
+
+
+@pytest.mark.gpu
+def test_grouped_ffn_forward_is_bitwise_deterministic(cuda_device):
+    """K7 writes each output once, from one accumulator: two calls give
+    bit-identical outputs."""
+    xs, w1, b1, w2, b2, starts, _ = _moe_inputs(torch.bfloat16, *MOE_CASES[0][1:5], 0, cuda_device, seed=4)
+    cap = MOE_CASES[0][5]
+    first = gmm.grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap)
+    second = gmm.grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu
@@ -815,6 +836,10 @@ def test_grouped_ffn_raises_on_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="hidden a multiple"):
         gmm.grouped_ffn_fwd(xs, w1[:, :, :200].contiguous(), b1[:, :200].contiguous(),
                             w2[:, :200].contiguous(), b2, starts, 16)
+    # bf16 walks the hidden dimension in 64-column chunks, fp32 in 32
+    with pytest.raises(ValueError, match="hidden a multiple of 64"):
+        gmm.grouped_ffn_fwd(xs, w1[:, :, :96].contiguous(), b1[:, :96].contiguous(),
+                            w2[:, :96].contiguous(), b2, starts, 16)
     with pytest.raises(ValueError, match="bf16 or fp32"):
         gmm.grouped_ffn_fwd(xs.half(), w1, b1, w2, b2, starts, 16)
     with pytest.raises(ValueError, match="int32"):
