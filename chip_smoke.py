@@ -16,7 +16,8 @@ last line:
              ``dgrad_wgmma``, ``wgrad_wgmma``) and attention kernels
              (``block_attn_wgmma``, ``attn_dq_wgmma``, ``attn_dkv_wgmma``)
              and of the grouped expert FFN's bf16 kernels
-             (``moe_ffn_fwd_wgmma``, ``moe_ffn_dw_wgmma``) (``ptxas -v``; a
+             (``moe_ffn_fwd_wgmma``, ``moe_ffn_dx_wgmma``,
+             ``moe_ffn_dw_wgmma``) (``ptxas -v``; a
              bf16 flash kernel, a one-tile kernel, a fused block GEMM or
              attention kernel or an expert FFN kernel that spills fails
              the run) and each such kernel's dynamic shared memory at the
@@ -45,7 +46,8 @@ last line:
              twelve gradients whole, two faults planted on the kernels'
              results (a row chunk dropped from the gradient reductions, a
              key tile left out of the attention backward), bit-identical
-             results across two calls, the kernels each wrapper ran by
+             results across two calls, ``block_grad_reduce`` bit for bit
+             against an in-order fp32 sum, the kernels each wrapper ran by
              symbol (the GEMMs' and the attention's the dtype's only; bf16
              ``attn_dq_wgmma`` then ``attn_dkv_wgmma``), with the composed
              block's autograd forward and backward as its library
@@ -107,10 +109,12 @@ last line:
              gradients per leaf, K8/K9 bit-identical across two calls, two
              planted faults rejected (a start shifted by a row, a row tile
              left out of K9's walk), the kernels each wrapper ran by
-             symbol (bf16: ``moe_ffn_fwd_wgmma``, ``moe_gmm_dx_kernel``,
+             symbol (bf16: ``moe_ffn_fwd_wgmma``, ``moe_ffn_dx_wgmma``,
              ``moe_ffn_dw_wgmma``), device ms under the profiler (and
              CUDA-event ms) of each kernel, its plain version and the
-             composed cuBLAS form of the gather dispatch;
+             composed cuBLAS form of the gather dispatch (its forward, its
+             backward for dx alone with the forward it recomputes, and its
+             whole backward);
    serve_moe — ``vit_moe --amp`` (8 blocks, dim 192, 3 heads, 8 experts of
              hidden 768, 64 tokens) served through ``entry.run``, buckets
              1..32, 256 requests at concurrency 32: K7 in every block of
@@ -131,7 +135,7 @@ last line:
              planted fault, and in fp32 (2^-13) a TF32 control; ms per step
              under gmm and gather, profiles, the gmm step's expert FFN
              kernels by symbol ``moe_ffn_fwd_wgmma`` (K7),
-             ``moe_gmm_dx_kernel`` (K8) and ``moe_ffn_dw_wgmma`` (K9) alone,
+             ``moe_ffn_dx_wgmma`` (K8) and ``moe_ffn_dw_wgmma`` (K9) alone,
              each with device time;
 7. vit_tiny at 64 tokens — ``small_attention_checks``: the short-sequence
              attention's kernels (K10 forward, K11 backward; bf16 at S <= 64
@@ -305,7 +309,7 @@ _PTXAS_ENTRY = re.compile(
     r"(?:block_gemm|dgrad|wgrad|block_attn|attn_dq|attn_dkv)_wgmma)ILi(\d+)E(\w*?)EEv"
 )
 # the grouped expert FFN's bf16 Hopper kernels, which are no templates
-_PTXAS_PLAIN_ENTRY = re.compile(r"Compiling entry function '\w*?(moe_ffn_(?:fwd|dw)_wgmma)E")
+_PTXAS_PLAIN_ENTRY = re.compile(r"Compiling entry function '\w*?(moe_ffn_(?:fwd|dx|dw)_wgmma)E")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_USED = re.compile(r"Used (\d+) registers")
 _PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
@@ -409,11 +413,13 @@ def gemm_build_report(build, paths, vb) -> dict:
 
 def moe_build_report(build, paths) -> dict:
     """The grouped expert FFN's bf16 Hopper kernels (``moe_ffn_fwd_wgmma``,
-    K7; ``moe_ffn_dw_wgmma``, K9): registers, static shared memory and
-    spills from ``ptxas -v``, and the dynamic shared memory each launch
-    asks for (fixed: it does not depend on the shape)."""
+    K7; ``moe_ffn_dx_wgmma``, K8; ``moe_ffn_dw_wgmma``, K9): registers,
+    static shared memory and spills from ``ptxas -v``, and the dynamic
+    shared memory each launch asks for (fixed: it does not depend on the
+    shape)."""
     smem = {kernel: build.load(lib, [], symbol=f"{kernel}_smem")()
-            for kernel, lib in (("moe_ffn_fwd_wgmma", "moe_gmm_fwd"), ("moe_ffn_dw_wgmma", "moe_gmm_bwd"))}
+            for kernel, lib in (("moe_ffn_fwd_wgmma", "moe_gmm_fwd"), ("moe_ffn_dx_wgmma", "moe_gmm_bwd"),
+                                ("moe_ffn_dw_wgmma", "moe_gmm_bwd"))}
     return {"kernels": ptxas_report(paths, ("moe_gmm_fwd", "moe_gmm_bwd")), "dynamic_smem_bytes": smem}
 
 
@@ -913,6 +919,8 @@ def block_bwd_bounds(vb, b, s, dim, heads, hidden, dname) -> dict[str, tuple[flo
     gemm_flops = 2 * rows * (4 * dim * dim + 2 * dim * hidden)
     attn_fwd, attn_bwd = 4 * rows * s * dim, 10 * rows * s * dim
     chunks = -(-rows // vb.WGRAD_CHUNK_ROWS)
+    ln_chunks = -(-rows // vb.LN_CHUNK_ROWS)
+    ln_params = 4 * dim  # the LayerNorms' gamma and beta: block_ln_bwd's partials
     act = lambda *widths: rows * sum(widths) * item  # noqa: E731
     f32 = lambda *widths: rows * sum(widths) * 4  # noqa: E731
     return {
@@ -936,7 +944,10 @@ def block_bwd_bounds(vb, b, s, dim, heads, hidden, dname) -> dict[str, tuple[flo
         # (dqkv, ln1), (dr1c, o, dr1 fp32), (dup, ln2), (dy, hmid) in; partials out
         "block_gemm_wgrad": bound(gemm_flops, act(3 * dim, dim, dim, dim, hidden, dim, dim, hidden)
                                   + f32(dim) + chunks * (wparams + 6 * dim + hidden) * 4, dname),
-        "block_grad_reduce": bound(chunks * nparams, (chunks + 1) * nparams * 4, dname),
+        # every partial read once, every sum written once
+        "block_grad_reduce": bound(
+            chunks * (nparams - ln_params) + ln_chunks * ln_params,
+            ((chunks + 1) * (nparams - ln_params) + (ln_chunks + 1) * ln_params) * 4, dname),
     }
 
 
@@ -1143,11 +1154,39 @@ def k6_stages(vb, x2, dy2, params, seq, heads) -> list[tuple]:
     ]
 
 
+def in_order_sum(partials):
+    """Each (chunks, ...) fp32 partial summed over its chunks in chunk order
+    from 0, one fp32 add at a time: the order ``block_grad_reduce``'s kernel
+    sums in, so that it must agree bit for bit (the plain version,
+    ``torch.sum``, sums in another order)."""
+    import functools
+
+    import torch
+
+    return [functools.reduce(torch.add, t.unbind(0), torch.zeros(t.shape[1:], device=t.device))
+            for t in partials]
+
+
+def _digest(tensors) -> str:
+    """sha256 of fp32 tensors' bits: two checkouts whose kernels give
+    bit-identical results print the same digest."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.int32).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def k6_stage_checks(vb, x, dy, params, heads, rtol) -> dict[str, dict]:
     """Each K6 wrapper on the card against its plain version on the same
     inputs (``k6_stages``), per kernel over its launches in one block
     backward: the least atol share (of each output row's rms) it needs with
-    ``rtol``, and the plain version's and the library call's device time."""
+    ``rtol``, and the plain version's and the library call's device time;
+    ``block_grad_reduce`` also against ``in_order_sum`` bit for bit, with
+    digests of its partials and its sums."""
     import torch
 
     b, s, dim = x.shape
@@ -1166,6 +1205,10 @@ def k6_stage_checks(vb, x, dy, params, heads, rtol) -> dict[str, dict]:
                                     "atol_share_needed": 0.0, "finite": True,
                                     "plain_ms": 0.0, "library_ms": 0.0})
         rec["launches_checked"] += 1
+        if name == "block_grad_reduce":
+            rec["bit_identical_to_in_order_sum"] = all(
+                torch.equal(g, w) for g, w in zip(got, in_order_sum(*args)))
+            rec["partials_digest"], rec["digest"] = _digest(args[0]), _digest(got)
         for g, w in pairs:
             rec["max_abs_err"] = max(rec["max_abs_err"], (g.float() - w.float()).abs().max().item())
             rec["atol_share_needed"] = max(rec["atol_share_needed"], atol_share_needed(g, w, rtol))
@@ -1234,6 +1277,7 @@ def fused_block_bwd_checks(vb) -> list[dict]:
             and dx_rec["atol_share_needed"] <= atol_share < dx_rec["fault_atol_share_needed"]
             and all(max(errors.values()) <= tol < max(f.values()) for f in fault_errors.values())
             and all(st["finite"] and st["atol_share_needed"] <= atol_share for st in stages.values())
+            and stages["block_grad_reduce"]["bit_identical_to_in_order_sum"]
         )
         out.append({
             "case": label, "dtype": dname, "shape": [b, s, dim, heads], "rows": rows,
@@ -2171,10 +2215,10 @@ MOE_GMM_CASES = [
 # row (on all three) and K9 with the first 64-row tile of the first kept
 # group left out of its walk.
 GMM_GRAD_TOL = {"bfloat16": 2**-7, "float32": 2**-14}
-# the kernels K7, K8 and K9 launch, by symbol: in bf16 the Hopper kernels of
-# K7 and K9 and the first port's K8; in fp32 the first port's three
+# the kernels K7, K8 and K9 launch, by symbol: in bf16 the Hopper kernels;
+# in fp32 the first port's three
 MOE_SYMBOLS = {
-    "bfloat16": {"fwd": "moe_ffn_fwd_wgmma", "dx": "moe_gmm_dx_kernel", "dw": "moe_ffn_dw_wgmma"},
+    "bfloat16": {"fwd": "moe_ffn_fwd_wgmma", "dx": "moe_ffn_dx_wgmma", "dw": "moe_ffn_dw_wgmma"},
     "float32": {"fwd": "moe_gmm_fwd_kernel", "dx": "moe_gmm_dx_kernel", "dw": "moe_gmm_dw_kernel"},
 }
 
@@ -2212,7 +2256,10 @@ def composed_library_ffn(gm, xs, w1, b1, w2, b2, starts, cap, dy):
     """The library yardstick (timed here, never called on the gmm path):
     the gather dispatch's composed form on the same routing, two
     ``torch.bmm`` over the (E, cap, d) capacity buffer with bias and gelu,
-    and its autograd backward.  Returns ``(forward, backward)`` callables."""
+    and its autograd backward.  Returns ``(forward, backward, dx)``
+    callables: ``dx`` is K8's work, the forward that K8 recomputes and the
+    backward for the capacity buffer alone (``torch.autograd.grad`` with
+    respect to it; the weights need no gradient)."""
     import torch
     import torch.nn.functional as F
 
@@ -2226,7 +2273,12 @@ def composed_library_ffn(gm, xs, w1, b1, w2, b2, starts, cap, dy):
 
     leaves = [t.detach().requires_grad_() for t in (buf, w1, b1, w2, b2)]
     out = forward(*leaves)
-    return forward, lambda: torch.autograd.grad(out, leaves, dbuf, retain_graph=True)
+    xb = buf.detach().requires_grad_()
+
+    def dx():
+        return torch.autograd.grad(forward(xb), (xb,), dbuf)
+
+    return forward, lambda: torch.autograd.grad(out, leaves, dbuf, retain_graph=True), dx
 
 
 def _first_kept(gm, starts, cap, n) -> tuple[int, int]:
@@ -2311,7 +2363,7 @@ def moe_gmm_checks(gm) -> list[dict]:
                 gm.grouped_ffn_dw_reference(xs, dy_tile, w1, b1, w2, starts, cap)),
             "bit_identical_across_calls": bitwise,
         }
-        lib_fwd, lib_bwd = composed_library_ffn(gm, xs, w1, b1, w2, b2, starts, cap, dy)
+        lib_fwd, lib_bwd, lib_dx = composed_library_ffn(gm, xs, w1, b1, w2, b2, starts, cap, dy)
         big = n >= 16384
         # device-busy ms under the profiler (the kernels' own time; CUDA
         # events over back-to-back calls would time the host's call overhead
@@ -2331,10 +2383,11 @@ def moe_gmm_checks(gm) -> list[dict]:
             "dw": timed(lambda: gm.grouped_ffn_dw_reference(xs, dy, w1, b1, w2, starts, cap), 3 if big else 10)[0],
         }
         rec["library_ms"], rec["library_event_ms"] = {}, {}
-        for k, fn in (("fwd", lib_fwd), ("bwd", lib_bwd)):
+        for k, fn in (("fwd", lib_fwd), ("bwd", lib_bwd), ("dx", lib_dx)):
             rec["library_ms"][k], rec["library_event_ms"][k] = timed(fn, 20)
         rec["library"] = ("gather dispatch's composed form on the same routing: "
-                          "2 x torch.bmm over (E, cap, d) with bias and tanh gelu; bwd its autograd")
+                          "2 x torch.bmm over (E, cap, d) with bias and tanh gelu; bwd its autograd; "
+                          "dx its forward and its autograd for the capacity buffer alone")
         bounds = moe_gmm_bounds(n, d, h, ne, k_rows, dname)
         rec["bound_ms"] = {k: v[0] for k, v in bounds.items()}
         rec["bound_by"] = {k: v[1] for k, v in bounds.items()}
@@ -2350,7 +2403,7 @@ def moe_gmm_checks(gm) -> list[dict]:
         )
         out.append(rec)
         del xs, dy, w1, b1, w2, b2, y, dx, dw, replay, want_y, want_dx, want_dw, dy_tile
-        del lib_fwd, lib_bwd
+        del lib_fwd, lib_bwd, lib_dx
         torch.cuda.empty_cache()
     return out
 
@@ -2698,12 +2751,71 @@ def moe_step_check(gm, precision: str) -> dict:
     }
 
 
+def routing_stats(gm, starts, cap: int, n: int) -> dict:
+    """A routing of n expert-sorted rows: group sizes, kept rows, the units
+    of K7's and K8's bf16 schedule (``expert_tiles``), and what the first
+    port's K8 (``moe_gmm_dx_kernel``) ran on it: a 64-row tile of its
+    global grid runs the whole chain once for every expert whose kept range
+    it overlaps, so a launch (one wave of tiles) lasts as long as the tile
+    with the most passes."""
+    ranges = gm.kept_ranges(starts, cap, n)
+    passes = [sum(hi > lo and lo < r0 + 64 and hi > r0 for lo, hi in ranges) for r0 in range(0, n, 64)]
+    return {
+        "n": n, "cap": cap, "counts": [hi - lo for lo, hi in zip(starts.tolist(), starts.tolist()[1:])],
+        "kept_rows": sum(hi - lo for lo, hi in ranges),
+        "units": len(gm.expert_tiles(starts, cap, n)) // 2,
+        "first_port_tile_passes": sum(passes), "first_port_tile_passes_max": max(passes, default=0),
+    }
+
+
+def k8_at_step_routing(gm, trainer, images, labels, draws) -> dict:
+    """K8 at the ``vit_moe`` train step's own routing: one step with
+    ``grouped_ffn_dx`` wrapped to keep each block's inputs, then each
+    block's launch timed alone on them (device ms under the profiler), with
+    each routing's ``routing_stats``, beside the same for the train case of
+    ``MOE_GMM_CASES``: K8 in the step reads more a launch than K8 in
+    ``moe_gmm_checks`` either for the routing (its sizes, dropped rows, the
+    first port's tiles that straddle experts) or for what surrounds the
+    launch in the step (the caches, the clocks)."""
+    import torch
+
+    calls, dx = [], gm.grouped_ffn_dx
+
+    def keep(*args):
+        calls.append(args)
+        return dx(*args)
+
+    # the wrapper counts its launch on the name it is bound to: this one's
+    # while it stands in
+    keep.launches = 0
+    gm.grouped_ffn_dx = keep
+    try:
+        trainer.step(images, labels, draws)
+    finally:
+        gm.grouped_ffn_dx = dx
+    torch.cuda.synchronize()
+    blocks = []
+    for args in calls:
+        xs, starts, cap = args[0], args[5], args[6]
+        rec = routing_stats(gm, starts, cap, xs.shape[0])
+        rec["ms_alone"] = timed_kernels(lambda a=args: dx(*a), 10)[0]
+        blocks.append(rec)
+    label, _, n, cap, _ = MOE_GMM_CASES[1]
+    counts, starts, *_ = moe_case_inputs("bfloat16", n)
+    check = routing_stats(gm, starts, cap, n)
+    del calls
+    torch.cuda.empty_cache()
+    return {"blocks": blocks, "ms_alone_per_launch": sum(b["ms_alone"] for b in blocks) / max(len(blocks), 1),
+            "check_case": label, "check_routing": check}
+
+
 def moe_step_times(reps: int = 5, csrc: Path | None = None) -> dict:
     """ms per train step of the train command's trainer under gmm (auto)
     and ``--moe-dispatch gather``, in turns (gmm, gather, gmm, gather), and
     a profile of two steps of each: the expert FFN kernels' device ms by
     symbol (``csrc``'s, this checkout's by default), K7, K8 and K9's by
-    their bf16 symbols, their share, and the idle share."""
+    their bf16 symbols, their share, and the idle share; then K8 at the
+    gmm step's routing (``k8_at_step_routing``)."""
     import torch
 
     from distributed_training_comparison_tpu_torch.config import load_config
@@ -2748,6 +2860,8 @@ def moe_step_times(reps: int = 5, csrc: Path | None = None) -> dict:
             "cublas_gemm_device_ms_per_step": gemm,
             "top_device_ms_per_step": {n[:60]: ms for n, ms in top},
         }
+    gm = importlib.import_module(f"{PKG}.ops.moe_gmm")
+    out["k8_at_step_routing"] = k8_at_step_routing(gm, trainers["gmm"], images, labels, draws)
     del trainers
     torch.cuda.empty_cache()
     return out
@@ -3682,8 +3796,9 @@ def main() -> int:
             })
     # K7-K9: per case, one entry per kernel.  ``launches`` is K7's count on
     # the serve_moe path (``launches_train`` on train_moe) and K8's and K9's
-    # on the train_moe path.  K8 and K9 share the library yardstick: the
-    # composed form's whole autograd backward.
+    # on the train_moe path.  K8's library yardstick is the composed form's
+    # forward and its backward for dx alone (``library_bwd_ms``: its whole
+    # backward, dx and dW together, K9's yardstick).
     moe_src = {"fwd": "moe_gmm_fwd.cu", "dx": "moe_gmm_bwd.cu", "dw": "moe_gmm_bwd.cu"}
     moe_body = {"fwd": 71, "dx": 114, "dw": 144}
     moe_regime = {"fwd": "K7", "dx": "K8", "dw": "K9"}
@@ -3707,14 +3822,16 @@ def main() -> int:
                 "ms": case["ms"][k], "event_ms": case["event_ms"][k], "kernels": case["kernels"][k],
                 "plain_ms": case["plain_ms"][k],
                 "bound_ms": case["bound_ms"][k], "bound_by": case["bound_by"][k],
-                "library_ms": case["library_ms"]["fwd" if k == "fwd" else "bwd"],
-                "library_event_ms": case["library_event_ms"]["fwd" if k == "fwd" else "bwd"],
+                "library_ms": case["library_ms"]["bwd" if k == "dw" else k],
+                "library_event_ms": case["library_event_ms"]["bwd" if k == "dw" else k],
                 "library": case["library"],
                 "bit_identical_across_calls": case["bit_identical_across_calls"],
                 "dropped_rows_exact_zero": case["dropped_rows_exact_zero"],
             }
             if k == "fwd":
                 entry["launches_train"] = train_moe["launches"]["grouped_ffn_fwd"]
+            if k == "dx":
+                entry["library_bwd_ms"] = case["library_ms"]["bwd"]
             if k == "dw":
                 entry.update({
                     "max_abs_err": case["dw_max_abs_err"], "grad_rel_l2_max": max(case["dw_errors"]),
@@ -3835,9 +3952,10 @@ def turn(checkout: Path, label: str) -> int:
     dispatch (``tiny_step_times``, ``tiny_dispatch``), K10/K11
     (``small_attention_checks``) and digests of their results
     (``small_output_hashes``), K7-K9 through their wrappers
-    (``moe_gmm_checks``), the ``vit_moe`` train step (``moe_step_times``)
-    and its bucket-32 dispatch (``moe_dispatch``).  Run parent, this tree,
-    this tree, parent:
+    (``moe_gmm_checks``), the ``vit_moe`` train step and K8 at its own
+    routing (``moe_step_times``) and its bucket-32 dispatch
+    (``moe_dispatch``); ``block_grad_reduce``'s digests come with the K6
+    chain's records.  Run parent, this tree, this tree, parent:
 
         python3 chip_smoke.py --turn PARENT_DIR parent
 
@@ -3909,6 +4027,13 @@ def turn(checkout: Path, label: str) -> int:
         "moe_train_kernels_ms": moe_step["profile_gmm"]["moe_kernels"],
         "moe_train_images_per_s": [moe_step["images_per_s_gmm"], moe_step["images_per_s_gmm_again"]],
         "moe_train_gather_busy_ms": moe_step["profile_gather"]["device_busy_ms_per_step"],
+        "k8_dx_library_ms": {c["case"]: c["library_ms"]["dx"] for c in rec["moe_gmm_checks"]},
+        "k8_alone_at_step_routing_ms": moe_step["k8_at_step_routing"]["ms_alone_per_launch"],
+        "k8_step_routing": [{k: b[k] for k in ("kept_rows", "units", "first_port_tile_passes_max", "ms_alone")}
+                            for b in moe_step["k8_at_step_routing"]["blocks"]],
+        "k6_grad_reduce_ms": {c["case"]: c["kernel_ms"]["block_grad_reduce"] for c in rec["fused_block_bwd_checks"]},
+        "k6_grad_reduce_bits": {c["case"]: [c["stages"]["block_grad_reduce"][k] for k in (
+            "partials_digest", "digest", "bit_identical_to_in_order_sum")] for c in rec["fused_block_bwd_checks"]},
         "moe_bucket32_ms": [moe_disp["bucket32_batch_ms"], moe_disp["bucket32_batch_ms_again"]],
         "moe_bucket32_busy_ms": moe_disp["bucket32_profile"]["device_busy_ms_per_batch"],
         "moe_bucket32_idle_share": moe_disp["bucket32_profile"]["device_idle_share"],

@@ -29,14 +29,36 @@
 // 192, h 768, E 8, cap 2560, bf16) operations bound both (~15 and ~20 us
 // at 989 TFLOP/s).
 //
-// moe_gmm_dx_kernel (K8, both dtypes) and moe_gmm_dw_kernel (K9 in fp32)
-// are the first port, on moe_gmm_common.cuh's mma.sync / SIMT tiles: K8
-// takes the forward's grid of 64-row tiles, looping over the experts whose
-// kept range overlaps the tile and over the hidden dimension in chunks of
-// 32, dy staged masked to the expert's kept rows, one (64, d) fp32
-// accumulator rounded once; the fp32 K9 has one block per (32-column chunk,
-// expert) tile of dW1 or dW2 (blockIdx.z), walking the expert's kept rows,
-// 5 products where the bound counts 4.
+// fp32: moe_gmm_dx_kernel (K8) and moe_gmm_dw_kernel (K9), the first port,
+// on moe_gmm_common.cuh's SIMT tiles: K8 takes the forward's grid of 64-row
+// tiles, looping over the experts whose kept range overlaps the tile and
+// over the hidden dimension in chunks of 32, dy staged masked to the
+// expert's kept rows, one (64, d) fp32 accumulator rounded once; K9 has one
+// block per (32-column chunk, expert) tile of dW1 or dW2 (blockIdx.z),
+// walking the expert's kept rows, 5 products where the bound counts 4.
+//
+// bf16 K8: moe_ffn_dx_wgmma (moe_gmm_hopper.cuh), K7's design with a third
+// product.  A block owns one of K7's expert-aligned units (up to 128 rows
+// of one expert's kept range, a 64-row tile for each of its two consumer
+// warpgroups; grid ceil(n / 128) + E from shapes alone), so no tile spans
+// two experts and dy needs no mask: a tile's rows past the kept end compute
+// values that are never stored (every row's dx depends on that row alone).
+// The x and dy tiles land once (TMA); the expert's weights stream in
+// 64-column hidden chunks through two rings, W1[e][:, c] (192 x 64) in 3
+// stages and W2[e][c, :] (64 x 192) in 2.  Per chunk a warpgroup runs h1 =
+// x . W1c (W1c read MN-major), then dg = dym . W2c^T (W2c K-major) and,
+// under it, gelu'(round(round(h1) + b1)) in fp32 in h1's registers; then dh
+// = round(gelu' . round(dg)) packed to bf16 A fragments and dx += dh . W1c^T
+// from registers (W1c read K-major: the landed slice read a second way),
+// with the next chunk's h1 issued behind it.  dx, 64 x 192 fp32, is 96
+// registers; h1 and dg 32 each.  Shared memory holds the four 24 KB tiles
+// (96 KB) beside the rings (120 KB): a single ring of W1c + W2c stages (48
+// KB each) fits 2 stages, not 3, and would refill a stage only a part of a
+// chunk before its slice is read; the split rings free W2c's stage as soon
+// as dg lands and W1c's a chunk ahead.  Each output sums its hidden chunks
+// in order in one accumulator and is written once: no atomics, two calls
+// are bit-identical.  Every block first writes exact zeros to the rows no
+// expert keeps among its share of the 64-row blocks.
 //
 // bf16 K9: moe_ffn_dw_wgmma (moe_gmm_hopper.cuh).  One owner per (expert e,
 // 64-column hidden chunk c) holds W1[e][:, c] (192 x 64) and W2[e][c, :]
@@ -599,20 +621,234 @@ __global__ void __cluster_dims__(kDwCluster, 1, 1) __launch_bounds__(moeh::kThre
   cluster_sync();  // no CTA leaves while another reads its partials
 }
 
+// The bf16 backward kernels' tensor maps: x and dy (n, d), W1 as (E d, h)
+// and W2 as (E h, d) rows.  CUDA_SUCCESS, or the CUresult of the first map
+// that failed to encode.
+struct BwdMaps {
+  alignas(64) CUtensorMap x, dy, w1, w2;
+};
+
+CUresult encode_bwd_maps(BwdMaps& m, const void* x, const void* dy, const void* w1, const void* w2, int n, int e,
+                         int h) {
+  CUresult r = bgemm::encode_rows(&m.x, x, n, moeh::kD);
+  if (r == CUDA_SUCCESS) r = bgemm::encode_rows(&m.dy, dy, n, moeh::kD);
+  if (r == CUDA_SUCCESS) r = bgemm::encode_rows(&m.w1, w1, e * moeh::kD, h);
+  if (r == CUDA_SUCCESS) r = bgemm::encode_rows(&m.w2, w2, e * h, moeh::kD);
+  return r;
+}
+
 // 0 on success, a cudaError_t, or minus the CUresult of a map that failed to encode
 int launch_dw_bf16(const void* x, const void* dy, const void* w1, const void* w2, const DwArgs& p,
                    cudaStream_t s) {
   if (p.h % moeh::kChunk) return cudaErrorInvalidValue;
-  alignas(64) CUtensorMap tx, tdy, tw1, tw2;
-  CUresult r = bgemm::encode_rows(&tx, x, p.n, moeh::kD);
-  if (r == CUDA_SUCCESS) r = bgemm::encode_rows(&tdy, dy, p.n, moeh::kD);
-  if (r == CUDA_SUCCESS) r = bgemm::encode_rows(&tw1, w1, p.e * moeh::kD, p.h);
-  if (r == CUDA_SUCCESS) r = bgemm::encode_rows(&tw2, w2, p.e * p.h, moeh::kD);
+  BwdMaps m;
+  const CUresult r = encode_bwd_maps(m, x, dy, w1, w2, p.n, p.e, p.h);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   int sms = 0;
   const cudaError_t err = bgemm::prepare<&moe_ffn_dw_wgmma>(dw_smem(), &sms);
   if (err != cudaSuccess) return err;
-  moe_ffn_dw_wgmma<<<p.e * (p.h / moeh::kChunk) * kDwCluster, moeh::kThreads, dw_smem(), s>>>(p, tx, tdy, tw1, tw2);
+  moe_ffn_dw_wgmma<<<p.e * (p.h / moeh::kChunk) * kDwCluster, moeh::kThreads, dw_smem(), s>>>(p, m.x, m.dy, m.w1,
+                                                                                                 m.w2);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ bf16 K8
+
+struct DxArgs {
+  const bf16* b1;     // (E, h)
+  const int* starts;  // (E + 1,)
+  bf16* dx;           // (n, d)
+  int n, h, e, cap;
+};
+
+constexpr int kDxW1Stages = 3;  // W1[e][:, c]: read by h1, then a chunk later by dx
+constexpr int kDxW2Stages = 2;  // W2[e][c, :]: read by dg alone
+
+// the x and dy tiles of both warpgroups, the W1 and W2 rings, their full
+// and empty barriers and the tiles' barrier, 1 KB of alignment slack: 217 KB
+constexpr int dx_smem() {
+  return 2 * moeh::kConsumers * moeh::kTile + (kDxW1Stages + kDxW2Stages) * moeh::kTile +
+         8 * (2 * (kDxW1Stages + kDxW2Stages) + 1) + 1024;
+}
+
+__global__ void __launch_bounds__(moeh::kThreads, 1)
+    moe_ffn_dx_wgmma(const DxArgs p, const __grid_constant__ CUtensorMap tx,
+                     const __grid_constant__ CUtensorMap tdy, const __grid_constant__ CUtensorMap tw1,
+                     const __grid_constant__ CUtensorMap tw2) {
+  using moeh::kBox;
+  using moeh::kTile;
+  constexpr int S1 = kDxW1Stages, S2 = kDxW2Stages, kD = moeh::kD;
+  extern __shared__ __align__(1024) unsigned char dx_smem_raw[];
+  __shared__ int st[kMaxExperts + 1];
+  __shared__ unsigned char dropped[moeh::kRows];
+  const uint32_t base = (smem_u32(dx_smem_raw) + 1023) & ~1023u;
+  // warpgroup v's x tile at xt + v kTile, its dy tile at dyt + v kTile
+  const uint32_t xt = base, dyt = xt + moeh::kConsumers * kTile;
+  const uint32_t w1r = dyt + moeh::kConsumers * kTile, w2r = w1r + S1 * kTile;
+  const uint32_t full1 = w2r + S2 * kTile, empty1 = full1 + 8 * S1;
+  const uint32_t full2 = empty1 + 8 * S1, empty2 = full2 + 8 * S2, tfull = empty2 + 8 * S2;
+  const int tid = threadIdx.x, w = tid / 128, lane = tid % 32;
+
+  for (int i = tid; i <= p.e; i += blockDim.x) st[i] = p.starts[i];
+  __syncthreads();
+  moeh::zero_unkept(p.dx, st, p.e, p.cap, p.n, dropped);
+  int e = 0, lo = 0, hi = 0;
+  const bool has = moeh::expert_unit(st, p.e, p.cap, p.n, blockIdx.x, e, lo, hi);
+  // warpgroup v's tile: rows [lo + 64 v, min(lo + 64 v + 64, hi)); the
+  // second is empty where the unit has 64 rows or fewer
+  const int active = has ? (hi - lo > moeh::kRows ? 2 : 1) : 0;
+  const int nloc = p.h / moeh::kChunk;
+  if (tid == 0) {
+    for (int s = 0; s < S1; ++s) {
+      mbar_init(full1 + 8 * s, 1);
+      mbar_init(empty1 + 8 * s, 4 * (active > 0 ? active : 1));  // the active warpgroups' warps
+    }
+    for (int s = 0; s < S2; ++s) {
+      mbar_init(full2 + 8 * s, 1);
+      mbar_init(empty2 + 8 * s, 4 * (active > 0 ? active : 1));
+    }
+    mbar_init(tfull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // chunk i's W1 slice (three boxes stacked) or W2 slice (three side by
+  // side) into its ring's stage i % S, completing on that stage's full barrier
+  auto load_w1 = [&](int i) {
+    const uint32_t bar = full1 + 8 * (i % S1), dst = w1r + (i % S1) * kTile;
+    mbar_expect_tx(bar, kTile);
+#pragma unroll
+    for (int j = 0; j < kD / 64; ++j) tma_load(dst + j * kBox, &tw1, moeh::kChunk * i, e * kD + 64 * j, 0, 0, bar);
+  };
+  auto load_w2 = [&](int i) {
+    const uint32_t bar = full2 + 8 * (i % S2), dst = w2r + (i % S2) * kTile;
+    mbar_expect_tx(bar, kTile);
+#pragma unroll
+    for (int j = 0; j < kD / 64; ++j) tma_load(dst + j * kBox, &tw2, 64 * j, e * p.h + moeh::kChunk * i, 0, 0, bar);
+  };
+  if (tid == 0 && active > 0) {  // the x and dy tiles and the rings' first chunks
+    mbar_expect_tx(tfull, 2 * active * kTile);
+    for (int v = 0; v < active; ++v)
+#pragma unroll
+      for (int j = 0; j < kD / 64; ++j) {
+        tma_load(xt + v * kTile + j * kBox, &tx, 64 * j, lo + moeh::kRows * v, 0, 0, tfull);
+        tma_load(dyt + v * kTile + j * kBox, &tdy, 64 * j, lo + moeh::kRows * v, 0, 0, tfull);
+      }
+    for (int i = 0; i < S1 && i < nloc; ++i) load_w1(i);
+    for (int i = 0; i < S2 && i < nloc; ++i) load_w2(i);
+  }
+
+  float dx[moeh::kAcc];  // written first by the first chunk's products
+  if (w < active) {  // a warpgroup with rows
+    const uint32_t xw = xt + w * kTile, dyw = dyt + w * kTile;
+    const bf16* b1 = p.b1 + static_cast<long long>(e) * p.h;
+    float h[32], dg[32], gp[32];
+    uint32_t a[16] = {}, bias[8];
+    // this thread's b1 pairs of chunk i (columns 8 nb + 2 t, + 1)
+    auto load_bias = [&](int i) {
+      const bf16* bc = b1 + moeh::kChunk * i + 2 * (tid % 4);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) bias[nb] = __ldg(reinterpret_cast<const unsigned int*>(bc + 8 * nb));
+    };
+    // h1 = x . W1[e][:, chunk i], K-major x against the MN-major W1 slice
+    auto issue_h = [&](int i) {
+      mbar_wait(full1 + 8 * (i % S1), (i / S1) & 1);
+      fence_regs<32>(h);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        bgemm::wgmma_ss<64, 0, 1>(h, desc_kmajor<64>(xw, kk), desc_mnmajor<64>(w1r + (i % S1) * kTile, kk), kk > 0);
+      wgmma_commit();
+    };
+    load_bias(0);
+    mbar_wait(tfull, 0);
+    issue_h(0);
+    for (int i = 0; i < nloc; ++i) {
+      wgmma_wait<0>();  // chunk i's h1, and chunk i - 1's dx product
+      fence_regs<32>(h);
+      fence_regs<moeh::kAcc>(dx);
+      fence_regs<16>(a);  // read by that product until the wait
+      if (i > 0 && lane == 0) mbar_arrive(empty1 + 8 * ((i - 1) % S1));  // chunk i - 1's W1 slice is free
+      // dg = dym . W2[e][chunk i, :]^T over d: the dy tile and the W2 slice
+      // both K-major
+      const int s2 = i % S2;
+      mbar_wait(full2 + 8 * s2, (i / S2) & 1);
+      fence_regs<32>(dg);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        bgemm::wgmma_ss<64, 0, 0>(dg, desc_kmajor<64>(dyw, kk), desc_kmajor<64>(w2r + s2 * kTile, kk), kk > 0);
+      wgmma_commit();
+      // the W1 ring refilled: chunk i + 2 into chunk i - 1's stage once
+      // every warpgroup with rows has released it
+      if (tid == 0 && i >= 1 && i + 2 < nloc) {
+        mbar_wait(empty1 + 8 * ((i - 1) % S1), ((i - 1) / S1) & 1);
+        load_w1(i + 2);
+      }
+      // gelu'(h1) in fp32 under dg, h1 = round(round(x . W1c) + b1);
+      // element 4 nb + 2 i2 (+ 1) is column 8 nb + 2 t (+ 1).  Into registers
+      // of its own: an accumulator written while a wgmma is in flight
+      // serializes every wgmma (ptxas C7515)
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) {
+          const int k = 4 * nb + 2 * i2;
+          gp[k] = gelu_tanh_grad(rnd<bf16>(rnd<bf16>(h[k]) + moeh::lo_f(bias[nb])));
+          gp[k + 1] = gelu_tanh_grad(rnd<bf16>(rnd<bf16>(h[k + 1]) + moeh::hi_f(bias[nb])));
+        }
+      if (i + 1 < nloc) load_bias(i + 1);
+      wgmma_wait<0>();  // dg
+      fence_regs<32>(dg);
+      if (lane == 0) mbar_arrive(empty2 + 8 * s2);  // chunk i's W2 slice is free
+      // dh = round(gelu'(h1) . round(dg)): the A fragments of the 16-deep steps
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        a[q] = pack_f32_to_bf16(gp[2 * q] * rnd<bf16>(dg[2 * q]), gp[2 * q + 1] * rnd<bf16>(dg[2 * q + 1]));
+      // dx += dh . W1[e][:, chunk i]^T from registers, the landed W1 slice
+      // read K-major: three 64-column products, one a box of d rows
+      const uint32_t w1s = w1r + (i % S1) * kTile;
+      fence_regs<16>(a);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int pp = 0; pp < kD / 64; ++pp)
+          bgemm::wgmma_rs<64, 0>(dx + 32 * pp, a + 4 * kk, desc_kmajor<64>(w1s + pp * kBox, kk), i > 0 || kk > 0);
+      wgmma_commit();
+      if (i + 1 < nloc) issue_h(i + 1);  // behind dx, on the tensor cores
+      // the W2 ring refilled: chunk i + 2 into chunk i's stage once every
+      // warpgroup with rows has its dg
+      if (tid == 0 && i + 2 < nloc) {
+        mbar_wait(empty2 + 8 * s2, (i / S2) & 1);
+        load_w2(i + 2);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs<moeh::kAcc>(dx);
+    fence_regs<16>(a);
+
+    // dx rounded once, stored to the tile's rows
+    const int r0 = lo + moeh::kRows * w, rows = min(hi - r0, moeh::kRows);
+    bf16* out = p.dx + static_cast<long long>(r0) * kD;
+    moeh::each_output(dx, [&](int row, int col, float v0, float v1) {
+      if (row < rows) *reinterpret_cast<uint32_t*>(out + row * kD + col) = pack_f32_to_bf16(v0, v1);
+    });
+  }
+}
+
+// 0 on success, a cudaError_t, or minus the CUresult of a map that failed to encode
+int launch_dx_bf16(const void* x, const void* dy, const void* w1, const void* w2, const DxArgs& p,
+                   cudaStream_t s) {
+  if (p.h % moeh::kChunk) return cudaErrorInvalidValue;
+  BwdMaps m;
+  const CUresult r = encode_bwd_maps(m, x, dy, w1, w2, p.n, p.e, p.h);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  int sms = 0;
+  const cudaError_t err = bgemm::prepare<&moe_ffn_dx_wgmma>(dx_smem(), &sms);
+  if (err != cudaSuccess) return err;
+  const int units = (p.n + moeh::kUnitRows - 1) / moeh::kUnitRows + p.e;
+  moe_ffn_dx_wgmma<<<units, moeh::kThreads, dx_smem(), s>>>(p, m.x, m.dy, m.w1, m.w2);
   return cudaGetLastError();
 }
 
@@ -620,10 +856,18 @@ int launch_dw_bf16(const void* x, const void* dy, const void* w1, const void* w2
 
 // dx of the grouped FFN (moe_gmm_fwd's arguments plus dy (n, d) in the
 // compute dtype) into dx (n, d).  The same shape rules as moe_gmm_fwd.
-// Returns the launch's cudaError_t (0 on success).
+// Returns 0 on success, a cudaError_t, or minus the CUresult of a tensor
+// map that failed to encode.
 extern "C" int moe_gmm_dx(const void* x, const void* dy, const void* w1, const void* b1,
                           const void* w2, const void* starts, void* dx, int n, int d, int h, int e,
                           int cap, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    if (d != moeh::kD) return cudaErrorInvalidValue;
+    const DxArgs p{static_cast<const bf16*>(b1), static_cast<const int*>(starts), static_cast<bf16*>(dx),
+                   n, h, e, cap};
+    return launch_dx_bf16(x, dy, w1, w2, p, s);
+  }
   BwdParams p{};
   p.x = x;
   p.dy = dy;
@@ -636,8 +880,7 @@ extern "C" int moe_gmm_dx(const void* x, const void* dy, const void* w1, const v
   p.h = h;
   p.e = e;
   p.cap = cap;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MOE_DISPATCH_D(d, return is_bf16 ? launch_dx<bf16, D>(p, s) : launch_dx<float, D>(p, s);)
+  MOE_DISPATCH_D(d, return launch_dx<float, D>(p, s);)
 }
 
 // dW1 (E, d, h), db1 (E, h), dW2 (E, h, d), db2 (E, d) of the grouped FFN,
@@ -673,5 +916,6 @@ extern "C" int moe_gmm_dw(const void* x, const void* dy, const void* w1, const v
   MOE_DISPATCH_D(d, return launch_dw<float, D>(p, s);)
 }
 
-// the dynamic shared memory of a moe_ffn_dw_wgmma launch (any shape)
+// the dynamic shared memory of a moe_ffn_dx_wgmma or moe_ffn_dw_wgmma launch (any shape)
+extern "C" int moe_ffn_dx_wgmma_smem() { return dx_smem(); }
 extern "C" int moe_ffn_dw_wgmma_smem() { return dw_smem(); }

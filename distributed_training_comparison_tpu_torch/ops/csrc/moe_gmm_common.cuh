@@ -1,15 +1,14 @@
 // Shared pieces of the grouped expert FFN kernels (moe_gmm_fwd.cu, K7;
 // moe_gmm_bwd.cu, K8 and K9): element conversions at the compute dtype's
-// rounding points, the tanh gelu and its derivative, tile staging into
-// shared memory, and a block-level product over shared-memory tiles.
+// rounding points, the tanh gelu and its derivative and the experts' kept
+// ranges, which the bf16 Hopper kernels (moe_gmm_hopper.cuh) use too; and,
+// for the fp32 kernels alone, tile staging into shared memory and a
+// block-level product over shared-memory tiles.
 //
-// Every product runs through `Tile`, whose accumulator uses the mma.sync
-// m16n8k16 fragment layout for both dtypes: bf16 on the tensor cores (fp32
-// accumulate), fp32 by SIMT FMAs over the same (row, column) ownership, so
-// the epilogues are written once.  Operands are read from shared memory
-// through a row stride and a column stride, so a transposed operand costs
-// no copy: a pair of elements that is contiguous along k is read as one
-// 32-bit word, any other pair as two 16-bit loads.
+// Every fp32 product runs through `Tile`: SIMT FMAs whose accumulator takes
+// the mma.sync m16n8k16 fragment layout's (row, column) ownership.
+// Operands are read from shared memory through a row stride and a column
+// stride, so a transposed operand costs no copy.
 
 #pragma once
 
@@ -82,26 +81,12 @@ __device__ __forceinline__ void stage(T* s, int sld, const T* g, long long gld, 
   }
 }
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// elements p[off] and p[off + stride] as one bf16 pair (the first in the low half)
-__device__ __forceinline__ uint32_t pair(const bf16* p, int off, int stride) {
-  if (stride == 1) return *reinterpret_cast<const uint32_t*>(p + off);
-  return static_cast<uint32_t>(__bfloat16_as_ushort(p[off])) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(p[off + stride])) << 16);
-}
-
 // An M x N fp32 accumulator spread over the block's 4 warps, WM warps down
 // the rows and 4 / WM across the columns; element i of acc[mt][nt] sits at
 // (row(mt, i), col(nt, i)), the m16n8k16 C-fragment layout.
 template <typename T, int M, int N, int WM>
 struct Tile {
+  static_assert(std::is_same<T, float>::value, "the bf16 kernels are moe_gmm_hopper.cuh's");
   static constexpr int WN = kThreads / 32 / WM;
   static constexpr int MT = M / 16 / WM;
   static constexpr int NT = N / 8 / WN;
@@ -127,53 +112,29 @@ struct Tile {
   }
 
   // acc += A . B over depth K, A(r, k) = a[r * ars + k * acs] (M x K),
-  // B(k, c) = b[k * brs + c * bcs] (K x N), both in shared memory.  bf16: K
-  // a multiple of 16, and a stride of 1 only where the pair is 4-byte aligned.
+  // B(k, c) = b[k * brs + c * bcs] (K x N), both in shared memory.
   __device__ __forceinline__ void mma(const T* a, int ars, int acs, const T* b, int brs, int bcs,
                                       int K) {
     const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
     const int wm = (threadIdx.x / 32) % WM, wn = (threadIdx.x / 32) / WM;
-    if constexpr (std::is_same<T, bf16>::value) {
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        const int ka = k0 + t * 2;
-        uint32_t af[MT][4];
+    for (int k = 0; k < K; ++k) {
+      float av[MT][2];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const int r = (wm * MT + mt) * 16 + g;
-          af[mt][0] = pair(a, r * ars + ka * acs, acs);
-          af[mt][1] = pair(a, (r + 8) * ars + ka * acs, acs);
-          af[mt][2] = pair(a, r * ars + (ka + 8) * acs, acs);
-          af[mt][3] = pair(a, (r + 8) * ars + (ka + 8) * acs, acs);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int c = (wn * NT + nt) * 8 + g;
-          const uint32_t bf[2] = {pair(b, ka * brs + c * bcs, brs),
-                                  pair(b, (ka + 8) * brs + c * bcs, brs)};
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma_16816(acc[mt][nt], af[mt], bf);
-        }
+      for (int mt = 0; mt < MT; ++mt) {
+        const int r = (wm * MT + mt) * 16 + g;
+        av[mt][0] = a[r * ars + k * acs];
+        av[mt][1] = a[(r + 8) * ars + k * acs];
       }
-    } else {
-      for (int k = 0; k < K; ++k) {
-        float av[MT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = (wn * NT + nt) * 8 + t * 2;
+        const float b0 = b[k * brs + c * bcs], b1 = b[k * brs + (c + 1) * bcs];
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          const int r = (wm * MT + mt) * 16 + g;
-          av[mt][0] = a[r * ars + k * acs];
-          av[mt][1] = a[(r + 8) * ars + k * acs];
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int c = (wn * NT + nt) * 8 + t * 2;
-          const float b0 = b[k * brs + c * bcs], b1 = b[k * brs + (c + 1) * bcs];
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            acc[mt][nt][0] = fmaf(av[mt][0], b0, acc[mt][nt][0]);
-            acc[mt][nt][1] = fmaf(av[mt][0], b1, acc[mt][nt][1]);
-            acc[mt][nt][2] = fmaf(av[mt][1], b0, acc[mt][nt][2]);
-            acc[mt][nt][3] = fmaf(av[mt][1], b1, acc[mt][nt][3]);
-          }
+          acc[mt][nt][0] = fmaf(av[mt][0], b0, acc[mt][nt][0]);
+          acc[mt][nt][1] = fmaf(av[mt][0], b1, acc[mt][nt][1]);
+          acc[mt][nt][2] = fmaf(av[mt][1], b0, acc[mt][nt][2]);
+          acc[mt][nt][3] = fmaf(av[mt][1], b1, acc[mt][nt][3]);
         }
       }
     }

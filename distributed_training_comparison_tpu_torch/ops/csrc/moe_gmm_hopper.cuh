@@ -1,12 +1,14 @@
 // Hopper (sm_90a) pieces shared by the grouped expert FFN's bf16 kernels:
-// the forward (moe_gmm_fwd.cu::moe_ffn_fwd_wgmma, K7) and the weight
-// gradients (moe_gmm_bwd.cu::moe_ffn_dw_wgmma, K9).  Both are built on the
-// shared Hopper helpers (hopper_common.cuh's mbarriers and TMA loads,
+// the forward (moe_gmm_fwd.cu::moe_ffn_fwd_wgmma, K7), the data gradient
+// (moe_gmm_bwd.cu::moe_ffn_dx_wgmma, K8) and the weight gradients
+// (moe_gmm_bwd.cu::moe_ffn_dw_wgmma, K9).  They are built on the shared
+// Hopper helpers (hopper_common.cuh's mbarriers and TMA loads,
 // block_gemm.cuh's wgmma and named barriers, attention_tiles.cuh's tile
-// descriptors and accumulator maps) and on moe_gmm_common.cuh's kept ranges
-// and tanh gelu; this header adds K7's expert-aligned units of work, the
-// exact zeros of the rows no expert keeps, zeroed tile rows and the order
-// in which a warpgroup's accumulator is stored.
+// descriptors and accumulator maps) and on moe_gmm_common.cuh's kept ranges,
+// rounding and tanh gelu, not on its fp32 `Tile`; this header adds the
+// expert-aligned units of work K7 and K8 share, the exact zeros of the rows
+// no expert keeps, zeroed tile rows (K9) and the order in which a
+// warpgroup's accumulator is stored.
 //
 // Thread roles: two warpgroups (256 threads), the first thread of the first
 // also issuing every TMA load; one block an SM, up to 255 registers a
@@ -38,7 +40,7 @@ constexpr int kRows = 64;                    // token rows of a tile: a warpgrou
 constexpr int kChunk = 64;                   // hidden columns of a chunk: one box
 constexpr int kConsumers = 2;                // warpgroups
 constexpr int kThreads = 128 * kConsumers;
-constexpr int kUnitRows = kConsumers * kRows;    // K7's unit: a tile for each consumer warpgroup
+constexpr int kUnitRows = kConsumers * kRows;    // K7's and K8's unit: a tile for each consumer warpgroup
 constexpr int kBox = box_bytes<kRows>();     // 8 KB
 constexpr int kTile = kD / 64 * kBox;        // 24 KB: 64 x 192, or 192 x 64
 constexpr int kAcc = kD / 2;                 // a 64 x 192 fp32 accumulator: 96 registers a thread
@@ -64,7 +66,7 @@ __device__ __forceinline__ void gelu_and_grad(float x, float& g, float& gp) {
   gp = 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * moe::kGeluC * (1.f + 3.f * moe::kGeluA * x * x);
 }
 
-// K7's unit u: rows [lo, hi) of expert e's kept range, at most kUnitRows,
+// K7's and K8's unit u: rows [lo, hi) of expert e's kept range, at most kUnitRows,
 // units numbered expert by expert, ceil(kept / kUnitRows) each
 // (ops/moe_gmm.py::expert_tiles mirrors it).  False past the last unit.
 // There are fewer than ceil(n / kUnitRows) + E units: the launch's grid.

@@ -35,7 +35,8 @@
 //   and walks the query tiles for dk = round(ds scale)^T . Q and dv =
 //   round(P)^T . dO.  No atomics.
 // - block_grad_reduce: every partial summed over its chunks in order, one
-//   launch for all twelve gradients.
+//   launch for all twelve gradients, each thread's loads a batch of chunks
+//   ahead of its adds.
 //
 // What bounds it: at the vit_tiny --patch-size 2 train shape (B 128, S 256,
 // dim 192, 3 heads, bf16: 32768 rows) a block's backward is ~110 GFLOP
@@ -77,6 +78,8 @@
 // 256), against ten for the mma.sync pair they replace.  The elementwise
 // softmax work, not the products, takes most of their time (PERF.md).
 // fp32 runs SIMT tiles with no TF32.
+
+#include <type_traits>
 
 #include "attention_tiles.cuh"
 #include "block_gemm.cuh"
@@ -1184,23 +1187,91 @@ int attention_bwd_bf16_smem(int kernel, int seq) {
 }
 
 // ----------------------------------------------------- block_grad_reduce
+//
+// dst[i] = sum over c in order of src[c * size + i] for every partial, in
+// fp32 from 0, each add rounded in turn: the bits of a sequential fp32 sum,
+// which a plain in-order sum reproduces exactly.  Bound by bytes (each
+// partial read once: 59 MB at the train_tiny shape, 0.018 ms at 3.35
+// TB/s).  An element's adds are a chain, so a thread issues the loads of a
+// batch of chunks (128 bytes of them) before it adds them in order: the
+// chain waits on chunks / batch round trips to memory, not on chunks.  The
+// host's schedule (ops/vit_block.py::grad_reduce_plan) gives each partial
+// its own blocks, sized by its elements: 4 adjacent elements a thread
+// (16-byte loads, 8 chunks a batch) where a partial has few chunks (the
+// weight gradients' 32), one element a thread (32 chunks a batch) where it
+// has many (the LayerNorm partials' 256 of 192 elements), so that the long
+// chains have four times the threads; their blocks come first.
 
 constexpr int kMaxSegments = 16;
+constexpr int kReduceThreads = 256;
+constexpr int kReduceBatch = 8;  // 16-byte loads a thread keeps in flight
 
 struct ReduceParams {
-  long long src[kMaxSegments], dst[kMaxSegments], chunks[kMaxSegments], size[kMaxSegments];
+  long long src[kMaxSegments], dst[kMaxSegments], size[kMaxSegments];
+  int chunks[kMaxSegments], vec[kMaxSegments];
+  int first_block[kMaxSegments + 1];  // partial s takes blocks [first_block[s], first_block[s + 1])
+  int n;
 };
 
-// dst[i] = sum over c in order of src[c * size + i], one thread per element
-__global__ void __launch_bounds__(256) grad_reduce(const ReduceParams p) {
-  const int seg = blockIdx.y;
-  const float* src = reinterpret_cast<const float*>(p.src[seg]);
-  float* dst = reinterpret_cast<float*>(p.dst[seg]);
-  const long long size = p.size[seg], chunks = p.chunks[seg];
-  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < size; i += gridDim.x * 256LL) {
-    float acc = 0.f;
-    for (long long c = 0; c < chunks; ++c) acc += src[c * size + i];
-    dst[i] = acc;
+// elements [VEC t, VEC t + VEC) of one partial summed over its chunks in order
+template <int VEC, int BATCH>
+__device__ __forceinline__ void sum_in_order(const float* src, float* dst, long long size, int chunks,
+                                             long long t) {
+  using V = typename std::conditional<VEC == 4, float4, float>::type;
+  const V* at = reinterpret_cast<const V*>(src) + t;
+  const long long step = size / VEC;  // one chunk on
+  float acc[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+  auto add = [&](const V& v) {
+    if constexpr (VEC == 4) {
+      acc[0] += v.x;
+      acc[1] += v.y;
+      acc[2] += v.z;
+      acc[3] += v.w;
+    } else {
+      acc[0] += v;
+    }
+  };
+  int c = 0;
+  for (; c + BATCH <= chunks; c += BATCH) {
+    V v[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) v[u] = __ldg(at + (c + u) * step);
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) add(v[u]);
+  }
+  for (; c < chunks; ++c) add(__ldg(at + c * step));
+  if constexpr (VEC == 4) {
+    reinterpret_cast<float4*>(dst)[t] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+    dst[t] = acc[0];
+  }
+}
+
+__global__ void __launch_bounds__(kReduceThreads) grad_reduce(const ReduceParams p) {
+  // this block's partial: the last whose first block is at or before it,
+  // its fields read at constant indices (a parameter array indexed at run
+  // time would be copied to local memory)
+  long long src = p.src[0], dst = p.dst[0], size = p.size[0];
+  int chunks = p.chunks[0], vec = p.vec[0], first = p.first_block[0];
+#pragma unroll
+  for (int k = 1; k < kMaxSegments; ++k)
+    if (k < p.n && static_cast<int>(blockIdx.x) >= p.first_block[k]) {
+      src = p.src[k];
+      dst = p.dst[k];
+      size = p.size[k];
+      chunks = p.chunks[k];
+      vec = p.vec[k];
+      first = p.first_block[k];
+    }
+  const long long t = static_cast<long long>(blockIdx.x - first) * kReduceThreads + threadIdx.x;
+  const float* in = reinterpret_cast<const float*>(src);
+  float* out = reinterpret_cast<float*>(dst);
+  if (vec == 4) {
+    if (t < size / 4) sum_in_order<4, kReduceBatch>(in, out, size, chunks, t);
+  } else if (t < size) {
+    sum_in_order<1, 4 * kReduceBatch>(in, out, size, chunks, t);
   }
 }
 
@@ -1392,21 +1463,27 @@ extern "C" int vit_block_attention_bwd(const void* qkv, const void* dout, void* 
 // 0) or dk/dv kernel (kernel 1) for items of seq tokens (0 above 512)
 extern "C" int vit_block_attention_bwd_smem(int kernel, int seq) { return attention_bwd_bf16_smem(kernel, seq); }
 
-// desc: n groups of (src pointer, dst pointer, chunks, size); dst[i] = sum
-// over c in order of src[c * size + i].  n up to 16.
-extern "C" int vit_block_grad_reduce(const long long* desc, int n, void* stream) {
-  if (n < 1 || n > kMaxSegments) return cudaErrorInvalidValue;
+// desc: n groups of (src pointer, dst pointer, chunks, size, elements a
+// thread (1 or 4), first block) in launch order, `blocks` in all
+// (ops/vit_block.py::grad_reduce_plan); dst[i] = sum over c in order of
+// src[c * size + i].  n up to 16; 4 elements a thread needs 16-byte aligned
+// pointers and size a multiple of 4.
+extern "C" int vit_block_grad_reduce(const long long* desc, int n, int blocks, void* stream) {
+  if (n < 1 || n > kMaxSegments || blocks < 1) return cudaErrorInvalidValue;
   ReduceParams p{};
-  long long most = 1;
+  p.n = n;
   for (int i = 0; i < n; ++i) {
-    p.src[i] = desc[4 * i];
-    p.dst[i] = desc[4 * i + 1];
-    p.chunks[i] = desc[4 * i + 2];
-    p.size[i] = desc[4 * i + 3];
-    most = p.size[i] > most ? p.size[i] : most;
+    const long long* g = desc + 6 * i;
+    p.src[i] = g[0];
+    p.dst[i] = g[1];
+    p.chunks[i] = static_cast<int>(g[2]);
+    p.size[i] = g[3];
+    p.vec[i] = static_cast<int>(g[4]);
+    p.first_block[i] = static_cast<int>(g[5]);
+    if (p.vec[i] != 1 && (p.vec[i] != 4 || (p.src[i] | p.dst[i]) % 16 || p.size[i] % 4))
+      return cudaErrorInvalidValue;
   }
-  const long long blocks = (most + 255) / 256;
-  const dim3 grid(static_cast<unsigned>(blocks < 2048 ? blocks : 2048), n);
-  grad_reduce<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  p.first_block[n] = blocks;
+  grad_reduce<<<blocks, kReduceThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
 }

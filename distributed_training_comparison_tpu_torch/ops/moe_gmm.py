@@ -27,12 +27,13 @@ A CPU tensor takes the plain versions (:func:`grouped_ffn_reference`,
 :func:`grouped_ffn_dx_reference`, :func:`grouped_ffn_dw_reference`); a
 CUDA tensor launches the kernels (``csrc/moe_gmm_fwd.cu``,
 ``csrc/moe_gmm_bwd.cu``) or raises.  Each wrapper counts its launches in a
-plain-int ``launches`` attribute.  In bf16, K7 and K9 are Hopper kernels
-(``moe_ffn_fwd_wgmma``, ``moe_ffn_dw_wgmma``: TMA, ``wgmma``, the
-activation in registers) that read ``starts`` on the card themselves; the
-host sizes their grids from shapes alone, and :func:`expert_tiles` and
-:func:`dw_walks` mirror their schedules in plain Python for the tests.  K8
-and the fp32 kernels are the first port's.
+plain-int ``launches`` attribute.  In bf16, K7, K8 and K9 are Hopper
+kernels (``moe_ffn_fwd_wgmma``, ``moe_ffn_dx_wgmma``, ``moe_ffn_dw_wgmma``:
+TMA, ``wgmma``, the activation or its cotangent in registers) that read
+``starts`` on the card themselves; the host sizes their grids from shapes
+alone, and :func:`expert_tiles` (K7's and K8's units) and :func:`dw_walks`
+mirror their schedules in plain Python for the tests.  The fp32 kernels are
+the first port's.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ KERNEL_DIMS = (192,)  # the kernels' model widths: vit_moe's
 HIDDEN_MULTIPLE = {torch.bfloat16: 64, torch.float32: 32}
 MAX_EXPERTS = 64
 TILE_ROWS = 64  # a bf16 consumer warpgroup's rows: the wgmma M
-UNIT_ROWS = 2 * TILE_ROWS  # K7's unit of work: a tile for each of its two warpgroups
+UNIT_ROWS = 2 * TILE_ROWS  # K7's and K8's unit of work: a tile for each of two warpgroups
 K9_CLUSTER = 2  # CTAs (a cluster) each K9 owner's row walk splits over: kDwCluster
 
 
@@ -71,9 +72,9 @@ def kept_mask(starts: torch.Tensor, cap: int, n: int) -> torch.Tensor:
 
 
 def expert_tiles(starts: torch.Tensor, cap: int, n: int) -> list[tuple[int, int, int]]:
-    """K7's bf16 schedule (``csrc/moe_gmm_hopper.cuh::expert_unit``) in plain
-    Python, for the tests; nothing on the card path calls it, the kernel
-    reads ``starts`` itself.  Tile ``2u + v`` is ``(e, lo, hi)``, the rows
+    """K7's and K8's bf16 schedule (``csrc/moe_gmm_hopper.cuh::expert_unit``)
+    in plain Python, for the tests; nothing on the card path calls it, the
+    kernels read ``starts`` themselves.  Tile ``2u + v`` is ``(e, lo, hi)``, the rows
     warpgroup v of unit u takes: units are up to ``UNIT_ROWS`` rows of one
     expert's kept range, expert by expert, and a unit's second tile is empty
     (``lo == hi``) where the unit has ``TILE_ROWS`` rows or fewer.  The launch
@@ -232,8 +233,11 @@ grouped_ffn_fwd.launches = 0
 
 def grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap: int) -> torch.Tensor:
     """:func:`grouped_ffn_dx_reference`'s function; on the card the CUDA
-    kernel ``moe_gmm_dx`` (K8), with K7's shape rules.
-    ``grouped_ffn_dx.launches`` counts its launches."""
+    kernel ``moe_gmm_dx`` (K8: ``moe_ffn_dx_wgmma`` in bf16, one block a
+    unit of :func:`expert_tiles`, each row's dx summed over the hidden
+    chunks in order in one accumulator, so two calls give bit-identical
+    results), with K7's shape rules.  ``grouped_ffn_dx.launches`` counts
+    its launches."""
     if xs.device.type == "cpu":
         return grouped_ffn_dx_reference(xs, dy, w1, b1, w2, starts, cap)
     _check_card("grouped_ffn_dx", xs, w1, b1, w2, starts, dy=dy)

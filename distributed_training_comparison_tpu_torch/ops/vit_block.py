@@ -91,6 +91,11 @@ BLOCK_PARAMS = tuple(
 # rows per partial of the two-pass parameter-gradient reductions on the card
 WGRAD_CHUNK_ROWS = 1024  # block_gemm_wgrad: one partial per chunk of rows
 LN_CHUNK_ROWS = 128  # block_ln_bwd: one partial per block of rows
+# block_grad_reduce's schedule (grad_reduce_plan): threads a block (the
+# kernel's kReduceThreads), and the chunk count above which a partial takes
+# one element a thread, not four
+REDUCE_THREADS = 256
+REDUCE_LONG_CHAIN = 64
 # The bf16 GEMM kernels' tile widths (csrc/block_gemm.cuh): block_gemm and
 # block_gemm_dgrad hold a bf16 slab of B, all of K by a slab width of output
 # columns, of at most SLAB_BYTES (the kernel's kSlabBytes); block_gemm_wgrad
@@ -846,13 +851,34 @@ def block_grad_reduce_reference(partials: Sequence[torch.Tensor]) -> list[torch.
     return [t.sum(0) for t in partials]
 
 
+def grad_reduce_plan(shapes: Sequence[tuple[int, int]]) -> tuple[list[tuple[int, int, int]], int]:
+    """``block_grad_reduce``'s schedule for partials of ``(chunks,
+    elements)``: ``(plan, blocks)``, ``plan`` one ``(partial, elements a
+    thread, first block)`` a partial in launch order, the longest chains
+    first, and ``blocks`` in all.  A partial of more than
+    ``REDUCE_LONG_CHAIN`` chunks, or whose elements are no multiple of 4,
+    takes one element a thread, any other 4 adjacent ones; each takes the
+    fewest blocks of ``REDUCE_THREADS`` threads that cover its elements,
+    and block b belongs to the last partial whose first block is at or
+    before b (``csrc/vit_block_bwd.cu::grad_reduce``)."""
+    order = sorted(range(len(shapes)), key=lambda i: -shapes[i][0])
+    plan, first = [], 0
+    for i in order:
+        chunks, size = shapes[i]
+        vec = 1 if chunks > REDUCE_LONG_CHAIN or size % 4 else 4
+        plan.append((i, vec, first))
+        first += -(-size // (vec * REDUCE_THREADS))
+    return plan, first
+
+
 def block_grad_reduce(
     partials: Sequence[torch.Tensor], *, stream: int | None = None,
 ) -> list[torch.Tensor]:
     """:func:`block_grad_reduce_reference`'s function; on the card one
-    launch of the CUDA kernel ``block_grad_reduce`` sums every partial over
-    its chunks in chunk order, a thread per output element, so two calls
-    on the same partials give bit-identical sums.  At most 16 partials.
+    launch of the CUDA kernel ``block_grad_reduce`` (``grad_reduce``, on
+    :func:`grad_reduce_plan`'s schedule) sums every partial over its chunks
+    in chunk order from 0, as a sequential fp32 sum does, so two calls on
+    the same partials give bit-identical sums.  At most 16 partials.
     ``block_grad_reduce.launches`` counts its launches."""
     dev = partials[0].device
     if dev.type == "cpu":
@@ -860,17 +886,23 @@ def block_grad_reduce(
     if len(partials) > 16 or any(t.dtype != torch.float32 or t.device != dev for t in partials):
         raise ValueError("block_grad_reduce takes up to 16 fp32 partials on one device")
     partials = [_operand(t) for t in partials]
-    sizes = [t[0].numel() for t in partials]
-    out = torch.empty(sum(sizes), device=dev)
-    outs = list(out.split(sizes))
-    desc = (ctypes.c_longlong * (4 * len(partials)))(*[
-        v for t, o, n in zip(partials, outs, sizes)
-        for v in (t.data_ptr(), o.data_ptr(), t.shape[0], n)
-    ])
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    _cuda_call("block_grad_reduce", "vit_block_grad_reduce", [ptr, i32, ptr],
-               desc, len(partials), stream if stream is not None else _stream(out))
-    block_grad_reduce.launches += 1
+    shapes = [(t.shape[0], math.prod(t.shape[1:])) for t in partials]
+    # each sum starts 16-byte aligned, for the kernel's 16-byte stores
+    starts = [0]
+    for _, size in shapes:
+        starts.append(starts[-1] + -(-size // 4) * 4)
+    out = torch.empty(starts[-1], device=dev)
+    outs = [out[a:a + size] for a, (_, size) in zip(starts, shapes)]
+    plan, blocks = grad_reduce_plan(shapes)
+    if blocks:
+        desc = (ctypes.c_longlong * (6 * len(plan)))(*[
+            v for i, vec, first in plan
+            for v in (partials[i].data_ptr(), outs[i].data_ptr(), *shapes[i], vec, first)
+        ])
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        _cuda_call("block_grad_reduce", "vit_block_grad_reduce", [ptr, i32, i32, ptr],
+                   desc, len(plan), blocks, stream if stream is not None else _stream(out))
+        block_grad_reduce.launches += 1
     return [o.view(t.shape[1:]) for o, t in zip(outs, partials)]
 
 

@@ -12,6 +12,7 @@ also runs where JAX is not installed; there, skip ``tests/conftest.py``
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 """
 
+import functools
 import importlib
 
 import pytest
@@ -481,6 +482,33 @@ def test_fused_block_bwd_is_bitwise_deterministic(cuda_device):
     assert all(torch.equal(g1[n], g2[n]) for n in g1)
 
 
+def _k6_partial_shapes(rows, dim, hidden):
+    """The partials one block backward reduces, in ``_bwd_chain``'s order:
+    the four ``block_gemm_wgrad`` launches' weight and bias partials, then
+    the LayerNorms' four."""
+    wc, lc = -(-rows // vb.WGRAD_CHUNK_ROWS), -(-rows // vb.LN_CHUNK_ROWS)
+    return [(wc, 3 * dim, dim), (wc, 3 * dim), (wc, dim, dim), (wc, dim),
+            (wc, hidden, dim), (wc, hidden), (wc, dim, hidden), (wc, dim), *[(lc, dim)] * 4]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,dim", [(32768, 192), (408, 128)], ids=["train_tiny", "ragged"])
+def test_block_grad_reduce_is_the_in_order_sum_bit_for_bit(cuda_device, rows, dim):
+    """``block_grad_reduce`` on seeded partials of the train_tiny shape (32
+    chunks of the weight gradients, 256 of the LayerNorms') and of the
+    ragged K6 case, in one launch, equals each partial summed over its
+    chunks in order from 0 by fp32 adds on the card, bit for bit."""
+    gen = torch.Generator().manual_seed(13)
+    partials = [torch.randn(s, generator=gen).to(cuda_device) for s in _k6_partial_shapes(rows, dim, 4 * dim)]
+    before = vb.block_grad_reduce.launches
+    got = vb.block_grad_reduce(partials)
+    torch.cuda.synchronize()
+    assert vb.block_grad_reduce.launches - before == 1
+    for t, g in zip(partials, got):
+        want = functools.reduce(torch.add, t.unbind(0), torch.zeros(t.shape[1:], device=cuda_device))
+        assert g.shape == t.shape[1:] and torch.equal(g, want)
+
+
 @pytest.mark.gpu
 def test_fused_block_bwd_raises_on_what_the_kernels_do_not_take(cuda_device):
     gen = torch.Generator().manual_seed(0)
@@ -825,6 +853,41 @@ def test_grouped_ffn_backward_is_bitwise_deterministic(cuda_device):
               *gmm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# bf16 K8 (``moe_ffn_dx_wgmma``) alone, (E, d, h, group counts, cap,
+# padding rows): the vit_moe train shape (n 16384, cap 2560) with the first
+# two groups over capacity, a ragged routing with an empty expert and
+# padding past starts[E], and a routing that drops rows past cap in every
+# group but one, whose 20 rows are under one tile
+K8_CASES = [
+    (8, 192, 768, (3300, 2700, 2300, 2000, 1700, 1600, 1400, 1384), 2560, 0),
+    (8, 192, 768, (150, 0, 200, 90, 110, 120, 130, 200), 160, 9),
+    (4, 192, 256, (700, 650, 900, 20), 128, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ne,d,h,counts,cap,pad", K8_CASES)
+def test_grouped_ffn_dx_kernel_matches_plain_on_card(cuda_device, ne, d, h, counts, cap, pad):
+    """bf16 K8 against ``grouped_ffn_dx_reference`` per kept row, within
+    2^-5 of the row's rms plus 2^-6 of |plain| (the bounds above, for the
+    same reasons); every row no expert keeps exactly +0; one launch a call,
+    and a second call bit-identical (one accumulator a row, summed over
+    the hidden chunks in order, no atomics)."""
+    xs, w1, b1, w2, _, starts, dy = _moe_inputs(torch.bfloat16, ne, d, h, counts, pad, cuda_device, seed=7)
+    n = xs.shape[0]
+    before = gmm.grouped_ffn_dx.launches
+    dx = gmm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap)
+    again = gmm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap)
+    torch.cuda.synchronize()
+    assert gmm.grouped_ffn_dx.launches - before == 2
+    kept = gmm.kept_mask(starts, cap, n)
+    assert 0 < int(kept.sum()) < n
+    assert bool((dx[~kept].view(torch.int16) == 0).all())
+    want = gmm.grouped_ffn_dx_reference(xs, dy, w1, b1, w2, starts, cap)
+    assert _row_share(dx[kept], want[kept], 2**-6) <= 2**-5
+    assert torch.equal(dx, again)
 
 
 @pytest.mark.gpu

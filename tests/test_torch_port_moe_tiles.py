@@ -1,10 +1,12 @@
 """The bf16 grouped expert FFN kernels' schedules, in plain Python, on the CPU.
 
-K7 (``moe_ffn_fwd_wgmma``) and K9 (``moe_ffn_dw_wgmma``) read the experts'
-row boundaries ``starts`` on the card and find their own rows from them, so
-the host sizes their grids from shapes alone.  ``ops/moe_gmm.py`` mirrors
-both lookups (``expert_tiles``, ``dw_walks``); nothing on the card path
-calls them, so the mirrors' constants are held against the CUDA sources'.
+K7 (``moe_ffn_fwd_wgmma``), K8 (``moe_ffn_dx_wgmma``) and K9
+(``moe_ffn_dw_wgmma``) read the experts' row boundaries ``starts`` on the
+card and find their own rows from them, so the host sizes their grids from
+shapes alone.  ``ops/moe_gmm.py`` mirrors both lookups (``expert_tiles``,
+K7's and K8's units; ``dw_walks``); nothing on the card path calls them,
+so the mirrors' constants are held against the CUDA sources', and K7 and
+K8 against the one unit lookup the mirror copies.
 Hypothesis draws the routings: empty groups (some starting at n), groups
 over capacity, groups under 64 rows and padding rows past ``starts[E]``.
 """
@@ -106,6 +108,29 @@ def test_the_mirrors_constants_are_the_kernels(mirror, source, name):
     found = re.findall(rf"constexpr int {name} = (\d+);", (_CSRC / source).read_text())
     assert len(found) == 1, (source, name, found)
     assert mirror == int(found[0])
+
+
+@pytest.mark.parametrize("source, kernel", [
+    ("moe_gmm_fwd.cu", "moe_ffn_fwd_wgmma"),
+    ("moe_gmm_bwd.cu", "moe_ffn_dx_wgmma"),
+], ids=["K7", "K8"])
+def test_k7_and_k8_take_the_units_expert_tiles_mirrors(source, kernel):
+    """K7 and K8 find their unit with ``moe_gmm_hopper.cuh::expert_unit``
+    (the lookup ``expert_tiles`` mirrors, on the header's ``kRows``,
+    ``kConsumers`` and ``kChunk``), launch ``ceil(n / kUnitRows) + E`` blocks
+    and split a unit over the header's warpgroups by its own rows, so the
+    mirror's units are each kernel's."""
+    text = (_CSRC / source).read_text()
+    body = text[text.index(f"{kernel}(const"):]
+    body = body[:body.index("\n}\n")]
+    assert "moeh::expert_unit(st, p.e, p.cap, p.n, blockIdx.x, e, lo, hi)" in body
+    assert "hi - lo > moeh::kRows ? 2 : 1" in body
+    assert "p.h / moeh::kChunk" in body
+    launch = re.findall(r"const int units = \(p\.n \+ moeh::kUnitRows - 1\) / moeh::kUnitRows \+ p\.e;\n"
+                        rf"\s+{kernel}<<<units, moeh::kThreads", text)
+    assert len(launch) == 1
+    unit = re.findall(r"constexpr int kUnitRows = (\w+) \* (\w+);", (_CSRC / "moe_gmm_hopper.cuh").read_text())
+    assert unit == [("kConsumers", "kRows")]
 
 
 def test_a_short_walk_leaves_a_cta_of_its_cluster_no_rows():
