@@ -30,8 +30,12 @@ last line:
              the one-call library yardstick: the flash-attention forward
              (K1/K2, with TFLOP/s and the bound's share of its time; a
              bf16 case whose S ends inside a 128-row tile), then its dq
-             (K3) and dk/dv (K4) kernels (bf16 cases at the tiles' edges,
-             each replayed for bit-identical gradients), then the
+             (K3) and dk/dv (K4) kernels (bf16 and fp32 cases at the
+             tiles' edges, each replayed for bit-identical gradients, the
+             kernels each wrapper launched by symbol: bf16
+             ``flash_bwd_dq_bf16`` / ``flash_bwd_dkv_bf16``, fp32 the 3xTF32
+             ``flash_bwd_dq_tf32x3`` / ``flash_bwd_dkv_tf32x3``; SDPA's
+             backward kernels by name beside its time), then the
              fused ViT block chain (K5: ``block_gemm`` x 4 and
              ``block_attention``) against ``fused_vit_block_reference``,
              stage by stage and whole, each launch's kernels by symbol
@@ -88,6 +92,13 @@ last line:
              weights and batch through the reference attention (bf16, and
              fp32 without ``--amp``), with a bound that rejects a planted
              fault; images/s and ms/step, and a profile of one step;
+   train_long_fp32 — the same entry and model at the default precision
+             (no ``--amp``: fp32), batch 16, one epoch of 3 steps: every
+             block's backward through the 3xTF32 K3/K4 (launches 8 x
+             steps, and by symbol in a step profile, no bf16 backward
+             kernel), every loss finite, no step skipped; ms per step,
+             peak memory and the step profile's split (flash forward, dq,
+             dk/dv, GEMMs, the rest) with the device idle share;
    train_tiny — ``vit_tiny --patch-size 2`` at batch 128, bf16, two epochs
              over 1152 synthetic training images (18 steps) and 128
              validation images: every block's forward through K5 and its
@@ -199,12 +210,22 @@ ROOT = Path(__file__).resolve().parent
 PKG = "distributed_training_comparison_tpu_torch"
 
 # H100 SXM published dense peaks (NVIDIA data sheet) at the 700 W limit
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # fp32 without TF32
+# ("float32": SIMT, no TF32; "tf32": the tensor cores' dense TF32 rate, which
+# the 3xTF32 fp32 kernels spend three times on each fp32 product)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 
 TRAIN_ARGV = [
     "--model", "vit_long", "--image-size", "256", "--amp", "--synthetic-data",
     "--limit-examples", "160", "--batch-size", "16", "--epoch", "2",
+    "--lr-decay-step-size", "1",
+]
+# the same model trained at the entry point's default precision (no --amp:
+# fp32, K1 and the 3xTF32 K3/K4), batch 16, one epoch over 58 synthetic
+# training images (3 steps) and 6 validation images
+TRAIN_LONG_FP32_ARGV = [
+    "--model", "vit_long", "--image-size", "256", "--synthetic-data",
+    "--limit-examples", "64", "--batch-size", "16", "--epoch", "1",
     "--lr-decay-step-size", "1",
 ]
 
@@ -345,8 +366,8 @@ def attention_build_report(build, paths) -> dict:
     """Each attention kernel instantiation's registers, static shared
     memory and spill bytes as ``ptxas -v`` logged them (the flash forward's
     and backward's libraries and the short-sequence attention's), with the
-    dynamic shared memory each bf16 flash kernel and each one-tile kernel
-    asks for at each head dim."""
+    dynamic shared memory each bf16 flash kernel, each 3xTF32 flash
+    backward kernel and each one-tile kernel asks for at each head dim."""
     report = ptxas_report(paths, ("flash_attention_fwd", "flash_attention_bwd", "attention_small"))
     smem = {
         kernel: build.load(lib, [ctypes.c_int], symbol=symbol)
@@ -354,6 +375,8 @@ def attention_build_report(build, paths) -> dict:
             ("flash_fwd_bf16", "flash_attention_fwd", "flash_attention_fwd_smem"),
             ("flash_bwd_dq_bf16", "flash_attention_bwd", "flash_attention_bwd_dq_smem"),
             ("flash_bwd_dkv_bf16", "flash_attention_bwd", "flash_attention_bwd_dkv_smem"),
+            ("flash_bwd_dq_tf32x3", "flash_attention_bwd", "flash_attention_bwd_tf32x3_smem"),
+            ("flash_bwd_dkv_tf32x3", "flash_attention_bwd", "flash_attention_bwd_tf32x3_smem"),
         )
     }
     onetile = build.load("attention_small", [ctypes.c_int, ctypes.c_int],
@@ -361,7 +384,7 @@ def attention_build_report(build, paths) -> dict:
     dynamic = {k: {d: fn(d) for d in (64, 128)} for k, fn in smem.items()}
     for backward, kernel in enumerate(("attn_small_fwd_onetile", "attn_small_bwd_onetile")):
         dynamic[kernel] = {d: onetile(backward, d) for d in (64, 128)}
-    return {"kernels": report, "bf16_dynamic_smem_bytes": dynamic}
+    return {"kernels": report, "dynamic_smem_bytes": dynamic}
 
 
 # (depth k, output columns n) of the fused block's bf16 GEMM launches on the
@@ -487,12 +510,20 @@ def kernel_checks(attn) -> list[dict]:
     return out
 
 
+def backward_peak(dname: str) -> float:
+    """FLOP/s of the flash backward's products at their peak: bf16 at the
+    bf16 rate, fp32 as the kernels run them, three tf32 products each
+    (3xTF32) at the TF32 rate."""
+    return PEAK_FLOPS["tf32"] / 3 if dname == "float32" else PEAK_FLOPS[dname]
+
+
 def backward_bound(b, h, sq, skv, d, causal, dtype, kernel) -> tuple[float, str]:
     """Least time of the dq kernel (``kernel="dq"``: 3 products, s, dp and
     ds·K) or the dk/dv kernel (``"dkv"``: 4 products, s, dp, pᵀ·dO and
-    dsᵀ·Q) on the card: operations over the dtype's peak against bytes
-    (q, k, v, dO, lse and adj read once, the gradients written once) over
-    the memory rate.  Causal counts only the pairs it needs."""
+    dsᵀ·Q) on the card: operations over the peak against bytes (q, k, v,
+    dO, lse and adj read once, the gradients written once) over the memory
+    rate, the products at ``backward_peak`` ("operations (3xTF32)" for
+    fp32).  Causal counts only the pairs it needs."""
     import torch
 
     pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * skv)
@@ -502,21 +533,25 @@ def backward_bound(b, h, sq, skv, d, causal, dtype, kernel) -> tuple[float, str]
     nbytes = (2 * b * h * sq * d + 2 * b * h * skv * d + outs * b * h * skv * d) * item
     nbytes += 2 * b * h * sq * 4
     name = str(dtype).removeprefix("torch.")
-    t_ops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    t_ops, t_bytes = flops / backward_peak(name), nbytes / PEAK_BYTES
+    ops = "operations (3xTF32)" if name == "float32" else "operations"
+    return max(t_ops, t_bytes) * 1e3, ops if t_ops >= t_bytes else "bytes"
 
 
 # (label, dtype, B, H, S, D, causal, layout, with a non-zero dlse), inputs
 # unit normal; the first is one block's attention in the train step (batch
-# 16: bh 64), the last the fp32 train step's (batch 2: bh 8)
+# 16: bh 64), the second the same in train_long_fp32's step, "fp32 train
+# step shape" the fp32 step check's (batch 2: bh 8)
 BACKWARD_CASES = [
     ("slice: vit_long train step, batch 16", "bfloat16", 16, 4, 4096, 128, False, "bshd", False),
+    ("slice: train_long_fp32 step, batch 16", "float32", 16, 4, 4096, 128, False, "bshd", False),
     ("ragged causal, dlse", "bfloat16", 2, 4, 1030, 64, True, "bhsd", True),
     ("bf16 tile edges: S 1000, a multiple of neither 128 keys nor 64 queries",
      "bfloat16", 2, 4, 1000, 128, False, "bshd", False),
     ("bf16 causal S 257 at D 64, dlse", "bfloat16", 2, 2, 257, 64, True, "bshd", True),
     ("fp32, dlse", "float32", 1, 4, 1000, 128, False, "bhsd", True),
     ("fp32 train step shape: batch 2 without --amp", "float32", 2, 4, 4096, 128, False, "bshd", False),
+    ("fp32 ragged causal, dlse", "float32", 2, 4, 1030, 64, True, "bhsd", True),
 ]
 # Each gradient holds against the plain backward per row (one query's dq,
 # one key's dk or dv): |kernel - plain| <= atol_share * rms(row) +
@@ -526,18 +561,35 @@ BACKWARD_CASES = [
 # summation order (~1e-6 relative), by the rare bf16 rounding flip that
 # difference causes in p or ds (2^-8 on one term of a sum of S), and by
 # one bf16 rounding of each gradient (<= 2^-8 |x|, held by rtol 2^-6);
-# 2^-5 of the row's rms leaves room for the flips.  fp32: summation order
-# and expf only.  The planted faults: dq with the first FAULT_KEYS keys left
-# out of its sum, dk/dv with the first FAULT_KEYS queries left out of
-# theirs; each must need more than the tolerance.  Each kernel owns its
-# output rows and sums in a fixed order (no atomics), so a second call on
-# the same inputs must give bit-identical gradients.
+# 2^-5 of the row's rms leaves room for the flips.  fp32: the kernels run
+# each product as three tf32 products (3xTF32): the dropped small·small
+# term and the rounding of small leave 2^-22 relative per operand
+# (tests/test_torch_port_attention_tf32.py, whose sums round to nearest:
+# ~5e-6 of the row's rms).  The tensor cores round each accumulation
+# toward zero, which that emulation leaves out: on an H100 the kernels
+# need 1.4e-5 to 5.4e-5 of a row's rms on these cases' inputs, and on
+# other seeded inputs up to 4.4e-4 for dq in the ragged causal D 64 case
+# (rows whose dS terms cancel).  So 2^-10 (9.8e-4) leaves about 2x there,
+# and one tf32 product alone (3e-3 to 3e-2) fails it.  The planted faults:
+# dq with the first FAULT_KEYS keys left out of its sum, dk/dv with the
+# first FAULT_KEYS queries left out of theirs; each must need more than
+# the tolerance.  Each kernel owns its output rows and sums in a fixed
+# order (no atomics), so a second call on the same inputs must give
+# bit-identical gradients.
 
 
-def backward_checks(attn) -> list[dict]:
+# the kernels each backward wrapper launches, by symbol, per dtype
+BACKWARD_SYMBOLS = {
+    "bfloat16": {"dq": ["flash_bwd_dq_bf16"], "dkv": ["flash_bwd_dkv_bf16"]},
+    "float32": {"dq": ["flash_bwd_dq_tf32x3"], "dkv": ["flash_bwd_dkv_tf32x3"]},
+}
+
+
+def backward_checks(attn, csrc: Path | None = None) -> list[dict]:
     """K3 and K4 against ``flash_attention_bwd_reference`` at
-    ``BACKWARD_CASES``: agreement, the planted faults, a bitwise replay, and
-    times."""
+    ``BACKWARD_CASES``: agreement, the planted faults, a bitwise replay, the
+    kernels each wrapper launched by symbol (``csrc``'s, this checkout's by
+    default) and the SDPA yardstick's by name, and times."""
     import torch
     import torch.nn.functional as F
 
@@ -589,7 +641,7 @@ def backward_checks(attn) -> list[dict]:
                 "fault_atol_share_needed": atol_share_needed(fault, ref, rtol),
                 "finite": bool(torch.isfinite(got).all()),
             }
-        del want, fault_dq, fault_dkv
+        del fault_dq, fault_dkv
         ok = all(bit_identical.values()) and all(
             g["finite"] and g["atol_share_needed"] <= atol_share < g["fault_atol_share_needed"]
             for g in grads.values()
@@ -612,17 +664,43 @@ def backward_checks(attn) -> list[dict]:
             torch.autograd.grad(sdpa_fwd(), (ql, kl, vl), dot)
 
         library_ms = cuda_ms(sdpa_fwd_bwd, n) - cuda_ms(sdpa_fwd, n)
+        # one call of each under the profiler: which kernels ran
+        launched = {
+            kernel: sorted(_port_kernel_ms(profile_device(fn, 1)["device_ms_by_name"], csrc=csrc))
+            for kernel, fn in (
+                ("dq", lambda: attn.flash_attention_dq(qt, kt, vt, dot, lse, adj, **kw)),
+                ("dkv", lambda: attn.flash_attention_dkv(qt, kt, vt, dot, lse, adj, **kw)),
+            )
+        }
+        sdpa = profile_device(sdpa_fwd_bwd, 1)["device_ms_by_name"]
+        library_kernels = {
+            name[:100]: ms for name, ms in sorted(sdpa.items(), key=lambda kv: -kv[1])[:6]
+        }
+        # the yardstick's own gradients against the plain version (no lse
+        # cotangent in SDPA: cases without one), by the same per-row measure
+        library_share = None
+        if not with_dlse:
+            lib_grads = torch.autograd.grad(sdpa_fwd(), (ql, kl, vl), dot)
+            library_share = {
+                name: atol_share_needed(got, ref, rtol)
+                for name, got, ref in zip(("dq", "dk", "dv"), lib_grads, want)
+            }
+            del lib_grads
+        del want
+        ok = ok and launched == BACKWARD_SYMBOLS[dname]
         bound = {
             kernel: backward_bound(b, h, s, s, d, causal, dtype, kernel)
             for kernel in ("dq", "dkv")
         }
-        pair_floor_ms = 2 * 5 * b * h * s * s * d / PEAK_FLOPS[dname] * 1e3
+        pair_floor_ms = 2 * 5 * b * h * s * s * d / backward_peak(dname) * 1e3
         out.append({
             "case": label, "dtype": dname, "layout": layout, "shape": [b, h, s, d],
             "causal": causal, "dlse": with_dlse, "atol_share": atol_share, "rtol": rtol,
             "grads": grads, "bit_identical_across_calls": bit_identical, "ok": ok,
             "dq_ms": dq_ms, "dkv_ms": dkv_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "kernels": launched,
+            "library_kernels_ms_fwd_bwd": library_kernels,
+            "library_atol_share_needed": library_share,
             "dq_bound_ms": bound["dq"][0], "dq_bound_by": bound["dq"][1],
             "dkv_bound_ms": bound["dkv"][0], "dkv_bound_by": bound["dkv"][1],
             "pair_floor_ms_with_atomic_dq": pair_floor_ms,
@@ -1797,10 +1875,11 @@ def step_check(attn, precision: str) -> dict:
     }
 
 
-def step_profile(trainer) -> dict:
+def step_profile(trainer, csrc: Path | None = None) -> dict:
     """Where one train step's device time goes: ``profile_device`` over two
     steps of ``trainer`` on its first batch, split into the flash forward,
-    dq and dk/dv kernels, the cuBLAS GEMMs and the rest."""
+    dq and dk/dv kernels, the cuBLAS GEMMs and the rest, with the port's
+    kernels by symbol (``csrc``'s, this checkout's by default)."""
     from distributed_training_comparison_tpu_torch.data import draw_crop_flip
     from distributed_training_comparison_tpu_torch.utils import step_generator
 
@@ -1828,6 +1907,7 @@ def step_profile(trainer) -> dict:
         "device_busy_ms_per_step": prof["device_busy_ms"],
         "device_idle_share": prof["device_idle_share"],
         "device_ms_per_step": split,
+        "port_kernels_ms_per_step": _port_kernel_ms(prof["device_ms_by_name"], csrc=csrc),
         "top_device_ms_per_step": {name[:60]: ms for name, ms in top},
     }
 
@@ -1875,6 +1955,92 @@ def train_phase(attn, smi: str) -> dict:
         "step_checks": checks,
         "step_profile": profile,
     }
+
+
+def train_long_fp32_phase(attn, smi: str) -> dict:
+    """``vit_long`` trained through ``entry.run`` at the default precision:
+    ``TRAIN_LONG_FP32_ARGV``, full width and depth at batch 16 (bh 64).
+    The launch counters are zeroed just before and read just after; then a
+    step profile (``step_profile``) and ms per step timed over steps of one
+    batch."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch import entry
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.data import get_datasets
+    from distributed_training_comparison_tpu_torch.train import Trainer
+
+    counters = {"fwd": attn.flash_attention, "dq": attn.flash_attention_dq,
+                "dkv": attn.flash_attention_dkv}
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    report = entry.run(TRAIN_LONG_FP32_ARGV)
+    launches = {name: c.launches for name, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hp = load_config(TRAIN_LONG_FP32_ARGV)
+    epochs = report["fit"]["epochs"]
+    val_examples = len(get_datasets(hp)[1][1])
+    trainer = Trainer(hp)
+    depth = len(trainer.model.blocks)
+    times = long_fp32_step_times(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    return {
+        "phase": "train_long_fp32",
+        "nvidia_smi": smi,
+        "argv": TRAIN_LONG_FP32_ARGV,
+        "precision": hp.precision,
+        "batch": hp.batch_size,
+        "train_steps": sum(e["steps"] for e in epochs),
+        "eval_batches": len(epochs) * math.ceil(val_examples / hp.batch_size),
+        "depth": depth,
+        "launches": launches,
+        "losses_finite": all(e["nonfinite_losses"] == 0 for e in epochs),
+        "skipped_steps": sum(e["skipped"] for e in epochs),
+        "epochs": epochs,
+        "peak_memory_gb": peak_gb,
+        "epoch_images_per_s": epochs[-1]["images_per_s"],
+        **times,
+    }
+
+
+def long_fp32_step_times(trainer, csrc: Path | None = None) -> dict:
+    """ms per ``vit_long`` fp32 train step (CUDA events over 3 steps of the
+    trainer's first batch, after a warm step) and ``step_profile``'s
+    split of one step, the flash dq and dk/dv kernels' share of its device
+    time beside it."""
+    from distributed_training_comparison_tpu_torch.data import draw_crop_flip
+    from distributed_training_comparison_tpu_torch.utils import step_generator
+
+    hp = trainer.hparams
+    images, labels = next(trainer.train_split.epoch_batches(hp.batch_size, hp.seed, 0))
+    draws = draw_crop_flip(len(labels), step_generator(hp.seed, 0, 0))
+    ms = cuda_ms(lambda: trainer.step(images, labels, draws), 3, warmup=1)
+    profile = step_profile(trainer, csrc=csrc)
+    split = profile["device_ms_per_step"]
+    busy = profile["device_busy_ms_per_step"]
+    return {
+        "ms_per_step": ms,
+        "images_per_s_timed": hp.batch_size / ms * 1e3,
+        "step_profile": profile,
+        "flash_dq_dkv_share_of_busy": (split["flash_dq"] + split["flash_dkv"]) / busy,
+    }
+
+
+def check_train_long_fp32(run: dict) -> None:
+    depth, steps = run["depth"], run["train_steps"]
+    want = {"fwd": depth * (steps + run["eval_batches"]), "dq": depth * steps, "dkv": depth * steps}
+    if run["precision"] != "fp32" or run["batch"] != 16:
+        raise RuntimeError(f"train_long_fp32 ran {run['precision']} at batch {run['batch']}")
+    if run["launches"] != want:
+        raise RuntimeError(f"train_long_fp32 launches {run['launches']}, expected {want}")
+    if not run["losses_finite"] or run["skipped_steps"]:
+        raise RuntimeError("train_long_fp32: a non-finite loss or a skipped step")
+    ran = set(run["step_profile"]["port_kernels_ms_per_step"])
+    want_bwd = {k for ks in BACKWARD_SYMBOLS["float32"].values() for k in ks}
+    if not want_bwd <= ran or ran & {k for ks in BACKWARD_SYMBOLS["bfloat16"].values() for k in ks}:
+        raise RuntimeError(f"train_long_fp32's step ran the port kernels {sorted(ran)}")
 
 
 TRAIN_TINY_ARGV = [
@@ -3535,17 +3701,20 @@ def main() -> int:
                 print(f"ptxas {path.stem}: {line.strip()}", file=sys.stderr)
     built = {**attention_build["kernels"], **gemm_build["kernels"], **moe_build["kernels"]}
     missing = [k for k in MOE_SYMBOLS["bfloat16"].values() if k.endswith("_wgmma") and k not in built]
+    missing += [f"{k}<{d}>" for ks in BACKWARD_SYMBOLS["float32"].values() for k in ks
+                for d in (64, 128) if f"{k}<{d}>" not in built]
     if missing:
         raise RuntimeError(f"the build logs hold no ptxas report of {missing}")
     spilled = {
         name: r for name, r in built.items()
-        # the bf16 flash, one-tile, fused block GEMM and attention, and
-        # grouped expert FFN kernels
-        if ("flash_" in name and "bf16" in name or "onetile" in name or "_wgmma" in name)
+        # the bf16 and 3xTF32 flash, one-tile, fused block GEMM and
+        # attention, and grouped expert FFN kernels
+        if ("flash_" in name and ("bf16" in name or "tf32x3" in name) or "onetile" in name
+            or "_wgmma" in name)
         and r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
     }
     if spilled:
-        raise RuntimeError(f"bf16 attention, GEMM or expert FFN kernels spill registers: {spilled}")
+        raise RuntimeError(f"Hopper attention, GEMM or expert FFN kernels spill registers: {spilled}")
 
     checks = kernel_checks(attn)
     emit({"phase": "kernel_checks", "nvidia_smi": smi, "checks": checks})
@@ -3629,6 +3798,10 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"a train step through the kernels disagrees with the reference: {bad}")
 
+    long_fp32 = train_long_fp32_phase(attn, smi)
+    emit(long_fp32)
+    check_train_long_fp32(long_fp32)
+
     tiny_train = train_tiny_phase(vb, attn, smi)
     emit(tiny_train)
     check_train_tiny(tiny_train)
@@ -3692,7 +3865,11 @@ def main() -> int:
             "library_ms": case["library_ms"],
             "tflops": case["tflops"], "bound_share": case["bound_share"],
         })
+    # the backward's ``launches``: bf16 on the train path, fp32 on train_long_fp32
+    bwd_launches = {"bfloat16": (train["launches"], "train main path"),
+                    "float32": (long_fp32["launches"], "train_long_fp32 main path")}
     for case in bwd:
+        counts, path = bwd_launches[case["dtype"]]
         for kernel, regime, grads in (("dq", "K3", ("dq",)), ("dkv", "K4", ("dk", "dv"))):
             kernels.append({
                 "name": f"flash_attention_{kernel}", "route": "cuda",
@@ -3700,8 +3877,9 @@ def main() -> int:
                 "replaces": replaces[regime], "regime": regime,
                 "case": case["case"], "shape_bhsd": case["shape"], "dtype": case["dtype"],
                 "causal": case["causal"], "dlse": case["dlse"],
-                "launches": train["launches"][kernel],
-                "launches_counted": "train main path, one counter for every case",
+                "launches": counts[kernel],
+                "launches_counted": f"{path}, one counter for every case of the dtype",
+                "at_main_path_shape": case["case"].startswith("slice:"),
                 "max_abs_err": max(case["grads"][g]["max_abs_err"] for g in grads),
                 "atol_share": case["atol_share"], "rtol": case["rtol"],
                 "atol_share_needed": max(case["grads"][g]["atol_share_needed"] for g in grads),
@@ -3710,7 +3888,8 @@ def main() -> int:
                 ),
                 "ms": case[f"{kernel}_ms"], "plain_ms": case["plain_ms"],
                 "bound_ms": case[f"{kernel}_bound_ms"], "bound_by": case[f"{kernel}_bound_by"],
-                "library_ms": case["library_ms"],
+                "library_ms": case["library_ms"], "kernels": case["kernels"][kernel],
+                "library_kernels_ms_fwd_bwd": case["library_kernels_ms_fwd_bwd"],
                 "bit_identical_across_calls": all(
                     case["bit_identical_across_calls"][g] for g in grads
                 ),
@@ -3947,7 +4126,9 @@ def turn(checkout: Path, label: str) -> int:
     """One turn of a comparison of checkouts in one call: the port of
     ``checkout`` (put first on ``sys.path``; this tree or a parent unpacked
     by ``git archive``) built and driven through this script's timing
-    functions: the fused block chains (``fused_block_checks``,
+    functions: the flash backward's K3/K4 at every ``BACKWARD_CASES`` case
+    (``backward_checks``) and the ``vit_long`` fp32 train step at batch 16
+    (``long_fp32_step_times``), the fused block chains (``fused_block_checks``,
     ``fused_block_bwd_checks``), the ``train_tiny`` step and the bucket-32
     dispatch (``tiny_step_times``, ``tiny_dispatch``), K10/K11
     (``small_attention_checks``) and digests of their results
@@ -3979,8 +4160,17 @@ def turn(checkout: Path, label: str) -> int:
     vb = importlib.import_module(f"{PKG}.ops.vit_block")
     small = importlib.import_module(f"{PKG}.ops.attention_small")
     gm = importlib.import_module(f"{PKG}.ops.moe_gmm")
+    attn = importlib.import_module(f"{PKG}.ops.attention")
     csrc = checkout / PKG / "ops" / "csrc"
     _build.build_all()
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.train import Trainer
+
+    bwd = backward_checks(attn, csrc)
+    trainer = Trainer(load_config(TRAIN_LONG_FP32_ARGV))
+    long_fp32 = long_fp32_step_times(trainer, csrc=csrc)
+    del trainer
+    torch.cuda.empty_cache()
     # the attention stages at the train shape (B 128), timed whatever their
     # kernels' symbols: K6's recompute (the forward) and its backward
     gen = torch.Generator().manual_seed(12)
@@ -3989,7 +4179,8 @@ def turn(checkout: Path, label: str) -> int:
     b128 = {"block_attention_ms": timed(lambda: vb.block_attention(qkv, seq=256, heads=3))[0],
             "block_attention_bwd_ms": timed(lambda: vb.block_attention_bwd(qkv, do, seq=256, heads=3))[0]}
     del qkv, do
-    rec = {"turn": label, "checkout": str(checkout), "nvidia_smi": smi, "attention_b128": b128,
+    rec = {"turn": label, "checkout": str(checkout), "nvidia_smi": smi,
+           "backward_checks": bwd, "long_fp32_step": long_fp32, "attention_b128": b128,
            "fused_block_checks": fused_block_checks(vb),
            "fused_block_bwd_checks": fused_block_bwd_checks(vb),
            "tiny_step_times": tiny_step_times(), "tiny_dispatch": tiny_dispatch(),
@@ -4000,8 +4191,18 @@ def turn(checkout: Path, label: str) -> int:
     serve, train = rec["fused_block_checks"][0], rec["fused_block_bwd_checks"][0]
     step, disp = rec["tiny_step_times"], rec["tiny_dispatch"]["bucket32_profile"]
     moe_step, moe_disp = rec["moe_step_times"], rec["moe_dispatch"]
+    split = long_fp32["step_profile"]["device_ms_per_step"]
     summary = {
         "turn": label, "nvidia_smi": smi,
+        "k3_k4_ms": {c["case"]: [c["dq_ms"], c["dkv_ms"]] for c in bwd},
+        "k3_k4_kernels": {c["case"]: c["kernels"] for c in bwd},
+        "k3_k4_ok": {c["case"]: c["ok"] for c in bwd},
+        "k3_k4_sdpa_bwd_ms": {c["case"]: c["library_ms"] for c in bwd},
+        "long_fp32_ms_per_step": long_fp32["ms_per_step"],
+        "long_fp32_busy_ms": long_fp32["step_profile"]["device_busy_ms_per_step"],
+        "long_fp32_idle_share": long_fp32["step_profile"]["device_idle_share"],
+        "long_fp32_device_ms": split,
+        "long_fp32_dq_dkv_share": long_fp32["flash_dq_dkv_share_of_busy"],
         "k5_serve_chain_ms": serve["chain"]["ms"],
         "block_attention_serve_ms": serve["attention"]["ms"],
         "block_attention_serve_sdpa_ms": serve["attention"]["library_ms"],

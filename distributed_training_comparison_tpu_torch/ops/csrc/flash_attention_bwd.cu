@@ -65,15 +65,16 @@
 // overlap the other's products.  Persistent blocks are left for a later
 // change.
 //
-// fp32 inputs run separate SIMT kernels computed in fp32 throughout (no
-// TF32), for the default-precision training path and as a cross-check.
+// fp32 inputs (the default-precision training path, without --amp) run
+// flash_bwd_dq_tf32x3 and flash_bwd_dkv_tf32x3: the same products on
+// wgmma in 3xTF32, each fp32 product as three tf32 products (the fp32
+// section below).
 
 #include "hopper_common.cuh"
 
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreads = 128;  // fp32 kernels: threads per block
 
 struct Params {
   const void* q;
@@ -523,182 +524,655 @@ int launch_dkv_bf16(const Params& p, int batch, int heads, cudaStream_t stream) 
 }
 
 // ------------------------------------------------------------------ fp32
+//
+// 3xTF32 on wgmma.  Each fp32 operand x is split into big = tf32(x) and
+// small = tf32(x - big) (cvt.rna's rounding: to nearest, ties away, the low
+// 13 mantissa bits zero), and each product a·b is small_a·big_b +
+// big_a·small_b + big_a·big_b accumulated in fp32: the dropped small·small
+// term and the rounding of small leave |x - big - small| <= 2^-22 |x|, fp32
+// accuracy.
+// Three tf32 products at 495 TFLOP/s dense are 165 TFLOP/s of fp32 work,
+// 2.5x the 67 of fp32 SIMT; the kernels are bound by those operations.
+//
+// tf32 wgmma (m64nNk8) reads shared-memory operands K-major only (the
+// transpose bits exist for 16-bit types alone), and a big and a small copy
+// of a 64 x 128 fp32 tile are 64 KB, so the bf16 layout (128 own rows of
+// two tensors in shared memory) does not fit.  Instead:
+// - A is always in registers.  The block's own rows (dq: Q and dO; dkv: K
+//   and V; 64 a consumer warpgroup, two warpgroups) are read from device
+//   memory once into shared memory, raw fp32 in the A-fragment order (a
+//   float4 a thread a k-step: one 16-byte load, no conflicts), and split
+//   into big and small A fragments as each k-step is issued; dS and P come
+//   from the accumulators, whose layout the fragments follow through a
+//   permutation of the contraction axis (below).
+// - B runs through one ring of 16 KB slots: 64 rows x 32 tf32 columns (one
+//   128-byte swizzle row), big then small, K-major under 128-byte swizzle.
+//   A producer warpgroup copies each slot's fp32 tile from device memory
+//   into the slot with cp.async (16-byte copies, three slots in flight a
+//   thread), then splits it in place, transposed where the product
+//   contracts over the sequence: dq streams K_j and V_j as scores B (64
+//   keys x 32 of D) and K_jᵀ (64 of D x 32 keys) for dQ += dS·K_j, twelve
+//   slots a 64-key tile at D 128; dkv streams one slot per 32 columns of D
+//   holding Q_i (rows 0-31) and dO_i (rows 32-63) as scores B, then dO_iᵀ
+//   and Q_iᵀ (64 of D x 32 queries), eight slots a 32-query tile.
+// - The tf32 A fragment holds (row g, col t), (g + 8, t), (g, t + 4),
+//   (g + 8, t + 4) of an 8-column k-step, where the fp32 accumulator holds
+//   columns 2t and 2t + 1: taken from the accumulator, fragment position t
+//   is column 2t and t + 4 is 2t + 1, so the transposed slots store the
+//   contraction axis in that order within each group of 8 (keys or queries
+//   0, 2, 4, 6, 1, 3, 5, 7) and no shuffle is needed.
+// Shared memory at D 128: 128 KB of own rows + 6 slots (96 KB) = 224 KB.
+// Registers: setmaxnreg gives the producer 56 and the consumers 224 (dq
+// holds dQ 64 + S 32 + dP 32 + fragments; dkv dK 64 + dV 64 + Sᵀ 16 + dPᵀ
+// 16 + two k-steps of fragments in flight, then a tile's partial dV or dK
+// 32 + P or dS fragments 32).  Each consumer warpgroup waits for its
+// products at the end of every slot and releases it; the other
+// warpgroup's products fill that gap.
+// The tensor cores' fp32 accumulation rounds toward zero: the long sums
+// (dQ over keys, dK and dV over queries) take each tile's products in a
+// fresh accumulator and add it to the total in fp32, so their error does
+// not grow with S.
 
-constexpr int kFR = 32;  // rows of the block's own side: 4 threads per row
-constexpr int kFT = 32;  // rows of each streamed tile
+constexpr int kRing = 6;                          // slots
+constexpr int kSlotRows = 64;                     // rows of a slot: wgmma's N (or two 32-row halves)
+constexpr int kHalfBytes = kSlotRows * 32 * 4;    // the big half: 64 rows x 128 bytes; small follows
+constexpr int kSlotBytes = 2 * kHalfBytes;
+constexpr int kFrag = 128 * 16;                   // one k-step of a warpgroup's A fragments, raw fp32
+
+// setmaxnreg moves registers within the block's launch allocation (384 x
+// 168 = 64,512): 128 x 56 + 256 x 224 is all of it (at 40 / 232 ptxas
+// spills in dkv at D 128; at 48 / 232 the consumers' increase waits
+// forever)
+constexpr int kF32ProducerRegs = 56;
+constexpr int kF32ConsumerRegs = 224;
+constexpr int kDqKeysF32 = 64;                    // dq: keys per streamed tile
+constexpr int kDkvRowsF32 = 32;                   // dkv: queries per streamed tile
 
 template <int D>
-constexpr int dq_f32_smem_bytes() {
-  return (2 * kFR * (D + 1) + 2 * kFT * (D + 1) + kFR * (kFT + 1)) * 4;
+struct Tf32Layout {  // byte offsets from the 1024-aligned base of dynamic shared memory
+  static constexpr int kOwnTensor = D / 8 * kFrag;  // one own tensor of one consumer warpgroup
+  static constexpr int kRingAt = 4 * kOwnTensor;    // 2 warpgroups x 2 tensors
+  static constexpr int kBars = kRingAt + kRing * kSlotBytes;
+  static constexpr int kBytes = kBars + 2 * kRing * 8 + 1024;  // barriers, alignment slack
+};
+
+// A-fragment element e of a thread: row g + 8·frag_row(e), column t + 4·frag_col(e)
+__device__ __forceinline__ constexpr int frag_row(int e) { return e & 1; }
+__device__ __forceinline__ constexpr int frag_col(int e) { return e >> 1; }
+
+// tf32(x) rounded to nearest, ties away from zero, the low 13 bits zero:
+// what cvt.rna.tf32.f32 computes for finite x and inf, as an integer add and
+// mask on the bits (the conversion instruction runs at a fraction of the
+// integer rate, and the kernels split every operand element they read).
+// Not for a NaN: the add carries its payload into the exponent or the sign
+// (0x7FFFFFFF, the card's NaN, becomes -0).
+__device__ __forceinline__ uint32_t to_tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u; }
+
+// big = tf32(x), small = tf32(x - big).  big adds x·0, exact for finite x
+// (the zeros share the sign of x and of its rounding) and NaN for a NaN or
+// an inf, so such an operand makes its products NaN instead of dropping out
+// of them; one FMA where a test of the exponent and a select cost the
+// kernels a fifth of their time.  small of a NaN is then -0, which big
+// outweighs.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  const float b = __fmaf_rn(x, 0.0f, __uint_as_float(to_tf32(x)));
+  big = __float_as_uint(b);
+  small = to_tf32(x - b);
 }
 
-template <int D>
-constexpr int dkv_f32_smem_bytes() {
-  return (2 * kFR * (D + 1) + 2 * kFT * (D + 1) + 2 * kFR * (kFT + 1) + 2 * kFT) * 4;
+__device__ __forceinline__ void split4(const float4 x, uint32_t* big, uint32_t* small) {
+  split_tf32(x.x, big[0], small[0]);
+  split_tf32(x.y, big[1], small[1]);
+  split_tf32(x.z, big[2], small[2]);
+  split_tf32(x.w, big[3], small[3]);
 }
 
-// rows [row0, row0 + ROWS) of a (len, D) fp32 slice into smem rows of D + 1
-// (the odd stride puts a warp's 8 rows on distinct banks); zeros past len
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile_f32(float* smem, const float* g, long long ld, int row0,
-                                              int len, int tid) {
-  for (int c = tid; c < ROWS * D; c += kThreads) {
-    const int r = c / D, d = c % D;
-    smem[r * (D + 1) + d] = row0 + r < len ? g[(row0 + r) * ld + d] : 0.f;
+// a 64 x 8·K8 fp32 accumulator as big and small tf32 A fragments of K8
+// k-steps: fragment element e is column 2t + frag_col(e) of row g + 8·frag_row(e)
+template <int K8>
+__device__ __forceinline__ void acc_frags(uint32_t (*big)[4], uint32_t (*small)[4], const float* x) {
+#pragma unroll
+  for (int n = 0; n < K8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(x[4 * n + 2 * frag_row(e) + frag_col(e)], big[n][e], small[n][e]);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32(const Params p) {
-  constexpr int LD = D + 1;
-  constexpr int PER = kFT / 4;
-  constexpr int OUT = D / 4;
-  extern __shared__ float fsmem[];
-  float* qs = fsmem;
-  float* dos = qs + kFR * LD;
-  float* ks = dos + kFR * LD;
-  float* vs = ks + kFT * LD;
-  float* ds_s = vs + kFT * LD;
+// D (fp32, 64 x N) += A (tf32, 64 x 8, registers) · B (tf32, 8 x N, K-major in shared memory)
+__device__ __forceinline__ void wgmma_tf32_m64n64k8(float* d, const uint32_t* a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
 
-  const int m0 = blockIdx.x * kFR;
+__device__ __forceinline__ void wgmma_tf32_m64n32k8(float* d, const uint32_t* a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// the three tf32 products of one fp32 k-step: small·big, big·small, big·big
+template <int N>
+__device__ __forceinline__ void wgmma_3xtf32(float* d, const uint32_t* big, const uint32_t* small,
+                                             uint32_t b_at, int acc) {
+  const uint64_t bb = smem_desc(b_at, 16, 1024), bs = smem_desc(b_at + kHalfBytes, 16, 1024);
+  if constexpr (N == 64) {
+    wgmma_tf32_m64n64k8(d, small, bb, acc);
+    wgmma_tf32_m64n64k8(d, big, bs, 1);
+    wgmma_tf32_m64n64k8(d, big, bb, 1);
+  } else {
+    static_assert(N == 32, "the 3xTF32 products take N 32 or 64");
+    wgmma_tf32_m64n32k8(d, small, bb, acc);
+    wgmma_tf32_m64n32k8(d, big, bs, 1);
+    wgmma_tf32_m64n32k8(d, big, bb, 1);
+  }
+}
+
+// Where a slot's fp32 tile comes from.  Natural (K-major over D): slot row
+// r < SPLIT is row row0 + r of `a`, the others row row0 + r - SPLIT of `b`,
+// columns col0 .. col0 + 31.  Transposed: slot row n is column col0 + n of
+// `a` (64 of them), its 32 tf32 columns rows row0 .. row0 + 31 of `a` in the
+// fragments' order.  Rows at or past `len` are zeros.
+struct SlotSrc {
+  const float* a;
+  const float* b;
+  long long a_ss, b_ss;
+  int row0, len, col0;
+  bool trans;
+};
+
+// where a producer thread's 16-byte chunk i of a slot lands, raw: natural,
+// at its place in the big half (chunk j of row r at chunk j ^ (r % 8) of the
+// row's 128 bytes); transposed, row `lane` (of 32) of a 64-column staging
+// tile in the small half, 16 chunks a row, swizzled so that a quarter-warp
+// reading one chunk index of 8 rows hits 8 distinct bank groups
+__device__ __forceinline__ int raw_at(bool trans, int tid, int i) {
+  if (trans) {
+    const int lane = tid & 31, c = 4 * (tid >> 5) + i;
+    return kHalfBytes + (lane * 16 + (c ^ (lane & 7))) * 16;
+  }
+  const int f = tid + 128 * i, r = f >> 3;
+  return r * 128 + (((f & 7) ^ (r & 7)) << 4);
+}
+
+// the producer thread's four 16-byte copies of a slot, as one cp.async group;
+// rows past the length land as zeros (source size 0)
+template <int SPLIT>
+__device__ __forceinline__ void slot_issue(uint32_t slot, const SlotSrc& s, int tid) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float* src = s.a;
+    long long ss = s.a_ss;
+    int row, col;
+    if (s.trans) {
+      row = s.row0 + (tid & 31);
+      col = s.col0 + 4 * (4 * (tid >> 5) + i);
+    } else {
+      const int f = tid + 128 * i, r = f >> 3;
+      col = s.col0 + 4 * (f & 7);
+      row = s.row0 + r;
+      if (r >= SPLIT) src = s.b, ss = s.b_ss, row -= SPLIT;
+    }
+    const bool in = row < s.len;
+    const float* from = src + (in ? row * ss + col : 0);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(slot + raw_at(s.trans, tid, i)),
+                 "l"(from), "r"(in ? 16 : 0)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// split a landed slot in place.  Natural: each thread splits the chunks it
+// copied (big over the raw values, small at the same place of the small
+// half).  Transposed: each thread reads the chunks it copied, the producer
+// warpgroup syncs (the stores overwrite the staging tile), and the warp's 32
+// lanes, the 32 contraction rows, each store one 4-byte element of a slot
+// row (all 32 banks); row `key` goes to position key / 2 within its group
+// of 8, plus 4 if odd: the accumulator's column order as the fragments
+// read it.
+__device__ __forceinline__ void slot_split(unsigned char* slot, bool trans, int tid) {
+  uint32_t big[4], small[4];
+  if (!trans) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int off = raw_at(false, tid, i);
+      split4(*reinterpret_cast<const float4*>(slot + off), big, small);
+      *reinterpret_cast<uint4*>(slot + off) = make_uint4(big[0], big[1], big[2], big[3]);
+      *reinterpret_cast<uint4*>(slot + kHalfBytes + off) = make_uint4(small[0], small[1], small[2], small[3]);
+    }
+    return;
+  }
+  float4 v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = *reinterpret_cast<const float4*>(slot + raw_at(true, tid, i));
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");  // every staged chunk is read
+  const int key = tid & 31;
+  const int kp = (key & ~7) | ((key & 7) >> 1) | ((key & 1) << 2);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    split4(v[i], big, small);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = 4 * (4 * (tid >> 5) + i) + e;
+      const int off = n * 128 + (((kp >> 2) ^ (n & 7)) << 4) + ((kp & 3) << 2);
+      *reinterpret_cast<uint32_t*>(slot + off) = big[e];
+      *reinterpret_cast<uint32_t*>(slot + kHalfBytes + off) = small[e];
+    }
+  }
+}
+
+// The producer warpgroup: fills slots 0 .. total - 1 in the consumers' order,
+// slot u in stage u % kRing, with the copies of kAhead slots in flight a
+// thread; a slot is split once its copies landed.  A stage is full when all
+// 128 threads stored and fenced their writes for the async proxy.
+constexpr int kAhead = 3;
+
+template <int SPLIT, typename SlotOf>
+__device__ __forceinline__ void produce(SlotOf slot_of, int total, unsigned char* ring, uint32_t bars, int tid) {
+  const uint32_t ring_at = smem_u32(ring);
+  auto issue = [&](int w) {
+    if (w >= total) {
+      asm volatile("cp.async.commit_group;\n" ::: "memory");  // an empty group keeps the count
+      return;
+    }
+    const int st = w % kRing;
+    // a stage's previous use is released when all 8 consumer warps arrived
+    if (w >= kRing) mbar_wait(bars + 8 * (kRing + st), ((w / kRing) & 1) ^ 1);
+    slot_issue<SPLIT>(ring_at + st * kSlotBytes, slot_of(w), tid);
+  };
+  for (int w = 0; w < kAhead; ++w) issue(w);
+  for (int u = 0; u < total; ++u) {
+    issue(u + kAhead);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead) : "memory");  // slot u's copies landed
+    slot_split(ring + (u % kRing) * kSlotBytes, slot_of(u).trans, tid);
+    fence_proxy_async();
+    mbar_arrive(bars + 8 * (u % kRing));
+  }
+}
+
+// a consumer thread's A fragments of rows row0 and row0 + 8 (`len` true rows)
+// of a (S, D) fp32 slice, raw, into its own float4 of each k-step
+template <int D>
+__device__ __forceinline__ void load_own(unsigned char* own, const float* g, long long ss, int row0, int len,
+                                         int t) {
+#pragma unroll 4
+  for (int ks = 0; ks < D / 8; ++ks) {
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + 8 * frag_row(e);
+      x[e] = row < len ? g[row * ss + 8 * ks + t + 4 * frag_col(e)] : 0.f;
+    }
+    *reinterpret_cast<float4*>(own + ks * kFrag) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+}
+
+__device__ __forceinline__ void consumer_wait(uint32_t bars, int u) {
+  mbar_wait(bars + 8 * (u % kRing), (u / kRing) & 1);
+}
+
+__device__ __forceinline__ void consumer_release(uint32_t bars, int u, int lane) {
+  if (lane == 0) mbar_arrive(bars + 8 * (kRing + u % kRing));  // this warp is done with the stage
+}
+
+// acc (64 x 64, fresh) = own rows · slots' rowsᵀ over D: D / 32 slots of 32 columns
+template <int D>
+__device__ __forceinline__ void scores(float* acc, const unsigned char* own, uint32_t ring, uint32_t bars,
+                                       int& u, int lane) {
+#pragma unroll
+  for (int cc = 0; cc < D / 32; ++cc) {
+    consumer_wait(bars, u);
+    const uint32_t slot = ring + (u % kRing) * kSlotBytes;
+    uint32_t big[4][4], small[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      split4(*reinterpret_cast<const float4*>(own + (4 * cc + kk) * kFrag), big[kk], small[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_3xtf32<64>(acc, big[kk], small[kk], slot + kk * 32, cc > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<32>(acc);
+    fence_regs<16>(&big[0][0]);
+    fence_regs<16>(&small[0][0]);
+    consumer_release(bars, u, lane);
+    ++u;
+  }
+}
+
+// acc[hh] (columns 64·hh .. of D) += A · this tile's transposed slots, A
+// from fragments of K8 k-steps, K8 / 4 slots a column block (slot order:
+// column block major).  The tensor cores round each accumulation toward
+// zero, so summing a whole sequence in one accumulator drifts with its
+// length (1.7e-4 of a row's rms at S 4096); each tile's products go to a
+// fresh accumulator, added to the total in fp32.
+template <int D, int K8>
+__device__ __forceinline__ void sums(float (*acc)[32], uint32_t (*big)[4], uint32_t (*small)[4], uint32_t ring,
+                                     uint32_t bars, int& u, int lane) {
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh) {
+    float part[32];
+#pragma unroll
+    for (int kc = 0; kc < K8 / 4; ++kc) {
+      consumer_wait(bars, u);
+      const uint32_t slot = ring + (u % kRing) * kSlotBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_3xtf32<64>(part, big[4 * kc + kk], small[4 * kc + kk], slot + kk * 32, kc > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<32>(part);
+      fence_regs<4 * K8>(&big[0][0]);
+      fence_regs<4 * K8>(&small[0][0]);
+      consumer_release(bars, u, lane);
+      ++u;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[hh][i] += part[i];
+  }
+}
+
+// a warpgroup's 64 x 64 fp32 accumulator block hh into rows row0 and row0 + 8
+__device__ __forceinline__ void store_f32(float* base, long long ld, int row0, int len, int col0,
+                                          const float* acc, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row0 + 8 * i >= len) continue;
+    float* out = base + (row0 + 8 * i) * ld + col0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n) = make_float2(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
+  }
+}
+
+// Block: warpgroup 0 produces, warpgroups 1 and 2 consume, each owning 64
+// query rows.  Per 64-key tile j each consumer warpgroup: S = Q·K_jᵀ and
+// dP = dO·V_jᵀ (3xTF32 m64n64k8 over D: 8 slots at D 128), dS = P∘(dP +
+// adj)·scale with P = exp(S·scale - lse) on the accumulators, then dQ +=
+// dS·K_j (4 transposed slots: two 64-column halves x two 32-key chunks).
+template <int D>
+__global__ void __launch_bounds__(384, 1) flash_bwd_dq_tf32x3(const Params p) {
+  using L = Tf32Layout<D>;
+  constexpr int kN = kDqKeysF32;
+  constexpr int kPerTile = 2 * (D / 32) + 2 * (D / 64);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const sbase = smem_raw + (base - raw);
+  const uint32_t bars = base + L::kBars;
+
+  // causal: the longest blocks (the last query tiles) go first
+  const int mb = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int m0 = mb * kOwnRows;
   const int h = blockIdx.y, b = blockIdx.z;
+  // causal: keys past the block's last row contribute nothing, and are never loaded
+  const int kv_end = p.causal ? min(p.skv, m0 + kOwnRows) : p.skv;
+  const int nk = (kv_end + kN - 1) / kN;
   const int tid = threadIdx.x;
-  const int r = tid / 4, t = tid % 4;  // row of the tile, lane of the row's quad
-  const int row = m0 + r;
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* dog = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const long long rows_at = (static_cast<long long>(b) * gridDim.y + h) * p.sq;
 
-  load_tile_f32<D, kFR>(qs, qg, p.q_ss, m0, p.sq, tid);
-  load_tile_f32<D, kFR>(dos, dog, p.do_ss, m0, p.sq, tid);
-  const float lse = row < p.sq ? p.lse[rows_at + row] : 0.f;
-  const float adj = row < p.sq ? p.adj[rows_at + row] : 0.f;
-  float acc[OUT];
+  if (tid == 0) {
 #pragma unroll
-  for (int i = 0; i < OUT; ++i) acc[i] = 0.f;
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(bars + 8 * s, 128);
+      mbar_init(bars + 8 * (kRing + s), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int kv_end = p.causal ? min(p.skv, m0 + kFR) : p.skv;
-  for (int n0 = 0; n0 < kv_end; n0 += kFT) {
-    __syncthreads();
-    load_tile_f32<D, kFT>(ks, kg, p.k_ss, n0, p.skv, tid);
-    load_tile_f32<D, kFT>(vs, vg, p.v_ss, n0, p.skv, tid);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int c = t + 4 * i;
-      float s = 0.f, dp = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(qs[r * LD + d], ks[c * LD + d], s);
-        dp = fmaf(dos[r * LD + d], vs[c * LD + d], dp);
+  if (tid < 128) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kF32ProducerRegs));
+    auto slot_of = [&](int u) {
+      const int r = u % kPerTile, n0 = u / kPerTile * kN;
+      if (r < 2 * (D / 32)) {
+        const bool is_v = r >= D / 32;
+        const float* g = is_v ? vg : kg;
+        const long long ss = is_v ? p.v_ss : p.k_ss;
+        return SlotSrc{g, g, ss, ss, n0, p.skv, 32 * (is_v ? r - D / 32 : r), false};
       }
-      const int col = n0 + c;
-      const bool ok = col < p.skv && (!p.causal || col <= row);
-      const float pr = ok ? expf(s * p.scale - lse) : 0.f;
-      ds_s[r * (kFT + 1) + c] = pr * (dp + adj) * p.scale;
-    }
-    __syncwarp();  // a row's quad lives in one warp: its ds row is visible now
-    for (int c = 0; c < kFT; ++c) {
-      const float ds = ds_s[r * (kFT + 1) + c];
-#pragma unroll
-      for (int i = 0; i < OUT; ++i) acc[i] = fmaf(ds, ks[c * LD + t + 4 * i], acc[i]);
-    }
+      const int idx = r - 2 * (D / 32);  // column block idx / 2, key chunk idx % 2
+      return SlotSrc{kg, kg, p.k_ss, p.k_ss, n0 + 32 * (idx % 2), p.skv, 64 * (idx / 2), true};
+    };
+    produce<kSlotRows>(slot_of, nk * kPerTile, sbase + L::kRingAt, bars, tid);
+    return;  // the two roles never reconverge, or setmaxnreg would not hold
   }
-  if (row < p.sq) {
-    float* dqg = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh + row * p.dq_ss;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kF32ConsumerRegs));
+
+  const int c = tid / 128 - 1;  // consumer warpgroup
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = m0 + kWgRows * c + 16 * warp + g;  // this thread's rows: row0 and row0 + 8
+  const int row[2] = {row0, row0 + 8};
+  const long long rows_at = (static_cast<long long>(b) * gridDim.y + h) * p.sq;
+  float lse[2], adj[2];
 #pragma unroll
-    for (int i = 0; i < OUT; ++i) dqg[t + 4 * i] = acc[i];
+  for (int i = 0; i < 2; ++i) {
+    const bool ok = row[i] < p.sq;
+    lse[i] = ok ? p.lse[rows_at + row[i]] : 0.f;
+    adj[i] = ok ? p.adj[rows_at + row[i]] : 0.f;
   }
+  unsigned char* const own_q = sbase + 2 * c * L::kOwnTensor + (tid % 128) * 16;
+  unsigned char* const own_do = own_q + L::kOwnTensor;
+  load_own<D>(own_q, qg, p.q_ss, row0, p.sq, t);
+  load_own<D>(own_do, dog, p.do_ss, row0, p.sq, t);  // read back by this thread alone
+  const uint32_t ring = base + L::kRingAt;
+
+  float dq[D / 64][32];
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[hh][i] = 0.f;
+
+  int u = 0;
+  for (int j = 0; j < nk; ++j) {
+    float s[kN / 2], dp[kN / 2];
+    scores<D>(s, own_q, ring, bars, u, lane);
+    scores<D>(dp, own_do, ring, bars, u, lane);
+    // ds = p·(dp + adj)·scale into s; masks only on the tiles that reach past
+    // the key length or straddle the diagonal
+    const int n0 = j * kN;
+    const bool masked = n0 + kN > p.skv || (p.causal && n0 + kN - 1 > m0 + kWgRows * c);
+#pragma unroll
+    for (int n = 0; n < kN / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float pr = expf(fmaf(s[4 * n + e], p.scale, -lse[i]));
+        if (masked) {
+          const int col = n0 + 8 * n + 2 * t + (e & 1);
+          const bool ok = col < p.skv && (!p.causal || col <= row[i]);
+          pr = ok ? pr : 0.f;
+        }
+        s[4 * n + e] = pr * (dp[4 * n + e] + adj[i]) * p.scale;
+      }
+    }
+    uint32_t big[kN / 8][4], small[kN / 8][4];
+    acc_frags<kN / 8>(big, small, s);
+    sums<D, kN / 8>(dq, big, small, ring, bars, u, lane);
+  }
+
+  float* dqg = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh) store_f32(dqg, p.dq_ss, row0, p.sq, 64 * hh, dq[hh], t);
 }
 
+// Block: warpgroup 0 produces, warpgroups 1 and 2 consume, each owning 64
+// keys.  Per 32-query tile i each consumer warpgroup: Sᵀ = K·Q_iᵀ and dPᵀ =
+// V·dO_iᵀ (3xTF32 m64n32k8 over D, one slot of Q_i and dO_i per 32 columns),
+// Pᵀ and dSᵀ on the accumulators with lse and adj by column (query), then
+// dV += Pᵀ·dO_i and dK += dSᵀ·Q_i (m64n64k8, a transposed slot per 64
+// columns of D each).
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32(const Params p) {
-  constexpr int LD = D + 1;
-  constexpr int PER = kFT / 4;
-  constexpr int OUT = D / 4;
-  extern __shared__ float fsmem[];
-  float* ks = fsmem;
-  float* vs = ks + kFR * LD;
-  float* qs = vs + kFR * LD;
-  float* dos = qs + kFT * LD;
-  float* p_s = dos + kFT * LD;
-  float* ds_s = p_s + kFR * (kFT + 1);
-  float* lse_s = ds_s + kFR * (kFT + 1);
-  float* adj_s = lse_s + kFT;
+__global__ void __launch_bounds__(384, 1) flash_bwd_dkv_tf32x3(const Params p) {
+  using L = Tf32Layout<D>;
+  constexpr int kM = kDkvRowsF32;
+  constexpr int kPerTile = D / 32 + 2 * (D / 64);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const sbase = smem_raw + (base - raw);
+  const uint32_t bars = base + L::kBars;
 
-  const int n0 = blockIdx.x * kFR;
+  const int n0 = blockIdx.x * kOwnRows;
   const int h = blockIdx.y, b = blockIdx.z;
+  // causal: queries before the block's first key see none of its keys
+  const int m_first = p.causal ? n0 / kM * kM : 0;
+  const int nt = p.sq > m_first ? (p.sq - m_first + kM - 1) / kM : 0;
   const int tid = threadIdx.x;
-  const int r = tid / 4, t = tid % 4;  // key of the tile, lane of the key's quad
-  const int key = n0 + r;
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* dog = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const long long rows_at = (static_cast<long long>(b) * gridDim.y + h) * p.sq;
 
-  load_tile_f32<D, kFR>(ks, kg, p.k_ss, n0, p.skv, tid);
-  load_tile_f32<D, kFR>(vs, vg, p.v_ss, n0, p.skv, tid);
-  float dk[OUT], dv[OUT];
+  if (tid == 0) {
 #pragma unroll
-  for (int i = 0; i < OUT; ++i) dk[i] = dv[i] = 0.f;
-
-  // causal: queries before the tile's first key see none of its keys
-  const int q_begin = p.causal ? n0 : 0;
-  for (int m0 = q_begin; m0 < p.sq; m0 += kFT) {
-    __syncthreads();
-    load_tile_f32<D, kFT>(qs, qg, p.q_ss, m0, p.sq, tid);
-    load_tile_f32<D, kFT>(dos, dog, p.do_ss, m0, p.sq, tid);
-    if (tid < kFT) {
-      const bool ok = m0 + tid < p.sq;
-      lse_s[tid] = ok ? p.lse[rows_at + m0 + tid] : 0.f;
-      adj_s[tid] = ok ? p.adj[rows_at + m0 + tid] : 0.f;
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(bars + 8 * s, 128);
+      mbar_init(bars + 8 * (kRing + s), kConsumerWarps);
     }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int c = t + 4 * i;
-      float s = 0.f, dp = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(ks[r * LD + d], qs[c * LD + d], s);
-        dp = fmaf(vs[r * LD + d], dos[c * LD + d], dp);
-      }
-      const int qrow = m0 + c;
-      const bool ok = qrow < p.sq && (!p.causal || qrow >= key);
-      const float pr = ok ? expf(s * p.scale - lse_s[c]) : 0.f;
-      p_s[r * (kFT + 1) + c] = pr;
-      ds_s[r * (kFT + 1) + c] = pr * (dp + adj_s[c]) * p.scale;
-    }
-    __syncwarp();  // a key's quad lives in one warp: its p and ds rows are visible now
-    for (int c = 0; c < kFT; ++c) {
-      const float pr = p_s[r * (kFT + 1) + c];
-      const float ds = ds_s[r * (kFT + 1) + c];
-#pragma unroll
-      for (int i = 0; i < OUT; ++i) {
-        dv[i] = fmaf(pr, dos[c * LD + t + 4 * i], dv[i]);
-        dk[i] = fmaf(ds, qs[c * LD + t + 4 * i], dk[i]);
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (key < p.skv) {
-    float* dkg = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh + key * p.dk_ss;
-    float* dvg = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh + key * p.dv_ss;
+  __syncthreads();
+
+  if (tid < 128) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kF32ProducerRegs));
+    auto slot_of = [&](int u) {
+      const int r = u % kPerTile, m = m_first + u / kPerTile * kM;
+      if (r < D / 32) return SlotSrc{qg, dog, p.q_ss, p.do_ss, m, p.sq, 32 * r, false};
+      const int idx = r - D / 32;
+      const bool is_q = idx >= D / 64;  // dO_iᵀ first (for dV), then Q_iᵀ (for dK)
+      const float* g = is_q ? qg : dog;
+      const long long ss = is_q ? p.q_ss : p.do_ss;
+      return SlotSrc{g, g, ss, ss, m, p.sq, 64 * (is_q ? idx - D / 64 : idx), true};
+    };
+    produce<kM>(slot_of, nt * kPerTile, sbase + L::kRingAt, bars, tid);
+    return;  // the two roles never reconverge, or setmaxnreg would not hold
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kF32ConsumerRegs));
+
+  const int c = tid / 128 - 1;  // consumer warpgroup
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = n0 + kWgRows * c + 16 * warp + g;  // this thread's keys: key0 and key0 + 8
+  const int key[2] = {key0, key0 + 8};
+  const int wg_last_key = n0 + kWgRows * c + kWgRows - 1;
+  const long long rows_at = (static_cast<long long>(b) * gridDim.y + h) * p.sq;
+  unsigned char* const own_k = sbase + 2 * c * L::kOwnTensor + (tid % 128) * 16;
+  unsigned char* const own_v = own_k + L::kOwnTensor;
+  load_own<D>(own_k, kg, p.k_ss, key0, p.skv, t);
+  load_own<D>(own_v, vg, p.v_ss, key0, p.skv, t);  // read back by this thread alone
+  const uint32_t ring = base + L::kRingAt;
+
+  float dk[D / 64][32], dv[D / 64][32];
 #pragma unroll
-    for (int i = 0; i < OUT; ++i) {
-      dkg[t + 4 * i] = dk[i];
-      dvg[t + 4 * i] = dv[i];
+  for (int hh = 0; hh < D / 64; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[hh][i] = dv[hh][i] = 0.f;
+
+  int u = 0;
+  for (int it = 0; it < nt; ++it) {
+    const int m = m_first + it * kM;
+    float s[kM / 2], dp[kM / 2];
+    // Sᵀ and dPᵀ: per slot, two k-steps' fragments in flight (a k-step's
+    // K and V fragments reused two k-steps later, after their products)
+#pragma unroll
+    for (int cc = 0; cc < D / 32; ++cc) {
+      consumer_wait(bars, u);
+      const uint32_t slot = ring + (u % kRing) * kSlotBytes;
+      uint32_t kb[2][4], ksm[2][4], vb[2][4], vsm[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int f = kk & 1;
+        if (kk >= 2) {
+          wgmma_wait<1>();
+          fence_regs<4>(kb[f]);
+          fence_regs<4>(ksm[f]);
+          fence_regs<4>(vb[f]);
+          fence_regs<4>(vsm[f]);
+        }
+        split4(*reinterpret_cast<const float4*>(own_k + (4 * cc + kk) * kFrag), kb[f], ksm[f]);
+        split4(*reinterpret_cast<const float4*>(own_v + (4 * cc + kk) * kFrag), vb[f], vsm[f]);
+        wgmma_fence();
+        const int acc = cc > 0 || kk > 0;
+        wgmma_3xtf32<kM>(s, kb[f], ksm[f], slot + kk * 32, acc);               // Q_i rows
+        wgmma_3xtf32<kM>(dp, vb[f], vsm[f], slot + kM * 128 + kk * 32, acc);   // dO_i rows
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_regs<kM / 2>(s);
+      fence_regs<kM / 2>(dp);
+      fence_regs<8>(&kb[0][0]);
+      fence_regs<8>(&ksm[0][0]);
+      fence_regs<8>(&vb[0][0]);
+      fence_regs<8>(&vsm[0][0]);
+      consumer_release(bars, u, lane);
+      ++u;
     }
+    // pᵀ into s and dsᵀ into dp, lse and adj by the accumulator's column;
+    // masks only on the tiles that reach past the query length or hold a
+    // query before one of the warpgroup's keys
+    const bool masked = m + kM > p.sq || (p.causal && m < wg_last_key);
+#pragma unroll
+    for (int n = 0; n < kM / 8; ++n) {
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int q = m + 8 * n + 2 * t + e2;
+        const bool in = q < p.sq;
+        const float lse = in ? p.lse[rows_at + q] : 0.f;
+        const float adj = in ? p.adj[rows_at + q] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 2 * i + e2;
+          float pr = expf(fmaf(s[4 * n + e], p.scale, -lse));
+          if (masked) {
+            const bool ok = in && (!p.causal || q >= key[i]);
+            pr = ok ? pr : 0.f;
+          }
+          s[4 * n + e] = pr;
+          dp[4 * n + e] = pr * (dp[4 * n + e] + adj) * p.scale;
+        }
+      }
+    }
+    uint32_t big[kM / 8][4], small[kM / 8][4];
+    acc_frags<kM / 8>(big, small, s);
+    sums<D, kM / 8>(dv, big, small, ring, bars, u, lane);
+    acc_frags<kM / 8>(big, small, dp);
+    sums<D, kM / 8>(dk, big, small, ring, bars, u, lane);
+  }
+
+  float* dkg = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  float* dvg = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh) {
+    store_f32(dkg, p.dk_ss, key0, p.skv, 64 * hh, dk[hh], t);
+    store_f32(dvg, p.dv_ss, key0, p.skv, 64 * hh, dv[hh], t);
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, const Params& p) {
+template <int D, typename Kernel>
+int launch_tf32x3(Kernel kernel, int grid_x, const Params& p, int batch, int heads, cudaStream_t stream) {
+  const int smem = Tf32Layout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<dim3(grid_x, heads, batch), 384, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -735,9 +1209,9 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
     if (head_dim == 64) return launch_dq_bf16<64>(p, batch, heads, s);
     if (head_dim == 128) return launch_dq_bf16<128>(p, batch, heads, s);
   } else {
-    const dim3 grid((sq + kFR - 1) / kFR, heads, batch);
-    if (head_dim == 64) return launch(flash_bwd_dq_f32<64>, grid, dq_f32_smem_bytes<64>(), s, p);
-    if (head_dim == 128) return launch(flash_bwd_dq_f32<128>, grid, dq_f32_smem_bytes<128>(), s, p);
+    const int grid_x = (sq + kOwnRows - 1) / kOwnRows;
+    if (head_dim == 64) return launch_tf32x3<64>(flash_bwd_dq_tf32x3<64>, grid_x, p, batch, heads, s);
+    if (head_dim == 128) return launch_tf32x3<128>(flash_bwd_dq_tf32x3<128>, grid_x, p, batch, heads, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -769,19 +1243,23 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
     if (head_dim == 64) return launch_dkv_bf16<64>(p, batch, heads, s);
     if (head_dim == 128) return launch_dkv_bf16<128>(p, batch, heads, s);
   } else {
-    const dim3 grid((skv + kFR - 1) / kFR, heads, batch);
-    if (head_dim == 64) return launch(flash_bwd_dkv_f32<64>, grid, dkv_f32_smem_bytes<64>(), s, p);
-    if (head_dim == 128)
-      return launch(flash_bwd_dkv_f32<128>, grid, dkv_f32_smem_bytes<128>(), s, p);
+    const int grid_x = (skv + kOwnRows - 1) / kOwnRows;
+    if (head_dim == 64) return launch_tf32x3<64>(flash_bwd_dkv_tf32x3<64>, grid_x, p, batch, heads, s);
+    if (head_dim == 128) return launch_tf32x3<128>(flash_bwd_dkv_tf32x3<128>, grid_x, p, batch, heads, s);
   }
   return cudaErrorInvalidValue;
 }
 
-// dynamic shared memory of the bf16 kernels at head dim `head_dim` (0 if it is not taken)
+// dynamic shared memory of the kernels at head dim `head_dim` (0 if it is not taken)
 extern "C" int flash_attention_bwd_dq_smem(int head_dim) {
   return head_dim == 64 ? DqLayout<64>::kBytes : head_dim == 128 ? DqLayout<128>::kBytes : 0;
 }
 
 extern "C" int flash_attention_bwd_dkv_smem(int head_dim) {
   return head_dim == 64 ? DkvLayout<64>::kBytes : head_dim == 128 ? DkvLayout<128>::kBytes : 0;
+}
+
+// the same for both fp32 kernels, which share one layout
+extern "C" int flash_attention_bwd_tf32x3_smem(int head_dim) {
+  return head_dim == 64 ? Tf32Layout<64>::kBytes : head_dim == 128 ? Tf32Layout<128>::kBytes : 0;
 }

@@ -204,6 +204,11 @@ def _row_share(got, want, rtol):
         (torch.bfloat16, 2, 4, 1000, 128, False, False),
         (torch.bfloat16, 2, 2, 257, 64, True, True),
         (torch.bfloat16, 1, 1, 4096, 128, False, False),
+        # the fp32 kernels' tile edges: S 1000 ends inside dq's 64-key and
+        # the blocks' 128-row tiles; causal S 257 at D 64 with dlse (one row
+        # and one key past two 128-row blocks, inside a 32-query tile)
+        (torch.float32, 2, 4, 1000, 128, False, False),
+        (torch.float32, 2, 2, 257, 64, True, True),
     ],
 )
 def test_backward_kernels_match_plain_on_card(cuda_device, dtype, b, h, s, d, causal, with_dlse):
@@ -211,7 +216,8 @@ def test_backward_kernels_match_plain_on_card(cuda_device, dtype, b, h, s, d, ca
     the same forward residuals, (B, S, H, D) views read in place.  Bounds
     as in chip_smoke.py, where they are derived: per row, bf16 2^-5 of the
     row's rms plus 2^-6·|x| (one bf16 rounding of each gradient), fp32
-    2^-10 of the rms (summation order only)."""
+    2^-10 of the rms (3xTF32: the dropped small·small term, and summation
+    order)."""
     gen = torch.Generator(device=cuda_device).manual_seed(s + d)
     q, k, v, do = (
         torch.randn(b, s, h, d, generator=gen, device=cuda_device).to(dtype)
@@ -257,6 +263,32 @@ def test_backward_kernels_are_bitwise_deterministic(cuda_device, causal):
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, 0xFFFFFFFF, 0x7F800001], ids=hex)
+def test_fp32_backward_kernels_keep_a_nan(cuda_device, bits):
+    """A NaN in one dO element reaches the gradients as in the plain
+    version: that query's dq row, its head's dk and that column of its head's
+    dv come out NaN, the rest finite.  The 3xTF32 split rounds by an integer add; on a NaN's bits
+    that add would carry into the exponent or the sign and make the
+    operand an inf or a zero, so a NaN in dO would leave dV finite."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v, do = (
+        torch.randn(2, 1000, 4, 128, generator=gen, device=cuda_device) for _ in range(4)
+    )
+    do.view(torch.int32)[1, 123, 2, 45] = bits - (1 << 32) if bits >> 31 else bits
+    assert bool(torch.isnan(do[1, 123, 2, 45]))
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    out, lse = port.flash_attention(qt, kt, vt, return_lse=True)
+    kw = dict(causal=False, scale=128 ** -0.5)
+    got = port.flash_attention_bwd(qt, kt, vt, out, lse, dot, None, **kw)
+    want = port.flash_attention_bwd_reference(qt, kt, vt, out, lse, dot, None, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isnan(w).any()), name
+        assert torch.equal(torch.isnan(g), torch.isnan(w)), name
+        assert bool(torch.isfinite(g[~torch.isnan(w)]).all()), name
 
 
 def grad_errors(model, reference) -> dict[str, float]:
