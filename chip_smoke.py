@@ -29,7 +29,10 @@ last line:
              reject; CUDA-event times of the kernel, the plain version and
              the one-call library yardstick: the flash-attention forward
              (K1/K2, with TFLOP/s and the bound's share of its time; a
-             bf16 case whose S ends inside a 128-row tile), then its dq
+             bf16 case whose S ends inside a 128-row tile; fp32 at
+             ``train_long_fp32``'s shape, ragged causal at D 64 and at
+             S 16384; the kernel each call launched by symbol, bf16
+             ``flash_fwd_bf16``, fp32 the 3xTF32 ``flash_fwd_tf32x3``), then its dq
              (K3) and dk/dv (K4) kernels (bf16 and fp32 cases at the
              tiles' edges, each replayed for bit-identical gradients, the
              kernels each wrapper launched by symbol: bf16
@@ -94,9 +97,10 @@ last line:
              fault; images/s and ms/step, and a profile of one step;
    train_long_fp32 — the same entry and model at the default precision
              (no ``--amp``: fp32), batch 16, one epoch of 3 steps: every
-             block's backward through the 3xTF32 K3/K4 (launches 8 x
-             steps, and by symbol in a step profile, no bf16 backward
-             kernel), every loss finite, no step skipped; ms per step,
+             block's forward through the 3xTF32 K1 and its backward
+             through the 3xTF32 K3/K4 (launches 8 x steps, and by symbol
+             in a step profile, no bf16 flash kernel), every loss finite,
+             no step skipped; ms per step,
              peak memory and the step profile's split (flash forward, dq,
              dk/dv, GEMMs, the rest) with the device idle share;
    train_tiny — ``vit_tiny --patch-size 2`` at batch 128, bf16, two epochs
@@ -267,8 +271,10 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def attention_bound(b, h, sq, skv, d, causal, dtype) -> tuple[float, str]:
     """Least time the card could take: the larger of operations over the
-    dtype's peak and bytes (each input read once, each output written once)
-    over the memory rate.  Causal counts only the pairs it needs."""
+    peak (``flash_peak``: fp32 as the kernel runs it, three tf32 products
+    a product, "operations (3xTF32)") and bytes (each input read once,
+    each output written once) over the memory rate.  Causal counts only
+    the pairs it needs."""
     import torch
 
     pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * skv)
@@ -276,8 +282,16 @@ def attention_bound(b, h, sq, skv, d, causal, dtype) -> tuple[float, str]:
     item = torch.finfo(dtype).bits // 8
     nbytes = (2 * b * h * sq * d + 2 * b * h * skv * d) * item + b * h * sq * 4
     name = str(dtype).removeprefix("torch.")
-    t_ops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    t_ops, t_bytes = flops / flash_peak(name), nbytes / PEAK_BYTES
+    ops = "operations (3xTF32)" if name == "float32" else "operations"
+    return max(t_ops, t_bytes) * 1e3, ops if t_ops >= t_bytes else "bytes"
+
+
+def flash_peak(dname: str) -> float:
+    """FLOP/s of the flash kernels' products at their peak: bf16 at the
+    bf16 rate, fp32 as the kernels run them, three tf32 products each
+    (3xTF32) at the TF32 rate."""
+    return PEAK_FLOPS["tf32"] / 3 if dname == "float32" else PEAK_FLOPS[dname]
 
 
 # (label, TPU kernel regime, dtype, B, H, S, D, causal, layout), inputs unit normal
@@ -288,7 +302,13 @@ KERNEL_CASES = [
     ("fp32", "K1", "float32", 1, 4, 1000, 128, False, "bhsd"),
     ("fp32 serving shape: vit_long bucket 8 without --amp", "K1", "float32", 8, 4, 4096, 128, False, "bshd"),
     ("bf16 tile edges: S 1000 ends inside a 128-row tile", "K1", "bfloat16", 2, 4, 1000, 128, False, "bshd"),
+    ("slice: train_long_fp32 step, batch 16", "K1", "float32", 16, 4, 4096, 128, False, "bshd"),
+    ("fp32 ragged causal: S 1030 ends inside a 128-row block and a 64-key tile",
+     "K1", "float32", 2, 4, 1030, 64, True, "bhsd"),
+    ("fp32 K2 regime: S past the resident-K/V limit", "K2", "float32", 1, 2, 16384, 128, False, "bhsd"),
 ]
+# the flash forward's kernel by symbol, per dtype
+FORWARD_SYMBOLS = {"bfloat16": ["flash_fwd_bf16"], "float32": ["flash_fwd_tf32x3"]}
 # dtype -> (atol share, rtol, lse atol).  Out holds elementwise
 # |kernel - plain| <= atol_share * rms(plain row) + rtol * |plain|, where a
 # row is one query's D outputs: a row's output and its error are both sums
@@ -300,9 +320,14 @@ KERNEL_CASES = [
 # 2^-8 * sqrt(2/3) * rms(row); 2^-5 * rms(row) is ten times that.  The two
 # bf16 roundings of out differ by at most one ulp, 2^-7 |out|: rtol 2^-6.
 # lse is fp32 from exact bf16 products; only summation order and exp2
-# differ.  fp32: fp32 throughout, summation order and exp2 only.  Each case
-# also holds the tolerance against a planted fault it must reject (see
-# ``dropped_rows``).
+# differ.  fp32: the kernel runs each product as three tf32 products
+# (3xTF32): the dropped small·small term and the rounding of small leave
+# 2^-22 relative per operand (tests/test_torch_port_attention_fwd_tf32.py,
+# whose sums round to nearest: ~3.6e-6 of a row's rms), the tensor cores'
+# truncating sums a little more, each key tile's P·V summed apart; one tf32
+# product alone (2e-3 to 2.4e-3 there) fails 2^-10.  lse: summation order
+# and exp2.  Each case also holds the tolerance against a planted fault it
+# must reject (see ``dropped_rows``).
 TOLERANCES = {"bfloat16": (2**-5, 2**-6, 1e-3), "float32": (2**-10, 0.0, 1e-4)}
 FAULT_KEYS = 64  # the first half of the bf16 kernel's first 128-key tile
 
@@ -367,12 +392,13 @@ def attention_build_report(build, paths) -> dict:
     memory and spill bytes as ``ptxas -v`` logged them (the flash forward's
     and backward's libraries and the short-sequence attention's), with the
     dynamic shared memory each bf16 flash kernel, each 3xTF32 flash
-    backward kernel and each one-tile kernel asks for at each head dim."""
+    kernel and each one-tile kernel asks for at each head dim."""
     report = ptxas_report(paths, ("flash_attention_fwd", "flash_attention_bwd", "attention_small"))
     smem = {
         kernel: build.load(lib, [ctypes.c_int], symbol=symbol)
         for kernel, lib, symbol in (
             ("flash_fwd_bf16", "flash_attention_fwd", "flash_attention_fwd_smem"),
+            ("flash_fwd_tf32x3", "flash_attention_fwd", "flash_attention_fwd_tf32x3_smem"),
             ("flash_bwd_dq_bf16", "flash_attention_bwd", "flash_attention_bwd_dq_smem"),
             ("flash_bwd_dkv_bf16", "flash_attention_bwd", "flash_attention_bwd_dkv_smem"),
             ("flash_bwd_dq_tf32x3", "flash_attention_bwd", "flash_attention_bwd_tf32x3_smem"),
@@ -446,7 +472,12 @@ def moe_build_report(build, paths) -> dict:
     return {"kernels": ptxas_report(paths, ("moe_gmm_fwd", "moe_gmm_bwd")), "dynamic_smem_bytes": smem}
 
 
-def kernel_checks(attn) -> list[dict]:
+def kernel_checks(attn, csrc: Path | None = None) -> list[dict]:
+    """K1/K2 against ``mha_reference`` at ``KERNEL_CASES``: agreement within
+    ``TOLERANCES``, the planted fault, the kernels each call launched by
+    symbol (``csrc``'s, this checkout's by default; ``FORWARD_SYMBOLS``
+    alone), and CUDA-event times of the kernel, the plain version and
+    SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -477,10 +508,13 @@ def kernel_checks(attn) -> list[dict]:
         )
         fault_share = atol_share_needed(fault_o, ref_o, rtol)
         del fault_o
+        launched = sorted(_port_kernel_ms(profile_device(
+            lambda: attn.flash_attention(qt, kt, vt, causal=causal), 1)["device_ms_by_name"], csrc=csrc))
         ok = (
             share <= atol_share < fault_share
             and err_lse <= tol_lse
             and math.isfinite(err + err_lse)
+            and launched == FORWARD_SYMBOLS[dname]
         )
         big = s >= 4096
         ms = cuda_ms(lambda: attn.flash_attention(qt, kt, vt, causal=causal), 10 if big else 50)
@@ -500,6 +534,7 @@ def kernel_checks(attn) -> list[dict]:
             "max_abs_err": err, "max_abs_err_lse": err_lse,
             "atol_share": atol_share, "rtol": rtol, "tol_lse": tol_lse,
             "atol_share_needed": share, "fault_atol_share_needed": fault_share,
+            "kernels": launched,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "tflops": 4 * pairs * d / ms / 1e9, "bound_share": bound_ms / ms, "ok": ok,
@@ -510,19 +545,12 @@ def kernel_checks(attn) -> list[dict]:
     return out
 
 
-def backward_peak(dname: str) -> float:
-    """FLOP/s of the flash backward's products at their peak: bf16 at the
-    bf16 rate, fp32 as the kernels run them, three tf32 products each
-    (3xTF32) at the TF32 rate."""
-    return PEAK_FLOPS["tf32"] / 3 if dname == "float32" else PEAK_FLOPS[dname]
-
-
 def backward_bound(b, h, sq, skv, d, causal, dtype, kernel) -> tuple[float, str]:
     """Least time of the dq kernel (``kernel="dq"``: 3 products, s, dp and
     ds·K) or the dk/dv kernel (``"dkv"``: 4 products, s, dp, pᵀ·dO and
     dsᵀ·Q) on the card: operations over the peak against bytes (q, k, v,
     dO, lse and adj read once, the gradients written once) over the memory
-    rate, the products at ``backward_peak`` ("operations (3xTF32)" for
+    rate, the products at ``flash_peak`` ("operations (3xTF32)" for
     fp32).  Causal counts only the pairs it needs."""
     import torch
 
@@ -533,7 +561,7 @@ def backward_bound(b, h, sq, skv, d, causal, dtype, kernel) -> tuple[float, str]
     nbytes = (2 * b * h * sq * d + 2 * b * h * skv * d + outs * b * h * skv * d) * item
     nbytes += 2 * b * h * sq * 4
     name = str(dtype).removeprefix("torch.")
-    t_ops, t_bytes = flops / backward_peak(name), nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / flash_peak(name), nbytes / PEAK_BYTES
     ops = "operations (3xTF32)" if name == "float32" else "operations"
     return max(t_ops, t_bytes) * 1e3, ops if t_ops >= t_bytes else "bytes"
 
@@ -692,7 +720,7 @@ def backward_checks(attn, csrc: Path | None = None) -> list[dict]:
             kernel: backward_bound(b, h, s, s, d, causal, dtype, kernel)
             for kernel in ("dq", "dkv")
         }
-        pair_floor_ms = 2 * 5 * b * h * s * s * d / backward_peak(dname) * 1e3
+        pair_floor_ms = 2 * 5 * b * h * s * s * d / flash_peak(dname) * 1e3
         out.append({
             "case": label, "dtype": dname, "layout": layout, "shape": [b, h, s, d],
             "causal": causal, "dlse": with_dlse, "atol_share": atol_share, "rtol": rtol,
@@ -2038,8 +2066,9 @@ def check_train_long_fp32(run: dict) -> None:
     if not run["losses_finite"] or run["skipped_steps"]:
         raise RuntimeError("train_long_fp32: a non-finite loss or a skipped step")
     ran = set(run["step_profile"]["port_kernels_ms_per_step"])
-    want_bwd = {k for ks in BACKWARD_SYMBOLS["float32"].values() for k in ks}
-    if not want_bwd <= ran or ran & {k for ks in BACKWARD_SYMBOLS["bfloat16"].values() for k in ks}:
+    want = {k for ks in (*BACKWARD_SYMBOLS["float32"].values(), FORWARD_SYMBOLS["float32"]) for k in ks}
+    bf16 = {k for ks in (*BACKWARD_SYMBOLS["bfloat16"].values(), FORWARD_SYMBOLS["bfloat16"]) for k in ks}
+    if not want <= ran or ran & bf16:
         raise RuntimeError(f"train_long_fp32's step ran the port kernels {sorted(ran)}")
 
 
@@ -3701,8 +3730,8 @@ def main() -> int:
                 print(f"ptxas {path.stem}: {line.strip()}", file=sys.stderr)
     built = {**attention_build["kernels"], **gemm_build["kernels"], **moe_build["kernels"]}
     missing = [k for k in MOE_SYMBOLS["bfloat16"].values() if k.endswith("_wgmma") and k not in built]
-    missing += [f"{k}<{d}>" for ks in BACKWARD_SYMBOLS["float32"].values() for k in ks
-                for d in (64, 128) if f"{k}<{d}>" not in built]
+    missing += [f"{k}<{d}>" for ks in (*BACKWARD_SYMBOLS["float32"].values(), FORWARD_SYMBOLS["float32"])
+                for k in ks for d in (64, 128) if f"{k}<{d}>" not in built]
     if missing:
         raise RuntimeError(f"the build logs hold no ptxas report of {missing}")
     spilled = {
@@ -3842,8 +3871,9 @@ def main() -> int:
         "K4": "distributed_training_comparison_tpu/ops/attention.py:427",
     }
     # one entry per checked case and kernel.  The forward's ``launches`` is
-    # its count on the serve path (``launches_train`` on the train path);
-    # the backward kernels' on the train path.  The backward's ``plain_ms``
+    # its count on the serve path (``launches_train`` on the train path,
+    # ``launches_train_long_fp32`` on the fp32 one, which runs the fp32
+    # kernel); the backward kernels' on the train path.  The backward's ``plain_ms``
     # and ``library_ms`` time the whole backward (dq, dk and dv together).
     kernels = []
     for case in checks:
@@ -3856,6 +3886,9 @@ def main() -> int:
             "launches": serve["flash_launches"],
             "launches_counted": "serve main path, one counter for every case",
             "launches_train": train["launches"]["fwd"],
+            "launches_train_long_fp32": long_fp32["launches"]["fwd"],
+            "at_main_path_shape": case["case"].startswith("slice:"),
+            "kernels": case["kernels"],
             "max_abs_err": case["max_abs_err"], "max_abs_err_lse": case["max_abs_err_lse"],
             "atol_share": case["atol_share"], "rtol": case["rtol"],
             "tol_lse": case["tol_lse"], "atol_share_needed": case["atol_share_needed"],
@@ -4097,6 +4130,71 @@ def small_output_hashes(small) -> dict[str, str]:
     return out
 
 
+# (label, dtype, B, H, S, D, causal) of ``flash_output_hashes``: the
+# backward's fp32 and bf16 cases at the tiles' edges, causal and not
+FLASH_HASH_CASES = [
+    ("fp32, S 1000, D 128", "float32", 1, 4, 1000, 128, False),
+    ("fp32 ragged causal, S 1030, D 64", "float32", 2, 4, 1030, 64, True),
+    ("bf16, S 1000, D 128", "bfloat16", 2, 4, 1000, 128, False),
+    ("bf16 causal, S 257, D 64", "bfloat16", 2, 2, 257, 64, True),
+]
+
+
+def flash_output_hashes(attn) -> dict[str, str]:
+    """sha256 of the flash kernels' results at ``FLASH_HASH_CASES`` on seeded
+    inputs: the forward's out and lse, and K3's and K4's gradients with an
+    lse cotangent on residuals (out, lse) from the plain forward, so that
+    the backward's digests do not depend on the forward kernel.  Two
+    checkouts whose kernels compute bit-identical results print the same
+    digests."""
+    import hashlib
+
+    import torch
+
+    gen = torch.Generator().manual_seed(13)
+    out = {}
+    for label, dname, b, h, s, d, causal in FLASH_HASH_CASES:
+        dtype = getattr(torch, dname)
+        q, k, v, do = (torch.randn((b, h, s, d), generator=gen).to(device="cuda", dtype=dtype)
+                       for _ in range(4))
+        dlse = torch.randn((b, h, s), generator=gen).cuda()
+        o, lse = attn.mha_reference(q, k, v, causal=causal, return_lse=True)
+        adj = attn._row_adjustment(o, do, dlse)
+        kw = dict(causal=causal, scale=d**-0.5)
+        results = {"fwd": attn.flash_attention(q, k, v, causal=causal, return_lse=True),
+                   "dq": [attn.flash_attention_dq(q, k, v, do, lse, adj, **kw)],
+                   "dkv": attn.flash_attention_dkv(q, k, v, do, lse, adj, **kw)}
+        for key, res in results.items():
+            digest = hashlib.sha256()
+            for t in res:
+                digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+            out[f"{label}: {key}"] = digest.hexdigest()[:16]
+    return out
+
+
+def sdpa_fp32_forward(attn) -> dict:
+    """SDPA's fp32 forward, the K1 yardstick, at the fp32 serving shape
+    (bh 32, S 4096, D 128, bshd views): the kernels it runs by device ms,
+    and its output's and the port's agreement with ``mha_reference`` (the
+    least share of a row's rms, rtol 0: ``atol_share_needed``)."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v = (torch.randn((8, 4096, 4, 128), generator=gen, device="cuda") for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = profile_device(lambda: F.scaled_dot_product_attention(qt, kt, vt), 1)["device_ms_by_name"]
+    ref = attn.mha_reference(q, k, v, layout="bshd")
+    lib = F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2)
+    port = attn.flash_attention(qt, kt, vt).transpose(1, 2)
+    return {
+        "shape_bhsd": [8, 4, 4096, 128],
+        "kernels_ms": {n[:120]: ms for n, ms in sorted(sdpa.items(), key=lambda kv: -kv[1])[:4]},
+        "atol_share_needed": atol_share_needed(lib, ref, 0.0),
+        "port_atol_share_needed": atol_share_needed(port, ref, 0.0),
+    }
+
+
 def moe_dispatch(csrc: Path | None = None, reps: int = 20) -> dict:
     """One bucket-32 batch of the ``serve_moe`` command's engine (gmm, bf16)
     as the serve path dispatches it: host ms a dispatch (median of ``reps``
@@ -4126,8 +4224,11 @@ def turn(checkout: Path, label: str) -> int:
     """One turn of a comparison of checkouts in one call: the port of
     ``checkout`` (put first on ``sys.path``; this tree or a parent unpacked
     by ``git archive``) built and driven through this script's timing
-    functions: the flash backward's K3/K4 at every ``BACKWARD_CASES`` case
-    (``backward_checks``) and the ``vit_long`` fp32 train step at batch 16
+    functions: the flash forward's K1/K2 at every ``KERNEL_CASES`` case
+    (``kernel_checks``), the flash backward's K3/K4 at every
+    ``BACKWARD_CASES`` case (``backward_checks``), digests of both
+    (``flash_output_hashes``), SDPA's fp32 forward (``sdpa_fp32_forward``),
+    the ``vit_long`` fp32 train step at batch 16
     (``long_fp32_step_times``), the fused block chains (``fused_block_checks``,
     ``fused_block_bwd_checks``), the ``train_tiny`` step and the bucket-32
     dispatch (``tiny_step_times``, ``tiny_dispatch``), K10/K11
@@ -4166,6 +4267,10 @@ def turn(checkout: Path, label: str) -> int:
     from distributed_training_comparison_tpu_torch.config import load_config
     from distributed_training_comparison_tpu_torch.train import Trainer
 
+    fwd = kernel_checks(attn, csrc)
+    hashes = flash_output_hashes(attn)
+    sdpa = sdpa_fp32_forward(attn)
+    torch.cuda.empty_cache()
     bwd = backward_checks(attn, csrc)
     trainer = Trainer(load_config(TRAIN_LONG_FP32_ARGV))
     long_fp32 = long_fp32_step_times(trainer, csrc=csrc)
@@ -4180,6 +4285,7 @@ def turn(checkout: Path, label: str) -> int:
             "block_attention_bwd_ms": timed(lambda: vb.block_attention_bwd(qkv, do, seq=256, heads=3))[0]}
     del qkv, do
     rec = {"turn": label, "checkout": str(checkout), "nvidia_smi": smi,
+           "kernel_checks": fwd, "flash_output_hashes": hashes, "sdpa_fp32_forward": sdpa,
            "backward_checks": bwd, "long_fp32_step": long_fp32, "attention_b128": b128,
            "fused_block_checks": fused_block_checks(vb),
            "fused_block_bwd_checks": fused_block_bwd_checks(vb),
@@ -4194,6 +4300,14 @@ def turn(checkout: Path, label: str) -> int:
     split = long_fp32["step_profile"]["device_ms_per_step"]
     summary = {
         "turn": label, "nvidia_smi": smi,
+        "k1_k2_ms": {c["case"]: c["ms"] for c in fwd},
+        "k1_k2_bound_share": {c["case"]: c["bound_share"] for c in fwd},
+        "k1_k2_atol_share_needed": {c["case"]: c["atol_share_needed"] for c in fwd},
+        "k1_k2_kernels": {c["case"]: c["kernels"] for c in fwd},
+        "k1_k2_ok": {c["case"]: c["ok"] for c in fwd},
+        "k1_k2_sdpa_ms": {c["case"]: c["library_ms"] for c in fwd},
+        "flash_output_hashes": hashes,
+        "sdpa_fp32_forward": sdpa,
         "k3_k4_ms": {c["case"]: [c["dq_ms"], c["dkv_ms"]] for c in bwd},
         "k3_k4_kernels": {c["case"]: c["kernels"] for c in bwd},
         "k3_k4_ok": {c["case"]: c["ok"] for c in bwd},

@@ -70,7 +70,7 @@
 // wgmma in 3xTF32, each fp32 product as three tf32 products (the fp32
 // section below).
 
-#include "hopper_common.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -525,283 +525,25 @@ int launch_dkv_bf16(const Params& p, int batch, int heads, cudaStream_t stream) 
 
 // ------------------------------------------------------------------ fp32
 //
-// 3xTF32 on wgmma.  Each fp32 operand x is split into big = tf32(x) and
-// small = tf32(x - big) (cvt.rna's rounding: to nearest, ties away, the low
-// 13 mantissa bits zero), and each product a·b is small_a·big_b +
-// big_a·small_b + big_a·big_b accumulated in fp32: the dropped small·small
-// term and the rounding of small leave |x - big - small| <= 2^-22 |x|, fp32
-// accuracy.
-// Three tf32 products at 495 TFLOP/s dense are 165 TFLOP/s of fp32 work,
-// 2.5x the 67 of fp32 SIMT; the kernels are bound by those operations.
-//
-// tf32 wgmma (m64nNk8) reads shared-memory operands K-major only (the
-// transpose bits exist for 16-bit types alone), and a big and a small copy
-// of a 64 x 128 fp32 tile are 64 KB, so the bf16 layout (128 own rows of
-// two tensors in shared memory) does not fit.  Instead:
-// - A is always in registers.  The block's own rows (dq: Q and dO; dkv: K
-//   and V; 64 a consumer warpgroup, two warpgroups) are read from device
-//   memory once into shared memory, raw fp32 in the A-fragment order (a
-//   float4 a thread a k-step: one 16-byte load, no conflicts), and split
-//   into big and small A fragments as each k-step is issued; dS and P come
-//   from the accumulators, whose layout the fragments follow through a
-//   permutation of the contraction axis (below).
-// - B runs through one ring of 16 KB slots: 64 rows x 32 tf32 columns (one
-//   128-byte swizzle row), big then small, K-major under 128-byte swizzle.
-//   A producer warpgroup copies each slot's fp32 tile from device memory
-//   into the slot with cp.async (16-byte copies, three slots in flight a
-//   thread), then splits it in place, transposed where the product
-//   contracts over the sequence: dq streams K_j and V_j as scores B (64
-//   keys x 32 of D) and K_jᵀ (64 of D x 32 keys) for dQ += dS·K_j, twelve
-//   slots a 64-key tile at D 128; dkv streams one slot per 32 columns of D
-//   holding Q_i (rows 0-31) and dO_i (rows 32-63) as scores B, then dO_iᵀ
-//   and Q_iᵀ (64 of D x 32 queries), eight slots a 32-query tile.
-// - The tf32 A fragment holds (row g, col t), (g + 8, t), (g, t + 4),
-//   (g + 8, t + 4) of an 8-column k-step, where the fp32 accumulator holds
-//   columns 2t and 2t + 1: taken from the accumulator, fragment position t
-//   is column 2t and t + 4 is 2t + 1, so the transposed slots store the
-//   contraction axis in that order within each group of 8 (keys or queries
-//   0, 2, 4, 6, 1, 3, 5, 7) and no shuffle is needed.
+// 3xTF32 on wgmma, on tf32x3.cuh's split, ring and products (its header
+// says how they work).  The kernels' schedules: dq streams K_j and V_j as
+// scores B (64 keys x 32 of D) and K_jᵀ (64 of D x 32 keys) for dQ +=
+// dS·K_j, twelve slots a 64-key tile at D 128; dkv streams one slot per 32
+// columns of D holding Q_i (rows 0-31) and dO_i (rows 32-63) as scores B,
+// then dO_iᵀ and Q_iᵀ (64 of D x 32 queries), eight slots a 32-query tile.
+// The own rows: dq Q and dO, dkv K and V, 64 a consumer warpgroup.
 // Shared memory at D 128: 128 KB of own rows + 6 slots (96 KB) = 224 KB.
 // Registers: setmaxnreg gives the producer 56 and the consumers 224 (dq
 // holds dQ 64 + S 32 + dP 32 + fragments; dkv dK 64 + dV 64 + Sᵀ 16 + dPᵀ
 // 16 + two k-steps of fragments in flight, then a tile's partial dV or dK
-// 32 + P or dS fragments 32).  Each consumer warpgroup waits for its
-// products at the end of every slot and releases it; the other
-// warpgroup's products fill that gap.
-// The tensor cores' fp32 accumulation rounds toward zero: the long sums
-// (dQ over keys, dK and dV over queries) take each tile's products in a
-// fresh accumulator and add it to the total in fp32, so their error does
-// not grow with S.
+// 32 + P or dS fragments 32).  The long sums (dQ over keys, dK and dV over
+// queries) take each tile's products in a fresh accumulator.
 
-constexpr int kRing = 6;                          // slots
-constexpr int kSlotRows = 64;                     // rows of a slot: wgmma's N (or two 32-row halves)
-constexpr int kHalfBytes = kSlotRows * 32 * 4;    // the big half: 64 rows x 128 bytes; small follows
-constexpr int kSlotBytes = 2 * kHalfBytes;
-constexpr int kFrag = 128 * 16;                   // one k-step of a warpgroup's A fragments, raw fp32
-
-// setmaxnreg moves registers within the block's launch allocation (384 x
-// 168 = 64,512): 128 x 56 + 256 x 224 is all of it (at 40 / 232 ptxas
-// spills in dkv at D 128; at 48 / 232 the consumers' increase waits
-// forever)
-constexpr int kF32ProducerRegs = 56;
-constexpr int kF32ConsumerRegs = 224;
 constexpr int kDqKeysF32 = 64;                    // dq: keys per streamed tile
 constexpr int kDkvRowsF32 = 32;                   // dkv: queries per streamed tile
 
 template <int D>
-struct Tf32Layout {  // byte offsets from the 1024-aligned base of dynamic shared memory
-  static constexpr int kOwnTensor = D / 8 * kFrag;  // one own tensor of one consumer warpgroup
-  static constexpr int kRingAt = 4 * kOwnTensor;    // 2 warpgroups x 2 tensors
-  static constexpr int kBars = kRingAt + kRing * kSlotBytes;
-  static constexpr int kBytes = kBars + 2 * kRing * 8 + 1024;  // barriers, alignment slack
-};
-
-// A-fragment element e of a thread: row g + 8·frag_row(e), column t + 4·frag_col(e)
-__device__ __forceinline__ constexpr int frag_row(int e) { return e & 1; }
-__device__ __forceinline__ constexpr int frag_col(int e) { return e >> 1; }
-
-// tf32(x) rounded to nearest, ties away from zero, the low 13 bits zero:
-// what cvt.rna.tf32.f32 computes for finite x and inf, as an integer add and
-// mask on the bits (the conversion instruction runs at a fraction of the
-// integer rate, and the kernels split every operand element they read).
-// Not for a NaN: the add carries its payload into the exponent or the sign
-// (0x7FFFFFFF, the card's NaN, becomes -0).
-__device__ __forceinline__ uint32_t to_tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u; }
-
-// big = tf32(x), small = tf32(x - big).  big adds x·0, exact for finite x
-// (the zeros share the sign of x and of its rounding) and NaN for a NaN or
-// an inf, so such an operand makes its products NaN instead of dropping out
-// of them; one FMA where a test of the exponent and a select cost the
-// kernels a fifth of their time.  small of a NaN is then -0, which big
-// outweighs.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  const float b = __fmaf_rn(x, 0.0f, __uint_as_float(to_tf32(x)));
-  big = __float_as_uint(b);
-  small = to_tf32(x - b);
-}
-
-__device__ __forceinline__ void split4(const float4 x, uint32_t* big, uint32_t* small) {
-  split_tf32(x.x, big[0], small[0]);
-  split_tf32(x.y, big[1], small[1]);
-  split_tf32(x.z, big[2], small[2]);
-  split_tf32(x.w, big[3], small[3]);
-}
-
-// a 64 x 8·K8 fp32 accumulator as big and small tf32 A fragments of K8
-// k-steps: fragment element e is column 2t + frag_col(e) of row g + 8·frag_row(e)
-template <int K8>
-__device__ __forceinline__ void acc_frags(uint32_t (*big)[4], uint32_t (*small)[4], const float* x) {
-#pragma unroll
-  for (int n = 0; n < K8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) split_tf32(x[4 * n + 2 * frag_row(e) + frag_col(e)], big[n][e], small[n][e]);
-  }
-}
-
-// D (fp32, 64 x N) += A (tf32, 64 x 8, registers) · B (tf32, 8 x N, K-major in shared memory)
-__device__ __forceinline__ void wgmma_tf32_m64n64k8(float* d, const uint32_t* a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_tf32_m64n32k8(float* d, const uint32_t* a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
-      " {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-// the three tf32 products of one fp32 k-step: small·big, big·small, big·big
-template <int N>
-__device__ __forceinline__ void wgmma_3xtf32(float* d, const uint32_t* big, const uint32_t* small,
-                                             uint32_t b_at, int acc) {
-  const uint64_t bb = smem_desc(b_at, 16, 1024), bs = smem_desc(b_at + kHalfBytes, 16, 1024);
-  if constexpr (N == 64) {
-    wgmma_tf32_m64n64k8(d, small, bb, acc);
-    wgmma_tf32_m64n64k8(d, big, bs, 1);
-    wgmma_tf32_m64n64k8(d, big, bb, 1);
-  } else {
-    static_assert(N == 32, "the 3xTF32 products take N 32 or 64");
-    wgmma_tf32_m64n32k8(d, small, bb, acc);
-    wgmma_tf32_m64n32k8(d, big, bs, 1);
-    wgmma_tf32_m64n32k8(d, big, bb, 1);
-  }
-}
-
-// Where a slot's fp32 tile comes from.  Natural (K-major over D): slot row
-// r < SPLIT is row row0 + r of `a`, the others row row0 + r - SPLIT of `b`,
-// columns col0 .. col0 + 31.  Transposed: slot row n is column col0 + n of
-// `a` (64 of them), its 32 tf32 columns rows row0 .. row0 + 31 of `a` in the
-// fragments' order.  Rows at or past `len` are zeros.
-struct SlotSrc {
-  const float* a;
-  const float* b;
-  long long a_ss, b_ss;
-  int row0, len, col0;
-  bool trans;
-};
-
-// where a producer thread's 16-byte chunk i of a slot lands, raw: natural,
-// at its place in the big half (chunk j of row r at chunk j ^ (r % 8) of the
-// row's 128 bytes); transposed, row `lane` (of 32) of a 64-column staging
-// tile in the small half, 16 chunks a row, swizzled so that a quarter-warp
-// reading one chunk index of 8 rows hits 8 distinct bank groups
-__device__ __forceinline__ int raw_at(bool trans, int tid, int i) {
-  if (trans) {
-    const int lane = tid & 31, c = 4 * (tid >> 5) + i;
-    return kHalfBytes + (lane * 16 + (c ^ (lane & 7))) * 16;
-  }
-  const int f = tid + 128 * i, r = f >> 3;
-  return r * 128 + (((f & 7) ^ (r & 7)) << 4);
-}
-
-// the producer thread's four 16-byte copies of a slot, as one cp.async group;
-// rows past the length land as zeros (source size 0)
-template <int SPLIT>
-__device__ __forceinline__ void slot_issue(uint32_t slot, const SlotSrc& s, int tid) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float* src = s.a;
-    long long ss = s.a_ss;
-    int row, col;
-    if (s.trans) {
-      row = s.row0 + (tid & 31);
-      col = s.col0 + 4 * (4 * (tid >> 5) + i);
-    } else {
-      const int f = tid + 128 * i, r = f >> 3;
-      col = s.col0 + 4 * (f & 7);
-      row = s.row0 + r;
-      if (r >= SPLIT) src = s.b, ss = s.b_ss, row -= SPLIT;
-    }
-    const bool in = row < s.len;
-    const float* from = src + (in ? row * ss + col : 0);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(slot + raw_at(s.trans, tid, i)),
-                 "l"(from), "r"(in ? 16 : 0)
-                 : "memory");
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// split a landed slot in place.  Natural: each thread splits the chunks it
-// copied (big over the raw values, small at the same place of the small
-// half).  Transposed: each thread reads the chunks it copied, the producer
-// warpgroup syncs (the stores overwrite the staging tile), and the warp's 32
-// lanes, the 32 contraction rows, each store one 4-byte element of a slot
-// row (all 32 banks); row `key` goes to position key / 2 within its group
-// of 8, plus 4 if odd: the accumulator's column order as the fragments
-// read it.
-__device__ __forceinline__ void slot_split(unsigned char* slot, bool trans, int tid) {
-  uint32_t big[4], small[4];
-  if (!trans) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int off = raw_at(false, tid, i);
-      split4(*reinterpret_cast<const float4*>(slot + off), big, small);
-      *reinterpret_cast<uint4*>(slot + off) = make_uint4(big[0], big[1], big[2], big[3]);
-      *reinterpret_cast<uint4*>(slot + kHalfBytes + off) = make_uint4(small[0], small[1], small[2], small[3]);
-    }
-    return;
-  }
-  float4 v[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = *reinterpret_cast<const float4*>(slot + raw_at(true, tid, i));
-  asm volatile("bar.sync 1, 128;\n" ::: "memory");  // every staged chunk is read
-  const int key = tid & 31;
-  const int kp = (key & ~7) | ((key & 7) >> 1) | ((key & 1) << 2);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    split4(v[i], big, small);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int n = 4 * (4 * (tid >> 5) + i) + e;
-      const int off = n * 128 + (((kp >> 2) ^ (n & 7)) << 4) + ((kp & 3) << 2);
-      *reinterpret_cast<uint32_t*>(slot + off) = big[e];
-      *reinterpret_cast<uint32_t*>(slot + kHalfBytes + off) = small[e];
-    }
-  }
-}
-
-// The producer warpgroup: fills slots 0 .. total - 1 in the consumers' order,
-// slot u in stage u % kRing, with the copies of kAhead slots in flight a
-// thread; a slot is split once its copies landed.  A stage is full when all
-// 128 threads stored and fenced their writes for the async proxy.
-constexpr int kAhead = 3;
-
-template <int SPLIT, typename SlotOf>
-__device__ __forceinline__ void produce(SlotOf slot_of, int total, unsigned char* ring, uint32_t bars, int tid) {
-  const uint32_t ring_at = smem_u32(ring);
-  auto issue = [&](int w) {
-    if (w >= total) {
-      asm volatile("cp.async.commit_group;\n" ::: "memory");  // an empty group keeps the count
-      return;
-    }
-    const int st = w % kRing;
-    // a stage's previous use is released when all 8 consumer warps arrived
-    if (w >= kRing) mbar_wait(bars + 8 * (kRing + st), ((w / kRing) & 1) ^ 1);
-    slot_issue<SPLIT>(ring_at + st * kSlotBytes, slot_of(w), tid);
-  };
-  for (int w = 0; w < kAhead; ++w) issue(w);
-  for (int u = 0; u < total; ++u) {
-    issue(u + kAhead);
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead) : "memory");  // slot u's copies landed
-    slot_split(ring + (u % kRing) * kSlotBytes, slot_of(u).trans, tid);
-    fence_proxy_async();
-    mbar_arrive(bars + 8 * (u % kRing));
-  }
-}
+using Tf32Bwd = Tf32Layout<D, 4>;  // own rows: 2 warpgroups x 2 tensors
 
 // a consumer thread's A fragments of rows row0 and row0 + 8 (`len` true rows)
 // of a (S, D) fp32 slice, raw, into its own float4 of each k-step
@@ -818,14 +560,6 @@ __device__ __forceinline__ void load_own(unsigned char* own, const float* g, lon
     }
     *reinterpret_cast<float4*>(own + ks * kFrag) = make_float4(x[0], x[1], x[2], x[3]);
   }
-}
-
-__device__ __forceinline__ void consumer_wait(uint32_t bars, int u) {
-  mbar_wait(bars + 8 * (u % kRing), (u / kRing) & 1);
-}
-
-__device__ __forceinline__ void consumer_release(uint32_t bars, int u, int lane) {
-  if (lane == 0) mbar_arrive(bars + 8 * (kRing + u % kRing));  // this warp is done with the stage
 }
 
 // acc (64 x 64, fresh) = own rows · slots' rowsᵀ over D: D / 32 slots of 32 columns
@@ -853,52 +587,6 @@ __device__ __forceinline__ void scores(float* acc, const unsigned char* own, uin
   }
 }
 
-// acc[hh] (columns 64·hh .. of D) += A · this tile's transposed slots, A
-// from fragments of K8 k-steps, K8 / 4 slots a column block (slot order:
-// column block major).  The tensor cores round each accumulation toward
-// zero, so summing a whole sequence in one accumulator drifts with its
-// length (1.7e-4 of a row's rms at S 4096); each tile's products go to a
-// fresh accumulator, added to the total in fp32.
-template <int D, int K8>
-__device__ __forceinline__ void sums(float (*acc)[32], uint32_t (*big)[4], uint32_t (*small)[4], uint32_t ring,
-                                     uint32_t bars, int& u, int lane) {
-#pragma unroll
-  for (int hh = 0; hh < D / 64; ++hh) {
-    float part[32];
-#pragma unroll
-    for (int kc = 0; kc < K8 / 4; ++kc) {
-      consumer_wait(bars, u);
-      const uint32_t slot = ring + (u % kRing) * kSlotBytes;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_3xtf32<64>(part, big[4 * kc + kk], small[4 * kc + kk], slot + kk * 32, kc > 0 || kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs<32>(part);
-      fence_regs<4 * K8>(&big[0][0]);
-      fence_regs<4 * K8>(&small[0][0]);
-      consumer_release(bars, u, lane);
-      ++u;
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[hh][i] += part[i];
-  }
-}
-
-// a warpgroup's 64 x 64 fp32 accumulator block hh into rows row0 and row0 + 8
-__device__ __forceinline__ void store_f32(float* base, long long ld, int row0, int len, int col0,
-                                          const float* acc, int t) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row0 + 8 * i >= len) continue;
-    float* out = base + (row0 + 8 * i) * ld + col0 + 2 * t;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<float2*>(out + 8 * n) = make_float2(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
-  }
-}
-
 // Block: warpgroup 0 produces, warpgroups 1 and 2 consume, each owning 64
 // query rows.  Per 64-key tile j each consumer warpgroup: S = Q·K_jᵀ and
 // dP = dO·V_jᵀ (3xTF32 m64n64k8 over D: 8 slots at D 128), dS = P∘(dP +
@@ -906,7 +594,7 @@ __device__ __forceinline__ void store_f32(float* base, long long ld, int row0, i
 // dS·K_j (4 transposed slots: two 64-column halves x two 32-key chunks).
 template <int D>
 __global__ void __launch_bounds__(384, 1) flash_bwd_dq_tf32x3(const Params p) {
-  using L = Tf32Layout<D>;
+  using L = Tf32Bwd<D>;
   constexpr int kN = kDqKeysF32;
   constexpr int kPerTile = 2 * (D / 32) + 2 * (D / 64);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -928,15 +616,7 @@ __global__ void __launch_bounds__(384, 1) flash_bwd_dq_tf32x3(const Params p) {
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* dog = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
 
-  if (tid == 0) {
-#pragma unroll
-    for (int s = 0; s < kRing; ++s) {
-      mbar_init(bars + 8 * s, 128);
-      mbar_init(bars + 8 * (kRing + s), kConsumerWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  ring_init(bars, tid);
 
   if (tid < 128) {  // the producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kF32ProducerRegs));
@@ -1022,7 +702,7 @@ __global__ void __launch_bounds__(384, 1) flash_bwd_dq_tf32x3(const Params p) {
 // columns of D each).
 template <int D>
 __global__ void __launch_bounds__(384, 1) flash_bwd_dkv_tf32x3(const Params p) {
-  using L = Tf32Layout<D>;
+  using L = Tf32Bwd<D>;
   constexpr int kM = kDkvRowsF32;
   constexpr int kPerTile = D / 32 + 2 * (D / 64);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -1042,15 +722,7 @@ __global__ void __launch_bounds__(384, 1) flash_bwd_dkv_tf32x3(const Params p) {
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* dog = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
 
-  if (tid == 0) {
-#pragma unroll
-    for (int s = 0; s < kRing; ++s) {
-      mbar_init(bars + 8 * s, 128);
-      mbar_init(bars + 8 * (kRing + s), kConsumerWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  ring_init(bars, tid);
 
   if (tid < 128) {  // the producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kF32ProducerRegs));
@@ -1169,7 +841,7 @@ __global__ void __launch_bounds__(384, 1) flash_bwd_dkv_tf32x3(const Params p) {
 
 template <int D, typename Kernel>
 int launch_tf32x3(Kernel kernel, int grid_x, const Params& p, int batch, int heads, cudaStream_t stream) {
-  const int smem = Tf32Layout<D>::kBytes;
+  const int smem = Tf32Bwd<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(grid_x, heads, batch), 384, smem, stream>>>(p);
@@ -1261,5 +933,5 @@ extern "C" int flash_attention_bwd_dkv_smem(int head_dim) {
 
 // the same for both fp32 kernels, which share one layout
 extern "C" int flash_attention_bwd_tf32x3_smem(int head_dim) {
-  return head_dim == 64 ? Tf32Layout<64>::kBytes : head_dim == 128 ? Tf32Layout<128>::kBytes : 0;
+  return head_dim == 64 ? Tf32Bwd<64>::kBytes : head_dim == 128 ? Tf32Bwd<128>::kBytes : 0;
 }

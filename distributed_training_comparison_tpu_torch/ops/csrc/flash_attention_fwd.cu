@@ -52,10 +52,25 @@
 //   overlaps the other's products.
 // Persistent blocks are left for a later change.
 //
-// fp32 inputs run a separate SIMT kernel that computes in fp32 throughout
-// (no TF32), for the non-AMP serving path and as an exact cross-check.
+// fp32 inputs (the entry point's default precision, without --amp: vit_long
+// served and trained in fp32) run flash_fwd_tf32x3, the same function on
+// wgmma in 3xTF32: each fp32 operand splits into big = tf32(x) and small =
+// tf32(x - big), and each fp32 product is three tf32 products (small·big,
+// big·small, big·big), fp32 accuracy at three times the TF32 operations.
+// At the fp32 serving shape (bh 32, S 4096, D 128) that is 8.2e11 tf32
+// FLOP, 1.67 ms at 495 TFLOP/s, against 134 MB of traffic: bound by
+// operations.  tf32 wgmma reads shared memory K-major only and a split
+// tile takes twice the room, so the design differs from the bf16 one
+// (tf32x3.cuh, shared with the 3xTF32 backward): 128 query rows a block,
+// Q split once into shared memory (S's products read both operands from
+// there), K and V split once by a producer warpgroup into a cp.async ring of
+// big/small slots (V transposed, its keys permuted to the fragments' order
+// so that P goes from the accumulator to A with no shuffle), 64-key tiles,
+// each tile's P·V in a fresh accumulator added to O in fp32 (the tensor
+// cores round their sums toward zero).  The semantics are those above, with
+// P kept in fp32 (split like every operand) and out and lse in fp32.
 
-#include "hopper_common.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -338,105 +353,189 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
-constexpr int kThreads = 128;  // fp32 kernel: threads per block
-
 // ------------------------------------------------------------------ fp32
+//
+// 3xTF32 on wgmma, on tf32x3.cuh's split, ring and products (its header
+// says how they work).  Per 64-key tile a consumer warpgroup computes S =
+// Q·K_jᵀ over D from D / 32 natural slots of K_j (64 keys x 32 of D), runs
+// the online softmax on S's accumulator, and adds P·V_j from 2 x D / 64
+// transposed slots of V_j (64 of D x 32 keys, the keys in the fragments'
+// order): eight slots a tile at D 128, four at D 64.  Each consumer
+// warpgroup splits its 64 Q rows once into D / 32 slots of its own, laid
+// out as the ring's, so S's products take A from shared memory too: the
+// consumers split nothing a slot, and each slot's products queue behind
+// the previous slot's (the backward's A fragments, split a k-step at a
+// time, make each slot wait for its own products).  Shared memory at
+// D 128: Q 128 KB split + 6 slots (96 KB) = 224 KB, the backward's.
+// Registers (setmaxnreg 56 / 224, the backward's split of the launch
+// allocation): O 64 + S 32 + P's fragments 64 + the tile's partial O 32.
 
-constexpr int kFM = 32;  // query rows per block: 4 threads per row
-constexpr int kFN = 32;  // keys per tile
+constexpr int kTf32Keys = 64;  // keys per streamed K/V tile: the slots' rows
 
 template <int D>
-constexpr int f32_smem_bytes() {
-  return (kFM * (D + 1) + 2 * kFN * (D + 1) + kFM * (kFN + 1)) * 4;
-}
+using Tf32Fwd = Tf32Layout<D, 4>;  // own rows: Q of 2 warpgroups, split: big and small
 
+// Block: warpgroup 0 produces, warpgroups 1 and 2 consume, each owning 64
+// query rows.  Per 64-key tile j each consumer warpgroup: S = Q·K_jᵀ
+// (3xTF32 m64n64k8), the masks, the running max and sum, P = exp2(S·scale·
+// log2e - m) on the accumulator, O rescaled by alpha, then O += P·V_j, the
+// tile's products in a fresh accumulator.  Accumulator maps as in
+// flash_fwd_bf16: o[hh][4n + 2i + e] is row g + 8i, column 64·hh + 8n + 2t + e.
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
-  constexpr int LD = D + 1;  // odd stride: a warp's 8 rows fall on distinct banks
-  constexpr int PER = kFN / 4;
-  constexpr int OUT = D / 4;
-  extern __shared__ float fsmem[];
-  float* qs = fsmem;
-  float* ks = qs + kFM * LD;
-  float* vs = ks + kFN * LD;
-  float* ps = vs + kFN * LD;
+__global__ void __launch_bounds__(384, 1) flash_fwd_tf32x3(const Params p) {
+  using L = Tf32Fwd<D>;
+  constexpr int kN = kTf32Keys;
+  constexpr int kPerTile = D / 32 + 2 * (D / 64);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const sbase = smem_raw + (base - raw);
+  const uint32_t bars = base + L::kBars;
 
-  const int m0 = blockIdx.x * kFM;
+  // causal: the longest blocks (the last query tiles) go first
+  const int mb = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int m0 = mb * kBM;
   const int h = blockIdx.y, b = blockIdx.z;
+  // causal: keys past the block's last row contribute nothing, and are never loaded
+  const int kv_end = p.causal ? min(p.skv, m0 + kBM) : p.skv;
+  const int nk = (kv_end + kN - 1) / kN;
   const int tid = threadIdx.x;
-  const int r = tid / 4, t = tid % 4;  // row of the tile, lane of the row's quad
-  const int row = m0 + r;
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
 
-  for (int c = tid; c < kFM * D; c += kThreads) {
-    const int rr = c / D, d = c % D;
-    qs[rr * LD + d] = m0 + rr < p.sq ? qg[(m0 + rr) * p.q_ss + d] : 0.f;
-  }
-  const int kv_end = p.causal ? min(p.skv, m0 + kFM) : p.skv;
-  float acc[OUT];
-#pragma unroll
-  for (int i = 0; i < OUT; ++i) acc[i] = 0.f;
-  float m_run = kNegInf, l_run = 0.f;
+  ring_init(bars, tid);
 
-  for (int n0 = 0; n0 < kv_end; n0 += kFN) {
-    __syncthreads();
-    for (int c = tid; c < kFN * D; c += kThreads) {
-      const int rr = c / D, d = c % D;
-      const bool ok = n0 + rr < p.skv;
-      ks[rr * LD + d] = ok ? kg[(n0 + rr) * p.k_ss + d] : 0.f;
-      vs[rr * LD + d] = ok ? vg[(n0 + rr) * p.v_ss + d] : 0.f;
-    }
-    __syncthreads();
-    float s[PER];
-    float mx = m_run;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int c = t + 4 * i;
-      float x = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) x = fmaf(qs[r * LD + d], ks[c * LD + d], x);
-      x *= p.scale;
-      const int col = n0 + c;
-      if (col >= p.skv || (p.causal && col > row)) x = kNegInf;
-      s[i] = x;
-      mx = fmaxf(mx, x);
-    }
-    mx = quad_max(mx);
-    const float alpha = exp2f((m_run - mx) * kLog2e);
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const float e = exp2f((s[i] - mx) * kLog2e);
-      sum += e;
-      ps[r * (kFN + 1) + t + 4 * i] = e;
-    }
-    l_run = l_run * alpha + sum;
-    m_run = mx;
-    __syncwarp();  // a row's quad lives in one warp: its P row is visible now
-#pragma unroll
-    for (int i = 0; i < OUT; ++i) acc[i] *= alpha;
-    for (int c = 0; c < kFN; ++c) {
-      const float pc = ps[r * (kFN + 1) + c];
-#pragma unroll
-      for (int i = 0; i < OUT; ++i) acc[i] = fmaf(pc, vs[c * LD + t + 4 * i], acc[i]);
-    }
+  if (tid < 128) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kF32ProducerRegs));
+    auto slot_of = [&](int u) {
+      const int r = u % kPerTile, n0 = u / kPerTile * kN;
+      if (r < D / 32) return SlotSrc{kg, kg, p.k_ss, p.k_ss, n0, p.skv, 32 * r, false};
+      const int idx = r - D / 32;  // column block idx / 2, key chunk idx % 2
+      return SlotSrc{vg, vg, p.v_ss, p.v_ss, n0 + 32 * (idx % 2), p.skv, 64 * (idx / 2), true};
+    };
+    produce<kSlotRows>(slot_of, nk * kPerTile, sbase + L::kRingAt, bars, tid);
+    return;  // the two roles never reconverge, or setmaxnreg would not hold
   }
-  const float l = fmaxf(quad_sum(l_run), 1e-30f);
-  if (row < p.sq) {
-    float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + row * p.o_ss;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kF32ConsumerRegs));
+
+  const int c = tid / 128 - 1;  // consumer warpgroup
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = m0 + 64 * c + 16 * warp + g;  // this thread's rows: row0 and row0 + 8
+  const int row[2] = {row0, row0 + 8};
+  const float sl2 = p.scale * kLog2e;
+  // the warpgroup's 64 Q rows split once into D / 32 slots of its own, as
+  // the producer splits K
+  const int wtid = tid % 128;
+  const uint32_t q_at = base + c * (D / 32) * kSlotBytes;
 #pragma unroll
-    for (int i = 0; i < OUT; ++i) og[t + 4 * i] = acc[i] / l;
-    if (t == 0) p.lse[(static_cast<long long>(b) * gridDim.y + h) * p.sq + row] = m_run + logf(l);
+  for (int cc = 0; cc < D / 32; ++cc)
+    slot_issue<kSlotRows>(q_at + cc * kSlotBytes,
+                          SlotSrc{qg, qg, p.q_ss, p.q_ss, m0 + 64 * c, p.sq, 32 * cc, false}, wtid);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#pragma unroll
+  for (int cc = 0; cc < D / 32; ++cc) slot_split(sbase + (q_at - base) + cc * kSlotBytes, false, wtid);
+  fence_proxy_async();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");  // the warpgroup's Q is split
+  const uint32_t ring = base + L::kRingAt;
+
+  float o[D / 64][32];
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[hh][i] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};  // in units of scale·log2e
+  float l_run[2] = {0.f, 0.f};          // this thread's share of the row sum
+
+  int u = 0;
+  for (int j = 0; j < nk; ++j) {
+    // S = Q·K_jᵀ: each slot's products queued behind the previous slot's,
+    // which is released once they have run
+    float s[kN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int cc = 0; cc < D / 32; ++cc) {
+      consumer_wait(bars, u + cc);
+      const uint32_t slot = ring + ((u + cc) % kRing) * kSlotBytes;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_3xtf32_ss(s, q_at + cc * kSlotBytes + kk * 32, slot + kk * 32, cc > 0 || kk > 0);
+      wgmma_commit();
+      if (cc > 0) {
+        wgmma_wait<1>();
+        consumer_release(bars, u + cc - 1, lane);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs<kN / 2>(s);
+    consumer_release(bars, u + D / 32 - 1, lane);
+    u += D / 32;
+    // masks only on the tiles that reach past the key length or straddle the diagonal
+    const int n0 = j * kN;
+    if (n0 + kN > p.skv || (p.causal && n0 + kN - 1 > m0 + 64 * c)) {
+#pragma unroll
+      for (int n = 0; n < kN / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = n0 + 8 * n + 2 * t + (e & 1);
+          const bool ok = col < p.skv && (!p.causal || col <= row[e >> 1]);
+          if (!ok) s[4 * n + e] = kNegInf;
+        }
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < kN / 8; ++n) mx = fmaxf(mx, fmaxf(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]));
+      // the max of the raw scores, scaled (scale > 0): p = 2^(s·scale·log2e - m)
+      const float m_new = fmaxf(m_run[i], quad_max(mx) * sl2);
+      alpha[i] = exp2f(m_run[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < kN / 8; ++n) {
+        s[4 * n + 2 * i] = exp2f(fmaf(s[4 * n + 2 * i], sl2, -m_new));
+        s[4 * n + 2 * i + 1] = exp2f(fmaf(s[4 * n + 2 * i + 1], sl2, -m_new));
+        sum += s[4 * n + 2 * i] + s[4 * n + 2 * i + 1];
+      }
+      l_run[i] = l_run[i] * alpha[i] + sum;
+      m_run[i] = m_new;
+    }
+#pragma unroll
+    for (int hh = 0; hh < D / 64; ++hh)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[hh][i] *= alpha[(i >> 1) & 1];
+    uint32_t big[kN / 8][4], small[kN / 8][4];
+    acc_frags<kN / 8>(big, small, s);
+    sums<D, kN / 8>(o, big, small, ring, bars, u, lane);
+  }
+
+  float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+  float* lg = p.lse + (static_cast<long long>(b) * gridDim.y + h) * p.sq;
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l = fmaxf(quad_sum(l_run[i]), 1e-30f);
+    inv[i] = 1.f / l;
+    if (t == 0 && row[i] < p.sq) lg[row[i]] = (m_run[i] + log2f(l)) * kLn2;
+  }
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[hh][i] *= inv[(i >> 1) & 1];
+    store_f32(og, p.o_ss, row0, p.sq, 64 * hh, o[hh], t);
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, const Params& p) {
+template <int D>
+int launch_tf32x3(const Params& p, int batch, int heads, cudaStream_t stream) {
+  const auto kernel = flash_fwd_tf32x3<D>;
+  const int smem = Tf32Fwd<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<dim3((p.sq + kBM - 1) / kBM, heads, batch), 384, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -480,9 +579,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     if (head_dim == 64) return launch_bf16<64>(p, batch, heads, s);
     if (head_dim == 128) return launch_bf16<128>(p, batch, heads, s);
   } else {
-    const dim3 grid((sq + kFM - 1) / kFM, heads, batch);
-    if (head_dim == 64) return launch(flash_fwd_f32<64>, grid, f32_smem_bytes<64>(), s, p);
-    if (head_dim == 128) return launch(flash_fwd_f32<128>, grid, f32_smem_bytes<128>(), s, p);
+    if (head_dim == 64) return launch_tf32x3<64>(p, batch, heads, s);
+    if (head_dim == 128) return launch_tf32x3<128>(p, batch, heads, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -490,4 +588,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 // dynamic shared memory of the bf16 kernel at head dim `head_dim` (0 if it is not taken)
 extern "C" int flash_attention_fwd_smem(int head_dim) {
   return head_dim == 64 ? Layout<64>::kBytes : head_dim == 128 ? Layout<128>::kBytes : 0;
+}
+
+// dynamic shared memory of the fp32 (3xTF32) kernel at head dim `head_dim` (0 if it is not taken)
+extern "C" int flash_attention_fwd_tf32x3_smem(int head_dim) {
+  return head_dim == 64 ? Tf32Fwd<64>::kBytes : head_dim == 128 ? Tf32Fwd<128>::kBytes : 0;
 }

@@ -66,6 +66,9 @@ def _qkv_views(gen, dtype, b, h, sq, skv, d, layout, device):
         (torch.bfloat16, 2, 3, 300, 300, 128, True, "bhsd"),
         # cross attention: more keys than queries, neither a tile multiple
         (torch.bfloat16, 2, 2, 100, 300, 128, False, "bshd"),
+        # the fp32 (3xTF32) kernel causal at D 64, ragged: S 1030 ends inside
+        # its 128-row blocks and 64-key tiles
+        (torch.float32, 2, 4, 1030, 1030, 64, True, "bhsd"),
     ],
 )
 def test_kernel_matches_reference_on_card(cuda_device, dtype, b, h, sq, skv, d, causal, layout):
@@ -289,6 +292,29 @@ def test_fp32_backward_kernels_keep_a_nan(cuda_device, bits):
         assert bool(torch.isnan(w).any()), name
         assert torch.equal(torch.isnan(g), torch.isnan(w)), name
         assert bool(torch.isfinite(g[~torch.isnan(w)]).all()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, 0xFFFFFFFF, 0x7F800001], ids=hex)
+def test_fp32_forward_kernel_keeps_a_nan(cuda_device, bits):
+    """A NaN in one V element reaches the output as in the plain version:
+    that column of every row of its head comes out NaN (P·V multiplies it
+    by every row's p), the rest finite, and the lse, which V does not
+    enter, stays finite.  The 3xTF32 split rounds by an integer add; on a
+    NaN's bits that add alone would carry into the exponent or the sign and
+    make the operand an inf or a zero."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    q, k, v = (torch.randn(2, 1000, 4, 128, generator=gen, device=cuda_device) for _ in range(3))
+    v.view(torch.int32)[1, 123, 2, 45] = bits - (1 << 32) if bits >> 31 else bits
+    assert bool(torch.isnan(v[1, 123, 2, 45]))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out, lse = port.flash_attention(qt, kt, vt, return_lse=True)
+    want = port.mha_reference(qt, kt, vt)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want[1, 2, :, 45]).all())
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    assert bool(torch.isfinite(out[~torch.isnan(want)]).all())
+    assert bool(torch.isfinite(lse).all())
 
 
 def grad_errors(model, reference) -> dict[str, float]:
