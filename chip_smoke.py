@@ -14,13 +14,17 @@ last line:
              backward's kernels, of the short-sequence attention's and of
              the fused block chains' bf16 GEMMs (``block_gemm_wgmma``,
              ``dgrad_wgmma``, ``wgrad_wgmma``) and attention kernels
-             (``block_attn_wgmma``, ``attn_dq_wgmma``, ``attn_dkv_wgmma``)
-             and of the grouped expert FFN's bf16 kernels
+             (``block_attn_wgmma``, ``attn_dq_wgmma``, ``attn_dkv_wgmma``),
+             their fp32 (3xTF32) GEMMs (``block_gemm_tf32x3``,
+             ``dgrad_tf32x3``, ``wgrad_tf32x3``) and attention kernels
+             (``block_attn_tf32x3``, ``block_attn_dq_tf32x3``,
+             ``block_attn_dkv_tf32x3``, each at head dims 64 and 128) and
+             of the grouped expert FFN's bf16 kernels
              (``moe_ffn_fwd_wgmma``, ``moe_ffn_dx_wgmma``,
              ``moe_ffn_dw_wgmma``) (``ptxas -v``; a
              bf16 flash kernel, a one-tile kernel, a fused block GEMM or
-             attention kernel or an expert FFN kernel that spills fails
-             the run) and each such kernel's dynamic shared memory at the
+             attention kernel (bf16 or fp32) or an expert FFN kernel that
+             spills fails the run) and each such kernel's dynamic shared memory at the
              main paths' shapes;
 3. kernel checks — each kernel against its plain PyTorch version on the
              card, at the shapes of the serve and train paths (bf16 and
@@ -42,7 +46,9 @@ last line:
              fused ViT block chain (K5: ``block_gemm`` x 4 and
              ``block_attention``) against ``fused_vit_block_reference``,
              stage by stage and whole, each launch's kernels by symbol
-             (bf16: ``block_gemm_wgmma`` and ``block_attn_wgmma`` alone),
+             (bf16: ``block_gemm_wgmma`` and ``block_attn_wgmma`` alone;
+             fp32: ``block_gemm_tf32x3`` and ``block_attn_tf32x3`` alone;
+             fp32 at the serve shape and at a ragged S),
              with the composed cuBLAS + SDPA block as its library
              yardstick; then the fused block backward
              chain (K6: ``block_ln``, ``block_gemm_dgrad``,
@@ -56,9 +62,13 @@ last line:
              results across two calls, ``block_grad_reduce`` bit for bit
              against an in-order fp32 sum, the kernels each wrapper ran by
              symbol (the GEMMs' and the attention's the dtype's only; bf16
-             ``attn_dq_wgmma`` then ``attn_dkv_wgmma``), with the composed
+             ``attn_dq_wgmma`` then ``attn_dkv_wgmma``, fp32
+             ``block_attn_dq_tf32x3`` then ``block_attn_dkv_tf32x3``; fp32
+             at the train shape and at a ragged S), with the composed
              block's autograd forward and backward as its library
-             yardstick;
+             yardstick; then ``fp32_nan_checks``: a NaN in one element of
+             x reaches the fp32 chains' outputs (K5's out, K6's dx and
+             gradients) exactly where it reaches the plain versions';
 4. serve   — the port's main path through its user entry point
              (``entry.run``): ``vit_long`` at 256 px (4096 tokens), bf16,
              buckets 1,2,4,8, closed loop of 64 requests at concurrency 8,
@@ -79,10 +89,11 @@ last line:
              concurrency 32: every block of every dispatched batch runs the
              fused K5 chain and no flash-attention kernel runs; the bucket-32
              logits are held against the composed reference engine in bf16
-             and fp32, a bucket-32 dispatch is timed fused and with
-             ``--block-fusion off`` and profiled (``dispatch_times``; its
-             port GEMM and attention by symbol must be ``block_gemm_wgmma``
-             and ``block_attn_wgmma`` alone);
+             and fp32, and in each a bucket-32 dispatch is timed fused and
+             with ``--block-fusion off`` and profiled (``dispatch_times``;
+             its port GEMM and attention by symbol must be bf16's
+             ``block_gemm_wgmma`` and ``block_attn_wgmma`` alone, fp32's
+             ``block_gemm_tf32x3`` and ``block_attn_tf32x3`` alone);
 5. train   — the port's training path through ``entry.run``: ``vit_long``
              at 256 px, bf16, batch 16, two epochs over 144 synthetic
              training images (18 steps) and 16 validation images.  The
@@ -115,6 +126,17 @@ last line:
              by symbol must be ``block_gemm_wgmma``, ``dgrad_wgmma`` and
              ``wgrad_wgmma`` alone, and its attention kernels
              ``block_attn_wgmma``, ``attn_dq_wgmma`` and ``attn_dkv_wgmma``;
+   train_tiny_fp32 — the same model through ``entry.run`` at the default
+             precision (no ``--amp``: fp32), batch 128, full width and
+             depth, one epoch of 3 steps and one validation batch: every
+             block's forward through the fp32 K5 chain and its backward
+             through the fp32 K6 chain (the launch counters of every
+             wrapper checked against the chain, and by symbol in a step
+             profile the 3xTF32 kernels alone: no SIMT or bf16 GEMM or
+             attention kernel), every loss finite, no step skipped; ms per
+             step, images/s, peak memory, the idle share and the busy time
+             split into the K5 kernels, the K6 kernels, the LayerNorm and
+             sum kernels and the rest;
 6. vit_moe  — ``moe_gmm_checks``: the grouped expert FFN's kernels (K7
              forward, K8 dx, K9 dW) against their plain versions at the
              serve shape (bf16, n 2048, cap 320), the train shape (bf16 and
@@ -352,10 +374,19 @@ def atol_share_needed(got, want, rtol) -> float:
 
 _PTXAS_ENTRY = re.compile(
     r"Compiling entry function '\w*?(flash_(?:fwd|bwd)_\w+?|attn_small_\w+?|"
-    r"(?:block_gemm|dgrad|wgrad|block_attn|attn_dq|attn_dkv)_wgmma)ILi(\d+)E(\w*?)EEv"
+    r"(?:block_gemm|dgrad|wgrad|block_attn|attn_dq|attn_dkv)_wgmma|"
+    r"(?:block_attn|block_attn_dq|block_attn_dkv)_tf32x3)ILi(\d+)E(\w*?)EEv"
 )
-# the grouped expert FFN's bf16 Hopper kernels, which are no templates
-_PTXAS_PLAIN_ENTRY = re.compile(r"Compiling entry function '\w*?(moe_ffn_(?:fwd|dx|dw)_wgmma)E")
+# the kernels that are no templates: the grouped expert FFN's bf16 ones and
+# the fused block chains' fp32 (3xTF32) GEMMs
+_PTXAS_PLAIN_ENTRY = re.compile(
+    r"Compiling entry function '\w*?(moe_ffn_(?:fwd|dx|dw)_wgmma|(?:block_gemm|dgrad|wgrad)_tf32x3)E"
+)
+# the fused block chains' fp32 (3xTF32) kernels, as ptxas_report names them:
+# the GEMMs, and the attention's at its two padded head dims
+BLOCK_TF32_GEMMS = ("block_gemm_tf32x3", "dgrad_tf32x3", "wgrad_tf32x3")
+BLOCK_TF32_ATTENTION = ("block_attn_tf32x3", "block_attn_dq_tf32x3", "block_attn_dkv_tf32x3")
+BLOCK_TF32_KERNELS = (*BLOCK_TF32_GEMMS, *(f"{k}<{d}>" for k in BLOCK_TF32_ATTENTION for d in (64, 128)))
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_USED = re.compile(r"Used (\d+) registers")
 _PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
@@ -429,13 +460,15 @@ ATTENTION_BUILD_SEQS = (136, 256, 512)
 
 
 def gemm_build_report(build, paths, vb) -> dict:
-    """The fused block's bf16 Hopper kernels: the GEMMs
+    """The fused block's Hopper kernels: the bf16 GEMMs
     (``block_gemm_wgmma``, ``dgrad_wgmma``, ``wgrad_wgmma``, one
-    instantiation per tile width) and the attention's
-    (``block_attn_wgmma``, ``attn_dq_wgmma``, ``attn_dkv_wgmma``, one per
-    count of key tiles): registers, static shared memory and spills from
-    ``ptxas -v``, and the dynamic shared memory each launch of the main
-    paths asks for (the attention's at ``ATTENTION_BUILD_SEQS``)."""
+    instantiation per tile width) and attention's (``block_attn_wgmma``,
+    ``attn_dq_wgmma``, ``attn_dkv_wgmma``, one per count of key tiles), the
+    fp32 ones (``BLOCK_TF32_KERNELS``: the 3xTF32 GEMMs and attention):
+    registers, static shared memory and spills from ``ptxas -v``, and the
+    dynamic shared memory each launch of the main paths asks for (the bf16
+    attention's at ``ATTENTION_BUILD_SEQS``; the 3xTF32 GEMMs' is one size,
+    the 3xTF32 attention's one a padded head dim)."""
     i32 = ctypes.c_int
     smem = {
         "block_gemm": build.load("vit_block_fwd", [i32, i32], symbol="vit_block_gemm_smem"),
@@ -453,6 +486,12 @@ def gemm_build_report(build, paths, vb) -> dict:
     }
     attn = build.load("vit_block_fwd", [i32], symbol="vit_block_attention_smem")
     attn_bwd = build.load("vit_block_bwd", [i32, i32], symbol="vit_block_attention_bwd_smem")
+    tf32 = build.load("vit_block_fwd", [], symbol="vit_block_gemm_tf32x3_smem")()
+    dynamic.update({k: {"any": tf32} for k in BLOCK_TF32_GEMMS})
+    tf32_attn = build.load("vit_block_fwd", [i32], symbol="vit_block_attention_tf32x3_smem")
+    tf32_attn_bwd = build.load("vit_block_bwd", [i32], symbol="vit_block_attention_bwd_tf32x3_smem")
+    for name, fn in zip(BLOCK_TF32_ATTENTION, (tf32_attn, tf32_attn_bwd, tf32_attn_bwd)):
+        dynamic[name] = {f"head_dim{d}": fn(d) for d in (64, 128)}
     dynamic["block_attn_wgmma"] = {f"s{s}": attn(s) for s in ATTENTION_BUILD_SEQS}
     for kernel, name in enumerate(("attn_dq_wgmma", "attn_dkv_wgmma")):
         dynamic[name] = {f"s{s}": attn_bwd(kernel, s) for s in ATTENTION_BUILD_SEQS}
@@ -738,11 +777,15 @@ def backward_checks(attn, csrc: Path | None = None) -> list[dict]:
     return out
 
 
-def bound(flops: float, nbytes: float, dname: str) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, dname: str, tf32x3: bool = False) -> tuple[float, str]:
     """Least time in ms: operations over the dtype's peak against bytes over
-    the memory rate, and which of the two bounds it."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    the memory rate, and which of the two bounds it.  ``tf32x3``: the
+    kernel runs fp32 products as three tf32 products each (``flash_peak``,
+    "operations (3xTF32)")."""
+    peak = flash_peak(dname) if tf32x3 else PEAK_FLOPS[dname]
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    ops = "operations (3xTF32)" if tf32x3 and dname == "float32" else "operations"
+    return max(t_ops, t_bytes) * 1e3, ops if t_ops >= t_bytes else "bytes"
 
 
 def block_bounds(b, s, dim, heads, hidden, dname) -> dict[str, tuple[float, str]]:
@@ -751,7 +794,8 @@ def block_bounds(b, s, dim, heads, hidden, dname) -> dict[str, tuple[float, str]
     function's inputs are read once and its outputs written once: the chain
     reads x and the fp32 parameters and writes out; each GEMM launch reads
     its A, residual and parameters and writes its C; attention reads qkv
-    and writes o."""
+    and writes o.  fp32's products are the 3xTF32 kernels': three tf32
+    products each at the TF32 rate."""
     rows, item = b * s, 2 if dname == "bfloat16" else 4
     params = (4 * dim * dim + 2 * dim * hidden + 9 * dim + hidden) * 4
     gemm_flops = 2 * rows * (4 * dim * dim + 2 * dim * hidden)
@@ -759,21 +803,23 @@ def block_bounds(b, s, dim, heads, hidden, dname) -> dict[str, tuple[float, str]
     # (x in, qkv out), (o, x in, r1 out), (r1 in, hmid out), (hmid, r1 in, out)
     gemm_act = rows * (4 * dim + 3 * dim + dim + hidden + hidden + 2 * dim)
     return {
-        "chain": bound(gemm_flops + attn_flops, 2 * rows * dim * item + params, dname),
-        "gemm": bound(gemm_flops, gemm_act * item + params, dname),
-        "attention": bound(attn_flops, 4 * rows * dim * item, dname),
+        "chain": bound(gemm_flops + attn_flops, 2 * rows * dim * item + params, dname, True),
+        "gemm": bound(gemm_flops, gemm_act * item + params, dname, True),
+        "attention": bound(attn_flops, 4 * rows * dim * item, dname, True),
     }
 
 
 # (label, dtype, B, S, dim, heads); mlp ratio 4.  The first two are one
 # block of the vit_tiny --patch-size 2 serve path at bucket 32 (bf16 with
 # --amp, fp32 without), then a ragged S (a multiple of 8, not of 64) and
-# the top of the gate's 128-512 token window.
+# the top of the gate's 128-512 token window, then the ragged S in fp32
+# (the 3xTF32 kernels' rows and keys cut mid-tile).
 BLOCK_CASES = [
     ("slice: vit_tiny p2 serve, bucket 32", "bfloat16", 32, 256, 192, 3),
     ("fp32 serve shape: vit_tiny p2 bucket 32 without --amp", "float32", 32, 256, 192, 3),
     ("ragged S", "bfloat16", 3, 136, 128, 2),
     ("window top: S 512", "bfloat16", 2, 512, 192, 3),
+    ("fp32 ragged S", "float32", 3, 136, 128, 2),
 ]
 # Each output (the block's, each GEMM launch's, attention's) holds against
 # its plain version per row: |kernel - plain| <= atol_share * rms(row) +
@@ -975,6 +1021,7 @@ def fused_block_checks(vb) -> list[dict]:
                           attention_without_first_tile)
         chain = _agreement(got.reshape(rows, dim), want.reshape(rows, dim),
                            fault.reshape(rows, dim), rtol)
+        chain["digest"] = _digest([got])  # two checkouts' bit-identical chains print the same
         chain["ms"], chain["event_ms"] = timed(lambda: vb.fused_vit_block(x, params, heads=heads))
         chain["plain_ms"], _ = timed(lambda: vb.fused_vit_block_reference(x, params, heads=heads))
         chain["library_ms"], chain["library_event_ms"] = timed(
@@ -1018,7 +1065,9 @@ def block_bwd_bounds(vb, b, s, dim, heads, hidden, dname) -> dict[str, tuple[flo
     launch's inputs read once and outputs written once.  Operations: the
     forward recompute (GEMMs and attention), the data and weight gradient
     GEMMs (twice the forward's), the attention backward's five products
-    (QKᵀ, dO·Vᵀ, Pᵀ·dO, dS·K, dSᵀ·Q)."""
+    (QKᵀ, dO·Vᵀ, Pᵀ·dO, dS·K, dSᵀ·Q).  fp32's products are the 3xTF32
+    kernels' (three tf32 products each at the TF32 rate); the LayerNorm and
+    sum kernels' elementwise work is at the dtype's rate."""
     rows, item = b * s, 2 if dname == "bfloat16" else 4
     nparams = 4 * dim * dim + 2 * dim * hidden + 9 * dim + hidden
     wparams = 4 * dim * dim + 2 * dim * hidden  # the weight matrices
@@ -1031,25 +1080,25 @@ def block_bwd_bounds(vb, b, s, dim, heads, hidden, dname) -> dict[str, tuple[flo
     f32 = lambda *widths: rows * sum(widths) * 4  # noqa: E731
     return {
         "chain": bound(gemm_flops + attn_fwd + 2 * gemm_flops + attn_bwd,
-                       3 * rows * dim * item + 2 * nparams * 4, dname),
+                       3 * rows * dim * item + 2 * nparams * 4, dname, True),
         # LN1(x), LN2(r1): a row in, a row out each
         "block_ln": bound(2 * 8 * rows * dim, act(dim, dim, dim, dim) + 4 * dim * 4, dname),
         # qkv (ln1 in, qkv out), proj (o, x in, r1 out), up (ln2 in, up out)
         "block_gemm": bound(2 * rows * (4 * dim * dim + dim * hidden),
                             act(dim, 3 * dim, dim, dim, dim, dim, hidden)
-                            + (4 * dim * dim + dim * hidden) * 4, dname),
-        "block_attention": bound(attn_fwd, act(3 * dim, dim), dname),
+                            + (4 * dim * dim + dim * hidden) * 4, dname, True),
+        "block_attention": bound(attn_fwd, act(3 * dim, dim), dname, True),
         # dy·W_dn (dy, up in; dup, hmid out), dup·W_up (dup in, dLN2 fp32 out),
         # dr1c·W_o (in, dO out), dqkv·W_qkv (in, dLN1 fp32 out)
         "block_gemm_dgrad": bound(gemm_flops, act(dim, hidden, hidden, hidden, hidden, dim, dim, 3 * dim)
-                                  + f32(dim, dim) + wparams * 4, dname),
+                                  + f32(dim, dim) + wparams * 4, dname, True),
         # (dLN2 fp32, r1, dy in; dr1 fp32, dr1c out), (dLN1 fp32, x in, dr1 fp32 in; dx out)
         "block_ln_bwd": bound(2 * 12 * rows * dim, act(dim, dim, dim, dim, dim)
                               + f32(dim, dim, dim, dim), dname),
-        "block_attention_bwd": bound(attn_bwd, act(3 * dim, dim, 3 * dim), dname),
+        "block_attention_bwd": bound(attn_bwd, act(3 * dim, dim, 3 * dim), dname, True),
         # (dqkv, ln1), (dr1c, o, dr1 fp32), (dup, ln2), (dy, hmid) in; partials out
         "block_gemm_wgrad": bound(gemm_flops, act(3 * dim, dim, dim, dim, hidden, dim, dim, hidden)
-                                  + f32(dim) + chunks * (wparams + 6 * dim + hidden) * 4, dname),
+                                  + f32(dim) + chunks * (wparams + 6 * dim + hidden) * 4, dname, True),
         # every partial read once, every sum written once
         "block_grad_reduce": bound(
             chunks * (nparams - ln_params) + ln_chunks * ln_params,
@@ -1060,12 +1109,13 @@ def block_bwd_bounds(vb, b, s, dim, heads, hidden, dname) -> dict[str, tuple[flo
 # (label, dtype, B, S, dim, heads); mlp ratio 4.  The first two are one
 # block of the vit_tiny --patch-size 2 train step at batch 128 (bf16 with
 # --amp, fp32 without), then the top of the gate's token window and a
-# ragged S with 2 heads (tiles cut by S and dim).
+# ragged S with 2 heads (tiles cut by S and dim), in bf16 and in fp32.
 BWD_CASES = [
     ("slice: vit_tiny p2 train step, batch 128", "bfloat16", 128, 256, 192, 3),
     ("fp32 train shape: batch 128 without --amp", "float32", 128, 256, 192, 3),
     ("window top: S 512", "bfloat16", 16, 512, 192, 3),
     ("ragged S, dim 128, 2 heads", "bfloat16", 3, 136, 128, 2),
+    ("fp32 ragged S, dim 128, 2 heads", "float32", 3, 136, 128, 2),
 ]
 # dx holds against the plain backward per row as the forward's output does
 # (TOLERANCES: bf16 2^-5 of the row's rms plus 2^-6·|dx|, fp32 2^-10 of the
@@ -1147,15 +1197,23 @@ def composed_library_block_fwd_bwd(x, params, heads, dy):
     return fwd_bwd
 
 
-K6_KERNELS = {  # the CUDA kernels' own symbols, by wrapper: the Hopper (bf16) ones end in _wgmma
+K6_KERNELS = {  # the CUDA kernels' own symbols, by wrapper: bf16's end in _wgmma, fp32's are the others
     "block_ln": ("ln_rows",),
-    "block_gemm": ("block_gemm_wgmma", "vit_block_gemm_f32"),
-    "block_attention": ("block_attn_wgmma", "vit_block_attn_f32"),
-    "block_gemm_dgrad": ("dgrad_wgmma", "dgrad_f32"),
+    "block_gemm": ("block_gemm_wgmma", "block_gemm_tf32x3"),
+    "block_attention": ("block_attn_wgmma", "block_attn_tf32x3"),
+    "block_gemm_dgrad": ("dgrad_wgmma", "dgrad_tf32x3"),
     "block_ln_bwd": ("ln_bwd",),
-    "block_attention_bwd": ("attn_dq_wgmma", "attn_dkv_wgmma", "attn_dq_f32", "attn_dkv_f32"),
-    "block_gemm_wgrad": ("wgrad_wgmma", "wgrad_f32"),
+    "block_attention_bwd": ("attn_dq_wgmma", "attn_dkv_wgmma", "block_attn_dq_tf32x3", "block_attn_dkv_tf32x3"),
+    "block_gemm_wgrad": ("wgrad_wgmma", "wgrad_tf32x3"),
     "block_grad_reduce": ("grad_reduce",),
+}
+# The SIMT fp32 kernels the 3xTF32 ones replaced (the first port's), by
+# wrapper: ``kernel_ms`` counts them too, so that ``--turn`` splits a
+# parent's fp32 chains by wrapper; no check accepts them.
+REPLACED_F32_KERNELS = {
+    "block_gemm": ("vit_block_gemm_f32",), "block_attention": ("vit_block_attn_f32",),
+    "block_gemm_dgrad": ("dgrad_f32",), "block_attention_bwd": ("attn_dq_f32", "attn_dkv_f32"),
+    "block_gemm_wgrad": ("wgrad_f32",),
 }
 GEMM_WRAPPERS = ("block_gemm", "block_gemm_dgrad", "block_gemm_wgrad")
 ATTENTION_WRAPPERS = ("block_attention", "block_attention_bwd")
@@ -1166,8 +1224,8 @@ ATTENTION_SYMBOLS = frozenset(s for w in ATTENTION_WRAPPERS for s in K6_KERNELS[
 
 def path_symbols(wrapper: str, dname: str) -> list[str]:
     """The kernels, by symbol, that a GEMM or attention ``wrapper`` of the
-    fused block launches in ``dname``: its Hopper (``_wgmma``) kernels in
-    bf16, its SIMT ones in fp32."""
+    fused block launches in ``dname``: its ``_wgmma`` kernels in bf16, its
+    3xTF32 ones in fp32."""
     return sorted(s for s in K6_KERNELS[wrapper] if s.endswith("_wgmma") == (dname == "bfloat16"))
 # the profiler's name of a kernel of the vit_block libraries, all defined in
 # an anonymous namespace: "[void ](anonymous namespace)::<symbol>[<...>](...)";
@@ -1178,8 +1236,10 @@ _KERNEL_SYMBOL = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)[<(]")
 
 def kernel_ms(device_ms_by_name: dict, wrappers) -> float:
     """Device ms of the profiled kernels whose symbol is one of the
-    ``wrappers``' kernels (``K6_KERNELS``)."""
-    symbols = {sym for w in wrappers for sym in K6_KERNELS[w]}
+    ``wrappers``' kernels (``K6_KERNELS``, and ``REPLACED_F32_KERNELS`` for
+    a parent's)."""
+    symbols = {sym for w in wrappers
+               for sym in (*K6_KERNELS[w], *REPLACED_F32_KERNELS.get(w, ()))}
     total = 0.0
     for name, ms in device_ms_by_name.items():
         m = _KERNEL_SYMBOL.match(name)
@@ -1274,8 +1334,9 @@ def in_order_sum(partials):
 
 
 def _digest(tensors) -> str:
-    """sha256 of fp32 tensors' bits: two checkouts whose kernels give
-    bit-identical results print the same digest."""
+    """sha256 of fp32 (or bf16, two to a word) tensors' bits: two
+    checkouts whose kernels give bit-identical results print the same
+    digest."""
     import hashlib
 
     import torch
@@ -1352,6 +1413,7 @@ def fused_block_bwd_checks(vb) -> list[dict]:
         dx2, grads2 = run()
         torch.cuda.synchronize()
         identical = torch.equal(dx, dx2) and all(torch.equal(grads[n], grads2[n]) for n in grads)
+        digest = _digest([dx, *grads.values()])  # two checkouts' bit-identical chains print the same
         del dx2, grads2
         want_dx, want = vb.fused_vit_block_bwd_reference(x, dy, params, heads=heads)
         with k6_fault(vb, "chunk"):
@@ -1391,7 +1453,7 @@ def fused_block_bwd_checks(vb) -> list[dict]:
             "dx": dx_rec, "grad_errors": errors, "stages": stages,
             "grad_error_max": max(errors.values()),
             "fault_grad_error_max": {k: max(f.values()) for k, f in fault_errors.items()},
-            "bit_identical_across_calls": identical, "finite": finite,
+            "bit_identical_across_calls": identical, "finite": finite, "digest": digest,
             "chain_ms": prof["device_busy_ms"], "chain_event_ms": event_ms,
             "kernel_ms": per_kernel, "kernels": kernels, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_event_ms": library_event_ms,
@@ -1403,6 +1465,56 @@ def fused_block_bwd_checks(vb) -> list[dict]:
         })
         del params, x, dy, dx, grads
         torch.cuda.empty_cache()
+    return out
+
+
+# (B, S, dim, heads) of the fp32 NaN checks: the ragged case, so that the
+# 3xTF32 kernels' masked rows and keys are on the path too; the NaN goes
+# to x[ITEM, ROW, COL], bits each of NAN_BITS (the card's canonical NaN,
+# a negative one, a signalling one)
+NAN_CASE = (3, 136, 128, 2)
+NAN_AT = (1, 70, 17)
+NAN_BITS = (0x7FFFFFFF, 0xFFFFFFFF, 0x7F800001)
+
+
+def fp32_nan_checks(vb) -> list[dict]:
+    """A NaN in one element of x through the fp32 chains on the card: K5's
+    output and K6's dx and twelve gradients must be NaN exactly where the
+    plain versions' are and finite everywhere else (the 3xTF32 split keeps
+    a NaN as a NaN: big = tf32(x) + x·0; the rounding add alone would carry
+    its payload into the exponent or the sign), for each of ``NAN_BITS``."""
+    import torch
+
+    b, s, dim, heads = NAN_CASE
+    gen = torch.Generator().manual_seed(4)
+    params = _seeded_block_params(dim, heads, gen)
+    x0 = torch.randn((b, s, dim), generator=gen).cuda()
+    dy = torch.randn((b, s, dim), generator=gen).cuda()
+    out = []
+    for bits in NAN_BITS:
+        x = x0.clone()
+        x.view(torch.int32)[NAN_AT] = bits - (1 << 32) if bits >> 31 else bits
+        got = {"out": vb.fused_vit_block(x, params, heads=heads)}
+        dx, grads = vb.fused_vit_block_bwd(x, dy, params, heads=heads)
+        got.update({"dx": dx, **grads})
+        torch.cuda.synchronize()
+        want = {"out": vb.fused_vit_block_reference(x, params, heads=heads)}
+        dx, grads = vb.fused_vit_block_bwd_reference(x, dy, params, heads=heads)
+        want.update({"dx": dx, **grads})
+        mismatched = sorted(
+            k for k, w in want.items()
+            if not (torch.equal(torch.isnan(got[k]), torch.isnan(w))
+                    and bool(torch.isfinite(got[k][~torch.isnan(w)]).all()))
+        )
+        out.append({
+            "case": f"fp32 NaN 0x{bits:08X} at x{list(NAN_AT)}", "shape": list(NAN_CASE),
+            "nan_elements": {k: int(torch.isnan(g).sum()) for k, g in got.items()},
+            "plain_nan_elements": {k: int(torch.isnan(w).sum()) for k, w in want.items()},
+            "mismatched": mismatched,
+            "ok": not mismatched and all(bool(torch.isnan(w).any()) for w in (want["out"], want["dx"])),
+        })
+    del params, x0, dy
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1609,6 +1721,8 @@ SERVE_TINY_ARGV = [
     "--serve-buckets", "1,2,4,8,16,32", "--serve-shape", "closed",
     "--serve-requests", "256", "--serve-concurrency", "32", "--seed", "0",
 ]
+# the same at the entry point's default precision (fp32: no --amp)
+SERVE_TINY_FP32_ARGV = [a for a in SERVE_TINY_ARGV if a != "--amp"]
 
 
 def _block_counters(vb, attn) -> dict:
@@ -1654,17 +1768,18 @@ def dispatch_times(fused, off, images) -> dict:
     return rec
 
 
-def tiny_dispatch() -> dict:
-    """``dispatch_times`` of ``serve_tiny``'s engine (bf16) on one seeded
-    batch of 32, built from whichever checkout of the port is first on
-    ``sys.path``: run with a parent's unpacked checkout put there, it times
-    the parent's kernels in the same call."""
+def tiny_dispatch(argv=SERVE_TINY_ARGV) -> dict:
+    """``dispatch_times`` of ``serve_tiny``'s engine (bf16; fp32 with
+    ``SERVE_TINY_FP32_ARGV``) on one seeded batch of 32, built from
+    whichever checkout of the port is first on ``sys.path``: run with a
+    parent's unpacked checkout put there, it times the parent's kernels in
+    the same call."""
     from distributed_training_comparison_tpu_torch.config import load_config
     from distributed_training_comparison_tpu_torch.serve import build_engine, request_pool
 
-    hp = load_config(SERVE_TINY_ARGV)
+    hp = load_config(argv)
     images = request_pool(32, image_size=hp.image_size, seed=hp.seed, fold=("check", 0))
-    off = build_engine(load_config(SERVE_TINY_ARGV + ["--block-fusion", "off"]))
+    off = build_engine(load_config(argv + ["--block-fusion", "off"]))
     return dispatch_times(build_engine(hp), off, images)
 
 
@@ -1672,7 +1787,7 @@ def serve_tiny_phase(vb, attn) -> dict:
     """``vit_tiny --patch-size 2`` served through ``entry.run``: every block
     of every dispatched batch through the fused K5 chain; the bucket-32
     logits against the composed reference engine in bf16 and fp32; one
-    bucket-32 dispatch timed fused and composed, and profiled."""
+    bucket-32 dispatch in each timed fused and composed, and profiled."""
     import numpy as np
 
     from distributed_training_comparison_tpu_torch import entry
@@ -1714,10 +1829,9 @@ def serve_tiny_phase(vb, attn) -> dict:
             "logits_max_abs_err_vs_reference": float(np.abs(got - want).max()),
             "logits_scale": scale, "logits_tol": tol,
         }
-        if precision == "bf16":
-            off = build_engine(load_config(argv + ["--block-fusion", "off"]))
-            rec.update(dispatch_times(fused, off, images))
-            del off
+        off = build_engine(load_config(argv + ["--block-fusion", "off"]))
+        rec.update(dispatch_times(fused, off, images))
+        del off
         checks[precision] = rec
         depth = len(fused.model.blocks)
         del fused, reference
@@ -2255,12 +2369,13 @@ def tiny_step_check(vb, attn, precision: str) -> dict:
     return step_report(precision, hp.batch_size, runs, loss_tol, ref_tol, plain_tol)
 
 
-def tiny_step_times(reps: int = 5) -> dict:
+def tiny_step_times(reps: int = 5, argv=TRAIN_TINY_ARGV) -> dict:
     """ms per train step (host clock around ``reps`` steps ending in a
-    synchronise) of the train command's trainer, fused and with
-    ``--block-fusion off``, in turns (fused, off, fused, off), and a
-    profile of two fused steps: the K5 and K6 kernels' shares of the
-    device's busy time, and its idle share."""
+    synchronise) of the train command's trainer (bf16; fp32 with
+    ``TRAIN_TINY_FP32_RUN_ARGV``), fused and with ``--block-fusion off``, in
+    turns (fused, off, fused, off), and a profile of two fused steps: the
+    K5 and K6 kernels' shares of the device's busy time, each wrapper's
+    kernels' device ms, and the idle share."""
     import torch
 
     from distributed_training_comparison_tpu_torch.config import load_config
@@ -2269,8 +2384,8 @@ def tiny_step_times(reps: int = 5) -> dict:
     from distributed_training_comparison_tpu_torch.utils import step_generator
 
     trainers = {
-        "fused": Trainer(load_config(TRAIN_TINY_ARGV)),
-        "off": Trainer(load_config(TRAIN_TINY_ARGV + ["--block-fusion", "off"])),
+        "fused": Trainer(load_config(argv)),
+        "off": Trainer(load_config(argv + ["--block-fusion", "off"])),
     }
     hp = trainers["fused"].hparams
     images, labels = next(trainers["fused"].train_split.epoch_batches(hp.batch_size, hp.seed, 0))
@@ -2306,6 +2421,7 @@ def tiny_step_times(reps: int = 5) -> dict:
         "k5_kernels_share_of_busy": k5 / prof["device_busy_ms"],
         "k6_only_kernels_device_ms_per_step": k6,
         "k6_only_kernels_share_of_busy": k6 / prof["device_busy_ms"],
+        "kernel_ms_per_step_by_wrapper": {w: kernel_ms(names, [w]) for w in K6_KERNELS},
         "note": "K6's recompute runs K5's kernels, counted under k5",
         "top_device_ms_per_step": {n[:60]: ms for n, ms in top},
     }
@@ -2381,6 +2497,135 @@ def check_train_tiny(tiny: dict) -> None:
     bad = {p: c for p, c in tiny["step_checks"].items() if not c["ok"]}
     if bad:
         raise RuntimeError(f"a vit_tiny p2 train step through K5/K6 disagrees: {bad}")
+
+
+# vit_tiny --patch-size 2 trained at the entry point's default precision
+# (fp32: no --amp), batch 128, one epoch: 396 training images (3 steps) and
+# 44 validation images (one batch)
+TRAIN_TINY_FP32_RUN_ARGV = [
+    "--model", "vit_tiny", "--patch-size", "2", "--synthetic-data",
+    "--limit-examples", "440", "--batch-size", "128", "--epoch", "1",
+    "--lr-decay-step-size", "1",
+]
+
+
+def tiny_fp32_step_times(trainer, csrc: Path | None = None) -> dict:
+    """ms per fp32 ``vit_tiny --patch-size 2`` train step (CUDA events over
+    3 steps of the trainer's first batch, after a warm step) and a profile
+    of two steps: the device's busy time and idle share, each K5/K6
+    wrapper's kernels' device ms (``kernel_ms``: a parent's SIMT kernels
+    too), and the busy time split into the K5 kernels (the forward's and
+    K6's recompute: one symbol), the K6 kernels, the LayerNorm and
+    gradient-sum kernels and the rest; the port's kernels by symbol
+    (``csrc``'s, this checkout's by default)."""
+    from distributed_training_comparison_tpu_torch.data import draw_crop_flip
+    from distributed_training_comparison_tpu_torch.utils import step_generator
+
+    hp = trainer.hparams
+    images, labels = next(trainer.train_split.epoch_batches(hp.batch_size, hp.seed, 0))
+    draws = draw_crop_flip(len(labels), step_generator(hp.seed, 0, 0))
+    ms = cuda_ms(lambda: trainer.step(images, labels, draws), 3, warmup=1)
+    prof = profile_device(lambda: trainer.step(images, labels, draws), 2)
+    names = prof["device_ms_by_name"]
+    busy = prof["device_busy_ms"]
+    by_wrapper = {w: kernel_ms(names, [w]) for w in K6_KERNELS}
+    split = {
+        "k5_kernels": by_wrapper["block_gemm"] + by_wrapper["block_attention"],
+        "k6_kernels": sum(by_wrapper[w] for w in ("block_gemm_dgrad", "block_gemm_wgrad",
+                                                  "block_attention_bwd")),
+        "ln_and_sum_kernels": sum(by_wrapper[w] for w in ("block_ln", "block_ln_bwd", "block_grad_reduce")),
+    }
+    split["rest"] = busy - sum(split.values())
+    port = _port_kernel_ms(names, csrc=csrc)
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+    return {
+        "ms_per_step": ms,
+        "images_per_s_timed": hp.batch_size / ms * 1e3,
+        "wall_ms_per_step": prof["wall_ms"],
+        "device_busy_ms_per_step": busy,
+        "device_idle_share": prof["device_idle_share"],
+        "device_ms_per_step": split,
+        "kernel_ms_per_step_by_wrapper": by_wrapper,
+        "port_kernels": sorted(port),
+        "gemm_kernels": sorted(GEMM_SYMBOLS & set(port)),
+        "attention_kernels": sorted(ATTENTION_SYMBOLS & set(port)),
+        "top_device_ms_per_step": {n[:60]: t for n, t in top},
+    }
+
+
+def train_tiny_fp32_phase(vb, attn, smi: str) -> dict:
+    """``vit_tiny --patch-size 2`` trained through ``entry.run`` at the
+    default precision (``TRAIN_TINY_FP32_RUN_ARGV``: fp32, batch 128, 12
+    blocks of dim 192): every block's forward through the fp32 K5 chain and
+    its backward through the fp32 K6 chain.  The launch counters are zeroed
+    just before and read just after; then ``tiny_fp32_step_times``."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch import entry
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.data import get_datasets
+    from distributed_training_comparison_tpu_torch.train import Trainer
+
+    counters = _tiny_counters(vb, attn)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = entry.run(TRAIN_TINY_FP32_RUN_ARGV)
+    seconds = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hp = load_config(TRAIN_TINY_FP32_RUN_ARGV)
+    epochs = report["fit"]["epochs"]
+    val_examples = len(get_datasets(hp)[1][1])
+    trainer = Trainer(hp)
+    depth = len(trainer.model.blocks)
+    times = tiny_fp32_step_times(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    return {
+        "phase": "train_tiny_fp32",
+        "nvidia_smi": smi,
+        "argv": TRAIN_TINY_FP32_RUN_ARGV,
+        "precision": hp.precision,
+        "batch": hp.batch_size,
+        "run_seconds": seconds,
+        "train_steps": sum(e["steps"] for e in epochs),
+        "eval_batches": len(epochs) * math.ceil(val_examples / hp.batch_size),
+        "depth": depth,
+        "launches": launches,
+        "losses_finite": all(e["nonfinite_losses"] == 0 for e in epochs),
+        "skipped_steps": sum(e["skipped"] for e in epochs),
+        "epochs": epochs,
+        "peak_memory_gb": peak_gb,
+        "epoch_images_per_s": epochs[-1]["images_per_s"],
+        **times,
+    }
+
+
+def check_train_tiny_fp32(run: dict) -> None:
+    depth, steps = run["depth"], run["train_steps"]
+    if run["precision"] != "fp32" or run["batch"] != 128 or depth != 12:
+        raise RuntimeError(f"train_tiny_fp32 ran {run['precision']} at batch {run['batch']}, depth {depth}")
+    if (steps, run["eval_batches"]) != (3, 1):
+        raise RuntimeError(f"train_tiny_fp32 ran {steps} steps and {run['eval_batches']} eval batches")
+    fwd, bwd = depth * (steps + run["eval_batches"]), depth * steps
+    want = {"fused_vit_block": fwd, "block_gemm": 4 * fwd + 3 * bwd,
+            "block_attention": fwd + bwd, "flash_attention": 0,
+            "flash_attention_dq": 0, "flash_attention_dkv": 0,
+            **{n: k * bwd for n, k in K6_PER_BLOCK.items()}}
+    if run["launches"] != want:
+        raise RuntimeError(f"train_tiny_fp32 launches {run['launches']}, expected {want}")
+    if not run["losses_finite"] or run["skipped_steps"]:
+        raise RuntimeError("train_tiny_fp32: a non-finite loss or a skipped step")
+    want = {k: sorted(s for w in ws for s in path_symbols(w, "float32"))
+            for k, ws in (("gemm_kernels", GEMM_WRAPPERS), ("attention_kernels", ATTENTION_WRAPPERS))}
+    replaced = {s for syms in REPLACED_F32_KERNELS.values() for s in syms}
+    for key, syms in want.items():
+        if run[key] != syms:
+            raise RuntimeError(f"train_tiny_fp32's step ran the {key} {run[key]}, expected {syms}")
+    if replaced & set(run["port_kernels"]):
+        raise RuntimeError(f"train_tiny_fp32's step ran SIMT kernels: {sorted(replaced & set(run['port_kernels']))}")
 
 
 # ------------------------------------------------- vit_moe: K7, K8, K9
@@ -3732,14 +3977,15 @@ def main() -> int:
     missing = [k for k in MOE_SYMBOLS["bfloat16"].values() if k.endswith("_wgmma") and k not in built]
     missing += [f"{k}<{d}>" for ks in (*BACKWARD_SYMBOLS["float32"].values(), FORWARD_SYMBOLS["float32"])
                 for k in ks for d in (64, 128) if f"{k}<{d}>" not in built]
+    missing += [k for k in BLOCK_TF32_KERNELS if k not in built]
     if missing:
         raise RuntimeError(f"the build logs hold no ptxas report of {missing}")
     spilled = {
         name: r for name, r in built.items()
         # the bf16 and 3xTF32 flash, one-tile, fused block GEMM and
-        # attention, and grouped expert FFN kernels
+        # attention (bf16 and fp32), and grouped expert FFN kernels
         if ("flash_" in name and ("bf16" in name or "tf32x3" in name) or "onetile" in name
-            or "_wgmma" in name)
+            or "_wgmma" in name or name in BLOCK_TF32_KERNELS)
         and r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
     }
     if spilled:
@@ -3768,6 +4014,12 @@ def main() -> int:
     bad = [c["case"] for c in bwd_blocks if not c["ok"]]
     if bad:
         raise RuntimeError(f"the fused block backward kernels disagree with the plain version: {bad}")
+
+    nans = fp32_nan_checks(vb)
+    emit({"phase": "fp32_nan_checks", "nvidia_smi": smi, "checks": nans})
+    bad = [c["case"] for c in nans if not c["ok"]]
+    if bad:
+        raise RuntimeError(f"a NaN in x does not reach the fp32 chains' outputs as in the plain version: {bad}")
 
     serve = serve_phase(attn)
     emit(serve)
@@ -3802,10 +4054,11 @@ def main() -> int:
             "block_attention": blocks_run, "flash_attention": 0}
     if tiny["launches"] != want:
         raise RuntimeError(f"serve_tiny launches {tiny['launches']}, expected {want}")
-    prof = tiny["bucket32"]["bf16"]["bucket32_profile"]
-    for key, wrapper in (("gemm_kernels", "block_gemm"), ("attention_kernels", "block_attention")):
-        if prof[key] != path_symbols(wrapper, "bfloat16"):
-            raise RuntimeError(f"serve_tiny's bucket-32 dispatch ran the {key} {prof[key]}")
+    for precision, dname in (("bf16", "bfloat16"), ("fp32", "float32")):
+        prof = tiny["bucket32"][precision]["bucket32_profile"]
+        for key, wrapper in (("gemm_kernels", "block_gemm"), ("attention_kernels", "block_attention")):
+            if prof[key] != path_symbols(wrapper, dname):
+                raise RuntimeError(f"serve_tiny's {precision} bucket-32 dispatch ran the {key} {prof[key]}")
     for precision, rec in tiny["bucket32"].items():
         if (rec["launches_fused"], rec["launches_reference"]) != (tiny["depth"], 0):
             raise RuntimeError(f"serve_tiny {precision} bucket-32 batch: launches {rec}")
@@ -3834,6 +4087,10 @@ def main() -> int:
     tiny_train = train_tiny_phase(vb, attn, smi)
     emit(tiny_train)
     check_train_tiny(tiny_train)
+
+    tiny_fp32 = train_tiny_fp32_phase(vb, attn, smi)
+    emit(tiny_fp32)
+    check_train_tiny_fp32(tiny_fp32)
 
     moe_checks = moe_gmm_checks(gm)
     emit({"phase": "moe_gmm_checks", "nvidia_smi": smi, "checks": moe_checks})
@@ -3930,16 +4187,19 @@ def main() -> int:
             })
     # K5: per case, block_gemm (its four launches of one block together)
     # and block_attention, with the whole chain's numbers beside them.
-    # ``launches`` is the kernel's count on the serve_tiny path.
+    # ``launches`` is the kernel's count on the serve_tiny path in bf16, on
+    # the train_tiny_fp32 path (its forward and K6's recompute) in fp32.
     for case in blocks:
         gemm = case["gemm_launches"].values()
         chain = case["chain"]
+        fp32 = case["dtype"] == "float32"
+        path, path_name = (tiny_fp32, "train_tiny_fp32") if fp32 else (tiny, "serve_tiny")
         common = {
             "route": "cuda", "source": f"{csrc}/vit_block_fwd.cu",
             "replaces": "distributed_training_comparison_tpu/ops/vit_block.py:166",
             "regime": "K5", "case": case["case"], "dtype": case["dtype"],
             "shape_b_s_dim_heads": case["shape"],
-            "launches_counted": "serve_tiny main path, one counter for every case",
+            "launches_counted": f"{path_name} main path, one counter for every case of the dtype",
             "atol_share": case["atol_share"], "rtol": case["rtol"],
             "chain_ms": chain["ms"], "chain_event_ms": chain["event_ms"],
             "chain_plain_ms": chain["plain_ms"],
@@ -3950,7 +4210,7 @@ def main() -> int:
         }
         kernels.append({
             "name": "block_gemm", **common,
-            "launches": tiny["launches"]["block_gemm"],
+            "launches": path["launches"]["block_gemm"],
             "per_block_launches": 4,
             "max_abs_err": max(g["max_abs_err"] for g in gemm),
             "atol_share_needed": max(g["atol_share_needed"] for g in gemm),
@@ -3964,7 +4224,7 @@ def main() -> int:
         att = case["attention"]
         kernels.append({
             "name": "block_attention", **common,
-            "launches": tiny["launches"]["block_attention"],
+            "launches": path["launches"]["block_attention"],
             "per_block_launches": 1,
             "max_abs_err": att["max_abs_err"], "atol_share_needed": att["atol_share_needed"],
             "fault_atol_share_needed": att["fault_atol_share_needed"], "kernels": att["kernels"],
@@ -3974,16 +4234,18 @@ def main() -> int:
         })
     # K6: per case, each kernel of the backward chain (its launches in one
     # block backward together), with the whole chain's numbers beside it.
-    # ``launches`` is the kernel's count on the train_tiny path; the
-    # recompute's block_gemm and block_attention are K5's kernels, listed
-    # above, and their train_tiny counts are in that phase's line.
+    # ``launches`` is the kernel's count on the train_tiny path in bf16, on
+    # train_tiny_fp32's in fp32; the recompute's block_gemm and
+    # block_attention are K5's kernels, listed above.
     for case in bwd_blocks:
+        fp32 = case["dtype"] == "float32"
+        path, path_name = (tiny_fp32, "train_tiny_fp32") if fp32 else (tiny_train, "train_tiny")
         common = {
             "route": "cuda", "source": f"{csrc}/vit_block_bwd.cu",
             "replaces": "distributed_training_comparison_tpu/ops/vit_block.py:181",
             "regime": "K6", "case": case["case"], "dtype": case["dtype"],
             "shape_b_s_dim_heads": case["shape"],
-            "launches_counted": "train_tiny main path, one counter for every case",
+            "launches_counted": f"{path_name} main path, one counter for every case of the dtype",
             "chain_max_abs_err_dx": case["dx"]["max_abs_err"],
             "dx_atol_share_needed": case["dx"]["atol_share_needed"],
             "grad_error_max": case["grad_error_max"], "grad_tol": case["grad_tol"],
@@ -3997,7 +4259,7 @@ def main() -> int:
         for name in K6_COUNTERS[1:]:
             kernels.append({
                 "name": name, **common,
-                "launches": tiny_train["launches"][name],
+                "launches": path["launches"][name],
                 "per_block_launches": K6_PER_BLOCK[name],
                 "max_abs_err": case["stages"][name]["max_abs_err"],
                 "atol_share_needed": case["stages"][name]["atol_share_needed"],
@@ -4220,6 +4482,16 @@ def moe_dispatch(csrc: Path | None = None, reps: int = 20) -> dict:
     return out
 
 
+def card_state() -> str:
+    """The card's SM clock, temperature, power draw and power limit now, as
+    ``nvidia-smi`` reads them: a turn's readings beside the card's state."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def turn(checkout: Path, label: str) -> int:
     """One turn of a comparison of checkouts in one call: the port of
     ``checkout`` (put first on ``sys.path``; this tree or a parent unpacked
@@ -4237,7 +4509,12 @@ def turn(checkout: Path, label: str) -> int:
     (``moe_gmm_checks``), the ``vit_moe`` train step and K8 at its own
     routing (``moe_step_times``) and its bucket-32 dispatch
     (``moe_dispatch``); ``block_grad_reduce``'s digests come with the K6
-    chain's records.  Run parent, this tree, this tree, parent:
+    chain's records; last, the fp32 ``vit_tiny`` p2 step
+    (``tiny_fp32_step_times``, ``tiny_step_times`` fused and off) and
+    bucket-32 dispatch (``tiny_dispatch``), and the card's clocks and power
+    (``card_state``) at the start, before K10/K11 and K7-K9, before the fp32
+    step and at the end.  The summary splits every K5 and K6 case by stage.
+    Run parent, this tree, this tree, parent:
 
         python3 chip_smoke.py --turn PARENT_DIR parent
 
@@ -4284,22 +4561,35 @@ def turn(checkout: Path, label: str) -> int:
     b128 = {"block_attention_ms": timed(lambda: vb.block_attention(qkv, seq=256, heads=3))[0],
             "block_attention_bwd_ms": timed(lambda: vb.block_attention_bwd(qkv, do, seq=256, heads=3))[0]}
     del qkv, do
-    rec = {"turn": label, "checkout": str(checkout), "nvidia_smi": smi,
+    rec = {"turn": label, "checkout": str(checkout), "nvidia_smi": smi, "card_start": card_state(),
            "kernel_checks": fwd, "flash_output_hashes": hashes, "sdpa_fp32_forward": sdpa,
            "backward_checks": bwd, "long_fp32_step": long_fp32, "attention_b128": b128,
            "fused_block_checks": fused_block_checks(vb),
            "fused_block_bwd_checks": fused_block_bwd_checks(vb),
            "tiny_step_times": tiny_step_times(), "tiny_dispatch": tiny_dispatch(),
+           "card_before_small_moe": card_state(),
            "small_attention_checks": small_attention_checks(small),
            "small_output_hashes": small_output_hashes(small),
            "moe_gmm_checks": moe_gmm_checks(gm), "moe_step_times": moe_step_times(csrc=csrc),
            "moe_dispatch": moe_dispatch(csrc)}
+    # the fp32 vit_tiny p2 path last: the parent's SIMT and this tree's
+    # 3xTF32 kernels load the card differently, so no other reading follows them
+    rec["card_before_tiny_fp32"] = card_state()
+    trainer = Trainer(load_config(TRAIN_TINY_FP32_RUN_ARGV))
+    rec["tiny_fp32_step"] = tiny_fp32 = tiny_fp32_step_times(trainer, csrc=csrc)
+    del trainer
+    torch.cuda.empty_cache()
+    rec["tiny_step_times_fp32"] = tiny_step_times(argv=TRAIN_TINY_FP32_RUN_ARGV)
+    rec["tiny_dispatch_fp32"] = tiny_dispatch(SERVE_TINY_FP32_ARGV)
+    rec["card_end"] = card_state()
     serve, train = rec["fused_block_checks"][0], rec["fused_block_bwd_checks"][0]
     step, disp = rec["tiny_step_times"], rec["tiny_dispatch"]["bucket32_profile"]
+    step32, disp32 = rec["tiny_step_times_fp32"], rec["tiny_dispatch_fp32"]
     moe_step, moe_disp = rec["moe_step_times"], rec["moe_dispatch"]
     split = long_fp32["step_profile"]["device_ms_per_step"]
     summary = {
         "turn": label, "nvidia_smi": smi,
+        "card": {k: rec[k] for k in ("card_start", "card_before_small_moe", "card_before_tiny_fp32", "card_end")},
         "k1_k2_ms": {c["case"]: c["ms"] for c in fwd},
         "k1_k2_bound_share": {c["case"]: c["bound_share"] for c in fwd},
         "k1_k2_atol_share_needed": {c["case"]: c["atol_share_needed"] for c in fwd},
@@ -4325,6 +4615,34 @@ def turn(checkout: Path, label: str) -> int:
         "block_attention_b128_ms": b128["block_attention_ms"],
         "block_attention_bwd_b128_ms": b128["block_attention_bwd_ms"],
         "block_attention_bwd_sdpa_fwd_bwd_ms": train["stages"]["block_attention_bwd"]["library_ms"],
+        # every K5 and K6 case split by stage: K5's four GEMM launches and its
+        # attention, K6's kernels by wrapper (each over its launches in one block)
+        "k5_split_ms": {c["case"]: {"chain": c["chain"]["ms"], "library": c["chain"]["library_ms"],
+                                    **{n: g["ms"] for n, g in c["gemm_launches"].items()},
+                                    "block_attention": c["attention"]["ms"]}
+                        for c in rec["fused_block_checks"]},
+        "k6_split_ms": {c["case"]: {"chain": c["chain_ms"], "library": c["library_ms"], **c["kernel_ms"]}
+                        for c in rec["fused_block_bwd_checks"]},
+        "k5_k6_digests": {c["case"]: c["chain"]["digest"] for c in rec["fused_block_checks"]}
+        | {c["case"]: c["digest"] for c in rec["fused_block_bwd_checks"]},
+        "train_tiny_fp32_step": {k: tiny_fp32[k] for k in (
+            "ms_per_step", "images_per_s_timed", "device_busy_ms_per_step", "device_idle_share",
+            "device_ms_per_step", "kernel_ms_per_step_by_wrapper", "port_kernels")},
+        "train_tiny_fp32": {
+            "ms_per_step": [step32["ms_per_step_fused"], step32["ms_per_step_fused_again"]],
+            "ms_per_step_off": [step32["ms_per_step_off"], step32["ms_per_step_off_again"]],
+            "busy_ms": step32["profile"]["device_busy_ms_per_step"],
+            "idle_share": step32["profile"]["device_idle_share"],
+            "kernel_ms_by_wrapper": step32["profile"]["kernel_ms_per_step_by_wrapper"],
+            "port_kernels": step32["profile"]["port_kernels"],
+        },
+        "bucket32_fp32": {
+            "ms": [disp32["bucket32_batch_ms_fused"], disp32["bucket32_batch_ms_fused_again"]],
+            "ms_off": [disp32["bucket32_batch_ms_off"], disp32["bucket32_batch_ms_off_again"]],
+            "busy_ms": disp32["bucket32_profile"]["device_busy_ms_per_batch"],
+            "idle_share": disp32["bucket32_profile"]["device_idle_share"],
+            "port_kernels": disp32["bucket32_profile"]["port_kernels"],
+        },
         "train_tiny_busy_ms": step["profile"]["device_busy_ms_per_step"],
         "train_tiny_idle_share": step["profile"]["device_idle_share"],
         "train_tiny_images_per_s": [step["images_per_s_fused"], step["images_per_s_fused_again"]],

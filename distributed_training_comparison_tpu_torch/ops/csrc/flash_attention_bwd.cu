@@ -562,31 +562,6 @@ __device__ __forceinline__ void load_own(unsigned char* own, const float* g, lon
   }
 }
 
-// acc (64 x 64, fresh) = own rows · slots' rowsᵀ over D: D / 32 slots of 32 columns
-template <int D>
-__device__ __forceinline__ void scores(float* acc, const unsigned char* own, uint32_t ring, uint32_t bars,
-                                       int& u, int lane) {
-#pragma unroll
-  for (int cc = 0; cc < D / 32; ++cc) {
-    consumer_wait(bars, u);
-    const uint32_t slot = ring + (u % kRing) * kSlotBytes;
-    uint32_t big[4][4], small[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      split4(*reinterpret_cast<const float4*>(own + (4 * cc + kk) * kFrag), big[kk], small[kk]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_3xtf32<64>(acc, big[kk], small[kk], slot + kk * 32, cc > 0 || kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs<32>(acc);
-    fence_regs<16>(&big[0][0]);
-    fence_regs<16>(&small[0][0]);
-    consumer_release(bars, u, lane);
-    ++u;
-  }
-}
-
 // Block: warpgroup 0 produces, warpgroups 1 and 2 consume, each owning 64
 // query rows.  Per 64-key tile j each consumer warpgroup: S = Q·K_jᵀ and
 // dP = dO·V_jᵀ (3xTF32 m64n64k8 over D: 8 slots at D 128), dS = P∘(dP +

@@ -1,6 +1,9 @@
 // 3xTF32 on wgmma: the fp32 building blocks shared by the flash-attention
 // forward (flash_attention_fwd.cu, flash_fwd_tf32x3) and backward
-// (flash_attention_bwd.cu, flash_bwd_dq_tf32x3 and flash_bwd_dkv_tf32x3).
+// (flash_attention_bwd.cu, flash_bwd_dq_tf32x3 and flash_bwd_dkv_tf32x3),
+// the fused ViT block's attention (vit_block_fwd.cu, block_attn_tf32x3;
+// vit_block_bwd.cu, block_attn_dq_tf32x3 and block_attn_dkv_tf32x3) and,
+// through block_gemm_tf32.cuh, its GEMMs.
 //
 // Each fp32 operand x is split into big = tf32(x) and small = tf32(x - big)
 // (cvt.rna's rounding: to nearest, ties away, the low 13 mantissa bits
@@ -223,9 +226,11 @@ __device__ __forceinline__ int raw_at(bool trans, int tid, int i) {
 }
 
 // the producer thread's four 16-byte copies of a slot, as one cp.async group;
-// rows past the length land as zeros (source size 0)
-template <int SPLIT>
-__device__ __forceinline__ void slot_issue(uint32_t slot, const SlotSrc& s, int tid) {
+// rows past the length land as zeros (source size 0), and with COLS so do
+// columns at or past `cols` (a multiple of 4: a head dim under the slots'
+// width, whose neighbours are the next head's)
+template <int SPLIT, bool COLS = false>
+__device__ __forceinline__ void slot_issue(uint32_t slot, const SlotSrc& s, int tid, int cols = 0) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float* src = s.a;
@@ -240,7 +245,7 @@ __device__ __forceinline__ void slot_issue(uint32_t slot, const SlotSrc& s, int 
       row = s.row0 + r;
       if (r >= SPLIT) src = s.b, ss = s.b_ss, row -= SPLIT;
     }
-    const bool in = row < s.len;
+    const bool in = row < s.len && (!COLS || col < cols);
     const float* from = src + (in ? row * ss + col : 0);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(slot + raw_at(s.trans, tid, i)),
                  "l"(from), "r"(in ? 16 : 0)
@@ -294,8 +299,9 @@ __device__ __forceinline__ void slot_split(unsigned char* slot, bool trans, int 
 // 128 threads stored and fenced their writes for the async proxy.
 constexpr int kAhead = 3;
 
-template <int SPLIT, typename SlotOf>
-__device__ __forceinline__ void produce(SlotOf slot_of, int total, unsigned char* ring, uint32_t bars, int tid) {
+template <int SPLIT, bool COLS = false, typename SlotOf>
+__device__ __forceinline__ void produce(SlotOf slot_of, int total, unsigned char* ring, uint32_t bars, int tid,
+                                        int cols = 0) {
   const uint32_t ring_at = smem_u32(ring);
   auto issue = [&](int w) {
     if (w >= total) {
@@ -305,7 +311,7 @@ __device__ __forceinline__ void produce(SlotOf slot_of, int total, unsigned char
     const int st = w % kRing;
     // a stage's previous use is released when all 8 consumer warps arrived
     if (w >= kRing) mbar_wait(bars + 8 * (kRing + st), ((w / kRing) & 1) ^ 1);
-    slot_issue<SPLIT>(ring_at + st * kSlotBytes, slot_of(w), tid);
+    slot_issue<SPLIT, COLS>(ring_at + st * kSlotBytes, slot_of(w), tid, cols);
   };
   for (int w = 0; w < kAhead; ++w) issue(w);
   for (int u = 0; u < total; ++u) {
@@ -358,6 +364,33 @@ __device__ __forceinline__ void sums(float (*acc)[32], uint32_t (*big)[4], uint3
   }
 }
 
+// acc (64 x 64, fresh) = own rows · slots' rowsᵀ over D: D / 32 slots of 32
+// columns, the own rows a thread's A fragments raw in shared memory (kFrag a
+// k-step), each k-step split as it is read
+template <int D>
+__device__ __forceinline__ void scores(float* acc, const unsigned char* own, uint32_t ring, uint32_t bars,
+                                       int& u, int lane) {
+#pragma unroll
+  for (int cc = 0; cc < D / 32; ++cc) {
+    consumer_wait(bars, u);
+    const uint32_t slot = ring + (u % kRing) * kSlotBytes;
+    uint32_t big[4][4], small[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      split4(*reinterpret_cast<const float4*>(own + (4 * cc + kk) * kFrag), big[kk], small[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_3xtf32<64>(acc, big[kk], small[kk], slot + kk * 32, cc > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<32>(acc);
+    fence_regs<16>(&big[0][0]);
+    fence_regs<16>(&small[0][0]);
+    consumer_release(bars, u, lane);
+    ++u;
+  }
+}
+
 // a warpgroup's 64 x 64 fp32 accumulator block hh into rows row0 and row0 + 8
 __device__ __forceinline__ void store_f32(float* base, long long ld, int row0, int len, int col0,
                                           const float* acc, int t) {
@@ -368,6 +401,20 @@ __device__ __forceinline__ void store_f32(float* base, long long ld, int row0, i
 #pragma unroll
     for (int n = 0; n < 8; ++n)
       *reinterpret_cast<float2*>(out + 8 * n) = make_float2(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
+  }
+}
+
+// the same, columns at or past `cols` (from the block's first) not written
+__device__ __forceinline__ void store_f32_cols(float* base, long long ld, int row0, int len, int col0, int cols,
+                                               const float* acc, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row0 + 8 * i >= len) continue;
+    float* out = base + (row0 + 8 * i) * ld + col0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      if (8 * n + 2 * t < cols)
+        *reinterpret_cast<float2*>(out + 8 * n) = make_float2(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
   }
 }
 

@@ -33,7 +33,9 @@
 //   delta = sum_j dp P on the fp32 P, dq = round(ds scale) . K) and writes
 //   each row's max, sum and delta to an fp32 scratch; a second owns 64 keys
 //   and walks the query tiles for dk = round(ds scale)^T . Q and dv =
-//   round(P)^T . dO.  No atomics.
+//   round(P)^T . dO.  No atomics.  fp32 runs the same two launches in
+//   3xTF32 (block_attn_dq_tf32x3, block_attn_dkv_tf32x3, below), the first
+//   computing each row's statistics in a pass of its own.
 // - block_grad_reduce: every partial summed over its chunks in order, one
 //   launch for all twelve gradients, each thread's loads a batch of chunks
 //   ahead of its adds.
@@ -77,12 +79,20 @@
 // and dO.  Seven products per (64-query, 64-key) tile pair (eight above S
 // 256), against ten for the mma.sync pair they replace.  The elementwise
 // softmax work, not the products, takes most of their time (PERF.md).
-// fp32 runs SIMT tiles with no TF32.
+// fp32 (the entry point's default precision) runs every product in 3xTF32
+// on wgmma (tf32x3.cuh: each fp32 operand split into two tf32 terms, three
+// tf32 products an fp32 one, fp32 accuracy): dgrad_tf32x3 and wgrad_tf32x3
+// on block_gemm_tf32.cuh's core (B' K-major in shared memory: dgrad's W and
+// both of wgrad's operands transposed as they are staged; wgrad's bias
+// column sums loaded a stage ahead and added under the products, in a fixed
+// order), and the attention's block_attn_dq_tf32x3 and
+// block_attn_dkv_tf32x3 (below).
 
 #include <type_traits>
 
 #include "attention_tiles.cuh"
 #include "block_gemm.cuh"
+#include "block_gemm_tf32.cuh"
 
 namespace {
 
@@ -145,44 +155,6 @@ __global__ void __launch_bounds__(kRowWarps * 32)
   for (int c = lane; c < n; c += 32) yr[c] = from_f<T>((to_f(xr[c]) - mu) * rs * g[c] + b[c]);
 }
 
-// ------------------------------------------------ the fp32 GEMM mainloop
-
-constexpr int kBM = 128;  // the fp32 kernels: output rows per block
-constexpr int kBN = 64;   // output columns per block
-constexpr int kGemmThreads = 256;
-constexpr int kFBK = 16;        // fp32: K per stage
-
-// fp32: each thread owns 4 rows x 8 columns of the kBM x kBN tile; the
-// stagers fill as[kFBK][kBM + 4] and bs[kFBK][kBN + 4] (k-major)
-template <typename StageA, typename StageB>
-__device__ __forceinline__ void mainloop_f32(float (&acc)[4][8], float (*as)[kBM + 4],
-                                             float (*bs)[kBN + 4], int kdim, StageA stage_a,
-                                             StageB stage_b) {
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < kdim; k0 += kFBK) {
-    stage_a(k0);
-    stage_b(k0);
-    __syncthreads();
-#pragma unroll
-    for (int kc = 0; kc < kFBK; ++kc) {
-      const float4 av = *reinterpret_cast<const float4*>(&as[kc][ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[kc][tx * 8]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[kc][tx * 8 + 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
 // ------------------------------------------------------ block_gemm_dgrad
 
 struct DgradParams {
@@ -194,33 +166,11 @@ struct DgradParams {
   int m, n, k, seg, mode;
 };
 
-__device__ __forceinline__ const float* w_row(const DgradParams& p, int kr) {
-  if (kr < p.seg) return p.w[0] + static_cast<long long>(kr) * p.n;
-  if (kr < 2 * p.seg) return p.w[1] + static_cast<long long>(kr - p.seg) * p.n;
-  return p.w[2] + static_cast<long long>(kr - 2 * p.seg) * p.n;
-}
-
-template <typename T>
-__device__ __forceinline__ void dgrad_store(const DgradParams& p, float acc, int row, int col) {
-  const long long i = static_cast<long long>(row) * p.n + col;
-  if (p.mode == 2) {
-    static_cast<float*>(p.c)[i] = acc;
-    return;
-  }
-  const float v = rnd<T>(acc);
-  if (p.mode == 0) {
-    static_cast<T*>(p.c)[i] = from_f<T>(v);
-    return;
-  }
-  const float u = to_f(static_cast<const T*>(p.up)[i]);
-  static_cast<T*>(p.c)[i] = from_f<T>(gelu_tanh_grad(u) * v);
-  static_cast<T*>(p.hmid)[i] = from_f<T>(gelu_tanh(u));
-}
-
 // K6's data-gradient products in bf16, weight-stationary (block_gemm.cuh):
 // C = G . W with W (k, n) converted once per block into the K-major slab of
 // BN columns (8 rows of k gathered a chunk), G streamed through the rings;
-// the epilogue is dgrad_store's on pairs of columns.
+// the epilogue, on pairs of columns: rounded (mode 0), the gelu backward
+// against up with gelu(up) beside it, both rounded (mode 1), fp32 (mode 2).
 template <int BN>
 __global__ void __launch_bounds__(bgemm::kThreads, 1)
     dgrad_wgmma(const DgradParams p, const __grid_constant__ CUtensorMap tg) {
@@ -268,33 +218,43 @@ __global__ void __launch_bounds__(bgemm::kThreads, 1)
   ws_consume<BN>(B, &tg, begin, multiply, epilogue);
 }
 
-__global__ void __launch_bounds__(kGemmThreads) dgrad_f32(const DgradParams p) {
-  __shared__ __align__(16) float as[kFBK][kBM + 4];
-  __shared__ __align__(16) float bs[kFBK][kBN + 4];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN, tid = threadIdx.x;
+// K6's data-gradient products in fp32, 3xTF32 on wgmma (block_gemm_tf32.cuh's
+// core): A' the rows of G as stored; B' W (k, n, in row segments)
+// transposed as the producer splits it, so that its row j is column j of W.
+// The epilogue stores the product (modes 0 and 2 alike: the compute dtype's
+// rounding is none), or the gelu backward against up with gelu(up) beside
+// it (mode 1).
+__global__ void __launch_bounds__(tgemm::kThreads, 1) dgrad_tf32x3(const DgradParams p) {
+  using namespace tgemm;
+  extern __shared__ __align__(1024) unsigned char gemm_smem[];
   const float* g = static_cast<const float*>(p.g);
-  auto stage_a = [&](int k0) {
-    for (int c = tid; c < kBM * kFBK; c += kGemmThreads) {
-      const int r = c / kFBK, kc = c % kFBK;
-      as[kc][r] = m0 + r < p.m && k0 + kc < p.k ? g[static_cast<long long>(m0 + r) * p.k + k0 + kc] : 0.f;
-    }
-  };
-  auto stage_b = [&](int k0) {
-    for (int c = tid; c < kBN * kFBK; c += kGemmThreads) {
-      const int kc = c / kBN, nn = c % kBN;
-      bs[kc][nn] = k0 + kc < p.k && n0 + nn < p.n ? w_row(p, k0 + kc)[n0 + nn] : 0.f;
-    }
-  };
-  float acc[4][8];
-  mainloop_f32(acc, as, bs, p.k, stage_a, stage_b);
-  const int tx = tid % 8, ty = tid / 8;
+  const Operand G{{g, g, g}, p.m, p.k, p.m};
+  const Operand Wt{{p.w[0], p.w[1], p.w[2]}, p.seg, p.n, p.n};
+  float* out = static_cast<float*>(p.c);
+  run<false, true>(
+      aligned_smem(gemm_smem), G, Wt, Tiles(p.m, p.n, p.k, p.k).at(blockIdx.x), nullptr, nullptr, [](int) {},
+      [] {}, [&](const float (&acc)[32], int row, int col) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 2; ++i) {
+          const int r = row + 8 * i;
+          if (r >= p.m) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int row = m0 + ty * 4 + i, col = n0 + tx * 8 + j;
-      if (row < p.m && col < p.n) dgrad_store<float>(p, acc[i][j], row, col);
-    }
+          for (int n = 0; n < kBN / 8; ++n) {
+            const int cc = col + 8 * n;
+            if (cc >= p.n) continue;
+            const long long at = static_cast<long long>(r) * p.n + cc;
+            float v0 = acc[4 * n + 2 * i], v1 = acc[4 * n + 2 * i + 1];
+            if (p.mode == 1) {
+              const float2 u = *reinterpret_cast<const float2*>(static_cast<const float*>(p.up) + at);
+              *reinterpret_cast<float2*>(static_cast<float*>(p.hmid) + at) =
+                  make_float2(gelu_tanh(u.x), gelu_tanh(u.y));
+              v0 = gelu_tanh_grad(u.x) * v0;
+              v1 = gelu_tanh_grad(u.y) * v1;
+            }
+            *reinterpret_cast<float2*>(out + at) = make_float2(v0, v1);
+          }
+        }
+      });
 }
 
 // ------------------------------------------------------ block_gemm_wgrad
@@ -308,26 +268,6 @@ struct WgradParams {
   float* part_b;     // (chunks, n_out)
   int m, n_out, n_in, chunk;
 };
-
-// the bias column sums of rows [r0, r1) for columns [o0, o0 + kBM), by
-// the blocks of the first input tile: two threads a column, each taking
-// alternate rows, combined in a fixed order
-__device__ void bias_partial(const WgradParams& p, int r0, int r1, int o0, float* red) {
-  const int o = threadIdx.x % kBM, half = threadIdx.x / kBM;
-  float s = 0.f;
-  if (o0 + o < p.n_out) {
-    for (int r = r0 + half; r < r1; r += 2) {
-      const long long i = static_cast<long long>(r) * p.n_out + o0 + o;
-      s += p.bsrc_f32 ? static_cast<const float*>(p.bsrc)[i]
-                      : to_f(static_cast<const bf16*>(p.bsrc)[i]);
-    }
-  }
-  red[threadIdx.x] = s;
-  __syncthreads();
-  if (half == 0 && o0 + o < p.n_out)
-    p.part_b[static_cast<long long>(blockIdx.z) * p.n_out + o0 + o] = red[o] + red[o + kBM];
-  __syncthreads();
-}
 
 // K6's weight-gradient products in bf16: per row chunk (blockIdx.z), an
 // output tile of 128 rows of out (two consumer warpgroups of 64) by BN
@@ -498,38 +438,76 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-__global__ void __launch_bounds__(kGemmThreads) wgrad_f32(const WgradParams p) {
-  __shared__ __align__(16) float as[kFBK][kBM + 4];
-  __shared__ __align__(16) float bs[kFBK][kBN + 4];
-  __shared__ float red[kGemmThreads];
-  const int o0 = blockIdx.y * kBM, i0 = blockIdx.x * kBN, tid = threadIdx.x;
-  const int r0 = blockIdx.z * p.chunk, r1 = min(r0 + p.chunk, p.m);
+// K6's weight-gradient products in fp32, 3xTF32 on wgmma (block_gemm_tf32.cuh's
+// core): per row chunk (blockIdx.z), A' = G^T and B' = A^T, both read
+// transposed (A' by the consumers from its landed rows, B' as the producer
+// splits it), the chunk's rows their depth; a tile 192 rows of out by 64
+// columns of in.  A tile of the first 64 input columns also sums the bias
+// source's columns over its chunk: each consumer thread 4 columns over
+// every 8th row of a stage, its loads issued before it waits for the
+// stage; the 8 row phases added in order at the tile's end.
+__global__ void __launch_bounds__(tgemm::kThreads, 1) wgrad_tf32x3(const WgradParams p) {
+  using namespace tgemm;
+  extern __shared__ __align__(1024) unsigned char gemm_smem[];
+  unsigned char* smem = aligned_smem(gemm_smem);
   const float* g = static_cast<const float*>(p.g);
   const float* a = static_cast<const float*>(p.a);
-  if (blockIdx.x == 0 && p.part_b) bias_partial(p, r0, r1, o0, red);
-  auto stage_a = [&](int k0) {  // as[r][o] = G[r][o]: coalesced in o
-    for (int c = tid; c < kBM * kFBK; c += kGemmThreads) {
-      const int kc = c / kBM, o = c % kBM, r = r0 + k0 + kc;
-      as[kc][o] = r < r1 && o0 + o < p.n_out ? g[static_cast<long long>(r) * p.n_out + o0 + o] : 0.f;
-    }
-  };
-  auto stage_b = [&](int k0) {
-    for (int c = tid; c < kBN * kFBK; c += kGemmThreads) {
-      const int kc = c / kBN, i = c % kBN, r = r0 + k0 + kc;
-      bs[kc][i] = r < r1 && i0 + i < p.n_in ? a[static_cast<long long>(r) * p.n_in + i0 + i] : 0.f;
-    }
-  };
-  float acc[4][8];
-  mainloop_f32(acc, as, bs, r1 - r0, stage_a, stage_b);
-  float* out = p.part_w + static_cast<long long>(blockIdx.z) * p.n_out * p.n_in;
-  const int tx = tid % 8, ty = tid / 8;
+  const Operand Gt{{g, g, g}, p.m, p.n_out, p.n_out};
+  const Operand At{{a, a, a}, p.m, p.n_in, p.n_in};
+  const float* bsrc = static_cast<const float*>(p.bsrc);
+  const Tile t = Tiles(p.n_out, p.n_in, p.m, p.chunk).at(blockIdx.x);
+  // a tile of the first input columns sums the bias source's columns
+  const bool bias = t.n0 == 0 && p.part_b != nullptr;
+  // a consumer thread's bias columns ocol .. + 3, and rows ph + 8j of a stage
+  const int ct = static_cast<int>(threadIdx.x) - 128;
+  const int ph = ct % 128 / 16, ocol = t.m0 + ct / 128 * 64 + 4 * (ct % 16);
+  float4 buf[4];
+  float bsum[4] = {0.f, 0.f, 0.f, 0.f};
+  run<true, true>(
+      smem, Gt, At, t, nullptr, nullptr,
+      [&](int v) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 4; ++j) {
+          const int r = t.k0 + v * kBK + ph + 8 * j;
+          buf[j] = bias && r < t.k1 && ocol < p.n_out
+                       ? __ldg(reinterpret_cast<const float4*>(bsrc + static_cast<long long>(r) * p.n_out + ocol))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      },
+      [&] {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int o = o0 + ty * 4 + i, in = i0 + tx * 8 + j;
-      if (o < p.n_out && in < p.n_in) out[static_cast<long long>(o) * p.n_in + in] = acc[i][j];
-    }
+        for (int j = 0; j < 4; ++j) {
+          bsum[0] += buf[j].x;
+          bsum[1] += buf[j].y;
+          bsum[2] += buf[j].z;
+          bsum[3] += buf[j].w;
+        }
+      },
+      [&](const float (&acc)[32], int row, int col) {
+        float* out = p.part_w + static_cast<long long>(t.z) * p.n_out * p.n_in;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int o = row + 8 * i;
+          if (o >= p.n_out) continue;
+#pragma unroll
+          for (int n = 0; n < kBN / 8; ++n) {
+            const int cc = col + 8 * n;
+            if (cc < p.n_in)
+              *reinterpret_cast<float2*>(out + static_cast<long long>(o) * p.n_in + cc) =
+                  make_float2(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
+          }
+        }
+        if (!bias) return;
+        float* red = reinterpret_cast<float*>(smem + kRedAt);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) red[ph * kBM + ocol - t.m0 + q] = bsum[q];
+        bgemm::named_sync(2, 128 * kConsumers);
+        if (ct < kBM && t.m0 + ct < p.n_out) {
+          float total = 0.f;
+          for (int q = 0; q < 8; ++q) total += red[q * kBM + ct];
+          p.part_b[static_cast<long long>(t.z) * p.n_out + t.m0 + ct] = total;
+        }
+      });
 }
 
 // ---------------------------------------------------------- block_ln_bwd
@@ -628,7 +606,6 @@ struct AttnBwdParams {
   float scale;
 };
 
-constexpr int kAttnThreads = 128;  // the fp32 kernels
 constexpr int kHeadDim = 64;       // bf16: the one head dim of a zoo model the fusion gate fuses
 constexpr int kDkvWarpgroups = 2;  // bf16 dk/dv: 64-key tiles a block, sharing its Q and dO
 
@@ -921,215 +898,353 @@ __global__ void __launch_bounds__(kWarpgroup * WG, 1) attn_dkv_wgmma(const AttnB
   store_acc<D>(out + 2 * p.dim, dv, ld, p.seq - k0);
 }
 
-constexpr int kFM = 32;  // fp32: rows (queries or keys) per block, 4 threads per row
-constexpr int kFN = 32;  // fp32: keys or queries per tile
+// ------------------------------------------- block_attention_bwd, fp32
+//
+// K6's attention backward in fp32: 3xTF32 on wgmma, on tf32x3.cuh's split,
+// ring and products, the schedules of flash_bwd_dq_tf32x3 and
+// flash_bwd_dkv_tf32x3 (flash_attention_bwd.cu) over the packed qkv, dO and
+// dqkv, two launches with the statistics scratch between them, as in bf16.
+// The head dim D (a multiple of 16 up to 128) is padded to DP, 64 or 128:
+// no copy takes a column at or past D, so the padding is zeros, and no store
+// writes one.  Non-causal.
+// - block_attn_dq_tf32x3: a block owns 128 query rows of one (item, head),
+//   two consumer warpgroups of 64 holding their Q and dO rows raw in the A
+//   fragments' order.  A first pass over the 64-key tiles computes S =
+//   Q.K^T and dP = dO.V^T (K and V as DP / 32 natural slots each) and, on
+//   the accumulators, each row's running max, sum of exp and sum of P dP,
+//   rescaled as the max grows: the row's max and sum, the softmax's, and
+//   delta = sum_j P dP, which it writes to the scratch.  The second pass is
+//   flash_bwd_dq_tf32x3's: S and dP again, dS = P (dP - delta) scale with P
+//   = exp(S scale - lse), dQ += dS.K_j (K transposed, 2 x DP / 64 slots), a
+//   fresh accumulator a tile.
+// - block_attn_dkv_tf32x3: a block owns 128 keys, two consumer warpgroups of
+//   64 holding their K and V rows; per 32-query tile S^T = K.Q_i^T and dP^T
+//   = V.dO_i^T (one natural slot of Q_i and dO_i per 32 columns), P^T and
+//   dS^T on the accumulators from the scratch's statistics by column, dV +=
+//   P^T.dO_i and dK += dS^T.Q_i (dO_i and Q_i transposed, DP / 64 slots
+//   each), fresh accumulators a tile.
+// Nine products per (64-query, 64-key) tile pair (the statistics pass's
+// two on top of flash's seven: the wrapper gets no log-sum-exp from the
+// forward), each three tf32 products.  No atomics: each block owns its
+// output rows, and every sum runs in a fixed order.
 
-template <int D>
-constexpr int attn_f32_smem() {
-  return (4 * kFM * (D + 1) + 2 * kFM * (kFN + 1) + kFN * 3) * 4;
-}
+constexpr int kTf32Rows = 128;    // query rows (dq) or keys (dk/dv) a block: two consumer warpgroups of 64
+constexpr int kTf32Keys = 64;     // dq: keys a streamed tile
+constexpr int kTf32Queries = 32;  // dk/dv: queries a streamed tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// fp32 dq and statistics: 32 query rows, a quad of threads per row
-template <int D>
-__global__ void __launch_bounds__(kAttnThreads) attn_dq_f32(const AttnBwdParams p) {
-  constexpr int LD = D + 1, PER = kFN / 4, OUT = D / 4;
-  extern __shared__ float fsmem[];
-  float* qs = fsmem;
-  float* dos = qs + kFM * LD;
-  float* ks = dos + kFM * LD;
-  float* vs = ks + kFN * LD;
-  float* ps = vs + kFN * LD;
-  const int m0 = blockIdx.x * kFM, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, r = tid / 4, t = tid % 4;
-  const long long ld = 3LL * p.dim;
-  const float* item = static_cast<const float*>(p.qkv) + static_cast<long long>(b) * p.seq * ld;
-  const float* qg = item + h * D;
-  const float* kg = item + p.dim + h * D;
-  const float* vg = item + 2 * p.dim + h * D;
-  const float* dog = static_cast<const float*>(p.dout) + static_cast<long long>(b) * p.seq * p.dim + h * D;
-  for (int c = tid; c < kFM * D; c += kAttnThreads) {
-    const int rr = c / D, d = c % D;
-    const bool ok = m0 + rr < p.seq;
-    qs[rr * LD + d] = ok ? qg[(m0 + rr) * ld + d] : 0.f;
-    dos[rr * LD + d] = ok ? dog[static_cast<long long>(m0 + rr) * p.dim + d] : 0.f;
-  }
-  auto load_kv = [&](int n0, bool with_v) {
-    __syncthreads();
-    for (int c = tid; c < kFN * D; c += kAttnThreads) {
-      const int rr = c / D, d = c % D;
-      const bool ok = n0 + rr < p.seq;
-      ks[rr * LD + d] = ok ? kg[(n0 + rr) * ld + d] : 0.f;
-      if (with_v) vs[rr * LD + d] = ok ? vg[(n0 + rr) * ld + d] : 0.f;
+struct AttnBwdF32Params {
+  const float* qkv;   // (batch * seq, 3 * dim)
+  const float* dout;  // (batch * seq, dim)
+  float* dqkv;        // (batch * seq, 3 * dim)
+  float* stats;       // (batch * seq, heads, 3): row max, row sum, delta = sum dp P
+  int seq, dim, heads, head_dim;
+  float scale;
+};
+
+template <int DP>
+using Tf32AttnBwd = Tf32Layout<DP, 4>;  // own rows: 2 warpgroups x 2 tensors
+
+// a consumer thread's A fragments of rows row0 and row0 + 8 (`len` true
+// rows) of a (S, D) fp32 slice with row stride ss, raw, into its own float4
+// of each k-step; columns at or past `cols` are zeros
+template <int DP>
+__device__ __forceinline__ void load_own_cols(unsigned char* own, const float* g, long long ss, int row0, int len,
+                                              int cols, int t) {
+#pragma unroll 4
+  for (int ks = 0; ks < DP / 8; ++ks) {
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + 8 * frag_row(e), col = 8 * ks + t + 4 * frag_col(e);
+      x[e] = row < len && col < cols ? g[row * ss + col] : 0.f;
     }
-    __syncthreads();
-  };
-  auto dots = [&](float (&s)[PER], const float* a, const float* bm) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int c = t + 4 * i;
-      float x = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) x = fmaf(a[r * LD + d], bm[c * LD + d], x);
-      s[i] = x;
-    }
-  };
-  auto scores = [&](float (&s)[PER], int n0) {
-    dots(s, qs, ks);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) s[i] = n0 + t + 4 * i < p.seq ? s[i] * p.scale : kNegInf;
-  };
-  float mx = kNegInf, sum = 0.f;
-  for (int n0 = 0; n0 < p.seq; n0 += kFN) {
-    load_kv(n0, false);
-    float s[PER];
-    scores(s, n0);
-    float m = mx;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) m = fmaxf(m, s[i]);
-    m = quad_max(m);
-    float add = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) add += expf(s[i] - m);
-    sum = sum * expf(mx - m) + add;
-    mx = m;
-  }
-  const float total = quad_sum(sum);
-  auto probs = [&](float (&s)[PER], float (&dp)[PER], int n0) {
-    load_kv(n0, true);
-    scores(s, n0);
-    dots(dp, dos, vs);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) s[i] = expf(s[i] - mx) / total;
-  };
-  float dl = 0.f;
-  for (int n0 = 0; n0 < p.seq; n0 += kFN) {
-    float s[PER], dp[PER];
-    probs(s, dp, n0);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) dl += s[i] * dp[i];
-  }
-  const float delta = quad_sum(dl);
-  float acc[OUT];
-#pragma unroll
-  for (int i = 0; i < OUT; ++i) acc[i] = 0.f;
-  for (int n0 = 0; n0 < p.seq; n0 += kFN) {
-    float s[PER], dp[PER];
-    probs(s, dp, n0);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) ps[r * (kFN + 1) + t + 4 * i] = s[i] * (dp[i] - delta) * p.scale;
-    __syncwarp();  // a row's quad lives in one warp
-    for (int c = 0; c < kFN; ++c) {
-      const float pc = ps[r * (kFN + 1) + c];
-#pragma unroll
-      for (int i = 0; i < OUT; ++i) acc[i] = fmaf(pc, ks[c * LD + t + 4 * i], acc[i]);
-    }
-    __syncwarp();
-  }
-  if (m0 + r < p.seq) {
-    const long long row = static_cast<long long>(b) * p.seq + m0 + r;
-    float* dq = static_cast<float*>(p.dqkv) + row * ld + h * D;
-#pragma unroll
-    for (int i = 0; i < OUT; ++i) dq[t + 4 * i] = acc[i];
-    if (t == 0) {
-      float* st = p.stats + (row * p.heads + h) * 3;
-      st[0] = mx;
-      st[1] = total;
-      st[2] = delta;
-    }
+    *reinterpret_cast<float4*>(own + ks * kFrag) = make_float4(x[0], x[1], x[2], x[3]);
   }
 }
 
-// fp32 dk and dv: 32 keys, a quad of threads per key, walking query tiles
-template <int D>
-__global__ void __launch_bounds__(kAttnThreads) attn_dkv_f32(const AttnBwdParams p) {
-  constexpr int LD = D + 1, PER = kFN / 4, OUT = D / 4;
-  extern __shared__ float fsmem[];
-  float* ks = fsmem;
-  float* vs = ks + kFM * LD;
-  float* qs = vs + kFM * LD;
-  float* dos = qs + kFN * LD;
-  float* ps = dos + kFN * LD;
-  float* dss = ps + kFM * (kFN + 1);
-  float* st = dss + kFM * (kFN + 1);
-  const int n0 = blockIdx.x * kFM, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, r = tid / 4, t = tid % 4;
-  const long long ld = 3LL * p.dim;
-  const float* item = static_cast<const float*>(p.qkv) + static_cast<long long>(b) * p.seq * ld;
-  const float* qg = item + h * D;
-  const float* kg = item + p.dim + h * D;
-  const float* vg = item + 2 * p.dim + h * D;
-  const float* dog = static_cast<const float*>(p.dout) + static_cast<long long>(b) * p.seq * p.dim + h * D;
-  const float* stats = p.stats + static_cast<long long>(b) * p.seq * p.heads * 3 + h * 3;
-  for (int c = tid; c < kFM * D; c += kAttnThreads) {
-    const int rr = c / D, d = c % D;
-    const bool ok = n0 + rr < p.seq;
-    ks[rr * LD + d] = ok ? kg[(n0 + rr) * ld + d] : 0.f;
-    vs[rr * LD + d] = ok ? vg[(n0 + rr) * ld + d] : 0.f;
-  }
-  float dk[OUT], dv[OUT];
-#pragma unroll
-  for (int i = 0; i < OUT; ++i) dk[i] = dv[i] = 0.f;
-  for (int q0 = 0; q0 < p.seq; q0 += kFN) {
-    __syncthreads();
-    for (int c = tid; c < kFN * D; c += kAttnThreads) {
-      const int rr = c / D, d = c % D;
-      const bool ok = q0 + rr < p.seq;
-      qs[rr * LD + d] = ok ? qg[(q0 + rr) * ld + d] : 0.f;
-      dos[rr * LD + d] = ok ? dog[static_cast<long long>(q0 + rr) * p.dim + d] : 0.f;
-    }
-    for (int i = tid; i < kFN * 3; i += kAttnThreads) {
-      const int rr = i / 3;
-      st[i] = q0 + rr < p.seq ? stats[static_cast<long long>(q0 + rr) * p.heads * 3 + i % 3] : 1.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int c = t + 4 * i;
-      float s = 0.f, dp = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(ks[r * LD + d], qs[c * LD + d], s);
-        dp = fmaf(vs[r * LD + d], dos[c * LD + d], dp);
+template <int DP>
+__global__ void __launch_bounds__(384, 1) block_attn_dq_tf32x3(const AttnBwdF32Params p) {
+  using L = Tf32AttnBwd<DP>;
+  constexpr int kN = kTf32Keys;
+  constexpr int kStatsTile = 2 * (DP / 32);              // slots a key tile, first pass: K, V
+  constexpr int kDqTile = 2 * (DP / 32) + 2 * (DP / 64);  // second pass: K, V, K transposed
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const sbase = smem_raw + (base - raw);
+  const uint32_t bars = base + L::kBars;
+
+  const int m0 = blockIdx.x * kTf32Rows, h = blockIdx.y, D = p.head_dim;
+  const int nk = (p.seq + kN - 1) / kN;
+  const int tid = threadIdx.x;
+  const long long ld = 3LL * p.dim, item = static_cast<long long>(blockIdx.z) * p.seq;
+  const float* qg = p.qkv + item * ld + h * D;
+  const float* kg = qg + p.dim;
+  const float* vg = qg + 2 * p.dim;
+  const float* dog = p.dout + item * p.dim + h * D;
+
+  ring_init(bars, tid);
+
+  if (tid < 128) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kF32ProducerRegs));
+    auto slot_of = [&](int u) {
+      const bool first = u < nk * kStatsTile;
+      const int w = first ? u : u - nk * kStatsTile, per = first ? kStatsTile : kDqTile;
+      const int r = w % per, n0 = w / per * kN;
+      if (r < 2 * (DP / 32)) {
+        const bool is_v = r >= DP / 32;
+        return SlotSrc{is_v ? vg : kg, is_v ? vg : kg, ld, ld, n0, p.seq, 32 * (is_v ? r - DP / 32 : r), false};
       }
-      const float pr = q0 + c < p.seq ? expf(s * p.scale - st[3 * c]) / st[3 * c + 1] : 0.f;
-      ps[r * (kFN + 1) + c] = pr;
-      dss[r * (kFN + 1) + c] = pr * (dp - st[3 * c + 2]) * p.scale;
-    }
-    __syncwarp();
-    for (int c = 0; c < kFN; ++c) {
-      const float pc = ps[r * (kFN + 1) + c], dc = dss[r * (kFN + 1) + c];
+      const int idx = r - 2 * (DP / 32);  // column block idx / 2, key chunk idx % 2
+      return SlotSrc{kg, kg, ld, ld, n0 + 32 * (idx % 2), p.seq, 64 * (idx / 2), true};
+    };
+    produce<kSlotRows, true>(slot_of, nk * (kStatsTile + kDqTile), sbase + L::kRingAt, bars, tid, D);
+    return;  // the two roles never reconverge, or setmaxnreg would not hold
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kF32ConsumerRegs));
+
+  const int c = tid / 128 - 1;  // consumer warpgroup
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = m0 + 64 * c + 16 * warp + g;  // this thread's rows: row0 and row0 + 8
+  unsigned char* const own_q = sbase + 2 * c * L::kOwnTensor + (tid % 128) * 16;
+  unsigned char* const own_do = own_q + L::kOwnTensor;
+  load_own_cols<DP>(own_q, qg, ld, row0, p.seq, D, t);
+  load_own_cols<DP>(own_do, dog, p.dim, row0, p.seq, D, t);  // read back by this thread alone
+  const uint32_t ring = base + L::kRingAt;
+  const float sl2 = p.scale * kLog2e;
+
+  // first pass: each row's max (in units of scale·log2e), and this thread's
+  // shares of its sum of exp and of sum P dP, rescaled as the max grows
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f}, w_run[2] = {0.f, 0.f};
+  int u = 0;
+  for (int j = 0; j < nk; ++j) {
+    float s[kN / 2], dp[kN / 2];
+    scores<DP>(s, own_q, ring, bars, u, lane);
+    scores<DP>(dp, own_do, ring, bars, u, lane);
+    const int n0 = j * kN;
+    if (n0 + kN > p.seq) {  // the last tile: keys past S
 #pragma unroll
-      for (int i = 0; i < OUT; ++i) {
-        dv[i] = fmaf(pc, dos[c * LD + t + 4 * i], dv[i]);
-        dk[i] = fmaf(dc, qs[c * LD + t + 4 * i], dk[i]);
-      }
+      for (int n = 0; n < kN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n0 + 8 * n + 2 * t + (e & 1) >= p.seq) s[4 * n + e] = kNegInf;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < kN / 8; ++n) mx = fmaxf(mx, fmaxf(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]));
+      const float m_new = fmaxf(m_run[i], quad_max(mx) * sl2);
+      const float alpha = exp2f(m_run[i] - m_new);
+      float sum = 0.f, wsum = 0.f;
+#pragma unroll
+      for (int n = 0; n < kN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = 4 * n + 2 * i + e;
+          const float pr = exp2f(fmaf(s[k], sl2, -m_new));
+          sum += pr;
+          wsum += pr * dp[k];
+        }
+      l_run[i] = l_run[i] * alpha + sum;
+      w_run[i] = w_run[i] * alpha + wsum;
+      m_run[i] = m_new;
     }
   }
-  if (n0 + r < p.seq) {
-    float* kr = static_cast<float*>(p.dqkv) + (static_cast<long long>(b) * p.seq + n0 + r) * ld +
-                p.dim + h * D;
+  float mx[2], sum[2], lse[2], delta[2];
 #pragma unroll
-    for (int i = 0; i < OUT; ++i) {
-      kr[t + 4 * i] = dk[i];
-      kr[p.dim + t + 4 * i] = dv[i];
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = m_run[i] * kLn2;  // the row's max of scale·S
+    sum[i] = fmaxf(quad_sum(l_run[i]), 1e-30f);
+    lse[i] = mx[i] + logf(sum[i]);
+    delta[i] = quad_sum(w_run[i]) / sum[i];
+  }
+
+  // second pass: dS = P (dP - delta) scale into s, then dQ += dS.K_j
+  float dq[DP / 64][32];
+#pragma unroll
+  for (int hh = 0; hh < DP / 64; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[hh][i] = 0.f;
+  for (int j = 0; j < nk; ++j) {
+    float s[kN / 2], dp[kN / 2];
+    scores<DP>(s, own_q, ring, bars, u, lane);
+    scores<DP>(dp, own_do, ring, bars, u, lane);
+    const int n0 = j * kN;
+    const bool masked = n0 + kN > p.seq;
+#pragma unroll
+    for (int n = 0; n < kN / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float pr = expf(fmaf(s[4 * n + e], p.scale, -lse[i]));
+        if (masked && n0 + 8 * n + 2 * t + (e & 1) >= p.seq) pr = 0.f;
+        s[4 * n + e] = pr * (dp[4 * n + e] - delta[i]) * p.scale;
+      }
+    }
+    uint32_t big[kN / 8][4], small[kN / 8][4];
+    acc_frags<kN / 8>(big, small, s);
+    sums<DP, kN / 8>(dq, big, small, ring, bars, u, lane);
+  }
+
+  float* dqg = p.dqkv + item * ld + h * D;
+#pragma unroll
+  for (int hh = 0; hh < DP / 64; ++hh) store_f32_cols(dqg, ld, row0, p.seq, 64 * hh, D - 64 * hh, dq[hh], t);
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= p.seq) continue;
+      float* st = p.stats + ((item + row) * p.heads + h) * 3;
+      st[0] = mx[i];
+      st[1] = sum[i];
+      st[2] = delta[i];
     }
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, const AttnBwdParams& p) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int DP>
+__global__ void __launch_bounds__(384, 1) block_attn_dkv_tf32x3(const AttnBwdF32Params p) {
+  using L = Tf32AttnBwd<DP>;
+  constexpr int kM = kTf32Queries;
+  constexpr int kPerTile = DP / 32 + 2 * (DP / 64);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const sbase = smem_raw + (base - raw);
+  const uint32_t bars = base + L::kBars;
+
+  const int n0 = blockIdx.x * kTf32Rows, h = blockIdx.y, D = p.head_dim;
+  const int nt = (p.seq + kM - 1) / kM;
+  const int tid = threadIdx.x;
+  const long long ld = 3LL * p.dim, item = static_cast<long long>(blockIdx.z) * p.seq;
+  const float* qg = p.qkv + item * ld + h * D;
+  const float* kg = qg + p.dim;
+  const float* vg = qg + 2 * p.dim;
+  const float* dog = p.dout + item * p.dim + h * D;
+
+  ring_init(bars, tid);
+
+  if (tid < 128) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kF32ProducerRegs));
+    auto slot_of = [&](int u) {
+      const int r = u % kPerTile, m = u / kPerTile * kM;
+      if (r < DP / 32) return SlotSrc{qg, dog, ld, p.dim, m, p.seq, 32 * r, false};
+      const int idx = r - DP / 32;
+      const bool is_q = idx >= DP / 64;  // dO_i^T first (for dV), then Q_i^T (for dK)
+      return SlotSrc{is_q ? qg : dog, is_q ? qg : dog, is_q ? ld : p.dim, is_q ? ld : p.dim, m, p.seq,
+                     64 * (is_q ? idx - DP / 64 : idx), true};
+    };
+    produce<kM, true>(slot_of, nt * kPerTile, sbase + L::kRingAt, bars, tid, D);
+    return;  // the two roles never reconverge, or setmaxnreg would not hold
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kF32ConsumerRegs));
+
+  const int c = tid / 128 - 1;  // consumer warpgroup
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = n0 + 64 * c + 16 * warp + g;  // this thread's keys: key0 and key0 + 8
+  unsigned char* const own_k = sbase + 2 * c * L::kOwnTensor + (tid % 128) * 16;
+  unsigned char* const own_v = own_k + L::kOwnTensor;
+  load_own_cols<DP>(own_k, kg, ld, key0, p.seq, D, t);
+  load_own_cols<DP>(own_v, vg, ld, key0, p.seq, D, t);  // read back by this thread alone
+  const uint32_t ring = base + L::kRingAt;
+  const float* stats = p.stats + item * p.heads * 3 + h * 3;
+
+  float dk[DP / 64][32], dv[DP / 64][32];
+#pragma unroll
+  for (int hh = 0; hh < DP / 64; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[hh][i] = dv[hh][i] = 0.f;
+
+  int u = 0;
+  for (int it = 0; it < nt; ++it) {
+    const int m = it * kM;
+    float s[kM / 2], dp[kM / 2];
+    // S^T and dP^T: per slot, two k-steps' fragments in flight (a k-step's
+    // K and V fragments reused two k-steps later, after their products)
+#pragma unroll
+    for (int cc = 0; cc < DP / 32; ++cc) {
+      consumer_wait(bars, u);
+      const uint32_t slot = ring + (u % kRing) * kSlotBytes;
+      uint32_t kb[2][4], ksm[2][4], vb[2][4], vsm[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int f = kk & 1;
+        if (kk >= 2) {
+          wgmma_wait<1>();
+          fence_regs<4>(kb[f]);
+          fence_regs<4>(ksm[f]);
+          fence_regs<4>(vb[f]);
+          fence_regs<4>(vsm[f]);
+        }
+        split4(*reinterpret_cast<const float4*>(own_k + (4 * cc + kk) * kFrag), kb[f], ksm[f]);
+        split4(*reinterpret_cast<const float4*>(own_v + (4 * cc + kk) * kFrag), vb[f], vsm[f]);
+        wgmma_fence();
+        const int acc = cc > 0 || kk > 0;
+        wgmma_3xtf32<kM>(s, kb[f], ksm[f], slot + kk * 32, acc);              // Q_i rows
+        wgmma_3xtf32<kM>(dp, vb[f], vsm[f], slot + kM * 128 + kk * 32, acc);  // dO_i rows
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_regs<kM / 2>(s);
+      fence_regs<kM / 2>(dp);
+      fence_regs<8>(&kb[0][0]);
+      fence_regs<8>(&ksm[0][0]);
+      fence_regs<8>(&vb[0][0]);
+      fence_regs<8>(&vsm[0][0]);
+      consumer_release(bars, u, lane);
+      ++u;
+    }
+    // P^T into s and dS^T into dp, the statistics by the accumulator's column (query)
+#pragma unroll
+    for (int n = 0; n < kM / 8; ++n) {
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int q = m + 8 * n + 2 * t + e2;
+        const bool in = q < p.seq;
+        const float* st = stats + static_cast<long long>(in ? q : 0) * p.heads * 3;
+        const float lse = in ? st[0] + logf(st[1]) : 0.f, delta = in ? st[2] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 2 * i + e2;
+          const float pr = in ? expf(fmaf(s[4 * n + e], p.scale, -lse)) : 0.f;
+          s[4 * n + e] = pr;
+          dp[4 * n + e] = pr * (dp[4 * n + e] - delta) * p.scale;
+        }
+      }
+    }
+    uint32_t big[kM / 8][4], small[kM / 8][4];
+    acc_frags<kM / 8>(big, small, s);
+    sums<DP, kM / 8>(dv, big, small, ring, bars, u, lane);
+    acc_frags<kM / 8>(big, small, dp);
+    sums<DP, kM / 8>(dk, big, small, ring, bars, u, lane);
+  }
+
+  float* out = p.dqkv + item * ld + h * D;
+#pragma unroll
+  for (int hh = 0; hh < DP / 64; ++hh) {
+    store_f32_cols(out + p.dim, ld, key0, p.seq, 64 * hh, D - 64 * hh, dk[hh], t);
+    store_f32_cols(out + 2 * p.dim, ld, key0, p.seq, 64 * hh, D - 64 * hh, dv[hh], t);
+  }
+}
+
+template <int DP>
+cudaError_t launch_attention_bwd_tf32x3(const AttnBwdF32Params& p, int batch, cudaStream_t s) {
+  constexpr int kBytes = Tf32AttnBwd<DP>::kBytes;
+  int sms = 0;
+  cudaError_t err = bgemm::prepare<&block_attn_dq_tf32x3<DP>>(kBytes, &sms);
+  if (err == cudaSuccess) err = bgemm::prepare<&block_attn_dkv_tf32x3<DP>>(kBytes, &sms);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kAttnThreads, smem, stream>>>(p);
+  const dim3 grid((p.seq + kTf32Rows - 1) / kTf32Rows, p.heads, batch);
+  block_attn_dq_tf32x3<DP><<<grid, 384, kBytes, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  block_attn_dkv_tf32x3<DP><<<grid, 384, kBytes, s>>>(p);
   return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_attention_bwd_f32(const AttnBwdParams& p, int batch, cudaStream_t s) {
-  const dim3 grid((p.seq + kFM - 1) / kFM, p.heads, batch);
-  cudaError_t err = launch(attn_dq_f32<D>, grid, attn_f32_smem<D>(), s, p);
-  if (err != cudaSuccess) return err;
-  return launch(attn_dkv_f32<D>, grid, attn_f32_smem<D>(), s, p);
 }
 
 // bf16: the dq kernel over 64-key tiles split between its WG warpgroups,
@@ -1275,12 +1390,6 @@ __global__ void __launch_bounds__(kReduceThreads) grad_reduce(const ReduceParams
   }
 }
 
-template <typename Kernel, typename Params>
-cudaError_t launch_gemm(Kernel kernel, dim3 grid, cudaStream_t s, const Params& p) {
-  kernel<<<grid, kGemmThreads, 0, s>>>(p);
-  return cudaGetLastError();
-}
-
 // the bf16 GEMMs: their tensor maps encoded here, per call; 0 on success,
 // a cudaError_t, or minus the CUresult of a map that failed to encode
 template <int BN>
@@ -1338,8 +1447,9 @@ extern "C" int vit_block_ln(const void* x, const void* g, const void* b, void* y
 // fp32 (seg, n)); mode 0 rounds, 1 applies the gelu backward against up
 // and writes gelu(up) to hmid, 2 writes fp32.  k and n multiples of 16.
 // bf16 runs the weight-stationary kernel with slabs of bn columns (8, 16,
-// 32 or 64; a bf16 slab of padded k by bn at most kSlabBytes); fp32
-// ignores bn.  0 on success, a cudaError_t, or minus a map's CUresult.
+// 32 or 64; a bf16 slab of padded k by bn at most kSlabBytes); fp32 runs
+// the 3xTF32 kernel and ignores bn.  0 on success, a cudaError_t, or minus
+// a map's CUresult.
 extern "C" int vit_block_dgrad(const void* g, const void* w0, const void* w1, const void* w2,
                                const void* up, void* hmid, void* c, int m, int n, int k, int seg,
                                int mode, int is_bf16, int bn, void* stream) {
@@ -1366,8 +1476,7 @@ extern "C" int vit_block_dgrad(const void* g, const void* w0, const void* w1, co
       default: return cudaErrorInvalidValue;
     }
   }
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  return launch_gemm(dgrad_f32, grid, s, p);
+  return tgemm::launch<&dgrad_tf32x3>(tgemm::Tiles(m, n, k, k), s, p);
 }
 
 // out = base + LayerNorm-backward(dln) for the LayerNorm of xin with scale
@@ -1402,7 +1511,7 @@ extern "C" int vit_block_ln_bwd(const void* dln, const void* xin, const void* ga
 // per chunk of rows, part_w = g^T . a (fp32 (chunks, n_out, n_in)) and
 // part_b = the column sums of bsrc (fp32 (chunks, n_out)).  n_out and n_in
 // multiples of 16, chunk a multiple of 64.  bf16 runs tiles of bn input
-// columns (64, 128 or 192); fp32 ignores bn.
+// columns (64, 128 or 192); fp32 runs the 3xTF32 kernel and ignores bn.
 extern "C" int vit_block_wgrad(const void* g, const void* a, const void* bsrc, int bsrc_f32,
                                void* part_w, void* part_b, int m, int n_out, int n_in, int chunk,
                                int is_bf16, int bn, void* stream) {
@@ -1417,8 +1526,7 @@ extern "C" int vit_block_wgrad(const void* g, const void* a, const void* bsrc, i
       default: return cudaErrorInvalidValue;
     }
   }
-  const dim3 grid((n_in + kBN - 1) / kBN, (n_out + kBM - 1) / kBM, (m + chunk - 1) / chunk);
-  return launch_gemm(wgrad_f32, grid, s, p);
+  return tgemm::launch<&wgrad_tf32x3>(tgemm::Tiles(n_out, n_in, m, chunk), s, p);
 }
 
 // dynamic shared memory of the bf16 block_gemm_dgrad kernel at depth k and
@@ -1437,31 +1545,34 @@ extern "C" int vit_block_wgrad_smem(int bn) {
 // output cotangent dout (batch * seq, heads * head_dim); stats is fp32
 // scratch (batch * seq, heads, 3).  Launches the dq kernel, which writes
 // each query row's statistics there, then the dk/dv kernel, which reads
-// them.  bf16 takes head_dim 64 and seq up to 512; fp32 head_dim a multiple
-// of 16 up to 128.
+// them.  bf16 takes head_dim 64 and seq up to 512 (attn_dq_wgmma,
+// attn_dkv_wgmma); fp32 head_dim a multiple of 16 up to 128
+// (block_attn_dq_tf32x3, block_attn_dkv_tf32x3, the head dim padded to 64
+// or 128) and any seq.
 extern "C" int vit_block_attention_bwd(const void* qkv, const void* dout, void* dqkv, void* stats,
                                        int batch, int seq, int heads, int head_dim, float scale,
                                        int is_bf16, void* stream) {
-  const AttnBwdParams p{qkv, dout, dqkv, static_cast<float*>(stats), seq, heads * head_dim,
-                        heads, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return head_dim == kHeadDim ? launch_attention_bwd_bf16(p, batch, s) : cudaErrorInvalidValue;
-  switch (head_dim) {
-    case 16: return launch_attention_bwd_f32<16>(p, batch, s);
-    case 32: return launch_attention_bwd_f32<32>(p, batch, s);
-    case 48: return launch_attention_bwd_f32<48>(p, batch, s);
-    case 64: return launch_attention_bwd_f32<64>(p, batch, s);
-    case 80: return launch_attention_bwd_f32<80>(p, batch, s);
-    case 96: return launch_attention_bwd_f32<96>(p, batch, s);
-    case 112: return launch_attention_bwd_f32<112>(p, batch, s);
-    case 128: return launch_attention_bwd_f32<128>(p, batch, s);
-    default: return cudaErrorInvalidValue;
+  if (is_bf16) {
+    const AttnBwdParams p{qkv, dout, dqkv, static_cast<float*>(stats), seq, heads * head_dim, heads, scale};
+    return head_dim == kHeadDim ? launch_attention_bwd_bf16(p, batch, s) : cudaErrorInvalidValue;
   }
+  if (head_dim % 16 || head_dim < 16 || head_dim > 128) return cudaErrorInvalidValue;
+  const AttnBwdF32Params p{static_cast<const float*>(qkv), static_cast<const float*>(dout), static_cast<float*>(dqkv),
+                           static_cast<float*>(stats), seq, heads * head_dim, heads, head_dim, scale};
+  return head_dim <= 64 ? launch_attention_bwd_tf32x3<64>(p, batch, s) : launch_attention_bwd_tf32x3<128>(p, batch, s);
 }
 
 // dynamic shared memory of the bf16 attention backward's dq kernel (kernel
 // 0) or dk/dv kernel (kernel 1) for items of seq tokens (0 above 512)
 extern "C" int vit_block_attention_bwd_smem(int kernel, int seq) { return attention_bwd_bf16_smem(kernel, seq); }
+
+// dynamic shared memory of the fp32 (3xTF32) attention backward's kernels
+// (both take one layout) at head dim head_dim (0 if it is not taken)
+extern "C" int vit_block_attention_bwd_tf32x3_smem(int head_dim) {
+  if (head_dim % 16 || head_dim < 16 || head_dim > 128) return 0;
+  return head_dim <= 64 ? Tf32AttnBwd<64>::kBytes : Tf32AttnBwd<128>::kBytes;
+}
 
 // desc: n groups of (src pointer, dst pointer, chunks, size, elements a
 // thread (1 or 4), first block) in launch order, `blocks` in all

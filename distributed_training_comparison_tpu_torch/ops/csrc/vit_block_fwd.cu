@@ -42,8 +42,13 @@
 // - the LayerNorm prologue reads a tile's row statistics once (not once per
 //   64-column block) and normalises each landed chunk in place;
 // - the epilogue runs on the accumulators and stores the rounded result.
-// fp32 runs a SIMT tile with no TF32.  The chain still round-trips qkv and
-// the MLP activation hmid through device memory; fusing those is later work.
+// fp32 (the entry point's default precision) runs block_gemm_tf32x3, the
+// same function in 3xTF32 on wgmma (block_gemm_tf32.cuh): each product
+// three tf32 products of split operands, fp32 accuracy; 192 x 64 output
+// tiles, A' and W streamed through a ring the producer warpgroup fills with
+// cp.async and splits in place, the LayerNorm applied as A' is split.  The
+// chain still round-trips qkv and the MLP activation hmid through device
+// memory; fusing those is later work.
 //
 // What bounds block_attention: bytes.  At the serve shape (B 32, S 256, 3
 // heads of 64) it reads qkv and writes o, 4 B S dim x 2 bytes = 12.6 MB
@@ -58,17 +63,18 @@
 // thread, so that two blocks fit an SM; three or four above) and combine
 // each row's max and sum, then their O partials, through shared memory in a
 // fixed order.  Two products per (64-query, 64-key) tile pair: Q.K^T and
-// P.V.
+// P.V.  fp32 runs block_attn_tf32x3 (below): 3xTF32 on wgmma, the flash
+// forward's schedule over the packed qkv, 128 query rows a block.
 
 #include "attention_tiles.cuh"
 #include "block_gemm.cuh"
+#include "block_gemm_tf32.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr float kLnEps = 1e-6f;
-constexpr int kThreads = 128;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -94,20 +100,7 @@ struct GemmParams {
   int gelu;
 };
 
-// row n of the matrix whose rows are split over arr[0..2], seg rows each,
-// ld elements a row (compares, not a division by the runtime seg)
-__device__ __forceinline__ const float* segment_row(const float* const* arr, int n, int seg,
-                                                    int ld) {
-  if (n < seg) return arr[0] + static_cast<long long>(n) * ld;
-  if (n < 2 * seg) return arr[1] + static_cast<long long>(n - seg) * ld;
-  return arr[2] + static_cast<long long>(n - 2 * seg) * ld;
-}
-
-constexpr int kBM = 128;          // the fp32 kernel: output rows per block
-constexpr int kGemmThreads = 256;
-constexpr int kBN = 64;  // output columns per block
-
-// the 16 bytes of `v` as floats: 8 bf16 or 4 fp32
+// the 16 bytes of `v` as 8 floats
 __device__ __forceinline__ void chunk_floats(uint4 v, float (&out)[8], bf16) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
@@ -115,61 +108,6 @@ __device__ __forceinline__ void chunk_floats(uint4 v, float (&out)[8], bf16) {
     out[2 * i] = __uint_as_float(w[i] << 16);
     out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
-}
-
-__device__ __forceinline__ void chunk_floats(uint4 v, float (&out)[8], float) {
-  out[0] = __uint_as_float(v.x);
-  out[1] = __uint_as_float(v.y);
-  out[2] = __uint_as_float(v.z);
-  out[3] = __uint_as_float(v.w);
-}
-
-// LayerNorm statistics of rows [m0, m0 + kBM): fp32, var = E[x^2] - mu^2.
-// Two threads per row, each summing alternate 16-byte chunks.
-template <typename T>
-__device__ void ln_stats(const GemmParams& p, const T* a, int m0, float* mu_s, float* rs_s) {
-  constexpr int kPer = 16 / sizeof(T);  // elements per chunk
-  static_assert(kGemmThreads == 2 * kBM, "two threads per row");
-  const int r = threadIdx.x / 2, half = threadIdx.x % 2;
-  const int row = m0 + r;
-  float s = 0.f, ss = 0.f;
-  if (row < p.m) {
-    const T* ar = a + static_cast<long long>(row) * p.k;
-#pragma unroll 4
-    for (int c = half * kPer; c < p.k; c += 2 * kPer) {
-      float x[8];
-      chunk_floats(*reinterpret_cast<const uint4*>(ar + c), x, T());
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        s += x[i];
-        ss += x[i] * x[i];
-      }
-    }
-  }
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-  if (half == 0) {
-    const float mu = s / p.k;
-    const float var = ss / p.k - mu * mu;
-    mu_s[r] = mu;
-    rs_s[r] = 1.f / sqrtf(var + kLnEps);
-  }
-}
-
-// bias, gelu, residual on one output element; `rnd` rounds to the compute dtype
-template <bool kBf16>
-__device__ __forceinline__ float epilogue(const GemmParams& p, float acc, int row, int col) {
-  auto rnd = [](float x) { return kBf16 ? round_bf16(x) : x; };
-  const float bias = *segment_row(p.bias, col, p.seg, 1);
-  float v = rnd(rnd(acc) + rnd(bias));
-  if (p.gelu) v = rnd(gelu_tanh(v));
-  if (p.res) {
-    const long long i = static_cast<long long>(row) * p.n + col;
-    const float r = kBf16 ? __bfloat162float(static_cast<const bf16*>(p.res)[i])
-                          : static_cast<const float*>(p.res)[i];
-    v = rnd(v + r);
-  }
-  return v;
 }
 
 // K5's products in bf16, weight-stationary (block_gemm.cuh): blockIdx.x owns
@@ -290,69 +228,47 @@ __global__ void __launch_bounds__(bgemm::kThreads, 1)
   ws_consume<BN>(B, &ta, begin, multiply, epilogue);
 }
 
-constexpr int kFBK = 16;  // fp32: K per stage
-
-// fp32: each thread owns 4 rows x 8 columns of the 128 x 64 tile
-__global__ void __launch_bounds__(kGemmThreads) vit_block_gemm_f32(const GemmParams p) {
-  __shared__ __align__(16) float as[kFBK][kBM + 4];  // k-major
-  __shared__ __align__(16) float ws[kFBK][kBN + 4];
-  __shared__ float mu_s[kBM], rs_s[kBM];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
+// K5's products in fp32, 3xTF32 on wgmma (block_gemm_tf32.cuh's core): A'
+// the activation rows as stored, normalised as they are split where the
+// LayerNorm is given; B' the weight rows as stored, in their segments.  The
+// epilogue adds the bias, then applies the tanh gelu or adds the residual,
+// all in fp32 (the compute dtype's roundings are none).
+__global__ void __launch_bounds__(tgemm::kThreads, 1) block_gemm_tf32x3(const GemmParams p) {
+  using namespace tgemm;
+  extern __shared__ __align__(1024) unsigned char gemm_smem[];
   const float* a = static_cast<const float*>(p.a);
-  if (p.ln_g) {
-    ln_stats(p, a, m0, mu_s, rs_s);
-    __syncthreads();
-  }
-  float acc[4][8];
+  const Operand A{{a, a, a}, p.m, p.k, p.m};
+  const Operand W{{p.w[0], p.w[1], p.w[2]}, p.seg, p.k, p.n};
+  float* out = static_cast<float*>(p.c);
+  const float* res = static_cast<const float*>(p.res);
+  run<false, false>(
+      aligned_smem(gemm_smem), A, W, Tiles(p.m, p.n, p.k, p.k).at(blockIdx.x), p.ln_g, p.ln_b, [](int) {}, [] {},
+      [&](const float (&acc)[32], int row, int col) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+        for (int n = 0; n < kBN / 8; ++n) {
+          const int cc = col + 8 * n;
+          if (cc >= p.n) continue;
+          const float* bias = bgemm::weight_row(p.bias, p.seg, cc, 1);  // cc and cc + 1: one segment
+          const float b0 = __ldg(bias), b1 = __ldg(bias + 1);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < p.k; k0 += kFBK) {
-    for (int c = tid; c < kBM * kFBK; c += kGemmThreads) {
-      const int r = c / kFBK, kc = c % kFBK;
-      const int row = m0 + r, kk = k0 + kc;
-      float x = 0.f;
-      if (row < p.m && kk < p.k) {
-        x = a[static_cast<long long>(row) * p.k + kk];
-        if (p.ln_g) x = (x - mu_s[r]) * rs_s[r] * p.ln_g[kk] + p.ln_b[kk];
-      }
-      as[kc][r] = x;
-    }
-    for (int c = tid; c < kBN * kFBK; c += kGemmThreads) {
-      const int r = c / kFBK, kc = c % kFBK;
-      const int n = n0 + r, kk = k0 + kc;
-      ws[kc][r] = n < p.n && kk < p.k ? segment_row(p.w, n, p.seg, p.k)[kk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kc = 0; kc < kFBK; ++kc) {
-      const float4 av = *reinterpret_cast<const float4*>(&as[kc][ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&ws[kc][tx * 8]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&ws[kc][tx * 8 + 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* c = static_cast<float*>(p.c);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= p.m) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + tx * 8 + j;
-      if (col < p.n) c[static_cast<long long>(row) * p.n + col] = epilogue<false>(p, acc[i][j], row, col);
-    }
-  }
+          for (int i = 0; i < 2; ++i) {
+            const int r = row + 8 * i;
+            if (r >= p.m) continue;
+            const long long at = static_cast<long long>(r) * p.n + cc;
+            float v0 = acc[4 * n + 2 * i] + b0, v1 = acc[4 * n + 2 * i + 1] + b1;
+            if (p.gelu) {
+              v0 = gelu_tanh(v0);
+              v1 = gelu_tanh(v1);
+            }
+            if (res) {
+              const float2 r2 = *reinterpret_cast<const float2*>(res + at);
+              v0 += r2.x;
+              v1 += r2.y;
+            }
+            *reinterpret_cast<float2*>(out + at) = make_float2(v0, v1);
+          }
+        }
+      });
 }
 
 // ------------------------------------------------------- block_attention
@@ -442,102 +358,6 @@ __global__ void __launch_bounds__(kWarpgroup * WG, attn_blocks_per_sm(NTW, WG)) 
                  p.dim, p.seq - m0);
 }
 
-constexpr int kFM = 32;  // fp32: query rows per block, 4 threads per row
-constexpr int kFN = 32;  // fp32: keys per tile
-
-template <int D>
-constexpr int attn_f32_smem() {
-  return (kFM * (D + 1) + 2 * kFN * (D + 1) + kFM * (kFN + 1)) * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) vit_block_attn_f32(const AttnParams p) {
-  constexpr int LD = D + 1;  // odd stride: a warp's 8 rows fall on distinct banks
-  constexpr int PER = kFN / 4;
-  constexpr int OUT = D / 4;
-  extern __shared__ float fsmem[];
-  float* qs = fsmem;
-  float* ks = qs + kFM * LD;
-  float* vs = ks + kFN * LD;
-  float* ps = vs + kFN * LD;
-
-  const int m0 = blockIdx.x * kFM, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, r = tid / 4, t = tid % 4;  // row of the tile, lane of its quad
-  const long long ld = 3LL * p.dim;
-  const float* item = static_cast<const float*>(p.qkv) + static_cast<long long>(b) * p.seq * ld;
-  const float* qg = item + h * D;
-  const float* kg = item + p.dim + h * D;
-  const float* vg = item + 2 * p.dim + h * D;
-
-  for (int c = tid; c < kFM * D; c += kThreads) {
-    const int rr = c / D, d = c % D;
-    qs[rr * LD + d] = m0 + rr < p.seq ? qg[(m0 + rr) * ld + d] : 0.f;
-  }
-  auto scores = [&](float s[PER], int n0) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int c = t + 4 * i;
-      float x = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) x = fmaf(qs[r * LD + d], ks[c * LD + d], x);
-      s[i] = n0 + c < p.seq ? x * p.scale : kNegInf;
-    }
-  };
-
-  // sweep 1: the row's max and sum of exp(s - max)
-  float mx = kNegInf, sum = 0.f;
-  for (int n0 = 0; n0 < p.seq; n0 += kFN) {
-    __syncthreads();
-    for (int c = tid; c < kFN * D; c += kThreads) {
-      const int rr = c / D, d = c % D;
-      ks[rr * LD + d] = n0 + rr < p.seq ? kg[(n0 + rr) * ld + d] : 0.f;
-    }
-    __syncthreads();
-    float s[PER];
-    scores(s, n0);
-    float m = mx;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) m = fmaxf(m, s[i]);
-    m = quad_max(m);
-    float add = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) add += expf(s[i] - m);
-    sum = sum * expf(mx - m) + add;
-    mx = m;
-  }
-  const float total = quad_sum(sum);
-
-  // sweep 2: P = exp(s - max) / sum, accumulated P.V
-  float acc[OUT];
-#pragma unroll
-  for (int i = 0; i < OUT; ++i) acc[i] = 0.f;
-  for (int n0 = 0; n0 < p.seq; n0 += kFN) {
-    __syncthreads();
-    for (int c = tid; c < kFN * D; c += kThreads) {
-      const int rr = c / D, d = c % D;
-      const bool ok = n0 + rr < p.seq;
-      ks[rr * LD + d] = ok ? kg[(n0 + rr) * ld + d] : 0.f;
-      vs[rr * LD + d] = ok ? vg[(n0 + rr) * ld + d] : 0.f;
-    }
-    __syncthreads();
-    float s[PER];
-    scores(s, n0);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) ps[r * (kFN + 1) + t + 4 * i] = expf(s[i] - mx) / total;
-    __syncwarp();  // a row's quad lives in one warp: its P row is visible now
-    for (int c = 0; c < kFN; ++c) {
-      const float pc = ps[r * (kFN + 1) + c];
-#pragma unroll
-      for (int i = 0; i < OUT; ++i) acc[i] = fmaf(pc, vs[c * LD + t + 4 * i], acc[i]);
-    }
-  }
-  if (m0 + r < p.seq) {
-    float* og = static_cast<float*>(p.o) + (static_cast<long long>(b) * p.seq + m0 + r) * p.dim + h * D;
-#pragma unroll
-    for (int i = 0; i < OUT; ++i) og[t + 4 * i] = acc[i];
-  }
-}
-
 // the bf16 block_gemm: A's map encoded here, per call
 template <int BN>
 int launch_gemm_bf16(const GemmParams& p, cudaStream_t s) {
@@ -552,20 +372,6 @@ int launch_gemm_bf16(const GemmParams& p, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   block_gemm_wgmma<BN><<<ws_grid(p.m, p.n, BN, sms), bgemm::kThreads, WsLayout(kpad, BN).bytes, s>>>(p, ta);
   return cudaGetLastError();
-}
-
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, const AttnParams& p) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_attention_f32(const AttnParams& p, int batch, int heads, cudaStream_t s) {
-  const dim3 grid((p.seq + kFM - 1) / kFM, heads, batch);
-  return launch(vit_block_attn_f32<D>, grid, attn_f32_smem<D>(), s, p);
 }
 
 template <int NTW, int WG>
@@ -609,6 +415,175 @@ int attention_bf16_smem(int seq) {
   }
 }
 
+// ------------------------------------------------ block_attention, fp32
+//
+// K5's attention in fp32: 3xTF32 on wgmma, on tf32x3.cuh's split, ring and
+// products, flash_fwd_tf32x3's schedule (flash_attention_fwd.cu) over the
+// packed qkv: a block owns 128 query rows of one (item, head), two consumer
+// warpgroups of 64 and a producer warpgroup.  Each consumer warpgroup
+// splits its Q rows once into slots of its own; per 64-key tile K runs
+// through the ring as DP / 32 natural slots (S = Q.K^T, each score computed
+// once) and V as 2 x DP / 64 transposed ones, the keys in the fragments'
+// order (O += P.V, a fresh accumulator a tile); the softmax is online, in
+// fp32, rescaling O by each tile's change of the row max.  The head dim D
+// (a multiple of 16 up to 128) is padded to DP, 64 or 128: the copies take
+// no column at or past D (the next head's), so the padding is zeros, and
+// the stores write none.  Non-causal; keys past S are masked, query rows
+// past S computed on zero rows and not written.
+
+constexpr int kTf32Rows = 128;  // query rows a block: two consumer warpgroups of 64
+constexpr int kTf32Keys = 64;   // keys a streamed tile: the slots' rows
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct AttnF32Params {
+  const float* qkv;  // (batch * seq, 3 * dim)
+  float* o;          // (batch * seq, dim)
+  int seq, dim, head_dim;
+  float scale;
+};
+
+template <int DP>
+using Tf32Attn = Tf32Layout<DP, 4>;  // own rows: Q of 2 warpgroups, split: big and small
+
+template <int DP>
+__global__ void __launch_bounds__(384, 1) block_attn_tf32x3(const AttnF32Params p) {
+  using L = Tf32Attn<DP>;
+  constexpr int kN = kTf32Keys;
+  constexpr int kPerTile = DP / 32 + 2 * (DP / 64);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const sbase = smem_raw + (base - raw);
+  const uint32_t bars = base + L::kBars;
+
+  const int m0 = blockIdx.x * kTf32Rows, h = blockIdx.y, D = p.head_dim;
+  const int nk = (p.seq + kN - 1) / kN;
+  const int tid = threadIdx.x;
+  const long long ld = 3LL * p.dim;
+  const float* qg = p.qkv + static_cast<long long>(blockIdx.z) * p.seq * ld + h * D;
+  const float* kg = qg + p.dim;
+  const float* vg = qg + 2 * p.dim;
+
+  ring_init(bars, tid);
+
+  if (tid < 128) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kF32ProducerRegs));
+    auto slot_of = [&](int u) {
+      const int r = u % kPerTile, n0 = u / kPerTile * kN;
+      if (r < DP / 32) return SlotSrc{kg, kg, ld, ld, n0, p.seq, 32 * r, false};
+      const int idx = r - DP / 32;  // column block idx / 2, key chunk idx % 2
+      return SlotSrc{vg, vg, ld, ld, n0 + 32 * (idx % 2), p.seq, 64 * (idx / 2), true};
+    };
+    produce<kSlotRows, true>(slot_of, nk * kPerTile, sbase + L::kRingAt, bars, tid, D);
+    return;  // the two roles never reconverge, or setmaxnreg would not hold
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kF32ConsumerRegs));
+
+  const int c = tid / 128 - 1;  // consumer warpgroup
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = m0 + 64 * c + 16 * warp + g;  // this thread's rows: row0 and row0 + 8
+  const float sl2 = p.scale * kLog2e;
+  // the warpgroup's 64 Q rows split once into DP / 32 slots of its own
+  const int wtid = tid % 128;
+  const uint32_t q_at = base + c * (DP / 32) * kSlotBytes;
+#pragma unroll
+  for (int cc = 0; cc < DP / 32; ++cc)
+    slot_issue<kSlotRows, true>(q_at + cc * kSlotBytes,
+                                SlotSrc{qg, qg, ld, ld, m0 + 64 * c, p.seq, 32 * cc, false}, wtid, D);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#pragma unroll
+  for (int cc = 0; cc < DP / 32; ++cc) slot_split(sbase + (q_at - base) + cc * kSlotBytes, false, wtid);
+  fence_proxy_async();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");  // the warpgroup's Q is split
+  const uint32_t ring = base + L::kRingAt;
+
+  float o[DP / 64][32];
+#pragma unroll
+  for (int hh = 0; hh < DP / 64; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[hh][i] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};  // in units of scale·log2e
+  float l_run[2] = {0.f, 0.f};          // this thread's share of the row sum
+
+  int u = 0;
+  for (int j = 0; j < nk; ++j) {
+    // S = Q.K_j^T: each slot's products queued behind the previous slot's
+    float s[kN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int cc = 0; cc < DP / 32; ++cc) {
+      consumer_wait(bars, u + cc);
+      const uint32_t slot = ring + ((u + cc) % kRing) * kSlotBytes;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_3xtf32_ss(s, q_at + cc * kSlotBytes + kk * 32, slot + kk * 32, cc > 0 || kk > 0);
+      wgmma_commit();
+      if (cc > 0) {
+        wgmma_wait<1>();
+        consumer_release(bars, u + cc - 1, lane);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs<kN / 2>(s);
+    consumer_release(bars, u + DP / 32 - 1, lane);
+    u += DP / 32;
+    const int n0 = j * kN;
+    if (n0 + kN > p.seq) {  // the last tile: keys past S
+#pragma unroll
+      for (int n = 0; n < kN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n0 + 8 * n + 2 * t + (e & 1) >= p.seq) s[4 * n + e] = kNegInf;
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < kN / 8; ++n) mx = fmaxf(mx, fmaxf(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]));
+      const float m_new = fmaxf(m_run[i], quad_max(mx) * sl2);
+      alpha[i] = exp2f(m_run[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < kN / 8; ++n) {
+        s[4 * n + 2 * i] = exp2f(fmaf(s[4 * n + 2 * i], sl2, -m_new));
+        s[4 * n + 2 * i + 1] = exp2f(fmaf(s[4 * n + 2 * i + 1], sl2, -m_new));
+        sum += s[4 * n + 2 * i] + s[4 * n + 2 * i + 1];
+      }
+      l_run[i] = l_run[i] * alpha[i] + sum;
+      m_run[i] = m_new;
+    }
+#pragma unroll
+    for (int hh = 0; hh < DP / 64; ++hh)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[hh][i] *= alpha[(i >> 1) & 1];
+    uint32_t big[kN / 8][4], small[kN / 8][4];
+    acc_frags<kN / 8>(big, small, s);
+    sums<DP, kN / 8>(o, big, small, ring, bars, u, lane);
+  }
+
+  float* og = p.o + static_cast<long long>(blockIdx.z) * p.seq * p.dim + h * D;
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) inv[i] = 1.f / fmaxf(quad_sum(l_run[i]), 1e-30f);
+#pragma unroll
+  for (int hh = 0; hh < DP / 64; ++hh) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[hh][i] *= inv[(i >> 1) & 1];
+    store_f32_cols(og, p.dim, row0, p.seq, 64 * hh, D - 64 * hh, o[hh], t);
+  }
+}
+
+template <int DP>
+cudaError_t launch_attention_tf32x3(const AttnF32Params& p, int batch, int heads, cudaStream_t s) {
+  int sms = 0;
+  const cudaError_t err = bgemm::prepare<&block_attn_tf32x3<DP>>(Tf32Attn<DP>::kBytes, &sms);
+  if (err != cudaSuccess) return err;
+  block_attn_tf32x3<DP><<<dim3((p.seq + kTf32Rows - 1) / kTf32Rows, heads, batch), 384, Tf32Attn<DP>::kBytes, s>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C = epilogue(prologue(A) . W^T) over contiguous row-major tensors: A (m, k)
@@ -617,9 +592,9 @@ int attention_bf16_smem(int seq) {
 // b0/b1/b2; ln_g/ln_b (fp32, k) or null; res or null; gelu 0/1.  k and n are
 // multiples of 16 and every pointer 16-byte aligned (checked by the caller).
 // bf16 runs the weight-stationary kernel with slabs of bn columns (8, 16,
-// 32 or 64; a bf16 slab of padded k by bn at most kSlabBytes); fp32
-// ignores bn.  Returns 0 on success, the launch's cudaError_t, or minus the
-// CUresult of a tensor map that failed to encode.
+// 32 or 64; a bf16 slab of padded k by bn at most kSlabBytes); fp32 runs
+// the 3xTF32 kernel and ignores bn.  Returns 0 on success, the launch's
+// cudaError_t, or minus the CUresult of a tensor map that failed to encode.
 extern "C" int vit_block_gemm(const void* a, const void* w0, const void* w1, const void* w2,
                               const void* b0, const void* b1, const void* b2, const void* ln_g,
                               const void* ln_b, const void* res, void* c, int m, int n, int k,
@@ -651,9 +626,7 @@ extern "C" int vit_block_gemm(const void* a, const void* w0, const void* w1, con
       default: return cudaErrorInvalidValue;
     }
   }
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  vit_block_gemm_f32<<<grid, kGemmThreads, 0, s>>>(p);
-  return cudaGetLastError();
+  return tgemm::launch<&block_gemm_tf32x3>(tgemm::Tiles(m, n, k, k), s, p);
 }
 
 // dynamic shared memory of the bf16 block_gemm kernel at depth k and slab
@@ -663,28 +636,35 @@ extern "C" int vit_block_gemm_smem(int k, int bn) {
   return kpad * bn * 2 > bgemm::kSlabBytes ? 0 : bgemm::WsLayout(kpad, bn).bytes;
 }
 
+// dynamic shared memory of the fp32 (3xTF32) block_gemm kernel, any shape
+extern "C" int vit_block_gemm_tf32x3_smem() { return tgemm::kSmemBytes; }
+
 // Attention of the packed qkv (batch * seq, 3 * heads * head_dim) into o
 // (batch * seq, heads * head_dim), both contiguous and 16-byte aligned.  bf16
-// takes head_dim 64 and seq up to 512; fp32 head_dim a multiple of 16 up to
-// 128.  Returns the launch's cudaError_t (0 on success).
+// takes head_dim 64 and seq up to 512 (block_attn_wgmma); fp32 head_dim a
+// multiple of 16 up to 128 (block_attn_tf32x3, the head dim padded to 64 or
+// 128) and any seq.  Returns the launch's cudaError_t (0 on success).
 extern "C" int vit_block_attention(const void* qkv, void* o, int batch, int seq, int heads,
                                    int head_dim, float scale, int is_bf16, void* stream) {
-  const AttnParams p{qkv, o, seq, heads * head_dim, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return head_dim == kHeadDim ? launch_attention_bf16(p, batch, heads, s) : cudaErrorInvalidValue;
-  switch (head_dim) {
-    case 16: return launch_attention_f32<16>(p, batch, heads, s);
-    case 32: return launch_attention_f32<32>(p, batch, heads, s);
-    case 48: return launch_attention_f32<48>(p, batch, heads, s);
-    case 64: return launch_attention_f32<64>(p, batch, heads, s);
-    case 80: return launch_attention_f32<80>(p, batch, heads, s);
-    case 96: return launch_attention_f32<96>(p, batch, heads, s);
-    case 112: return launch_attention_f32<112>(p, batch, heads, s);
-    case 128: return launch_attention_f32<128>(p, batch, heads, s);
-    default: return cudaErrorInvalidValue;
+  if (is_bf16) {
+    const AttnParams p{qkv, o, seq, heads * head_dim, scale};
+    return head_dim == kHeadDim ? launch_attention_bf16(p, batch, heads, s) : cudaErrorInvalidValue;
   }
+  if (head_dim % 16 || head_dim < 16 || head_dim > 128) return cudaErrorInvalidValue;
+  const AttnF32Params p{static_cast<const float*>(qkv), static_cast<float*>(o), seq, heads * head_dim, head_dim,
+                        scale};
+  return head_dim <= 64 ? launch_attention_tf32x3<64>(p, batch, heads, s)
+                        : launch_attention_tf32x3<128>(p, batch, heads, s);
 }
 
 // dynamic shared memory of the bf16 attention kernel for items of seq
 // tokens (0 above 512)
 extern "C" int vit_block_attention_smem(int seq) { return attention_bf16_smem(seq); }
+
+// dynamic shared memory of the fp32 (3xTF32) attention kernel at head dim
+// head_dim (0 if it is not taken)
+extern "C" int vit_block_attention_tf32x3_smem(int head_dim) {
+  if (head_dim % 16 || head_dim < 16 || head_dim > 128) return 0;
+  return head_dim <= 64 ? Tf32Attn<64>::kBytes : Tf32Attn<128>::kBytes;
+}

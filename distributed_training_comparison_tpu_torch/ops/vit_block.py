@@ -36,6 +36,17 @@ dim 64, the zoo's only fused one, and up to 512 tokens: a block stages its
 item's K and V once and computes the scores once, every product a
 ``wgmma``.
 
+fp32, the entry point's default precision, runs the same functions in
+3xTF32 on ``wgmma`` (``csrc/tf32x3.cuh``): each fp32 operand splits into
+two tf32 terms and each product into three tf32 products, fp32 accuracy at
+the tensor cores' rate.  The GEMMs share one core
+(``csrc/block_gemm_tf32.cuh``: ``block_gemm_tf32x3``, ``dgrad_tf32x3``,
+``wgrad_tf32x3``), both operands streamed through a ring that a producer
+warpgroup fills and splits; the attention (``block_attn_tf32x3``,
+``block_attn_dq_tf32x3``, ``block_attn_dkv_tf32x3``) runs the flash
+kernels' schedules over the packed qkv, any head dim the card takes padded
+to 64 or 128.
+
 The backward (K6, ``_block_bwd_kernel``) recomputes the forward from x
 alone, then produces dx and the twelve parameter gradients at the TPU
 kernel's rounding points (:func:`fused_vit_block_bwd_reference`).  The TPU
@@ -276,9 +287,9 @@ def block_gemm(
     stream: int | None = None,
 ) -> torch.Tensor:
     """:func:`block_gemm_reference`'s function; on the card the CUDA kernel
-    ``block_gemm`` (bf16 on the tensor cores, fp32 SIMT), which takes K and
-    N multiples of 16, one to three weight segments of equal shape and fp32
-    LayerNorm statistics only.  It launches on ``stream`` (a raw CUDA stream
+    ``block_gemm`` (bf16 ``block_gemm_wgmma``, fp32 ``block_gemm_tf32x3``),
+    which takes K and N multiples of 16, one to three weight segments of
+    equal shape and fp32 LayerNorm statistics only.  It launches on ``stream`` (a raw CUDA stream
     handle, with the tensors' device current) or else on the tensors'
     device's current stream.  ``block_gemm.launches`` counts its launches."""
     if a.device.type == "cpu":
@@ -376,7 +387,8 @@ def block_attention(
     per (item, head, 64-query tile).  bf16 (head dim 64, S up to 512) runs
     ``block_attn_wgmma``, which stages the item's K and V once and computes
     the scores once on ``wgmma``; fp32 (head dims that are multiples of 16
-    up to 128) a SIMT kernel with an exact two-sweep softmax.
+    up to 128) ``block_attn_tf32x3``: 3xTF32 ``wgmma``, 128 query rows a
+    block, K and V streamed, the softmax online.
     ``block_attention.launches`` counts its launches."""
     if qkv.device.type == "cpu":
         return packed_attention_reference(qkv, seq=seq, heads=heads, scale=scale)
@@ -663,9 +675,9 @@ def block_gemm_dgrad(
     gelu_of: torch.Tensor | None = None, out_f32: bool = False, stream: int | None = None,
 ):
     """:func:`block_gemm_dgrad_reference`'s function; on the card the CUDA
-    kernel ``block_gemm_dgrad`` (bf16 on the tensor cores, fp32 SIMT), which
-    takes K and N multiples of 16 and one to three weight segments of equal
-    shape.  ``block_gemm_dgrad.launches`` counts its launches."""
+    kernel ``block_gemm_dgrad`` (bf16 ``dgrad_wgmma``, fp32 ``dgrad_tf32x3``),
+    which takes K and N multiples of 16 and one to three weight segments of
+    equal shape.  ``block_gemm_dgrad.launches`` counts its launches."""
     if g.device.type == "cpu":
         return block_gemm_dgrad_reference(g, weights, gelu_of=gelu_of, out_f32=out_f32)
     _check_card_operands("block_gemm_dgrad", g.dtype, g, *weights,
@@ -770,7 +782,7 @@ def block_gemm_wgrad(
 ):
     """:func:`block_gemm_wgrad_reference`'s function; on the card the CUDA
     kernel ``block_gemm_wgrad``: one block per (output tile, row chunk),
-    bf16 on the tensor cores, fp32 SIMT, out and in multiples of 16.
+    bf16 ``wgrad_wgmma``, fp32 ``wgrad_tf32x3``, out and in multiples of 16.
     ``block_gemm_wgrad.launches`` counts its launches."""
     if g.device.type == "cpu":
         return block_gemm_wgrad_reference(g, a, bias_src)
@@ -813,7 +825,9 @@ def block_attention_bwd(
     head and 64-key tile, reading that scratch).  bf16
     (head dim 64, S up to 512) runs ``attn_dq_wgmma`` and ``attn_dkv_wgmma``
     (K and V, Q and dO staged once a block, every product on ``wgmma``);
-    fp32 SIMT kernels.  No atomics: each block owns its output rows.
+    fp32 ``block_attn_dq_tf32x3`` (a pass for the statistics, then dq) and
+    ``block_attn_dkv_tf32x3``, 3xTF32 ``wgmma``.  No atomics: each block
+    owns its output rows.
     ``block_attention_bwd.launches`` counts its calls."""
     if qkv.device.type == "cpu":
         return packed_attention_bwd_reference(qkv, do, seq=seq, heads=heads)

@@ -14,6 +14,7 @@ also runs where JAX is not installed; there, skip ``tests/conftest.py``
 
 import functools
 import importlib
+import re
 
 import pytest
 import torch
@@ -1124,3 +1125,175 @@ def test_fused_small_reaches_q_k_v_under_autograd(cuda_device):
     for leaf, ref in zip(leaves, want):
         assert leaf.grad is not None and leaf.grad.shape == leaf.shape
         assert _row_share(leaf.grad, ref, 2**-6) <= 2**-5
+
+
+# ------------------------------------------- the fused block's fp32 chains (3xTF32)
+
+# the fp32 kernels of the fused block chains by symbol: every product in
+# 3xTF32 on wgmma, beside the LayerNorm and gradient-sum kernels
+FP32_BLOCK_SYMBOLS = {"block_gemm_tf32x3", "block_attn_tf32x3", "dgrad_tf32x3", "wgrad_tf32x3",
+                      "block_attn_dq_tf32x3", "block_attn_dkv_tf32x3"}
+
+
+def _f32_gemm_call(gen, device, name, m, k, n, segs, epilogue):
+    """``_gemm_call``'s arguments for one GEMM_CASES case in fp32: every
+    activation a full fp32 value (no bf16 cast), so that each operand's
+    small tf32 part is nonzero."""
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(device)
+
+    def xavier(rows, cols):
+        limit = (6.0 / (rows + cols)) ** 0.5
+        return ((torch.rand((rows, cols), generator=gen) * 2 - 1) * limit).to(device)
+
+    if name == "block_gemm":
+        seg = n // segs
+        kw = {}
+        if "ln" in epilogue:
+            kw["ln"] = (1 + randn(k, scale=0.1), randn(k, scale=0.1))
+        if "gelu" in epilogue:
+            kw["gelu"] = True
+        if epilogue == "residual":
+            kw["residual"] = randn(m, n)
+        return (randn(m, k), [xavier(seg, k) for _ in range(segs)],
+                [randn(seg, scale=0.1) for _ in range(segs)]), kw
+    if name == "block_gemm_dgrad":
+        seg = k // segs
+        kw = {"gelu_of": randn(m, n)} if epilogue == "gelu" else {"out_f32": epilogue == "f32"}
+        return (randn(m, k), [xavier(seg, n) for _ in range(segs)]), kw
+    g, a = randn(m, k), randn(m, n)
+    return (g, a, randn(m, k) if epilogue == "f32" else g), {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,m,k,n,segs,epilogue", GEMM_CASES)
+def test_fp32_block_gemm_kernels_match_plain_on_card(cuda_device, name, m, k, n, segs, epilogue):
+    """Each fp32 GEMM kernel of the fused chains (3xTF32: ``block_gemm_tf32x3``,
+    ``dgrad_tf32x3``, ``wgrad_tf32x3``) at GEMM_CASES' shapes against its
+    plain version, per row within chip_smoke.py's fp32 tolerance: 2^-10 of
+    the row's rms, rtol 0.  They differ by the dropped small·small term and
+    the rounding of small (2^-22 relative an operand), by summation order
+    and by the tensor cores' accumulation toward zero over a fresh
+    accumulator every 64 depths.  One launch a call."""
+    gen = torch.Generator().manual_seed(m + k + n)
+    args, kw = _f32_gemm_call(gen, cuda_device, name, m, k, n, segs, epilogue)
+    wrapper, plain = getattr(vb, name), getattr(vb, f"{name}_reference")
+    before = wrapper.launches
+    got = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = plain(*args, **kw)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert _row_share(g, w, 0.0) <= 2**-10, _row_share(g, w, 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_fp32_block_attention_at_every_head_dim(cuda_device, d):
+    """``block_attention`` and ``block_attention_bwd`` in fp32 at every head
+    dim the card takes (multiples of 16 up to 128, padded to 64 or 128 in
+    the kernels, the padding never read from the next head nor written),
+    at a ragged S (136: query and key tiles cut), against the plain
+    versions per row within 2^-10 of the rms; dq, dk and dv each."""
+    gen = torch.Generator().manual_seed(d)
+    b, s, heads = 2, 136, 3
+    dim = heads * d
+    qkv = torch.randn(b * s, 3 * dim, generator=gen).to(cuda_device)
+    do = torch.randn(b * s, dim, generator=gen).to(cuda_device)
+    got = vb.block_attention(qkv, seq=s, heads=heads)
+    dqkv = vb.block_attention_bwd(qkv, do, seq=s, heads=heads)
+    torch.cuda.synchronize()
+    want = small.packed_attention_reference(qkv, seq=s, heads=heads)
+    assert bool(torch.isfinite(got).all()) and _row_share(got, want, 0.0) <= 2**-10
+    want = small.packed_attention_bwd_reference(qkv, do, seq=s, heads=heads)
+    for j, name in enumerate("qkv"):
+        cols = slice(j * dim, (j + 1) * dim)
+        assert bool(torch.isfinite(dqkv[:, cols]).all()), name
+        assert _row_share(dqkv[:, cols], want[:, cols], 0.0) <= 2**-10, (name, _row_share(
+            dqkv[:, cols], want[:, cols], 0.0))
+
+
+@pytest.mark.gpu
+def test_fp32_chains_run_the_3xtf32_kernels_by_symbol(cuda_device):
+    """One fp32 block forward (K5) and backward (K6) at the vit_tiny p2
+    shape launch, by symbol under the profiler, the 3xTF32 GEMM and
+    attention kernels and the LayerNorm and gradient-sum kernels: no SIMT
+    fp32 kernel and no bf16 one."""
+    gen = torch.Generator().manual_seed(13)
+    params = _block_params(192, 3, gen, cuda_device)
+    x = torch.randn(4, 256, 192, generator=gen).to(cuda_device)
+    dy = torch.randn(4, 256, 192, generator=gen).to(cuda_device)
+    vb.fused_vit_block_bwd(x, dy, params, heads=3)  # warm: the libraries built and loaded
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        vb.fused_vit_block(x, params, heads=3)
+        vb.fused_vit_block_bwd(x, dy, params, heads=3)
+        torch.cuda.synchronize()
+    # the port's kernels are defined in an anonymous namespace
+    symbol = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)[<(]")
+    ours = {m.group(1) for e in prof.key_averages() if (m := symbol.match(e.key))}
+    assert ours == FP32_BLOCK_SYMBOLS | {"ln_rows", "ln_bwd", "grad_reduce"}, sorted(ours)
+
+
+@pytest.mark.gpu
+def test_fp32_chains_at_a_ragged_s(cuda_device):
+    """The fp32 K5 and K6 chains at S 136 (a multiple of 8, not of 64), dim
+    128, 2 heads, against the plain versions: the output and dx per row
+    within 2^-10 of the rms, each gradient within 2^-14 of its leaf's
+    largest entry."""
+    gen = torch.Generator().manual_seed(136)
+    params = _block_params(128, 2, gen, cuda_device)
+    x = torch.randn(3, 136, 128, generator=gen).to(cuda_device)
+    dy = torch.randn(3, 136, 128, generator=gen).to(cuda_device)
+    out = vb.fused_vit_block(x, params, heads=2)
+    dx, grads = vb.fused_vit_block_bwd(x, dy, params, heads=2)
+    torch.cuda.synchronize()
+    assert _row_share(out, vb.fused_vit_block_reference(x, params, heads=2), 0.0) <= 2**-10
+    want_dx, want = vb.fused_vit_block_bwd_reference(x, dy, params, heads=2)
+    assert bool(torch.isfinite(dx).all()) and _row_share(dx, want_dx, 0.0) <= 2**-10
+    errors = _leaf_errors(grads, want)
+    assert max(errors.values()) <= 2**-14, errors
+
+
+@pytest.mark.gpu
+def test_fp32_fused_block_bwd_is_bitwise_deterministic(cuda_device):
+    """The fp32 K6 chain (3xTF32, no atomics, every sum in a fixed order):
+    two calls give bit-identical dx and gradients."""
+    gen = torch.Generator().manual_seed(15)
+    params = _block_params(192, 3, gen, cuda_device)
+    x = torch.randn(8, 256, 192, generator=gen).to(cuda_device)
+    dy = torch.randn(8, 256, 192, generator=gen).to(cuda_device)
+    dx1, g1 = vb.fused_vit_block_bwd(x, dy, params, heads=3)
+    dx2, g2 = vb.fused_vit_block_bwd(x, dy, params, heads=3)
+    assert torch.equal(dx1, dx2)
+    assert all(torch.equal(g1[n], g2[n]) for n in g1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, 0xFFFFFFFF, 0x7F800001], ids=hex)
+def test_fp32_chains_keep_a_nan(cuda_device, bits):
+    """A NaN in one element of x (the card's canonical NaN, a negative
+    one, a signalling one) reaches the fp32 K5 output and K6's dx and
+    gradients exactly where it reaches the plain versions', and nothing
+    else turns NaN: the 3xTF32 split keeps it a NaN (big = tf32(x) + x·0),
+    where the rounding add alone would carry its payload into the exponent
+    or the sign."""
+    gen = torch.Generator().manual_seed(17)
+    params = _block_params(128, 2, gen, cuda_device)
+    x = torch.randn(3, 136, 128, generator=gen).to(cuda_device)
+    dy = torch.randn(3, 136, 128, generator=gen).to(cuda_device)
+    x.view(torch.int32)[1, 70, 17] = bits - (1 << 32) if bits >> 31 else bits
+    got = {"out": vb.fused_vit_block(x, params, heads=2)}
+    dx, grads = vb.fused_vit_block_bwd(x, dy, params, heads=2)
+    got.update({"dx": dx, **grads})
+    torch.cuda.synchronize()
+    want = {"out": vb.fused_vit_block_reference(x, params, heads=2)}
+    dx, grads = vb.fused_vit_block_bwd_reference(x, dy, params, heads=2)
+    want.update({"dx": dx, **grads})
+    assert bool(torch.isnan(want["out"]).any()) and bool(torch.isnan(want["dx"]).any())
+    for name, w in want.items():
+        assert torch.equal(torch.isnan(got[name]), torch.isnan(w)), name
+        assert bool(torch.isfinite(got[name][~torch.isnan(w)]).all()), name
