@@ -3383,7 +3383,9 @@ def check_train_moe(train: dict) -> None:
 # and the train path's batch-256 attention (bf16, and fp32 as vit_tiny
 # trains without --amp), a causal case with a ragged S (one partial key
 # tile) and a causal multi-tile case (S 256: the causal tile skipping of
-# both sweeps and of the dk/dv walk), unit-normal packed (B*S, H*D) inputs.
+# both sweeps and of the dk/dv walk), unit-normal packed (B*S, H*D) inputs;
+# then the fp32 (3xTF32) kernels at the serve shape, a ragged causal tile,
+# one tile at head dim 128 and a causal multi-tile item at head dim 128.
 SMALL_CASES = [
     ("serve shape: vit_tiny bucket 32", "bfloat16", 32, 64, 3, 64, False),
     ("train shape: vit_tiny batch 256", "bfloat16", 256, 64, 3, 64, False),
@@ -3392,6 +3394,10 @@ SMALL_CASES = [
     ("one tile at head dim 128, causal", "bfloat16", 8, 64, 2, 128, True),
     ("ragged one tile", "bfloat16", 6, 40, 3, 64, False),
     ("multi-tile causal", "bfloat16", 4, 256, 2, 128, True),
+    ("serve shape fp32: vit_tiny bucket 32 without --amp", "float32", 32, 64, 3, 64, False),
+    ("ragged causal fp32", "float32", 6, 24, 2, 64, True),
+    ("one tile at head dim 128, causal, fp32", "float32", 8, 64, 2, 128, True),
+    ("multi-tile causal fp32", "float32", 4, 256, 2, 128, True),
 ]
 # Each output and gradient holds against the plain version per row (one
 # token's D values of one head) with the flash kernels' TOLERANCES, for the
@@ -3405,8 +3411,10 @@ SMALL_CASES = [
 # (one dk/dv block's rows) zeroed.  Each must need more than the tolerance.
 SMALL_COUNTERS = ("small_mha_fwd", "small_mha_bwd")
 # the kernels of the serve_small and train_small paths (bf16, 64 tokens),
-# as small.kernel_symbols names them for that shape
+# as small.kernel_symbols names them for that shape; and of their fp32
+# dispatch and of train_small_fp32 (the 3xTF32 kernels)
 SMALL_PATH_KERNELS = {"fwd": ("attn_small_fwd_onetile",), "bwd": ("attn_small_bwd_onetile",)}
+SMALL_F32_KERNELS = {"fwd": ("attn_small_fwd_f32",), "bwd": ("attn_small_dq_f32", "attn_small_dkv_f32")}
 
 
 def without_last_keys(v, seq: int, n: int):
@@ -3420,11 +3428,12 @@ def without_last_keys(v, seq: int, n: int):
 def small_bounds(b, s, h, d, causal, dname) -> dict[str, tuple[float, str]]:
     """Least times of K10 (q, k, v read, o written; 2 products: s and P.V)
     and K11 (q, k, v, dO read, dq, dk, dv written; 5 products: s, dp, dq,
-    dk, dv), causal counting only the pairs it needs."""
+    dk, dv), causal counting only the pairs it needs; fp32 products as
+    3xTF32, the kernels' arithmetic."""
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     elems = b * s * h * d * (2 if dname == "bfloat16" else 4)
-    return {"fwd": bound(4 * pairs * d, 4 * elems, dname),
-            "bwd": bound(10 * pairs * d, 7 * elems, dname)}
+    return {"fwd": bound(4 * pairs * d, 4 * elems, dname, tf32x3=True),
+            "bwd": bound(10 * pairs * d, 7 * elems, dname, tf32x3=True)}
 
 
 _GLOBAL_FN = re.compile(r"__global__ void(?: __(?:cluster_dims|launch_bounds)__\((?:[^()]|\([^()]*\))*\))*\s+(\w+)\(")
@@ -3544,6 +3553,53 @@ def small_attention_checks(small) -> list[dict]:
     return out
 
 
+# (B, S, H, D) of small_fp32_nan_checks, and the packed (row, column) of
+# its NaN: item 1, token 20, head 1, dimension 17
+SMALL_NAN_CASE = (4, 64, 3, 64)
+SMALL_NAN_AT = (64 + 20, 64 + 17)
+
+
+def small_fp32_nan_checks(small) -> list[dict]:
+    """A NaN in one element of q, of v and of dO through the fp32 K10 and
+    K11 on the card: the output and dq, dk, dv must be NaN exactly where
+    the plain versions' are and finite everywhere else, for each of
+    ``NAN_BITS`` (the 3xTF32 split keeps a NaN as a NaN)."""
+    import torch
+
+    b, s, h, d = SMALL_NAN_CASE
+    gen = torch.Generator().manual_seed(19)
+    base = [torch.randn((b * s, h * d), generator=gen).cuda() for _ in range(4)]
+    out = []
+    for where in ("q", "v", "do"):
+        for bits in NAN_BITS:
+            tensors = dict(zip(("q", "k", "v", "do"), (x.clone() for x in base)))
+            tensors[where].view(torch.int32)[SMALL_NAN_AT] = bits - (1 << 32) if bits >> 31 else bits
+            q, k, v, do = tensors.values()
+            got = dict(zip(("out", "dq", "dk", "dv"), (small.small_mha_fwd(q, k, v, seq=s, heads=h),
+                                                      *small.small_mha_bwd(q, k, v, do, seq=s, heads=h))))
+            torch.cuda.synchronize()
+            view = [x.view(b, s, h, d) for x in (q, k, v, do)]
+            want = dict(zip(("out", "dq", "dk", "dv"), (small.small_mha_reference(*view[:3]),
+                                                        *small.small_mha_bwd_reference(*view))))
+            got = {n: g.view(b, s, h, d) for n, g in got.items()}
+            mismatched = sorted(
+                n for n, w in want.items()
+                if not (torch.equal(torch.isnan(got[n]), torch.isnan(w))
+                        and bool(torch.isfinite(got[n][~torch.isnan(w)]).all()))
+            )
+            out.append({
+                "case": f"fp32 NaN 0x{bits:08X} in {where} at packed {list(SMALL_NAN_AT)}",
+                "shape_b_s_h_d": list(SMALL_NAN_CASE),
+                "nan_elements": {n: int(torch.isnan(g).sum()) for n, g in got.items()},
+                "plain_nan_elements": {n: int(torch.isnan(w).sum()) for n, w in want.items()},
+                "mismatched": mismatched,
+                "ok": not mismatched and any(bool(torch.isnan(w).any()) for w in want.values()),
+            })
+    del base
+    torch.cuda.empty_cache()
+    return out
+
+
 SERVE_SMALL_ARGV = [
     "--serve", "--model", "vit_tiny", "--amp",
     "--serve-buckets", "1,2,4,8,16,32", "--serve-shape", "closed",
@@ -3603,7 +3659,8 @@ def serve_small_phase(small, gm, vb, attn) -> dict:
     every dispatched batch runs K10 and no other kernel.  The bucket-32
     logits against ``attn_impl="reference"`` in bf16 and fp32 with a bound
     a planted K10 fault exceeds; a bucket-32 dispatch timed under fused_small
-    and auto (the reference attention at 64 tokens) and profiled."""
+    and auto (the reference attention at 64 tokens) and profiled, in bf16
+    and in fp32."""
     import numpy as np
 
     from distributed_training_comparison_tpu_torch.config import load_config
@@ -3657,30 +3714,30 @@ def serve_small_phase(small, gm, vb, attn) -> dict:
             "logits_scale": scale, "logits_tol": share * scale, "logits_tol_share": share,
             "fault_logits_max_abs_err_vs_reference": float(np.abs(fault - want).max()),
         })
-        if precision == "bf16":
-            engines["auto"] = build_engine(h)
-            for rnd in ("", "_again"):
-                for name in ("fused_small", "auto"):
-                    eng = engines[name]
-                    eng.predict_logits(batch)
-                    t0 = time.perf_counter()
-                    for _ in range(5):
-                        eng.predict_logits(batch)
-                    rec[f"bucket32_batch_ms_{name}{rnd}"] = (time.perf_counter() - t0) / 5 * 1e3
+        # a bucket-32 dispatch timed and profiled under fused_small and auto
+        engines["auto"] = build_engine(h)
+        for rnd in ("", "_again"):
             for name in ("fused_small", "auto"):
-                prof = profile_device(lambda: engines[name].predict_logits(batch), 5)
-                port = _port_kernel_ms(prof["device_ms_by_name"])
-                k10 = sum(_small_kernel_ms(prof["device_ms_by_name"]).values())
-                top = sorted(prof["device_ms_by_name"].items(), key=lambda kv: -kv[1])[:8]
-                rec[f"bucket32_profile_{name}"] = {
-                    "wall_ms_per_batch": prof["wall_ms"],
-                    "device_busy_ms_per_batch": prof["device_busy_ms"],
-                    "device_idle_share": prof["device_idle_share"],
-                    "port_kernels": sorted(port),
-                    "k10_device_ms_per_batch": k10,
-                    "k10_share_of_device_busy": k10 / prof["device_busy_ms"],
-                    "top_device_ms_per_batch": {n[:60]: ms for n, ms in top},
-                }
+                eng = engines[name]
+                eng.predict_logits(batch)
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    eng.predict_logits(batch)
+                rec[f"bucket32_batch_ms_{name}{rnd}"] = (time.perf_counter() - t0) / 5 * 1e3
+        for name in ("fused_small", "auto"):
+            prof = profile_device(lambda: engines[name].predict_logits(batch), 5)
+            port = _port_kernel_ms(prof["device_ms_by_name"])
+            k10 = sum(_small_kernel_ms(prof["device_ms_by_name"]).values())
+            top = sorted(prof["device_ms_by_name"].items(), key=lambda kv: -kv[1])[:8]
+            rec[f"bucket32_profile_{name}"] = {
+                "wall_ms_per_batch": prof["wall_ms"],
+                "device_busy_ms_per_batch": prof["device_busy_ms"],
+                "device_idle_share": prof["device_idle_share"],
+                "port_kernels": sorted(port),
+                "k10_device_ms_per_batch": k10,
+                "k10_share_of_device_busy": k10 / prof["device_busy_ms"],
+                "top_device_ms_per_batch": {n[:60]: ms for n, ms in top},
+            }
         checks[precision] = rec
         del engines
     return {
@@ -3720,11 +3777,14 @@ def check_serve_small(serve: dict) -> None:
             raise RuntimeError(f"serve_small {precision}: K10 logits disagree with the reference: {rec}")
         if not rec["fault_logits_max_abs_err_vs_reference"] > rec["logits_tol"]:
             raise RuntimeError(f"serve_small {precision}: the planted K10 fault passes the bound: {rec}")
-    # no other kernel of the port, by name: a bf16 dispatch at 64 tokens runs K10's one-tile kernel
-    want_kernels = list(SMALL_PATH_KERNELS["fwd"])
-    got_kernels = serve["bucket32"]["bf16"]["bucket32_profile_fused_small"]["port_kernels"]
-    if got_kernels != want_kernels:
-        raise RuntimeError(f"serve_small bucket-32 dispatch ran {got_kernels}, expected {want_kernels}")
+    # no other kernel of the port, by name: a bf16 dispatch at 64 tokens runs
+    # K10's one-tile kernel, an fp32 one the 3xTF32 forward
+    for precision, kernels in (("bf16", SMALL_PATH_KERNELS), ("fp32", SMALL_F32_KERNELS)):
+        want_kernels = list(kernels["fwd"])
+        got_kernels = serve["bucket32"][precision]["bucket32_profile_fused_small"]["port_kernels"]
+        if got_kernels != want_kernels:
+            raise RuntimeError(f"serve_small {precision} bucket-32 dispatch ran {got_kernels}, "
+                               f"expected {want_kernels}")
 
 
 TRAIN_SMALL_ARGV = [
@@ -3924,6 +3984,129 @@ def check_train_small(train: dict) -> None:
         raise RuntimeError(f"a train_small step ran {got_kernels}, expected {want_kernels}")
 
 
+# vit_tiny at 64 tokens (32 px, patch 4) trained at the default precision
+# (fp32: no --amp), batch 256, one epoch: 792 training images (3 steps) and
+# 88 validation images (one batch)
+TRAIN_SMALL_FP32_ARGV = [
+    "--model", "vit_tiny", "--synthetic-data", "--batch-size", "256",
+    "--limit-examples", "880", "--epoch", "1", "--lr-decay-step-size", "1",
+]
+
+
+def small_fp32_step_times(trainer, csrc: Path | None = None) -> dict:
+    """ms per fp32 ``vit_tiny`` train step at 64 tokens (CUDA events over 3
+    steps of the trainer's first batch, after a warm step) for the
+    fused_small ``trainer`` and a trainer of the same command under auto
+    (the reference attention), and a profile of two steps of each: busy
+    time, idle share, the busy time split into K10's kernels, K11's, the
+    GEMMs (cuBLAS, by name) and the rest, and the port's kernels by symbol
+    (``csrc``'s, this checkout's by default)."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch.data import draw_crop_flip
+    from distributed_training_comparison_tpu_torch.train import Trainer
+    from distributed_training_comparison_tpu_torch.utils import step_generator
+
+    hp = trainer.hparams
+    images, labels = next(trainer.train_split.epoch_batches(hp.batch_size, hp.seed, 0))
+    draws = draw_crop_flip(len(labels), step_generator(hp.seed, 0, 0))
+    out = {}
+    for name, tr in (("fused_small", trainer), ("auto", Trainer(hp))):
+        ms = cuda_ms(lambda: tr.step(images, labels, draws), 3, warmup=1)
+        prof = profile_device(lambda: tr.step(images, labels, draws), 2)
+        names, busy = prof["device_ms_by_name"], prof["device_busy_ms"]
+        port = _port_kernel_ms(names, csrc=csrc)
+        split = {
+            "k10": sum(t for n, t in port.items() if n.startswith("attn_small_fwd")),
+            "k11": sum(t for n, t in port.items() if n.startswith(("attn_small_dq", "attn_small_dkv",
+                                                                   "attn_small_bwd"))),
+            "gemm": sum(t for n, t in names.items() if "gemm" in n.lower()),
+        }
+        split["rest"] = busy - sum(split.values())
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+        out[name] = {
+            "ms_per_step": ms,
+            "images_per_s_timed": hp.batch_size / ms * 1e3,
+            "wall_ms_per_step": prof["wall_ms"],
+            "device_busy_ms_per_step": busy,
+            "device_idle_share": prof["device_idle_share"],
+            "device_ms_per_step": split,
+            "port_kernels": sorted(port),
+            "top_device_ms_per_step": {n[:60]: t for n, t in top},
+        }
+        del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_small_fp32_phase(small, gm, vb, attn, smi: str) -> dict:
+    """``vit_tiny`` at 64 tokens trained at the default precision
+    (``TRAIN_SMALL_FP32_ARGV``: fp32, batch 256, 12 blocks of 3 heads of
+    64) through ``Trainer(hparams, model=build_model(hparams,
+    attn_impl="fused_small"))`` and ``fit``: K10 in every block of every
+    step and eval batch, K11 in every block of every step, the counters
+    zeroed just before and read just after; then ``small_fp32_step_times``."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.train import Trainer, build_model
+
+    hp = load_config(TRAIN_SMALL_FP32_ARGV)
+    trainer = Trainer(hp, model=build_model(hp, attn_impl="fused_small"))
+    counters = _small_path_counters(small, gm, vb, attn)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fit = trainer.fit()
+    seconds = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    epochs = fit["epochs"]
+    record = {
+        "phase": "train_small_fp32",
+        "nvidia_smi": smi,
+        "argv": TRAIN_SMALL_FP32_ARGV,
+        "attn_impl": "fused_small",
+        "precision": hp.precision,
+        "batch": hp.batch_size,
+        "run_seconds": seconds,
+        "train_steps": sum(e["steps"] for e in epochs),
+        "eval_batches": len(epochs) * math.ceil(len(trainer.val_split) / hp.batch_size),
+        "depth": len(trainer.model.blocks),
+        "launches": launches,
+        "losses_finite": all(e["nonfinite_losses"] == 0 for e in epochs),
+        "skipped_steps": sum(e["skipped"] for e in epochs),
+        "epochs": epochs,
+        "peak_memory_gb": peak_gb,
+        "epoch_images_per_s": epochs[-1]["images_per_s"],
+        "step_times": small_fp32_step_times(trainer),
+    }
+    del trainer
+    torch.cuda.empty_cache()
+    return record
+
+
+def check_train_small_fp32(run: dict) -> None:
+    depth, steps = run["depth"], run["train_steps"]
+    if run["precision"] != "fp32" or run["batch"] != 256 or depth != 12:
+        raise RuntimeError(f"train_small_fp32 ran {run['precision']} at batch {run['batch']}, depth {depth}")
+    if (steps, run["eval_batches"]) != (3, 1):
+        raise RuntimeError(f"train_small_fp32 ran {steps} steps and {run['eval_batches']} eval batches")
+    want = {n: 0 for n in run["launches"]}
+    want["small_mha_fwd"] = depth * (steps + run["eval_batches"])
+    want["small_mha_bwd"] = depth * steps
+    if run["launches"] != want:
+        raise RuntimeError(f"train_small_fp32 launches {run['launches']}, expected {want}")
+    if not run["losses_finite"] or run["skipped_steps"]:
+        raise RuntimeError("train_small_fp32: a non-finite loss or a skipped step")
+    # no other kernel of the port, by name: the three 3xTF32 kernels alone
+    want_kernels = sorted(SMALL_F32_KERNELS["fwd"] + SMALL_F32_KERNELS["bwd"])
+    got_kernels = run["step_times"]["fused_small"]["port_kernels"]
+    if got_kernels != want_kernels:
+        raise RuntimeError(f"a train_small_fp32 step ran {got_kernels}, expected {want_kernels}")
+
+
 def main() -> int:
     if not (ROOT / PKG).is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
@@ -3978,13 +4161,17 @@ def main() -> int:
     missing += [f"{k}<{d}>" for ks in (*BACKWARD_SYMBOLS["float32"].values(), FORWARD_SYMBOLS["float32"])
                 for k in ks for d in (64, 128) if f"{k}<{d}>" not in built]
     missing += [k for k in BLOCK_TF32_KERNELS if k not in built]
+    missing += [f"{k}<{d}>" for ks in SMALL_F32_KERNELS.values() for k in ks for d in (64, 128)
+                if f"{k}<{d}>" not in built]
     if missing:
         raise RuntimeError(f"the build logs hold no ptxas report of {missing}")
     spilled = {
         name: r for name, r in built.items()
-        # the bf16 and 3xTF32 flash, one-tile, fused block GEMM and
-        # attention (bf16 and fp32), and grouped expert FFN kernels
+        # the bf16 and 3xTF32 flash, one-tile and 3xTF32 short-sequence,
+        # fused block GEMM and attention (bf16 and fp32), and grouped expert
+        # FFN kernels
         if ("flash_" in name and ("bf16" in name or "tf32x3" in name) or "onetile" in name
+            or name.startswith("attn_small_") and "_f32<" in name
             or "_wgmma" in name or name in BLOCK_TF32_KERNELS)
         and r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
     }
@@ -4112,6 +4299,12 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"the short-sequence attention kernels disagree with the plain versions: {bad}")
 
+    small_nans = small_fp32_nan_checks(small)
+    emit({"phase": "small_fp32_nan_checks", "nvidia_smi": smi, "checks": small_nans})
+    bad = [c["case"] for c in small_nans if not c["ok"]]
+    if bad:
+        raise RuntimeError(f"a NaN does not reach the fp32 K10/K11 results as in the plain versions: {bad}")
+
     serve_small = serve_small_phase(small, gm, vb, attn)
     emit(serve_small)
     check_serve_small(serve_small)
@@ -4119,6 +4312,10 @@ def main() -> int:
     train_small = train_small_phase(small, gm, vb, attn, smi)
     emit(train_small)
     check_train_small(train_small)
+
+    small_fp32 = train_small_fp32_phase(small, gm, vb, attn, smi)
+    emit(small_fp32)
+    check_train_small_fp32(small_fp32)
 
     csrc = f"{PKG}/ops/csrc"
     replaces = {
@@ -4323,12 +4520,20 @@ def main() -> int:
             kernels.append(entry)
     # K10/K11: per case, one entry per wrapper, with the kernels the case
     # launched (``kernels``, by symbol; ``kernel_ms`` each one's device ms).
-    # K10's ``launches`` is its count on the serve_small path
+    # In bf16 K10's ``launches`` is its count on the serve_small path
     # (``launches_train`` on train_small); K11's, on train_small, counts
-    # calls, each launching attn_small_bwd_onetile once at 64 tokens.
-    small_launches = {"fwd": serve_small["launches"]["small_mha_fwd"],
-                      "bwd": train_small["launches"]["small_mha_bwd"]}
+    # calls, each launching attn_small_bwd_onetile once at 64 tokens.  In
+    # fp32 both are counts on the train_small_fp32 path (K11's calls each
+    # launch attn_small_dq_f32 and attn_small_dkv_f32).
     for case in small_checks:
+        if case["dtype"] == "float32":
+            small_launches = {"fwd": small_fp32["launches"]["small_mha_fwd"],
+                              "bwd": small_fp32["launches"]["small_mha_bwd"]}
+            counted = {"fwd": "train_small_fp32 main path", "bwd": "train_small_fp32 main path"}
+        else:
+            small_launches = {"fwd": serve_small["launches"]["small_mha_fwd"],
+                              "bwd": train_small["launches"]["small_mha_bwd"]}
+            counted = {"fwd": "serve_small main path", "bwd": "train_small main path"}
         for key, regime, body, results in (("fwd", "K10", 160, ("out",)),
                                            ("bwd", "K11", 168, ("dq", "dk", "dv"))):
             agree = [case["agreement"][r] for r in results]
@@ -4339,8 +4544,7 @@ def main() -> int:
                 "regime": regime, "case": case["case"], "dtype": case["dtype"],
                 "shape_b_s_h_d": case["shape_b_s_h_d"], "causal": case["causal"],
                 "launches": small_launches[key],
-                "launches_counted": ("serve_small main path" if key == "fwd"
-                                     else "train_small main path") + ", one counter for every case",
+                "launches_counted": counted[key] + ", one counter for every case of the dtype",
                 "max_abs_err": max(a["max_abs_err"] for a in agree),
                 "atol_share": case["atol_share"], "rtol": case["rtol"],
                 "atol_share_needed": max(a["atol_share_needed"] for a in agree),
@@ -4352,9 +4556,9 @@ def main() -> int:
                 "bound_ms": case["bound_ms"][key], "bound_by": case["bound_by"][key],
                 "library_ms": case["library_ms"][key], "library": case["library"],
             }
-            if key == "fwd":
+            if key == "fwd" and case["dtype"] == "bfloat16":
                 entry["launches_train"] = train_small["launches"]["small_mha_fwd"]
-            else:
+            if key == "bwd":
                 entry.update({
                     "library_fwd_bwd_ms": case["library_ms"]["fwd_bwd"],
                     "bit_identical_across_calls": case["k11_bit_identical_across_calls"],
@@ -4511,9 +4715,11 @@ def turn(checkout: Path, label: str) -> int:
     (``moe_dispatch``); ``block_grad_reduce``'s digests come with the K6
     chain's records; last, the fp32 ``vit_tiny`` p2 step
     (``tiny_fp32_step_times``, ``tiny_step_times`` fused and off) and
-    bucket-32 dispatch (``tiny_dispatch``), and the card's clocks and power
-    (``card_state``) at the start, before K10/K11 and K7-K9, before the fp32
-    step and at the end.  The summary splits every K5 and K6 case by stage.
+    bucket-32 dispatch (``tiny_dispatch``), then the fp32 ``vit_tiny`` step
+    at 64 tokens pinned to fused_small and under auto
+    (``small_fp32_step_times``), and the card's clocks and power
+    (``card_state``) at the start, before K10/K11 and K7-K9, before each
+    fp32 step and at the end.  The summary splits every K5 and K6 case by stage.
     Run parent, this tree, this tree, parent:
 
         python3 chip_smoke.py --turn PARENT_DIR parent
@@ -4542,7 +4748,7 @@ def turn(checkout: Path, label: str) -> int:
     csrc = checkout / PKG / "ops" / "csrc"
     _build.build_all()
     from distributed_training_comparison_tpu_torch.config import load_config
-    from distributed_training_comparison_tpu_torch.train import Trainer
+    from distributed_training_comparison_tpu_torch.train import Trainer, build_model
 
     fwd = kernel_checks(attn, csrc)
     hashes = flash_output_hashes(attn)
@@ -4581,6 +4787,13 @@ def turn(checkout: Path, label: str) -> int:
     torch.cuda.empty_cache()
     rec["tiny_step_times_fp32"] = tiny_step_times(argv=TRAIN_TINY_FP32_RUN_ARGV)
     rec["tiny_dispatch_fp32"] = tiny_dispatch(SERVE_TINY_FP32_ARGV)
+    # the fp32 vit_tiny step at 64 tokens pinned to fused_small (K10/K11 in fp32)
+    rec["card_before_small_fp32"] = card_state()
+    hp = load_config(TRAIN_SMALL_FP32_ARGV)
+    trainer = Trainer(hp, model=build_model(hp, attn_impl="fused_small"))
+    rec["small_fp32_step"] = small_fp32 = small_fp32_step_times(trainer, csrc=csrc)
+    del trainer
+    torch.cuda.empty_cache()
     rec["card_end"] = card_state()
     serve, train = rec["fused_block_checks"][0], rec["fused_block_bwd_checks"][0]
     step, disp = rec["tiny_step_times"], rec["tiny_dispatch"]["bucket32_profile"]
@@ -4589,7 +4802,8 @@ def turn(checkout: Path, label: str) -> int:
     split = long_fp32["step_profile"]["device_ms_per_step"]
     summary = {
         "turn": label, "nvidia_smi": smi,
-        "card": {k: rec[k] for k in ("card_start", "card_before_small_moe", "card_before_tiny_fp32", "card_end")},
+        "card": {k: rec[k] for k in ("card_start", "card_before_small_moe", "card_before_tiny_fp32",
+                                     "card_before_small_fp32", "card_end")},
         "k1_k2_ms": {c["case"]: c["ms"] for c in fwd},
         "k1_k2_bound_share": {c["case"]: c["bound_share"] for c in fwd},
         "k1_k2_atol_share_needed": {c["case"]: c["atol_share_needed"] for c in fwd},
@@ -4651,6 +4865,15 @@ def turn(checkout: Path, label: str) -> int:
         "bucket32_busy_ms": disp["device_busy_ms_per_batch"],
         "bucket32_idle_share": disp["device_idle_share"],
         "k10_k11_ms": {c["case"]: [c["ms"]["fwd"], c["ms"]["bwd"]] for c in rec["small_attention_checks"]},
+        "k10_k11_kernel_ms": {c["case"]: c["kernel_ms"] for c in rec["small_attention_checks"]},
+        "k10_k11_sdpa_ms": {c["case"]: [c["library_ms"]["fwd"], c["library_ms"]["bwd"]]
+                            for c in rec["small_attention_checks"]},
+        "k10_k11_atol_share_needed": {c["case"]: max(a["atol_share_needed"] for a in c["agreement"].values())
+                                      for c in rec["small_attention_checks"]},
+        "k10_k11_ok": {c["case"]: c["ok"] for c in rec["small_attention_checks"]},
+        "train_small_fp32": {name: {k: r[k] for k in (
+            "ms_per_step", "images_per_s_timed", "device_busy_ms_per_step", "device_idle_share",
+            "device_ms_per_step", "port_kernels")} for name, r in small_fp32.items()},
         "small_output_hashes": rec["small_output_hashes"],
         "k7_k8_k9_ms": {c["case"]: [c["ms"]["fwd"], c["ms"]["dx"], c["ms"]["dw"]] for c in rec["moe_gmm_checks"]},
         "k7_k8_k9_kernels": {c["case"]: c["kernels"] for c in rec["moe_gmm_checks"]},

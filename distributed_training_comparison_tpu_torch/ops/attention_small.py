@@ -32,6 +32,17 @@ items of at most ``ONE_TILE`` tokens (every shape the zoo sends here) run
 one ``wgmma`` kernel each way, the longer ones and fp32 a forward kernel and
 a backward pair that passes each query row's softmax statistics through an
 fp32 scratch.
+
+fp32 (``vit_tiny`` without ``--amp``, the default precision) runs every
+product on the tensor cores as three tf32 products (``csrc/tf32x3.cuh``:
+each operand split into a tf32 big and small part, fp32 accuracy), one
+warpgroup a block for 64 rows of an item and head.  At the train shape
+(B 256, S 64, 3 heads of 64) the kernels are bound by bytes (K10 50.3 MB,
+0.015 ms at 3.35 TB/s; K11 88.1 MB, 0.026 ms), so each block copies all of
+a tile's inputs at once and forms each product once: the forward's scores
+once with the softmax in registers, the dq kernel's S and dP once with
+each row's statistics taken from its registers, the dk/dv kernel's S^T and
+dP^T once from those statistics.
 """
 
 from __future__ import annotations
@@ -250,8 +261,12 @@ def small_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, seq: int
     in that layout.  On the card one CUDA kernel (:func:`kernel_symbols`):
     bf16 at S ≤ ``ONE_TILE`` ``attn_small_fwd_onetile``, one warpgroup per
     item and head; longer bf16 items ``attn_small_fwd_bf16`` and fp32
-    ``attn_small_fwd_f32``, a block per item, head and 64-query tile (32 in
-    fp32).  A CPU tensor takes :func:`small_mha_reference`.
+    ``attn_small_fwd_f32``, a block per item, head and 64-query tile.  The
+    fp32 kernel (3xTF32 ``wgmma``, replacing the TPU ``_fwd_kernel``) is
+    bound by bytes and forms the scores once: K as natural slots and V as
+    transposed ones, copied together, S = Q·Kᵀ, the softmax in registers
+    (online past one 64-key tile), O = P·V.  A CPU tensor takes
+    :func:`small_mha_reference`.
     ``small_mha_fwd.launches`` counts the kernel's launches."""
     from . import _build
 
@@ -290,6 +305,11 @@ def small_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.T
     launch two, ``attn_small_dq_*`` (dq and each query row's softmax
     statistics, into a scratch buffer) and then ``attn_small_dkv_*`` (dk
     and dv, reading them).  No atomics: each block owns its output rows.
+    In fp32 both are 3xTF32 ``wgmma`` kernels (replacing the TPU
+    ``_bwd_kernel``), bound by bytes: the dq kernel forms S and dP once and
+    at one key tile takes each row's max, sum and Σ dp·P from its registers
+    (past one, from a first pass over the tiles); the dk/dv kernel forms Sᵀ
+    and dPᵀ once for each 32-query tile and reads the statistics back.
     A CPU tensor takes :func:`small_mha_bwd_reference`.
     ``small_mha_bwd.launches`` counts the calls."""
     from . import _build

@@ -26,7 +26,8 @@
 // 64-key tile: vit_tiny and vit_small at 32 px and patch 4, every shape the
 // zoo sends to fused_small) run the one-tile kernels; bf16 items of S > 64
 // (tests and the smoke script's multi-tile case only) run the tiled
-// kernels; fp32 runs the SIMT kernels.  A rule on the shape, not a fallback.
+// kernels; fp32 runs the 3xTF32 kernels (below) at every S.  A rule on the
+// shape, not a fallback.
 //
 // What bounds the one-tile kernels (bf16, S 64, D 64, 3 heads): bytes.  The
 // forward reads q, k, v and writes o, 4 S D B H x 2 bytes against 4 S^2 D
@@ -67,10 +68,28 @@
 // The tiled bf16 kernels (S > 64) run on mma.sync m16n8k16: a block per
 // (item, head, 64-query tile) with an exact two-sweep softmax, the backward
 // as a dq kernel that writes each row's max, sum and delta to an fp32
-// scratch and a dk/dv kernel that reads them.  fp32 (vit_tiny without
-// --amp) runs on SIMT tiles with no TF32 and is bound by operations.
+// scratch and a dk/dv kernel that reads them.
+//
+// fp32 (vit_tiny without --amp, the default precision) runs every product
+// on the tensor cores as three tf32 products (tf32x3.cuh: x = big + small,
+// a.b = small.big + big.small + big.big, fp32 accuracy): the forward
+// attn_small_fwd_f32, then K11 as attn_small_dq_f32 (dq, and each query
+// row's max, sum and delta into the fp32 scratch) and attn_small_dkv_f32
+// (dk, dv from them), one warpgroup a block and 64 rows of an (item, head).
+// What bounds them at the train shape (B 256, S 64, 3 heads of 64): bytes.
+// The forward moves 50.3 MB (15.0 us at 3.35 TB/s) against 0.81 GFLOP, 4.9
+// us as 3xTF32 at 165 TFLOP/s; the backward 88.1 MB (26.3 us) against 2.0
+// GFLOP (12.2 us).  So each kernel reads its inputs once a block and forms
+// each product once: the forward S once (the softmax in registers, at one
+// tile with nothing to rescale), dq S and dP once with the row statistics
+// from the registers, dk/dv S^T and dP^T once from those statistics; and
+// the blocks stay small enough for two or three an SM to overlap one's
+// copies with another's products (the section's header below).
+// PR 6's SIMT kernels, which this replaces, formed the forward's scores
+// twice and the backward's four times with two shared loads an FMA.
 
 #include "attention_tiles.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -97,10 +116,10 @@ __device__ __forceinline__ uint32_t lds32(const bf16* p) {
 
 // row and column of accumulator element e of 8-wide tile n in this thread's
 // mma fragment, within the block's 64 rows (4 warps x 16)
-__device__ __forceinline__ int frag_row(int e) {
+__device__ __forceinline__ int mma_row(int e) {
   return (threadIdx.x / 32) * 16 + ((threadIdx.x % 32) >> 2) + 8 * (e >> 1);
 }
-__device__ __forceinline__ int frag_col(int n, int e) {
+__device__ __forceinline__ int mma_col(int n, int e) {
   return n * 8 + ((threadIdx.x % 32) & 3) * 2 + (e & 1);
 }
 
@@ -196,7 +215,7 @@ __device__ __forceinline__ void store_rows(bf16* g, const float (&acc)[D / 8][4]
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = m0 + frag_row(2 * i);
+    const int row = m0 + mma_row(2 * i);
     if (row >= p.seq) continue;
     bf16* r = g + static_cast<long long>(row) * p.ld + t * 2;
 #pragma unroll
@@ -257,7 +276,7 @@ __global__ void __launch_bounds__(kThreads) attn_small_fwd_bf16(const Params p) 
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        s[n][e] = visible(p, m0 + frag_row(e), n0 + frag_col(n, e)) ? s[n][e] * p.scale : kNegInf;
+        s[n][e] = visible(p, m0 + mma_row(e), n0 + mma_col(n, e)) ? s[n][e] * p.scale : kNegInf;
     }
   };
 
@@ -306,101 +325,6 @@ __global__ void __launch_bounds__(kThreads) attn_small_fwd_bf16(const Params p) 
   store_rows<D>(static_cast<bf16*>(p.o) + base, acc, m0, p);
 }
 
-constexpr int kFM = 32;  // fp32: rows (queries or keys) per block, 4 threads per row
-constexpr int kFN = 32;  // fp32: keys or queries per tile
-
-template <int D>
-constexpr int fwd_f32_smem() {
-  return (kFM * (D + 1) + 2 * kFN * (D + 1) + kFM * (kFN + 1)) * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) attn_small_fwd_f32(const Params p) {
-  constexpr int LD = D + 1;  // odd stride: a warp's 8 rows fall on distinct banks
-  constexpr int PER = kFN / 4, OUT = D / 4;
-  extern __shared__ float fsmem[];
-  float* qs = fsmem;
-  float* ks = qs + kFM * LD;
-  float* vs = ks + kFN * LD;
-  float* ps = vs + kFN * LD;
-  const int m0 = blockIdx.x * kFM, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, r = tid / 4, t = tid % 4;  // row of the tile, lane of its quad
-  const long long base = head_base(p, b, h, D);
-  const float* qg = static_cast<const float*>(p.q) + base;
-  const float* kg = static_cast<const float*>(p.k) + base;
-  const float* vg = static_cast<const float*>(p.v) + base;
-  const int kend = key_end(p, m0, kFM);
-
-  for (int c = tid; c < kFM * D; c += kThreads) {
-    const int rr = c / D, d = c % D;
-    qs[rr * LD + d] = m0 + rr < p.seq ? qg[static_cast<long long>(m0 + rr) * p.ld + d] : 0.f;
-  }
-  auto scores = [&](float (&s)[PER], int n0) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int c = t + 4 * i;
-      float x = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) x = fmaf(qs[r * LD + d], ks[c * LD + d], x);
-      s[i] = visible(p, m0 + r, n0 + c) ? x * p.scale : kNegInf;
-    }
-  };
-
-  // sweep 1: the row's max and sum of exp(s - max)
-  float mx = kNegInf, sum = 0.f;
-  for (int n0 = 0; n0 < kend; n0 += kFN) {
-    __syncthreads();
-    for (int c = tid; c < kFN * D; c += kThreads) {
-      const int rr = c / D, d = c % D;
-      ks[rr * LD + d] = n0 + rr < p.seq ? kg[static_cast<long long>(n0 + rr) * p.ld + d] : 0.f;
-    }
-    __syncthreads();
-    float s[PER];
-    scores(s, n0);
-    float m = mx;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) m = fmaxf(m, s[i]);
-    m = quad_max(m);
-    float add = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) add += expf(s[i] - m);
-    sum = sum * expf(mx - m) + add;
-    mx = m;
-  }
-  const float total = quad_sum(sum);
-
-  // sweep 2: P = exp(s - max) / sum, accumulated P.V
-  float acc[OUT];
-#pragma unroll
-  for (int i = 0; i < OUT; ++i) acc[i] = 0.f;
-  for (int n0 = 0; n0 < kend; n0 += kFN) {
-    __syncthreads();
-    for (int c = tid; c < kFN * D; c += kThreads) {
-      const int rr = c / D, d = c % D;
-      const bool ok = n0 + rr < p.seq;
-      const long long off = static_cast<long long>(n0 + rr) * p.ld + d;
-      ks[rr * LD + d] = ok ? kg[off] : 0.f;
-      vs[rr * LD + d] = ok ? vg[off] : 0.f;
-    }
-    __syncthreads();
-    float s[PER];
-    scores(s, n0);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) ps[r * (kFN + 1) + t + 4 * i] = expf(s[i] - mx) / total;
-    __syncwarp();  // a row's quad lives in one warp: its P row is visible now
-    for (int c = 0; c < kFN; ++c) {
-      const float pc = ps[r * (kFN + 1) + c];
-#pragma unroll
-      for (int i = 0; i < OUT; ++i) acc[i] = fmaf(pc, vs[c * LD + t + 4 * i], acc[i]);
-    }
-  }
-  if (m0 + r < p.seq) {
-    float* og = static_cast<float*>(p.o) + base + static_cast<long long>(m0 + r) * p.ld;
-#pragma unroll
-    for (int i = 0; i < OUT; ++i) og[t + 4 * i] = acc[i];
-  }
-}
-
 // ------------------------------------------------------------ K11 backward
 
 template <int D, int KN>
@@ -433,7 +357,7 @@ __global__ void __launch_bounds__(kThreads) attn_small_dq_bf16(const Params p) {
     for (int n = 0; n < NS; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        s[n][e] = visible(p, m0 + frag_row(e), n0 + frag_col(n, e)) ? s[n][e] * p.scale : kNegInf;
+        s[n][e] = visible(p, m0 + mma_row(e), n0 + mma_col(n, e)) ? s[n][e] * p.scale : kNegInf;
   };
 
   // sweep 1: each row's max and sum of exp(s - max), as the forward's
@@ -505,7 +429,7 @@ __global__ void __launch_bounds__(kThreads) attn_small_dq_bf16(const Params p) {
   if ((threadIdx.x & 3) == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int row = m0 + frag_row(2 * i);
+      const int row = m0 + mma_row(2 * i);
       if (row >= p.seq) continue;
       float* st = p.stats + ((static_cast<long long>(b) * p.seq + row) * p.heads + h) * 3;
       st[0] = mx[i];
@@ -556,8 +480,8 @@ __global__ void __launch_bounds__(kThreads) attn_small_dkv_bf16(const Params p) 
     for (int n = 0; n < NS; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int i = frag_col(n, e);
-        const bool seen = q0 + i < p.seq && visible(p, q0 + i, n0 + frag_row(e));
+        const int i = mma_col(n, e);
+        const bool seen = q0 + i < p.seq && visible(p, q0 + i, n0 + mma_row(e));
         const float pr = seen ? expf(s[n][e] * p.scale - st[3 * i]) / st[3 * i + 1] : 0.f;
         s[n][e] = pr;
         dp[n][e] = pr * (dp[n][e] - st[3 * i + 2]) * p.scale;
@@ -570,201 +494,473 @@ __global__ void __launch_bounds__(kThreads) attn_small_dkv_bf16(const Params p) 
   store_rows<D>(static_cast<bf16*>(p.dv) + base, dv, n0, p);
 }
 
+// ------------------------------------------------- fp32: 3xTF32 on wgmma
+//
+// One warpgroup a block owns 64 rows of one (item, head): query rows in
+// attn_small_fwd_f32 and attn_small_dq_f32, key rows in attn_small_dkv_f32.
+// Its own rows, the products' A operands (Q; Q and dO; K and V), land raw
+// in shared memory in the A-fragment order (4-byte cp.async, each thread
+// its own float4 a k-step) and are split a k-step at a time as they are
+// read.  The streamed operands land in tf32x3.cuh's 16 KB slots (big then
+// small, K-major under the 128-byte swizzle) by its slot_issue and are split
+// in place by slot_split: natural (D the depth) for the products over D,
+// transposed (the sequence the depth, in the fragments' order 0, 2, 4, 6,
+// 1, 3, 5, 7) for those over the sequence, whose A operands (P, dS and
+// their transposes) come from the accumulators through acc_frags.  There
+// is no producer warpgroup: at 64 tokens a block's keys are one tile, so a
+// block runs its copies, splits and products in series, and the blocks an
+// SM holds fill each other's gaps.  So the slots of the products over D
+// take the transposed operands once those products are done (copied while
+// the softmax runs), which keeps the forward and dk/dv kernels at 49 and 65
+// KB and at most 168 registers at head dim 64, three blocks an SM (the dq
+// kernel, 97 KB, runs two: its S and dP read K and V together).
+
+constexpr int kF32Rows = 64;     // rows a block: one warpgroup's wgmma M
+constexpr int kF32Keys = 64;     // keys a tile (forward, dq): wgmma N 64
+constexpr int kF32Queries = 32;  // queries a tile (dk/dv): wgmma N 32, Q and dO rows in one slot
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// dynamic shared memory: SLOTS slots, then OWN tensors of own rows (D / 8
+// k-steps of kFrag bytes each), then slack for the 1024-byte alignment
+template <int D, int SLOTS, int OWN>
+struct F32Layout {
+  static constexpr int kOwnAt = SLOTS * kSlotBytes;
+  static constexpr int kOwnTensor = D / 8 * kFrag;
+  static constexpr int kBytes = kOwnAt + OWN * kOwnTensor + 1024;
+};
 template <int D>
-constexpr int bwd_f32_smem() {
-  return (4 * kFM * (D + 1) + 2 * kFM * (kFN + 1) + kFN * 3) * 4;
+using FwdF32 = F32Layout<D, D / 32, 1>;  // K, then V^T; Q
+template <int D>
+using DqF32 = F32Layout<D, 2 * (D / 32), 2>;  // K, V (then K^T); Q, dO
+template <int D>
+using DkvF32 = F32Layout<D, D / 32, 2>;  // Q and dO, then dO^T and Q^T; K, V
+
+// this thread's A fragments of rows row0 and row0 + 8 of a (len, D) head
+// slice (row stride ld), raw, into its float4 of each k-step at `own`
+// (kFrag bytes a k-step); rows at or past len land as zeros.  Committed
+// with the next slot's group.
+template <int D>
+__device__ __forceinline__ void own_issue(uint32_t own, const float* g, long long ld, int row0, int len, int t) {
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + 8 * frag_row(e), col = 8 * ks + t + 4 * frag_col(e);
+      const bool in = row < len;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(own + ks * kFrag + 4 * e),
+                   "l"(g + (in ? row * ld + col : 0)), "r"(in ? 4 : 0)
+                   : "memory");
+    }
 }
 
-// fp32 dq and statistics: 32 query rows, a quad of threads per row
-template <int D>
-__global__ void __launch_bounds__(kThreads) attn_small_dq_f32(const Params p) {
-  constexpr int LD = D + 1, PER = kFN / 4, OUT = D / 4;
-  extern __shared__ float fsmem[];
-  float* qs = fsmem;
-  float* dos = qs + kFM * LD;
-  float* ks = dos + kFM * LD;
-  float* vs = ks + kFN * LD;
-  float* ps = vs + kFN * LD;
-  const int m0 = blockIdx.x * kFM, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, r = tid / 4, t = tid % 4;
-  const long long base = head_base(p, b, h, D);
-  const float* qg = static_cast<const float*>(p.q) + base;
-  const float* kg = static_cast<const float*>(p.k) + base;
-  const float* vg = static_cast<const float*>(p.v) + base;
-  const float* dog = static_cast<const float*>(p.dout) + base;
-  const int kend = key_end(p, m0, kFM);
-  for (int c = tid; c < kFM * D; c += kThreads) {
-    const int rr = c / D, d = c % D;
-    const bool ok = m0 + rr < p.seq;
-    const long long off = static_cast<long long>(m0 + rr) * p.ld + d;
-    qs[rr * LD + d] = ok ? qg[off] : 0.f;
-    dos[rr * LD + d] = ok ? dog[off] : 0.f;
-  }
-  auto load_kv = [&](int n0, bool with_v) {
-    __syncthreads();
-    for (int c = tid; c < kFN * D; c += kThreads) {
-      const int rr = c / D, d = c % D;
-      const bool ok = n0 + rr < p.seq;
-      const long long off = static_cast<long long>(n0 + rr) * p.ld + d;
-      ks[rr * LD + d] = ok ? kg[off] : 0.f;
-      if (with_v) vs[rr * LD + d] = ok ? vg[off] : 0.f;
+// wait for this thread's copies, split the landed slots (n_natural from
+// `natural`, n_trans from `trans`) in place, and make them visible to the
+// block's wgmma
+__device__ __forceinline__ void land_slots(unsigned char* natural, int n_natural, unsigned char* trans,
+                                           int n_trans, int tid) {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  for (int i = 0; i < n_natural; ++i) slot_split(natural + i * kSlotBytes, false, tid);
+  for (int i = 0; i < n_trans; ++i) slot_split(trans + i * kSlotBytes, true, tid);
+  fence_proxy_async();
+  __syncthreads();
+}
+
+// acc (64 x N, fresh) = own rows · rowsᵀ of the natural slots at `slots`
+// over D (D / 32 slots of 32 columns; N 32 reads 32 rows from `slots`, so
+// a caller offsets it by 32 rows for the others), the own k-steps split KK
+// at a time (a commit group each); with TWO, acc2 from own2 and slots2 in
+// the same commit groups
+template <int D, int N, bool TWO, int KK = 4>
+__device__ __forceinline__ void own_products(float* acc, const unsigned char* own, uint32_t slots, float* acc2,
+                                             const unsigned char* own2, uint32_t slots2) {
+#pragma unroll
+  for (int k0 = 0; k0 < D / 8; k0 += KK) {
+    uint32_t big[KK][4], small[KK][4], big2[KK][4], small2[KK][4];
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      split4(*reinterpret_cast<const float4*>(own + (k0 + kk) * kFrag), big[kk], small[kk]);
+      if constexpr (TWO) split4(*reinterpret_cast<const float4*>(own2 + (k0 + kk) * kFrag), big2[kk], small2[kk]);
     }
-    __syncthreads();
-  };
-  auto dots = [&](float (&s)[PER], const float* a, const float* bm) {
+    wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int c = t + 4 * i;
-      float x = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) x = fmaf(a[r * LD + d], bm[c * LD + d], x);
-      s[i] = x;
+    for (int kk = 0; kk < KK; ++kk) {
+      const int ks = k0 + kk, acc_in = ks > 0;  // k-step ks: 32 bytes into slot ks / 4
+      wgmma_3xtf32<N>(acc, big[kk], small[kk], slots + ks / 4 * kSlotBytes + ks % 4 * 32, acc_in);
+      if constexpr (TWO)
+        wgmma_3xtf32<N>(acc2, big2[kk], small2[kk], slots2 + ks / 4 * kSlotBytes + ks % 4 * 32, acc_in);
     }
-  };
-  auto scores = [&](float (&s)[PER], int n0) {
-    dots(s, qs, ks);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) s[i] = visible(p, m0 + r, n0 + t + 4 * i) ? s[i] * p.scale : kNegInf;
-  };
-  float mx = kNegInf, sum = 0.f;
-  for (int n0 = 0; n0 < kend; n0 += kFN) {
-    load_kv(n0, false);
-    float s[PER];
-    scores(s, n0);
-    float m = mx;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) m = fmaxf(m, s[i]);
-    m = quad_max(m);
-    float add = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) add += expf(s[i] - m);
-    sum = sum * expf(mx - m) + add;
-    mx = m;
-  }
-  const float total = quad_sum(sum);
-  auto probs = [&](float (&s)[PER], float (&dp)[PER], int n0) {
-    load_kv(n0, true);
-    scores(s, n0);
-    dots(dp, dos, vs);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) s[i] = expf(s[i] - mx) / total;
-  };
-  float dl = 0.f;
-  for (int n0 = 0; n0 < kend; n0 += kFN) {
-    float s[PER], dp[PER];
-    probs(s, dp, n0);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) dl += s[i] * dp[i];
-  }
-  const float delta = quad_sum(dl);
-  float acc[OUT];
-#pragma unroll
-  for (int i = 0; i < OUT; ++i) acc[i] = 0.f;
-  for (int n0 = 0; n0 < kend; n0 += kFN) {
-    float s[PER], dp[PER];
-    probs(s, dp, n0);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) ps[r * (kFN + 1) + t + 4 * i] = s[i] * (dp[i] - delta) * p.scale;
-    __syncwarp();  // a row's quad lives in one warp
-    for (int c = 0; c < kFN; ++c) {
-      const float pc = ps[r * (kFN + 1) + c];
-#pragma unroll
-      for (int i = 0; i < OUT; ++i) acc[i] = fmaf(pc, ks[c * LD + t + 4 * i], acc[i]);
-    }
-    __syncwarp();
-  }
-  if (m0 + r < p.seq) {
-    const long long row = static_cast<long long>(b) * p.seq + m0 + r;
-    float* dq = static_cast<float*>(p.o) + base + static_cast<long long>(m0 + r) * p.ld;
-#pragma unroll
-    for (int i = 0; i < OUT; ++i) dq[t + 4 * i] = acc[i];
-    if (t == 0) {
-      float* st = p.stats + (row * p.heads + h) * 3;
-      st[0] = mx;
-      st[1] = total;
-      st[2] = delta;
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<N / 2>(acc);
+    fence_regs<4 * KK>(&big[0][0]);
+    fence_regs<4 * KK>(&small[0][0]);
+    if constexpr (TWO) {
+      fence_regs<N / 2>(acc2);
+      fence_regs<4 * KK>(&big2[0][0]);
+      fence_regs<4 * KK>(&small2[0][0]);
     }
   }
 }
 
-// fp32 dk and dv: 32 keys, a quad of threads per key, walking query tiles
-template <int D>
-__global__ void __launch_bounds__(kThreads) attn_small_dkv_f32(const Params p) {
-  constexpr int LD = D + 1, PER = kFN / 4, OUT = D / 4;
-  extern __shared__ float fsmem[];
-  float* ks = fsmem;
-  float* vs = ks + kFM * LD;
-  float* qs = vs + kFM * LD;
-  float* dos = qs + kFN * LD;
-  float* ps = dos + kFN * LD;
-  float* dss = ps + kFM * (kFN + 1);
-  float* st = dss + kFM * (kFN + 1);
-  const int n0 = blockIdx.x * kFM, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, r = tid / 4, t = tid % 4;
-  const long long base = head_base(p, b, h, D);
-  const float* qg = static_cast<const float*>(p.q) + base;
-  const float* kg = static_cast<const float*>(p.k) + base;
-  const float* vg = static_cast<const float*>(p.v) + base;
-  const float* dog = static_cast<const float*>(p.dout) + base;
-  const float* stats = p.stats + static_cast<long long>(b) * p.seq * p.heads * 3 + h * 3;
-  for (int c = tid; c < kFM * D; c += kThreads) {
-    const int rr = c / D, d = c % D;
-    const bool ok = n0 + rr < p.seq;
-    const long long off = static_cast<long long>(n0 + rr) * p.ld + d;
-    ks[rr * LD + d] = ok ? kg[off] : 0.f;
-    vs[rr * LD + d] = ok ? vg[off] : 0.f;
-  }
-  float dk[OUT], dv[OUT];
+// acc[hh] (columns 64·hh .. of D) += A · the transposed slots at `slots`,
+// A the fragments of K8 k-steps (8·K8 of the sequence), K8 / 4 slots a
+// column block, column block major.  The tensor cores round each
+// accumulation toward zero, so a call's products go to a fresh accumulator
+// added to acc in fp32 (tf32x3.cuh's sums, without the ring).
+template <int D, int K8>
+__device__ __forceinline__ void trans_sums(float (*acc)[32], uint32_t (*big)[4], uint32_t (*small)[4],
+                                           uint32_t slots) {
 #pragma unroll
-  for (int i = 0; i < OUT; ++i) dk[i] = dv[i] = 0.f;
+  for (int hh = 0; hh < D / 64; ++hh) {
+    float part[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < K8 / 4; ++kc)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_3xtf32<64>(part, big[4 * kc + kk], small[4 * kc + kk],
+                         slots + (hh * (K8 / 4) + kc) * kSlotBytes + kk * 32, kc > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<32>(part);
+    fence_regs<4 * K8>(&big[0][0]);
+    fence_regs<4 * K8>(&small[0][0]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[hh][i] += part[i];
+  }
+}
+
+// s (this thread's 32 accumulator scores of query rows row0 and row0 + 8
+// against the keys from n0) times scale·log2e, keys the rows do not see at
+// -1e30
+__device__ __forceinline__ void mask_scores(float (&s)[32], const Params& p, int row0, int n0, int t, float sl2) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[4 * n + e] = visible(p, row0 + 8 * (e >> 1), n0 + 8 * n + 2 * t + (e & 1)) ? s[4 * n + e] * sl2 : kNegInf;
+}
+
+// the largest of a row's scores (i 0: row0, 1: row0 + 8), over its quad
+__device__ __forceinline__ float row_max(const float (&s)[32], int i) {
+  float mx = kNegInf;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) mx = fmaxf(mx, fmaxf(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]));
+  return quad_max(mx);
+}
+
+// K10 in fp32: a block per 64 query rows of one (item, head).  Per 64-key
+// tile (one at S <= 64): K as D / 32 natural slots, S = Q.K^T once; then
+// the same slots take V as 2 · D / 64 transposed ones while the softmax
+// runs online in registers (at one tile: the row max and sum, nothing to
+// rescale); O += P.V in a fresh accumulator a tile.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1) attn_small_fwd_f32(const Params p) {
+  using L = FwdF32<D>;
+  constexpr int KS = D / 32;  // K's natural slots; V^T takes as many (2 key chunks a column block)
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
+  unsigned char* const sbase = smem_raw + (base - raw);
+  const int m0 = blockIdx.x * kF32Rows, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int g = (tid % 32) >> 2, t = tid & 3, row0 = m0 + 16 * (tid / 32) + g;
+  const long long hb = head_base(p, b, h, D);
+  const float* kg = static_cast<const float*>(p.k) + hb;
+  const float* vg = static_cast<const float*>(p.v) + hb;
+  const unsigned char* own = sbase + L::kOwnAt + tid * 16;
+  own_issue<D>(base + L::kOwnAt + tid * 16, static_cast<const float*>(p.q) + hb, p.ld, row0, p.seq, t);
+  const int nk = (key_end(p, m0, kF32Rows) + kF32Keys - 1) / kF32Keys;
+  const float sl2 = p.scale * kLog2e;
+
+  float o[D / 64][32];
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[hh][i] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};  // in units of scale·log2e
+  float l_run[2] = {0.f, 0.f};          // this thread's share of the row sum
+  for (int j = 0; j < nk; ++j) {
+    const int n0 = j * kF32Keys;
+    if (j > 0) __syncthreads();  // every warp's products are done with the last tile's slots
+#pragma unroll
+    for (int cc = 0; cc < KS; ++cc)
+      slot_issue<kSlotRows>(base + cc * kSlotBytes, SlotSrc{kg, kg, p.ld, p.ld, n0, p.seq, 32 * cc, false}, tid);
+    land_slots(sbase, KS, nullptr, 0, tid);
+
+    float s[32];
+    own_products<D, 64, false>(s, own, base, nullptr, nullptr, 0);
+    __syncthreads();  // every warp's S is done with K: its slots take V^T
+#pragma unroll
+    for (int i = 0; i < KS; ++i)
+      slot_issue<kSlotRows>(base + i * kSlotBytes,
+                            SlotSrc{vg, vg, p.ld, p.ld, n0 + 32 * (i % 2), p.seq, 64 * (i / 2), true}, tid);
+    mask_scores(s, p, row0, n0, t, sl2);
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m_run[i], row_max(s, i));
+      alpha[i] = exp2f(m_run[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * n + 2 * i + e];
+          x = exp2f(x - m_new);
+          sum += x;
+        }
+      l_run[i] = l_run[i] * alpha[i] + sum;
+      m_run[i] = m_new;
+    }
+#pragma unroll
+    for (int hh = 0; hh < D / 64; ++hh)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[hh][i] *= alpha[(i >> 1) & 1];
+    uint32_t big[kF32Keys / 8][4], small[kF32Keys / 8][4];
+    acc_frags<kF32Keys / 8>(big, small, s);
+    land_slots(nullptr, 0, sbase, KS, tid);
+    trans_sums<D, kF32Keys / 8>(o, big, small, base);
+  }
+
+  float* og = static_cast<float*>(p.o) + hb;
+  const float inv[2] = {1.f / quad_sum(l_run[0]), 1.f / quad_sum(l_run[1])};
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[hh][i] *= inv[(i >> 1) & 1];
+    store_f32(og, p.ld, row0, p.seq, 64 * hh, o[hh], t);
+  }
+}
+
+// K11's dq in fp32, and each query row's statistics: a block per 64 query
+// rows of one (item, head).  Per 64-key tile, K and V as natural slots:
+// S = Q.K^T and dP = dO.V^T once each, in one commit group a slot.  At one
+// tile (S <= 64) the row's max and sum, P = e / sum, delta = sum_j P dP and
+// dS = P (dP - delta) scale come from the registers; past one tile a first
+// pass over the key tiles gathers the statistics online.  Once dP is done
+// the V slots take K transposed (copied while the softmax runs) for
+// dQ += dS.K, a fresh accumulator a tile.  Each row's max (of scale·S),
+// sum and delta go to the scratch.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) attn_small_dq_f32(const Params p) {
+  using L = DqF32<D>;
+  constexpr int KS = D / 32;  // natural slots of a tensor; K^T takes as many (2 key chunks a column block)
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
+  unsigned char* const sbase = smem_raw + (base - raw);
+  const uint32_t k_at = base, v_at = base + KS * kSlotBytes;  // v_at: V, then K^T
+  const int m0 = blockIdx.x * kF32Rows, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int g = (tid % 32) >> 2, t = tid & 3, row0 = m0 + 16 * (tid / 32) + g;
+  const long long hb = head_base(p, b, h, D);
+  const float* kg = static_cast<const float*>(p.k) + hb;
+  const float* vg = static_cast<const float*>(p.v) + hb;
+  const unsigned char* own_q = sbase + L::kOwnAt + tid * 16;
+  const unsigned char* own_do = own_q + L::kOwnTensor;
+  own_issue<D>(base + L::kOwnAt + tid * 16, static_cast<const float*>(p.q) + hb, p.ld, row0, p.seq, t);
+  own_issue<D>(base + L::kOwnAt + L::kOwnTensor + tid * 16, static_cast<const float*>(p.dout) + hb, p.ld, row0,
+               p.seq, t);
+  const int nk = (key_end(p, m0, kF32Rows) + kF32Keys - 1) / kF32Keys;
+  const float sl2 = p.scale * kLog2e;
+
+  // the key tile at n0: K and V into natural slots, S (scaled by log2e,
+  // masked) and dP
+  auto scores_dp = [&](float (&s)[32], float (&dp)[32], int n0) {
+#pragma unroll
+    for (int cc = 0; cc < KS; ++cc) {
+      slot_issue<kSlotRows>(k_at + cc * kSlotBytes, SlotSrc{kg, kg, p.ld, p.ld, n0, p.seq, 32 * cc, false}, tid);
+      slot_issue<kSlotRows>(v_at + cc * kSlotBytes, SlotSrc{vg, vg, p.ld, p.ld, n0, p.seq, 32 * cc, false}, tid);
+    }
+    land_slots(sbase, 2 * KS, nullptr, 0, tid);
+    own_products<D, 64, true>(s, own_q, k_at, dp, own_do, v_at);
+    mask_scores(s, p, row0, n0, t, sl2);
+  };
+
+  // per row: its max of S in units of scale·log2e, its sum of exp2(s - max), delta
+  float m2[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+  if (nk > 1) {  // the statistics pass: online over the key tiles
+    float w_run[2] = {0.f, 0.f};
+    for (int j = 0; j < nk; ++j) {
+      if (j > 0) __syncthreads();
+      float s[32], dp[32];
+      scores_dp(s, dp, j * kF32Keys);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m2[i], row_max(s, i));
+        const float alpha = exp2f(m2[i] - m_new);
+        float l = 0.f, w = 0.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = 4 * n + 2 * i + e;
+            const float pr = exp2f(s[k] - m_new);
+            l += pr;
+            w += pr * dp[k];
+          }
+        sum[i] = sum[i] * alpha + l;
+        w_run[i] = w_run[i] * alpha + w;
+        m2[i] = m_new;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] = quad_sum(sum[i]);
+      delta[i] = quad_sum(w_run[i]) / sum[i];
+    }
+    __syncthreads();  // the second pass's copies take the slots
+  }
+
+  float dq[D / 64][32];
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[hh][i] = 0.f;
+  for (int j = 0; j < nk; ++j) {
+    const int n0 = j * kF32Keys;
+    if (j > 0) __syncthreads();
+    float s[32], dp[32];
+    scores_dp(s, dp, n0);
+    __syncthreads();  // every warp's dP is done with V: its slots take K^T
+#pragma unroll
+    for (int i = 0; i < KS; ++i)
+      slot_issue<kSlotRows>(v_at + i * kSlotBytes,
+                            SlotSrc{kg, kg, p.ld, p.ld, n0 + 32 * (i % 2), p.seq, 64 * (i / 2), true}, tid);
+    // P = e / sum and dS = P (dP - delta) scale into dp, while K^T lands
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (nk == 1) m2[i] = row_max(s, i);
+      float l = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * n + 2 * i + e];
+          x = exp2f(x - m2[i]);
+          l += x;
+        }
+      if (nk == 1) sum[i] = quad_sum(l);
+      const float inv = 1.f / sum[i];
+      float w = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = 4 * n + 2 * i + e;
+          s[k] *= inv;
+          w += s[k] * dp[k];
+        }
+      if (nk == 1) delta[i] = quad_sum(w);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = 4 * n + 2 * i + e;
+          dp[k] = s[k] * (dp[k] - delta[i]) * p.scale;
+        }
+    }
+    land_slots(nullptr, 0, sbase + KS * kSlotBytes, KS, tid);
+    uint32_t big[kF32Keys / 8][4], small[kF32Keys / 8][4];
+    acc_frags<kF32Keys / 8>(big, small, dp);
+    trans_sums<D, kF32Keys / 8>(dq, big, small, v_at);
+  }
+
+  float* dqg = static_cast<float*>(p.o) + hb;
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh) store_f32(dqg, p.ld, row0, p.seq, 64 * hh, dq[hh], t);
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= p.seq) continue;
+      float* st = p.stats + ((static_cast<long long>(b) * p.seq + row) * p.heads + h) * 3;
+      st[0] = m2[i] * kLn2;
+      st[1] = sum[i];
+      st[2] = delta[i];
+    }
+  }
+}
+
+// K11's dk and dv in fp32: a block per 64 keys of one (item, head), walking
+// 32-query tiles (under causal from the block's first key).  A tile's Q and
+// dO rows share D / 32 natural slots (32 rows each) for S^T = K.Q^T and
+// dP^T = V.dO^T, each formed once; once those are done the same slots take
+// dO^T and Q^T (D / 64 transposed slots each, copied while P^T and dS^T are
+// formed by column from the scratch) for dV += P^T.dO and dK += dS^T.Q,
+// fresh accumulators a tile.  Reusing the slots, and splitting the own
+// rows two k-steps a commit group, keeps a block at 65 KB and at most 168
+// registers at head dim 64: three blocks an SM.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1) attn_small_dkv_f32(const Params p) {
+  using L = DkvF32<D>;
+  constexpr int QN = kF32Queries, KS = D / 32, TS = D / 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
+  unsigned char* const sbase = smem_raw + (base - raw);
+  const int n0 = blockIdx.x * kF32Rows, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int g = (tid % 32) >> 2, t = tid & 3, key0 = n0 + 16 * (tid / 32) + g;
+  const long long hb = head_base(p, b, h, D);
+  const float* qg = static_cast<const float*>(p.q) + hb;
+  const float* dog = static_cast<const float*>(p.dout) + hb;
+  const unsigned char* own_k = sbase + L::kOwnAt + tid * 16;
+  const unsigned char* own_v = own_k + L::kOwnTensor;
+  own_issue<D>(base + L::kOwnAt + tid * 16, static_cast<const float*>(p.k) + hb, p.ld, key0, p.seq, t);
+  own_issue<D>(base + L::kOwnAt + L::kOwnTensor + tid * 16, static_cast<const float*>(p.v) + hb, p.ld, key0,
+               p.seq, t);
+  const float* stats = p.stats + (static_cast<long long>(b) * p.seq * p.heads + h) * 3;
+
+  float dk[D / 64][32], dv[D / 64][32];
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[hh][i] = dv[hh][i] = 0.f;
   // under causal no query before this block's first key sees any of its keys
-  for (int q0 = p.causal ? n0 / kFN * kFN : 0; q0 < p.seq; q0 += kFN) {
-    __syncthreads();
-    for (int c = tid; c < kFN * D; c += kThreads) {
-      const int rr = c / D, d = c % D;
-      const bool ok = q0 + rr < p.seq;
-      const long long off = static_cast<long long>(q0 + rr) * p.ld + d;
-      qs[rr * LD + d] = ok ? qg[off] : 0.f;
-      dos[rr * LD + d] = ok ? dog[off] : 0.f;
-    }
-    for (int i = tid; i < kFN * 3; i += kThreads) {
-      const int rr = i / 3;
-      st[i] = q0 + rr < p.seq ? stats[static_cast<long long>(q0 + rr) * p.heads * 3 + i % 3] : 1.f;
-    }
-    __syncthreads();
+  const int q_first = p.causal ? n0 : 0;
+  for (int q0 = q_first; q0 < p.seq; q0 += QN) {
+    if (q0 > q_first) __syncthreads();  // every warp is done with the last tile's slots
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int c = t + 4 * i;
-      float s = 0.f, dp = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(ks[r * LD + d], qs[c * LD + d], s);
-        dp = fmaf(vs[r * LD + d], dos[c * LD + d], dp);
-      }
-      const bool seen = q0 + c < p.seq && visible(p, q0 + c, n0 + r);
-      const float pr = seen ? expf(s * p.scale - st[3 * c]) / st[3 * c + 1] : 0.f;
-      ps[r * (kFN + 1) + c] = pr;
-      dss[r * (kFN + 1) + c] = pr * (dp - st[3 * c + 2]) * p.scale;
-    }
-    __syncwarp();
-    for (int c = 0; c < kFN; ++c) {
-      const float pc = ps[r * (kFN + 1) + c], dc = dss[r * (kFN + 1) + c];
+    for (int cc = 0; cc < KS; ++cc)
+      slot_issue<QN>(base + cc * kSlotBytes, SlotSrc{qg, dog, p.ld, p.ld, q0, p.seq, 32 * cc, false}, tid);
+    land_slots(sbase, KS, nullptr, 0, tid);
+    float s[QN / 2], dp[QN / 2];
+    own_products<D, QN, true, 2>(s, own_k, base, dp, own_v, base + QN * 128);  // 2 k-steps a group: registers
+    __syncthreads();  // every warp's products are done with the natural slots: they take dO^T, Q^T
 #pragma unroll
-      for (int i = 0; i < OUT; ++i) {
-        dv[i] = fmaf(pc, dos[c * LD + t + 4 * i], dv[i]);
-        dk[i] = fmaf(dc, qs[c * LD + t + 4 * i], dk[i]);
-      }
+    for (int hh = 0; hh < TS; ++hh) {
+      slot_issue<QN>(base + hh * kSlotBytes, SlotSrc{dog, dog, p.ld, p.ld, q0, p.seq, 64 * hh, true}, tid);
+      slot_issue<QN>(base + (TS + hh) * kSlotBytes, SlotSrc{qg, qg, p.ld, p.ld, q0, p.seq, 64 * hh, true}, tid);
     }
+    // P^T into s and dS^T into dp, the statistics by the accumulator's column (query)
+#pragma unroll
+    for (int n = 0; n < QN / 8; ++n)
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int q = q0 + 8 * n + 2 * t + e2;
+        const bool in = q < p.seq;
+        const float* st = stats + static_cast<long long>(in ? q : 0) * p.heads * 3;
+        const float lse = in ? st[0] + logf(st[1]) : 0.f, delta = in ? st[2] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 4 * n + 2 * i + e2;
+          const bool seen = in && (!p.causal || key0 + 8 * i <= q);
+          const float pr = seen ? expf(fmaf(s[e], p.scale, -lse)) : 0.f;
+          s[e] = pr;
+          dp[e] = pr * (dp[e] - delta) * p.scale;
+        }
+      }
+    land_slots(nullptr, 0, sbase, 2 * TS, tid);
+    uint32_t big[QN / 8][4], small[QN / 8][4];
+    acc_frags<QN / 8>(big, small, s);
+    trans_sums<D, QN / 8>(dv, big, small, base);
+    acc_frags<QN / 8>(big, small, dp);
+    trans_sums<D, QN / 8>(dk, big, small, base + TS * kSlotBytes);
   }
-  if (n0 + r < p.seq) {
-    const long long off = base + static_cast<long long>(n0 + r) * p.ld;
-    float* kr = static_cast<float*>(p.dk) + off;
-    float* vr = static_cast<float*>(p.dv) + off;
+
+  float* dkg = static_cast<float*>(p.dk) + hb;
+  float* dvg = static_cast<float*>(p.dv) + hb;
 #pragma unroll
-    for (int i = 0; i < OUT; ++i) {
-      kr[t + 4 * i] = dk[i];
-      vr[t + 4 * i] = dv[i];
-    }
+  for (int hh = 0; hh < D / 64; ++hh) {
+    store_f32(dkg, p.ld, key0, p.seq, 64 * hh, dk[hh], t);
+    store_f32(dvg, p.ld, key0, p.seq, 64 * hh, dv[hh], t);
   }
 }
 
@@ -927,8 +1123,8 @@ cudaError_t launch_fwd(const Params& p, int batch, int is_bf16, cudaStream_t s) 
     const dim3 grid((p.seq + kTile - 1) / kTile, p.heads, batch);
     return launch(attn_small_fwd_bf16<D>, grid, fwd_bf16_smem<D>(), s, p);
   }
-  const dim3 grid((p.seq + kFM - 1) / kFM, p.heads, batch);
-  return launch(attn_small_fwd_f32<D>, grid, fwd_f32_smem<D>(), s, p);
+  const dim3 grid((p.seq + kF32Rows - 1) / kF32Rows, p.heads, batch);
+  return launch(attn_small_fwd_f32<D>, grid, FwdF32<D>::kBytes, s, p);
 }
 
 template <int D>
@@ -943,10 +1139,10 @@ cudaError_t launch_bwd(const Params& p, int batch, int is_bf16, cudaStream_t s) 
     if (err != cudaSuccess) return err;
     return launch(attn_small_dkv_bf16<D, KN>, grid, bwd_bf16_smem<D, KN>(), s, p);
   }
-  const dim3 grid((p.seq + kFM - 1) / kFM, p.heads, batch);
-  cudaError_t err = launch(attn_small_dq_f32<D>, grid, bwd_f32_smem<D>(), s, p);
+  const dim3 grid((p.seq + kF32Rows - 1) / kF32Rows, p.heads, batch);
+  cudaError_t err = launch(attn_small_dq_f32<D>, grid, DqF32<D>::kBytes, s, p);
   if (err != cudaSuccess) return err;
-  return launch(attn_small_dkv_f32<D>, grid, bwd_f32_smem<D>(), s, p);
+  return launch(attn_small_dkv_f32<D>, grid, DkvF32<D>::kBytes, s, p);
 }
 
 }  // namespace

@@ -1297,3 +1297,99 @@ def test_fp32_chains_keep_a_nan(cuda_device, bits):
     for name, w in want.items():
         assert torch.equal(torch.isnan(got[name]), torch.isnan(w)), name
         assert bool(torch.isfinite(got[name][~torch.isnan(w)]).all()), name
+
+
+# ------------------------------- the short-sequence attention's fp32 kernels (3xTF32)
+
+# (B, S, H, D, causal) of the fp32 K10/K11 cases chip_smoke.py checks:
+# vit_tiny's train batch and serve bucket at 64 tokens, a ragged causal
+# one-tile item, one tile at head dim 128, a causal multi-tile item; and a
+# ragged S of 40 without the mask, several query tiles at head dim 64
+F32_SMALL_CASES = [
+    (256, 64, 3, 64, False),
+    (32, 64, 3, 64, False),
+    (6, 24, 2, 64, True),
+    (8, 64, 2, 128, True),
+    (4, 256, 2, 128, True),
+    (6, 40, 3, 64, False),
+    (3, 192, 2, 64, True),
+]
+SMALL_F32_SYMBOLS = {"attn_small_fwd_f32", "attn_small_dq_f32", "attn_small_dkv_f32"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,d,causal", F32_SMALL_CASES)
+def test_fp32_small_mha_kernels_match_plain_on_card(cuda_device, b, s, h, d, causal):
+    """The 3xTF32 K10 and K11 against ``small_mha_reference`` and
+    ``small_mha_bwd_reference`` per row within 2^-10 of the row's rms,
+    rtol 0 (chip_smoke.py's fp32 bound: the split keeps fp32 accuracy, so
+    the two differ by summation order and exp rounding)."""
+    gen = torch.Generator().manual_seed(7 * s + d + b)
+    q, k, v, do = _packed_qkvdo(gen, b, s, h, d, torch.float32, cuda_device)
+    kw = dict(seq=s, heads=h, causal=causal)
+    out = small.small_mha_fwd(q, k, v, **kw)
+    grads = small.small_mha_bwd(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    unpack = [x.view(b, s, h, d) for x in (q, k, v, do)]
+    want = [small.small_mha_reference(*unpack[:3], causal=causal),
+            *small.small_mha_bwd_reference(*unpack, causal=causal)]
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), (out, *grads), want):
+        assert got.dtype == torch.float32 and got.shape == q.shape, name
+        assert bool(torch.isfinite(got).all()), name
+        assert _row_share(got.view(b, s, h, d), ref, 0.0) <= 2**-10, (name, _row_share(got.view(b, s, h, d), ref, 0.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_fp32_small_mha_backward_is_bitwise_deterministic(cuda_device, causal):
+    """The fp32 K11 (no atomics, every sum in a fixed order): two calls
+    give bit-identical dq, dk and dv."""
+    gen = torch.Generator().manual_seed(9)
+    q, k, v, do = _packed_qkvdo(gen, 64, 64, 3, 64, torch.float32, cuda_device)
+    first = small.small_mha_bwd(q, k, v, do, seq=64, heads=3, causal=causal)
+    second = small.small_mha_bwd(q, k, v, do, seq=64, heads=3, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["q", "v", "do"])
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, 0xFFFFFFFF, 0x7F800001], ids=hex)
+def test_fp32_small_mha_keeps_a_nan(cuda_device, where, bits):
+    """A NaN in one element of q, v or dO (the card's canonical NaN, a
+    negative one, a signalling one) reaches K10's output and K11's
+    gradients exactly where it reaches the plain versions', and nothing
+    else turns NaN (the 3xTF32 split keeps it a NaN)."""
+    gen = torch.Generator().manual_seed(19)
+    b, s, h, d = 4, 64, 3, 64
+    tensors = dict(zip(("q", "k", "v", "do"), _packed_qkvdo(gen, b, s, h, d, torch.float32, cuda_device)))
+    tensors[where].view(torch.int32)[64 + 20, 64 + 17] = bits - (1 << 32) if bits >> 31 else bits
+    q, k, v, do = tensors.values()
+    got = [small.small_mha_fwd(q, k, v, seq=s, heads=h), *small.small_mha_bwd(q, k, v, do, seq=s, heads=h)]
+    torch.cuda.synchronize()
+    unpack = [x.view(b, s, h, d) for x in (q, k, v, do)]
+    want = [small.small_mha_reference(*unpack[:3]), *small.small_mha_bwd_reference(*unpack)]
+    assert any(bool(torch.isnan(w).any()) for w in want)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        g = g.view(b, s, h, d)
+        assert torch.equal(torch.isnan(g), torch.isnan(w)), name
+        assert bool(torch.isfinite(g[~torch.isnan(w)]).all()), name
+
+
+@pytest.mark.gpu
+def test_fp32_small_mha_runs_the_three_f32_kernels_by_symbol(cuda_device):
+    """An fp32 forward and backward at the vit_tiny serve shape launch, by
+    symbol under the profiler, ``attn_small_fwd_f32``, ``attn_small_dq_f32``
+    and ``attn_small_dkv_f32``, and no other kernel of the port."""
+    gen = torch.Generator().manual_seed(21)
+    q, k, v, do = _packed_qkvdo(gen, 32, 64, 3, 64, torch.float32, cuda_device)
+    assert set(small.kernel_symbols(torch.float32, 64)["fwd"] + small.kernel_symbols(torch.float32, 64)["bwd"]) \
+        == SMALL_F32_SYMBOLS
+    small.small_mha_bwd(q, k, v, do, seq=64, heads=3)  # warm: the library built and loaded
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        small.small_mha_fwd(q, k, v, seq=64, heads=3)
+        small.small_mha_bwd(q, k, v, do, seq=64, heads=3)
+        torch.cuda.synchronize()
+    symbol = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)[<(]")
+    ours = {m.group(1) for e in prof.key_averages() if (m := symbol.match(e.key))}
+    assert ours == SMALL_F32_SYMBOLS, sorted(ours)
