@@ -11,7 +11,8 @@ last line:
 2. build   — compiles every CUDA library of the port from ``ops/csrc/``,
              one ``nvcc`` per source, all started together, and reports
              the registers and spills of the flash forward's and
-             backward's kernels, of the short-sequence attention's and of
+             backward's kernels, of the short-sequence attention's (the
+             one-tile, tiled bf16 and 3xTF32 kernels) and of
              the fused block chains' bf16 GEMMs (``block_gemm_wgmma``,
              ``dgrad_wgmma``, ``wgrad_wgmma``) and attention kernels
              (``block_attn_wgmma``, ``attn_dq_wgmma``, ``attn_dkv_wgmma``),
@@ -22,7 +23,7 @@ last line:
              of the grouped expert FFN's bf16 kernels
              (``moe_ffn_fwd_wgmma``, ``moe_ffn_dx_wgmma``,
              ``moe_ffn_dw_wgmma``) (``ptxas -v``; a
-             bf16 flash kernel, a one-tile kernel, a fused block GEMM or
+             bf16 flash kernel, a short-sequence kernel, a fused block GEMM or
              attention kernel (bf16 or fp32) or an expert FFN kernel that
              spills fails the run) and each such kernel's dynamic shared memory at the
              main paths' shapes;
@@ -181,7 +182,11 @@ last line:
              versions at the serve shape (bf16, B 32, S 64, 3 heads of 64),
              the train shape (bf16 and fp32, B 256), a ragged causal case
              (S 24), one tile at head dim 128 (causal), a ragged one-tile
-             case (S 40) and a causal multi-tile case (S 256, head dim 128):
+             case (S 40), a causal multi-tile case (S 256, head dim 128),
+             ``vit_small --patch-size 2``'s serve and train shapes (bf16,
+             B 32 and 128, S 256, 6 heads of 64: the tiled wgmma kernels)
+             and a causal S of 328 at head dims 64 and 128 (past the keys a
+             block holds: two sweeps):
              each output and gradient per row, K11 bit-identical across two
              calls, two planted faults rejected (the last keys left out of
              K10, a dk row block dropped from K11), the kernels each call
@@ -207,6 +212,30 @@ last line:
              against the reference attention and the plain kernels (bf16,
              fp32) with a bound a planted fault exceeds; ms per step under
              fused_small and auto, and step profiles;
+   train_small_fp32 — the same model at the default precision (fp32),
+             batch 256, 3 steps and one eval batch: the 3xTF32 K10/K11
+             alone by symbol, ms per step, busy and idle shares;
+   serve_vits_p2 — ``vit_small --patch-size 2 --amp`` (12 blocks, dim 384,
+             6 heads of 64, 256 tokens) pinned to ``fused_small`` and served
+             the same way, buckets 1..32, 128 requests at concurrency 32: K10
+             in every block of every dispatched batch and no other kernel
+             (counters, and by symbol in the bucket-32 profile:
+             ``attn_small_fwd_bf16`` alone); the bucket-32 logits against
+             ``attn_impl="reference"`` within 2^-6 of the largest, which a
+             planted K10 fault (the last 64 keys' values zeroed) exceeds; a
+             bucket-32 dispatch timed under fused_small and auto, profiled;
+   train_vits_p2 — the same model trained at batch 128 through
+             ``Trainer(hparams, model=build_model(hparams,
+             attn_impl="fused_small"))``, 6 steps and one eval batch: K10 in
+             every block of every step and eval batch, K11 in every block of
+             every step, no other kernel (counters, and by symbol in the
+             step profile: ``attn_small_fwd_bf16``, ``attn_small_dq_bf16``,
+             ``attn_small_dkv_bf16`` alone), every loss finite, no step
+             skipped; one step's loss and gradients against the reference
+             attention and the plain kernels with ``train_small``'s bf16
+             bounds, which a planted fault exceeds; ms per step under
+             fused_small and auto by CUDA events, busy and idle shares and
+             the busy time split into K10, K11, the GEMMs and the rest;
 8. the ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -441,7 +470,16 @@ def attention_build_report(build, paths) -> dict:
     dynamic = {k: {d: fn(d) for d in (64, 128)} for k, fn in smem.items()}
     for backward, kernel in enumerate(("attn_small_fwd_onetile", "attn_small_bwd_onetile")):
         dynamic[kernel] = {d: onetile(backward, d) for d in (64, 128)}
+    tiled = build.load("attention_small", [ctypes.c_int] * 3, symbol="attention_small_tiled_smem")
+    for kernel, name in enumerate(("attn_small_fwd_bf16", "attn_small_dq_bf16", "attn_small_dkv_bf16")):
+        dynamic[name] = {f"d{d}_s{s}": tiled(kernel, d, s) for d, s in TILED_BUILD_SHAPES}
     return {"kernels": report, "dynamic_smem_bytes": dynamic}
+
+
+# (head dim, S) the tiled bf16 K10/K11 kernels' dynamic shared memory is
+# reported at: the vit_small p2 paths', the multi-tile case's and a long
+# item's (the LONG builds)
+TILED_BUILD_SHAPES = ((64, 256), (128, 256), (64, 328))
 
 
 # (depth k, output columns n) of the fused block's bf16 GEMM launches on the
@@ -3385,7 +3423,10 @@ def check_train_moe(train: dict) -> None:
 # tile) and a causal multi-tile case (S 256: the causal tile skipping of
 # both sweeps and of the dk/dv walk), unit-normal packed (B*S, H*D) inputs;
 # then the fp32 (3xTF32) kernels at the serve shape, a ragged causal tile,
-# one tile at head dim 128 and a causal multi-tile item at head dim 128.
+# one tile at head dim 128 and a causal multi-tile item at head dim 128;
+# then vit_small --patch-size 2's serve and train shapes (the tiled bf16
+# kernels at 256 tokens) and a causal S of 328 at head dims 64 and 128 (the
+# kernels' builds for items past 256 tokens, which sweep the keys twice).
 SMALL_CASES = [
     ("serve shape: vit_tiny bucket 32", "bfloat16", 32, 64, 3, 64, False),
     ("train shape: vit_tiny batch 256", "bfloat16", 256, 64, 3, 64, False),
@@ -3398,6 +3439,10 @@ SMALL_CASES = [
     ("ragged causal fp32", "float32", 6, 24, 2, 64, True),
     ("one tile at head dim 128, causal, fp32", "float32", 8, 64, 2, 128, True),
     ("multi-tile causal fp32", "float32", 4, 256, 2, 128, True),
+    ("serve shape: vit_small p2 bucket 32", "bfloat16", 32, 256, 6, 64, False),
+    ("train shape: vit_small p2 batch 128", "bfloat16", 128, 256, 6, 64, False),
+    ("past the resident keys: two sweeps, S 328, causal", "bfloat16", 2, 328, 2, 64, True),
+    ("past the resident keys at head dim 128: two sweeps, S 328, causal", "bfloat16", 2, 328, 2, 128, True),
 ]
 # Each output and gradient holds against the plain version per row (one
 # token's D values of one head) with the flash kernels' TOLERANCES, for the
@@ -3415,6 +3460,9 @@ SMALL_COUNTERS = ("small_mha_fwd", "small_mha_bwd")
 # dispatch and of train_small_fp32 (the 3xTF32 kernels)
 SMALL_PATH_KERNELS = {"fwd": ("attn_small_fwd_onetile",), "bwd": ("attn_small_bwd_onetile",)}
 SMALL_F32_KERNELS = {"fwd": ("attn_small_fwd_f32",), "bwd": ("attn_small_dq_f32", "attn_small_dkv_f32")}
+# the kernels of the serve_vits_p2 and train_vits_p2 paths (bf16, 256 tokens:
+# the tiled wgmma kernels), as small.kernel_symbols names them for that shape
+SMALL_TILED_KERNELS = {"fwd": ("attn_small_fwd_bf16",), "bwd": ("attn_small_dq_bf16", "attn_small_dkv_bf16")}
 
 
 def without_last_keys(v, seq: int, n: int):
@@ -3634,33 +3682,35 @@ def dropped_keys_k10(small, n: int = 8):
         small.small_mha_fwd = real
 
 
-# The bucket-32 logits of vit_tiny pinned to fused_small (K10 in every
-# block) against the same seeded weights with attn_impl="reference"
-# (mha_reference: einsum scores, fp32 softmax, P rounded to the compute
-# dtype before P.V, the same rounding points as K10).  precision -> (argv
-# edit, bound as a share of the largest reference logit).  bf16: the paths
-# differ by summation order, which flips a bf16 rounding of P or of an
-# output now and then, and each of 12 blocks adds such flips to a bf16
-# residual stream: 2^-6 of the largest logit (two bf16 ulps of it; at
-# seed 0 they differ by one).  fp32: summation order only, through 12
-# blocks: 2^-18 (at seed 0, ~2^-21.7).  The planted fault (every K10 launch
-# with its last 8 keys' values zeroed) must exceed both.
+# The bucket-32 logits of a model pinned to fused_small (K10 in every block)
+# against the same seeded weights with attn_impl="reference" (mha_reference:
+# einsum scores, fp32 softmax, P rounded to the compute dtype before P.V,
+# the same rounding points as K10).  precision -> (argv edit, bound as a
+# share of the largest reference logit).  vit_tiny, bf16: the paths differ
+# by summation order, which flips a bf16 rounding of P or of an output now
+# and then, and each of 12 blocks adds such flips to a bf16 residual
+# stream: 2^-6 of the largest logit (two bf16 ulps of it; at seed 0 they
+# differ by one).  fp32: summation order only, through 12 blocks: 2^-18 (at
+# seed 0, ~2^-21.7).  The planted fault (every K10 launch with the values
+# of its last keys zeroed: 8 at 64 tokens) must exceed both.
 SMALL_LOGIT_CHECKS = {
     "bf16": (lambda argv: argv, 2**-6),
     "fp32": (lambda argv: [a for a in argv if a != "--amp"], 2**-18),
 }
 
 
-def serve_small_phase(small, gm, vb, attn) -> dict:
-    """``vit_tiny --amp`` at 32 px (64 tokens) served through the port's
-    library entry points: ``build_engine(hparams, attn_impl="fused_small")``
-    warmed, then ``MicroBatcher`` and ``closed_loop`` as ``serve_main``
-    composes them.  The counters are zeroed after the warmup; every block of
-    every dispatched batch runs K10 and no other kernel.  The bucket-32
-    logits against ``attn_impl="reference"`` in bf16 and fp32 with a bound
-    a planted K10 fault exceeds; a bucket-32 dispatch timed under fused_small
-    and auto (the reference attention at 64 tokens) and profiled, in bf16
-    and in fp32."""
+def serve_pinned_phase(small, gm, vb, attn, phase: str, argv: list, logit_checks: dict,
+                       fault_keys: int = 8) -> dict:
+    """``argv``'s model served through the port's library entry points:
+    ``build_engine(hparams, attn_impl="fused_small")`` warmed, then
+    ``MicroBatcher`` and ``closed_loop`` as ``serve_main`` composes them.
+    The counters are zeroed after the warmup; every block of every
+    dispatched batch runs K10 and no other kernel.  For each precision of
+    ``logit_checks`` (as ``SMALL_LOGIT_CHECKS``): the bucket-32 logits
+    against ``attn_impl="reference"`` within its bound, which a planted K10
+    fault (the values of the last ``fault_keys`` keys of every item zeroed)
+    exceeds, and a bucket-32 dispatch timed and profiled under fused_small
+    and auto (``bucket32_dispatch``)."""
     import numpy as np
 
     from distributed_training_comparison_tpu_torch.config import load_config
@@ -3671,7 +3721,7 @@ def serve_small_phase(small, gm, vb, attn) -> dict:
         request_pool,
     )
 
-    hp = load_config(SERVE_SMALL_ARGV)
+    hp = load_config(argv)
     engine = build_engine(hp, attn_impl="fused_small")
     engine.warmup()
     warm_batches = sum(engine.bucket_counts.values())
@@ -3689,13 +3739,13 @@ def serve_small_phase(small, gm, vb, attn) -> dict:
         batcher.close()
     launches = {name: c.launches for name, c in counters.items()}
     batches = sum(engine.bucket_counts.values()) - warm_batches
-    depth = len(engine.model.blocks)
+    depth, tokens = len(engine.model.blocks), engine.model.pos_emb.shape[1]
     summary = batcher.metrics.summary()
     del engine
 
     checks = {}
-    for precision, (edit, share) in SMALL_LOGIT_CHECKS.items():
-        h = load_config(edit(SERVE_SMALL_ARGV))
+    for precision, (edit, share) in logit_checks.items():
+        h = load_config(edit(argv))
         batch = request_pool(32, image_size=h.image_size, seed=h.seed, fold=("check", 0))
         engines = {"fused_small": build_engine(h, attn_impl="fused_small"),
                    "reference": build_engine(h, attn_impl="reference")}
@@ -3704,7 +3754,7 @@ def serve_small_phase(small, gm, vb, attn) -> dict:
             before = small.small_mha_fwd.launches
             rec[f"logits_{name}"] = eng.predict_logits(batch)
             rec[f"k10_launches_{name}"] = small.small_mha_fwd.launches - before
-        with dropped_keys_k10(small):
+        with dropped_keys_k10(small, n=fault_keys):
             fault = engines["fused_small"].predict_logits(batch)
         got, want = rec.pop("logits_fused_small"), rec.pop("logits_reference")
         scale = float(np.abs(want).max())
@@ -3712,38 +3762,18 @@ def serve_small_phase(small, gm, vb, attn) -> dict:
             "logits_finite": bool(np.isfinite(got).all() and np.isfinite(want).all()),
             "logits_max_abs_err_vs_reference": float(np.abs(got - want).max()),
             "logits_scale": scale, "logits_tol": share * scale, "logits_tol_share": share,
+            "fault_keys": fault_keys,
             "fault_logits_max_abs_err_vs_reference": float(np.abs(fault - want).max()),
         })
-        # a bucket-32 dispatch timed and profiled under fused_small and auto
-        engines["auto"] = build_engine(h)
-        for rnd in ("", "_again"):
-            for name in ("fused_small", "auto"):
-                eng = engines[name]
-                eng.predict_logits(batch)
-                t0 = time.perf_counter()
-                for _ in range(5):
-                    eng.predict_logits(batch)
-                rec[f"bucket32_batch_ms_{name}{rnd}"] = (time.perf_counter() - t0) / 5 * 1e3
-        for name in ("fused_small", "auto"):
-            prof = profile_device(lambda: engines[name].predict_logits(batch), 5)
-            port = _port_kernel_ms(prof["device_ms_by_name"])
-            k10 = sum(_small_kernel_ms(prof["device_ms_by_name"]).values())
-            top = sorted(prof["device_ms_by_name"].items(), key=lambda kv: -kv[1])[:8]
-            rec[f"bucket32_profile_{name}"] = {
-                "wall_ms_per_batch": prof["wall_ms"],
-                "device_busy_ms_per_batch": prof["device_busy_ms"],
-                "device_idle_share": prof["device_idle_share"],
-                "port_kernels": sorted(port),
-                "k10_device_ms_per_batch": k10,
-                "k10_share_of_device_busy": k10 / prof["device_busy_ms"],
-                "top_device_ms_per_batch": {n[:60]: ms for n, ms in top},
-            }
+        rec.update(bucket32_dispatch({"fused_small": engines["fused_small"], "auto": build_engine(h)},
+                                     batch))
         checks[precision] = rec
         del engines
     return {
-        "phase": "serve_small",
-        "argv": SERVE_SMALL_ARGV,
+        "phase": phase,
+        "argv": argv,
         "attn_impl": "fused_small",
+        "tokens": tokens,
         "offered": report["offered"],
         "completed": report["completed"],
         "failed": report["failed"],
@@ -3763,27 +3793,64 @@ def serve_small_phase(small, gm, vb, attn) -> dict:
     }
 
 
-def check_serve_small(serve: dict) -> None:
+def bucket32_dispatch(engines: dict, batch, csrc: Path | None = None) -> dict:
+    """One bucket-32 dispatch of ``batch`` through each of ``engines``
+    (``fused_small`` and ``auto``): host ms a dispatch (5 after a warm one,
+    in turns, twice) and a profile of 5: busy ms, idle share, the port's
+    kernels by symbol (``csrc``'s, this checkout's by default) and K10's
+    device ms and share."""
+    rec = {}
+    for rnd in ("", "_again"):
+        for name, eng in engines.items():
+            eng.predict_logits(batch)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                eng.predict_logits(batch)
+            rec[f"bucket32_batch_ms_{name}{rnd}"] = (time.perf_counter() - t0) / 5 * 1e3
+    for name, eng in engines.items():
+        prof = profile_device(lambda: eng.predict_logits(batch), 5)
+        port = _port_kernel_ms(prof["device_ms_by_name"], csrc=csrc)
+        k10 = sum(t for n, t in port.items() if n.startswith("attn_small_"))
+        top = sorted(prof["device_ms_by_name"].items(), key=lambda kv: -kv[1])[:8]
+        rec[f"bucket32_profile_{name}"] = {
+            "wall_ms_per_batch": prof["wall_ms"],
+            "device_busy_ms_per_batch": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "port_kernels": sorted(port),
+            "k10_device_ms_per_batch": k10,
+            "k10_share_of_device_busy": k10 / prof["device_busy_ms"],
+            "top_device_ms_per_batch": {n[:60]: ms for n, ms in top},
+        }
+    return rec
+
+
+def check_serve_pinned(serve: dict, kernels: dict) -> None:
+    """A ``serve_pinned_phase`` record: no request lost, 12 blocks, K10 in
+    every block of every dispatched batch and no other counter, each
+    precision's bucket-32 logits within their bound and the planted fault
+    past it, and its bucket-32 dispatch running ``kernels[precision]``'s
+    forward kernels alone, by symbol."""
+    phase = serve["phase"]
     if serve["completed"] != serve["offered"] or serve["failed"]:
-        raise RuntimeError(f"serve_small lost requests: {serve}")
+        raise RuntimeError(f"{phase} lost requests: {serve}")
     want = {n: 0 for n in serve["launches"]}
     want["small_mha_fwd"] = serve["depth"] * serve["engine_batches"]
-    if serve["launches"] != want:
-        raise RuntimeError(f"serve_small launches {serve['launches']}, expected {want}")
+    if serve["depth"] != 12 or serve["launches"] != want:
+        raise RuntimeError(f"{phase} launches {serve['launches']} at depth {serve['depth']}, expected {want}")
+    if set(serve["bucket32"]) != set(kernels):
+        raise RuntimeError(f"{phase} checked {sorted(serve['bucket32'])}, expected {sorted(kernels)}")
     for precision, rec in serve["bucket32"].items():
         if (rec["k10_launches_fused_small"], rec["k10_launches_reference"]) != (serve["depth"], 0):
-            raise RuntimeError(f"serve_small {precision} bucket-32 batch: launches {rec}")
+            raise RuntimeError(f"{phase} {precision} bucket-32 batch: launches {rec}")
         if not rec["logits_finite"] or rec["logits_max_abs_err_vs_reference"] > rec["logits_tol"]:
-            raise RuntimeError(f"serve_small {precision}: K10 logits disagree with the reference: {rec}")
+            raise RuntimeError(f"{phase} {precision}: K10 logits disagree with the reference: {rec}")
         if not rec["fault_logits_max_abs_err_vs_reference"] > rec["logits_tol"]:
-            raise RuntimeError(f"serve_small {precision}: the planted K10 fault passes the bound: {rec}")
-    # no other kernel of the port, by name: a bf16 dispatch at 64 tokens runs
-    # K10's one-tile kernel, an fp32 one the 3xTF32 forward
-    for precision, kernels in (("bf16", SMALL_PATH_KERNELS), ("fp32", SMALL_F32_KERNELS)):
-        want_kernels = list(kernels["fwd"])
-        got_kernels = serve["bucket32"][precision]["bucket32_profile_fused_small"]["port_kernels"]
+            raise RuntimeError(f"{phase} {precision}: the planted K10 fault passes the bound: {rec}")
+        # no other kernel of the port, by name
+        want_kernels = list(kernels[precision]["fwd"])
+        got_kernels = rec["bucket32_profile_fused_small"]["port_kernels"]
         if got_kernels != want_kernels:
-            raise RuntimeError(f"serve_small {precision} bucket-32 dispatch ran {got_kernels}, "
+            raise RuntimeError(f"{phase} {precision} bucket-32 dispatch ran {got_kernels}, "
                                f"expected {want_kernels}")
 
 
@@ -3845,13 +3912,17 @@ def plain_small_kernels(small, fault: bool):
     return swapped()
 
 
-def small_step_check(small, precision: str) -> dict:
+def small_step_check(small, precision: str, argv: list = TRAIN_SMALL_ARGV) -> dict:
+    """One step of ``argv``'s model pinned to fused_small against the
+    reference attention and against the plain kernels, with
+    ``SMALL_STEP_CHECKS[precision]``'s argv edit, bounds and planted
+    fault."""
     from distributed_training_comparison_tpu_torch.config import load_config
     from distributed_training_comparison_tpu_torch.train import build_model
     from distributed_training_comparison_tpu_torch.train.step import COMPUTE_DTYPES
 
     edit, loss_tol, ref_tol, plain_tol = SMALL_STEP_CHECKS[precision]
-    hp = load_config(edit(TRAIN_SMALL_ARGV))
+    hp = load_config(edit(argv))
     state = build_model(hp).state_dict()
 
     def pinned():
@@ -3915,22 +3986,17 @@ def small_step_times(trainer, reps: int = 5) -> dict:
     return out
 
 
-def train_small_phase(small, gm, vb, attn, smi: str) -> dict:
-    """``vit_tiny --amp`` at batch 256 (the JAX kernels' design point)
-    trained through the port's library entry points:
+def fit_pinned(small, gm, vb, attn, phase: str, smi: str, argv: list):
+    """``argv``'s model trained through the port's library entry points,
     ``Trainer(hparams, model=build_model(hparams, attn_impl="fused_small"))``
-    and ``fit``, the counters zeroed just before and read just after: K10
-    in every block of every train step and eval batch, K11 in every block
-    of every train step, no other kernel; every loss finite, no step
-    skipped; one step's loss and gradients against the reference attention
-    and the plain kernels (bf16 and fp32); ms per step under fused_small and
-    auto, and step profiles."""
+    and ``fit``, the counters zeroed just before and read just after: the
+    trainer, and the phase's record of the run."""
     import torch
 
     from distributed_training_comparison_tpu_torch.config import load_config
     from distributed_training_comparison_tpu_torch.train import Trainer, build_model
 
-    hp = load_config(TRAIN_SMALL_ARGV)
+    hp = load_config(argv)
     trainer = Trainer(hp, model=build_model(hp, attn_impl="fused_small"))
     counters = _small_path_counters(small, gm, vb, attn)
     for c in counters.values():
@@ -3943,130 +4009,10 @@ def train_small_phase(small, gm, vb, attn, smi: str) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     epochs = fit["epochs"]
     last = epochs[-1]
-    checks = {p: small_step_check(small, p) for p in SMALL_STEP_CHECKS}
-    return {
-        "phase": "train_small",
+    return trainer, {
+        "phase": phase,
         "nvidia_smi": smi,
-        "argv": TRAIN_SMALL_ARGV,
-        "attn_impl": "fused_small",
-        "run_seconds": seconds,
-        "train_steps": sum(e["steps"] for e in epochs),
-        "eval_batches": len(epochs) * math.ceil(len(trainer.val_split) / hp.batch_size),
-        "depth": len(trainer.model.blocks),
-        "launches": launches,
-        "losses_finite": all(e["nonfinite_losses"] == 0 for e in epochs),
-        "skipped_steps": sum(e["skipped"] for e in epochs),
-        "epochs": epochs,
-        "peak_memory_gb": peak_gb,
-        "last_epoch_images_per_s": last["images_per_s"],
-        "last_epoch_ms_per_step": last["seconds"] / last["steps"] * 1e3,
-        "step_checks": checks,
-        "step_times": small_step_times(trainer),
-    }
-
-
-def check_train_small(train: dict) -> None:
-    depth, steps = train["depth"], train["train_steps"]
-    want = {n: 0 for n in train["launches"]}
-    want["small_mha_fwd"] = depth * (steps + train["eval_batches"])
-    want["small_mha_bwd"] = depth * steps
-    if train["launches"] != want:
-        raise RuntimeError(f"train_small launches {train['launches']}, expected {want}")
-    if not train["losses_finite"] or train["skipped_steps"]:
-        raise RuntimeError("train_small: a non-finite loss or a skipped step")
-    bad = {p: c for p, c in train["step_checks"].items() if not c["ok"]}
-    if bad:
-        raise RuntimeError(f"a vit_tiny train step through K10/K11 disagrees: {bad}")
-    # no other kernel of the port, by name: K10's and K11's one-tile kernels
-    want_kernels = sorted(SMALL_PATH_KERNELS["fwd"] + SMALL_PATH_KERNELS["bwd"])
-    got_kernels = train["step_times"]["profile_fused_small"]["port_kernels"]
-    if got_kernels != want_kernels:
-        raise RuntimeError(f"a train_small step ran {got_kernels}, expected {want_kernels}")
-
-
-# vit_tiny at 64 tokens (32 px, patch 4) trained at the default precision
-# (fp32: no --amp), batch 256, one epoch: 792 training images (3 steps) and
-# 88 validation images (one batch)
-TRAIN_SMALL_FP32_ARGV = [
-    "--model", "vit_tiny", "--synthetic-data", "--batch-size", "256",
-    "--limit-examples", "880", "--epoch", "1", "--lr-decay-step-size", "1",
-]
-
-
-def small_fp32_step_times(trainer, csrc: Path | None = None) -> dict:
-    """ms per fp32 ``vit_tiny`` train step at 64 tokens (CUDA events over 3
-    steps of the trainer's first batch, after a warm step) for the
-    fused_small ``trainer`` and a trainer of the same command under auto
-    (the reference attention), and a profile of two steps of each: busy
-    time, idle share, the busy time split into K10's kernels, K11's, the
-    GEMMs (cuBLAS, by name) and the rest, and the port's kernels by symbol
-    (``csrc``'s, this checkout's by default)."""
-    import torch
-
-    from distributed_training_comparison_tpu_torch.data import draw_crop_flip
-    from distributed_training_comparison_tpu_torch.train import Trainer
-    from distributed_training_comparison_tpu_torch.utils import step_generator
-
-    hp = trainer.hparams
-    images, labels = next(trainer.train_split.epoch_batches(hp.batch_size, hp.seed, 0))
-    draws = draw_crop_flip(len(labels), step_generator(hp.seed, 0, 0))
-    out = {}
-    for name, tr in (("fused_small", trainer), ("auto", Trainer(hp))):
-        ms = cuda_ms(lambda: tr.step(images, labels, draws), 3, warmup=1)
-        prof = profile_device(lambda: tr.step(images, labels, draws), 2)
-        names, busy = prof["device_ms_by_name"], prof["device_busy_ms"]
-        port = _port_kernel_ms(names, csrc=csrc)
-        split = {
-            "k10": sum(t for n, t in port.items() if n.startswith("attn_small_fwd")),
-            "k11": sum(t for n, t in port.items() if n.startswith(("attn_small_dq", "attn_small_dkv",
-                                                                   "attn_small_bwd"))),
-            "gemm": sum(t for n, t in names.items() if "gemm" in n.lower()),
-        }
-        split["rest"] = busy - sum(split.values())
-        top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
-        out[name] = {
-            "ms_per_step": ms,
-            "images_per_s_timed": hp.batch_size / ms * 1e3,
-            "wall_ms_per_step": prof["wall_ms"],
-            "device_busy_ms_per_step": busy,
-            "device_idle_share": prof["device_idle_share"],
-            "device_ms_per_step": split,
-            "port_kernels": sorted(port),
-            "top_device_ms_per_step": {n[:60]: t for n, t in top},
-        }
-        del tr
-    torch.cuda.empty_cache()
-    return out
-
-
-def train_small_fp32_phase(small, gm, vb, attn, smi: str) -> dict:
-    """``vit_tiny`` at 64 tokens trained at the default precision
-    (``TRAIN_SMALL_FP32_ARGV``: fp32, batch 256, 12 blocks of 3 heads of
-    64) through ``Trainer(hparams, model=build_model(hparams,
-    attn_impl="fused_small"))`` and ``fit``: K10 in every block of every
-    step and eval batch, K11 in every block of every step, the counters
-    zeroed just before and read just after; then ``small_fp32_step_times``."""
-    import torch
-
-    from distributed_training_comparison_tpu_torch.config import load_config
-    from distributed_training_comparison_tpu_torch.train import Trainer, build_model
-
-    hp = load_config(TRAIN_SMALL_FP32_ARGV)
-    trainer = Trainer(hp, model=build_model(hp, attn_impl="fused_small"))
-    counters = _small_path_counters(small, gm, vb, attn)
-    for c in counters.values():
-        c.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    fit = trainer.fit()
-    seconds = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    epochs = fit["epochs"]
-    record = {
-        "phase": "train_small_fp32",
-        "nvidia_smi": smi,
-        "argv": TRAIN_SMALL_FP32_ARGV,
+        "argv": argv,
         "attn_impl": "fused_small",
         "precision": hp.precision,
         "batch": hp.batch_size,
@@ -4079,32 +4025,169 @@ def train_small_fp32_phase(small, gm, vb, attn, smi: str) -> dict:
         "skipped_steps": sum(e["skipped"] for e in epochs),
         "epochs": epochs,
         "peak_memory_gb": peak_gb,
-        "epoch_images_per_s": epochs[-1]["images_per_s"],
-        "step_times": small_fp32_step_times(trainer),
+        "last_epoch_images_per_s": last["images_per_s"],
+        "last_epoch_ms_per_step": last["seconds"] / last["steps"] * 1e3,
     }
+
+
+def train_small_phase(small, gm, vb, attn, smi: str) -> dict:
+    """``vit_tiny --amp`` at batch 256 (the JAX kernels' design point)
+    trained through the port's library entry points (``fit_pinned``): K10
+    in every block of every train step and eval batch, K11 in every block
+    of every train step, no other kernel; every loss finite, no step
+    skipped; one step's loss and gradients against the reference attention
+    and the plain kernels (bf16 and fp32); ms per step under fused_small and
+    auto, and step profiles."""
+    trainer, record = fit_pinned(small, gm, vb, attn, "train_small", smi, TRAIN_SMALL_ARGV)
+    record["step_checks"] = {p: small_step_check(small, p) for p in SMALL_STEP_CHECKS}
+    record["step_times"] = small_step_times(trainer)
+    return record
+
+
+def check_train_pinned(run: dict, kernels: dict, shape: tuple | None = None,
+                       profile: str = "fused_small") -> None:
+    """A ``fit_pinned`` record: 12 blocks and, where given, ``shape``
+    (precision, batch, train steps, eval batches); K10 in every block of
+    every step and eval batch, K11 in every block of every step and no
+    other counter; every loss finite, no step skipped, every step check
+    within its bounds; the step profile (``run["step_times"][profile]``)
+    running ``kernels`` alone, by symbol."""
+    phase, depth, steps = run["phase"], run["depth"], run["train_steps"]
+    got_shape = (run["precision"], run["batch"], steps, run["eval_batches"])
+    if depth != 12 or shape is not None and got_shape != shape:
+        raise RuntimeError(f"{phase} ran {got_shape} at depth {depth}, expected {shape} at depth 12")
+    want = {n: 0 for n in run["launches"]}
+    want["small_mha_fwd"] = depth * (steps + run["eval_batches"])
+    want["small_mha_bwd"] = depth * steps
+    if run["launches"] != want:
+        raise RuntimeError(f"{phase} launches {run['launches']}, expected {want}")
+    if not run["losses_finite"] or run["skipped_steps"]:
+        raise RuntimeError(f"{phase}: a non-finite loss or a skipped step")
+    bad = {p: c for p, c in run.get("step_checks", {}).items() if not c["ok"]}
+    if bad:
+        raise RuntimeError(f"a {phase} step through K10/K11 disagrees: {bad}")
+    # no other kernel of the port, by name
+    want_kernels = sorted(kernels["fwd"] + kernels["bwd"])
+    got_kernels = run["step_times"][profile]["port_kernels"]
+    if got_kernels != want_kernels:
+        raise RuntimeError(f"a {phase} step ran {got_kernels}, expected {want_kernels}")
+
+
+# vit_tiny at 64 tokens (32 px, patch 4) trained at the default precision
+# (fp32: no --amp), batch 256, one epoch: 792 training images (3 steps) and
+# 88 validation images (one batch)
+TRAIN_SMALL_FP32_ARGV = [
+    "--model", "vit_tiny", "--synthetic-data", "--batch-size", "256",
+    "--limit-examples", "880", "--epoch", "1", "--lr-decay-step-size", "1",
+]
+
+
+def pinned_step_times(trainer, csrc: Path | None = None, rounds: int = 1) -> dict:
+    """ms per train step (CUDA events over 3 steps of the trainer's first
+    batch, after a warm step) of the fused_small ``trainer`` and of a
+    trainer of the same command under auto (the reference attention), in
+    turns, ``rounds`` times (the second round's keys end in ``_again``); a
+    profile of two steps of each: busy time, idle share, the busy time
+    split into K10's kernels, K11's, the GEMMs (cuBLAS, by name) and the
+    rest, and the port's kernels by symbol (``csrc``'s, this checkout's by
+    default)."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch.data import draw_crop_flip
+    from distributed_training_comparison_tpu_torch.train import Trainer
+    from distributed_training_comparison_tpu_torch.utils import step_generator
+
+    hp = trainer.hparams
+    images, labels = next(trainer.train_split.epoch_batches(hp.batch_size, hp.seed, 0))
+    draws = draw_crop_flip(len(labels), step_generator(hp.seed, 0, 0))
+    trainers = {"fused_small": trainer, "auto": Trainer(hp)}
+    out = {name: {} for name in trainers}
+    for rnd in ("", "_again")[:rounds]:
+        for name, tr in trainers.items():
+            ms = cuda_ms(lambda: tr.step(images, labels, draws), 3, warmup=1)
+            out[name][f"ms_per_step{rnd}"] = ms
+            out[name][f"images_per_s_timed{rnd}"] = hp.batch_size / ms * 1e3
+    for name, tr in trainers.items():
+        prof = profile_device(lambda: tr.step(images, labels, draws), 2)
+        names, busy = prof["device_ms_by_name"], prof["device_busy_ms"]
+        port = _port_kernel_ms(names, csrc=csrc)
+        split = {
+            "k10": sum(t for n, t in port.items() if n.startswith("attn_small_fwd")),
+            "k11": sum(t for n, t in port.items() if n.startswith(("attn_small_dq", "attn_small_dkv",
+                                                                   "attn_small_bwd"))),
+            # cuBLAS: its bf16 GEMMs run as nvjet_* kernels on this card
+            "gemm": sum(t for n, t in names.items() if "gemm" in n.lower() or n.startswith("nvjet")),
+        }
+        split["rest"] = busy - sum(split.values())
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+        out[name].update({
+            "wall_ms_per_step": prof["wall_ms"],
+            "device_busy_ms_per_step": busy,
+            "device_idle_share": prof["device_idle_share"],
+            "device_ms_per_step": split,
+            "k10_k11_share_of_busy": (split["k10"] + split["k11"]) / busy,
+            "port_kernels": sorted(port),
+            "port_kernel_ms_per_step": port,
+            "top_device_ms_per_step": {n[:60]: t for n, t in top},
+        })
+    del trainers["auto"]
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_small_fp32_phase(small, gm, vb, attn, smi: str) -> dict:
+    """``vit_tiny`` at 64 tokens trained at the default precision
+    (``TRAIN_SMALL_FP32_ARGV``: fp32, batch 256, 12 blocks of 3 heads of
+    64) through ``fit_pinned``: K10 in every block of every step and eval
+    batch, K11 in every block of every step; then ``pinned_step_times``."""
+    import torch
+
+    trainer, record = fit_pinned(small, gm, vb, attn, "train_small_fp32", smi, TRAIN_SMALL_FP32_ARGV)
+    record["step_times"] = pinned_step_times(trainer)
     del trainer
     torch.cuda.empty_cache()
     return record
 
 
-def check_train_small_fp32(run: dict) -> None:
-    depth, steps = run["depth"], run["train_steps"]
-    if run["precision"] != "fp32" or run["batch"] != 256 or depth != 12:
-        raise RuntimeError(f"train_small_fp32 ran {run['precision']} at batch {run['batch']}, depth {depth}")
-    if (steps, run["eval_batches"]) != (3, 1):
-        raise RuntimeError(f"train_small_fp32 ran {steps} steps and {run['eval_batches']} eval batches")
-    want = {n: 0 for n in run["launches"]}
-    want["small_mha_fwd"] = depth * (steps + run["eval_batches"])
-    want["small_mha_bwd"] = depth * steps
-    if run["launches"] != want:
-        raise RuntimeError(f"train_small_fp32 launches {run['launches']}, expected {want}")
-    if not run["losses_finite"] or run["skipped_steps"]:
-        raise RuntimeError("train_small_fp32: a non-finite loss or a skipped step")
-    # no other kernel of the port, by name: the three 3xTF32 kernels alone
-    want_kernels = sorted(SMALL_F32_KERNELS["fwd"] + SMALL_F32_KERNELS["bwd"])
-    got_kernels = run["step_times"]["fused_small"]["port_kernels"]
-    if got_kernels != want_kernels:
-        raise RuntimeError(f"a train_small_fp32 step ran {got_kernels}, expected {want_kernels}")
+# vit_small --patch-size 2 (12 blocks, dim 384, 6 heads of 64, 256 tokens at
+# 32 px) pinned to fused_small: the fusion gate declines it (pinned
+# attention; its fused weights are over the 8 MiB budget), so every block
+# runs the tiled bf16 K10 forward and K11 backward.  Serving: buckets 1..32,
+# 128 requests at concurrency 32.  Training: batch 128, one epoch over 792
+# synthetic training images (6 steps) and 88 validation images (one batch).
+SERVE_VITS_P2_ARGV = [
+    "--serve", "--model", "vit_small", "--patch-size", "2", "--amp",
+    "--serve-buckets", "1,2,4,8,16,32", "--serve-shape", "closed",
+    "--serve-requests", "128", "--serve-concurrency", "32", "--seed", "0",
+]
+TRAIN_VITS_P2_ARGV = [
+    "--model", "vit_small", "--patch-size", "2", "--amp", "--synthetic-data", "--batch-size", "128",
+    "--limit-examples", "880", "--epoch", "1", "--lr-decay-step-size", "1",
+]
+# The bucket-32 logits against attn_impl="reference" as a share of the
+# largest: serve_small's bf16 bound, 2^-6, for its reason (summation order
+# flips a bf16 rounding now and then in each of 12 blocks).  The planted
+# fault zeroes the values of the last 64 of the 256 keys in every K10 launch
+# (small_attention_checks' fault past one tile).
+VITS_P2_LOGIT_CHECKS = {"bf16": SMALL_LOGIT_CHECKS["bf16"]}
+
+
+def train_vits_p2_phase(small, gm, vb, attn, smi: str) -> dict:
+    """``vit_small --patch-size 2 --amp`` at batch 128 trained through
+    ``fit_pinned``: K10 in every block of every step and eval batch, K11 in
+    every block of every step, no other kernel; every loss finite, no step
+    skipped; one step against the reference attention and the plain
+    kernels with ``train_small``'s bf16 bounds (``small_step_check``); ms per
+    step under fused_small and auto in two rounds, busy and idle shares,
+    K10/K11 shares (``pinned_step_times``)."""
+    import torch
+
+    trainer, record = fit_pinned(small, gm, vb, attn, "train_vits_p2", smi, TRAIN_VITS_P2_ARGV)
+    record["step_checks"] = {"bf16": small_step_check(small, "bf16", TRAIN_VITS_P2_ARGV)}
+    record["step_times"] = pinned_step_times(trainer, rounds=2)
+    del trainer
+    torch.cuda.empty_cache()
+    return record
 
 
 def main() -> int:
@@ -4163,15 +4246,19 @@ def main() -> int:
     missing += [k for k in BLOCK_TF32_KERNELS if k not in built]
     missing += [f"{k}<{d}>" for ks in SMALL_F32_KERNELS.values() for k in ks for d in (64, 128)
                 if f"{k}<{d}>" not in built]
+    # the tiled bf16 kernels, at both head dims (the forward and dq in a
+    # build for items up to 256 tokens and one for longer items)
+    missing += [f"{k}<{d}" for ks in SMALL_TILED_KERNELS.values() for k in ks for d in (64, 128)
+                if not any(n.startswith(f"{k}<{d}") for n in built)]
     if missing:
         raise RuntimeError(f"the build logs hold no ptxas report of {missing}")
     spilled = {
         name: r for name, r in built.items()
-        # the bf16 and 3xTF32 flash, one-tile and 3xTF32 short-sequence,
-        # fused block GEMM and attention (bf16 and fp32), and grouped expert
-        # FFN kernels
+        # the bf16 and 3xTF32 flash, one-tile, tiled bf16 and 3xTF32
+        # short-sequence, fused block GEMM and attention (bf16 and fp32), and
+        # grouped expert FFN kernels
         if ("flash_" in name and ("bf16" in name or "tf32x3" in name) or "onetile" in name
-            or name.startswith("attn_small_") and "_f32<" in name
+            or name.startswith("attn_small_") and ("_f32<" in name or "_bf16<" in name)
             or "_wgmma" in name or name in BLOCK_TF32_KERNELS)
         and r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
     }
@@ -4305,17 +4392,26 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"a NaN does not reach the fp32 K10/K11 results as in the plain versions: {bad}")
 
-    serve_small = serve_small_phase(small, gm, vb, attn)
+    serve_small = serve_pinned_phase(small, gm, vb, attn, "serve_small", SERVE_SMALL_ARGV, SMALL_LOGIT_CHECKS)
     emit(serve_small)
-    check_serve_small(serve_small)
+    check_serve_pinned(serve_small, {"bf16": SMALL_PATH_KERNELS, "fp32": SMALL_F32_KERNELS})
 
     train_small = train_small_phase(small, gm, vb, attn, smi)
     emit(train_small)
-    check_train_small(train_small)
+    check_train_pinned(train_small, SMALL_PATH_KERNELS, profile="profile_fused_small")
 
     small_fp32 = train_small_fp32_phase(small, gm, vb, attn, smi)
     emit(small_fp32)
-    check_train_small_fp32(small_fp32)
+    check_train_pinned(small_fp32, SMALL_F32_KERNELS, shape=("fp32", 256, 3, 1))
+
+    serve_p2 = serve_pinned_phase(small, gm, vb, attn, "serve_vits_p2", SERVE_VITS_P2_ARGV,
+                                  VITS_P2_LOGIT_CHECKS, fault_keys=FAULT_KEYS)
+    emit(serve_p2)
+    check_serve_pinned(serve_p2, {"bf16": SMALL_TILED_KERNELS})
+
+    train_p2 = train_vits_p2_phase(small, gm, vb, attn, smi)
+    emit(train_p2)
+    check_train_pinned(train_p2, SMALL_TILED_KERNELS, shape=("bf16", 128, 6, 1))
 
     csrc = f"{PKG}/ops/csrc"
     replaces = {
@@ -4520,13 +4616,20 @@ def main() -> int:
             kernels.append(entry)
     # K10/K11: per case, one entry per wrapper, with the kernels the case
     # launched (``kernels``, by symbol; ``kernel_ms`` each one's device ms).
-    # In bf16 K10's ``launches`` is its count on the serve_small path
-    # (``launches_train`` on train_small); K11's, on train_small, counts
-    # calls, each launching attn_small_bwd_onetile once at 64 tokens.  In
-    # fp32 both are counts on the train_small_fp32 path (K11's calls each
-    # launch attn_small_dq_f32 and attn_small_dkv_f32).
+    # In bf16 at 64 tokens K10's ``launches`` is its count on the serve_small
+    # path (``launches_train`` on train_small); K11's, on train_small, counts
+    # calls, each launching attn_small_bwd_onetile once.  In bf16 past 64
+    # tokens (the tiled kernels) the counts are serve_vits_p2's and
+    # train_vits_p2's (K11's calls each launch attn_small_dq_bf16 and
+    # attn_small_dkv_bf16).  In fp32 both are counts on the train_small_fp32
+    # path (K11's calls each launch attn_small_dq_f32 and attn_small_dkv_f32).
     for case in small_checks:
-        if case["dtype"] == "float32":
+        tiled = case["dtype"] == "bfloat16" and case["shape_b_s_h_d"][1] > small.ONE_TILE
+        if tiled:
+            small_launches = {"fwd": serve_p2["launches"]["small_mha_fwd"],
+                              "bwd": train_p2["launches"]["small_mha_bwd"]}
+            counted = {"fwd": "serve_vits_p2 main path", "bwd": "train_vits_p2 main path"}
+        elif case["dtype"] == "float32":
             small_launches = {"fwd": small_fp32["launches"]["small_mha_fwd"],
                               "bwd": small_fp32["launches"]["small_mha_bwd"]}
             counted = {"fwd": "train_small_fp32 main path", "bwd": "train_small_fp32 main path"}
@@ -4544,7 +4647,8 @@ def main() -> int:
                 "regime": regime, "case": case["case"], "dtype": case["dtype"],
                 "shape_b_s_h_d": case["shape_b_s_h_d"], "causal": case["causal"],
                 "launches": small_launches[key],
-                "launches_counted": counted[key] + ", one counter for every case of the dtype",
+                "launches_counted": counted[key] + (", one counter for every bf16 case past 64 tokens" if tiled
+                                                    else ", one counter for every case of the dtype"),
                 "max_abs_err": max(a["max_abs_err"] for a in agree),
                 "atol_share": case["atol_share"], "rtol": case["rtol"],
                 "atol_share_needed": max(a["atol_share_needed"] for a in agree),
@@ -4557,7 +4661,7 @@ def main() -> int:
                 "library_ms": case["library_ms"][key], "library": case["library"],
             }
             if key == "fwd" and case["dtype"] == "bfloat16":
-                entry["launches_train"] = train_small["launches"]["small_mha_fwd"]
+                entry["launches_train"] = (train_p2 if tiled else train_small)["launches"]["small_mha_fwd"]
             if key == "bwd":
                 entry.update({
                     "library_fwd_bwd_ms": case["library_ms"]["fwd_bwd"],
@@ -4696,6 +4800,29 @@ def card_state() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def vits_p2_turn(csrc: Path) -> dict:
+    """The ``vit_small --patch-size 2`` path for ``turn``: its train step
+    (``pinned_step_times``, two rounds) and its bucket-32 dispatch
+    (``bucket32_dispatch``), pinned to fused_small and under auto."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.serve import build_engine, request_pool
+    from distributed_training_comparison_tpu_torch.train import Trainer, build_model
+
+    hp = load_config(TRAIN_VITS_P2_ARGV)
+    trainer = Trainer(hp, model=build_model(hp, attn_impl="fused_small"))
+    step = pinned_step_times(trainer, csrc=csrc, rounds=2)
+    del trainer
+    torch.cuda.empty_cache()
+    hp = load_config(SERVE_VITS_P2_ARGV)
+    batch = request_pool(32, image_size=hp.image_size, seed=hp.seed, fold=("check", 0))
+    dispatch = bucket32_dispatch({"fused_small": build_engine(hp, attn_impl="fused_small"),
+                                  "auto": build_engine(hp)}, batch, csrc=csrc)
+    torch.cuda.empty_cache()
+    return {"step": step, "dispatch": dispatch}
+
+
 def turn(checkout: Path, label: str) -> int:
     """One turn of a comparison of checkouts in one call: the port of
     ``checkout`` (put first on ``sys.path``; this tree or a parent unpacked
@@ -4717,10 +4844,12 @@ def turn(checkout: Path, label: str) -> int:
     (``tiny_fp32_step_times``, ``tiny_step_times`` fused and off) and
     bucket-32 dispatch (``tiny_dispatch``), then the fp32 ``vit_tiny`` step
     at 64 tokens pinned to fused_small and under auto
-    (``small_fp32_step_times``), and the card's clocks and power
+    (``pinned_step_times``), and the card's clocks and power
     (``card_state``) at the start, before K10/K11 and K7-K9, before each
     fp32 step and at the end.  The summary splits every K5 and K6 case by stage.
-    Run parent, this tree, this tree, parent:
+    Last come the ``vit_small --patch-size 2`` train step and bucket-32
+    dispatch pinned to fused_small and under auto (``vits_p2_turn``).  Run
+    parent, this tree, this tree, parent:
 
         python3 chip_smoke.py --turn PARENT_DIR parent
 
@@ -4791,19 +4920,22 @@ def turn(checkout: Path, label: str) -> int:
     rec["card_before_small_fp32"] = card_state()
     hp = load_config(TRAIN_SMALL_FP32_ARGV)
     trainer = Trainer(hp, model=build_model(hp, attn_impl="fused_small"))
-    rec["small_fp32_step"] = small_fp32 = small_fp32_step_times(trainer, csrc=csrc)
+    rec["small_fp32_step"] = small_fp32 = pinned_step_times(trainer, csrc=csrc)
     del trainer
     torch.cuda.empty_cache()
+    rec["card_before_vits_p2"] = card_state()
+    rec["vits_p2"] = vits_p2_turn(csrc)
     rec["card_end"] = card_state()
     serve, train = rec["fused_block_checks"][0], rec["fused_block_bwd_checks"][0]
     step, disp = rec["tiny_step_times"], rec["tiny_dispatch"]["bucket32_profile"]
     step32, disp32 = rec["tiny_step_times_fp32"], rec["tiny_dispatch_fp32"]
     moe_step, moe_disp = rec["moe_step_times"], rec["moe_dispatch"]
+    p2_step, p2_disp = rec["vits_p2"]["step"], rec["vits_p2"]["dispatch"]
     split = long_fp32["step_profile"]["device_ms_per_step"]
     summary = {
         "turn": label, "nvidia_smi": smi,
         "card": {k: rec[k] for k in ("card_start", "card_before_small_moe", "card_before_tiny_fp32",
-                                     "card_before_small_fp32", "card_end")},
+                                     "card_before_small_fp32", "card_before_vits_p2", "card_end")},
         "k1_k2_ms": {c["case"]: c["ms"] for c in fwd},
         "k1_k2_bound_share": {c["case"]: c["bound_share"] for c in fwd},
         "k1_k2_atol_share_needed": {c["case"]: c["atol_share_needed"] for c in fwd},
@@ -4868,13 +5000,23 @@ def turn(checkout: Path, label: str) -> int:
         "k10_k11_kernel_ms": {c["case"]: c["kernel_ms"] for c in rec["small_attention_checks"]},
         "k10_k11_sdpa_ms": {c["case"]: [c["library_ms"]["fwd"], c["library_ms"]["bwd"]]
                             for c in rec["small_attention_checks"]},
+        "k10_k11_plain_ms": {c["case"]: [c["plain_ms"]["fwd"], c["plain_ms"]["bwd"]]
+                             for c in rec["small_attention_checks"]},
         "k10_k11_atol_share_needed": {c["case"]: max(a["atol_share_needed"] for a in c["agreement"].values())
                                       for c in rec["small_attention_checks"]},
         "k10_k11_ok": {c["case"]: c["ok"] for c in rec["small_attention_checks"]},
+        "small_output_hashes": rec["small_output_hashes"],
+        "vits_p2_step": {name: {k: r[k] for k in (
+            "ms_per_step", "ms_per_step_again", "device_busy_ms_per_step", "device_idle_share",
+            "device_ms_per_step", "port_kernel_ms_per_step")} for name, r in p2_step.items()},
+        "vits_p2_bucket32": {
+            name: {"ms": [p2_disp[f"bucket32_batch_ms_{name}"], p2_disp[f"bucket32_batch_ms_{name}_again"]],
+                   **{k: p2_disp[f"bucket32_profile_{name}"][k] for k in (
+                       "device_busy_ms_per_batch", "device_idle_share", "k10_device_ms_per_batch", "port_kernels")}}
+            for name in ("fused_small", "auto")},
         "train_small_fp32": {name: {k: r[k] for k in (
             "ms_per_step", "images_per_s_timed", "device_busy_ms_per_step", "device_idle_share",
             "device_ms_per_step", "port_kernels")} for name, r in small_fp32.items()},
-        "small_output_hashes": rec["small_output_hashes"],
         "k7_k8_k9_ms": {c["case"]: [c["ms"]["fwd"], c["ms"]["dx"], c["ms"]["dw"]] for c in rec["moe_gmm_checks"]},
         "k7_k8_k9_kernels": {c["case"]: c["kernels"] for c in rec["moe_gmm_checks"]},
         "moe_gmm_checks_ok": {c["case"]: c["ok"] for c in rec["moe_gmm_checks"]},

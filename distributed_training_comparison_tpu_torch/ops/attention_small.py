@@ -28,10 +28,19 @@ only.  A CPU tensor takes the plain versions; a CUDA tensor launches
 (K11) or raises.  The kernels take bf16 or fp32 and head dims 64 and 128
 (the zoo's); the plain versions take any S and D.  Which CUDA kernels a
 call launches is one rule on the dtype and S (:func:`kernel_symbols`): bf16
-items of at most ``ONE_TILE`` tokens (every shape the zoo sends here) run
-one ``wgmma`` kernel each way, the longer ones and fp32 a forward kernel and
-a backward pair that passes each query row's softmax statistics through an
-fp32 scratch.
+items of at most ``ONE_TILE`` tokens (``vit_tiny`` and ``vit_small`` at 64
+tokens) run one ``wgmma`` kernel each way, the longer ones (``vit_small
+--patch-size 2``: 256 tokens) and fp32 a forward kernel and a backward pair
+that passes each query row's softmax statistics through an fp32 scratch.
+
+The longer bf16 items run ``wgmma`` kernels too, which hold a 64-query
+tile's scores in registers up to a resident number of keys (the rule is
+in :func:`kernel_symbols`) and so form them once; a query tile that sees
+more keys walks them twice, a first sweep for each row's max and sum.
+Either way P is the exact
+``e / Σe`` before its rounding.  At ``vit_small --patch-size 2``'s train
+shape (B 128, S 256, 6 heads of 64) they are bound by bytes (K10 100.7 MB,
+0.030 ms at 3.35 TB/s; K11 176.2 MB, 0.053 ms).
 
 fp32 (``vit_tiny`` without ``--amp``, the default precision) runs every
 product on the tensor cores as three tf32 products (``csrc/tf32x3.cuh``:
@@ -56,6 +65,15 @@ _NEG_INF = -1e30  # finite "-inf", as the JAX ``_softmax_small``
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 ONE_TILE = 64  # the longest bf16 item the one-tile kernels take: one 64-key wgmma tile
+# The tiled bf16 kernels (S > ONE_TILE): keys whose scores a forward block
+# (two warpgroups of two 64-key tiles) holds in registers, and whose S and
+# dP a dq block (a warpgroup a 64-key tile) holds: four warpgroups at head
+# dim 64 for items of at most LONG_ITEM tokens, two otherwise.  Items past
+# LONG_ITEM run the kernels' builds with a second sweep over the keys.
+LONG_ITEM = 256
+FWD_RESIDENT_KEYS = 256
+DQ_RESIDENT_KEYS = 256
+DQ_RESIDENT_KEYS_LONG = 128
 
 
 def one_tile(dtype: torch.dtype, seq: int) -> bool:
@@ -67,7 +85,17 @@ def one_tile(dtype: torch.dtype, seq: int) -> bool:
 def kernel_symbols(dtype: torch.dtype, seq: int) -> dict[str, tuple[str, ...]]:
     """The CUDA kernels one call of :func:`small_mha_fwd` (``"fwd"``) and of
     :func:`small_mha_bwd` (``"bwd"``) launches for items of ``seq`` tokens
-    in ``dtype``, in launch order."""
+    in ``dtype``, in launch order.
+
+    The tiled bf16 kernels walk the keys a 64-query tile sees (all ``seq``,
+    or under causal those up to its last row) once, the scores formed once
+    and each row's max and sum taken from the registers, up to the keys
+    their blocks hold, and twice past them: ``attn_small_fwd_bf16`` holds
+    ``FWD_RESIDENT_KEYS``; ``attn_small_dq_bf16`` holds
+    ``DQ_RESIDENT_KEYS`` at head dim 64 for items of at most ``LONG_ITEM``
+    tokens and ``DQ_RESIDENT_KEYS_LONG`` otherwise;
+    ``attn_small_dkv_bf16`` reads the statistics and walks its query tiles
+    once."""
     if one_tile(dtype, seq):
         return {"fwd": ("attn_small_fwd_onetile",), "bwd": ("attn_small_bwd_onetile",)}
     kind = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -260,7 +288,9 @@ def small_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, seq: int
     """K10: attention of the packed ``(B·S, H·D)`` q, k, v rows, returned
     in that layout.  On the card one CUDA kernel (:func:`kernel_symbols`):
     bf16 at S ≤ ``ONE_TILE`` ``attn_small_fwd_onetile``, one warpgroup per
-    item and head; longer bf16 items ``attn_small_fwd_bf16`` and fp32
+    item and head; longer bf16 items ``attn_small_fwd_bf16`` (two
+    warpgroups splitting the key tiles, every product a ``wgmma``, the
+    scores formed once up to ``FWD_RESIDENT_KEYS``) and fp32
     ``attn_small_fwd_f32``, a block per item, head and 64-query tile.  The
     fp32 kernel (3xTF32 ``wgmma``, replacing the TPU ``_fwd_kernel``) is
     bound by bytes and forms the scores once: K as natural slots and V as
@@ -305,6 +335,11 @@ def small_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.T
     launch two, ``attn_small_dq_*`` (dq and each query row's softmax
     statistics, into a scratch buffer) and then ``attn_small_dkv_*`` (dk
     and dv, reading them).  No atomics: each block owns its output rows.
+    In bf16 both are ``wgmma`` kernels: the dq kernel, persistent over the
+    64-query tiles with the next tile's copies under this one's products,
+    forms S and dP once a key tile (a warpgroup each) up to its resident
+    keys (:func:`kernel_symbols`); the dk/dv kernel streams the query tiles
+    and their statistics through a two-stage ring.
     In fp32 both are 3xTF32 ``wgmma`` kernels (replacing the TPU
     ``_bwd_kernel``), bound by bytes: the dq kernel forms S and dP once and
     at one key tile takes each row's max, sum and Σ dp·P from its registers

@@ -23,11 +23,12 @@
 // atomics), so K11 is bit-identical from call to call.
 //
 // The rule on S, the same in both C entry points: bf16 items of S <= 64 (one
-// 64-key tile: vit_tiny and vit_small at 32 px and patch 4, every shape the
-// zoo sends to fused_small) run the one-tile kernels; bf16 items of S > 64
-// (tests and the smoke script's multi-tile case only) run the tiled
-// kernels; fp32 runs the 3xTF32 kernels (below) at every S.  A rule on the
-// shape, not a fallback.
+// 64-key tile: vit_tiny and vit_small at 32 px and patch 4) run the one-tile
+// kernels; bf16 items of S > 64 (vit_small --patch-size 2 pinned to
+// fused_small: 256 tokens) run the tiled kernels; fp32 runs the 3xTF32
+// kernels (below) at every S.  A rule on the shape, not a fallback.  The
+// tiled kernels hold a query tile's scores in registers up to a resident
+// number of keys and sweep the keys twice past it (their section below).
 //
 // What bounds the one-tile kernels (bf16, S 64, D 64, 3 heads): bytes.  The
 // forward reads q, k, v and writes o, 4 S D B H x 2 bytes against 4 S^2 D
@@ -65,10 +66,10 @@
 // score product, softmax and stores) are attention_tiles.cuh's, shared with
 // the fused ViT block's attention.
 //
-// The tiled bf16 kernels (S > 64) run on mma.sync m16n8k16: a block per
-// (item, head, 64-query tile) with an exact two-sweep softmax, the backward
-// as a dq kernel that writes each row's max, sum and delta to an fp32
-// scratch and a dk/dv kernel that reads them.
+// The tiled bf16 kernels (S > 64), attn_small_fwd_bf16, then for K11
+// attn_small_dq_bf16 (dq, and each row's max, sum and delta into an fp32
+// scratch) and attn_small_dkv_bf16 (dk, dv from them), run every product
+// as a wgmma on the same swizzled tiles; their section below says how.
 //
 // fp32 (vit_tiny without --amp, the default precision) runs every product
 // on the tensor cores as three tf32 products (tf32x3.cuh: x = big + small,
@@ -97,32 +98,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 128;
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// row and column of accumulator element e of 8-wide tile n in this thread's
-// mma fragment, within the block's 64 rows (4 warps x 16)
-__device__ __forceinline__ int mma_row(int e) {
-  return (threadIdx.x / 32) * 16 + ((threadIdx.x % 32) >> 2) + 8 * (e >> 1);
-}
-__device__ __forceinline__ int mma_col(int n, int e) {
-  return n * 8 + ((threadIdx.x % 32) & 3) * 2 + (e & 1);
-}
-
 struct Params {
   const void* q;     // (batch * seq, ld) each, one head's D columns at h * D
   const void* k;
@@ -147,351 +122,8 @@ __device__ __forceinline__ int key_end(const Params& p, int row0, int rows) {
   return p.causal ? min(p.seq, row0 + rows) : p.seq;
 }
 
-// rows [row0, row0 + ROWS) of one head's (seq, D) column slice (row stride
-// ld) into shared memory with row stride D + 8; rows past len zero-filled
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* smem, const bf16* g, long long ld, int row0,
-                                          int len) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool valid = row0 + r < len;
-    cp_async16(smem_u32(smem + r * (D + 8) + col), g + (valid ? (row0 + r) * ld : 0) + col, valid);
-  }
-}
-
-// c (16 rows x NT*8) = A . B^T: A this warp's 16 rows at `a`, B NT*8 rows
-// at `b`, both (rows, D) in shared memory with row stride D + 8
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt(float (&c)[NT][4], const bf16* a, const bf16* b) {
-  constexpr int LDS = D + 8;
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* a0 = a + g * LDS + kk * 16 + t * 2;
-    const uint32_t af[4] = {lds32(a0), lds32(a0 + 8 * LDS), lds32(a0 + 8), lds32(a0 + 8 * LDS + 8)};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const bf16* b0 = b + (n * 8 + g) * LDS + kk * 16 + t * 2;
-      const uint32_t bf[2] = {lds32(b0), lds32(b0 + 8)};
-      mma_16816(c[n], af, bf);
-    }
-  }
-}
-
-// c (16 rows x D) += round(x) . B: x this warp's 16 x KN accumulator tile
-// (rounded to bf16 here), B (KN rows, D) in shared memory, stride D + 8
-template <int D, int KN>
-__device__ __forceinline__ void mma_xb(float (&c)[D / 8][4], const float (&x)[KN / 8][4],
-                                       const bf16* b) {
-  constexpr int LDS = D + 8;
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < KN / 16; ++kk) {
-    // two adjacent 8-wide accumulator tiles are exactly the A fragment of a 16-deep step
-    const uint32_t xa[4] = {
-        pack_f32_to_bf16(x[2 * kk][0], x[2 * kk][1]),
-        pack_f32_to_bf16(x[2 * kk][2], x[2 * kk][3]),
-        pack_f32_to_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-        pack_f32_to_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]),
-    };
-    const bf16* b0 = b + (kk * 16 + t * 2) * LDS + g;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const bf16* bn = b0 + n * 8;
-      const uint32_t bf[2] = {pack_bf16(bn[0], bn[LDS]), pack_bf16(bn[8 * LDS], bn[9 * LDS])};
-      mma_16816(c[n], xa, bf);
-    }
-  }
-}
-
-// this warp's 16 rows (starting at m0 + frag_row) of a (16 x D) accumulator
-// into the bf16 rows of g (row stride ld), rows past seq left alone
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* g, const float (&acc)[D / 8][4], int m0,
-                                           const Params& p) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = m0 + mma_row(2 * i);
-    if (row >= p.seq) continue;
-    bf16* r = g + static_cast<long long>(row) * p.ld + t * 2;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(r + n * 8) = pack_f32_to_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
-  }
-}
-
 __device__ __forceinline__ long long head_base(const Params& p, int b, int h, int d) {
   return static_cast<long long>(b) * p.seq * p.ld + h * d;
-}
-
-// ------------------------------------------------------------- K10 forward
-
-constexpr int kTile = 64;  // bf16: query rows per block (4 warps x 16), keys per tile
-
-template <int D>
-constexpr int fwd_bf16_smem() {
-  return 3 * kTile * (D + 8) * 2;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) attn_small_fwd_bf16(const Params p) {
-  constexpr int LDS = D + 8, NS = kTile / 8, NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + kTile * LDS;
-  bf16* vs = ks + kTile * LDS;
-  const int m0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int wr = (threadIdx.x / 32) * 16, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const long long base = head_base(p, b, h, D);
-  const bf16* kg = static_cast<const bf16*>(p.k) + base;
-  const bf16* vg = static_cast<const bf16*>(p.v) + base;
-  const int kend = key_end(p, m0, kTile);
-
-  load_rows<D, kTile>(qs, static_cast<const bf16*>(p.q) + base, p.ld, m0, p.seq);
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* q0 = qs + (wr + g) * LDS + kk * 16 + t * 2;
-    qf[kk][0] = lds32(q0);
-    qf[kk][1] = lds32(q0 + 8 * LDS);
-    qf[kk][2] = lds32(q0 + 8);
-    qf[kk][3] = lds32(q0 + 8 * LDS + 8);
-  }
-  // scaled scores of this warp's rows against the key tile at n0, masked
-  auto scores = [&](float (&s)[NS][4], int n0) {
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const bf16* k0 = ks + (n * 8 + g) * LDS + kk * 16 + t * 2;
-        const uint32_t bf[2] = {lds32(k0), lds32(k0 + 8)};
-        mma_16816(s[n], qf[kk], bf);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[n][e] = visible(p, m0 + mma_row(e), n0 + mma_col(n, e)) ? s[n][e] * p.scale : kNegInf;
-    }
-  };
-
-  // sweep 1: each row's max and sum of exp(s - max) over the key tiles
-  float mx[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f};  // sum: this thread's share
-  for (int n0 = 0; n0 < kend; n0 += kTile) {
-    load_rows<D, kTile>(ks, kg, p.ld, n0, p.seq);
-    cp_async_wait_all();
-    __syncthreads();
-    float s[NS][4];
-    scores(s, n0);
-    __syncthreads();  // every warp is done with this K tile
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float m = mx[i];
-#pragma unroll
-      for (int n = 0; n < NS; ++n) m = fmaxf(m, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
-      m = quad_max(m);
-      float add = 0.f;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) add += expf(s[n][2 * i] - m) + expf(s[n][2 * i + 1] - m);
-      sum[i] = sum[i] * expf(mx[i] - m) + add;
-      mx[i] = m;
-    }
-  }
-  const float total[2] = {quad_sum(sum[0]), quad_sum(sum[1])};
-
-  // sweep 2: P = exp(s - max) / sum rounded to bf16, P.V accumulated in fp32
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int n0 = 0; n0 < kend; n0 += kTile) {
-    load_rows<D, kTile>(ks, kg, p.ld, n0, p.seq);
-    load_rows<D, kTile>(vs, vg, p.ld, n0, p.seq);
-    cp_async_wait_all();
-    __syncthreads();
-    float s[NS][4];
-    scores(s, n0);
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = expf(s[n][e] - mx[e >> 1]) / total[e >> 1];
-    mma_xb<D, kTile>(acc, s, vs);
-    __syncthreads();  // every warp is done with this K and V tile
-  }
-  store_rows<D>(static_cast<bf16*>(p.o) + base, acc, m0, p);
-}
-
-// ------------------------------------------------------------ K11 backward
-
-template <int D, int KN>
-constexpr int bwd_bf16_smem() {
-  return (2 * kTile + 2 * KN) * (D + 8) * 2 + KN * 3 * 4;
-}
-
-// dq for 64 query rows of one (item, head), and the rows' statistics
-template <int D, int KN>
-__global__ void __launch_bounds__(kThreads) attn_small_dq_bf16(const Params p) {
-  constexpr int LDS = D + 8, NS = KN / 8, NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kTile * LDS;
-  bf16* ks = dos + kTile * LDS;
-  bf16* vs = ks + KN * LDS;
-  const int m0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int wr = (threadIdx.x / 32) * 16;
-  const long long base = head_base(p, b, h, D);
-  const bf16* kg = static_cast<const bf16*>(p.k) + base;
-  const bf16* vg = static_cast<const bf16*>(p.v) + base;
-  const int kend = key_end(p, m0, kTile);
-  load_rows<D, kTile>(qs, static_cast<const bf16*>(p.q) + base, p.ld, m0, p.seq);
-  load_rows<D, kTile>(dos, static_cast<const bf16*>(p.dout) + base, p.ld, m0, p.seq);
-
-  // scaled scores of this warp's rows against the key tile at n0, masked
-  auto scores = [&](float (&s)[NS][4], int n0) {
-    mma_abt<D, NS>(s, qs + wr * LDS, ks);
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[n][e] = visible(p, m0 + mma_row(e), n0 + mma_col(n, e)) ? s[n][e] * p.scale : kNegInf;
-  };
-
-  // sweep 1: each row's max and sum of exp(s - max), as the forward's
-  float mx[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f};
-  for (int n0 = 0; n0 < kend; n0 += KN) {
-    load_rows<D, KN>(ks, kg, p.ld, n0, p.seq);
-    cp_async_wait_all();
-    __syncthreads();
-    float s[NS][4];
-    scores(s, n0);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float m = mx[i];
-#pragma unroll
-      for (int n = 0; n < NS; ++n) m = fmaxf(m, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
-      m = quad_max(m);
-      float add = 0.f;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) add += expf(s[n][2 * i] - m) + expf(s[n][2 * i + 1] - m);
-      sum[i] = sum[i] * expf(mx[i] - m) + add;
-      mx[i] = m;
-    }
-  }
-  const float total[2] = {quad_sum(sum[0]), quad_sum(sum[1])};
-
-  // P = exp(s - max) / sum (fp32) and dp = dO . V^T of the key tile at n0
-  auto probs = [&](float (&s)[NS][4], float (&dp)[NS][4], int n0) {
-    load_rows<D, KN>(ks, kg, p.ld, n0, p.seq);
-    load_rows<D, KN>(vs, vg, p.ld, n0, p.seq);
-    cp_async_wait_all();
-    __syncthreads();
-    scores(s, n0);
-    mma_abt<D, NS>(dp, dos + wr * LDS, vs);
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = expf(s[n][e] - mx[e >> 1]) / total[e >> 1];
-  };
-
-  // sweep 2: delta = sum_j dp P
-  float dl[2] = {0.f, 0.f};
-  for (int n0 = 0; n0 < kend; n0 += KN) {
-    float s[NS][4], dp[NS][4];
-    probs(s, dp, n0);
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dl[e >> 1] += s[n][e] * dp[n][e];
-    __syncthreads();
-  }
-  const float delta[2] = {quad_sum(dl[0]), quad_sum(dl[1])};
-
-  // sweep 3: dq = round(P (dp - delta) scale) . K
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int n0 = 0; n0 < kend; n0 += KN) {
-    float s[NS][4], dp[NS][4];
-    probs(s, dp, n0);
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * (dp[n][e] - delta[e >> 1]) * p.scale;
-    mma_xb<D, KN>(acc, s, ks);
-    __syncthreads();
-  }
-  store_rows<D>(static_cast<bf16*>(p.o) + base, acc, m0, p);
-  if ((threadIdx.x & 3) == 0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = m0 + mma_row(2 * i);
-      if (row >= p.seq) continue;
-      float* st = p.stats + ((static_cast<long long>(b) * p.seq + row) * p.heads + h) * 3;
-      st[0] = mx[i];
-      st[1] = total[i];
-      st[2] = delta[i];
-    }
-  }
-}
-
-// dk and dv for 64 keys of one (item, head), walking the query tiles in
-// the transposed frame: rows are keys, columns queries
-template <int D, int QN>
-__global__ void __launch_bounds__(kThreads) attn_small_dkv_bf16(const Params p) {
-  constexpr int LDS = D + 8, NS = QN / 8, NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kTile * LDS;
-  bf16* qs = vs + kTile * LDS;
-  bf16* dos = qs + QN * LDS;
-  float* st = reinterpret_cast<float*>(dos + QN * LDS);
-  const int n0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int wr = (threadIdx.x / 32) * 16;
-  const long long base = head_base(p, b, h, D);
-  const bf16* qg = static_cast<const bf16*>(p.q) + base;
-  const bf16* dog = static_cast<const bf16*>(p.dout) + base;
-  const float* stats = p.stats + static_cast<long long>(b) * p.seq * p.heads * 3 + h * 3;
-  load_rows<D, kTile>(ks, static_cast<const bf16*>(p.k) + base, p.ld, n0, p.seq);
-  load_rows<D, kTile>(vs, static_cast<const bf16*>(p.v) + base, p.ld, n0, p.seq);
-  float dk[NO][4], dv[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  // under causal no query before this block's first key sees any of its keys
-  for (int q0 = p.causal ? n0 / QN * QN : 0; q0 < p.seq; q0 += QN) {
-    load_rows<D, QN>(qs, qg, p.ld, q0, p.seq);
-    load_rows<D, QN>(dos, dog, p.ld, q0, p.seq);
-    for (int i = threadIdx.x; i < QN * 3; i += kThreads) {
-      const int r = i / 3;
-      st[i] = q0 + r < p.seq ? stats[static_cast<long long>(q0 + r) * p.heads * 3 + i % 3] : 1.f;
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    float s[NS][4], dp[NS][4];
-    mma_abt<D, NS>(s, ks + wr * LDS, qs);
-    mma_abt<D, NS>(dp, vs + wr * LDS, dos);
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = mma_col(n, e);
-        const bool seen = q0 + i < p.seq && visible(p, q0 + i, n0 + mma_row(e));
-        const float pr = seen ? expf(s[n][e] * p.scale - st[3 * i]) / st[3 * i + 1] : 0.f;
-        s[n][e] = pr;
-        dp[n][e] = pr * (dp[n][e] - st[3 * i + 2]) * p.scale;
-      }
-    mma_xb<D, QN>(dv, s, dos);
-    mma_xb<D, QN>(dk, dp, qs);
-    __syncthreads();
-  }
-  store_rows<D>(static_cast<bf16*>(p.dk) + base, dk, n0, p);
-  store_rows<D>(static_cast<bf16*>(p.dv) + base, dv, n0, p);
 }
 
 // ------------------------------------------------- fp32: 3xTF32 on wgmma
@@ -1102,6 +734,745 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 2) attn_small_bwd_onet
   store_acc<D>(static_cast<bf16*>(p.dk) + base, dk, p.ld, p.seq);
 }
 
+// -------------------------------------------- bf16, S > 64: tiled, wgmma
+//
+// Every product a wgmma: S and dP (and the dk/dv kernel's S^T and dP^T)
+// from shared memory, both operands K-major; P, dS and their transposes as
+// A fragments from the accumulators, against V, K, dO or Q read MN-major.
+// Q, K, V and dO tiles of 64 rows come by 16-byte cp.async into the
+// 128-byte-swizzled tiles of attention_tiles.cuh, one tile of D columns a
+// 64-row block of one (item, head).  Scores are in units of scale·log2e
+// (exp2); each row's max, sum and delta are combined across a block's
+// warpgroups through shared memory in warpgroup order, and the warpgroups'
+// partial outputs are added in warpgroup order: no atomics, so both
+// launches of K11 are bit-identical from call to call.
+//
+// The rule on the shape: a warpgroup holds one 64 x 64 score tile (and dP
+// tile) a key tile it owns, so a block holds the scores of a resident
+// number of keys in registers: kFwdResidentKeys for the forward (two
+// warpgroups of two tiles); for dq kDqResidentKeys (four warpgroups of
+// one) at head dim 64 for items of at most kLongItem tokens, else
+// kDqResidentKeysLong (two).  A query tile that sees at most that many
+// keys (all S of them, or under causal those up to its last row) forms
+// its scores once, with the exact max and sum from the registers.  A
+// longer one walks its keys in chunks of that many twice: a first sweep
+// gathers each row's max and sum (dq: and sum_j e dp) online, the second
+// forms P = e / sum with them.  Either way P is the exact e / sum of
+// head_fwd before it is rounded.  Items of more than kLongItem tokens take
+// builds of the same kernels with that second sweep (template argument
+// LONG): they hold its running sums beside the scores, so they run fewer
+// warpgroups an SM and may use more registers; items up to kLongItem, the
+// vit_small --patch-size 2 paths', take builds without it.
+//
+// What bounds them at vit_small --patch-size 2's train shape (B 128, S 256,
+// 6 heads of 64): bytes.  The forward moves 100.7 MB (0.030 ms at 3.35
+// TB/s) against 12.9 GFLOP (0.013 ms at 989 TFLOP/s), the backward 176.2 MB
+// (0.053 ms) against 32.2 GFLOP; both also run an exp and a handful of FMAs
+// per score on the CUDA cores, as much work again as the products.  So
+// each block reads its operands once, forms each product once, keeps
+// several warpgroups an SM in flight and lets copies land under products:
+// - attn_small_fwd_bf16: a block per 64 query rows of an (item, head), two
+//   warpgroups splitting the key tiles (tile j to warpgroup j % 2).  Q and
+//   K come in one cp.async group and V in a second that lands under
+//   S = Q.K^T; O = P.V with P from registers; the two O partials added
+//   through shared memory over K's tiles.  74 KB at D 64: two blocks an SM.
+// - attn_small_dq_bf16: one warpgroup a key tile, the block persistent over
+//   the (item, head, 64-query tile) tiles with two stages of Q, dO, K and V,
+//   so the next tile's copies land under this one's products.  S and dP once
+//   a key tile; P, delta = sum_j dp P and dS = P (dp - delta) scale from the
+//   registers; dQ = round(dS).K; each row's max (of scale·S), sum and delta
+//   into the scratch.
+// - attn_small_dkv_bf16: one warpgroup a block owns 64 keys (its K and V
+//   once) and streams the query tiles with their statistics through a
+//   two-stage ring; S^T = K.Q^T and dP^T = V.dO^T by wgmma, P^T and dS^T in
+//   registers, dV += round(P^T).dO and dK += round(dS^T).Q, a 32-query
+//   half at a time.  67.5 KB at D 64, three blocks an SM: dK is summed a
+//   half at a time in shared memory there, which keeps 168 registers
+//   enough (at D 128, two blocks an SM, dK in registers).
+
+constexpr int kTileRows = 64;             // rows of a query or key tile: wgmma M, one swizzled tile
+constexpr int kLongItem = 256;            // items past it take the LONG builds
+constexpr int kFwdResidentKeys = 256;     // keys whose scores a forward block holds
+constexpr int kDqResidentKeys = 256;      // keys whose S and dP a dq block holds: head dim 64, items to kLongItem
+constexpr int kDqResidentKeysLong = 128;  // ... otherwise
+constexpr int kFwdWarpgroups = 2;
+
+// 2^x on the multi-function unit, subnormal results flushed to 0: a P term
+// below 2^-126 of its row's largest (exp2f adds a rescale for those)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// this thread's 32 scores of a 64 x 64 tile (query rows from row0, keys from
+// key0) times scale·log2e; keys a row does not see at -1e30.  A tile whose
+// keys every row sees (inside the item, and under causal none past the
+// tile's first row) takes no test.
+__device__ __forceinline__ void mask_tile(float (&s)[32], const Params& p, int row0, int key0, float sl2) {
+  if (key0 + kTileRows <= p.seq && (!p.causal || key0 + kTileRows - 1 <= row0)) {
+#pragma unroll
+    for (int k = 0; k < 32; ++k) s[k] *= sl2;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * n + 2 * i + e];
+        x = visible(p, row0 + acc_row(i), key0 + acc_col(n, e)) ? x * sl2 : kNegInf;
+      }
+}
+
+// the largest of this thread's scores of row i (0: its first, 1: its
+// second) over NT tiles, not yet over the quad
+template <int NT>
+__device__ __forceinline__ float own_row_max(const float (&s)[NT][32], int i) {
+  float m = kNegInf;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) m = fmaxf(m, fmaxf(s[j][4 * n + 2 * i], s[j][4 * n + 2 * i + 1]));
+  return m;
+}
+
+// s <- exp2(s - m[row]) over NT tiles; returns this thread's share of each row's sum
+template <int NT>
+__device__ __forceinline__ void exp_rows(float (&s)[NT][32], const float (&m)[2], float (&sum)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[j][4 * n + 2 * i + e];
+          x = ex2(x - m[i]);
+          sum[i] += x;
+        }
+  }
+}
+
+// s <- s / sum[row], correctly rounded (div_by)
+template <int NT>
+__device__ __forceinline__ void normalize_rows(float (&s)[NT][32], const float (&sum)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float r = 1.f / sum[i];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[j][4 * n + 2 * i + e];
+          x = div_by(x, sum[i], r);
+        }
+  }
+}
+
+// rows [row0, row0 + 64) of one head's column slice at g (row stride ld)
+// into a swizzled 64-row tile by the block's THREADS threads; rows at or
+// past seq zero-filled
+template <int D, int THREADS>
+__device__ __forceinline__ void load_tile64(uint32_t tile, const bf16* g, long long ld, int row0, int seq, int tid) {
+  load_swizzled<D, kTileRows, THREADS>(tile, g + row0 * ld, ld, seq - row0, tid);
+}
+
+template <int D>
+struct TiledFwd {
+  static constexpr int kTile = tile_bytes<D, kTileRows>();
+  static constexpr int kChunk = kFwdResidentKeys / kTileRows;  // key tiles a chunk: 4
+  static constexpr int kEach = kChunk / kFwdWarpgroups;        // of them a warpgroup's: 2
+  // dynamic shared memory for items of seq tokens: Q, then K and V of a
+  // chunk (as many tiles as the item has, up to kChunk), the row exchange
+  // (2 slots), alignment slack; the O partial of the second warpgroup
+  // lands over K's tiles (at least two: S > 64)
+  __host__ __device__ static constexpr int bytes(int seq) {
+    return (1 + 2 * (seq > kFwdResidentKeys ? kChunk : (seq + kTileRows - 1) / kTileRows)) * kTile +
+           2 * kFwdWarpgroups * 64 * 4 + 1024;
+  }
+};
+
+// K10 in bf16 past one key tile: the 64 query rows [64 blockIdx.x, + 64) of
+// item blockIdx.z, head blockIdx.y, against every key they see.  The key
+// tiles of a chunk go to the two warpgroups in turn (tile j to j % 2), so
+// that under causal the tiles a query tile sees are split evenly.  The
+// LONG build (items past kLongItem) sweeps the keys twice where a query
+// tile sees more than kFwdResidentKeys of them.
+template <int D, bool LONG>
+__global__ void __launch_bounds__(kWarpgroup * kFwdWarpgroups, D == 64 && !LONG ? 2 : 1) attn_small_fwd_bf16(const Params p) {
+  using L = TiledFwd<D>;
+  constexpr int WG = kFwdWarpgroups, NT = L::kEach, CK = L::kChunk, kT = L::kTile, kAll = kWarpgroup * WG;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const int ct = min(CK, (p.seq + kTileRows - 1) / kTileRows);  // K (and V) tiles held
+  const uint32_t qs = (raw + 1023) & ~1023u, ks = qs + kT, vs = ks + ct * kT;
+  float* red = reinterpret_cast<float*>(smem_raw + (vs + ct * kT - raw));
+  float* part = reinterpret_cast<float*>(smem_raw + (ks - raw));
+  const int m0 = blockIdx.x * kTileRows, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x, w = tid / kWarpgroup;
+  const long long hb = head_base(p, b, h, D);
+  const bf16* kg = static_cast<const bf16*>(p.k) + hb;
+  const bf16* vg = static_cast<const bf16*>(p.v) + hb;
+  const int nkt = (key_end(p, m0, kTileRows) + kTileRows - 1) / kTileRows;  // key tiles the rows see
+  const int nch = (nkt + CK - 1) / CK;
+  const float sl2 = p.scale * kLog2e;
+  const SharedRows<WG> rows{red};
+
+  // chunk c's key tiles below nkt (no more than ct) into K's (and V's) tiles
+  auto load_chunk = [&](int c, bool keys, bool values) {
+#pragma unroll
+    for (int j = 0; j < CK; ++j) {
+      const int t = c * CK + j;
+      if (t >= nkt) break;
+      if (keys) load_tile64<D, kAll>(ks + j * kT, kg, p.ld, t * kTileRows, p.seq, tid);
+      if (values) load_tile64<D, kAll>(vs + j * kT, vg, p.ld, t * kTileRows, p.seq, tid);
+    }
+  };
+  // this warpgroup's tiles of chunk c (chunk tile w + WG i): S = Q.K^T,
+  // masked and scaled; a tile past nkt all -1e30
+  float s[NT][32];
+  auto scores = [&](int c) {
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+      if (c * CK + w + WG * i < nkt) wgmma_abt<D, kTileRows, kTileRows>(s[i], qs, ks + (w + WG * i) * kT);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      fence_regs<32>(s[i]);
+      const int t = c * CK + w + WG * i;
+      if (t < nkt) {
+        mask_tile(s[i], p, m0, t * kTileRows, sl2);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 32; ++k) s[i][k] = kNegInf;
+      }
+    }
+  };
+  // O += round(P).V over this warpgroup's tiles of chunk c
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  auto pv = [&](int c) {
+    uint32_t pa[NT][4][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) pack_a(pa[i], s[i]);
+    fence_regs<D / 2>(o);
+    fence_regs<16 * NT>(&pa[0][0][0]);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+      if (c * CK + w + WG * i < nkt)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(o, pa[i][kk], desc_mnmajor<kTileRows>(vs + (w + WG * i) * kT, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(o);
+    fence_regs<16 * NT>(&pa[0][0][0]);
+  };
+
+  float mx[2], sum[2];
+  // past kFwdResidentKeys keys (LONG): two sweeps over the chunks
+  auto sweep_twice = [&]() {
+    // first sweep: each row's max and sum online over the chunks
+    float l[2] = {0.f, 0.f};
+    mx[0] = mx[1] = kNegInf;
+    for (int c = 0; c < nch; ++c) {
+      if (c > 0) {
+        __syncthreads();  // every warpgroup's S is done with the last chunk's K
+        load_chunk(c, true, false);
+        tiles_landed<0>();
+      }
+      scores(c);
+      float cm[2] = {quad_max(own_row_max(s, 0)), quad_max(own_row_max(s, 1))};
+      rows.template combine<true>(cm, 0);
+      float add[2];
+      const float m_new[2] = {fmaxf(mx[0], cm[0]), fmaxf(mx[1], cm[1])};
+      exp_rows(s, m_new, add);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] = l[i] * ex2(mx[i] - m_new[i]) + add[i];
+        mx[i] = m_new[i];
+      }
+    }
+    sum[0] = quad_sum(l[0]);
+    sum[1] = quad_sum(l[1]);
+    rows.template combine<false>(sum, 1);
+    // second sweep: P = e / sum, O += round(P).V a chunk at a time
+    for (int c = 0; c < nch; ++c) {
+      __syncthreads();  // every warpgroup is done with the last chunk's K and V
+      load_chunk(c, true, true);
+      tiles_landed<0>();
+      scores(c);
+      float ignored[2];
+      exp_rows(s, mx, ignored);
+      normalize_rows(s, sum);
+      pv(c);
+    }
+  };
+  load_tile64<D, kAll>(qs, static_cast<const bf16*>(p.q) + hb, p.ld, m0, p.seq, tid);
+  load_chunk(0, true, false);
+  cp_async_commit();
+  if (nch == 1) load_chunk(0, false, true);  // V lands under S
+  tiles_landed<1>();
+  bool swept = false;
+  if constexpr (LONG) {
+    if (nch > 1) {
+      swept = true;
+      sweep_twice();
+    }
+  }
+  if (!swept) {
+    // the scores once: the row's max and sum over its whole key set
+    scores(0);
+    mx[0] = quad_max(own_row_max(s, 0));
+    mx[1] = quad_max(own_row_max(s, 1));
+    rows.template combine<true>(mx, 0);
+    exp_rows(s, mx, sum);
+    sum[0] = quad_sum(sum[0]);
+    sum[1] = quad_sum(sum[1]);
+    rows.template combine<false>(sum, 1);
+    normalize_rows(s, sum);
+    tiles_landed<0>();  // V
+    pv(0);
+  }
+  __syncthreads();  // every warpgroup's S is done with K: the O partial lands there
+  sum_partials<WG, D / 2>(o, part);
+  if (w == 0) store_acc<D>(static_cast<bf16*>(p.o) + hb + static_cast<long long>(m0) * p.ld, o, p.ld, p.seq - m0);
+}
+
+template <int D, bool LONG>
+struct TiledDq {
+  static constexpr int kResident = D == 64 && !LONG ? kDqResidentKeys : kDqResidentKeysLong;
+  static constexpr bool kTwoSweeps = LONG || kResident < kLongItem;  // a query tile may see more keys
+  static constexpr int kWarpgroups = kResident / kTileRows;
+  static constexpr int kThreads = kWarpgroup * kWarpgroups;
+  static constexpr int kTile = tile_bytes<D, kTileRows>();
+  static constexpr int kStage = (2 + 2 * kWarpgroups) * kTile;  // Q, dO; K and V of a chunk
+  // the row exchange (3 slots), the dQ partials of warpgroups past the first, alignment slack
+  static constexpr int kRest = 3 * kWarpgroups * 64 * 4 + (kWarpgroups - 1) * (D / 2) * kWarpgroup * 4 + 1024;
+  static constexpr int kBytes = 2 * kStage + kRest;
+  static_assert(kBytes <= 227 * 1024, "two stages fit");
+};
+
+// K11's dq in bf16 past one key tile, and each query row's statistics: the
+// block persistent over the tiles u = blockIdx.x, + gridDim.x, ... (tile u:
+// query tile u % nq of head u / nq % heads of item u / (nq heads)), the next
+// tile's Q, dO and first chunk of K and V copied into the other stage while
+// this one's products run.  Warpgroup w owns key tile w of each chunk.
+template <int D, bool LONG>
+__global__ void __launch_bounds__(D == 64 && !LONG ? 512 : 256, 1) attn_small_dq_bf16(const Params p, int tiles) {
+  using L = TiledDq<D, LONG>;
+  constexpr int WG = L::kWarpgroups, kT = L::kTile, kAll = L::kThreads;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
+  float* red = reinterpret_cast<float*>(smem_raw + (base + 2 * L::kStage - raw));
+  float* part = red + 3 * WG * 64;
+  const int tid = threadIdx.x, w = tid / kWarpgroup, nq = (p.seq + kTileRows - 1) / kTileRows;
+  const float sl2 = p.scale * kLog2e;
+  const SharedRows<WG> rows{red};
+  const bf16* const q = static_cast<const bf16*>(p.q);
+  const bf16* const dout = static_cast<const bf16*>(p.dout);
+  const bf16* const kg0 = static_cast<const bf16*>(p.k);
+  const bf16* const vg0 = static_cast<const bf16*>(p.v);
+
+  // K and V tiles of chunk c (those below the key end) of the tile at head base hb
+  auto issue_kv = [&](long long hb, int nkt, int c, uint32_t st) {
+#pragma unroll
+    for (int j = 0; j < WG; ++j) {
+      const int t = c * WG + j;
+      if (t >= nkt) break;
+      load_tile64<D, kAll>(st + (2 + j) * kT, kg0 + hb, p.ld, t * kTileRows, p.seq, tid);
+      load_tile64<D, kAll>(st + (2 + WG + j) * kT, vg0 + hb, p.ld, t * kTileRows, p.seq, tid);
+    }
+  };
+  auto head_of = [&](int u) { return head_base(p, u / nq / p.heads, u / nq % p.heads, D); };
+  auto key_tiles = [&](int u) { return (key_end(p, u % nq * kTileRows, kTileRows) + kTileRows - 1) / kTileRows; };
+  // tile u's Q, dO and first chunk into stage st, one commit group
+  auto issue = [&](int u, uint32_t st) {
+    const long long hb = head_of(u);
+    const int m0 = u % nq * kTileRows;
+    load_tile64<D, kAll>(st, q + hb, p.ld, m0, p.seq, tid);
+    load_tile64<D, kAll>(st + kT, dout + hb, p.ld, m0, p.seq, tid);
+    issue_kv(hb, key_tiles(u), 0, st);
+    cp_async_commit();
+  };
+
+  int u = blockIdx.x;
+  if (u < tiles) issue(u, base);
+#pragma unroll 1
+  for (int it = 0; u < tiles; ++it, u += gridDim.x) {
+    const uint32_t st = base + (it & 1) * L::kStage;
+    if (u + static_cast<int>(gridDim.x) < tiles) {
+      issue(u + gridDim.x, base + ((it + 1) & 1) * L::kStage);  // the stage the last tile freed
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+    const long long hb = head_of(u);
+    const int m0 = u % nq * kTileRows, nkt = key_tiles(u), nch = (nkt + WG - 1) / WG;
+    const uint32_t qs = st, dos = st + kT, kw = st + (2 + w) * kT, vw = st + (2 + WG + w) * kT;
+
+    // this warpgroup's key tile of chunk c: S (scaled, masked) and dP, or
+    // -1e30 and 0 past the key end
+    float s[1][32], dp[32];
+    auto sdp = [&](int c) {
+      const int t = c * WG + w;
+      if (t < nkt) {
+        wgmma_fence();
+        wgmma_abt<D, kTileRows, kTileRows>(s[0], qs, kw);
+        wgmma_abt<D, kTileRows, kTileRows>(dp, dos, vw);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<32>(s[0]);
+        fence_regs<32>(dp);
+        mask_tile(s[0], p, m0, t * kTileRows, sl2);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 32; ++k) s[0][k] = kNegInf, dp[k] = 0.f;
+      }
+    };
+    // chunk c > 0, or chunk 0 again, into this tile's stage
+    auto reload = [&](int c) {
+      __syncthreads();  // every warpgroup is done with the stage's K and V
+      issue_kv(hb, nkt, c, st);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+    };
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    // dQ += round(P (dP - delta) scale).K over this warpgroup's tile of chunk c (s holds P)
+    float mx[2], sum[2], delta[2];
+    auto dq_step = [&](int c) {
+      if (c * WG + w >= nkt) return;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = 4 * n + 2 * i + e;
+            dp[k] = s[0][k] * (dp[k] - delta[i]) * p.scale;
+          }
+      uint32_t da[4][4];
+      pack_a(da, dp);
+      fence_regs<D / 2>(dq);
+      fence_regs<16>(&da[0][0]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dq, da[kk], desc_mnmajor<kTileRows>(kw, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(dq);
+      fence_regs<16>(&da[0][0]);
+    };
+
+    // past the resident keys: two sweeps over the chunks
+    auto sweep_twice = [&]() {
+      // first sweep: each row's max, sum and sum_j e dp online over the chunks
+      float l[2] = {0.f, 0.f}, wsum[2] = {0.f, 0.f};
+      mx[0] = mx[1] = kNegInf;
+      for (int c = 0; c < nch; ++c) {
+        if (c > 0) reload(c);
+        sdp(c);
+        float cm[2] = {quad_max(own_row_max(s, 0)), quad_max(own_row_max(s, 1))};
+        rows.template combine<true>(cm, 0);
+        const float m_new[2] = {fmaxf(mx[0], cm[0]), fmaxf(mx[1], cm[1])};
+        float add[2];
+        exp_rows(s, m_new, add);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float x = 0.f;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) x += s[0][4 * n + 2 * i] * dp[4 * n + 2 * i] + s[0][4 * n + 2 * i + 1] * dp[4 * n + 2 * i + 1];
+          const float alpha = ex2(mx[i] - m_new[i]);
+          l[i] = l[i] * alpha + add[i];
+          wsum[i] = wsum[i] * alpha + x;
+          mx[i] = m_new[i];
+        }
+      }
+      sum[0] = quad_sum(l[0]);
+      sum[1] = quad_sum(l[1]);
+      rows.template combine<false>(sum, 1);
+      delta[0] = quad_sum(wsum[0]);
+      delta[1] = quad_sum(wsum[1]);
+      rows.template combine<false>(delta, 2);
+      delta[0] /= sum[0];
+      delta[1] /= sum[1];
+      // second sweep: P = e / sum, dS and dQ a chunk at a time
+      for (int c = 0; c < nch; ++c) {
+        reload(c);
+        sdp(c);
+        float ignored[2];
+        exp_rows(s, mx, ignored);
+        normalize_rows(s, sum);
+        dq_step(c);
+      }
+    };
+    bool swept = false;
+    if constexpr (L::kTwoSweeps) {
+      if (nch > 1) {
+        swept = true;
+        sweep_twice();
+      }
+    }
+    if (!swept) {
+      // S and dP once: the statistics from the registers
+      sdp(0);
+      mx[0] = quad_max(own_row_max(s, 0));
+      mx[1] = quad_max(own_row_max(s, 1));
+      rows.template combine<true>(mx, 0);
+      exp_rows(s, mx, sum);
+      sum[0] = quad_sum(sum[0]);
+      sum[1] = quad_sum(sum[1]);
+      rows.template combine<false>(sum, 1);
+      normalize_rows(s, sum);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float x = 0.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) x += s[0][4 * n + 2 * i] * dp[4 * n + 2 * i] + s[0][4 * n + 2 * i + 1] * dp[4 * n + 2 * i + 1];
+        delta[i] = quad_sum(x);
+      }
+      rows.template combine<false>(delta, 2);
+      dq_step(0);
+    }
+    // the barrier in sum_partials: after it no warp reads this tile's stage,
+    // so the next iteration's issue may refill it
+    sum_partials<WG, D / 2>(dq, part);
+    if (w == 0) {
+      store_acc<D>(static_cast<bf16*>(p.o) + hb + static_cast<long long>(m0) * p.ld, dq, p.ld, p.seq - m0);
+      if (tid % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = m0 + acc_row(i);
+          if (row >= p.seq) continue;
+          float* o = p.stats + ((static_cast<long long>(u / nq / p.heads) * p.seq + row) * p.heads + u / nq % p.heads) * 3;
+          o[0] = mx[i] * kLn2;
+          o[1] = sum[i];
+          o[2] = delta[i];
+        }
+      }
+    }
+  }
+}
+
+// D (fp32, 64 x 32) += A (bf16, 64 x 16) · B (bf16, 16 x 32), both K-major
+// in shared memory; acc 0 overwrites D.  d[4n + 2i + e] is row 16·warp +
+// g + 8i, column 8n + 2t + e (n < 4), as hopper_common.cuh's wider forms.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float* d, uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <int D>
+struct TiledDkv {
+  static constexpr int kTile = tile_bytes<D, kTileRows>();
+  static constexpr int kStats = kTileRows * 3 * 4;  // a query tile's (max, sum, delta) as the scratch holds them
+  // S^T and dP^T a 32-query half of a query tile at a time (wgmma N 32).
+  // Head dim 64: dK summed a half at a time into shared memory in fp32 (each
+  // thread its own elements), so that three blocks an SM hold their
+  // registers (168 a thread) with no spill; whole 64-query products, or dK
+  // in registers, spilled there.  Head dim 128: two blocks an SM, dK in
+  // registers.
+  static constexpr bool kDkShared = D == 64;
+  static constexpr int kQueries = 32;  // queries a product of S^T (wgmma N)
+  // K, V; two stages of Q and dO; two of statistics; the statistics as
+  // float4 (max·log2e, sum, 1 / sum, delta); dK's sum; alignment slack
+  static constexpr int kBytes =
+      2 * kTile + 4 * kTile + 2 * kStats + kTileRows * 16 + (kDkShared ? D / 2 * kWarpgroup * 4 : 0) + 1024;
+};
+
+// K11's dk and dv in bf16 past one key tile: the 64 keys [64 blockIdx.x,
+// + 64) of item blockIdx.z, head blockIdx.y, in the transposed frame (rows
+// keys, columns queries), one warpgroup.  The query tiles (under causal from
+// the block's first key) stream through two stages with their statistics:
+// tile i + 1's copies are in flight while tile i's products run.
+template <int D>
+__global__ void __launch_bounds__(kWarpgroup, D == 64 ? 3 : 2) attn_small_dkv_bf16(const Params p) {
+  using L = TiledDkv<D>;
+  constexpr int kT = L::kTile, QW = L::kQueries, NH = kTileRows / QW, KS = QW / 16;
+  constexpr bool kDkShared = L::kDkShared;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ks = (raw + 1023) & ~1023u, vs = ks + kT, ring = vs + kT;  // stage i: Q at ring + 2 i kT, dO after it
+  float* raw_stats = reinterpret_cast<float*>(smem_raw + (ring + 4 * kT - raw));
+  float4* st = reinterpret_cast<float4*>(raw_stats + 2 * kTileRows * 3);
+  float* dk_sum = reinterpret_cast<float*>(st + kTileRows) + threadIdx.x;  // element r at dk_sum[r 128]
+  const int n0 = blockIdx.x * kTileRows, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const long long hb = head_base(p, b, h, D);
+  const bf16* qg = static_cast<const bf16*>(p.q) + hb;
+  const bf16* dog = static_cast<const bf16*>(p.dout) + hb;
+  const float* stats = p.stats + (static_cast<long long>(b) * p.seq * p.heads + h) * 3;
+  const float sl2 = p.scale * kLog2e;
+  const int q_first = p.causal ? n0 : 0;  // under causal no query before the block's first key sees its keys
+  const int nt = (p.seq - q_first + kTileRows - 1) / kTileRows;
+
+  // query tile i with its statistics into stage i % 2, one commit group
+  auto issue = [&](int i) {
+    const int q0 = q_first + i * kTileRows;
+    const uint32_t qs = ring + (i & 1) * 2 * kT;
+    load_tile64<D, kWarpgroup>(qs, qg, p.ld, q0, p.seq, tid);
+    load_tile64<D, kWarpgroup>(qs + kT, dog, p.ld, q0, p.seq, tid);
+    const uint32_t dst = smem_u32(raw_stats + (i & 1) * kTileRows * 3);
+    for (int e = tid; e < kTileRows * 3; e += kWarpgroup) {
+      const int r = e / 3;
+      const bool in = q0 + r < p.seq;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst + 4 * e),
+                   "l"(stats + (in ? static_cast<long long>(q0 + r) * p.heads * 3 + e % 3 : 0)), "r"(in ? 4 : 0)
+                   : "memory");
+    }
+    cp_async_commit();
+  };
+  load_tile64<D, kWarpgroup>(ks, static_cast<const bf16*>(p.k) + hb, p.ld, n0, p.seq, tid);
+  load_tile64<D, kWarpgroup>(vs, static_cast<const bf16*>(p.v) + hb, p.ld, n0, p.seq, tid);
+  issue(0);  // one group with K and V
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  if constexpr (kDkShared) {
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) dk_sum[r * kWarpgroup] = 0.f;
+  }
+#pragma unroll 1
+  for (int i = 0; i < nt; ++i) {
+    if (i + 1 < nt) {
+      issue(i + 1);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+    // a query past S (its Q and dO rows zero) takes max 0, sum 1 and delta
+    // 0: its P^T and dS^T terms are finite and meet zero rows of dO and Q
+    if (tid < kTileRows) {
+      const float* r = raw_stats + (i & 1) * kTileRows * 3 + 3 * tid;
+      st[tid] = q_first + i * kTileRows + tid < p.seq ? make_float4(r[0] * kLog2e, r[1], 1.f / r[1], r[2])
+                                                      : make_float4(0.f, 1.f, 1.f, 0.f);
+    }
+    __syncthreads();
+    const int q0 = q_first + i * kTileRows;
+    const uint32_t qs = ring + (i & 1) * 2 * kT;  // Q, then dO at qs + kT
+    // keys past S compute rows of dK and dV that are not stored, queries
+    // past S meet zero rows: only causal keys after a query need a mask,
+    // in the tile on the diagonal
+    const bool masked = p.causal && q0 < n0 + kTileRows - 1;
+    // S^T = K.Q^T and dP^T = V.dO^T of the tile's queries [QW h, QW h + QW):
+    // wgmma N QW, both operands K-major, one commit group
+    float sc[QW / 2], dp[QW / 2];
+    auto sdp_t = [&](int h) {
+      const uint32_t q_at = qs + h * QW * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n32k16_ss(sc, desc_kmajor<kTileRows>(ks, kk), desc_kmajor<kTileRows>(q_at, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n32k16_ss(dp, desc_kmajor<kTileRows>(vs, kk), desc_kmajor<kTileRows>(q_at + kT, kk), kk > 0);
+      wgmma_commit();
+    };
+    sdp_t(0);
+    wgmma_wait<0>();
+    fence_regs<QW / 2>(sc);
+    fence_regs<QW / 2>(dp);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      // P^T = exp2(s scale log2e - max) / sum and dS^T = P^T (dP^T - delta)
+      // scale, the statistics by the accumulator's column (query), each
+      // 16-query k-step rounded into its A fragments
+      uint32_t pa[KS][4], da[KS][4];
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+        for (int n = 2 * kk; n < 2 * kk + 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = QW * h + acc_col(n, e), qr = q0 + c;
+            const float4 t = st[c];  // max·log2e, sum, 1 / sum, delta
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int k = 4 * n + 2 * r + e;
+              float pr = div_by(ex2(sc[k] * sl2 - t.x), t.y, t.z);
+              if (masked && n0 + acc_row(r) > qr) pr = 0.f;
+              sc[k] = pr;
+              dp[k] = pr * (dp[k] - t.w) * p.scale;
+            }
+          }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          pa[kk][j] = pack_f32_to_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+          da[kk][j] = pack_f32_to_bf16(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
+        }
+      }
+      // dV += round(P^T).dO and dK += round(dS^T).Q over the k-steps (dO
+      // and Q MN-major).  With dK in shared memory the products go to a
+      // fresh accumulator added there, and the next half's S^T and dP^T
+      // follow the add (registers); otherwise they follow in the next
+      // commit group.
+      if constexpr (kDkShared) {
+#pragma unroll
+        for (int r = 0; r < D / 2; ++r) dk[r] = 0.f;
+      }
+      fence_regs<D / 2>(dk);
+      fence_regs<D / 2>(dv);
+      fence_regs<4 * KS>(&pa[0][0]);
+      fence_regs<4 * KS>(&da[0][0]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) wgmma_rs<D>(dv, pa[kk], desc_mnmajor<kTileRows>(qs + kT, KS * h + kk));
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) wgmma_rs<D>(dk, da[kk], desc_mnmajor<kTileRows>(qs, KS * h + kk));
+      wgmma_commit();
+      if (!kDkShared && h + 1 < NH) sdp_t(h + 1);
+      wgmma_wait<0>();
+      fence_regs<D / 2>(dk);
+      fence_regs<D / 2>(dv);
+      fence_regs<4 * KS>(&pa[0][0]);
+      fence_regs<4 * KS>(&da[0][0]);
+      if constexpr (kDkShared) {
+#pragma unroll
+        for (int r = 0; r < D / 2; ++r) dk_sum[r * kWarpgroup] += dk[r];
+        if (h + 1 < NH) {
+          sdp_t(h + 1);
+          wgmma_wait<0>();
+        }
+      }
+      if (h + 1 < NH) {
+        fence_regs<QW / 2>(sc);
+        fence_regs<QW / 2>(dp);
+      }
+    }
+    __syncthreads();  // every warp is done with stage i % 2 and the float4 statistics: tile i + 2 refills them
+  }
+  if constexpr (kDkShared) {
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) dk[r] = dk_sum[r * kWarpgroup];
+  }
+  bf16* dkg = static_cast<bf16*>(p.dk) + hb + static_cast<long long>(n0) * p.ld;
+  bf16* dvg = static_cast<bf16*>(p.dv) + hb + static_cast<long long>(n0) * p.ld;
+  store_acc<D>(dkg, dk, p.ld, p.seq - n0);
+  store_acc<D>(dvg, dv, p.ld, p.seq - n0);
+}
+
 // ----------------------------------------------------------------- launch
 
 template <typename Kernel>
@@ -1115,14 +1486,45 @@ cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, cons
 // the rule on S (see the header): one key tile in bf16 takes the one-tile kernels
 bool one_tile(const Params& p, int is_bf16) { return is_bf16 && p.seq <= kOneTile; }
 
+// the tiled bf16 forward (S > kOneTile): a block per 64 query rows
+template <int D, bool LONG>
+cudaError_t launch_fwd_tiled(const Params& p, int batch, cudaStream_t s) {
+  const int smem = TiledFwd<D>::bytes(p.seq);
+  const cudaError_t err =
+      cudaFuncSetAttribute(attn_small_fwd_bf16<D, LONG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.seq + kTileRows - 1) / kTileRows, p.heads, batch);
+  attn_small_fwd_bf16<D, LONG><<<grid, kWarpgroup * kFwdWarpgroups, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+// the tiled bf16 backward (S > kOneTile): the dq kernel, persistent with a
+// block an SM, then the dk/dv kernel, a block per 64 keys of an (item, head)
+template <int D, bool LONG>
+cudaError_t launch_bwd_tiled(const Params& p, int batch, cudaStream_t s) {
+  using Dq = TiledDq<D, LONG>;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_small_dq_bf16<D, LONG>, cudaFuncAttributeMaxDynamicSharedMemorySize, Dq::kBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_small_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               TiledDkv<D>::kBytes);
+  if (err != cudaSuccess) return err;
+  const int nq = (p.seq + kTileRows - 1) / kTileRows, tiles = nq * p.heads * batch;
+  attn_small_dq_bf16<D, LONG><<<min(tiles, sms), Dq::kThreads, Dq::kBytes, s>>>(p, tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_small_dkv_bf16<D><<<dim3(nq, p.heads, batch), kWarpgroup, TiledDkv<D>::kBytes, s>>>(p);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_fwd(const Params& p, int batch, int is_bf16, cudaStream_t s) {
   if (one_tile(p, is_bf16))
     return launch(attn_small_fwd_onetile<D>, dim3(batch * p.heads), onetile_fwd_smem<D>(), s, p);
-  if (is_bf16) {
-    const dim3 grid((p.seq + kTile - 1) / kTile, p.heads, batch);
-    return launch(attn_small_fwd_bf16<D>, grid, fwd_bf16_smem<D>(), s, p);
-  }
+  if (is_bf16) return p.seq > kLongItem ? launch_fwd_tiled<D, true>(p, batch, s) : launch_fwd_tiled<D, false>(p, batch, s);
   const dim3 grid((p.seq + kF32Rows - 1) / kF32Rows, p.heads, batch);
   return launch(attn_small_fwd_f32<D>, grid, FwdF32<D>::kBytes, s, p);
 }
@@ -1132,13 +1534,7 @@ cudaError_t launch_bwd(const Params& p, int batch, int is_bf16, cudaStream_t s) 
   if (one_tile(p, is_bf16))
     return launch(attn_small_bwd_onetile<D>, dim3(batch * p.heads), onetile_bwd_smem<D>(), s, p);
   if (p.stats == nullptr) return cudaErrorInvalidValue;  // the tiled and fp32 kernels need it
-  if (is_bf16) {
-    constexpr int KN = D <= 64 ? 64 : 32;  // key (query) tile: fewer accumulators at large D
-    const dim3 grid((p.seq + kTile - 1) / kTile, p.heads, batch);
-    cudaError_t err = launch(attn_small_dq_bf16<D, KN>, grid, bwd_bf16_smem<D, KN>(), s, p);
-    if (err != cudaSuccess) return err;
-    return launch(attn_small_dkv_bf16<D, KN>, grid, bwd_bf16_smem<D, KN>(), s, p);
-  }
+  if (is_bf16) return p.seq > kLongItem ? launch_bwd_tiled<D, true>(p, batch, s) : launch_bwd_tiled<D, false>(p, batch, s);
   const dim3 grid((p.seq + kF32Rows - 1) / kF32Rows, p.heads, batch);
   cudaError_t err = launch(attn_small_dq_f32<D>, grid, DqF32<D>::kBytes, s, p);
   if (err != cudaSuccess) return err;
@@ -1190,4 +1586,22 @@ extern "C" int attention_small_onetile_smem(int backward, int head_dim) {
   if (head_dim == 64) return backward ? onetile_bwd_smem<64>() : onetile_fwd_smem<64>();
   if (head_dim == 128) return backward ? onetile_bwd_smem<128>() : onetile_fwd_smem<128>();
   return 0;
+}
+
+// dynamic shared memory of the tiled bf16 kernels (S > 64) for items of seq
+// tokens at head dim head_dim (0 if it is not taken): kernel 0 the forward,
+// 1 the dq kernel, 2 the dk/dv kernel
+extern "C" int attention_small_tiled_smem(int kernel, int head_dim, int seq) {
+  if (head_dim != 64 && head_dim != 128) return 0;
+  const bool d64 = head_dim == 64;
+  switch (kernel) {
+    case 0: return d64 ? TiledFwd<64>::bytes(seq) : TiledFwd<128>::bytes(seq);
+    case 1: {
+      const bool long_item = seq > kLongItem;
+      return d64 ? (long_item ? TiledDq<64, true>::kBytes : TiledDq<64, false>::kBytes)
+                 : (long_item ? TiledDq<128, true>::kBytes : TiledDq<128, false>::kBytes);
+    }
+    case 2: return d64 ? TiledDkv<64>::kBytes : TiledDkv<128>::kBytes;
+    default: return 0;
+  }
 }

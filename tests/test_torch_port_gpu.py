@@ -1393,3 +1393,129 @@ def test_fp32_small_mha_runs_the_three_f32_kernels_by_symbol(cuda_device):
     symbol = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)[<(]")
     ours = {m.group(1) for e in prof.key_averages() if (m := symbol.match(e.key))}
     assert ours == SMALL_F32_SYMBOLS, sorted(ours)
+
+
+# --------------------------- K10/K11 in bf16 past one key tile (the wgmma kernels)
+
+# (B, S, H, D, causal): vit_small --patch-size 2's serve bucket and train
+# batch (256 tokens, 6 heads of 64); S 72 and S 200 (a ragged last tile),
+# causal and not; head dim 128, causal, at S 256 (the dq kernel holds 128
+# keys there, so its last query tiles sweep the keys twice); S 328, past
+# every resident length at head dim 64 (both kernels sweep twice), causal
+# and not; and at head dim 128 S 328 (the builds for items past 256
+# tokens), causal and not, and a ragged S 200 without the causal mask
+TILED_CASES = [
+    (32, 256, 6, 64, False),
+    (128, 256, 6, 64, False),
+    (6, 72, 3, 64, False),
+    (6, 72, 3, 64, True),
+    (3, 200, 3, 64, False),
+    (3, 200, 3, 64, True),
+    (4, 256, 2, 128, True),
+    (2, 328, 2, 64, False),
+    (2, 328, 2, 64, True),
+    (2, 328, 2, 128, False),
+    (2, 328, 2, 128, True),
+    (3, 200, 2, 128, False),
+]
+_SMALL_SYMBOL = re.compile(r"(attn_small_\w+?)<")
+
+
+def _small_kernels_run(fn) -> set:
+    """The short-sequence attention kernels one call of ``fn`` runs on the
+    card, by symbol under torch.profiler (taken again, at most three times,
+    where the tracer delivers no device event for so short a run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # builds and loads outside the trace
+    torch.cuda.synchronize()
+    names = set()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {m.group(1) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and (m := _SMALL_SYMBOL.search(e.name))}
+        if names:
+            break
+    return names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,d,causal", TILED_CASES)
+def test_tiled_bf16_small_mha_matches_plain_on_card(cuda_device, b, s, h, d, causal):
+    """The tiled bf16 K10 (``attn_small_fwd_bf16``) and K11
+    (``attn_small_dq_bf16``, ``attn_small_dkv_bf16``) against
+    ``small_mha_reference`` and ``small_mha_bwd_reference`` per row with
+    the bound of ``test_small_mha_kernels_match_plain_on_card``: 2^-5 of
+    the row's rms plus 2^-6·|x| (the same rounding points; a summation-order
+    flip of one P or ds rounding, and each result's own rounding)."""
+    assert not small.one_tile(torch.bfloat16, s)
+    gen = torch.Generator().manual_seed(7 * s + d + causal)
+    q, k, v, do = _packed_qkvdo(gen, b, s, h, d, torch.bfloat16, cuda_device)
+    kw = dict(seq=s, heads=h, causal=causal)
+    before = (small.small_mha_fwd.launches, small.small_mha_bwd.launches)
+    out = small.small_mha_fwd(q, k, v, **kw)
+    grads = small.small_mha_bwd(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    assert (small.small_mha_fwd.launches, small.small_mha_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    unpack = [x.view(b, s, h, d) for x in (q, k, v, do)]
+    want = [small.small_mha_reference(*unpack[:3], causal=causal),
+            *small.small_mha_bwd_reference(*unpack, causal=causal)]
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), (out, *grads), want):
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape, name
+        assert bool(torch.isfinite(got).all()), name
+        share = _row_share(got.view(b, s, h, d), ref, 2**-6)
+        assert share <= 2**-5, (name, share)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,causal", [(256, False), (328, True)])
+def test_tiled_bf16_small_mha_backward_is_bitwise_deterministic(cuda_device, s, causal):
+    """No atomics in the tiled K11 (the dq kernel persistent over its
+    tiles, the dk/dv kernel a block per key tile): two calls give
+    bit-identical dq, dk and dv, once and twice over the keys."""
+    gen = torch.Generator().manual_seed(s)
+    q, k, v, do = _packed_qkvdo(gen, 32, s, 6, 64, torch.bfloat16, cuda_device)
+    first = small.small_mha_bwd(q, k, v, do, seq=s, heads=6, causal=causal)
+    second = small.small_mha_bwd(q, k, v, do, seq=s, heads=6, causal=causal)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_tiled_bf16_small_mha_bound_rejects_planted_faults(cuda_device):
+    """The per-row bound above rejects a kernel that left keys out: K10 run
+    with the last 64 keys' values of every item zeroed (as if those keys
+    were left out of P·V), and K11's dk with the first key tile of item 0,
+    head 0 zeroed (one dk/dv block's rows left unwritten), at the path's
+    serve shape (B 32, S 256, 6 heads of 64)."""
+    b, s, h, d = 32, 256, 6, 64
+    gen = torch.Generator().manual_seed(20)
+    q, k, v, do = _packed_qkvdo(gen, b, s, h, d, torch.bfloat16, cuda_device)
+    v_cut = v.clone()
+    v_cut.view(b, s, h * d)[:, s - 64:] = 0
+    fault_out = small.small_mha_fwd(q, k, v_cut, seq=s, heads=h)
+    dk = small.small_mha_bwd(q, k, v, do, seq=s, heads=h)[1].clone().view(b, s, h, d)
+    dk[0, :64, 0] = 0
+    unpack = [x.view(b, s, h, d) for x in (q, k, v, do)]
+    want_out = small.small_mha_reference(*unpack[:3])
+    want_dk = small.small_mha_bwd_reference(*unpack)[1]
+    assert _row_share(fault_out.view(b, s, h, d), want_out, 2**-6) > 2**-5
+    assert _row_share(dk, want_dk, 2**-6) > 2**-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,d", [(72, 64), (256, 64), (328, 64), (256, 128)])
+def test_tiled_bf16_small_mha_launches_the_kernels_kernel_symbols_names(cuda_device, s, d):
+    """Each call launches exactly the kernels ``kernel_symbols`` names for
+    bf16 past one key tile, by symbol: ``attn_small_fwd_bf16`` forward,
+    ``attn_small_dq_bf16`` and ``attn_small_dkv_bf16`` backward; no one-tile
+    or fp32 kernel."""
+    gen = torch.Generator().manual_seed(s + d)
+    q, k, v, do = _packed_qkvdo(gen, 4, s, 2, d, torch.bfloat16, cuda_device)
+    want = small.kernel_symbols(torch.bfloat16, s)
+    assert want == {"fwd": ("attn_small_fwd_bf16",), "bwd": ("attn_small_dq_bf16", "attn_small_dkv_bf16")}
+    assert _small_kernels_run(lambda: small.small_mha_fwd(q, k, v, seq=s, heads=2)) == set(want["fwd"])
+    assert _small_kernels_run(lambda: small.small_mha_bwd(q, k, v, do, seq=s, heads=2)) == set(want["bwd"])
