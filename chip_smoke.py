@@ -22,7 +22,8 @@ last line:
              ``block_attn_dkv_tf32x3``, each at head dims 64 and 128) and
              of the grouped expert FFN's bf16 kernels
              (``moe_ffn_fwd_wgmma``, ``moe_ffn_dx_wgmma``,
-             ``moe_ffn_dw_wgmma``) (``ptxas -v``; a
+             ``moe_ffn_dw_wgmma``) and fp32 (3xTF32) K7 and K9
+             (``moe_ffn_fwd_tf32x3``, ``moe_ffn_dw_tf32x3``) (``ptxas -v``; a
              bf16 flash kernel, a short-sequence kernel, a fused block GEMM or
              attention kernel (bf16 or fp32) or an expert FFN kernel that
              spills fails the run) and each such kernel's dynamic shared memory at the
@@ -140,15 +141,19 @@ last line:
              sum kernels and the rest;
 6. vit_moe  — ``moe_gmm_checks``: the grouped expert FFN's kernels (K7
              forward, K8 dx, K9 dW) against their plain versions at the
-             serve shape (bf16, n 2048, cap 320), the train shape (bf16 and
-             fp32, n 16384, cap 2560) and a ragged case (n 1000: an empty
-             group, two over capacity, the last ending at n): kept rows to
-             a per-row tolerance, dropped and padding rows exactly 0, the
-             gradients per leaf, K8/K9 bit-identical across two calls, two
-             planted faults rejected (a start shifted by a row, a row tile
-             left out of K9's walk), the kernels each wrapper ran by
-             symbol (bf16: ``moe_ffn_fwd_wgmma``, ``moe_ffn_dx_wgmma``,
-             ``moe_ffn_dw_wgmma``), device ms under the profiler (and
+             serve shape (n 2048, cap 320), the train shape (n 16384, cap
+             2560) and a ragged case (n 1000: an empty group, two over
+             capacity, the last ending at n), each in bf16 and fp32: kept
+             rows to a per-row tolerance, dropped and padding rows exactly
+             0, the gradients per leaf, K7/K8/K9 bit-identical across two
+             calls, two planted faults rejected (a start shifted by a row, a
+             row tile left out of K9's walk), in fp32 a NaN in one element
+             of x reaching K7's row and K9's gradients as in the plain
+             versions, the kernels each wrapper ran by symbol (bf16:
+             ``moe_ffn_fwd_wgmma``, ``moe_ffn_dx_wgmma``,
+             ``moe_ffn_dw_wgmma``; fp32: the 3xTF32 ``moe_ffn_fwd_tf32x3``
+             and ``moe_ffn_dw_tf32x3``, K8's SIMT ``moe_gmm_dx_kernel``),
+             device ms under the profiler (and
              CUDA-event ms) of each kernel, its plain version and the
              composed cuBLAS form of the gather dispatch (its forward, its
              backward for dx alone with the forward it recomputes, and its
@@ -169,12 +174,24 @@ last line:
              K9 in every backward, every loss finite, no step skipped, the
              routing health reported; one step's loss and every gradient
              (the router's included) against ``--moe-dispatch gather`` and
-             the plain kernels (bf16 and fp32) with a bound that rejects a
-             planted fault, and in fp32 (2^-13) a TF32 control; ms per step
-             under gmm and gather, profiles, the gmm step's expert FFN
-             kernels by symbol ``moe_ffn_fwd_wgmma`` (K7),
+             the plain kernels with a bound that rejects a planted fault;
+             ms per step under gmm and gather, profiles, the gmm step's
+             expert FFN kernels by symbol ``moe_ffn_fwd_wgmma`` (K7),
              ``moe_ffn_dx_wgmma`` (K8) and ``moe_ffn_dw_wgmma`` (K9) alone,
              each with device time;
+   train_moe_fp32 — ``vit_moe --moe-dispatch gmm`` at the default precision
+             (no ``--amp``: fp32), batch 256, one epoch of 3 steps and one
+             validation batch through ``entry.run``: K7 in every forward,
+             K8 and K9 in every backward, the same checks as train_moe, the
+             one-step check in fp32 (2^-13, with a TF32 control that must
+             exceed it), the step profile's expert FFN kernels by symbol
+             ``moe_ffn_fwd_tf32x3``, ``moe_gmm_dx_kernel`` and
+             ``moe_ffn_dw_tf32x3`` alone, each one's share of the busy time;
+   moe_fp32_dispatch — one bucket-32 batch of ``vit_moe --moe-dispatch gmm``
+             in fp32: its logits against ``--moe-dispatch gather`` within
+             2^-13 of the largest, which a planted K7 fault exceeds; both
+             dispatches timed and profiled; no SIMT K7 or K9 launched
+             anywhere in the run (every profile's kernels);
 7. vit_tiny at 64 tokens — ``small_attention_checks``: the short-sequence
              attention's kernels (K10 forward, K11 backward; bf16 at S <= 64
              one wgmma kernel each way, longer items and fp32 a forward
@@ -406,10 +423,10 @@ _PTXAS_ENTRY = re.compile(
     r"(?:block_gemm|dgrad|wgrad|block_attn|attn_dq|attn_dkv)_wgmma|"
     r"(?:block_attn|block_attn_dq|block_attn_dkv)_tf32x3)ILi(\d+)E(\w*?)EEv"
 )
-# the kernels that are no templates: the grouped expert FFN's bf16 ones and
-# the fused block chains' fp32 (3xTF32) GEMMs
+# the kernels that are no templates: the grouped expert FFN's bf16 and fp32
+# (3xTF32) ones and the fused block chains' fp32 (3xTF32) GEMMs
 _PTXAS_PLAIN_ENTRY = re.compile(
-    r"Compiling entry function '\w*?(moe_ffn_(?:fwd|dx|dw)_wgmma|(?:block_gemm|dgrad|wgrad)_tf32x3)E"
+    r"Compiling entry function '\w*?(moe_ffn_(?:fwd|dx|dw)_wgmma|moe_ffn_(?:fwd|dw)_tf32x3|(?:block_gemm|dgrad|wgrad)_tf32x3)E"
 )
 # the fused block chains' fp32 (3xTF32) kernels, as ptxas_report names them:
 # the GEMMs, and the attention's at its two padded head dims
@@ -538,8 +555,9 @@ def gemm_build_report(build, paths, vb) -> dict:
 
 
 def moe_build_report(build, paths) -> dict:
-    """The grouped expert FFN's bf16 Hopper kernels (``moe_ffn_fwd_wgmma``,
-    K7; ``moe_ffn_dx_wgmma``, K8; ``moe_ffn_dw_wgmma``, K9): registers,
+    """The grouped expert FFN's Hopper kernels (bf16 ``moe_ffn_fwd_wgmma``,
+    K7; ``moe_ffn_dx_wgmma``, K8; ``moe_ffn_dw_wgmma``, K9; fp32
+    ``moe_ffn_fwd_tf32x3``, ``moe_ffn_dw_tf32x3``): registers,
     static shared memory and spills from ``ptxas -v``, and the dynamic
     shared memory each launch asks for (fixed: it does not depend on the
     shape)."""
@@ -1556,10 +1574,15 @@ def fp32_nan_checks(vb) -> list[dict]:
     return out
 
 
+# every device kernel name a ``profile_device`` trace of this run showed
+PROFILED_KERNELS: set[str] = set()
+
+
 def profile_device(fn, reps: int) -> dict:
     """Device time of ``reps`` calls of ``fn`` under torch.profiler: busy
     ms per call (the union of device activity), the idle share of the
-    host-clock wall time, and device ms per call by kernel name.  A trace
+    host-clock wall time, and device ms per call by kernel name (each name
+    also kept in ``PROFILED_KERNELS``).  A trace
     that holds no device activity at all (the tracer now and then delivers
     none for a short run, at times several in a row) is taken again after a
     pause, twice as long each time, at most five times in all."""
@@ -1584,6 +1607,7 @@ def profile_device(fn, reps: int) -> dict:
             break
     else:
         raise RuntimeError("the profiler saw no device activity in five traces")
+    PROFILED_KERNELS.update(by_name)
     reps = reps_run
     busy, start, end = 0.0, None, None
     for s0, s1 in sorted(spans):  # union of the device intervals
@@ -2678,6 +2702,9 @@ MOE_GMM_CASES = [
     ("fp32 train shape (--moe-dispatch gmm without --amp)", "float32", 16384, 2560, None),
     ("ragged: an empty group, two over capacity, the last ending at n", "bfloat16", 1000, 160,
      (150, 0, 200, 90, 110, 120, 130, 200)),
+    ("fp32 serve shape, bucket 32 (--moe-dispatch gmm without --amp)", "float32", 2048, 320, None),
+    ("fp32 ragged: an empty group, two over capacity, the last ending at n", "float32", 1000, 160,
+     (150, 0, 200, 90, 110, 120, 130, 200)),
 ]
 # Each output (K7's y, K8's dx) holds against its plain version on the kept
 # rows per row, with the flash kernels' TOLERANCES and for the same
@@ -2691,14 +2718,19 @@ MOE_GMM_CASES = [
 # sums of the same rounded dh and g in another order), fp32 2^-14.  Two
 # planted faults must exceed those bounds: one expert's start shifted by one
 # row (on all three) and K9 with the first 64-row tile of the first kept
-# group left out of its walk.
+# group left out of its walk.  In fp32 a NaN in one element of x must also
+# reach K7's output and K9's gradients where the plain versions put it.
 GMM_GRAD_TOL = {"bfloat16": 2**-7, "float32": 2**-14}
 # the kernels K7, K8 and K9 launch, by symbol: in bf16 the Hopper kernels;
-# in fp32 the first port's three
+# in fp32 the 3xTF32 K7 and K9 and the first port's K8
 MOE_SYMBOLS = {
     "bfloat16": {"fwd": "moe_ffn_fwd_wgmma", "dx": "moe_ffn_dx_wgmma", "dw": "moe_ffn_dw_wgmma"},
-    "float32": {"fwd": "moe_gmm_fwd_kernel", "dx": "moe_gmm_dx_kernel", "dw": "moe_gmm_dw_kernel"},
+    "float32": {"fwd": "moe_ffn_fwd_tf32x3", "dx": "moe_gmm_dx_kernel", "dw": "moe_ffn_dw_tf32x3"},
 }
+MOE_TF32_KERNELS = (MOE_SYMBOLS["float32"]["fwd"], MOE_SYMBOLS["float32"]["dw"])
+# the first port's fp32 K7 and K9, which the 3xTF32 kernels replaced: no
+# profile of the run may show them
+REPLACED_MOE_KERNELS = ("moe_gmm_fwd_kernel", "moe_gmm_dw_kernel")
 
 
 def _moe_kernel_ms(device_ms_by_name: dict, csrc: Path | None = None) -> dict[str, float]:
@@ -2707,11 +2739,11 @@ def _moe_kernel_ms(device_ms_by_name: dict, csrc: Path | None = None) -> dict[st
     return _port_kernel_ms(device_ms_by_name, "moe_gmm_*.cu", csrc)
 
 
-def check_moe_kernels(where: str, kernels: dict, keys) -> None:
-    """``kernels`` (symbol -> device ms) must be the bf16 kernels of
+def check_moe_kernels(where: str, kernels: dict, keys, dname: str = "bfloat16") -> None:
+    """``kernels`` (symbol -> device ms) must be the ``dname`` kernels of
     ``keys`` ("fwd", "dx", "dw") alone, each with device time: a launched
     kernel whose symbol the profile does not show would read 0 ms."""
-    want = {MOE_SYMBOLS["bfloat16"][k] for k in keys}
+    want = {MOE_SYMBOLS[dname][k] for k in keys}
     if set(kernels) != want or not all(kernels[k] > 0 for k in want):
         raise RuntimeError(f"{where} ran the expert FFN kernels {kernels}, expected {sorted(want)} with device time")
 
@@ -2720,13 +2752,15 @@ def moe_gmm_bounds(n, d, h, ne, kept, dname) -> dict[str, tuple[float, str]]:
     """Least times of K7, K8 and K9 on the card, counting the kept rows'
     products only: K7 4·K·d·h operations against xs and y (n rows each) and
     the weights; K8 6·K·d·h against xs, dy, dx and the weights; K9 8·K·d·h
-    against xs, dy, the weights read and the fp32 gradients written."""
+    against xs, dy, the weights read and the fp32 gradients written.  In
+    fp32 K7 and K9 run each product as three tf32 products (3xTF32), K8 in
+    fp32 SIMT."""
     item = 2 if dname == "bfloat16" else 4
     weights = ne * (2 * d * h + h + d)
     return {
-        "fwd": bound(4 * kept * d * h, (2 * n * d + weights) * item, dname),
+        "fwd": bound(4 * kept * d * h, (2 * n * d + weights) * item, dname, tf32x3=True),
         "dx": bound(6 * kept * d * h, (3 * n * d + weights) * item, dname),
-        "dw": bound(8 * kept * d * h, (2 * n * d + weights) * item + weights * 4, dname),
+        "dw": bound(8 * kept * d * h, (2 * n * d + weights) * item + weights * 4, dname, tf32x3=True),
     }
 
 
@@ -2785,13 +2819,77 @@ def moe_case_inputs(dname: str, n: int, counts=None):
     return counts, starts, xs, dy, w1, b1, w2, b2
 
 
+def moe_nan_check(gm, xs, dy, w1, b1, w2, b2, starts, cap) -> dict:
+    """A NaN in one element of x, in a kept row of the first expert that
+    keeps more than 8 rows: K7's output and K9's gradients hold NaN exactly
+    where the plain versions do (that row of the output; the expert's dW1,
+    db1 and dW2 wholly) and the row is NaN across."""
+    import torch
+
+    lo, hi = next((lo, hi) for lo, hi in gm.kept_ranges(starts, cap, xs.shape[0]) if hi - lo > 8)
+    xs = xs.clone()
+    xs[lo + 5, 17] = float("nan")
+    y = gm.grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap)
+    dw = gm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap)
+    want_y = gm.grouped_ffn_reference(xs, w1, b1, w2, b2, starts, cap)
+    want_dw = gm.grouped_ffn_dw_reference(xs, dy, w1, b1, w2, starts, cap)
+    rec = {
+        "row": lo + 5, "y_row_nan": bool(y[lo + 5].isnan().all()),
+        "y_nan_where_plain": bool(torch.equal(y.isnan(), want_y.isnan())),
+        "dw_nan_where_plain": [bool(torch.equal(g.isnan(), w.isnan())) for g, w in zip(dw, want_dw)],
+        "dw1_nan_elements": int(dw[0].isnan().sum()),
+    }
+    rec["ok"] = rec["y_row_nan"] and rec["y_nan_where_plain"] and all(rec["dw_nan_where_plain"]) \
+        and rec["dw1_nan_elements"] > 0
+    return rec
+
+
+def moe_fp64_drift(gm, xs, dy, w1, b1, w2, b2, starts, cap, y, dw) -> dict:
+    """K7's output ``y`` and K9's gradients ``dw``, and their plain versions,
+    against the same function summed in fp64 on the card: y per kept row as
+    a share of the row's rms (rtol 0), each gradient in relative L2.  A
+    record of the 3xTF32 kernels' drift beside cuBLAS fp32's, not a bound."""
+    import torch
+    import torch.nn.functional as F
+
+    x64, dy64, w1d, b1d, w2d, b2d = (t.double() for t in (xs, dy, w1, b1, w2, b2))
+    y64 = torch.zeros_like(x64)
+    g64 = [torch.zeros_like(t) for t in (w1d, b1d, w2d, b2d)]
+    for e, (lo, hi) in enumerate(gm.kept_ranges(starts, cap, xs.shape[0])):
+        if hi > lo:
+            x, g = x64[lo:hi], dy64[lo:hi]
+            v = (x @ w1d[e] + b1d[e]).requires_grad_()
+            with torch.enable_grad():
+                act = F.gelu(v, approximate="tanh")
+                (grad,) = torch.autograd.grad(act.sum(), v)  # gelu' elementwise
+            act = act.detach()
+            y64[lo:hi] = act @ w2d[e] + b2d[e]
+            dh = grad * (g @ w2d[e].T)
+            for out, val in zip(g64, (x.T @ dh, dh.sum(0), act.T @ g, g.sum(0))):
+                out[e] = val
+    kept = gm.kept_mask(starts, cap, xs.shape[0])
+    rms = y64[kept].pow(2).mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+
+    def share(got):
+        return float(((got[kept].double() - y64[kept]).abs() / rms).max())
+
+    def rel(got):
+        return [float((a.double() - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(got, g64)]
+
+    return {
+        "y_row_share": {"kernel": share(y), "plain": share(gm.grouped_ffn_reference(xs, w1, b1, w2, b2, starts, cap))},
+        "dw_rel_l2": {"kernel": rel(dw), "plain": rel(gm.grouped_ffn_dw_reference(xs, dy, w1, b1, w2, starts, cap))},
+    }
+
+
 def moe_gmm_checks(gm) -> list[dict]:
     """K7, K8 and K9 (``ops/moe_gmm.py``) against their plain versions on
     the card at ``MOE_GMM_CASES``: agreement, exact zeros, bitwise replay,
-    the two planted faults, the kernels each wrapper ran by symbol (the
-    dtype's ``MOE_SYMBOLS`` alone), device ms of each kernel, its plain
-    version and the composed cuBLAS yardstick (and CUDA-event ms), beside
-    its bound."""
+    the two planted faults, in fp32 a NaN in x (``moe_nan_check``) and the
+    drift against fp64 sums (``moe_fp64_drift``), the kernels each wrapper
+    ran by symbol (the dtype's ``MOE_SYMBOLS`` alone),
+    device ms of each kernel, its plain version and the composed cuBLAS
+    yardstick (and CUDA-event ms), beside its bound."""
     import torch
 
     out = []
@@ -2806,9 +2904,10 @@ def moe_gmm_checks(gm) -> list[dict]:
         dx = gm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap)
         dw = gm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap)
         torch.cuda.synchronize()
-        replay = (gm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap),
+        replay = (gm.grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap),
+                  gm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap),
                   *gm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap))
-        bitwise = all(torch.equal(a, b) for a, b in zip((dx, *dw), replay))
+        bitwise = all(torch.equal(a, b) for a, b in zip((y, dx, *dw), replay))
         want_y = gm.grouped_ffn_reference(xs, w1, b1, w2, b2, starts, cap)
         want_dx = gm.grouped_ffn_dx_reference(xs, dy, w1, b1, w2, starts, cap)
         want_dw = gm.grouped_ffn_dw_reference(xs, dy, w1, b1, w2, starts, cap)
@@ -2841,6 +2940,9 @@ def moe_gmm_checks(gm) -> list[dict]:
                 gm.grouped_ffn_dw_reference(xs, dy_tile, w1, b1, w2, starts, cap)),
             "bit_identical_across_calls": bitwise,
         }
+        if dname == "float32":
+            rec["nan_in_x"] = moe_nan_check(gm, xs, dy, w1, b1, w2, b2, starts, cap)
+            rec["fp64_drift"] = moe_fp64_drift(gm, xs, dy, w1, b1, w2, b2, starts, cap, y, dw)
         lib_fwd, lib_bwd, lib_dx = composed_library_ffn(gm, xs, w1, b1, w2, b2, starts, cap, dy)
         big = n >= 16384
         # device-busy ms under the profiler (the kernels' own time; CUDA
@@ -2878,6 +2980,7 @@ def moe_gmm_checks(gm) -> list[dict]:
             and max(rec["dw_errors"]) <= tol < max(rec["dw_fault_shifted_start"])
             and tol < max(rec["dw_fault_row_tile"])
             and all(bool(torch.isfinite(g).all()) for g in dw)
+            and rec.get("nan_in_x", {"ok": True})["ok"]
         )
         out.append(rec)
         del xs, dy, w1, b1, w2, b2, y, dx, dw, replay, want_y, want_dx, want_dw, dy_tile
@@ -2962,11 +3065,7 @@ def serve_moe_phase(gm, vb, attn) -> dict:
     logits against the same weights under ``--moe-dispatch gather``; one
     bucket-32 dispatch timed under gmm and gather, profiled, and the MoE
     layer's device time split."""
-    import numpy as np
-
     from distributed_training_comparison_tpu_torch import entry
-    from distributed_training_comparison_tpu_torch.config import load_config
-    from distributed_training_comparison_tpu_torch.serve import build_engine, request_pool
 
     counters = _moe_path_counters(gm, vb, attn)
     for c in counters.values():
@@ -2980,36 +3079,8 @@ def serve_moe_phase(gm, vb, attn) -> dict:
     # product in fp32 and round at the same points, so later blocks see the
     # same inputs unless a summation order flips a bf16 rounding that sends
     # a near-tie token to another expert.  At this seed none does: the
-    # bound, 2^-10 of the largest logit, is set from that reading.  The
-    # planted fault (every K7 launch with one expert's start a row late:
-    # one token a block takes the wrong expert or none) must exceed it.
-    hp = load_config(SERVE_MOE_ARGV)
-    images = request_pool(32, image_size=hp.image_size, seed=hp.seed, fold=("check", 0))
-    engines = {"gmm": build_engine(hp),
-               "gather": build_engine(load_config(SERVE_MOE_ARGV + ["--moe-dispatch", "gather"]))}
-    rec = {}
-    for name, eng in engines.items():
-        before = gm.grouped_ffn_fwd.launches
-        rec[f"logits_{name}"] = eng.predict_logits(images)
-        rec[f"k7_launches_{name}"] = gm.grouped_ffn_fwd.launches - before
-    with shifted_k7(gm):
-        fault = engines["gmm"].predict_logits(images)
-    got, want = rec.pop("logits_gmm"), rec.pop("logits_gather")
-    scale = float(np.abs(want).max())
-    rec.update({
-        "logits_finite": bool(np.isfinite(got).all() and np.isfinite(want).all()),
-        "logits_max_abs_err_vs_gather": float(np.abs(got - want).max()),
-        "logits_scale": scale, "logits_tol": 2**-10 * scale,
-        "fault_logits_max_abs_err_vs_gather": float(np.abs(fault - want).max()),
-    })
-    for rnd in ("", "_again"):
-        for name, eng in engines.items():
-            eng.predict_logits(images)
-            t0 = time.perf_counter()
-            for _ in range(5):
-                eng.predict_logits(images)
-            rec[f"bucket32_batch_ms_{name}{rnd}"] = (time.perf_counter() - t0) / 5 * 1e3
-    rec["bucket32_profile_gmm"] = moe_dispatch_profile(engines["gmm"], images)
+    # bound, 2^-10 of the largest logit, is set from that reading.
+    rec, engines, images = bucket32_against_gather(gm, SERVE_MOE_ARGV, 2**-10)
     rec["moe_layer_profile"] = {name: moe_layer_profile(eng, images) for name, eng in engines.items()}
     depth = len(engines["gmm"].model.blocks)
     del engines
@@ -3033,6 +3104,50 @@ def serve_moe_phase(gm, vb, attn) -> dict:
         "launches": launches,
         "bucket32": rec,
     }
+
+
+def bucket32_against_gather(gm, argv: list, tol_share: float):
+    """One padded batch of 32 through the engine of the serve command
+    ``argv`` (gmm) and through the same seeded weights under ``--moe-dispatch
+    gather``: the logits against gather within ``tol_share`` of the largest,
+    which the planted fault (every K7 launch with one expert's start a row
+    late: one token a block takes the wrong expert or none) must exceed;
+    K7's launches; host ms a dispatch under each (5 after a warm-up,
+    twice) and the gmm dispatch's profile.  Returns ``(rec, engines,
+    images)``."""
+    import numpy as np
+
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.serve import build_engine, request_pool
+
+    hp = load_config(argv)
+    images = request_pool(32, image_size=hp.image_size, seed=hp.seed, fold=("check", 0))
+    engines = {"gmm": build_engine(hp),
+               "gather": build_engine(load_config(argv + ["--moe-dispatch", "gather"]))}
+    rec = {}
+    for name, eng in engines.items():
+        before = gm.grouped_ffn_fwd.launches
+        rec[f"logits_{name}"] = eng.predict_logits(images)
+        rec[f"k7_launches_{name}"] = gm.grouped_ffn_fwd.launches - before
+    with shifted_k7(gm):
+        fault = engines["gmm"].predict_logits(images)
+    got, want = rec.pop("logits_gmm"), rec.pop("logits_gather")
+    scale = float(np.abs(want).max())
+    rec.update({
+        "logits_finite": bool(np.isfinite(got).all() and np.isfinite(want).all()),
+        "logits_max_abs_err_vs_gather": float(np.abs(got - want).max()),
+        "logits_scale": scale, "logits_tol": tol_share * scale,
+        "fault_logits_max_abs_err_vs_gather": float(np.abs(fault - want).max()),
+    })
+    for rnd in ("", "_again"):
+        for name, eng in engines.items():
+            eng.predict_logits(images)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                eng.predict_logits(images)
+            rec[f"bucket32_batch_ms_{name}{rnd}"] = (time.perf_counter() - t0) / 5 * 1e3
+    rec["bucket32_profile_gmm"] = moe_dispatch_profile(engines["gmm"], images)
+    return rec, engines, images
 
 
 def moe_dispatch_profile(engine, images, csrc: Path | None = None) -> dict:
@@ -3073,6 +3188,39 @@ def check_serve_moe(serve: dict) -> None:
     check_moe_kernels("serve_moe's MoE layer under gather", layer["gather"]["moe_kernels"], ())
 
 
+# vit_moe served at the default precision (fp32) with the kernels taken
+# (``--moe-dispatch auto`` takes gather for fp32, the JAX budget rule)
+SERVE_MOE_FP32_ARGV = [
+    "--serve", "--model", "vit_moe", "--moe-dispatch", "gmm",
+    "--serve-buckets", "1,2,4,8,16,32", "--seed", "0",
+]
+
+
+def moe_fp32_dispatch_phase(gm) -> dict:
+    """One bucket-32 batch of ``SERVE_MOE_FP32_ARGV``'s engine against the
+    same weights under gather (``bucket32_against_gather``).  In fp32 the
+    two differ by summation order only (3xTF32 keeps fp32 accuracy, and a
+    routing flip needs a router input within ~1e-7 of a tie), so the
+    logits hold to 2^-13 of the largest, the fp32 train step's bound.  The
+    gather dispatch is profiled beside."""
+    rec, engines, images = bucket32_against_gather(gm, SERVE_MOE_FP32_ARGV, 2**-13)
+    rec["bucket32_profile_gather"] = moe_dispatch_profile(engines["gather"], images)
+    depth = len(engines["gmm"].model.blocks)
+    del engines
+    return {"phase": "moe_fp32_dispatch", "argv": SERVE_MOE_FP32_ARGV, "depth": depth, **rec}
+
+
+def check_moe_fp32_dispatch(rec: dict) -> None:
+    if (rec["k7_launches_gmm"], rec["k7_launches_gather"]) != (rec["depth"], 0):
+        raise RuntimeError(f"moe_fp32_dispatch launches {rec}")
+    if not rec["logits_finite"] or rec["logits_max_abs_err_vs_gather"] > rec["logits_tol"]:
+        raise RuntimeError(f"moe_fp32_dispatch: gmm logits disagree with gather: {rec}")
+    if not rec["fault_logits_max_abs_err_vs_gather"] > rec["logits_tol"]:
+        raise RuntimeError(f"moe_fp32_dispatch: the planted K7 fault passes the logits bound: {rec}")
+    check_moe_kernels("moe_fp32_dispatch under gmm", rec["bucket32_profile_gmm"]["moe_kernels"], ("fwd",), "float32")
+    check_moe_kernels("moe_fp32_dispatch under gather", rec["bucket32_profile_gather"]["moe_kernels"], ())
+
+
 TRAIN_MOE_ARGV = [
     "--model", "vit_moe", "--amp", "--synthetic-data", "--batch-size", "256",
     "--limit-examples", "2560", "--epoch", "2", "--lr-decay-step-size", "1",
@@ -3101,6 +3249,13 @@ MOE_STEP_CHECKS = {
     "bf16": (lambda argv: argv, 2**-6, 2**-4, 2**-4, False),
     "fp32": (lambda argv: [a for a in argv if a != "--amp"], 2**-13, 2**-13, 2**-13, True),
 }
+# vit_moe trained at the default precision (fp32) with the kernels taken,
+# batch 256: one epoch over 792 synthetic training images (3 steps) and 88
+# validation images (one batch), as train_tiny_fp32
+TRAIN_MOE_FP32_ARGV = [
+    "--model", "vit_moe", "--moe-dispatch", "gmm", "--synthetic-data", "--batch-size", "256",
+    "--limit-examples", "880", "--epoch", "1", "--lr-decay-step-size", "1",
+]
 
 
 def tf32(t):
@@ -3287,13 +3442,14 @@ def k8_at_step_routing(gm, trainer, images, labels, draws) -> dict:
             "check_case": label, "check_routing": check}
 
 
-def moe_step_times(reps: int = 5, csrc: Path | None = None) -> dict:
-    """ms per train step of the train command's trainer under gmm (auto)
+def moe_step_times(reps: int = 5, csrc: Path | None = None, argv: list = TRAIN_MOE_ARGV) -> dict:
+    """ms per train step of the train command ``argv``'s trainer under gmm
     and ``--moe-dispatch gather``, in turns (gmm, gather, gmm, gather), and
     a profile of two steps of each: the expert FFN kernels' device ms by
     symbol (``csrc``'s, this checkout's by default), K7, K8 and K9's by
-    their bf16 symbols, their share, and the idle share; then K8 at the
-    gmm step's routing (``k8_at_step_routing``)."""
+    their symbols in the command's dtype, their shares of the busy time,
+    and the idle share; then, in bf16, K8 at the gmm step's routing
+    (``k8_at_step_routing``)."""
     import torch
 
     from distributed_training_comparison_tpu_torch.config import load_config
@@ -3302,9 +3458,10 @@ def moe_step_times(reps: int = 5, csrc: Path | None = None) -> dict:
     from distributed_training_comparison_tpu_torch.utils import step_generator
 
     trainers = {
-        "gmm": Trainer(load_config(TRAIN_MOE_ARGV)),
-        "gather": Trainer(load_config(TRAIN_MOE_ARGV + ["--moe-dispatch", "gather"])),
+        "gmm": Trainer(load_config(argv)),
+        "gather": Trainer(load_config(argv + ["--moe-dispatch", "gather"])),
     }
+    dname = "bfloat16" if "--amp" in argv else "float32"
     hp = trainers["gmm"].hparams
     images, labels = next(trainers["gmm"].train_split.epoch_batches(hp.batch_size, hp.seed, 0))
     draws = draw_crop_flip(len(labels), step_generator(hp.seed, 0, 0))
@@ -3324,7 +3481,7 @@ def moe_step_times(reps: int = 5, csrc: Path | None = None) -> dict:
         prof = profile_device(lambda: tr.step(images, labels, draws), 2)
         names = prof["device_ms_by_name"]
         moe = _moe_kernel_ms(names, csrc)
-        kernels = {k: moe.get(sym, 0.0) for k, sym in MOE_SYMBOLS["bfloat16"].items()}
+        kernels = {k: moe.get(sym, 0.0) for k, sym in MOE_SYMBOLS[dname].items()}
         gemm = sum(ms for n, ms in names.items()
                    if any(t in n.lower() for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
         top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
@@ -3335,23 +3492,28 @@ def moe_step_times(reps: int = 5, csrc: Path | None = None) -> dict:
             "moe_kernels": moe,
             "moe_kernels_device_ms_per_step": kernels,
             "moe_kernels_share_of_busy": sum(moe.values()) / prof["device_busy_ms"],
+            "moe_kernel_shares_of_busy": {k: ms / prof["device_busy_ms"] for k, ms in kernels.items()},
             "cublas_gemm_device_ms_per_step": gemm,
             "top_device_ms_per_step": {n[:60]: ms for n, ms in top},
         }
-    gm = importlib.import_module(f"{PKG}.ops.moe_gmm")
-    out["k8_at_step_routing"] = k8_at_step_routing(gm, trainers["gmm"], images, labels, draws)
+    if dname == "bfloat16":
+        gm = importlib.import_module(f"{PKG}.ops.moe_gmm")
+        out["k8_at_step_routing"] = k8_at_step_routing(gm, trainers["gmm"], images, labels, draws)
     del trainers
     torch.cuda.empty_cache()
     return out
 
 
-def train_moe_phase(gm, vb, attn, smi: str) -> dict:
-    """``vit_moe`` trained through ``entry.run`` (bf16, batch 256, 18
-    steps): every block's forward through K7 and backward through K8 and
-    K9, the counters zeroed just before and read just after; every loss
-    finite, no step skipped, the routing health reported; one step's loss
-    and gradients against ``--moe-dispatch gather`` and the plain kernels
-    (bf16 and fp32); ms per step under gmm and gather, and a step profile."""
+def train_moe_phase(gm, vb, attn, smi: str, argv: list = TRAIN_MOE_ARGV, phase: str = "train_moe") -> dict:
+    """``vit_moe`` trained through ``entry.run`` by the command ``argv``
+    (``TRAIN_MOE_ARGV``: bf16, batch 256, 18 steps; ``TRAIN_MOE_FP32_ARGV``:
+    fp32, batch 256, 3 steps): every block's forward through K7 and
+    backward through K8 and K9, the counters zeroed just before and read
+    just after; every loss finite, no step skipped, the routing health
+    reported; one step's loss and gradients in the command's precision
+    against ``--moe-dispatch gather`` and the plain kernels
+    (``moe_step_check``); ms per step under gmm and gather, a step profile
+    and the peak memory."""
     import torch
 
     from distributed_training_comparison_tpu_torch import entry
@@ -3363,23 +3525,25 @@ def train_moe_phase(gm, vb, attn, smi: str) -> dict:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    report = entry.run(TRAIN_MOE_ARGV)
+    report = entry.run(argv)
     seconds = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    hp = load_config(TRAIN_MOE_ARGV)
+    hp = load_config(argv)
     epochs = report["fit"]["epochs"]
     val_examples = len(get_datasets(hp)[1][1])
     last = epochs[-1]
-    checks = {p: moe_step_check(gm, p) for p in MOE_STEP_CHECKS}
+    check = moe_step_check(gm, hp.precision)
     return {
-        "phase": "train_moe",
+        "phase": phase,
         "nvidia_smi": smi,
-        "argv": TRAIN_MOE_ARGV,
+        "argv": argv,
+        "dtype": "bfloat16" if hp.precision == "bf16" else "float32",
+        "batch": hp.batch_size,
         "run_seconds": seconds,
         "train_steps": sum(e["steps"] for e in epochs),
         "eval_batches": len(epochs) * math.ceil(val_examples / hp.batch_size),
-        "depth": checks["bf16"]["depth"],
+        "depth": check["depth"],
         "launches": launches,
         "losses_finite": all(e["nonfinite_losses"] == 0 for e in epochs),
         "skipped_steps": sum(e["skipped"] for e in epochs),
@@ -3391,28 +3555,33 @@ def train_moe_phase(gm, vb, attn, smi: str) -> dict:
         "peak_memory_gb": peak_gb,
         "last_epoch_images_per_s": last["images_per_s"],
         "last_epoch_ms_per_step": last["seconds"] / last["steps"] * 1e3,
-        "step_checks": checks,
-        "step_times": moe_step_times(),
+        "step_checks": {hp.precision: check},
+        "step_times": moe_step_times(argv=argv),
     }
 
 
 def check_train_moe(train: dict) -> None:
-    depth, steps = train["depth"], train["train_steps"]
+    depth, steps, phase = train["depth"], train["train_steps"], train["phase"]
+    if phase == "train_moe_fp32" and (train["dtype"], train["batch"], depth, steps, train["eval_batches"]) != (
+            "float32", 256, 8, 3, 1):
+        raise RuntimeError(f"train_moe_fp32 ran {train['dtype']} at batch {train['batch']}, depth {depth}, "
+                           f"{steps} steps and {train['eval_batches']} eval batches")
     want = {n: 0 for n in train["launches"]}
     want["grouped_ffn_fwd"] = depth * (steps + train["eval_batches"])
     want["grouped_ffn_dx"] = want["grouped_ffn_dw"] = depth * steps
     if train["launches"] != want:
-        raise RuntimeError(f"train_moe launches {train['launches']}, expected {want}")
+        raise RuntimeError(f"{phase} launches {train['launches']}, expected {want}")
     if not train["losses_finite"] or train["skipped_steps"]:
-        raise RuntimeError("train_moe: a non-finite loss or a skipped step")
+        raise RuntimeError(f"{phase}: a non-finite loss or a skipped step")
     if not train["routing_health_reported"]:
-        raise RuntimeError("train_moe: moe_dropped_frac / moe_load_max missing from the epochs")
+        raise RuntimeError(f"{phase}: moe_dropped_frac / moe_load_max missing from the epochs")
     bad = {p: c for p, c in train["step_checks"].items() if not c["ok"]}
     if bad:
         raise RuntimeError(f"a vit_moe train step through K7-K9 disagrees: {bad}")
     times = train["step_times"]
-    check_moe_kernels("train_moe's gmm step", times["profile_gmm"]["moe_kernels"], ("fwd", "dx", "dw"))
-    check_moe_kernels("train_moe's gather step", times["profile_gather"]["moe_kernels"], ())
+    check_moe_kernels(f"{phase}'s gmm step", times["profile_gmm"]["moe_kernels"], ("fwd", "dx", "dw"),
+                      train["dtype"])
+    check_moe_kernels(f"{phase}'s gather step", times["profile_gather"]["moe_kernels"], ())
 
 
 # --------------------------------- vit_tiny at 64 tokens: K10, K11
@@ -4240,7 +4409,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {path.stem}: {line.strip()}", file=sys.stderr)
     built = {**attention_build["kernels"], **gemm_build["kernels"], **moe_build["kernels"]}
-    missing = [k for k in MOE_SYMBOLS["bfloat16"].values() if k.endswith("_wgmma") and k not in built]
+    missing = [k for k in (*MOE_SYMBOLS["bfloat16"].values(), *MOE_TF32_KERNELS) if k not in built]
     missing += [f"{k}<{d}>" for ks in (*BACKWARD_SYMBOLS["float32"].values(), FORWARD_SYMBOLS["float32"])
                 for k in ks for d in (64, 128) if f"{k}<{d}>" not in built]
     missing += [k for k in BLOCK_TF32_KERNELS if k not in built]
@@ -4259,7 +4428,7 @@ def main() -> int:
         # grouped expert FFN kernels
         if ("flash_" in name and ("bf16" in name or "tf32x3" in name) or "onetile" in name
             or name.startswith("attn_small_") and ("_f32<" in name or "_bf16<" in name)
-            or "_wgmma" in name or name in BLOCK_TF32_KERNELS)
+            or "_wgmma" in name or name in BLOCK_TF32_KERNELS or name in MOE_TF32_KERNELS)
         and r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
     }
     if spilled:
@@ -4379,6 +4548,14 @@ def main() -> int:
     train_moe = train_moe_phase(gm, vb, attn, smi)
     emit(train_moe)
     check_train_moe(train_moe)
+
+    train_moe_fp32 = train_moe_phase(gm, vb, attn, smi, TRAIN_MOE_FP32_ARGV, "train_moe_fp32")
+    emit(train_moe_fp32)
+    check_train_moe(train_moe_fp32)
+
+    moe_fp32 = moe_fp32_dispatch_phase(gm)
+    emit(moe_fp32)
+    check_moe_fp32_dispatch(moe_fp32)
 
     small_checks = small_attention_checks(small)
     emit({"phase": "small_attention_checks", "nvidia_smi": smi, "checks": small_checks})
@@ -4561,20 +4738,28 @@ def main() -> int:
                 "ms": case["kernel_ms"][name], "kernels": case["kernels"][name],
                 "bound_ms": case["bound_ms"][name], "bound_by": case["bound_by"][name],
             })
-    # K7-K9: per case, one entry per kernel.  ``launches`` is K7's count on
-    # the serve_moe path (``launches_train`` on train_moe) and K8's and K9's
-    # on the train_moe path.  K8's library yardstick is the composed form's
+    # no profile of the run showed the fp32 K7 or K9 the 3xTF32 kernels replaced
+    replaced = sorted({m.group(1) for n in PROFILED_KERNELS if (m := _KERNEL_SYMBOL.match(n))}
+                      & set(REPLACED_MOE_KERNELS))
+    if replaced:
+        raise RuntimeError(f"the run launched the replaced SIMT kernels {replaced}")
+    # K7-K9: per case, one entry per kernel.  In bf16 ``launches`` is K7's
+    # count on the serve_moe path (``launches_train`` on train_moe) and K8's
+    # and K9's on the train_moe path; in fp32 all three counts are the
+    # train_moe_fp32 path's.  K8's library yardstick is the composed form's
     # forward and its backward for dx alone (``library_bwd_ms``: its whole
     # backward, dx and dW together, K9's yardstick).
     moe_src = {"fwd": "moe_gmm_fwd.cu", "dx": "moe_gmm_bwd.cu", "dw": "moe_gmm_bwd.cu"}
     moe_body = {"fwd": 71, "dx": 114, "dw": 144}
     moe_regime = {"fwd": "K7", "dx": "K8", "dw": "K9"}
     moe_launches = {
-        "fwd": serve_moe["launches"]["grouped_ffn_fwd"],
-        "dx": train_moe["launches"]["grouped_ffn_dx"],
-        "dw": train_moe["launches"]["grouped_ffn_dw"],
+        "bfloat16": {"fwd": serve_moe["launches"]["grouped_ffn_fwd"],
+                     "dx": train_moe["launches"]["grouped_ffn_dx"],
+                     "dw": train_moe["launches"]["grouped_ffn_dw"]},
+        "float32": {k: train_moe_fp32["launches"][f"grouped_ffn_{k}"] for k in ("fwd", "dx", "dw")},
     }
     for case in moe_checks:
+        fp32 = case["dtype"] == "float32"
         for k in ("fwd", "dx", "dw"):
             entry = {
                 "name": f"moe_gmm_{k}", "route": "cuda", "source": f"{csrc}/{moe_src[k]}",
@@ -4583,9 +4768,10 @@ def main() -> int:
                 "n_cap_experts_dim_hidden": [case["n"], case["cap"], case["experts"],
                                              case["dim"], case["hidden"]],
                 "kept_rows": case["kept_rows"], "kernel": MOE_SYMBOLS[case["dtype"]][k],
-                "launches": moe_launches[k],
-                "launches_counted": ("serve_moe main path" if k == "fwd" else "train_moe main path")
-                + ", one counter for every case",
+                "launches": moe_launches[case["dtype"]][k],
+                "launches_counted": ("train_moe_fp32 main path" if fp32
+                                     else "serve_moe main path" if k == "fwd" else "train_moe main path")
+                + ", one counter for every case of the dtype",
                 "ms": case["ms"][k], "event_ms": case["event_ms"][k], "kernels": case["kernels"][k],
                 "plain_ms": case["plain_ms"][k],
                 "bound_ms": case["bound_ms"][k], "bound_by": case["bound_by"][k],
@@ -4595,8 +4781,11 @@ def main() -> int:
                 "bit_identical_across_calls": case["bit_identical_across_calls"],
                 "dropped_rows_exact_zero": case["dropped_rows_exact_zero"],
             }
-            if k == "fwd":
+            if k == "fwd" and not fp32:
                 entry["launches_train"] = train_moe["launches"]["grouped_ffn_fwd"]
+            if fp32 and k != "dx":
+                entry["nan_in_x"] = case["nan_in_x"]
+                entry["fp64_drift"] = case["fp64_drift"]
             if k == "dx":
                 entry["library_bwd_ms"] = case["library_ms"]["bwd"]
             if k == "dw":
@@ -4765,16 +4954,17 @@ def sdpa_fp32_forward(attn) -> dict:
     }
 
 
-def moe_dispatch(csrc: Path | None = None, reps: int = 20) -> dict:
-    """One bucket-32 batch of the ``serve_moe`` command's engine (gmm, bf16)
-    as the serve path dispatches it: host ms a dispatch (median of ``reps``
-    after one warm-up, twice), and its profile (``moe_dispatch_profile``)."""
+def moe_dispatch(csrc: Path | None = None, reps: int = 20, argv: list = SERVE_MOE_ARGV) -> dict:
+    """One bucket-32 batch of the serve command ``argv``'s engine (the
+    ``serve_moe`` command's by default: gmm, bf16) as the serve path
+    dispatches it: host ms a dispatch (median of ``reps`` after one
+    warm-up, twice), and its profile (``moe_dispatch_profile``)."""
     import statistics
 
     from distributed_training_comparison_tpu_torch.config import load_config
     from distributed_training_comparison_tpu_torch.serve import build_engine, request_pool
 
-    hp = load_config(SERVE_MOE_ARGV)
+    hp = load_config(argv)
     images = request_pool(32, image_size=hp.image_size, seed=hp.seed, fold=("check", 0))
     engine = build_engine(hp)
     out = {}
@@ -4787,6 +4977,25 @@ def moe_dispatch(csrc: Path | None = None, reps: int = 20) -> dict:
             samples.append((time.perf_counter() - t0) * 1e3)
         out[f"bucket32_batch_ms{rnd}"] = statistics.median(samples)
     out["bucket32_profile"] = moe_dispatch_profile(engine, images, csrc)
+    return out
+
+
+def moe_output_hashes(gm) -> dict[str, str]:
+    """sha256 of K7's output, K8's dx and K9's gradients at each case of
+    ``MOE_GMM_CASES`` on its seeded inputs (``moe_case_inputs``), in fp32
+    K8's dx apart: two checkouts whose kernels give bit-identical results
+    print the same digests."""
+    out = {}
+    for label, dname, n, cap, counts in MOE_GMM_CASES:
+        _, starts, xs, dy, w1, b1, w2, b2 = moe_case_inputs(dname, n, counts)
+        y = gm.grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap)
+        dx = gm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap)
+        dw = gm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap)
+        if dname == "float32":
+            out[f"{label}: K8"] = _digest([dx])
+            out[f"{label}: K7, K9"] = _digest([y, *dw])
+        else:
+            out[label] = _digest([y, dx, *dw])
     return out
 
 
@@ -4837,9 +5046,12 @@ def turn(checkout: Path, label: str) -> int:
     dispatch (``tiny_step_times``, ``tiny_dispatch``), K10/K11
     (``small_attention_checks``) and digests of their results
     (``small_output_hashes``), K7-K9 through their wrappers
-    (``moe_gmm_checks``), the ``vit_moe`` train step and K8 at its own
+    (``moe_gmm_checks``) and digests of their results
+    (``moe_output_hashes``), the ``vit_moe`` train step and K8 at its own
     routing (``moe_step_times``) and its bucket-32 dispatch
-    (``moe_dispatch``); ``block_grad_reduce``'s digests come with the K6
+    (``moe_dispatch``), then both again in fp32 with the kernels taken
+    (``TRAIN_MOE_FP32_ARGV``, ``SERVE_MOE_FP32_ARGV``);
+    ``block_grad_reduce``'s digests come with the K6
     chain's records; last, the fp32 ``vit_tiny`` p2 step
     (``tiny_fp32_step_times``, ``tiny_step_times`` fused and off) and
     bucket-32 dispatch (``tiny_dispatch``), then the fp32 ``vit_tiny`` step
@@ -4905,8 +5117,12 @@ def turn(checkout: Path, label: str) -> int:
            "card_before_small_moe": card_state(),
            "small_attention_checks": small_attention_checks(small),
            "small_output_hashes": small_output_hashes(small),
-           "moe_gmm_checks": moe_gmm_checks(gm), "moe_step_times": moe_step_times(csrc=csrc),
-           "moe_dispatch": moe_dispatch(csrc)}
+           "moe_gmm_checks": moe_gmm_checks(gm), "moe_output_hashes": moe_output_hashes(gm),
+           "moe_step_times": moe_step_times(csrc=csrc), "moe_dispatch": moe_dispatch(csrc)}
+    # the fp32 vit_moe step and bucket-32 dispatch through the kernels
+    rec["card_before_moe_fp32"] = card_state()
+    rec["moe_step_times_fp32"] = moe_step_times(csrc=csrc, argv=TRAIN_MOE_FP32_ARGV)
+    rec["moe_dispatch_fp32"] = moe_dispatch(csrc, argv=SERVE_MOE_FP32_ARGV)
     # the fp32 vit_tiny p2 path last: the parent's SIMT and this tree's
     # 3xTF32 kernels load the card differently, so no other reading follows them
     rec["card_before_tiny_fp32"] = card_state()
@@ -4930,11 +5146,13 @@ def turn(checkout: Path, label: str) -> int:
     step, disp = rec["tiny_step_times"], rec["tiny_dispatch"]["bucket32_profile"]
     step32, disp32 = rec["tiny_step_times_fp32"], rec["tiny_dispatch_fp32"]
     moe_step, moe_disp = rec["moe_step_times"], rec["moe_dispatch"]
+    moe32, disp_moe32 = rec["moe_step_times_fp32"], rec["moe_dispatch_fp32"]
     p2_step, p2_disp = rec["vits_p2"]["step"], rec["vits_p2"]["dispatch"]
     split = long_fp32["step_profile"]["device_ms_per_step"]
     summary = {
         "turn": label, "nvidia_smi": smi,
-        "card": {k: rec[k] for k in ("card_start", "card_before_small_moe", "card_before_tiny_fp32",
+        "card": {k: rec[k] for k in ("card_start", "card_before_small_moe", "card_before_moe_fp32",
+                                     "card_before_tiny_fp32",
                                      "card_before_small_fp32", "card_before_vits_p2", "card_end")},
         "k1_k2_ms": {c["case"]: c["ms"] for c in fwd},
         "k1_k2_bound_share": {c["case"]: c["bound_share"] for c in fwd},
@@ -5036,6 +5254,19 @@ def turn(checkout: Path, label: str) -> int:
         "moe_bucket32_busy_ms": moe_disp["bucket32_profile"]["device_busy_ms_per_batch"],
         "moe_bucket32_idle_share": moe_disp["bucket32_profile"]["device_idle_share"],
         "moe_bucket32_k7_ms": moe_disp["bucket32_profile"]["k7_device_ms_per_batch"],
+        "moe_output_hashes": rec["moe_output_hashes"],
+        "moe_fp32_train": {
+            "ms_per_step": [moe32[f"ms_per_step_{n}{r}"] for n in ("gmm", "gather") for r in ("", "_again")],
+            **{f"{k}_{n}": moe32[f"profile_{n}"][key] for n in ("gmm", "gather") for k, key in (
+                ("busy_ms", "device_busy_ms_per_step"), ("idle_share", "device_idle_share"),
+                ("moe_kernels_ms", "moe_kernels"))},
+        },
+        "moe_fp32_bucket32": {
+            "ms": [disp_moe32["bucket32_batch_ms"], disp_moe32["bucket32_batch_ms_again"]],
+            "busy_ms": disp_moe32["bucket32_profile"]["device_busy_ms_per_batch"],
+            "idle_share": disp_moe32["bucket32_profile"]["device_idle_share"],
+            "k7_ms": disp_moe32["bucket32_profile"]["k7_device_ms_per_batch"],
+        },
     }
     out = ROOT / "chiprun_out" / "turns"
     out.mkdir(parents=True, exist_ok=True)

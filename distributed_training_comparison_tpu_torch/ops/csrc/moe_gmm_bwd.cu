@@ -29,13 +29,30 @@
 // 192, h 768, E 8, cap 2560, bf16) operations bound both (~15 and ~20 us
 // at 989 TFLOP/s).
 //
-// fp32: moe_gmm_dx_kernel (K8) and moe_gmm_dw_kernel (K9), the first port,
-// on moe_gmm_common.cuh's SIMT tiles: K8 takes the forward's grid of 64-row
-// tiles, looping over the experts whose kept range overlaps the tile and
-// over the hidden dimension in chunks of 32, dy staged masked to the
-// expert's kept rows, one (64, d) fp32 accumulator rounded once; K9 has one
-// block per (32-column chunk, expert) tile of dW1 or dW2 (blockIdx.z),
-// walking the expert's kept rows, 5 products where the bound counts 4.
+// fp32 K8: moe_gmm_dx_kernel, the first port, on moe_gmm_common.cuh's SIMT
+// tiles: the forward's grid of 64-row tiles, looping over the experts whose
+// kept range overlaps the tile and over the hidden dimension in chunks of
+// 32, dy staged masked to the expert's kept rows, one (64, d) fp32
+// accumulator rounded once.
+//
+// fp32 K9: moe_ffn_dw_tf32x3, 3xTF32 on wgmma (tf32x3.cuh; 8.K.d.h fp32
+// operations at 165 TFLOP/s, 0.11 ms at the train shape), on the bf16
+// kernel's owners, transposed frame and cluster split (below).  A producer
+// warpgroup streams each 64-row step's x and dy through tf32x3.cuh's ring of
+// split slots twice: natural (K-major over d, the B of the recompute
+// products h1ᵀ = W1cᵀ . xᵀ and dgᵀ = W2c . dymᵀ) and transposed as they
+// land (K-major over the rows, in the accumulator's fragment order, the B of
+// dW1cᵀ += dhᵀ . x and dW2c += gᵀ . dym, whose A comes from the
+// accumulators): tf32 wgmma reads shared memory K-major only, and landing a
+// tile twice costs the producer a copy where a transpose in shared memory
+// would cost the consumers a pass and a barrier.  Each consumer warpgroup
+// holds its weight slice as raw A fragments (48 KB) and splits a k-step at a
+// time.  The tensor cores round each accumulation toward zero, and a CTA's
+// walk reaches 1280 rows at cap 2560: each step's products go to a fresh
+// accumulator added in fp32 to the warpgroup's total (96 registers beside
+// the fresh 32 and a slot's fragments 32, of setmaxnreg's 224; the step's
+// dhᵀ or gᵀ waits in shared memory).  Shared memory: the two slices 96 KB, 6 slots 96 KB, the exchange
+// 32 KB.
 //
 // bf16 K8: moe_ffn_dx_wgmma (moe_gmm_hopper.cuh), K7's design with a third
 // product.  A block owns one of K7's expert-aligned units (up to 128 rows
@@ -90,6 +107,7 @@
 
 #include "moe_gmm_common.cuh"
 #include "moe_gmm_hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -195,122 +213,10 @@ __global__ void __launch_bounds__(kThreads) moe_gmm_dx_kernel(const BwdParams p)
     }
 }
 
-// ------------------------------------------------------------------ K9
-
-// one (chunk, expert) tile of dW1 (kDw1) or dW2, walking the expert's kept
-// rows [lo, hi) in 64-row steps
-template <typename T, int D, bool kDw1>
-__device__ __forceinline__ void dw_tile(const BwdParams& p, int e, int c, int lo, int hi, T* xs,
-                                        T* dys, const T* w1s, const T* w2s, T* hs) {
-  constexpr int LDX = D + kPad, LDH = kHC + kPad;
-  // dW1[e][:, c] (D x kHC) or dW2[e][c, :] (kHC x D)
-  using Acc = typename std::conditional<kDw1, Tile<T, D, kHC, 4>, Tile<T, kHC, D, 2>>::type;
-  using HTile = Tile<T, kRows, kHC, 4>;
-  const T* x = static_cast<const T*>(p.x);
-  const T* dy = static_cast<const T*>(p.dy);
-  const T* b1 = static_cast<const T*>(p.b1);
-  // the column sums: db1[e][c] (kHC), or db2[e] (D) in the chunk-0 block
-  const int sums = kDw1 ? kHC : (c == 0 ? D : 0);
-  float colsum[(D + kThreads - 1) / kThreads] = {};
-  Acc acc;
-  acc.zero();
-  for (int r0 = lo; r0 < hi; r0 += kRows) {
-    __syncthreads();  // every thread is done with the previous step's tiles
-    stage(xs, LDX, x, D, r0, kRows, D, lo, hi);
-    stage(dys, LDX, dy, D, r0, kRows, D, lo, hi);
-    __syncthreads();
-    HTile h1, dg;
-    chunk_products<T, D>(h1, kDw1 ? &dg : nullptr, xs, dys, w1s, w2s);
-#pragma unroll
-    for (int nt = 0; nt < HTile::NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = HTile::row(0, i), cc = HTile::col(nt, i);
-        const float bias = to_f(b1[static_cast<long long>(e) * p.h + c + cc]);
-        const float hv = rnd<T>(rnd<T>(h1.acc[0][nt][i]) + bias);
-        if constexpr (kDw1) {
-          hs[r * LDH + cc] = from_f<T>(gelu_tanh_grad(hv) * rnd<T>(dg.acc[0][nt][i]));
-        } else {
-          hs[r * LDH + cc] = from_f<T>(gelu_tanh(hv));
-        }
-      }
-    __syncthreads();
-    if constexpr (kDw1) {
-      // dW1 += xm^T . dh: A(i, r) = xs[r * LDX + i], B(r, j) = hs[r * LDH + j]
-      acc.mma(xs, 1, LDX, hs, LDH, 1, kRows);
-    } else {
-      // dW2 += g^T . dym: A(j, r) = hs[r * LDH + j], B(r, i) = dys[r * LDX + i]
-      acc.mma(hs, 1, LDH, dys, LDX, 1, kRows);
-    }
-    // column sums in row order: each column's thread adds its rows in turn
-    for (int k = 0; k * kThreads + static_cast<int>(threadIdx.x) < sums; ++k) {
-      const int j = k * kThreads + threadIdx.x;
-      for (int r = 0; r < kRows; ++r) colsum[k] += to_f(kDw1 ? hs[r * LDH + j] : dys[r * LDX + j]);
-    }
-  }
-  if constexpr (kDw1) {
-    float* dw1 = p.dw1 + static_cast<long long>(e) * D * p.h;
-#pragma unroll
-    for (int mt = 0; mt < Acc::MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < Acc::NT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          dw1[static_cast<long long>(Acc::row(mt, i)) * p.h + c + Acc::col(nt, i)] = acc.acc[mt][nt][i];
-  } else {
-    float* dw2 = p.dw2 + static_cast<long long>(e) * p.h * D;
-#pragma unroll
-    for (int mt = 0; mt < Acc::MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < Acc::NT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          dw2[static_cast<long long>(c + Acc::row(mt, i)) * D + Acc::col(nt, i)] = acc.acc[mt][nt][i];
-  }
-  for (int k = 0; k * kThreads + static_cast<int>(threadIdx.x) < sums; ++k) {
-    const int j = k * kThreads + threadIdx.x;
-    if constexpr (kDw1) {
-      p.db1[static_cast<long long>(e) * p.h + c + j] = colsum[k];
-    } else {
-      p.db2[static_cast<long long>(e) * D + j] = colsum[k];
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) moe_gmm_dw_kernel(const BwdParams p) {
-  constexpr int LDX = D + kPad, LDW1 = kHC + kPad, LDW2 = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);  // (kRows, D), masked to the kept rows
-  T* dys = xs + kRows * LDX;               // (kRows, D), masked to the kept rows
-  T* w1s = dys + kRows * LDX;              // (D, kHC)
-  T* w2s = w1s + D * LDW1;                 // (kHC, D)
-  T* hs = w2s + kHC * LDW2;                // (kRows, kHC): dh or g
-
-  const int c = blockIdx.x * kHC, e = blockIdx.y;
-  int lo, hi;
-  kept_range(p.starts, e, p.cap, p.n, lo, hi);
-  const long long wbase = static_cast<long long>(e) * D * p.h;
-  stage(w1s, LDW1, static_cast<const T*>(p.w1) + wbase + c, p.h, 0, D, kHC, 0, D);
-  stage(w2s, LDW2, static_cast<const T*>(p.w2) + wbase + static_cast<long long>(c) * D, D, 0, kHC,
-        D, 0, kHC);
-  if (blockIdx.z == 0) {
-    dw_tile<T, D, true>(p, e, c, lo, hi, xs, dys, w1s, w2s, hs);
-  } else {
-    dw_tile<T, D, false>(p, e, c, lo, hi, xs, dys, w1s, w2s, hs);
-  }
-}
-
 template <typename T, int D>
 cudaError_t launch_dx(const BwdParams& p, cudaStream_t s) {
   const dim3 grid((p.n + kRows - 1) / kRows);
   return launch(moe_gmm_dx_kernel<T, D>, grid, bwd_smem<T, D>(), s, p);
-}
-
-template <typename T, int D>
-cudaError_t launch_dw(const BwdParams& p, cudaStream_t s) {
-  const dim3 grid(p.h / kHC, p.e, 2);
-  return launch(moe_gmm_dw_kernel<T, D>, grid, bwd_smem<T, D>(), s, p);
 }
 
 // ------------------------------------------------------------------ bf16 K9
@@ -652,6 +558,291 @@ int launch_dw_bf16(const void* x, const void* dy, const void* w1, const void* w2
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ fp32 K9
+
+// A step's slots, in this order: x and dy natural (64 rows x 32 of d; six
+// pairs, columns 32 j ..: x, then dy), then x and dy transposed (64 of d x
+// 32 rows; six pairs, column block j / 2, rows 32 (j % 2) ..: x, then dy).
+// Warpgroup W reads the slots of its tensor (0: x, 1: dy) and releases the
+// others unread.
+constexpr int kDwF32Slots = 4 * moeh::kD / 32;
+constexpr int kDwF32Own = moeh::kD / 8 * kFrag;         // a 64 x 192 weight slice, raw fragments: 48 KB
+constexpr int kDwF32RingAt = moeh::kConsumers * kDwF32Own;
+constexpr int kDwF32Xch = 32 * kWarpgroup * 4;          // a warpgroup's 64 x 64 fp32 accumulator: 16 KB
+constexpr int kDwF32XchAt = kDwF32RingAt + kRing * kSlotBytes;
+constexpr int kDwF32Bars = kDwF32XchAt + moeh::kConsumers * kDwF32Xch;
+constexpr int kDwF32Bytes = kDwF32Bars + 2 * kRing * 8 + 1024;  // the barriers, alignment slack: 225 KB
+static_assert(moeh::kConsumers * kPartial <= kRing * kSlotBytes, "the partials reuse the ring");
+
+struct DwF32Args {
+  const float* x;     // (n, d) expert-sorted tokens
+  const float* dy;    // (n, d)
+  const float* w1;    // (E, d, h)
+  const float* b1;    // (E, h)
+  const float* w2;    // (E, h, d)
+  const int* starts;  // (E + 1,)
+  float* dw1;         // (E, d, h)
+  float* db1;         // (E, h)
+  float* dw2;         // (E, h, d)
+  float* db2;         // (E, d)
+  int n, h, e, cap;
+};
+
+// a consumer thread's A fragments of rows r and r + 8 of a 64 x 192 weight
+// slice A(i, k) = a[i rs + k ks], raw fp32, its float4 of each k-step
+__device__ __forceinline__ void load_w_frags(unsigned char* own, const float* a, long long rs, long long ks, int r,
+                                             int t) {
+#pragma unroll 4
+  for (int kk = 0; kk < moeh::kD / 8; ++kk) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = __ldg(a + (r + 8 * frag_row(e)) * rs + (8 * kk + t + 4 * frag_col(e)) * ks);
+    *reinterpret_cast<float4*>(own + kk * kFrag) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// the slot u, another warpgroup's, released unread once it landed
+__device__ __forceinline__ void pass_slot(uint32_t bars, int& u, int lane) {
+  consumer_wait(bars, u);
+  consumer_release(bars, u, lane);
+  ++u;
+}
+
+// One owner per (expert e, 64-column hidden chunk c), its walk over e's
+// kept rows split over a cluster of kDwCluster CTAs (dw_walks), as the bf16
+// kernel.  Warpgroup 0 of a CTA produces; warpgroup 1 (W 0) holds W1[e][:,
+// c]ᵀ and warpgroup 2 (W 1) W2[e][c, :] as raw A fragments (48 KB each).
+// Per 64-row step: h1ᵀ = W1cᵀ . xᵀ (W 0) and dgᵀ = W2c . dymᵀ (W 1) over d,
+// B the natural slots; the two trade h1 + b1 and dg through shared memory
+// and each forms what its weight product needs, dhᵀ = gelu'(h1 + b1) dgᵀ
+// (W 0) or gᵀ = gelu(h1 + b1) (W 1); then dW1cᵀ += dhᵀ . x (W 0) and dW2c
+// += gᵀ . dym (W 1), A from those values, B the transposed slots, each
+// 64-column block's step in a fresh accumulator added to the warpgroup's
+// fp32 total (96 registers).  Rows past the kept end land as zeros.  db1
+// sums dh in registers, db2 (the columns this owner takes: the experts' db2
+// split over their chunks) sums dy from device memory after the walk; the
+// cluster's partials are summed through distributed shared memory in rank
+// order.
+__global__ void __cluster_dims__(kDwCluster, 1, 1) __launch_bounds__(384, 1) moe_ffn_dw_tf32x3(const DwF32Args p) {
+  constexpr int kD = moeh::kD;
+  extern __shared__ __align__(1024) unsigned char dwf_smem[];
+  const uint32_t raw = smem_u32(dwf_smem), base = (raw + 1023) & ~1023u;
+  unsigned char* const sbase = dwf_smem + (base - raw);
+  const uint32_t ring = base + kDwF32RingAt, xch = base + kDwF32XchAt, bars = base + kDwF32Bars;
+  const int tid = threadIdx.x;
+  const int rank = blockIdx.x % kDwCluster, owner = blockIdx.x / kDwCluster;
+  const int nc = p.h / moeh::kChunk, e = owner / nc, c0 = moeh::kChunk * (owner % nc);
+  int lo, hi;
+  kept_range(p.starts, e, p.cap, p.n, lo, hi);
+  const int steps = hi > lo ? (hi - lo + moeh::kRows - 1) / moeh::kRows : 0;
+  // this CTA's steps of the owner's walk: [k0, k0 + nk), its rows [first, last)
+  const int k0 = rank * steps / kDwCluster, nk = (rank + 1) * steps / kDwCluster - k0;
+  const int first = lo + moeh::kRows * k0, last = min(first + moeh::kRows * nk, hi);
+  ring_init(bars, tid);
+
+  if (tid < 128) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kF32ProducerRegs));
+    auto slot_of = [&](int u) {
+      const int s = u % kDwF32Slots, r0 = first + moeh::kRows * (u / kDwF32Slots);
+      const float* src = s % 2 ? p.dy : p.x;
+      if (s < kDwF32Slots / 2) return SlotSrc{src, src, kD, kD, r0, hi, 32 * (s / 2), false};
+      const int j = (s - kDwF32Slots / 2) / 2;
+      return SlotSrc{src, src, kD, kD, r0 + 32 * (j % 2), hi, 64 * (j / 2), true};
+    };
+    produce<kSlotRows>(slot_of, nk * kDwF32Slots, sbase + kDwF32RingAt, bars, tid);
+    cluster_sync();  // the partials are in
+    cluster_sync();  // no CTA leaves while another reads its partials
+    return;  // the two roles never reconverge, or setmaxnreg would not hold
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kF32ConsumerRegs));
+
+  const int w = tid / 128 - 1, wt = tid % 128, lane = tid % 32, t = lane % 4;
+  const int hrow = acc_row(0);  // this thread's hidden rows of the chunk: hrow, hrow + 8
+  unsigned char* const own = sbase + w * kDwF32Own + wt * 16;
+  float total[moeh::kAcc];  // dW1cᵀ (W 0) or dW2c (W 1): 64 hidden rows x 192
+#pragma unroll
+  for (int i = 0; i < moeh::kAcc; ++i) total[i] = 0.f;
+  float rsum[2] = {0.f, 0.f};  // W 0: db1 of rows hrow, hrow + 8 over this thread's columns
+
+  // the walk of warpgroup W (a compile-time role: each warpgroup's wgmma
+  // sequence is straight-line code)
+  auto walk = [&](auto role) {
+    constexpr int W = decltype(role)::value;
+    if constexpr (W == 0) {
+      load_w_frags(own, p.w1 + static_cast<long long>(e) * kD * p.h + c0, 1, p.h, hrow, t);
+    } else {
+      load_w_frags(own, p.w2 + (static_cast<long long>(e) * p.h + c0) * kD, kD, 1, hrow, t);
+    }
+    const uint32_t mine = xch + W * kDwF32Xch + wt * 4, theirs = xch + (1 - W) * kDwF32Xch + wt * 4;
+    int u = 0;
+    for (int k = 0; k < nk; ++k) {
+      // h1ᵀ or dgᵀ (64 hidden x the step's 64 rows) over d: element 4n + 2i
+      // + j is hidden row hrow + 8i, step row 8n + 2t + j
+      float pa[32];
+#pragma unroll
+      for (int j = 0; j < kD / 32; ++j) {
+        if constexpr (W == 1) pass_slot(bars, u, lane);
+        consumer_wait(bars, u);
+        const uint32_t slot = ring + (u % kRing) * kSlotBytes;
+        uint32_t big[4][4], small[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          split4(*reinterpret_cast<const float4*>(own + (4 * j + kk) * kFrag), big[kk], small[kk]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_3xtf32<64>(pa, big[kk], small[kk], slot + kk * 32, j > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<32>(pa);
+        fence_regs<16>(&big[0][0]);
+        fence_regs<16>(&small[0][0]);
+        consumer_release(bars, u, lane);
+        ++u;
+        if constexpr (W == 0) pass_slot(bars, u, lane);
+      }
+      // trade h1 + b1 (fp32: the kernel's rounding points round nothing)
+      // and dg, then dh = gelu'(h1 + b1) dg (W 0) or g = gelu(h1 + b1) (W 1)
+      // in place; element r of thread wt at (r 128 + wt) 4: distinct banks
+      float bias[2] = {0.f, 0.f};  // b1 of this thread's two hidden rows
+      if constexpr (W == 0) {
+        bias[0] = __ldg(p.b1 + static_cast<long long>(e) * p.h + c0 + hrow);
+        bias[1] = __ldg(p.b1 + static_cast<long long>(e) * p.h + c0 + hrow + 8);
+      }
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        if constexpr (W == 0) pa[r] += bias[(r >> 1) & 1];
+        asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(mine + r * kWarpgroup * 4), "f"(pa[r]) : "memory");
+      }
+      bgemm::named_sync(2, 256);  // both are in
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        float o;
+        asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(o) : "r"(theirs + r * kWarpgroup * 4) : "memory");
+        if constexpr (W == 0) {
+          pa[r] = gelu_tanh_grad(pa[r]) * o;
+          rsum[(r >> 1) & 1] += pa[r];
+        } else {
+          pa[r] = gelu_tanh(o);
+        }
+      }
+      bgemm::named_sync(3, 256);  // both are read: each may overwrite its own
+      // dhᵀ or gᵀ parked in this warpgroup's buffer, read back by each thread
+      // alone: 32 registers free for the weight products
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+        asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(mine + r * kWarpgroup * 4), "f"(pa[r]) : "memory");
+      // dW1cᵀ += dhᵀ . x or dW2c += gᵀ . dym over the step's rows, a 64-column
+      // block at a time; A fragments of 32 rows a slot
+#pragma unroll
+      for (int pp = 0; pp < kD / 64; ++pp) {
+        float part[32];
+#pragma unroll
+        for (int kc = 0; kc < 2; ++kc) {
+          if constexpr (W == 1) pass_slot(bars, u, lane);
+          uint32_t big[4][4], small[4][4];
+          {
+            float a[16];
+#pragma unroll
+            for (int r = 0; r < 16; ++r)
+              asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(a[r]) : "r"(mine + (16 * kc + r) * kWarpgroup * 4) : "memory");
+            acc_frags<4>(big, small, a);
+          }
+          consumer_wait(bars, u);
+          const uint32_t slot = ring + (u % kRing) * kSlotBytes;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_3xtf32<64>(part, big[kk], small[kk], slot + kk * 32, kc > 0 || kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs<32>(part);
+          fence_regs<16>(&big[0][0]);
+          fence_regs<16>(&small[0][0]);
+          consumer_release(bars, u, lane);
+          ++u;
+          if constexpr (W == 0) pass_slot(bars, u, lane);
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) total[32 * pp + i] += part[i];
+      }
+    }
+  };
+  if (w == 0) {
+    walk(std::integral_constant<int, 0>{});
+  } else {
+    walk(std::integral_constant<int, 1>{});
+  }
+
+  // the bias gradients of this CTA's rows into the exchange (db1 at 0, db2
+  // at 64 on): db1 over each quad (W 0); db2 over this owner's share of
+  // dy's columns, the 4-column groups [g0, g0 + gn), each thread summing
+  // every P-th row of one group, the P row phases then added in order (W 1)
+  bgemm::named_sync(4, 256);  // the walk is over: the ring and the exchange are free
+  unsigned char* const xs = sbase + kDwF32XchAt;
+  const int groups = (kD / 4 + nc - 1) / nc, g0 = min(groups * (owner % nc), kD / 4);
+  const int gn = min(groups, kD / 4 - g0);
+  if (w == 0) {
+    const float db[2] = {quad_sum(rsum[0]), quad_sum(rsum[1])};
+    if (t == 0) {
+      reinterpret_cast<float*>(xs)[hrow] = db[0];
+      reinterpret_cast<float*>(xs)[hrow + 8] = db[1];
+    }
+  } else if (gn > 0) {
+    const int P = kWarpgroup / gn, q = wt % gn, ph = wt / gn;
+    float4* const phases = reinterpret_cast<float4*>(xs + 1024);  // (P, gn)
+    if (ph < P) {
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int r = first + ph; r < last; r += P) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(p.dy + static_cast<long long>(r) * kD) + g0 + q);
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+      phases[ph * gn + q] = sum;
+    }
+    bgemm::named_sync(5, 128);
+    for (int col = wt; col < 4 * gn; col += kWarpgroup) {
+      float sum = 0.f;
+      for (int f = 0; f < P; ++f) sum += reinterpret_cast<const float*>(phases + f * gn)[col];
+      reinterpret_cast<float*>(xs)[64 + col] = sum;
+    }
+  }
+  // the cluster's partials summed in rank order, each output written once
+  put_partial(ring + w * kPartial, total);
+  cluster_sync();
+  if (w == 0) {
+    float* dw1 = p.dw1 + static_cast<long long>(e) * kD * p.h + c0;
+    each_summed_output(ring, rank, [&](int row, int col, float v0, float v1) {
+      dw1[static_cast<long long>(col) * p.h + row] = v0;
+      dw1[static_cast<long long>(col + 1) * p.h + row] = v1;
+    });
+    if (rank == 0 && t == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) p.db1[static_cast<long long>(e) * p.h + c0 + hrow + 8 * i] = sum_at(xch + (hrow + 8 * i) * 4);
+    }
+  } else {
+    float* dw2 = p.dw2 + (static_cast<long long>(e) * p.h + c0) * kD;
+    each_summed_output(ring + kPartial, rank, [&](int row, int col, float v0, float v1) {
+      *reinterpret_cast<float2*>(dw2 + row * kD + col) = make_float2(v0, v1);
+    });
+    if (rank == 0)
+      for (int col = wt; col < 4 * gn; col += kWarpgroup)
+        p.db2[static_cast<long long>(e) * kD + 4 * g0 + col] = sum_at(xch + (64 + col) * 4);
+  }
+  cluster_sync();  // no CTA leaves while another reads its partials
+}
+
+// 0 on success, else a cudaError_t
+int launch_dw_f32(const DwF32Args& p, cudaStream_t s) {
+  if (p.h % moeh::kChunk) return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = bgemm::prepare<&moe_ffn_dw_tf32x3>(kDwF32Bytes, &sms);
+  if (err != cudaSuccess) return err;
+  moe_ffn_dw_tf32x3<<<p.e * (p.h / moeh::kChunk) * kDwCluster, 384, kDwF32Bytes, s>>>(p);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------------------------ bf16 K8
 
 struct DxArgs {
@@ -855,7 +1046,8 @@ int launch_dx_bf16(const void* x, const void* dy, const void* w1, const void* w2
 }  // namespace
 
 // dx of the grouped FFN (moe_gmm_fwd's arguments plus dy (n, d) in the
-// compute dtype) into dx (n, d).  The same shape rules as moe_gmm_fwd.
+// compute dtype) into dx (n, d).  moe_gmm_fwd's shape rules, but fp32 takes
+// h a multiple of 32.
 // Returns 0 on success, a cudaError_t, or minus the CUresult of a tensor
 // map that failed to encode.
 extern "C" int moe_gmm_dx(const void* x, const void* dy, const void* w1, const void* b1,
@@ -898,22 +1090,12 @@ extern "C" int moe_gmm_dw(const void* x, const void* dy, const void* w1, const v
                    n, h, e, cap};
     return launch_dw_bf16(x, dy, w1, w2, p, s);
   }
-  BwdParams p{};
-  p.x = x;
-  p.dy = dy;
-  p.w1 = w1;
-  p.b1 = b1;
-  p.w2 = w2;
-  p.starts = static_cast<const int*>(starts);
-  p.dw1 = static_cast<float*>(dw1);
-  p.db1 = static_cast<float*>(db1);
-  p.dw2 = static_cast<float*>(dw2);
-  p.db2 = static_cast<float*>(db2);
-  p.n = n;
-  p.h = h;
-  p.e = e;
-  p.cap = cap;
-  MOE_DISPATCH_D(d, return launch_dw<float, D>(p, s);)
+  if (d != moeh::kD) return cudaErrorInvalidValue;
+  const DwF32Args p{static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<const float*>(w1),
+                    static_cast<const float*>(b1), static_cast<const float*>(w2), static_cast<const int*>(starts),
+                    static_cast<float*>(dw1), static_cast<float*>(db1), static_cast<float*>(dw2),
+                    static_cast<float*>(db2), n, h, e, cap};
+  return launch_dw_f32(p, s);
 }
 
 // the dynamic shared memory of a moe_ffn_dx_wgmma or moe_ffn_dw_wgmma launch (any shape)

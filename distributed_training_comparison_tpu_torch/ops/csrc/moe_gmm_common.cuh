@@ -1,11 +1,11 @@
 // Shared pieces of the grouped expert FFN kernels (moe_gmm_fwd.cu, K7;
 // moe_gmm_bwd.cu, K8 and K9): element conversions at the compute dtype's
 // rounding points, the tanh gelu and its derivative and the experts' kept
-// ranges, which the bf16 Hopper kernels (moe_gmm_hopper.cuh) use too; and,
-// for the fp32 kernels alone, tile staging into shared memory and a
-// block-level product over shared-memory tiles.
+// ranges, which the Hopper kernels (moe_gmm_hopper.cuh; the fp32 K7 and K9
+// on tf32x3.cuh) use too; and, for the fp32 K8 alone, tile staging into
+// shared memory and a block-level product over shared-memory tiles.
 //
-// Every fp32 product runs through `Tile`: SIMT FMAs whose accumulator takes
+// Every product of the fp32 K8 runs through `Tile`: SIMT FMAs whose accumulator takes
 // the mma.sync m16n8k16 fragment layout's (row, column) ownership.
 // Operands are read from shared memory through a row stride and a column
 // stride, so a transposed operand costs no copy.

@@ -50,113 +50,38 @@
 // tried and not kept: it changed the summation order enough to move
 // serve_moe's logits off the gather dispatch's by one bf16 ulp (PERF.md).
 //
-// fp32: moe_gmm_fwd_kernel (the first port, on moe_gmm_common.cuh's SIMT
-// tiles).  One block of 128 threads owns a 64-row tile of the sorted
-// tokens, loops over the experts whose kept range overlaps it and, per
-// expert, over the hidden dimension in chunks of 32: W1 and W2 chunks
-// staged in shared memory, the gelu chunk formed on chip, a (64, d) fp32
-// accumulator in registers; rows in no expert's range are written as 0.
+// fp32: moe_ffn_fwd_tf32x3, 3xTF32 on wgmma (tf32x3.cuh: each fp32
+// operand split into big and small tf32 halves, each product three tf32
+// products; 165 TFLOP/s of fp32 work at most, so at the train shape's ~9.2
+// GFLOP a bound of 0.056 ms).  The bf16 kernel's units and grid; a producer
+// warpgroup and two consumer warpgroups of 64 rows (setmaxnreg 56 / 224).
+// tf32 wgmma reads shared memory K-major only, and both weight slices lie
+// MN-major, so the producer streams them through tf32x3.cuh's ring of 16 KB
+// split slots transposed as they land (SlotSrc::trans), twelve a 64-column
+// hidden chunk: W1[e][:, chunk]ᵀ (64 hidden columns x 32 of d, six), then
+// W2[e][chunk, :]ᵀ (64 of d x 32 hidden rows, two for each 64-column block
+// of y).  A transposed slot stores its contraction axis in the order the
+// accumulator's fragments read it (0, 2, 4, 6, 1, 3, 5, 7), so the x tile,
+// each warpgroup's own 64 rows read once into shared memory (48 KB) as raw
+// A fragments, is laid out in that order too (a pair of adjacent columns
+// one 8-byte load) and split a k-step at a time.  Per chunk a warpgroup
+// runs h = x . W1 chunk (m64n64k8, one accumulator over d's 192), g =
+// gelu(h + b1) on the accumulator, then y += g . W2 chunk with g's big and
+// small fragments taken from the accumulator (acc_frags) and each 64-column
+// block's chunk summed in a fresh accumulator added to y in fp32 (the
+// tensor cores round each accumulation toward zero; PERF.md has the
+// drift): y, 64 x 192 fp32, is 96 registers.  Each output sums its hidden
+// chunks in order and is written once: two calls are bit-identical.  A
+// NaN in x reaches its row (the split keeps it).  Shared memory: x 96 KB +
+// 6 slots 96 KB.
 
 #include "moe_gmm_common.cuh"
 #include "moe_gmm_hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 using namespace moe;
-
-struct FwdParams {
-  const void* x;    // (n, d) expert-sorted tokens
-  const void* w1;   // (E, d, h)
-  const void* b1;   // (E, h)
-  const void* w2;   // (E, h, d)
-  const void* b2;   // (E, d)
-  const int* starts;  // (E + 1,)
-  void* y;          // (n, d)
-  int n, h, e, cap;
-};
-
-template <typename T, int D>
-constexpr int fwd_smem() {
-  return smem_rows<T>(kRows, D) + smem_rows<T>(D, kHC) + smem_rows<T>(kHC, D) +
-         smem_rows<T>(kRows, kHC);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) moe_gmm_fwd_kernel(const FwdParams p) {
-  constexpr int LDX = D + kPad, LDW1 = kHC + kPad, LDW2 = D + kPad, LDH = kHC + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);  // (kRows, D): the tile's tokens
-  T* w1s = xs + kRows * LDX;               // (D, kHC): W1[e][:, chunk]
-  T* w2s = w1s + D * LDW1;                 // (kHC, D): W2[e][chunk, :]
-  T* hs = w2s + kHC * LDW2;                // (kRows, kHC): gelu chunk
-  __shared__ int st[kMaxExperts + 1];
-  __shared__ unsigned char kept[kRows];
-
-  const int r0 = blockIdx.x * kRows;
-  const T* x = static_cast<const T*>(p.x);
-  const T* w1 = static_cast<const T*>(p.w1);
-  const T* b1 = static_cast<const T*>(p.b1);
-  const T* w2 = static_cast<const T*>(p.w2);
-  const T* b2 = static_cast<const T*>(p.b2);
-  T* y = static_cast<T*>(p.y);
-  for (int i = threadIdx.x; i <= p.e; i += kThreads) st[i] = p.starts[i];
-  for (int i = threadIdx.x; i < kRows; i += kThreads) kept[i] = 0;
-  stage(xs, LDX, x, D, r0, kRows, D, 0, p.n);
-  __syncthreads();
-
-  using OutTile = Tile<T, kRows, D, 4>;
-  using HTile = Tile<T, kRows, kHC, 4>;
-  for (int e = 0; e < p.e; ++e) {
-    int lo, hi;
-    kept_range(st, e, p.cap, p.n, lo, hi);
-    if (hi <= lo || hi <= r0 || lo >= r0 + kRows) continue;  // the same for every thread
-    const long long wbase = static_cast<long long>(e) * D * p.h;
-    OutTile out;
-    out.zero();
-    for (int c = 0; c < p.h; c += kHC) {
-      stage(w1s, LDW1, w1 + wbase + c, p.h, 0, D, kHC, 0, D);
-      stage(w2s, LDW2, w2 + wbase + static_cast<long long>(c) * D, D, 0, kHC, D, 0, kHC);
-      __syncthreads();
-      HTile hacc;
-      hacc.zero();
-      hacc.mma(xs, LDX, 1, w1s, LDW1, 1, D);
-#pragma unroll
-      for (int nt = 0; nt < HTile::NT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = HTile::row(0, i), cc = HTile::col(nt, i);
-          const float bias = to_f(b1[static_cast<long long>(e) * p.h + c + cc]);
-          const float v = rnd<T>(rnd<T>(hacc.acc[0][nt][i]) + bias);
-          hs[r * LDH + cc] = from_f<T>(gelu_tanh(v));
-        }
-      __syncthreads();
-      out.mma(hs, LDH, 1, w2s, LDW2, 1, kHC);
-      __syncthreads();  // the next chunk overwrites w1s, w2s and hs
-    }
-#pragma unroll
-    for (int nt = 0; nt < OutTile::NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = OutTile::row(0, i), cc = OutTile::col(nt, i), gr = r0 + r;
-        if (gr < lo || gr >= hi) continue;
-        const float bias = to_f(b2[static_cast<long long>(e) * D + cc]);
-        y[static_cast<long long>(gr) * D + cc] = from_f<T>(rnd<T>(out.acc[0][nt][i]) + bias);
-        if (cc == 0) kept[r] = 1;
-      }
-  }
-  __syncthreads();
-  // rows in no expert's kept range: exactly 0
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int r = i / D, gr = r0 + r;
-    if (gr < p.n && !kept[r]) y[static_cast<long long>(gr) * D + i % D] = from_f<T>(0.f);
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch_fwd(const FwdParams& p, cudaStream_t s) {
-  const dim3 grid((p.n + kRows - 1) / kRows);
-  return launch(moe_gmm_fwd_kernel<T, D>, grid, fwd_smem<T, D>(), s, p);
-}
 
 // ------------------------------------------------------------------ bf16
 
@@ -331,14 +256,150 @@ int launch_ffn_bf16(const void* x, const void* w1, const void* w2, const FfnArgs
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ fp32
+
+// a hidden chunk's slots: W1[e][:, chunk]ᵀ (six: 32 of d each), then
+// W2[e][chunk, :]ᵀ (six: column block major, two 32-row halves each)
+constexpr int kFwdF32Slots = 2 * moeh::kD / 32;
+using FwdF32 = Tf32Layout<moeh::kD, moeh::kConsumers>;  // x: 64 rows a consumer warpgroup, raw fragments
+
+struct FfnF32Args {
+  const float* x;     // (n, d) expert-sorted tokens
+  const float* w1;    // (E, d, h)
+  const float* b1;    // (E, h)
+  const float* w2;    // (E, h, d)
+  const float* b2;    // (E, d)
+  const int* starts;  // (E + 1,)
+  float* y;           // (n, d)
+  int n, h, e, cap;
+};
+
+// a consumer thread's A fragments of x rows `row` and `row + 8` (zeros at or
+// past `end`), raw fp32, in the transposed slots' contraction order: element
+// e of k-step kk is column 8 kk + 2t + frag_col(e) of row row + 8 frag_row(e)
+__device__ __forceinline__ void load_x_frags(unsigned char* own, const float* x, int row, int end, int t) {
+  const float* r0 = x + static_cast<long long>(row) * moeh::kD + 2 * t;
+  const float* r8 = r0 + 8 * moeh::kD;
+#pragma unroll 4
+  for (int kk = 0; kk < moeh::kD / 8; ++kk) {
+    float2 a = make_float2(0.f, 0.f), b = a;
+    if (row < end) a = __ldg(reinterpret_cast<const float2*>(r0 + 8 * kk));
+    if (row + 8 < end) b = __ldg(reinterpret_cast<const float2*>(r8 + 8 * kk));
+    *reinterpret_cast<float4*>(own + kk * kFrag) = make_float4(a.x, b.x, a.y, b.y);
+  }
+}
+
+__global__ void __launch_bounds__(384, 1) moe_ffn_fwd_tf32x3(const FfnF32Args p) {
+  constexpr int kD = moeh::kD;
+  extern __shared__ __align__(1024) unsigned char f32_smem[];
+  __shared__ int st[kMaxExperts + 1];
+  __shared__ unsigned char dropped[moeh::kRows];
+  const uint32_t raw = smem_u32(f32_smem), base = (raw + 1023) & ~1023u;
+  unsigned char* const sbase = f32_smem + (base - raw);
+  const uint32_t ring = base + FwdF32::kRingAt, bars = base + FwdF32::kBars;
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i <= p.e; i += blockDim.x) st[i] = p.starts[i];
+  __syncthreads();
+  moeh::zero_unkept(p.y, st, p.e, p.cap, p.n, dropped);
+  int e = 0, lo = 0, hi = 0;
+  if (!moeh::expert_unit(st, p.e, p.cap, p.n, blockIdx.x, e, lo, hi)) return;  // past the last unit
+  const int total = p.h / moeh::kChunk * kFwdF32Slots;
+  ring_init(bars, tid);
+
+  if (tid < 128) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kF32ProducerRegs));
+    const float* w1 = p.w1 + static_cast<long long>(e) * kD * p.h;
+    const float* w2 = p.w2 + static_cast<long long>(e) * p.h * kD;
+    auto slot_of = [&](int u) {
+      const int r = u % kFwdF32Slots, c0 = u / kFwdF32Slots * moeh::kChunk;
+      if (r < kD / 32)  // slot row n: W1[e] column c0 + n over rows (d) 32 r ..
+        return SlotSrc{w1, w1, p.h, p.h, 32 * r, kD, c0, true};
+      // slot row n: W2[e] column 64 (q / 2) + n over rows (hidden) c0 + 32 (q % 2) ..
+      const int q = r - kD / 32;
+      return SlotSrc{w2, w2, kD, kD, c0 + 32 * (q % 2), p.h, 64 * (q / 2), true};
+    };
+    produce<kSlotRows>(slot_of, total, sbase + FwdF32::kRingAt, bars, tid);
+    return;  // the two roles never reconverge, or setmaxnreg would not hold
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kF32ConsumerRegs));
+
+  const int c = tid / 128 - 1, wt = tid % 128, lane = tid % 32, t = lane % 4;
+  const int row0 = lo + moeh::kRows * c;  // this warpgroup's tile: rows row0 .. min(row0 + 64, hi)
+  int u = 0;
+  if (row0 >= hi) {  // a unit of 64 rows or fewer: the second warpgroup only releases the slots
+    for (; u < total; ++u) {
+      consumer_wait(bars, u);
+      consumer_release(bars, u, lane);
+    }
+    return;
+  }
+  const int row = row0 + 16 * (wt / 32) + lane / 4;  // this thread's rows: row and row + 8
+  unsigned char* const own = sbase + c * FwdF32::kOwnTensor + wt * 16;
+  load_x_frags(own, p.x, row, hi, t);  // read back by this thread alone
+  const float* b1 = p.b1 + static_cast<long long>(e) * p.h + 2 * t;
+
+  float y[kD / 64][32];
+#pragma unroll
+  for (int hh = 0; hh < kD / 64; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[hh][i] = 0.f;
+  for (int c0 = 0; c0 < p.h; c0 += moeh::kChunk) {
+    // h = x . W1[e][:, chunk] over d, one accumulator; then g = gelu(h + b1)
+    // in fp32 in its registers (element 4n + 2i + j: hidden column c0 + 8n +
+    // 2t + j of row + 8i)
+    float hacc[32];
+    scores<kD>(hacc, own, ring, bars, u, lane);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + c0 + 8 * n));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        hacc[4 * n + 2 * i] = gelu_tanh(hacc[4 * n + 2 * i] + bb.x);
+        hacc[4 * n + 2 * i + 1] = gelu_tanh(hacc[4 * n + 2 * i + 1] + bb.y);
+      }
+    }
+    // y += g . W2[e][chunk, :], g's fragments from the accumulator
+    uint32_t big[8][4], small[8][4];
+    acc_frags<8>(big, small, hacc);
+    sums<kD, 8>(y, big, small, ring, bars, u, lane);
+  }
+
+  // y + b2, stored to the tile's rows
+  const float* b2 = p.b2 + static_cast<long long>(e) * kD + 2 * t;
+#pragma unroll
+  for (int hh = 0; hh < kD / 64; ++hh) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(b2 + 64 * hh + 8 * n));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        y[hh][4 * n + 2 * i] += bb.x;
+        y[hh][4 * n + 2 * i + 1] += bb.y;
+      }
+    }
+    store_f32(p.y, kD, row, hi, 64 * hh, y[hh], t);
+  }
+}
+
+// 0 on success, else a cudaError_t
+int launch_ffn_f32(const FfnF32Args& p, cudaStream_t s) {
+  if (p.h % moeh::kChunk) return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = bgemm::prepare<&moe_ffn_fwd_tf32x3>(FwdF32::kBytes, &sms);
+  if (err != cudaSuccess) return err;
+  const int blocks = (p.n + moeh::kUnitRows - 1) / moeh::kUnitRows + p.e;
+  moe_ffn_fwd_tf32x3<<<blocks, 384, FwdF32::kBytes, s>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // y = the grouped FFN of the expert-sorted tokens x (n, d) over the experts'
 // W1 (E, d, h), b1 (E, h), W2 (E, h, d), b2 (E, d), all contiguous in the
 // compute dtype (bf16 when is_bf16, else fp32), starts (E + 1,) int32 on
-// the device, capacity cap.  d is 192, h a multiple of 64 in bf16 (32 in
-// fp32), E at most 64, n at least 1, every pointer 16-byte aligned (checked
-// by the caller).  Returns 0 on success, a cudaError_t, or minus the
+// the device, capacity cap.  d is 192, h a multiple of 64, E at most 64, n
+// at least 1, every pointer 16-byte aligned (checked by the caller).  Returns 0 on success, a cudaError_t, or minus the
 // CUresult of a tensor map that failed to encode.
 extern "C" int moe_gmm_fwd(const void* x, const void* w1, const void* b1, const void* w2,
                            const void* b2, const void* starts, void* y, int n, int d, int h,
@@ -350,8 +411,11 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w1, const void* b1, const 
                     static_cast<bf16*>(y), n, h, e, cap};
     return launch_ffn_bf16(x, w1, w2, p, s);
   }
-  const FwdParams p{x, w1, b1, w2, b2, static_cast<const int*>(starts), y, n, h, e, cap};
-  MOE_DISPATCH_D(d, return launch_fwd<float, D>(p, s);)
+  if (d != moeh::kD) return cudaErrorInvalidValue;
+  const FfnF32Args p{static_cast<const float*>(x), static_cast<const float*>(w1), static_cast<const float*>(b1),
+                     static_cast<const float*>(w2), static_cast<const float*>(b2), static_cast<const int*>(starts),
+                     static_cast<float*>(y), n, h, e, cap};
+  return launch_ffn_f32(p, s);
 }
 
 // the dynamic shared memory of a moe_ffn_fwd_wgmma launch (any shape)

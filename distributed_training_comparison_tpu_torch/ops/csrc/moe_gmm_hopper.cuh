@@ -8,7 +8,9 @@
 // rounding and tanh gelu, not on its fp32 `Tile`; this header adds the
 // expert-aligned units of work K7 and K8 share, the exact zeros of the rows
 // no expert keeps, zeroed tile rows (K9) and the order in which a
-// warpgroup's accumulator is stored.
+// warpgroup's accumulator is stored.  The fp32 (3xTF32) K7 and K9
+// (moe_ffn_fwd_tf32x3, moe_ffn_dw_tf32x3) take the same units, zeros and
+// output order, on tf32x3.cuh's thread roles instead of the ones below.
 //
 // Thread roles: two warpgroups (256 threads), the first thread of the first
 // also issuing every TMA load; one block an SM, up to 255 registers a
@@ -92,19 +94,20 @@ __device__ __forceinline__ bool row_kept(const int* st, int ne, int cap, int r) 
   return false;  // padding past starts[E]
 }
 
-// The rows of y (n, kD) in no expert's kept range (dropped past the
-// capacity, padding past starts[E]) written as exact zeros: block b takes
-// the 64-row blocks b, b + grid, ...; `flag` is kRows bytes of shared memory.
-// Every thread of the block takes part.
-__device__ __forceinline__ void zero_unkept(bf16* y, const int* st, int ne, int cap, int n,
-                                            unsigned char* flag) {
+// The rows of y (n, kD; bf16 or fp32) in no expert's kept range (dropped
+// past the capacity, padding past starts[E]) written as exact zeros: block
+// b takes the 64-row blocks b, b + grid, ...; `flag` is kRows bytes of
+// shared memory.  Every thread of the block takes part.
+template <typename T>
+__device__ __forceinline__ void zero_unkept(T* y, const int* st, int ne, int cap, int n, unsigned char* flag) {
+  constexpr int kVec = 16 / sizeof(T);  // elements of a 16-byte store
   for (int r0 = blockIdx.x * kRows; r0 < n; r0 += gridDim.x * kRows) {
     if (threadIdx.x < kRows) flag[threadIdx.x] = r0 + threadIdx.x < n && !row_kept(st, ne, cap, r0 + threadIdx.x);
     __syncthreads();
-    for (int i = threadIdx.x; i < kRows * kD / 8; i += blockDim.x) {
-      const int r = i / (kD / 8);
+    for (int i = threadIdx.x; i < kRows * kD / kVec; i += blockDim.x) {
+      const int r = i / (kD / kVec);
       if (flag[r])
-        *reinterpret_cast<uint4*>(y + static_cast<long long>(r0 + r) * kD + (i % (kD / 8)) * 8) =
+        *reinterpret_cast<uint4*>(y + static_cast<long long>(r0 + r) * kD + (i % (kD / kVec)) * kVec) =
             make_uint4(0u, 0u, 0u, 0u);
     }
     __syncthreads();

@@ -1519,3 +1519,81 @@ def test_tiled_bf16_small_mha_launches_the_kernels_kernel_symbols_names(cuda_dev
     assert want == {"fwd": ("attn_small_fwd_bf16",), "bwd": ("attn_small_dq_bf16", "attn_small_dkv_bf16")}
     assert _small_kernels_run(lambda: small.small_mha_fwd(q, k, v, seq=s, heads=2)) == set(want["fwd"])
     assert _small_kernels_run(lambda: small.small_mha_bwd(q, k, v, do, seq=s, heads=2)) == set(want["bwd"])
+
+
+# ------------------------------------- fp32 grouped expert FFN (3xTF32 K7, K9)
+
+# (label, E, d, h, group counts, cap): the vit_moe serve shape (bucket 32:
+# n 2048, cap 320), its train shape (batch 256: n 16384, cap 2560, the
+# first two groups over capacity) and a ragged routing (n 1000, cap 160: an
+# empty group, two over capacity, the last ending at n)
+F32_MOE_CASES = [
+    ("serve", 8, 192, 768, (400, 100, 300, 0, 250, 320, 350, 328), 320),
+    ("train", 8, 192, 768, (3300, 2700, 2300, 2000, 1700, 1600, 1400, 1384), 2560),
+    ("ragged", 8, 192, 768, (150, 0, 200, 90, 110, 120, 130, 200), 160),
+]
+F32_MOE_SYMBOLS = {"fwd": {"moe_ffn_fwd_tf32x3"}, "dw": {"moe_ffn_dw_tf32x3"}}
+
+
+def _moe_symbols_run(fn) -> set[str]:
+    """The port's kernels, by symbol, that ``fn`` launches on the card."""
+    fn()  # warm: the library built and loaded
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    symbol = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)[<(]")
+    return {m.group(1) for e in prof.key_averages() if (m := symbol.match(e.key))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label,ne,d,h,counts,cap", F32_MOE_CASES, ids=[c[0] for c in F32_MOE_CASES])
+def test_fp32_grouped_ffn_tf32x3_kernels_match_plain_on_card(cuda_device, label, ne, d, h, counts, cap):
+    """The fp32 K7 and K9 (3xTF32 ``wgmma``) against their plain versions:
+    the output per kept row within 2^-10 of the row's rms (rtol 0), every
+    row no expert keeps exactly +0, the four weight gradients within 2^-14
+    of their leaf in relative L2 (the bounds of ``chip_smoke.py``); a second
+    call bit-identical; each wrapper launches its 3xTF32 kernel alone, by
+    symbol."""
+    xs, w1, b1, w2, b2, starts, dy = _moe_inputs(torch.float32, ne, d, h, counts, 0, cuda_device, seed=21)
+    n = xs.shape[0]
+    before = _gmm_counts()
+    out = gmm.grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap)
+    dws = gmm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap)
+    again = (gmm.grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap),
+             *gmm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap))
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_gmm_counts(), before)] == [2, 0, 2]
+    kept = gmm.kept_mask(starts, cap, n)
+    assert 0 < int(kept.sum()) < n
+    assert bool((out[~kept].view(torch.int32) == 0).all())
+    want = gmm.grouped_ffn_reference(xs, w1, b1, w2, b2, starts, cap)
+    assert _row_share(out[kept], want[kept], 0.0) <= 2**-10
+    for got, ref in zip(dws, gmm.grouped_ffn_dw_reference(xs, dy, w1, b1, w2, starts, cap)):
+        err = float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+        assert err <= 2**-14, err
+    assert all(torch.equal(a, b) for a, b in zip((out, *dws), again))
+    assert _moe_symbols_run(lambda: gmm.grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap)) == F32_MOE_SYMBOLS["fwd"]
+    assert _moe_symbols_run(lambda: gmm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap)) == F32_MOE_SYMBOLS["dw"]
+
+
+@pytest.mark.gpu
+def test_fp32_grouped_ffn_tf32x3_kernels_keep_a_nan(cuda_device):
+    """A NaN in one element of x (a kept row of expert 2; expert 1 is
+    empty) reaches K7's output and K9's gradients where the plain versions
+    put it (that row of the output; dW1, db1 and dW2 of that expert, wholly
+    NaN) and nowhere else: the split keeps a NaN a NaN."""
+    ne, d, h, counts, cap = F32_MOE_CASES[2][1:]
+    xs, w1, b1, w2, b2, starts, dy = _moe_inputs(torch.float32, ne, d, h, counts, 0, cuda_device, seed=22)
+    row = counts[0] + 5
+    xs[row, 17] = float("nan")
+    out = gmm.grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap)
+    dws = gmm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap)
+    want = gmm.grouped_ffn_reference(xs, w1, b1, w2, b2, starts, cap)
+    want_dws = gmm.grouped_ffn_dw_reference(xs, dy, w1, b1, w2, starts, cap)
+    torch.cuda.synchronize()
+    assert bool(out[row].isnan().all()) and int(out.isnan().sum()) == d
+    assert torch.equal(out.isnan(), want.isnan())
+    for got, ref in zip(dws, want_dws):
+        assert torch.equal(got.isnan(), ref.isnan())
+    assert bool(dws[0][2].isnan().all()) and not bool(dws[0][0].isnan().any())
