@@ -22,8 +22,9 @@ last line:
              ``block_attn_dkv_tf32x3``, each at head dims 64 and 128) and
              of the grouped expert FFN's bf16 kernels
              (``moe_ffn_fwd_wgmma``, ``moe_ffn_dx_wgmma``,
-             ``moe_ffn_dw_wgmma``) and fp32 (3xTF32) K7 and K9
-             (``moe_ffn_fwd_tf32x3``, ``moe_ffn_dw_tf32x3``) (``ptxas -v``; a
+             ``moe_ffn_dw_wgmma``) and fp32 (3xTF32) K7, K8 and K9
+             (``moe_ffn_fwd_tf32x3``, ``moe_ffn_dx_tf32x3``,
+             ``moe_ffn_dw_tf32x3``) (``ptxas -v``; a
              bf16 flash kernel, a short-sequence kernel, a fused block GEMM or
              attention kernel (bf16 or fp32) or an expert FFN kernel that
              spills fails the run) and each such kernel's dynamic shared memory at the
@@ -148,11 +149,13 @@ last line:
              0, the gradients per leaf, K7/K8/K9 bit-identical across two
              calls, two planted faults rejected (a start shifted by a row, a
              row tile left out of K9's walk), in fp32 a NaN in one element
-             of x reaching K7's row and K9's gradients as in the plain
-             versions, the kernels each wrapper ran by symbol (bf16:
+             of x reaching K7's and K8's row and K9's gradients, and one in
+             dy reaching K8's row, as in the plain versions, and the drift
+             of K7's y, K8's dx and K9's gradients against fp64 sums, the
+             kernels each wrapper ran by symbol (bf16:
              ``moe_ffn_fwd_wgmma``, ``moe_ffn_dx_wgmma``,
-             ``moe_ffn_dw_wgmma``; fp32: the 3xTF32 ``moe_ffn_fwd_tf32x3``
-             and ``moe_ffn_dw_tf32x3``, K8's SIMT ``moe_gmm_dx_kernel``),
+             ``moe_ffn_dw_wgmma``; fp32: the 3xTF32 ``moe_ffn_fwd_tf32x3``,
+             ``moe_ffn_dx_tf32x3`` and ``moe_ffn_dw_tf32x3``),
              device ms under the profiler (and
              CUDA-event ms) of each kernel, its plain version and the
              composed cuBLAS form of the gather dispatch (its forward, its
@@ -185,12 +188,13 @@ last line:
              K8 and K9 in every backward, the same checks as train_moe, the
              one-step check in fp32 (2^-13, with a TF32 control that must
              exceed it), the step profile's expert FFN kernels by symbol
-             ``moe_ffn_fwd_tf32x3``, ``moe_gmm_dx_kernel`` and
-             ``moe_ffn_dw_tf32x3`` alone, each one's share of the busy time;
+             ``moe_ffn_fwd_tf32x3``, ``moe_ffn_dx_tf32x3`` and
+             ``moe_ffn_dw_tf32x3`` alone, each one's share of the busy time
+             (K8's also on the phase's line);
    moe_fp32_dispatch — one bucket-32 batch of ``vit_moe --moe-dispatch gmm``
              in fp32: its logits against ``--moe-dispatch gather`` within
              2^-13 of the largest, which a planted K7 fault exceeds; both
-             dispatches timed and profiled; no SIMT K7 or K9 launched
+             dispatches timed and profiled; no SIMT K7, K8 or K9 launched
              anywhere in the run (every profile's kernels);
 7. vit_tiny at 64 tokens — ``small_attention_checks``: the short-sequence
              attention's kernels (K10 forward, K11 backward; bf16 at S <= 64
@@ -426,7 +430,7 @@ _PTXAS_ENTRY = re.compile(
 # the kernels that are no templates: the grouped expert FFN's bf16 and fp32
 # (3xTF32) ones and the fused block chains' fp32 (3xTF32) GEMMs
 _PTXAS_PLAIN_ENTRY = re.compile(
-    r"Compiling entry function '\w*?(moe_ffn_(?:fwd|dx|dw)_wgmma|moe_ffn_(?:fwd|dw)_tf32x3|(?:block_gemm|dgrad|wgrad)_tf32x3)E"
+    r"Compiling entry function '\w*?(moe_ffn_(?:fwd|dx|dw)_(?:wgmma|tf32x3)|(?:block_gemm|dgrad|wgrad)_tf32x3)E"
 )
 # the fused block chains' fp32 (3xTF32) kernels, as ptxas_report names them:
 # the GEMMs, and the attention's at its two padded head dims
@@ -2722,15 +2726,15 @@ MOE_GMM_CASES = [
 # reach K7's output and K9's gradients where the plain versions put it.
 GMM_GRAD_TOL = {"bfloat16": 2**-7, "float32": 2**-14}
 # the kernels K7, K8 and K9 launch, by symbol: in bf16 the Hopper kernels;
-# in fp32 the 3xTF32 K7 and K9 and the first port's K8
+# in fp32 the 3xTF32 ones
 MOE_SYMBOLS = {
     "bfloat16": {"fwd": "moe_ffn_fwd_wgmma", "dx": "moe_ffn_dx_wgmma", "dw": "moe_ffn_dw_wgmma"},
-    "float32": {"fwd": "moe_ffn_fwd_tf32x3", "dx": "moe_gmm_dx_kernel", "dw": "moe_ffn_dw_tf32x3"},
+    "float32": {"fwd": "moe_ffn_fwd_tf32x3", "dx": "moe_ffn_dx_tf32x3", "dw": "moe_ffn_dw_tf32x3"},
 }
-MOE_TF32_KERNELS = (MOE_SYMBOLS["float32"]["fwd"], MOE_SYMBOLS["float32"]["dw"])
-# the first port's fp32 K7 and K9, which the 3xTF32 kernels replaced: no
-# profile of the run may show them
-REPLACED_MOE_KERNELS = ("moe_gmm_fwd_kernel", "moe_gmm_dw_kernel")
+MOE_TF32_KERNELS = tuple(MOE_SYMBOLS["float32"].values())
+# the first port's fp32 K7, K8 and K9, which the 3xTF32 kernels replaced: no
+# profile of the run may show them (``turn`` still times a parent's by them)
+REPLACED_MOE_KERNELS = {"fwd": "moe_gmm_fwd_kernel", "dx": "moe_gmm_dx_kernel", "dw": "moe_gmm_dw_kernel"}
 
 
 def _moe_kernel_ms(device_ms_by_name: dict, csrc: Path | None = None) -> dict[str, float]:
@@ -2753,13 +2757,12 @@ def moe_gmm_bounds(n, d, h, ne, kept, dname) -> dict[str, tuple[float, str]]:
     products only: K7 4·K·d·h operations against xs and y (n rows each) and
     the weights; K8 6·K·d·h against xs, dy, dx and the weights; K9 8·K·d·h
     against xs, dy, the weights read and the fp32 gradients written.  In
-    fp32 K7 and K9 run each product as three tf32 products (3xTF32), K8 in
-    fp32 SIMT."""
+    fp32 each runs every product as three tf32 products (3xTF32)."""
     item = 2 if dname == "bfloat16" else 4
     weights = ne * (2 * d * h + h + d)
     return {
         "fwd": bound(4 * kept * d * h, (2 * n * d + weights) * item, dname, tf32x3=True),
-        "dx": bound(6 * kept * d * h, (3 * n * d + weights) * item, dname),
+        "dx": bound(6 * kept * d * h, (3 * n * d + weights) * item, dname, tf32x3=True),
         "dw": bound(8 * kept * d * h, (2 * n * d + weights) * item + weights * 4, dname, tf32x3=True),
     }
 
@@ -2821,39 +2824,54 @@ def moe_case_inputs(dname: str, n: int, counts=None):
 
 def moe_nan_check(gm, xs, dy, w1, b1, w2, b2, starts, cap) -> dict:
     """A NaN in one element of x, in a kept row of the first expert that
-    keeps more than 8 rows: K7's output and K9's gradients hold NaN exactly
-    where the plain versions do (that row of the output; the expert's dW1,
-    db1 and dW2 wholly) and the row is NaN across."""
+    keeps more than 8 rows: K7's output, K8's dx and K9's gradients hold NaN
+    exactly where the plain versions do (that row of the output and of dx;
+    the expert's dW1, db1 and dW2 wholly) and the rows are NaN across; then
+    a NaN in the same element of dy: K8's dx NaN in that row alone, as in
+    the plain version."""
     import torch
 
     lo, hi = next((lo, hi) for lo, hi in gm.kept_ranges(starts, cap, xs.shape[0]) if hi - lo > 8)
-    xs = xs.clone()
-    xs[lo + 5, 17] = float("nan")
-    y = gm.grouped_ffn_fwd(xs, w1, b1, w2, b2, starts, cap)
-    dw = gm.grouped_ffn_dw(xs, dy, w1, b1, w2, starts, cap)
-    want_y = gm.grouped_ffn_reference(xs, w1, b1, w2, b2, starts, cap)
-    want_dw = gm.grouped_ffn_dw_reference(xs, dy, w1, b1, w2, starts, cap)
+    row = lo + 5
+    x_nan, dy_nan = xs.clone(), dy.clone()
+    x_nan[row, 17] = float("nan")
+    dy_nan[row, 17] = float("nan")
+    y = gm.grouped_ffn_fwd(x_nan, w1, b1, w2, b2, starts, cap)
+    dx = gm.grouped_ffn_dx(x_nan, dy, w1, b1, w2, starts, cap)
+    dw = gm.grouped_ffn_dw(x_nan, dy, w1, b1, w2, starts, cap)
+    dx_dy = gm.grouped_ffn_dx(xs, dy_nan, w1, b1, w2, starts, cap)
+    want_y = gm.grouped_ffn_reference(x_nan, w1, b1, w2, b2, starts, cap)
+    want_dx = gm.grouped_ffn_dx_reference(x_nan, dy, w1, b1, w2, starts, cap)
+    want_dw = gm.grouped_ffn_dw_reference(x_nan, dy, w1, b1, w2, starts, cap)
+    want_dx_dy = gm.grouped_ffn_dx_reference(xs, dy_nan, w1, b1, w2, starts, cap)
+    d = xs.shape[1]
     rec = {
-        "row": lo + 5, "y_row_nan": bool(y[lo + 5].isnan().all()),
+        "row": row, "y_row_nan": bool(y[row].isnan().all()),
         "y_nan_where_plain": bool(torch.equal(y.isnan(), want_y.isnan())),
+        "dx_row_nan": bool(dx[row].isnan().all()) and int(dx.isnan().sum()) == d,
+        "dx_nan_where_plain": bool(torch.equal(dx.isnan(), want_dx.isnan())),
         "dw_nan_where_plain": [bool(torch.equal(g.isnan(), w.isnan())) for g, w in zip(dw, want_dw)],
         "dw1_nan_elements": int(dw[0].isnan().sum()),
+        "dy_nan_dx_row_nan": bool(dx_dy[row].isnan().all()) and int(dx_dy.isnan().sum()) == d,
+        "dy_nan_dx_nan_where_plain": bool(torch.equal(dx_dy.isnan(), want_dx_dy.isnan())),
     }
     rec["ok"] = rec["y_row_nan"] and rec["y_nan_where_plain"] and all(rec["dw_nan_where_plain"]) \
-        and rec["dw1_nan_elements"] > 0
+        and rec["dw1_nan_elements"] > 0 and rec["dx_row_nan"] and rec["dx_nan_where_plain"] \
+        and rec["dy_nan_dx_row_nan"] and rec["dy_nan_dx_nan_where_plain"]
     return rec
 
 
-def moe_fp64_drift(gm, xs, dy, w1, b1, w2, b2, starts, cap, y, dw) -> dict:
-    """K7's output ``y`` and K9's gradients ``dw``, and their plain versions,
-    against the same function summed in fp64 on the card: y per kept row as
-    a share of the row's rms (rtol 0), each gradient in relative L2.  A
-    record of the 3xTF32 kernels' drift beside cuBLAS fp32's, not a bound."""
+def moe_fp64_drift(gm, xs, dy, w1, b1, w2, b2, starts, cap, y, dx, dw) -> dict:
+    """K7's output ``y``, K8's ``dx`` and K9's gradients ``dw``, and their
+    plain versions, against the same function summed in fp64 on the card: y
+    and dx per kept row as a share of the row's rms (rtol 0), each gradient
+    in relative L2.  A record of the 3xTF32 kernels' drift beside cuBLAS
+    fp32's, not a bound."""
     import torch
     import torch.nn.functional as F
 
     x64, dy64, w1d, b1d, w2d, b2d = (t.double() for t in (xs, dy, w1, b1, w2, b2))
-    y64 = torch.zeros_like(x64)
+    y64, dx64 = torch.zeros_like(x64), torch.zeros_like(x64)
     g64 = [torch.zeros_like(t) for t in (w1d, b1d, w2d, b2d)]
     for e, (lo, hi) in enumerate(gm.kept_ranges(starts, cap, xs.shape[0])):
         if hi > lo:
@@ -2865,19 +2883,22 @@ def moe_fp64_drift(gm, xs, dy, w1, b1, w2, b2, starts, cap, y, dw) -> dict:
             act = act.detach()
             y64[lo:hi] = act @ w2d[e] + b2d[e]
             dh = grad * (g @ w2d[e].T)
+            dx64[lo:hi] = dh @ w1d[e].T
             for out, val in zip(g64, (x.T @ dh, dh.sum(0), act.T @ g, g.sum(0))):
                 out[e] = val
     kept = gm.kept_mask(starts, cap, xs.shape[0])
-    rms = y64[kept].pow(2).mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
 
-    def share(got):
-        return float(((got[kept].double() - y64[kept]).abs() / rms).max())
+    def share(got, want=y64):
+        rms = want[kept].pow(2).mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+        return float(((got[kept].double() - want[kept]).abs() / rms).max())
 
     def rel(got):
         return [float((a.double() - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(got, g64)]
 
     return {
         "y_row_share": {"kernel": share(y), "plain": share(gm.grouped_ffn_reference(xs, w1, b1, w2, b2, starts, cap))},
+        "dx_row_share": {"kernel": share(dx, dx64),
+                         "plain": share(gm.grouped_ffn_dx_reference(xs, dy, w1, b1, w2, starts, cap), dx64)},
         "dw_rel_l2": {"kernel": rel(dw), "plain": rel(gm.grouped_ffn_dw_reference(xs, dy, w1, b1, w2, starts, cap))},
     }
 
@@ -2942,7 +2963,7 @@ def moe_gmm_checks(gm) -> list[dict]:
         }
         if dname == "float32":
             rec["nan_in_x"] = moe_nan_check(gm, xs, dy, w1, b1, w2, b2, starts, cap)
-            rec["fp64_drift"] = moe_fp64_drift(gm, xs, dy, w1, b1, w2, b2, starts, cap, y, dw)
+            rec["fp64_drift"] = moe_fp64_drift(gm, xs, dy, w1, b1, w2, b2, starts, cap, y, dx, dw)
         lib_fwd, lib_bwd, lib_dx = composed_library_ffn(gm, xs, w1, b1, w2, b2, starts, cap, dy)
         big = n >= 16384
         # device-busy ms under the profiler (the kernels' own time; CUDA
@@ -3385,19 +3406,14 @@ def moe_step_check(gm, precision: str) -> dict:
 
 
 def routing_stats(gm, starts, cap: int, n: int) -> dict:
-    """A routing of n expert-sorted rows: group sizes, kept rows, the units
-    of K7's and K8's bf16 schedule (``expert_tiles``), and what the first
-    port's K8 (``moe_gmm_dx_kernel``) ran on it: a 64-row tile of its
-    global grid runs the whole chain once for every expert whose kept range
-    it overlaps, so a launch (one wave of tiles) lasts as long as the tile
-    with the most passes."""
+    """A routing of n expert-sorted rows: group sizes, kept rows and the
+    units of K7's and K8's schedule (``expert_tiles``): a launch is one
+    block a unit."""
     ranges = gm.kept_ranges(starts, cap, n)
-    passes = [sum(hi > lo and lo < r0 + 64 and hi > r0 for lo, hi in ranges) for r0 in range(0, n, 64)]
     return {
         "n": n, "cap": cap, "counts": [hi - lo for lo, hi in zip(starts.tolist(), starts.tolist()[1:])],
         "kept_rows": sum(hi - lo for lo, hi in ranges),
         "units": len(gm.expert_tiles(starts, cap, n)) // 2,
-        "first_port_tile_passes": sum(passes), "first_port_tile_passes_max": max(passes, default=0),
     }
 
 
@@ -3407,9 +3423,9 @@ def k8_at_step_routing(gm, trainer, images, labels, draws) -> dict:
     block's launch timed alone on them (device ms under the profiler), with
     each routing's ``routing_stats``, beside the same for the train case of
     ``MOE_GMM_CASES``: K8 in the step reads more a launch than K8 in
-    ``moe_gmm_checks`` either for the routing (its sizes, dropped rows, the
-    first port's tiles that straddle experts) or for what surrounds the
-    launch in the step (the caches, the clocks)."""
+    ``moe_gmm_checks`` either for the routing (its sizes, dropped rows,
+    units) or for what surrounds the launch in the step (the caches, the
+    clocks)."""
     import torch
 
     calls, dx = [], gm.grouped_ffn_dx
@@ -3447,7 +3463,8 @@ def moe_step_times(reps: int = 5, csrc: Path | None = None, argv: list = TRAIN_M
     and ``--moe-dispatch gather``, in turns (gmm, gather, gmm, gather), and
     a profile of two steps of each: the expert FFN kernels' device ms by
     symbol (``csrc``'s, this checkout's by default), K7, K8 and K9's by
-    their symbols in the command's dtype, their shares of the busy time,
+    their symbols in the command's dtype (a parent's first-port fp32
+    kernels by theirs), their shares of the busy time,
     and the idle share; then, in bf16, K8 at the gmm step's routing
     (``k8_at_step_routing``)."""
     import torch
@@ -3481,7 +3498,8 @@ def moe_step_times(reps: int = 5, csrc: Path | None = None, argv: list = TRAIN_M
         prof = profile_device(lambda: tr.step(images, labels, draws), 2)
         names = prof["device_ms_by_name"]
         moe = _moe_kernel_ms(names, csrc)
-        kernels = {k: moe.get(sym, 0.0) for k, sym in MOE_SYMBOLS[dname].items()}
+        kernels = {k: moe.get(sym, 0.0) + moe.get(REPLACED_MOE_KERNELS[k], 0.0)
+                   for k, sym in MOE_SYMBOLS[dname].items()}
         gemm = sum(ms for n, ms in names.items()
                    if any(t in n.lower() for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
         top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
@@ -3513,7 +3531,7 @@ def train_moe_phase(gm, vb, attn, smi: str, argv: list = TRAIN_MOE_ARGV, phase: 
     reported; one step's loss and gradients in the command's precision
     against ``--moe-dispatch gather`` and the plain kernels
     (``moe_step_check``); ms per step under gmm and gather, a step profile
-    and the peak memory."""
+    (K8's share of its busy time beside) and the peak memory."""
     import torch
 
     from distributed_training_comparison_tpu_torch import entry
@@ -3534,6 +3552,7 @@ def train_moe_phase(gm, vb, attn, smi: str, argv: list = TRAIN_MOE_ARGV, phase: 
     val_examples = len(get_datasets(hp)[1][1])
     last = epochs[-1]
     check = moe_step_check(gm, hp.precision)
+    times = moe_step_times(argv=argv)
     return {
         "phase": phase,
         "nvidia_smi": smi,
@@ -3556,7 +3575,8 @@ def train_moe_phase(gm, vb, attn, smi: str, argv: list = TRAIN_MOE_ARGV, phase: 
         "last_epoch_images_per_s": last["images_per_s"],
         "last_epoch_ms_per_step": last["seconds"] / last["steps"] * 1e3,
         "step_checks": {hp.precision: check},
-        "step_times": moe_step_times(argv=argv),
+        "step_times": times,
+        "k8_share_of_busy": times["profile_gmm"]["moe_kernel_shares_of_busy"]["dx"],
     }
 
 
@@ -4738,9 +4758,9 @@ def main() -> int:
                 "ms": case["kernel_ms"][name], "kernels": case["kernels"][name],
                 "bound_ms": case["bound_ms"][name], "bound_by": case["bound_by"][name],
             })
-    # no profile of the run showed the fp32 K7 or K9 the 3xTF32 kernels replaced
+    # no profile of the run showed the fp32 K7, K8 or K9 the 3xTF32 kernels replaced
     replaced = sorted({m.group(1) for n in PROFILED_KERNELS if (m := _KERNEL_SYMBOL.match(n))}
-                      & set(REPLACED_MOE_KERNELS))
+                      & set(REPLACED_MOE_KERNELS.values()))
     if replaced:
         raise RuntimeError(f"the run launched the replaced SIMT kernels {replaced}")
     # K7-K9: per case, one entry per kernel.  In bf16 ``launches`` is K7's
@@ -4783,7 +4803,7 @@ def main() -> int:
             }
             if k == "fwd" and not fp32:
                 entry["launches_train"] = train_moe["launches"]["grouped_ffn_fwd"]
-            if fp32 and k != "dx":
+            if fp32:
                 entry["nan_in_x"] = case["nan_in_x"]
                 entry["fp64_drift"] = case["fp64_drift"]
             if k == "dx":
@@ -5245,7 +5265,7 @@ def turn(checkout: Path, label: str) -> int:
         "moe_train_gather_busy_ms": moe_step["profile_gather"]["device_busy_ms_per_step"],
         "k8_dx_library_ms": {c["case"]: c["library_ms"]["dx"] for c in rec["moe_gmm_checks"]},
         "k8_alone_at_step_routing_ms": moe_step["k8_at_step_routing"]["ms_alone_per_launch"],
-        "k8_step_routing": [{k: b[k] for k in ("kept_rows", "units", "first_port_tile_passes_max", "ms_alone")}
+        "k8_step_routing": [{k: b[k] for k in ("kept_rows", "units", "ms_alone")}
                             for b in moe_step["k8_at_step_routing"]["blocks"]],
         "k6_grad_reduce_ms": {c["case"]: c["kernel_ms"]["block_grad_reduce"] for c in rec["fused_block_bwd_checks"]},
         "k6_grad_reduce_bits": {c["case"]: [c["stages"]["block_grad_reduce"][k] for k in (

@@ -29,11 +29,29 @@
 // 192, h 768, E 8, cap 2560, bf16) operations bound both (~15 and ~20 us
 // at 989 TFLOP/s).
 //
-// fp32 K8: moe_gmm_dx_kernel, the first port, on moe_gmm_common.cuh's SIMT
-// tiles: the forward's grid of 64-row tiles, looping over the experts whose
-// kept range overlaps the tile and over the hidden dimension in chunks of
-// 32, dy staged masked to the expert's kept rows, one (64, d) fp32
-// accumulator rounded once.
+// fp32 K8: moe_ffn_dx_tf32x3, 3xTF32 on wgmma (tf32x3.cuh; 6.K.d.h fp32
+// operations at 165 TFLOP/s, 0.083 ms at the train shape), on K7's
+// expert-aligned units and roles: a producer warpgroup and two consumer
+// warpgroups of 64 rows (setmaxnreg 56 / 224).  The producer streams the
+// expert's weights through the ring of 16 KB split slots, 18 a 64-column
+// hidden chunk: W1[e][:, c]ᵀ transposed as it lands (h1's B, as K7's), W2[e][c,
+// :] as it lies (K-major over d: dg's B) and W1[e][:, c] as it lies (K-major
+// over the chunk's hidden columns: dx's B).  x and dy of both warpgroups as
+// raw fragments (192 KB) do not fit beside the ring, so each warpgroup holds
+// its dy tile (48 KB) and the first 32 columns of its x tile (8 KB) in shared
+// memory and reads the rest of x's fragments from L2 a slot ahead of their
+// products (x stays in L2: its 12 reads a unit are ~150 MB of L2 traffic at
+// the train shape, whole 32-byte sectors, where dy's natural-order fragments
+// would read half sectors).  Per chunk a warpgroup runs h1 = x . W1c and dg =
+// dy . W2cᵀ over d in one accumulator each, dh = gelu'(h1 + b1) dg in fp32 on
+// the accumulators (one tanh an element), then dx += dh . W1cᵀ: dh's big and
+// small fragments from the accumulator, reordered within each quad by two
+// shuffles a pair to the natural slots' contraction order, each 64-column
+// block of dx the chunk's products in a fresh accumulator added to the total
+// in fp32 (the tensor cores truncate; dx, 64 x 192, is 96 registers).  Each
+// row sums its chunks in order and is written once: no atomics, two calls
+// are bit-identical.  A NaN in x or dy reaches its row (the split keeps it).
+// Shared memory: dy 96 KB, x's heads 16 KB, 6 slots 96 KB: 209 KB.
 //
 // fp32 K9: moe_ffn_dw_tf32x3, 3xTF32 on wgmma (tf32x3.cuh; 8.K.d.h fp32
 // operations at 165 TFLOP/s, 0.11 ms at the train shape), on the bf16
@@ -105,6 +123,8 @@
 // order: no atomics, one launch.  A CTA whose share of a short walk is
 // empty contributes zeros.
 
+#include <type_traits>
+
 #include "moe_gmm_common.cuh"
 #include "moe_gmm_hopper.cuh"
 #include "tf32x3.cuh"
@@ -112,112 +132,6 @@
 namespace {
 
 using namespace moe;
-
-struct BwdParams {
-  const void* x;    // (n, d) expert-sorted tokens
-  const void* dy;   // (n, d) cotangent of the forward's output
-  const void* w1;   // (E, d, h)
-  const void* b1;   // (E, h)
-  const void* w2;   // (E, h, d)
-  const int* starts;  // (E + 1,)
-  void* dx;         // (n, d), compute dtype
-  float* dw1;       // (E, d, h) fp32
-  float* db1;       // (E, h)
-  float* dw2;       // (E, h, d)
-  float* db2;       // (E, d)
-  int n, h, e, cap;
-};
-
-template <typename T, int D>
-constexpr int bwd_smem() {
-  return 2 * smem_rows<T>(kRows, D) + smem_rows<T>(D, kHC) + smem_rows<T>(kHC, D) +
-         smem_rows<T>(kRows, kHC);
-}
-
-// h1 and dg of one (64-row, 32-column) chunk: h1 = xs . W1 chunk (w1s, (D,
-// kHC)), dg = dys . W2 chunk^T (w2s, (kHC, D)), both raw fp32 sums
-template <typename T, int D>
-__device__ __forceinline__ void chunk_products(Tile<T, kRows, kHC, 4>& h1, Tile<T, kRows, kHC, 4>* dg,
-                                               const T* xs, const T* dys, const T* w1s, const T* w2s) {
-  constexpr int LDX = D + kPad, LDW1 = kHC + kPad, LDW2 = D + kPad;
-  h1.zero();
-  h1.mma(xs, LDX, 1, w1s, LDW1, 1, D);
-  if (dg) {
-    dg->zero();
-    // B(k = i, c = j) = W2[c + j][i] = w2s[j * LDW2 + i]
-    dg->mma(dys, LDX, 1, w2s, 1, LDW2, D);
-  }
-}
-
-// ------------------------------------------------------------------ K8
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) moe_gmm_dx_kernel(const BwdParams p) {
-  constexpr int LDX = D + kPad, LDW1 = kHC + kPad, LDW2 = D + kPad, LDH = kHC + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);  // (kRows, D)
-  T* dys = xs + kRows * LDX;               // (kRows, D), masked to the expert's kept rows
-  T* w1s = dys + kRows * LDX;              // (D, kHC)
-  T* w2s = w1s + D * LDW1;                 // (kHC, D)
-  T* dhs = w2s + kHC * LDW2;               // (kRows, kHC)
-  __shared__ int st[kMaxExperts + 1];
-
-  const int r0 = blockIdx.x * kRows;
-  const T* x = static_cast<const T*>(p.x);
-  const T* dy = static_cast<const T*>(p.dy);
-  const T* w1 = static_cast<const T*>(p.w1);
-  const T* b1 = static_cast<const T*>(p.b1);
-  const T* w2 = static_cast<const T*>(p.w2);
-  for (int i = threadIdx.x; i <= p.e; i += kThreads) st[i] = p.starts[i];
-  stage(xs, LDX, x, D, r0, kRows, D, 0, p.n);
-  __syncthreads();
-
-  using DxTile = Tile<T, kRows, D, 4>;
-  using HTile = Tile<T, kRows, kHC, 4>;
-  DxTile dx;
-  dx.zero();
-  for (int e = 0; e < p.e; ++e) {
-    int lo, hi;
-    kept_range(st, e, p.cap, p.n, lo, hi);
-    if (hi <= lo || hi <= r0 || lo >= r0 + kRows) continue;  // the same for every thread
-    const long long wbase = static_cast<long long>(e) * D * p.h;
-    stage(dys, LDX, dy, D, r0, kRows, D, lo, hi);
-    for (int c = 0; c < p.h; c += kHC) {
-      stage(w1s, LDW1, w1 + wbase + c, p.h, 0, D, kHC, 0, D);
-      stage(w2s, LDW2, w2 + wbase + static_cast<long long>(c) * D, D, 0, kHC, D, 0, kHC);
-      __syncthreads();
-      HTile h1, dg;
-      chunk_products<T, D>(h1, &dg, xs, dys, w1s, w2s);
-#pragma unroll
-      for (int nt = 0; nt < HTile::NT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = HTile::row(0, i), cc = HTile::col(nt, i);
-          const float bias = to_f(b1[static_cast<long long>(e) * p.h + c + cc]);
-          const float hv = rnd<T>(rnd<T>(h1.acc[0][nt][i]) + bias);
-          dhs[r * LDH + cc] = from_f<T>(gelu_tanh_grad(hv) * rnd<T>(dg.acc[0][nt][i]));
-        }
-      __syncthreads();
-      // B(k = j, c = i) = W1[i][c + j] = w1s[i * LDW1 + j]
-      dx.mma(dhs, LDH, 1, w1s, 1, LDW1, kHC);
-      __syncthreads();  // the next chunk (or expert) overwrites the tiles
-    }
-  }
-  T* dxo = static_cast<T*>(p.dx);
-#pragma unroll
-  for (int nt = 0; nt < DxTile::NT; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gr = r0 + DxTile::row(0, i);
-      if (gr < p.n) dxo[static_cast<long long>(gr) * D + DxTile::col(nt, i)] = from_f<T>(dx.acc[0][nt][i]);
-    }
-}
-
-template <typename T, int D>
-cudaError_t launch_dx(const BwdParams& p, cudaStream_t s) {
-  const dim3 grid((p.n + kRows - 1) / kRows);
-  return launch(moe_gmm_dx_kernel<T, D>, grid, bwd_smem<T, D>(), s, p);
-}
 
 // ------------------------------------------------------------------ bf16 K9
 
@@ -1043,36 +957,250 @@ int launch_dx_bf16(const void* x, const void* dy, const void* w1, const void* w2
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ fp32 K8
+
+// A hidden chunk's slots, in the consumers' order: W1[e][:, chunk]ᵀ (six: 64
+// hidden columns x 32 of d, transposed as they land: h1's B), W2[e][chunk, :]
+// (six: 64 hidden rows x 32 of d, as it lies: dg's B), then W1[e][:, chunk]
+// (six: 64 of d x 32 hidden columns, as it lies, column block major: dx's B).
+constexpr int kDxF32Slots = 3 * moeh::kD / 32;
+constexpr int kDxF32Own = moeh::kD / 8 * kFrag;   // a warpgroup's dy tile, raw fragments: 48 KB
+constexpr int kDxF32Head = 4 * kFrag;             // its x tile's first 32 columns: 8 KB
+constexpr int kDxF32HeadAt = moeh::kConsumers * kDxF32Own;
+constexpr int kDxF32RingAt = kDxF32HeadAt + moeh::kConsumers * kDxF32Head;
+constexpr int kDxF32Bars = kDxF32RingAt + kRing * kSlotBytes;
+constexpr int kDxF32Bytes = kDxF32Bars + 2 * kRing * 8 + 1024;  // the barriers, alignment slack: 209 KB
+
+struct DxF32Args {
+  const float* x;     // (n, d) expert-sorted tokens
+  const float* dy;    // (n, d)
+  const float* w1;    // (E, d, h)
+  const float* b1;    // (E, h)
+  const float* w2;    // (E, h, d)
+  const int* starts;  // (E + 1,)
+  float* dx;          // (n, d)
+  int n, h, e, cap;
+};
+
+// a consumer thread's A fragments of dy rows `row` and `row + 8` (zeros at or
+// past `end`), raw fp32, in the natural slots' contraction order: element e
+// of k-step kk is column 8 kk + t + 4 frag_col(e) of row row + 8 frag_row(e)
+__device__ __forceinline__ void load_dy_frags(unsigned char* own, const float* dy, int row, int end, int t) {
+  const float* r0 = dy + static_cast<long long>(row) * moeh::kD + t;
+  const float* r8 = r0 + 8 * moeh::kD;
+#pragma unroll 4
+  for (int kk = 0; kk < moeh::kD / 8; ++kk) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < end) v.x = __ldg(r0 + 8 * kk), v.z = __ldg(r0 + 8 * kk + 4);
+    if (row + 8 < end) v.y = __ldg(r8 + 8 * kk), v.w = __ldg(r8 + 8 * kk + 4);
+    *reinterpret_cast<float4*>(own + kk * kFrag) = v;
+  }
+}
+
+// the raw A fragments of x rows r0 and r8 (their columns 2t on; zeros where
+// not `in`) for k-steps 4 cc .. 4 cc + 3, in the transposed slots'
+// contraction order: element e of k-step kk is column 8 kk + 2t + frag_col(e)
+// of row r0, or r8 where frag_row(e) is 1 (moe_gmm_fwd.cu's load_x_frags)
+__device__ __forceinline__ void fetch_x_frags(float4 (&f)[4], const float* r0, const float* r8, bool in0, bool in8,
+                                              int cc) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int col = 8 * (4 * cc + kk);
+    const float2 a = in0 ? __ldg(reinterpret_cast<const float2*>(r0 + col)) : make_float2(0.f, 0.f);
+    const float2 b = in8 ? __ldg(reinterpret_cast<const float2*>(r8 + col)) : make_float2(0.f, 0.f);
+    f[kk] = make_float4(a.x, b.x, a.y, b.y);
+  }
+}
+
+// acc (64 x 64, fresh) = x rows . W1[e][:, chunk] over d, B the chunk's six
+// transposed W1ᵀ slots.  x's A fragments: the first slot's from shared
+// memory (`head`, the same every chunk), the others read from device memory
+// (L2) a slot ahead of their products and split as they are used.
+__device__ __forceinline__ void h1_over_d(float* acc, const unsigned char* head, const float* r0, const float* r8,
+                                          bool in0, bool in8, uint32_t ring, uint32_t bars, int& u, int lane) {
+  float4 raw[2][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) raw[0][kk] = *reinterpret_cast<const float4*>(head + kk * kFrag);
+#pragma unroll
+  for (int cc = 0; cc < moeh::kD / 32; ++cc) {
+    if (cc + 1 < moeh::kD / 32) fetch_x_frags(raw[(cc + 1) & 1], r0, r8, in0, in8, cc + 1);
+    consumer_wait(bars, u);
+    const uint32_t slot = ring + (u % kRing) * kSlotBytes;
+    uint32_t big[4][4], small[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) split4(raw[cc & 1][kk], big[kk], small[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_3xtf32<64>(acc, big[kk], small[kk], slot + kk * 32, cc > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<32>(acc);
+    fence_regs<16>(&big[0][0]);
+    fence_regs<16>(&small[0][0]);
+    consumer_release(bars, u, lane);
+    ++u;
+  }
+}
+
+// A 64 x 64 fp32 accumulator as big and small tf32 A fragments of 8 k-steps
+// in the natural slots' contraction order: fragment element e of k-step n is
+// column 8n + t + 4 frag_col(e) of row g + 8 frag_row(e), which quad thread
+// (t + 4 frag_col(e)) / 2 holds as its element 4n + 2 frag_row(e) + t % 2.
+// Two shuffles a pair of elements: in the first, quad thread s sends its
+// element of parity s / 2 and thread t reads thread t / 2 + 2 (t % 2); in
+// the second, parity 1 - s / 2 from thread t / 2 + 2 (1 - t % 2).  An even
+// thread reads its column t from the first and t + 4 from the second, an odd
+// one the other way round.
+__device__ __forceinline__ void acc_frags_natural(uint32_t (*big)[4], uint32_t (*small)[4], const float* x,
+                                                  int lane) {
+  const int t = lane & 3, quad = lane & ~3, half = t >> 1, odd = t & 1;
+  const int src1 = quad | half | (odd << 1), src2 = quad | half | ((odd ^ 1) << 1);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float v0 = x[4 * n + 2 * i], v1 = x[4 * n + 2 * i + 1];
+      const float s1 = __shfl_sync(0xffffffffu, half ? v1 : v0, src1);
+      const float s2 = __shfl_sync(0xffffffffu, half ? v0 : v1, src2);
+      split_tf32(odd ? s2 : s1, big[n][i], small[n][i]);          // column t, row g + 8i
+      split_tf32(odd ? s1 : s2, big[n][2 + i], small[n][2 + i]);  // column t + 4
+    }
+  }
+}
+
+// One block a unit of K7's (expert_unit), as the bf16 kernel.  Warpgroup 0
+// produces the ring; consumer warpgroup c takes the unit's rows lo + 64 c ..
+// and holds its dy tile (raw A fragments, natural order) and the first 32
+// columns of its x tile (raw, in the transposed slots' order) in shared
+// memory.  Per 64-column hidden chunk: h1 = x . W1c (x's other columns from
+// L2) and dg = dy . W2cᵀ over d, one accumulator each; dh = gelu'(h1 + b1) dg
+// in fp32 in dg's registers; dh's fragments reordered to the natural
+// contraction order (acc_frags_natural); then dx += dh . W1cᵀ, each 64-column
+// block of dx the chunk's products in a fresh accumulator added to the total
+// in fp32 (sums).  Each row of dx sums its chunks in order and is written
+// once.
+__global__ void __launch_bounds__(384, 1) moe_ffn_dx_tf32x3(const DxF32Args p) {
+  constexpr int kD = moeh::kD;
+  extern __shared__ __align__(1024) unsigned char dxf_smem[];
+  __shared__ int st[kMaxExperts + 1];
+  __shared__ unsigned char dropped[moeh::kRows];
+  const uint32_t raw = smem_u32(dxf_smem), base = (raw + 1023) & ~1023u;
+  unsigned char* const sbase = dxf_smem + (base - raw);
+  const uint32_t ring = base + kDxF32RingAt, bars = base + kDxF32Bars;
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i <= p.e; i += blockDim.x) st[i] = p.starts[i];
+  __syncthreads();
+  moeh::zero_unkept(p.dx, st, p.e, p.cap, p.n, dropped);
+  int e = 0, lo = 0, hi = 0;
+  if (!moeh::expert_unit(st, p.e, p.cap, p.n, blockIdx.x, e, lo, hi)) return;  // past the last unit
+  const int total = p.h / moeh::kChunk * kDxF32Slots;
+  ring_init(bars, tid);
+
+  if (tid < 128) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kF32ProducerRegs));
+    const float* w1 = p.w1 + static_cast<long long>(e) * kD * p.h;
+    const float* w2 = p.w2 + static_cast<long long>(e) * p.h * kD;
+    auto slot_of = [&](int u) {
+      const int r = u % kDxF32Slots, c0 = u / kDxF32Slots * moeh::kChunk;
+      if (r < kD / 32)  // slot row n: W1[e] column c0 + n over rows (d) 32 r ..
+        return SlotSrc{w1, w1, p.h, p.h, 32 * r, kD, c0, true};
+      if (r < 2 * kD / 32)  // slot row n: W2[e] row c0 + n, columns (d) 32 (r - 6) ..
+        return SlotSrc{w2, w2, kD, kD, c0, p.h, 32 * (r - kD / 32), false};
+      // slot row n: W1[e] row 64 (q / 2) + n, columns (hidden) c0 + 32 (q % 2) ..
+      const int q = r - 2 * kD / 32;
+      return SlotSrc{w1, w1, p.h, p.h, 64 * (q / 2), kD, c0 + 32 * (q % 2), false};
+    };
+    produce<kSlotRows>(slot_of, total, sbase + kDxF32RingAt, bars, tid);
+    return;  // the two roles never reconverge, or setmaxnreg would not hold
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kF32ConsumerRegs));
+
+  const int c = tid / 128 - 1, wt = tid % 128, lane = tid % 32, t = lane % 4;
+  const int row0 = lo + moeh::kRows * c;  // this warpgroup's tile: rows row0 .. min(row0 + 64, hi)
+  int u = 0;
+  if (row0 >= hi) {  // a unit of 64 rows or fewer: the second warpgroup only releases the slots
+    for (; u < total; ++u) {
+      consumer_wait(bars, u);
+      consumer_release(bars, u, lane);
+    }
+    return;
+  }
+  const int row = row0 + 16 * (wt / 32) + lane / 4;  // this thread's rows: row and row + 8
+  unsigned char* const own = sbase + c * kDxF32Own + wt * 16;
+  unsigned char* const head = sbase + kDxF32HeadAt + c * kDxF32Head + wt * 16;
+  load_dy_frags(own, p.dy, row, hi, t);  // read back by this thread alone, as is the head
+  const bool in0 = row < hi, in8 = row + 8 < hi;
+  const float* x0 = p.x + static_cast<long long>(in0 ? row : lo) * kD + 2 * t;
+  const float* x8 = p.x + static_cast<long long>(in8 ? row + 8 : lo) * kD + 2 * t;
+  {
+    float4 f[4];
+    fetch_x_frags(f, x0, x8, in0, in8, 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) *reinterpret_cast<float4*>(head + kk * kFrag) = f[kk];
+  }
+  const float* b1 = p.b1 + static_cast<long long>(e) * p.h + 2 * t;
+
+  float dx[kD / 64][32];
+#pragma unroll
+  for (int hh = 0; hh < kD / 64; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dx[hh][i] = 0.f;
+  for (int c0 = 0; c0 < p.h; c0 += moeh::kChunk) {
+    // h1 and dg over d (element 4n + 2i + j: hidden column c0 + 8n + 2t + j
+    // of row + 8i), then dh = gelu'(h1 + b1) dg in fp32, in dg's registers
+    float h1[32], dg[32];
+    h1_over_d(h1, head, x0, x8, in0, in8, ring, bars, u, lane);
+    scores<kD>(dg, own, ring, bars, u, lane);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + c0 + 8 * n));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        dg[4 * n + 2 * i] *= gelu_tanh_grad(h1[4 * n + 2 * i] + bb.x);
+        dg[4 * n + 2 * i + 1] *= gelu_tanh_grad(h1[4 * n + 2 * i + 1] + bb.y);
+      }
+    }
+    // dx += dh . W1[e][:, chunk]ᵀ, dh's fragments in the natural slots' order
+    uint32_t big[8][4], small[8][4];
+    acc_frags_natural(big, small, dg, lane);
+    sums<kD, 8>(dx, big, small, ring, bars, u, lane);
+  }
+#pragma unroll
+  for (int hh = 0; hh < kD / 64; ++hh) store_f32(p.dx, kD, row, hi, 64 * hh, dx[hh], t);
+}
+
+// 0 on success, else a cudaError_t
+int launch_dx_f32(const DxF32Args& p, cudaStream_t s) {
+  if (p.h % moeh::kChunk) return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = bgemm::prepare<&moe_ffn_dx_tf32x3>(kDxF32Bytes, &sms);
+  if (err != cudaSuccess) return err;
+  const int blocks = (p.n + moeh::kUnitRows - 1) / moeh::kUnitRows + p.e;
+  moe_ffn_dx_tf32x3<<<blocks, 384, kDxF32Bytes, s>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dx of the grouped FFN (moe_gmm_fwd's arguments plus dy (n, d) in the
-// compute dtype) into dx (n, d).  moe_gmm_fwd's shape rules, but fp32 takes
-// h a multiple of 32.
+// compute dtype) into dx (n, d).  moe_gmm_fwd's shape rules.
 // Returns 0 on success, a cudaError_t, or minus the CUresult of a tensor
 // map that failed to encode.
 extern "C" int moe_gmm_dx(const void* x, const void* dy, const void* w1, const void* b1,
                           const void* w2, const void* starts, void* dx, int n, int d, int h, int e,
                           int cap, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d != moeh::kD) return cudaErrorInvalidValue;
   if (is_bf16) {
-    if (d != moeh::kD) return cudaErrorInvalidValue;
     const DxArgs p{static_cast<const bf16*>(b1), static_cast<const int*>(starts), static_cast<bf16*>(dx),
                    n, h, e, cap};
     return launch_dx_bf16(x, dy, w1, w2, p, s);
   }
-  BwdParams p{};
-  p.x = x;
-  p.dy = dy;
-  p.w1 = w1;
-  p.b1 = b1;
-  p.w2 = w2;
-  p.starts = static_cast<const int*>(starts);
-  p.dx = dx;
-  p.n = n;
-  p.h = h;
-  p.e = e;
-  p.cap = cap;
-  MOE_DISPATCH_D(d, return launch_dx<float, D>(p, s);)
+  const DxF32Args p{static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<const float*>(w1),
+                    static_cast<const float*>(b1), static_cast<const float*>(w2), static_cast<const int*>(starts),
+                    static_cast<float*>(dx), n, h, e, cap};
+  return launch_dx_f32(p, s);
 }
 
 // dW1 (E, d, h), db1 (E, h), dW2 (E, h, d), db2 (E, d) of the grouped FFN,

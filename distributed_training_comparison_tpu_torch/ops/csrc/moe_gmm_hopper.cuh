@@ -5,12 +5,12 @@
 // Hopper helpers (hopper_common.cuh's mbarriers and TMA loads,
 // block_gemm.cuh's wgmma and named barriers, attention_tiles.cuh's tile
 // descriptors and accumulator maps) and on moe_gmm_common.cuh's kept ranges,
-// rounding and tanh gelu, not on its fp32 `Tile`; this header adds the
-// expert-aligned units of work K7 and K8 share, the exact zeros of the rows
-// no expert keeps, zeroed tile rows (K9) and the order in which a
-// warpgroup's accumulator is stored.  The fp32 (3xTF32) K7 and K9
-// (moe_ffn_fwd_tf32x3, moe_ffn_dw_tf32x3) take the same units, zeros and
-// output order, on tf32x3.cuh's thread roles instead of the ones below.
+// rounding and tanh gelu; this header adds the expert-aligned units of work
+// K7 and K8 share, the exact zeros of the rows no expert keeps, zeroed tile
+// rows (K9) and the order in which a warpgroup's accumulator is stored.  The
+// fp32 (3xTF32) K7, K8 and K9 (moe_ffn_fwd_tf32x3, moe_ffn_dx_tf32x3,
+// moe_ffn_dw_tf32x3) take the same units or owners and the same zeros, on
+// tf32x3.cuh's thread roles instead of the ones below.
 //
 // Thread roles: two warpgroups (256 threads), the first thread of the first
 // also issuing every TMA load; one block an SM, up to 255 registers a
@@ -37,7 +37,7 @@ namespace moeh {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 192;                      // the model width (vit_moe's, MOE_DISPATCH_D)
+constexpr int kD = 192;                      // the model width: vit_moe's (ops/moe_gmm.py::KERNEL_DIMS)
 constexpr int kRows = 64;                    // token rows of a tile: a warpgroup's wgmma M
 constexpr int kChunk = 64;                   // hidden columns of a chunk: one box
 constexpr int kConsumers = 2;                // warpgroups

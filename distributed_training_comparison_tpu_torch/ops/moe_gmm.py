@@ -32,12 +32,12 @@ kernels (``moe_ffn_fwd_wgmma``, ``moe_ffn_dx_wgmma``, ``moe_ffn_dw_wgmma``:
 TMA, ``wgmma``, the activation or its cotangent in registers) that read
 ``starts`` on the card themselves; the host sizes their grids from shapes
 alone, and :func:`expert_tiles` (K7's and K8's units) and :func:`dw_walks`
-mirror their schedules in plain Python for the tests.  In fp32, K7 and K9
-are 3xTF32 ``wgmma`` kernels on the same schedules (``moe_ffn_fwd_tf32x3``,
-``moe_ffn_dw_tf32x3``: each fp32 product three tf32 products, the weights
-or the tokens streamed through ``csrc/tf32x3.cuh``'s ring of split slots,
-each long sum in fresh accumulators added in fp32); K8 is the first
-port's SIMT kernel (``moe_gmm_dx_kernel``).
+mirror their schedules in plain Python for the tests.  In fp32, K7, K8 and
+K9 are 3xTF32 ``wgmma`` kernels on the same schedules
+(``moe_ffn_fwd_tf32x3``, ``moe_ffn_dx_tf32x3``, ``moe_ffn_dw_tf32x3``: each
+fp32 product three tf32 products, the weights or the tokens streamed
+through ``csrc/tf32x3.cuh``'s ring of split slots, each long sum in fresh
+accumulators added in fp32).
 """
 
 from __future__ import annotations
@@ -51,10 +51,8 @@ from .vit_block import _gelu, _gelu_bwd, _operand, _stream
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_DIMS = (192,)  # the kernels' model widths: vit_moe's
 # the hidden width must be a multiple of the chunk the kernels walk it in:
-# 64 columns (a bf16 TMA box; every K7 and K9 wgmma's width, bf16 and fp32),
-# but 32 for the fp32 K8 (the first port's SIMT tiles)
+# 64 columns (a bf16 TMA box; every K7-K9 wgmma's width, bf16 and fp32)
 HIDDEN_MULTIPLE = {torch.bfloat16: 64, torch.float32: 64}
-DX_HIDDEN_MULTIPLE = {torch.bfloat16: 64, torch.float32: 32}
 MAX_EXPERTS = 64
 TILE_ROWS = 64  # a bf16 consumer warpgroup's rows: the wgmma M
 UNIT_ROWS = 2 * TILE_ROWS  # K7's and K8's unit of work: a tile for each of two warpgroups
@@ -78,7 +76,7 @@ def kept_mask(starts: torch.Tensor, cap: int, n: int) -> torch.Tensor:
 
 
 def expert_tiles(starts: torch.Tensor, cap: int, n: int) -> list[tuple[int, int, int]]:
-    """K7's (bf16 and fp32) and K8's bf16 schedule
+    """K7's and K8's schedule (bf16 and fp32)
     (``csrc/moe_gmm_hopper.cuh::expert_unit``) in plain Python, for the tests; nothing on the card path calls it, the
     kernels read ``starts`` themselves.  Tile ``2u + v`` is ``(e, lo, hi)``, the rows
     warpgroup v of unit u takes: units are up to ``UNIT_ROWS`` rows of one
@@ -168,7 +166,7 @@ def grouped_ffn_dw_reference(xs, dy, w1, b1, w2, starts, cap: int):
 # ------------------------------------------------------------------ card
 
 
-def _check_card(name: str, xs, w1, b1, w2, starts, b2=None, dy=None, multiples=HIDDEN_MULTIPLE) -> None:
+def _check_card(name: str, xs, w1, b1, w2, starts, b2=None, dy=None) -> None:
     """What the kernels take; raises on anything else."""
     if xs.dim() != 2 or xs.dtype not in KERNEL_DTYPES:
         raise ValueError(f"{name} takes 2-D bf16 or fp32 tokens, got {xs.dtype} {tuple(xs.shape)}")
@@ -176,7 +174,7 @@ def _check_card(name: str, xs, w1, b1, w2, starts, b2=None, dy=None, multiples=H
     if w1.dim() != 3:
         raise ValueError(f"{name}: w1 must be (E, d, h), got {tuple(w1.shape)}")
     ne, _, h = w1.shape
-    multiple = multiples[xs.dtype]
+    multiple = HIDDEN_MULTIPLE[xs.dtype]
     if d not in KERNEL_DIMS or h % multiple or not 1 <= ne <= MAX_EXPERTS:
         raise ValueError(
             f"{name}'s CUDA kernels take d in {KERNEL_DIMS}, hidden a multiple of "
@@ -241,15 +239,14 @@ grouped_ffn_fwd.launches = 0
 
 def grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap: int) -> torch.Tensor:
     """:func:`grouped_ffn_dx_reference`'s function; on the card the CUDA
-    kernel ``moe_gmm_dx`` (K8: ``moe_ffn_dx_wgmma`` in bf16, one block a
-    unit of :func:`expert_tiles`, each row's dx summed over the hidden
-    chunks in order in one accumulator, so two calls give bit-identical
-    results), with K7's shape rules but hidden a multiple of 32 in fp32
-    (``DX_HIDDEN_MULTIPLE``).  ``grouped_ffn_dx.launches`` counts its
-    launches."""
+    kernel ``moe_gmm_dx`` (K8: ``moe_ffn_dx_wgmma`` in bf16,
+    ``moe_ffn_dx_tf32x3`` in fp32, one block a unit of :func:`expert_tiles`,
+    each row's dx summed over the hidden chunks in order, so two calls give
+    bit-identical results), with K7's shape rules.
+    ``grouped_ffn_dx.launches`` counts its launches."""
     if xs.device.type == "cpu":
         return grouped_ffn_dx_reference(xs, dy, w1, b1, w2, starts, cap)
-    _check_card("grouped_ffn_dx", xs, w1, b1, w2, starts, dy=dy, multiples=DX_HIDDEN_MULTIPLE)
+    _check_card("grouped_ffn_dx", xs, w1, b1, w2, starts, dy=dy)
     dx = torch.empty_like(xs, memory_format=torch.contiguous_format)
     if xs.shape[0] == 0:
         return dx

@@ -958,7 +958,7 @@ def test_grouped_ffn_raises_on_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="hidden a multiple"):
         gmm.grouped_ffn_fwd(xs, w1[:, :, :200].contiguous(), b1[:, :200].contiguous(),
                             w2[:, :200].contiguous(), b2, starts, 16)
-    # bf16 walks the hidden dimension in 64-column chunks, fp32 in 32
+    # both dtypes walk the hidden dimension in 64-column chunks
     with pytest.raises(ValueError, match="hidden a multiple of 64"):
         gmm.grouped_ffn_fwd(xs, w1[:, :, :96].contiguous(), b1[:, :96].contiguous(),
                             w2[:, :96].contiguous(), b2, starts, 16)
@@ -1597,3 +1597,69 @@ def test_fp32_grouped_ffn_tf32x3_kernels_keep_a_nan(cuda_device):
     for got, ref in zip(dws, want_dws):
         assert torch.equal(got.isnan(), ref.isnan())
     assert bool(dws[0][2].isnan().all()) and not bool(dws[0][0].isnan().any())
+
+
+# ------------------------------------------------ fp32 grouped expert FFN dx (3xTF32 K8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ne,d,h,counts,cap,pad", K8_CASES)
+def test_fp32_grouped_ffn_dx_tf32x3_kernel_matches_plain_on_card(cuda_device, ne, d, h, counts, cap, pad):
+    """The fp32 K8 (``moe_ffn_dx_tf32x3``: 3xTF32 ``wgmma``) at the bf16 K8's
+    cases against ``grouped_ffn_dx_reference`` per kept row, within 2^-10
+    of the row's rms with rtol 0 (``chip_smoke.py``'s fp32 bound); every row
+    no expert keeps exactly +0; one launch a call, and a second call
+    bit-identical (each row sums its hidden chunks in order, no atomics)."""
+    xs, w1, b1, w2, _, starts, dy = _moe_inputs(torch.float32, ne, d, h, counts, pad, cuda_device, seed=23)
+    n = xs.shape[0]
+    before = gmm.grouped_ffn_dx.launches
+    dx = gmm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap)
+    again = gmm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap)
+    torch.cuda.synchronize()
+    assert gmm.grouped_ffn_dx.launches - before == 2
+    kept = gmm.kept_mask(starts, cap, n)
+    assert 0 < int(kept.sum()) < n
+    assert bool((dx[~kept].view(torch.int32) == 0).all())
+    want = gmm.grouped_ffn_dx_reference(xs, dy, w1, b1, w2, starts, cap)
+    assert _row_share(dx[kept], want[kept], 0.0) <= 2**-10
+    assert torch.equal(dx, again)
+
+
+@pytest.mark.gpu
+def test_fp32_grouped_ffn_dx_runs_the_tf32x3_kernel_by_symbol(cuda_device):
+    """The fp32 ``grouped_ffn_dx`` launches ``moe_ffn_dx_tf32x3`` alone, by
+    symbol in a profile: never the first port's SIMT ``moe_gmm_dx_kernel``."""
+    ne, d, h, counts, cap, pad = K8_CASES[1]
+    xs, w1, b1, w2, _, starts, dy = _moe_inputs(torch.float32, ne, d, h, counts, pad, cuda_device, seed=24)
+    run = _moe_symbols_run(lambda: gmm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap))
+    assert run == {"moe_ffn_dx_tf32x3"}, run
+    assert "moe_gmm_dx_kernel" not in run
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["x", "dy"])
+def test_fp32_grouped_ffn_dx_keeps_a_nan(cuda_device, where):
+    """A NaN in one element of a kept row of x, or of dy (expert 2's; expert
+    1 is empty): the fp32 K8's dx is NaN in that row alone, where the plain
+    version puts it."""
+    ne, d, h, counts, cap = F32_MOE_CASES[2][1:]
+    xs, w1, b1, w2, _, starts, dy = _moe_inputs(torch.float32, ne, d, h, counts, 0, cuda_device, seed=25)
+    row = counts[0] + 5
+    (xs if where == "x" else dy)[row, 17] = float("nan")
+    dx = gmm.grouped_ffn_dx(xs, dy, w1, b1, w2, starts, cap)
+    want = gmm.grouped_ffn_dx_reference(xs, dy, w1, b1, w2, starts, cap)
+    torch.cuda.synchronize()
+    assert bool(dx[row].isnan().all()) and int(dx.isnan().sum()) == d
+    assert torch.equal(dx.isnan(), want.isnan())
+
+
+@pytest.mark.gpu
+def test_fp32_grouped_ffn_dx_raises_on_a_hidden_width_of_96(cuda_device):
+    """The fp32 K8 walks the hidden dimension in 64-column chunks, as K7 and
+    K9 do: a hidden width of 96 raises before any launch."""
+    xs, w1, b1, w2, _, starts, dy = _moe_inputs(torch.float32, 4, 192, 256, (8, 8, 8, 8), 0, cuda_device)
+    before = gmm.grouped_ffn_dx.launches
+    with pytest.raises(ValueError, match="hidden a multiple of 64"):
+        gmm.grouped_ffn_dx(xs, dy, w1[:, :, :96].contiguous(), b1[:, :96].contiguous(),
+                           w2[:, :96].contiguous(), starts, 16)
+    assert gmm.grouped_ffn_dx.launches == before
