@@ -24,9 +24,11 @@ last line:
              (``moe_ffn_fwd_wgmma``, ``moe_ffn_dx_wgmma``,
              ``moe_ffn_dw_wgmma``) and fp32 (3xTF32) K7, K8 and K9
              (``moe_ffn_fwd_tf32x3``, ``moe_ffn_dx_tf32x3``,
-             ``moe_ffn_dw_tf32x3``) (``ptxas -v``; a
-             bf16 flash kernel, a short-sequence kernel, a fused block GEMM or
-             attention kernel (bf16 or fp32) or an expert FFN kernel that
+             ``moe_ffn_dw_tf32x3``) and of K6's LayerNorm kernels
+             (``ln_rows``, ``ln_bwd``, every instantiation) (``ptxas -v``; a
+             bf16 flash kernel, a short-sequence kernel, a fused block GEMM,
+             attention (bf16 or fp32) or LayerNorm kernel or an expert FFN
+             kernel that
              spills fails the run) and each such kernel's dynamic shared memory at the
              main paths' shapes;
 3. kernel checks — each kernel against its plain PyTorch version on the
@@ -63,13 +65,20 @@ last line:
              results (a row chunk dropped from the gradient reductions, a
              key tile left out of the attention backward), bit-identical
              results across two calls, ``block_grad_reduce`` bit for bit
-             against an in-order fp32 sum, the kernels each wrapper ran by
+             against an in-order fp32 sum, the LayerNorm kernels
+             (``ln_rows``, ``ln_bwd``) bit for bit across two calls and
+             ``ln_bwd``'s dβ partials against the in-order sum of its
+             schedule, the kernels each wrapper ran by
              symbol (the GEMMs' and the attention's the dtype's only; bf16
              ``attn_dq_wgmma`` then ``attn_dkv_wgmma``, fp32
              ``block_attn_dq_tf32x3`` then ``block_attn_dkv_tf32x3``; fp32
              at the train shape and at a ragged S), with the composed
              block's autograd forward and backward as its library
-             yardstick; then ``fp32_nan_checks``: a NaN in one element of
+             yardstick; then ``block_ln_checks``: the LayerNorm kernels
+             at edge shapes (1 to 1000 rows, n 16 to 1024, bf16 and fp32)
+             against their plain versions, replayed, against the dβ
+             order, and a NaN in x or dln landing where the plain versions
+             put it; then ``fp32_nan_checks``: a NaN in one element of
              x reaches the fp32 chains' outputs (K5's out, K6's dx and
              gradients) exactly where it reaches the plain versions';
 4. serve   — the port's main path through its user entry point
@@ -432,6 +441,13 @@ _PTXAS_ENTRY = re.compile(
 _PTXAS_PLAIN_ENTRY = re.compile(
     r"Compiling entry function '\w*?(moe_ffn_(?:fwd|dx|dw)_(?:wgmma|tf32x3)|(?:block_gemm|dgrad|wgrad)_tf32x3)E"
 )
+# the fused block backward's LayerNorm kernels, ln_rows and ln_bwd<T, G, NV,
+# RIF> (lanes a row, vectors a lane, rows in flight), as
+# "ln_bwd<bf16,16,3,2>"; the instantiation of every path's rows of 192
+_PTXAS_LN_ENTRY = re.compile(
+    r"Compiling entry function '\w*?(ln_rows|ln_bwd)I(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELi(\d+)E"
+)
+LN_PATH_KERNELS = tuple(f"{k}<{t},16,3,2>" for k in ("ln_rows", "ln_bwd") for t in ("bf16", "f32"))
 # the fused block chains' fp32 (3xTF32) kernels, as ptxas_report names them:
 # the GEMMs, and the attention's at its two padded head dims
 BLOCK_TF32_GEMMS = ("block_gemm_tf32x3", "dgrad_tf32x3", "wgrad_tf32x3")
@@ -444,8 +460,8 @@ _PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
 
 def ptxas_report(paths, libraries) -> dict:
     """Registers, static shared memory and spill bytes of each Hopper kernel
-    instantiation (``_PTXAS_ENTRY``) of ``libraries``, as ``ptxas -v``
-    logged them."""
+    instantiation (``_PTXAS_ENTRY``, ``_PTXAS_PLAIN_ENTRY``, ``_PTXAS_LN_ENTRY``)
+    of ``libraries``, as ``ptxas -v`` logged them."""
     report = {}
     for lib in libraries:
         name = None
@@ -455,6 +471,10 @@ def ptxas_report(paths, libraries) -> dict:
                 report[name] = {}
             elif m := _PTXAS_PLAIN_ENTRY.search(line):
                 name = m.group(1)
+                report[name] = {}
+            elif m := _PTXAS_LN_ENTRY.search(line):
+                t = "f32" if m.group(2) == "f" else "bf16"
+                name = f"{m.group(1)}<{t},{m.group(3)},{m.group(4)},{m.group(5)}>"
                 report[name] = {}
             elif "Compiling entry function" in line:
                 name = None  # a kernel the report does not cover: its lines are not ours
@@ -1313,9 +1333,9 @@ def k6_stages(vb, x2, dy2, params, seq, heads) -> list[tuple]:
     plain version, args, kwargs, library call), its inputs the plain
     chain's own intermediates, in the chain's order
     (``ops/vit_block.py::_bwd_chain``).  The library calls are yardsticks
-    of the same work: cuBLAS products, SDPA, ATen's LayerNorm forward and
-    backward (its statistics taken outside the timed call), ``torch.sum``
-    over the chunks of each partial."""
+    of the same work: cuBLAS products, SDPA, ATen's LayerNorm forward (on
+    the compute-dtype rows) and backward (its statistics taken outside the
+    timed call), ``torch.sum`` over the chunks of each partial."""
     import torch
     import torch.nn.functional as F
 
@@ -1338,8 +1358,11 @@ def k6_stages(vb, x2, dy2, params, seq, heads) -> list[tuple]:
     wg = [(dqkv, ln1, dqkv), (dr1c, o, dr1), (dup, ln2, dup), (dy2, hmid, dy2)]
     partials = [t for args in wg for t in vb.block_gemm_wgrad_reference(*args)]
     cast = {n: p[f"{n}.weight"].to(cd) for n in vb.DENSE}
-    ln = lambda t, n: lambda: F.layer_norm(  # noqa: E731
-        t.float(), t.shape[-1:], p[f"{n}.weight"], p[f"{n}.bias"], eps=1e-6)
+    # block_ln's yardstick: F.layer_norm on the rows in the compute dtype
+    # (fp32 statistics inside), γ and β cast to it once, outside the timed
+    # call, so that it reads and writes the kernel's bytes and no cast
+    ln_params = {n: (p[f"{n}.weight"].to(cd), p[f"{n}.bias"].to(cd)) for n in ("ln_attn", "ln_mlp")}
+    ln = lambda t, n: lambda: F.layer_norm(t, t.shape[-1:], *ln_params[n], eps=1e-6)  # noqa: E731
     ql, kl, vl = (t.view(-1, seq, heads, t.shape[1] // heads).transpose(1, 2).detach()
                   .requires_grad_() for t in qkv.chunk(3, dim=1))
     dol = do.view(-1, seq, heads, do.shape[1] // heads).transpose(1, 2)
@@ -1407,15 +1430,60 @@ def _digest(tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def k6_stage_checks(vb, x, dy, params, heads, rtol) -> dict[str, dict]:
+def ln_schedule(csrc: Path) -> dict[str, int] | None:
+    """The constants of ``ln_bwd``'s schedule in ``csrc/vit_block_bwd.cu``
+    (None for a checkout whose kernel has none, such as a parent's)."""
+    text = (csrc / "vit_block_bwd.cu").read_text()
+    names = ("kLnThreads", "kLnNarrowMaxN", "kLnNarrowLanes", "kLnNarrowInFlight",
+             "kLnWideLanes", "kLnWideInFlight")
+    found = {n: re.findall(rf"constexpr int {n} = (\d+);", text) for n in names}
+    return {n: int(v[0]) for n, v in found.items()} if all(len(v) == 1 for v in found.values()) else None
+
+
+def ln_part_b_in_order(dln, chunk: int, csrc: Path):
+    """``ln_bwd``'s dβ partials in its own order, by fp32 adds on dln's
+    device, which the kernel must equal bit for bit: per chunk and column,
+    row group g of the block's kLnThreads / G adds its rows r0 + (t groups
+    + g) RIF + k one at a time from 0, then the groups' sums are added in
+    group order from 0.  None where the source has no such schedule."""
+    import torch
+
+    c = ln_schedule(csrc)
+    if c is None:
+        return None
+    m, n = dln.shape
+    narrow = n <= c["kLnNarrowMaxN"]
+    lanes = c["kLnNarrowLanes"] if narrow else c["kLnWideLanes"]
+    rif = c["kLnNarrowInFlight"] if narrow else c["kLnWideInFlight"]
+    groups = c["kLnThreads"] // lanes
+    nc = -(-m // chunk)
+    d = torch.cat([dln, dln.new_zeros(nc * chunk - m, n)]).view(nc, chunk, n)
+    valid = (torch.arange(nc * chunk, device=dln.device) < m).view(nc, chunk, 1)
+    total = dln.new_zeros(nc, n)
+    for g in range(groups):
+        acc = dln.new_zeros(nc, n)
+        for t in range(-(-chunk // (groups * rif))):
+            for k in range(rif):
+                r = (t * groups + g) * rif + k
+                if r < chunk:
+                    acc = torch.where(valid[:, r], acc + d[:, r], acc)
+        total = total + acc
+    return total
+
+
+def k6_stage_checks(vb, x, dy, params, heads, rtol, csrc: Path | None = None) -> dict[str, dict]:
     """Each K6 wrapper on the card against its plain version on the same
     inputs (``k6_stages``), per kernel over its launches in one block
     backward: the least atol share (of each output row's rms) it needs with
     ``rtol``, and the plain version's and the library call's device time;
     ``block_grad_reduce`` also against ``in_order_sum`` bit for bit, with
-    digests of its partials and its sums."""
+    digests of its partials and its sums; ``block_ln`` and ``block_ln_bwd``
+    also a second call bit for bit, and ``block_ln_bwd``'s dβ partials
+    against ``ln_part_b_in_order`` (of ``csrc``, this checkout's by
+    default; None for a kernel whose source states no such order)."""
     import torch
 
+    csrc = csrc or ROOT / PKG / "ops" / "csrc"
     b, s, dim = x.shape
     out: dict[str, dict] = {}
     for name, wrapper, plain, args, kw, library in k6_stages(
@@ -1436,6 +1504,17 @@ def k6_stage_checks(vb, x, dy, params, heads, rtol) -> dict[str, dict]:
             rec["bit_identical_to_in_order_sum"] = all(
                 torch.equal(g, w) for g, w in zip(got, in_order_sum(*args)))
             rec["partials_digest"], rec["digest"] = _digest(args[0]), _digest(got)
+        if name in ("block_ln", "block_ln_bwd"):
+            again = wrapper(*args, **kw)
+            same = all(torch.equal(g, a) for g, a in zip(
+                got if isinstance(got, tuple) else [got], again if isinstance(again, tuple) else [again])
+                if g is not None)
+            rec["bit_identical_across_calls"] = rec.get("bit_identical_across_calls", True) and same
+            del again
+        if name == "block_ln_bwd":
+            mirror = ln_part_b_in_order(args[0], vb.LN_CHUNK_ROWS, csrc)
+            key = "part_b_bit_identical_to_in_order_sum"
+            rec[key] = None if mirror is None else torch.equal(got[3], mirror) and rec.get(key, True)
         for g, w in pairs:
             rec["max_abs_err"] = max(rec["max_abs_err"], (g.float() - w.float()).abs().max().item())
             rec["atol_share_needed"] = max(rec["atol_share_needed"], atol_share_needed(g, w, rtol))
@@ -1446,13 +1525,14 @@ def k6_stage_checks(vb, x, dy, params, heads, rtol) -> dict[str, dict]:
     return out
 
 
-def fused_block_bwd_checks(vb) -> list[dict]:
+def fused_block_bwd_checks(vb, csrc: Path | None = None) -> list[dict]:
     """The K6 chain (``ops/vit_block.py::fused_vit_block_bwd``) against
     ``fused_vit_block_bwd_reference`` at ``BWD_CASES``: dx and each of the
     twelve gradients, the planted faults, bit-identical results across two
-    calls, and the device time of the chain and of each kernel (summed over
-    its launches in one chain), the CUDA-event time, the plain version's and
-    the library yardstick's."""
+    calls, each stage against its plain version (``k6_stage_checks``, with
+    ``csrc`` for the LayerNorm backward's dβ order), and the device time of
+    the chain and of each kernel (summed over its launches in one chain),
+    the CUDA-event time, the plain version's and the library yardstick's."""
     import torch
 
     gen = torch.Generator().manual_seed(3)
@@ -1488,7 +1568,7 @@ def fused_block_bwd_checks(vb) -> list[dict]:
         finite = dx_rec["finite"] and all(bool(torch.isfinite(g).all()) for g in grads.values())
         del want, want_dx, fault_dx, fault_chunk, fault_tile
 
-        stages = k6_stage_checks(vb, x, dy, params, heads, rtol)
+        stages = k6_stage_checks(vb, x, dy, params, heads, rtol, csrc)
         prof = profile_device(run, 10)
         per_kernel = {name: kernel_ms(prof["device_ms_by_name"], [name]) for name in K6_KERNELS}
         ran = _port_kernel_ms(prof["device_ms_by_name"])
@@ -1506,6 +1586,9 @@ def fused_block_bwd_checks(vb) -> list[dict]:
             and all(max(errors.values()) <= tol < max(f.values()) for f in fault_errors.values())
             and all(st["finite"] and st["atol_share_needed"] <= atol_share for st in stages.values())
             and stages["block_grad_reduce"]["bit_identical_to_in_order_sum"]
+            and stages["block_ln"]["bit_identical_across_calls"]
+            and stages["block_ln_bwd"]["bit_identical_across_calls"]
+            and stages["block_ln_bwd"]["part_b_bit_identical_to_in_order_sum"] is True
         )
         out.append({
             "case": label, "dtype": dname, "shape": [b, s, dim, heads], "rows": rows,
@@ -1525,6 +1608,83 @@ def fused_block_bwd_checks(vb) -> list[dict]:
         })
         del params, x, dy, dx, grads
         torch.cuda.empty_cache()
+    return out
+
+
+# (n, m) of block_ln_checks: the narrowest rows, the zoo's 128 and 192 and
+# the widest the kernels take, each at one row, one short of a chunk, a
+# chunk and two ragged last chunks (LN_CHUNK_ROWS 128); in bf16 and fp32.
+# The NaN goes to row LN_NAN_AT[0], column LN_NAN_AT[1] of x or dln at n 192,
+# m 408 (the third of four chunks).
+LN_WIDTHS = (16, 128, 192, 1024)
+LN_ROWS = (1, 127, 128, 408, 1000)
+LN_NAN_AT = (300, 77)
+
+
+def ln_case_inputs(n: int, m: int, dtype, gen):
+    """x (mean and scale off 0 and 1), γ, β, dln and a base (fp32 for an
+    even m, as the chain's dr1; the compute dtype for an odd one, as dy)."""
+    import torch
+
+    x = (1.5 * torch.randn(m, n, generator=gen) + 0.3).to(device="cuda", dtype=dtype)
+    gamma = (1 + 0.1 * torch.randn(n, generator=gen)).cuda()
+    beta = (0.1 * torch.randn(n, generator=gen)).cuda()
+    dln = torch.randn(m, n, generator=gen).cuda()
+    base = torch.randn(m, n, generator=gen).cuda()
+    return x, gamma, beta, dln, base if m % 2 == 0 else base.to(dtype)
+
+
+def block_ln_checks(vb, csrc: Path | None = None) -> list[dict]:
+    """``block_ln`` (``ln_rows``) and ``block_ln_bwd`` (``ln_bwd``) at the
+    edge shapes (``LN_WIDTHS`` × ``LN_ROWS``) in both dtypes against their
+    plain versions within the K6 stage bounds (``TOLERANCES``: the least
+    atol share of each output row's rms with the dtype's rtol), one launch a
+    call, a second call bit-identical, the dβ partials bit-equal to
+    ``ln_part_b_in_order``; then, at n 192 and m 408, a NaN in x and one in
+    dln, each of which must make NaN exactly where the plain versions do."""
+    import torch
+
+    csrc = csrc or ROOT / PKG / "ops" / "csrc"
+    gen = torch.Generator().manual_seed(23)
+    out = []
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        atol_share, rtol, _ = TOLERANCES[dname]
+        for n in LN_WIDTHS:
+            for m in LN_ROWS:
+                x, gamma, beta, dln, base = ln_case_inputs(n, m, dtype, gen)
+                before = (vb.block_ln.launches, vb.block_ln_bwd.launches)
+                got = [vb.block_ln(x, gamma, beta), *vb.block_ln_bwd(dln, x, gamma, base)]
+                torch.cuda.synchronize()
+                launches = [vb.block_ln.launches - before[0], vb.block_ln_bwd.launches - before[1]]
+                want = [vb.block_ln_reference(x, gamma, beta), *vb.block_ln_bwd_reference(dln, x, gamma, base)]
+                again = [vb.block_ln(x, gamma, beta), *vb.block_ln_bwd(dln, x, gamma, base)]
+                mirror = ln_part_b_in_order(dln, vb.LN_CHUNK_ROWS, csrc)
+                needed = max(atol_share_needed(g, w, rtol) for g, w in zip(got, want))
+                rec = {
+                    "dtype": dname, "n": n, "m": m, "base_f32": base.dtype == torch.float32,
+                    "launches": launches, "atol_share": atol_share, "rtol": rtol,
+                    "atol_share_needed": needed,
+                    "max_abs_err": max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want)),
+                    "finite": all(bool(torch.isfinite(g).all()) for g in got),
+                    "bit_identical_across_calls": all(torch.equal(g, a) for g, a in zip(got, again)),
+                    "part_b_bit_identical_to_in_order_sum": None if mirror is None else torch.equal(got[4], mirror),
+                }
+                rec["ok"] = (rec["finite"] and launches == [1, 1] and needed <= atol_share
+                             and rec["bit_identical_across_calls"]
+                             and rec["part_b_bit_identical_to_in_order_sum"] is True)
+                out.append(rec)
+        for where in ("x", "dln"):
+            x, gamma, beta, dln, base = ln_case_inputs(192, 408, dtype, gen)
+            (x if where == "x" else dln)[LN_NAN_AT] = float("nan")
+            got = [vb.block_ln(x, gamma, beta), *vb.block_ln_bwd(dln, x, gamma, base)]
+            torch.cuda.synchronize()
+            want = [vb.block_ln_reference(x, gamma, beta), *vb.block_ln_bwd_reference(dln, x, gamma, base)]
+            same = [torch.equal(torch.isnan(g), torch.isnan(w)) for g, w in zip(got, want)]
+            nans = [int(torch.isnan(g).sum()) for g in got]
+            out.append({"dtype": dname, "n": 192, "m": 408, "nan_in": where, "nan_at": list(LN_NAN_AT),
+                        "nan_counts": nans, "nan_where_plain_puts_it": same,
+                        "ok": all(same) and nans[1] >= 192})
     return out
 
 
@@ -4433,6 +4593,7 @@ def main() -> int:
     missing += [f"{k}<{d}>" for ks in (*BACKWARD_SYMBOLS["float32"].values(), FORWARD_SYMBOLS["float32"])
                 for k in ks for d in (64, 128) if f"{k}<{d}>" not in built]
     missing += [k for k in BLOCK_TF32_KERNELS if k not in built]
+    missing += [k for k in LN_PATH_KERNELS if k not in built]
     missing += [f"{k}<{d}>" for ks in SMALL_F32_KERNELS.values() for k in ks for d in (64, 128)
                 if f"{k}<{d}>" not in built]
     # the tiled bf16 kernels, at both head dims (the forward and dq in a
@@ -4445,14 +4606,15 @@ def main() -> int:
         name: r for name, r in built.items()
         # the bf16 and 3xTF32 flash, one-tile, tiled bf16 and 3xTF32
         # short-sequence, fused block GEMM and attention (bf16 and fp32), and
-        # grouped expert FFN kernels
+        # grouped expert FFN kernels, and every LayerNorm kernel of K6
         if ("flash_" in name and ("bf16" in name or "tf32x3" in name) or "onetile" in name
             or name.startswith("attn_small_") and ("_f32<" in name or "_bf16<" in name)
-            or "_wgmma" in name or name in BLOCK_TF32_KERNELS or name in MOE_TF32_KERNELS)
+            or "_wgmma" in name or name in BLOCK_TF32_KERNELS or name in MOE_TF32_KERNELS
+            or name.startswith("ln_"))
         and r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
     }
     if spilled:
-        raise RuntimeError(f"Hopper attention, GEMM or expert FFN kernels spill registers: {spilled}")
+        raise RuntimeError(f"Hopper attention, GEMM, expert FFN or LayerNorm kernels spill registers: {spilled}")
 
     checks = kernel_checks(attn)
     emit({"phase": "kernel_checks", "nvidia_smi": smi, "checks": checks})
@@ -4477,6 +4639,12 @@ def main() -> int:
     bad = [c["case"] for c in bwd_blocks if not c["ok"]]
     if bad:
         raise RuntimeError(f"the fused block backward kernels disagree with the plain version: {bad}")
+
+    ln_checks = block_ln_checks(vb)
+    emit({"phase": "block_ln_checks", "nvidia_smi": smi, "checks": ln_checks})
+    bad = [c for c in ln_checks if not c["ok"]]
+    if bad:
+        raise RuntimeError(f"the LayerNorm kernels disagree with the plain versions: {bad}")
 
     nans = fp32_nan_checks(vb)
     emit({"phase": "fp32_nan_checks", "nvidia_smi": smi, "checks": nans})
@@ -4757,6 +4925,9 @@ def main() -> int:
                 "library_ms": case["stages"][name]["library_ms"],
                 "ms": case["kernel_ms"][name], "kernels": case["kernels"][name],
                 "bound_ms": case["bound_ms"][name], "bound_by": case["bound_by"][name],
+                **{k: case["stages"][name][k] for k in (
+                    "bit_identical_across_calls", "part_b_bit_identical_to_in_order_sum")
+                   if k in case["stages"][name]},
             })
     # no profile of the run showed the fp32 K7, K8 or K9 the 3xTF32 kernels replaced
     replaced = sorted({m.group(1) for n in PROFILED_KERNELS if (m := _KERNEL_SYMBOL.match(n))}
@@ -5078,7 +5249,10 @@ def turn(checkout: Path, label: str) -> int:
     at 64 tokens pinned to fused_small and under auto
     (``pinned_step_times``), and the card's clocks and power
     (``card_state``) at the start, before K10/K11 and K7-K9, before each
-    fp32 step and at the end.  The summary splits every K5 and K6 case by stage.
+    fp32 step and at the end.  The summary splits every K5 and K6 case by
+    stage, and gives K6's LayerNorm kernels (``k6_ln``) and the edge cases
+    of ``block_ln_checks`` (a parent's kernel, whose source states no dβ
+    order, reads None there).
     Last come the ``vit_small --patch-size 2`` train step and bucket-32
     dispatch pinned to fused_small and under auto (``vits_p2_turn``).  Run
     parent, this tree, this tree, parent:
@@ -5132,7 +5306,8 @@ def turn(checkout: Path, label: str) -> int:
            "kernel_checks": fwd, "flash_output_hashes": hashes, "sdpa_fp32_forward": sdpa,
            "backward_checks": bwd, "long_fp32_step": long_fp32, "attention_b128": b128,
            "fused_block_checks": fused_block_checks(vb),
-           "fused_block_bwd_checks": fused_block_bwd_checks(vb),
+           "fused_block_bwd_checks": fused_block_bwd_checks(vb, csrc),
+           "block_ln_checks": block_ln_checks(vb, csrc),
            "tiny_step_times": tiny_step_times(), "tiny_dispatch": tiny_dispatch(),
            "card_before_small_moe": card_state(),
            "small_attention_checks": small_attention_checks(small),
@@ -5267,6 +5442,17 @@ def turn(checkout: Path, label: str) -> int:
         "k8_alone_at_step_routing_ms": moe_step["k8_at_step_routing"]["ms_alone_per_launch"],
         "k8_step_routing": [{k: b[k] for k in ("kept_rows", "units", "ms_alone")}
                             for b in moe_step["k8_at_step_routing"]["blocks"]],
+        # the LayerNorm kernels at every K6 case (device ms over a chain's two
+        # launches each), beside their bound, plain and library times, their
+        # agreement and bits; then the edge cases of block_ln_checks
+        "k6_ln": {c["case"]: {name: {
+            "ms": c["kernel_ms"][name], "bound_ms": c["bound_ms"][name],
+            "plain_ms": c["stages"][name]["plain_ms"], "library_ms": c["stages"][name]["library_ms"],
+            "atol_share_needed": c["stages"][name]["atol_share_needed"],
+            "bit_identical_across_calls": c["stages"][name].get("bit_identical_across_calls"),
+            "part_b_bit_identical_to_in_order_sum": c["stages"][name].get("part_b_bit_identical_to_in_order_sum"),
+        } for name in ("block_ln", "block_ln_bwd")} for c in rec["fused_block_bwd_checks"]},
+        "block_ln_checks_ok": f'{sum(c["ok"] for c in rec["block_ln_checks"])} of {len(rec["block_ln_checks"])}',
         "k6_grad_reduce_ms": {c["case"]: c["kernel_ms"]["block_grad_reduce"] for c in rec["fused_block_bwd_checks"]},
         "k6_grad_reduce_bits": {c["case"]: [c["stages"]["block_grad_reduce"][k] for k in (
             "partials_digest", "digest", "bit_identical_to_in_order_sum")] for c in rec["fused_block_bwd_checks"]},

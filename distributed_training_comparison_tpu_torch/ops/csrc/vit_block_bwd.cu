@@ -14,7 +14,8 @@
 // - block_ln: LayerNorm rows (fp32 statistics by E[x^2] - mu^2, eps 1e-6),
 //   rounded to the compute dtype: LN1(x) and LN2(r1), which the weight
 //   gradients read; K5's block_gemm and block_attention recompute qkv, o,
-//   r1 and the pre-gelu up.
+//   r1 and the pre-gelu up.  A persistent grid, a half-warp a row (the row
+//   kernels, below).
 // - block_gemm_dgrad: C = G . W, the TPU kernel's _gemm_T (vit_block.py:113;
 //   W the fp32 nn.Linear weight (K, N), rounded to the compute dtype, in up
 //   to three row segments).  Epilogues: round (dO); gelu backward against
@@ -23,7 +24,8 @@
 // - block_ln_bwd: per row, base + (dxhat - mean(dxhat) - xhat mean(dxhat
 //   xhat)) / sigma with dxhat = dln gamma, fp32, written in fp32 and/or
 //   rounded (dr1 and its rounded copy; dx), and per block of rows the
-//   partials of dgamma = sum dln xhat and dbeta = sum dln.
+//   partials of dgamma = sum dln xhat and dbeta = sum dln, in an order
+//   fixed by the schedule (ln_bwd, below).
 // - block_gemm_wgrad: dW = G^T . A, the TPU kernel's _acc_T (vit_block.py:
 //   120), per chunk of rows into fp32 partials (one block per output tile
 //   and chunk), with the bias column sums of a second source taken by the
@@ -100,12 +102,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kLnEps = 1e-6f;
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(float v) { return v; }
 template <typename T>
@@ -131,28 +127,185 @@ __device__ __forceinline__ float gelu_tanh_grad(float x) {
   return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * kGeluC * (1.f + 3.f * kGeluA * x * x);
 }
 
+// ------------------------------------------------------ the row kernels
+
+// block_ln (ln_rows) and block_ln_bwd (ln_bwd) do no products and a few
+// operations an element, so bytes bound them.  Each moves every byte once:
+// a row goes from its loads to its stores in registers, read and written
+// through 16-byte (fp32) or 8-byte (bf16) vectors of four columns a lane,
+// and every load of a row is issued before its first reduction.  A row
+// group of G lanes takes a row: a half-warp for rows of up to
+// kLnNarrowMaxN columns (192, the train paths' width: 3 vectors a lane),
+// two rows in flight each, so a warp holds four; a warp for wider rows,
+// one in flight (two rows of 256 columns a half-warp need more registers
+// than two blocks an SM leave a thread, and spill).  Lane l's vector v
+// holds columns 4 (l + G v) to + 3: n is a multiple of 16, so a vector
+// lies wholly inside the row or wholly past it.  gamma (and beta) sit in
+// registers, loaded once a thread.
+constexpr int kLnThreads = 256;       // both kernels' blocks
+constexpr int kLnNarrowMaxN = 192;    // rows up to this wide take a half-warp
+constexpr int kLnNarrowLanes = 16;
+constexpr int kLnNarrowInFlight = 2;  // rows a row group holds at once
+constexpr int kLnWideLanes = 32;
+constexpr int kLnWideInFlight = 1;
+constexpr int kLnRowsBlocksPerSM = 3;  // ln_rows' persistent grid, at most (narrow rows)
+
+// G lanes a row, NV vectors a lane, RIF rows in flight a row group
+template <int G_, int NV_, int RIF_>
+struct LnSchedule {
+  static constexpr int G = G_, NV = NV_, RIF = RIF_, kGroups = kLnThreads / G_;
+};
+
+// f(the LnSchedule of rows of n columns), n a multiple of 16 up to 1024
+template <typename F>
+int with_ln_schedule(int n, F&& f) {
+  constexpr int narrow = 4 * kLnNarrowLanes, wide = 4 * kLnWideLanes;
+  if (n <= kLnNarrowMaxN) {
+    switch ((n + narrow - 1) / narrow) {
+      case 1: return f(LnSchedule<kLnNarrowLanes, 1, kLnNarrowInFlight>{});
+      case 2: return f(LnSchedule<kLnNarrowLanes, 2, kLnNarrowInFlight>{});
+      case 3: return f(LnSchedule<kLnNarrowLanes, 3, kLnNarrowInFlight>{});
+    }
+  } else {
+    switch ((n + wide - 1) / wide) {
+      case 2: return f(LnSchedule<kLnWideLanes, 2, kLnWideInFlight>{});
+      case 3: return f(LnSchedule<kLnWideLanes, 3, kLnWideInFlight>{});
+      case 4: return f(LnSchedule<kLnWideLanes, 4, kLnWideInFlight>{});
+      case 5: return f(LnSchedule<kLnWideLanes, 5, kLnWideInFlight>{});
+      case 6: return f(LnSchedule<kLnWideLanes, 6, kLnWideInFlight>{});
+      case 7: return f(LnSchedule<kLnWideLanes, 7, kLnWideInFlight>{});
+      case 8: return f(LnSchedule<kLnWideLanes, 8, kLnWideInFlight>{});
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// the sum of x over a row group's G lanes, on each of them (the xor
+// shuffles stay inside an aligned group of G lanes)
+template <int G>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// four consecutive elements, in fp32
+__device__ __forceinline__ void load4(float (&v)[4], const float* p) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void load4(float (&v)[4], const bf16* p) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {  // each rounded to nearest
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]), b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 t;
+  t.x = *reinterpret_cast<const uint32_t*>(&a);
+  t.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+
+// lane's columns: which of its NV vectors lie inside a row of n, and the
+// fp32 vector at those columns of src (zeros past the row)
+template <int G, int NV>
+__device__ __forceinline__ void row_vectors(bool (&on)[NV], float (&v)[NV][4], const float* src, int lane,
+                                            int n) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = 4 * (lane + G * j);
+    on[j] = c < n;
+    if (on[j]) load4(v[j], src + c);
+    else v[j][0] = v[j][1] = v[j][2] = v[j][3] = 0.f;
+  }
+}
+
 // ------------------------------------------------------------- block_ln
 
-constexpr int kRowWarps = 8;  // rows per block of the row kernels: one warp each
-
-template <typename T>
-__global__ void __launch_bounds__(kRowWarps * 32)
-    ln_rows(const T* x, const float* g, const float* b, T* y, int m, int n) {
-  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= m) return;
-  const T* xr = x + static_cast<long long>(row) * n;
-  float s = 0.f, ss = 0.f;
-  for (int c = lane; c < n; c += 32) {
-    const float v = to_f(xr[c]);
-    s += v;
-    ss += v * v;
+// y = LayerNorm(x) rounded to T (fp32 statistics, E[x^2] - mu^2).  A
+// persistent grid of B blocks, as many an SM as fit up to
+// kLnRowsBlocksPerSM (ln_rows_grid): block b takes rows [b m / B,
+// (b + 1) m / B), so that every SM moves as many rows within a few, and
+// its row group g takes rows lo + (t kGroups + g) RIF + k, k < RIF, for
+// t = 0, 1, ...
+template <typename T, int G, int NV, int RIF>
+__global__ void __launch_bounds__(kLnThreads, G == kLnNarrowLanes ? kLnRowsBlocksPerSM : 1)
+    ln_rows(const T* x, const float* gamma, const float* beta, T* y, int m, int n) {
+  constexpr int kGroups = kLnThreads / G;
+  const int lane = threadIdx.x % G, group = threadIdx.x / G;
+  const int lo = static_cast<int>(static_cast<long long>(blockIdx.x) * m / gridDim.x);
+  const int hi = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * m / gridDim.x);
+  bool on[NV];
+  float ga[NV][4], be[NV][4];
+  row_vectors<G, NV>(on, ga, gamma, lane, n);
+  row_vectors<G, NV>(on, be, beta, lane, n);
+  const int steps = (hi - lo + kGroups * RIF - 1) / (kGroups * RIF);  // the same for the block
+  for (int t = 0; t < steps; ++t) {
+    const int row0 = lo + (t * kGroups + group) * RIF;
+    float xv[RIF][NV][4], s[RIF], ss[RIF];
+#pragma unroll
+    for (int k = 0; k < RIF; ++k) {
+      const T* xr = x + static_cast<long long>(row0 + k) * n;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        if (row0 + k < hi && on[j]) load4(xv[k][j], xr + 4 * (lane + G * j));
+        else xv[k][j][0] = xv[k][j][1] = xv[k][j][2] = xv[k][j][3] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RIF; ++k) {
+      s[k] = ss[k] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[k] += xv[k][j][e];
+          ss[k] += xv[k][j][e] * xv[k][j][e];
+        }
+      s[k] = group_sum<G>(s[k]);
+      ss[k] = group_sum<G>(ss[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < RIF; ++k) {
+      if (row0 + k >= hi) continue;
+      const float mu = s[k] / n;
+      const float rs = 1.f / sqrtf(ss[k] / n - mu * mu + kLnEps);
+      T* yr = y + static_cast<long long>(row0 + k) * n;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        if (!on[j]) continue;
+        float o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[e] = (xv[k][j][e] - mu) * rs * ga[j][e] + be[j][e];
+        store4(yr + 4 * (lane + G * j), o);
+      }
+    }
   }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  const float mu = s / n;
-  const float rs = 1.f / sqrtf(ss / n - mu * mu + kLnEps);
-  T* yr = y + static_cast<long long>(row) * n;
-  for (int c = lane; c < n; c += 32) yr[c] = from_f<T>((to_f(xr[c]) - mu) * rs * g[c] + b[c]);
+}
+
+// ln_rows' grid for m rows: a block a kGroups RIF rows, at most as many
+// blocks as fit on the card at once (the occupancy of that instantiation,
+// up to kLnRowsBlocksPerSM an SM)
+template <typename T, int G, int NV, int RIF>
+int ln_rows_grid(int m, int sms) {
+  static const int per_sm = [] {
+    int b = 1;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, ln_rows<T, G, NV, RIF>, kLnThreads, 0);
+    return b < 1 ? 1 : b < kLnRowsBlocksPerSM ? b : kLnRowsBlocksPerSM;
+  }();
+  const int need = (m + kLnThreads / G * RIF - 1) / (kLnThreads / G * RIF);
+  return need < per_sm * sms ? need : per_sm * sms;
 }
 
 // ------------------------------------------------------ block_gemm_dgrad
@@ -525,73 +678,134 @@ struct LnBwdParams {
   int m, n, chunk;
 };
 
-// one block per chunk of rows, a warp per row; lane owns columns lane + 32 j
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kRowWarps * 32) ln_bwd(const LnBwdParams p) {
-  __shared__ float red[kRowWarps * 1024];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// One block per chunk of rows [r0, r1): row group g of its kGroups takes
+// rows r0 + (t kGroups + g) RIF + k, k < RIF, for t = 0, 1, ...; the dln,
+// x and base loads of its RIF rows are all issued before the first
+// reduction.  The partials: each row group adds its rows into its own fp32
+// slices of shared memory (n columns for dgamma, n for dbeta), one row
+// after another in the order above (t, then k); then the block sums the
+// kGroups slices in group order, from 0, a column a thread.  So a chunk's
+// dbeta is, per column, sum over g of (sum of dln over g's rows, in order),
+// in fp32, an order the tests mirror bit for bit.  No atomics: two calls
+// give identical bits.
+template <typename T, int G, int NV, int RIF>
+__global__ void __launch_bounds__(kLnThreads, G == kLnNarrowLanes ? 2 : 1) ln_bwd(const LnBwdParams p) {
+  extern __shared__ __align__(16) float ln_part[];  // (2, kGroups, n): dgamma's slices, then dbeta's
+  constexpr int kGroups = kLnThreads / G;
+  const int lane = threadIdx.x % G, group = threadIdx.x / G, n = p.n;
   const int r0 = blockIdx.x * p.chunk, r1 = min(r0 + p.chunk, p.m);
-  float pg[NJ], pb[NJ];
+  float* pg = ln_part + group * n;
+  float* pb = ln_part + (kGroups + group) * n;
+  bool on[NV];
+  float ga[NV][4];
+  row_vectors<G, NV>(on, ga, p.gamma, lane, n);
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) pg[j] = pb[j] = 0.f;
-  for (int row = r0 + warp; row < r1; row += kRowWarps) {
-    const long long base = static_cast<long long>(row) * p.n;
-    const T* xr = static_cast<const T*>(p.xin) + base;
-    float x[NJ], dl[NJ];
-    float s = 0.f, ss = 0.f;
+  for (int j = 0; j < NV; ++j) {
+    if (!on[j]) continue;
+    store4(pg + 4 * (lane + G * j), zero);
+    store4(pb + 4 * (lane + G * j), zero);
+  }
+  const int steps = (r1 - r0 + kGroups * RIF - 1) / (kGroups * RIF);  // the same for every thread
+  for (int t = 0; t < steps; ++t) {
+    const int row0 = r0 + (t * kGroups + group) * RIF;
+    float dl[RIF][NV][4], xh[RIF][NV][4], bs[RIF][NV][4];
+    bool ok[RIF];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = lane + 32 * j;
-      x[j] = c < p.n ? to_f(xr[c]) : 0.f;
-      dl[j] = c < p.n ? p.dln[base + c] : 0.f;
-      s += x[j];
-      ss += x[j] * x[j];
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    const float mu = s / p.n;
-    const float rs = 1.f / sqrtf(ss / p.n - mu * mu + kLnEps);
-    float m1 = 0.f, m2 = 0.f;
+    for (int k = 0; k < RIF; ++k) {
+      ok[k] = row0 + k < r1;
+      const long long at = static_cast<long long>(row0 + k) * n;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = lane + 32 * j;
-      x[j] = (x[j] - mu) * rs;  // xhat
-      const float dxh = c < p.n ? dl[j] * p.gamma[c] : 0.f;
-      m1 += dxh;
-      m2 += dxh * x[j];
-      if (c < p.n) {
-        pg[j] += dl[j] * x[j];
-        pb[j] += dl[j];
+      for (int j = 0; j < NV; ++j) {
+        const int c = 4 * (lane + G * j);
+        if (ok[k] && on[j]) {
+          load4(dl[k][j], p.dln + at + c);
+          load4(xh[k][j], static_cast<const T*>(p.xin) + at + c);
+          if (p.base_f32) load4(bs[k][j], static_cast<const float*>(p.base) + at + c);
+          else load4(bs[k][j], static_cast<const T*>(p.base) + at + c);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dl[k][j][e] = xh[k][j][e] = bs[k][j][e] = 0.f;
+        }
       }
     }
-    m1 = warp_sum(m1) / p.n;
-    m2 = warp_sum(m2) / p.n;
+    // the statistics (fp32, E[x^2] - mu^2), then xhat in place of x and the
+    // two means of the backward
+    float rs[RIF], m1[RIF], m2[RIF];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = lane + 32 * j;
-      if (c >= p.n) continue;
-      const float dxh = dl[j] * p.gamma[c];
-      const float b = p.base_f32 ? static_cast<const float*>(p.base)[base + c]
-                                 : to_f(static_cast<const T*>(p.base)[base + c]);
-      const float v = b + (dxh - m1 - x[j] * m2) * rs;
-      if (p.out_f32) p.out_f32[base + c] = v;
-      static_cast<T*>(p.out_c)[base + c] = from_f<T>(v);
+    for (int k = 0; k < RIF; ++k) {
+      float s = 0.f, ss = 0.f;
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s += xh[k][j][e];
+          ss += xh[k][j][e] * xh[k][j][e];
+        }
+      s = group_sum<G>(s);
+      ss = group_sum<G>(ss);
+      const float mu = s / n;
+      rs[k] = 1.f / sqrtf(ss / n - mu * mu + kLnEps);
+      m1[k] = m2[k] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          xh[k][j][e] = (xh[k][j][e] - mu) * rs[k];
+          const float dxh = dl[k][j][e] * ga[j][e];
+          m1[k] += dxh;
+          m2[k] += dxh * xh[k][j][e];
+        }
+      m1[k] = group_sum<G>(m1[k]) / n;
+      m2[k] = group_sum<G>(m2[k]) / n;
+    }
+    // this row group's partials, its rows in order
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      if (!on[j]) continue;
+      const int c = 4 * (lane + G * j);
+      float sg[4], sb[4];
+      load4(sg, pg + c);
+      load4(sb, pb + c);
+#pragma unroll
+      for (int k = 0; k < RIF; ++k) {
+        if (!ok[k]) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sg[e] += dl[k][j][e] * xh[k][j][e];
+          sb[e] += dl[k][j][e];
+        }
+      }
+      store4(pg + c, sg);
+      store4(pb + c, sb);
+    }
+#pragma unroll
+    for (int k = 0; k < RIF; ++k) {
+      if (!ok[k]) continue;
+      const long long at = static_cast<long long>(row0 + k) * n;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        if (!on[j]) continue;
+        const int c = 4 * (lane + G * j);
+        float o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[e] = bs[k][j][e] + (dl[k][j][e] * ga[j][e] - m1[k] - xh[k][j][e] * m2[k]) * rs[k];
+        if (p.out_f32) store4(p.out_f32 + at + c, o);
+        store4(static_cast<T*>(p.out_c) + at + c, o);
+      }
     }
   }
-  // the warps' partials summed in warp order
-  for (int pass = 0; pass < 2; ++pass) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = lane + 32 * j;
-      if (c < p.n) red[warp * p.n + c] = pass ? pb[j] : pg[j];
+  __syncthreads();
+  const long long at = static_cast<long long>(blockIdx.x) * n;
+  for (int c = threadIdx.x; c < n; c += kLnThreads) {
+    float tg = 0.f, tb = 0.f;
+    for (int w = 0; w < kGroups; ++w) {
+      tg += ln_part[w * n + c];
+      tb += ln_part[(kGroups + w) * n + c];
     }
-    __syncthreads();
-    for (int c = threadIdx.x; c < p.n; c += kRowWarps * 32) {
-      float t = 0.f;
-      for (int w = 0; w < kRowWarps; ++w) t += red[w * p.n + c];
-      (pass ? p.part_b : p.part_g)[static_cast<long long>(blockIdx.x) * p.n + c] = t;
-    }
-    __syncthreads();
+    p.part_g[at + c] = tg;
+    p.part_b[at + c] = tb;
   }
 }
 
@@ -1426,21 +1640,28 @@ int launch_wgrad_bf16(const WgradParams& p, cudaStream_t s) {
 
 }  // namespace
 
-// y = LayerNorm(x) rounded to the compute dtype, rows of n (fp32 gamma, beta).
-// Returns the launch's cudaError_t (0 on success), as every function here.
+// y = LayerNorm(x) rounded to the compute dtype, rows of n (a multiple of 16
+// up to 1024; fp32 gamma, beta).  Returns the launch's cudaError_t (0 on
+// success), as every function here.
 extern "C" int vit_block_ln(const void* x, const void* g, const void* b, void* y, int m, int n,
                             int is_bf16, void* stream) {
-  const dim3 grid((m + kRowWarps - 1) / kRowWarps);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* gf = static_cast<const float*>(g);
   const float* bf = static_cast<const float*>(b);
-  if (is_bf16)
-    ln_rows<bf16><<<grid, kRowWarps * 32, 0, s>>>(static_cast<const bf16*>(x), gf, bf,
-                                                  static_cast<bf16*>(y), m, n);
-  else
-    ln_rows<float><<<grid, kRowWarps * 32, 0, s>>>(static_cast<const float*>(x), gf, bf,
-                                                   static_cast<float*>(y), m, n);
-  return cudaGetLastError();
+  return with_ln_schedule(n, [&](auto sched) {
+    using S = decltype(sched);
+    if (is_bf16)
+      ln_rows<bf16, S::G, S::NV, S::RIF><<<ln_rows_grid<bf16, S::G, S::NV, S::RIF>(m, sms), kLnThreads, 0, s>>>(
+          static_cast<const bf16*>(x), gf, bf, static_cast<bf16*>(y), m, n);
+    else
+      ln_rows<float, S::G, S::NV, S::RIF><<<ln_rows_grid<float, S::G, S::NV, S::RIF>(m, sms), kLnThreads, 0, s>>>(
+          static_cast<const float*>(x), gf, bf, static_cast<float*>(y), m, n);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // c (m, n) = g (m, k) . W (k, n), W's rows from w0/w1/w2 (seg rows each,
@@ -1481,7 +1702,7 @@ extern "C" int vit_block_dgrad(const void* g, const void* w0, const void* w1, co
 
 // out = base + LayerNorm-backward(dln) for the LayerNorm of xin with scale
 // gamma, in fp32 (out_f32, may be null) and rounded (out_c); per chunk of
-// rows the partials of dgamma and dbeta.  n up to 1024.
+// rows the partials of dgamma and dbeta.  n a multiple of 16 up to 1024.
 extern "C" int vit_block_ln_bwd(const void* dln, const void* xin, const void* gamma,
                                 const void* base, int base_f32, void* out_f32, void* out_c,
                                 void* part_g, void* part_b, int m, int n, int chunk, int is_bf16,
@@ -1489,23 +1710,18 @@ extern "C" int vit_block_ln_bwd(const void* dln, const void* xin, const void* ga
   LnBwdParams p{static_cast<const float*>(dln), xin, static_cast<const float*>(gamma), base,
                 base_f32, static_cast<float*>(out_f32), out_c, static_cast<float*>(part_g),
                 static_cast<float*>(part_b), m, n, chunk};
-  if (n > 1024) return cudaErrorInvalidValue;
-  const dim3 grid((m + chunk - 1) / chunk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nj = (n + 31) / 32;
-#define LN_BWD_CASE(NJ)                                                           \
-  if (nj <= NJ) {                                                                 \
-    if (is_bf16) ln_bwd<bf16, NJ><<<grid, kRowWarps * 32, 0, s>>>(p);             \
-    else ln_bwd<float, NJ><<<grid, kRowWarps * 32, 0, s>>>(p);                    \
-    return cudaGetLastError();                                                    \
-  }
-  LN_BWD_CASE(2)
-  LN_BWD_CASE(4)
-  LN_BWD_CASE(8)
-  LN_BWD_CASE(16)
-  LN_BWD_CASE(32)
-#undef LN_BWD_CASE
-  return cudaErrorInvalidValue;
+  return with_ln_schedule(n, [&](auto sched) {
+    using S = decltype(sched);
+    auto kernel = is_bf16 ? ln_bwd<bf16, S::G, S::NV, S::RIF> : ln_bwd<float, S::G, S::NV, S::RIF>;
+    const int smem = 2 * S::kGroups * n * static_cast<int>(sizeof(float));
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<(m + chunk - 1) / chunk, kLnThreads, smem, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // per chunk of rows, part_w = g^T . a (fp32 (chunks, n_out, n_in)) and

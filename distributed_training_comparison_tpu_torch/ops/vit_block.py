@@ -624,14 +624,17 @@ def block_ln_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor)
 def block_ln(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
              stream: int | None = None) -> torch.Tensor:
     """:func:`block_ln_reference`'s function; on the card the CUDA kernel
-    ``block_ln`` (one warp per row).  ``block_ln.launches`` counts its
-    launches."""
+    ``ln_rows`` (a persistent grid; a half-warp a row, a warp past 192
+    columns), which takes n a multiple of 16 up to ``MAX_DIM``.
+    ``block_ln.launches`` counts its launches."""
     if x.device.type == "cpu":
         return block_ln_reference(x, gamma, beta)
     _check_card_operands("block_ln", x.dtype, x, gamma, beta)
     m, n = x.shape
-    if n % 16 or gamma.shape != (n,) or beta.shape != (n,):
-        raise ValueError(f"block_ln takes (M, n) rows, n a multiple of 16, and (n,) γ, β; got {tuple(x.shape)}")
+    if n % 16 or n > MAX_DIM or gamma.shape != (n,) or beta.shape != (n,):
+        raise ValueError(
+            f"block_ln takes (M, n) rows, n a multiple of 16 up to {MAX_DIM}, and (n,) γ, β; got {tuple(x.shape)}"
+        )
     x, gamma, beta = _operand(x), _operand(gamma, torch.float32), _operand(beta, torch.float32)
     out = torch.empty_like(x)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -730,20 +733,21 @@ def block_ln_bwd(
     keep_f32: bool = True, stream: int | None = None,
 ):
     """:func:`block_ln_bwd_reference`'s function; on the card the CUDA
-    kernel ``block_ln_bwd`` (one warp per row, a block per LN_CHUNK_ROWS rows
-    writing its partials), which writes the fp32 sum only with
-    ``keep_f32`` (else that slot of the result is None).
-    ``block_ln_bwd.launches`` counts its launches."""
+    kernel ``ln_bwd`` (a block per LN_CHUNK_ROWS rows writing its partials;
+    a half-warp a row, a warp past 192 columns), which takes n a multiple
+    of 16 up to ``MAX_DIM`` and writes the fp32 sum only with ``keep_f32``
+    (else that slot of the result is None).  ``block_ln_bwd.launches``
+    counts its launches."""
     if xin.device.type == "cpu":
         return block_ln_bwd_reference(dln, xin, gamma, base)
     _check_card_operands("block_ln_bwd", xin.dtype, dln, xin, gamma, base)
     m, n = xin.shape
     if dln.shape != (m, n) or dln.dtype != torch.float32 or base.shape != (m, n) \
             or base.dtype not in (torch.float32, xin.dtype) or gamma.shape != (n,) \
-            or n % 16:
+            or n % 16 or n > MAX_DIM:
         raise ValueError(
             f"block_ln_bwd takes fp32 dln and a base (fp32 or {xin.dtype}) of xin's shape "
-            f"{tuple(xin.shape)}, n a multiple of 16"
+            f"{tuple(xin.shape)}, n a multiple of 16 up to {MAX_DIM}"
         )
     dln, xin, base = _operand(dln), _operand(xin), _operand(base)
     gamma = _operand(gamma, torch.float32)
