@@ -266,6 +266,32 @@ last line:
              bounds, which a planted fault exceeds; ms per step under
              fused_small and auto by CUDA events, busy and idle shares and
              the busy time split into K10, K11, the GEMMs and the rest;
+  serve_resnet — ``resnet18 --amp`` (the entry point's default model; no
+             kernel of the port: cuDNN's convolutions) served through the
+             library entry points, buckets 1..32, 128 requests at
+             concurrency 32: no port kernel launched (counters); one
+             dispatch of each bucket's size timed and profiled (bucket 32's
+             busy ms and idle share); the bucket-32 logits against an fp32
+             engine on the same weights within a bf16 bound a planted fault
+             (a BatchNorm's running variance zeroed) exceeds;
+  train_resnet — ``resnet18 --amp`` at batch 128 through ``entry.run``, 6
+             steps and one eval batch: every loss finite, no step skipped, no
+             port kernel launched; one step's loss and gradients against an
+             fp32 step on the same weights and batch within bf16 bounds a
+             planted fault (a BatchNorm on its running statistics) exceeds;
+             ms per step by CUDA events, busy and idle share, busy split
+             into convolutions, BatchNorm, the optimizer and the rest, the
+             operation bound's share; the running statistics moved, eval
+             mode read them; one step of ``resnet50 --stem imagenet
+             --image-size 224 --remat`` at batch 32, its running statistics
+             those of the step without ``--remat``;
+  train_resnet_fp32 — the entry point with no ``--model`` and no
+             ``--amp`` (ResNet-18, fp32), batch 128, 3 steps and one eval
+             batch, cuDNN set to TF32 first: the entry path pins fp32 math
+             back (the settings read ``ieee``, no profiled kernel holds
+             ``tf32``); the first batch's logits and one step's gradients
+             against the port's CPU path within fp32 bounds a TF32 control
+             exceeds; ms per step against the fp32 operation bound;
 8. the ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -2243,11 +2269,24 @@ def step_check(attn, precision: str) -> dict:
     }
 
 
-def step_profile(trainer, csrc: Path | None = None) -> dict:
+# step_profile's split of a step's device time: (bucket, substrings of the
+# lower-cased kernel name), the first match taking the kernel, the rest
+# under "rest".  The flash-attention paths':
+FLASH_STEP_BUCKETS = (
+    ("flash_fwd", ("flash_fwd",)),
+    ("flash_dq", ("flash_bwd_dq",)),
+    ("flash_dkv", ("flash_bwd_dkv",)),
+    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+)
+
+
+def step_profile(trainer, csrc: Path | None = None, buckets=FLASH_STEP_BUCKETS) -> dict:
     """Where one train step's device time goes: ``profile_device`` over two
-    steps of ``trainer`` on its first batch, split into the flash forward,
-    dq and dk/dv kernels, the cuBLAS GEMMs and the rest, with the port's
-    kernels by symbol (``csrc``'s, this checkout's by default)."""
+    steps of ``trainer`` on its first batch, split by kernel name into
+    ``buckets`` (by default the flash forward, dq and dk/dv kernels, the
+    cuBLAS GEMMs) and the rest, with the port's kernels by symbol
+    (``csrc``'s, this checkout's by default) and every kernel whose name
+    holds ``tf32``."""
     from distributed_training_comparison_tpu_torch.data import draw_crop_flip
     from distributed_training_comparison_tpu_torch.utils import step_generator
 
@@ -2256,19 +2295,11 @@ def step_profile(trainer, csrc: Path | None = None) -> dict:
     draws = draw_crop_flip(len(labels), step_generator(hp.seed, 0, 0))
     trainer.step(images, labels, draws)  # warm
     prof = profile_device(lambda: trainer.step(images, labels, draws), 2)
-    split = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0, "gemm": 0.0, "rest": 0.0}
+    split = {name: 0.0 for name, _ in buckets} | {"rest": 0.0}
     for name, ms in prof["device_ms_by_name"].items():
         low = name.lower()
-        if "flash_fwd" in low:
-            split["flash_fwd"] += ms
-        elif "flash_bwd_dq" in low:
-            split["flash_dq"] += ms
-        elif "flash_bwd_dkv" in low:
-            split["flash_dkv"] += ms
-        elif any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
-            split["gemm"] += ms
-        else:
-            split["rest"] += ms
+        bucket = next((b for b, keys in buckets if any(k in low for k in keys)), "rest")
+        split[bucket] += ms
     top = sorted(prof["device_ms_by_name"].items(), key=lambda kv: -kv[1])[:10]
     return {
         "wall_ms_per_step": prof["wall_ms"],
@@ -2276,6 +2307,7 @@ def step_profile(trainer, csrc: Path | None = None) -> dict:
         "device_idle_share": prof["device_idle_share"],
         "device_ms_per_step": split,
         "port_kernels_ms_per_step": _port_kernel_ms(prof["device_ms_by_name"], csrc=csrc),
+        "tf32_kernels": sorted(n[:80] for n in prof["device_ms_by_name"] if "tf32" in n.lower()),
         "top_device_ms_per_step": {name[:60]: ms for name, ms in top},
     }
 
@@ -4539,6 +4571,496 @@ def train_vits_p2_phase(small, gm, vb, attn, smi: str) -> dict:
     return record
 
 
+# ------------------------------------------- ResNet-18: no kernel of the port
+
+# ResNet-18, the entry point's default model, served with --amp: buckets
+# 1..32, 128 requests at concurrency 32.  Trained with --amp at batch 128,
+# one epoch over 792 synthetic training images (6 steps) and 88 validation
+# images (one batch); at the default precision (fp32, no --model, no --amp),
+# 396 training images (3 steps) and 44 validation images (one batch).
+SERVE_RESNET_ARGV = [
+    "--serve", "--model", "resnet18", "--amp",
+    "--serve-buckets", "1,2,4,8,16,32", "--serve-shape", "closed",
+    "--serve-requests", "128", "--serve-concurrency", "32", "--seed", "0",
+]
+TRAIN_RESNET_ARGV = [
+    "--model", "resnet18", "--amp", "--synthetic-data", "--batch-size", "128",
+    "--limit-examples", "880", "--epoch", "1", "--lr-decay-step-size", "1",
+]
+TRAIN_RESNET_FP32_ARGV = [
+    "--synthetic-data", "--batch-size", "128", "--limit-examples", "440", "--epoch", "1",
+    "--lr-decay-step-size", "1",
+]
+# one step of the deepest bottleneck net the remat check runs, at ImageNet
+# size: 36 training images, one batch of 32
+RESNET_REMAT_ARGV = [
+    "--model", "resnet50", "--stem", "imagenet", "--image-size", "224", "--amp", "--remat",
+    "--synthetic-data", "--batch-size", "32", "--limit-examples", "40", "--epoch", "1",
+]
+# The bf16 engine's bucket-32 logits against an fp32 engine on the same
+# seeded weights, as a share of the largest fp32 logit.  Fresh weights serve
+# with fresh running statistics (mean 0, var 1), so eval mode does not
+# normalize and the logits reach ~90; each of 20 convolutions rounds its
+# input and weight to bf16 (2^-9 relative): the port's CPU path reads 0.7%
+# of the largest, the H100 0.63%.  2^-5 of it; a planted fault, one
+# BatchNorm's running variance zeroed, reads ~180x the largest on the CPU
+# and on the H100.
+RESNET_SERVE_SHARE = 2**-5
+# One bf16 train step against an fp32 step on the same weights and batch.
+# BatchNorm's backward makes this net's gradients ill-conditioned on the
+# synthetic batches: the gradients of BatchNorm's scale and bias and of the
+# layers before them are sums over N*H*W that cancel, so that fp32's own
+# rounding moves them by 0.56% (median) to 0.93% from an fp64 step, and bf16
+# rounding by ~30%: on the CPU the port's bf16 step reads 29% median and 40%
+# at worst against its fp32 step, and the JAX package's own bf16 step 27%
+# and 34% against its fp32 one (batch 64).  Bounds: the loss within 2^-8
+# relative (reads 2^-12), every gradient within 2^-1 relative L2, the head's
+# (well conditioned: reads 0.7%) within 2^-5; the H100 reads 30% median, 38%
+# at worst and 0.67% at the head.  The planted fault, the fp32 step with one
+# BatchNorm (layer3.0.bn1) normalizing by its running statistics, reads
+# ~100% median and 9-10% at the head on the CPU and on the H100.
+RESNET_STEP_TOL = {"loss": 2**-8, "grads": 2**-1, "head": 2**-5}
+# The fp32 step on the card against the port's CPU path on the same weights
+# and batch: the eval-mode logits within 2^-14 of the largest (the CPU path
+# against fp64 reads 2^-20), the loss within 1e-5 relative, every gradient
+# within 2^-5 relative L2 (the fp32 rounding above, ~1% against fp64 on
+# either side).  A TF32 control (the same step with cuDNN's convolutions in
+# TF32, 2^-11 relative a product) must exceed the gradient bound.  Read on
+# the H100: logits 2^-19.6 of the largest, gradients 0.57% at worst, the
+# TF32 control 13%.
+RESNET_FP32_TOL = {"logits": 2**-14, "loss": 1e-5, "grads": 2**-5}
+# step_profile's split of a ResNet step: cuDNN's convolutions (and the
+# head's cuBLAS GEMM, ~0.1% of them), BatchNorm's kernels (the running
+# statistics' foreach lerp included), the optimizer's and the guard's
+# foreach kernels, and the rest (ReLU, the residual adds, casts and
+# reductions).
+RESNET_STEP_BUCKETS = (
+    # the profiler's span of the optimizer step, over its kernels: not busy time of its own
+    ("optimizer_span", ("optimizer.step#",)),
+    ("batch_norm", ("batch_norm", "lerp")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("conv", ("conv", "xmma", "implicit", "cudnn", "cutlass", "sm90_", "sm80_", "nchw", "nhwc",
+              "gemm", "nvjet")),
+)
+
+
+def resnet_forward_macs(model, image_size: int) -> int:
+    """Multiply-adds of one image's forward through ``model``'s
+    convolutions and head, from the output shapes of a batch-1 forward."""
+    import torch
+
+    macs = []
+
+    def conv_hook(m, inputs, out):
+        macs.append(out[0].numel() * m.weight[0].numel())
+
+    def head_hook(m, inputs, out):
+        macs.append(m.weight.numel())
+
+    hooks = [m.register_forward_hook(conv_hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    hooks.append(model.linear.register_forward_hook(head_hook))
+    was_training = model.training
+    try:
+        with torch.no_grad():
+            model.eval()(torch.zeros(1, image_size, image_size, 3, device=model.linear.weight.device))
+    finally:
+        model.train(was_training)
+        for h in hooks:
+            h.remove()
+    return sum(macs)
+
+
+def _running_stats(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def serve_resnet_phase(small, gm, vb, attn) -> dict:
+    """``SERVE_RESNET_ARGV`` served through the port's library entry points
+    (``build_engine`` warmed, then ``MicroBatcher`` and ``closed_loop`` as
+    ``serve_main`` composes them), every kernel counter of the port zeroed
+    after the warmup; then one dispatch of each bucket's size
+    (``bucket_dispatch``: host ms, busy ms, idle share), and the bucket-32
+    logits against an fp32 engine on the same weights within
+    ``RESNET_SERVE_SHARE`` of the largest, which a planted fault (one
+    BatchNorm's running variance zeroed) must exceed."""
+    import numpy as np
+    import torch
+
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.serve import (
+        MicroBatcher,
+        build_engine,
+        closed_loop,
+        request_pool,
+    )
+
+    hp = load_config(SERVE_RESNET_ARGV)
+    engine = build_engine(hp)
+    engine.warmup()
+    warm = dict(engine.bucket_counts)
+    images = request_pool(max(256, engine.max_bucket), image_size=engine.image_size,
+                          seed=hp.seed, fold=("serve", 0))
+    counters = _small_path_counters(small, gm, vb, attn)
+    for c in counters.values():
+        c.launches = 0
+    batcher = MicroBatcher(engine, mode=hp.serve_mode, max_wait_ms=hp.max_wait_ms,
+                           queue_limit=hp.queue_limit)
+    try:
+        report = closed_loop(batcher, images, num_requests=hp.serve_requests,
+                             concurrency=hp.serve_concurrency, deadline_ms=hp.deadline_ms or None)
+    finally:
+        batcher.close()
+    launches = {name: c.launches for name, c in counters.items()}
+    served = {b: engine.bucket_counts[b] - warm[b] for b in engine.buckets}
+    dispatch = bucket_dispatch(engine, hp, buckets=engine.buckets)
+    batch = request_pool(32, image_size=hp.image_size, seed=hp.seed, fold=("check", 0))
+    got = engine.predict_logits(batch)
+    fp32 = build_engine(load_config([a for a in SERVE_RESNET_ARGV if a != "--amp"]))
+    want = fp32.predict_logits(batch)
+    with torch.no_grad():
+        engine.model.layer2[1].bn1.running_var.zero_()
+    fault = engine.predict_logits(batch)
+    scale = float(np.abs(want).max())
+    summary = batcher.metrics.summary()
+    return {
+        "phase": "serve_resnet",
+        "argv": SERVE_RESNET_ARGV,
+        "offered": report["offered"],
+        "completed": report["completed"],
+        "failed": report["failed"],
+        "shed": report["shed"],
+        "throughput_rps": report["throughput_rps"],
+        "p50_ms": report["latency_ms"]["p50"],
+        "p99_ms": report["latency_ms"]["p99"],
+        "duration_s": report["duration_s"],
+        "mean_batch_size": summary["mean_batch_size"],
+        "mean_service_ms": summary["mean_service_ms"],
+        "served_batches_by_bucket": served,
+        "launches": launches,
+        "bucket_dispatch": dispatch,
+        "bucket32_busy_ms": dispatch["32"]["device_busy_ms"],
+        "bucket32_idle_share": dispatch["32"]["device_idle_share"],
+        "logits_finite": bool(np.isfinite(got).all()),
+        "logits_max_abs_err_vs_fp32": float(np.abs(got - want).max()),
+        "logits_scale": scale,
+        "logits_tol": RESNET_SERVE_SHARE * scale,
+        "logits_tol_share": RESNET_SERVE_SHARE,
+        "fault_logits_max_abs_err_vs_fp32": float(np.abs(fault - want).max()),
+    }
+
+
+def check_serve_resnet(serve: dict) -> None:
+    if serve["completed"] != serve["offered"] or serve["failed"]:
+        raise RuntimeError(f"serve_resnet lost requests: {serve}")
+    if any(serve["launches"].values()):
+        raise RuntimeError(f"serve_resnet launched kernels of the port: {serve['launches']}")
+    if sorted(serve["bucket_dispatch"]) != sorted(str(b) for b in (1, 2, 4, 8, 16, 32)):
+        raise RuntimeError(f"serve_resnet dispatched the buckets {sorted(serve['bucket_dispatch'])}")
+    if not serve["logits_finite"] or serve["logits_max_abs_err_vs_fp32"] > serve["logits_tol"]:
+        raise RuntimeError(f"serve_resnet's bf16 logits disagree with fp32's: {serve}")
+    if not serve["fault_logits_max_abs_err_vs_fp32"] > serve["logits_tol"]:
+        raise RuntimeError(f"serve_resnet's bound passes a planted fault: {serve}")
+
+
+def resnet_step_grads(hp, state: dict, images, labels, *, device: str, eval_bn: str | None = None):
+    """One forward and backward of ``hp``'s model on ``state``, ``images``
+    and ``labels`` (moved to ``device``) in train mode, with the BatchNorm
+    ``eval_bn`` normalizing by its running statistics where given (a
+    planted fault): the loss and every parameter's gradient, on the CPU."""
+    from distributed_training_comparison_tpu_torch.train import build_model, forward_backward
+    from distributed_training_comparison_tpu_torch.train.step import COMPUTE_DTYPES
+
+    model = build_model(hp)
+    model.load_state_dict(state)
+    model = model.to(device).train()
+    if eval_bn is not None:
+        model.get_submodule(eval_bn).eval()
+    loss, _, _ = forward_backward(model, images.to(device), labels.to(device),
+                                  compute_dtype=COMPUTE_DTYPES[hp.precision])
+    return loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def resnet_step_times(trainer, bound_ms: float, reps: int = 5) -> dict:
+    """ms per train step (CUDA events over ``reps`` steps of the trainer's
+    first batch after a warm one), its share of ``bound_ms``, and
+    ``step_profile``'s split into convolutions, BatchNorm, the optimizer and
+    the rest."""
+    from distributed_training_comparison_tpu_torch.data import draw_crop_flip
+    from distributed_training_comparison_tpu_torch.utils import step_generator
+
+    hp = trainer.hparams
+    images, labels = next(trainer.train_split.epoch_batches(hp.batch_size, hp.seed, 0))
+    draws = draw_crop_flip(len(labels), step_generator(hp.seed, 0, 0))
+    ms = cuda_ms(lambda: trainer.step(images, labels, draws), reps, warmup=1)
+    profile = step_profile(trainer, buckets=RESNET_STEP_BUCKETS)
+    busy = profile["device_busy_ms_per_step"]
+    return {
+        "ms_per_step": ms,
+        "images_per_s_timed": hp.batch_size / ms * 1e3,
+        "bound_ms": bound_ms,
+        "bound_share_of_step": bound_ms / ms,
+        "bound_share_of_busy": bound_ms / busy,
+        "busy_share": {k: v / busy for k, v in profile["device_ms_per_step"].items()
+                       if k != "optimizer_span"},
+        "step_profile": profile,
+    }
+
+
+def _resnet_fit(argv: list, counters: dict) -> dict:
+    """``argv`` trained through ``entry.run``, the counters zeroed just
+    before and read just after: the run's record."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch import entry
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.data import get_datasets
+
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = entry.run(argv)
+    seconds = time.perf_counter() - t0
+    hp = load_config(argv)
+    epochs = report["fit"]["epochs"]
+    return {
+        "argv": argv,
+        "model": hp.model,
+        "precision": hp.precision,
+        "batch": hp.batch_size,
+        "run_seconds": seconds,
+        "train_steps": sum(e["steps"] for e in epochs),
+        "eval_batches": len(epochs) * math.ceil(len(get_datasets(hp)[1][1]) / hp.batch_size),
+        "launches": {name: c.launches for name, c in counters.items()},
+        "losses_finite": all(e["nonfinite_losses"] == 0 for e in epochs),
+        "skipped_steps": sum(e["skipped"] for e in epochs),
+        "epochs": epochs,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+def resnet_remat_check() -> dict:
+    """One step of ``RESNET_REMAT_ARGV`` (ResNet-50, imagenet stem, 224 px,
+    bf16, batch 32) with ``--remat`` and without, on the same seeded weights
+    and batch: the loss finite, and the running statistics the same (the
+    recompute does not advance them a second time); the peak memory of each
+    step."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.data import draw_crop_flip
+    from distributed_training_comparison_tpu_torch.train import Trainer
+    from distributed_training_comparison_tpu_torch.utils import step_generator
+
+    out = {}
+    for name, argv in (("remat", RESNET_REMAT_ARGV),
+                       ("plain", [a for a in RESNET_REMAT_ARGV if a != "--remat"])):
+        hp = load_config(argv)
+        trainer = Trainer(hp)
+        images, labels = next(trainer.train_split.epoch_batches(hp.batch_size, hp.seed, 0))
+        draws = draw_crop_flip(len(labels), step_generator(hp.seed, 0, 0))
+        before = _running_stats(trainer.model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m = trainer.step(images, labels, draws)
+        after = _running_stats(trainer.model)
+        out[name] = {"loss": m["loss"].item(), "skipped": m["skipped"].item(), "stats": after,
+                     "moved": max((after[k] - before[k]).abs().max().item() for k in after),
+                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "remat": trainer.model.remat}
+        del trainer
+        torch.cuda.empty_cache()
+    remat, plain = out["remat"], out["plain"]
+    scale = max(v.abs().max().item() for v in plain["stats"].values())
+    diff = max((remat["stats"][k] - v).abs().max().item() for k, v in plain["stats"].items())
+    return {
+        "argv": RESNET_REMAT_ARGV,
+        "loss_remat": remat["loss"], "loss_plain": plain["loss"],
+        "skipped": remat["skipped"] + plain["skipped"],
+        "remat_set": remat["remat"] and not plain["remat"],
+        "stats_moved": plain["moved"],
+        "stats_max_abs_diff": diff, "stats_scale": scale,
+        "stats_tol": 2**-20 * scale,
+        "stats_bit_identical": diff == 0.0,
+        "peak_memory_gb_remat": remat["peak_memory_gb"],
+        "peak_memory_gb_plain": plain["peak_memory_gb"],
+    }
+
+
+def train_resnet_phase(small, gm, vb, attn, smi: str) -> dict:
+    """``TRAIN_RESNET_ARGV`` (ResNet-18, bf16, batch 128) trained through
+    ``entry.run`` (``_resnet_fit``: no kernel of the port launches); one
+    step against an fp32 step on the same weights and batch
+    (``RESNET_STEP_TOL``, with its planted fault); a trainer of the same
+    command timed (``resnet_step_times`` against the operation bound at
+    the bf16 peak), its running statistics moved by those steps, and its
+    eval-mode logits against its train-mode ones on one batch; then the
+    remat check (``resnet_remat_check``)."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.data import normalize_images
+    from distributed_training_comparison_tpu_torch.train import Trainer, build_model
+
+    record = {"phase": "train_resnet", "nvidia_smi": smi,
+              **_resnet_fit(TRAIN_RESNET_ARGV, _small_path_counters(small, gm, vb, attn))}
+    hp = load_config(TRAIN_RESNET_ARGV)
+    hp32 = load_config([a for a in TRAIN_RESNET_ARGV if a != "--amp"])
+    state = build_model(hp32).state_dict()
+    images, labels = _first_batch(hp)
+    runs = {name: resnet_step_grads(h, state, images, labels, device="cuda", eval_bn=bn)
+            for name, h, bn in (("bf16", hp, None), ("fp32", hp32, None),
+                                ("fault", hp32, "layer3.0.bn1"))}
+    want_loss, want = runs["fp32"]
+    check = {"tol": RESNET_STEP_TOL}
+    for name in ("bf16", "fault"):
+        loss, grads = runs[name]
+        errors = grad_errors(grads, want)
+        check[name] = {
+            "loss": loss, "loss_rel_err": abs(loss - want_loss) / abs(want_loss),
+            "grad_rel_l2_max": max(errors.values()),
+            "grad_rel_l2_median": sorted(errors.values())[len(errors) // 2],
+            "grad_rel_l2_worst": _worst(errors), "head_rel_l2": errors["linear.weight"],
+            "grads_finite": all(bool(torch.isfinite(g).all()) for g in grads.values()),
+        }
+    check["loss_fp32"] = want_loss
+    record["step_check"] = check
+
+    trainer = Trainer(hp)
+    macs = resnet_forward_macs(trainer.model, hp.image_size)
+    flops = 6 * macs * hp.batch_size  # forward, and twice its products backward
+    record.update({"forward_macs_per_image": macs, "step_flops": flops})
+    before = _running_stats(trainer.model)
+    record["step_times"] = resnet_step_times(trainer, flops / PEAK_FLOPS["bfloat16"] * 1e3)
+    after = _running_stats(trainer.model)
+    record["running_stats_max_move"] = max((after[k] - before[k]).abs().max().item() for k in after)
+    x = normalize_images(images, dtype=torch.bfloat16)
+    with torch.no_grad():
+        eval_logits = trainer.model.eval()(x)
+        train_logits = trainer.model.train()(x)
+    record["eval_vs_train_logits_max_abs_diff"] = (eval_logits - train_logits).abs().max().item()
+    del trainer
+    torch.cuda.empty_cache()
+    record["remat"] = resnet_remat_check()
+    return record
+
+
+def check_train_resnet(run: dict) -> None:
+    if (run["model"], run["precision"], run["batch"]) != ("resnet18", "bf16", 128):
+        raise RuntimeError(f"train_resnet ran {run['model']} {run['precision']} at batch {run['batch']}")
+    if (run["train_steps"], run["eval_batches"]) != (6, 1):
+        raise RuntimeError(f"train_resnet ran {run['train_steps']} steps and {run['eval_batches']} eval batches")
+    if any(run["launches"].values()):
+        raise RuntimeError(f"train_resnet launched kernels of the port: {run['launches']}")
+    if not run["losses_finite"] or run["skipped_steps"]:
+        raise RuntimeError("train_resnet: a non-finite loss or a skipped step")
+    if not run["running_stats_max_move"] > 0 or not run["eval_vs_train_logits_max_abs_diff"] > 0:
+        raise RuntimeError(f"train_resnet: the running statistics did not move or eval ignored them: {run}")
+    check, tol = run["step_check"], RESNET_STEP_TOL
+    bf16, fault = check["bf16"], check["fault"]
+    if not (bf16["grads_finite"] and bf16["loss_rel_err"] <= tol["loss"]
+            and bf16["grad_rel_l2_max"] <= tol["grads"] and bf16["head_rel_l2"] <= tol["head"]):
+        raise RuntimeError(f"train_resnet's bf16 step disagrees with fp32's: {check}")
+    if not (fault["grad_rel_l2_median"] > tol["grads"] and fault["head_rel_l2"] > tol["head"]):
+        raise RuntimeError(f"train_resnet's bounds pass a planted fault: {check}")
+    remat = run["remat"]
+    if not (remat["remat_set"] and remat["skipped"] == 0 and math.isfinite(remat["loss_remat"])
+            and remat["stats_moved"] > 0 and remat["stats_max_abs_diff"] <= remat["stats_tol"]):
+        raise RuntimeError(f"train_resnet's remat step: {remat}")
+
+
+def train_resnet_fp32_phase(small, gm, vb, attn, smi: str) -> dict:
+    """The entry point's default, ResNet-18 at the default precision (fp32:
+    no ``--model``, no ``--amp``), trained through ``entry.run`` with cuDNN
+    set to run fp32 convolutions as TF32 first: the entry path pins them to
+    fp32, the settings read back ``ieee``, and no profiled kernel's name
+    holds ``tf32``.  Its first-batch logits (eval mode) and one step's loss
+    and gradients against the port's CPU path on the same weights and batch
+    (``RESNET_FP32_TOL``; a TF32 control exceeds the gradient bound); ms per
+    step against the operation bound at the fp32 peak."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch import _device
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.data import normalize_images
+    from distributed_training_comparison_tpu_torch.train import Trainer, build_model
+
+    knobs = _device.fp32_precision_knobs().values()
+    for knob in knobs:
+        knob.fp32_precision = "tf32"
+    settings_before = _device.fp32_math_settings()
+    record = {"phase": "train_resnet_fp32", "nvidia_smi": smi,
+              **_resnet_fit(TRAIN_RESNET_FP32_ARGV, _small_path_counters(small, gm, vb, attn)),
+              "fp32_math_before": settings_before,
+              "fp32_math_after": _device.fp32_math_settings()}
+    hp = load_config(TRAIN_RESNET_FP32_ARGV)
+    trainer = Trainer(hp)
+    macs = resnet_forward_macs(trainer.model, hp.image_size)
+    flops = 6 * macs * hp.batch_size
+    record.update({"forward_macs_per_image": macs, "step_flops": flops})
+    record["step_times"] = resnet_step_times(trainer, flops / PEAK_FLOPS["float32"] * 1e3, reps=3)
+    del trainer
+    torch.cuda.empty_cache()
+
+    state = build_model(hp).state_dict()
+    images, labels = _first_batch(hp)
+    logits = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(hp)
+        model.load_state_dict(state)
+        with torch.no_grad():
+            logits[device] = model.to(device).eval()(
+                normalize_images(images.to(device), dtype=torch.float32)).cpu()
+    runs = {device: resnet_step_grads(hp, state, images, labels, device=device)
+            for device in ("cuda", "cpu")}
+    for knob in knobs:
+        knob.fp32_precision = "tf32"
+    try:
+        runs["tf32"] = resnet_step_grads(hp, state, images, labels, device="cuda")
+    finally:
+        _device.pin_fp32_math()
+    want_loss, want = runs["cpu"]
+    scale = logits["cpu"].abs().max().item()
+    check = {"tol": RESNET_FP32_TOL,
+             "logits_max_abs_err": (logits["cuda"] - logits["cpu"]).abs().max().item(),
+             "logits_scale": scale, "logits_tol": RESNET_FP32_TOL["logits"] * scale,
+             "loss_cpu": want_loss}
+    for name in ("cuda", "tf32"):
+        loss, grads = runs[name]
+        errors = grad_errors(grads, want)
+        check[name] = {"loss": loss, "loss_rel_err": abs(loss - want_loss) / abs(want_loss),
+                       "grad_rel_l2_max": max(errors.values()),
+                       "grad_rel_l2_median": sorted(errors.values())[len(errors) // 2],
+                       "grad_rel_l2_worst": _worst(errors)}
+    record["cpu_check"] = check
+    return record
+
+
+def check_train_resnet_fp32(run: dict) -> None:
+    if (run["model"], run["precision"], run["batch"]) != ("resnet18", "fp32", 128):
+        raise RuntimeError(f"train_resnet_fp32 ran {run['model']} {run['precision']} at batch {run['batch']}")
+    if (run["train_steps"], run["eval_batches"]) != (3, 1):
+        raise RuntimeError(f"train_resnet_fp32 ran {run['train_steps']} steps and {run['eval_batches']} eval batches")
+    if any(run["launches"].values()):
+        raise RuntimeError(f"train_resnet_fp32 launched kernels of the port: {run['launches']}")
+    if not run["losses_finite"] or run["skipped_steps"]:
+        raise RuntimeError("train_resnet_fp32: a non-finite loss or a skipped step")
+    if "tf32" not in run["fp32_math_before"].values() or set(run["fp32_math_after"].values()) != {"ieee"}:
+        raise RuntimeError(f"train_resnet_fp32: the entry path left fp32 math at {run['fp32_math_after']} "
+                           f"(set to {run['fp32_math_before']} before it)")
+    if run["step_times"]["step_profile"]["tf32_kernels"]:
+        raise RuntimeError(f"train_resnet_fp32 ran TF32 kernels: {run['step_times']['step_profile']['tf32_kernels']}")
+    check, tol = run["cpu_check"], RESNET_FP32_TOL
+    card, tf32 = check["cuda"], check["tf32"]
+    if not (check["logits_max_abs_err"] <= check["logits_tol"] and card["loss_rel_err"] <= tol["loss"]
+            and card["grad_rel_l2_max"] <= tol["grads"]):
+        raise RuntimeError(f"train_resnet_fp32's step on the card disagrees with the CPU path: {check}")
+    if not tf32["grad_rel_l2_max"] > tol["grads"]:
+        raise RuntimeError(f"train_resnet_fp32's gradient bound passes the TF32 control: {check}")
+
+
 def main() -> int:
     if not (ROOT / PKG).is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
@@ -4551,9 +5073,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from distributed_training_comparison_tpu_torch._device import pin_fp32_math
+
     # the plain versions and the fp32 kernel are held in true fp32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_fp32_math()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4777,6 +5300,18 @@ def main() -> int:
     train_p2 = train_vits_p2_phase(small, gm, vb, attn, smi)
     emit(train_p2)
     check_train_pinned(train_p2, SMALL_TILED_KERNELS, shape=("bf16", 128, 6, 1))
+
+    serve_resnet = serve_resnet_phase(small, gm, vb, attn)
+    emit(serve_resnet)
+    check_serve_resnet(serve_resnet)
+
+    train_resnet = train_resnet_phase(small, gm, vb, attn, smi)
+    emit(train_resnet)
+    check_train_resnet(train_resnet)
+
+    train_resnet_fp32 = train_resnet_fp32_phase(small, gm, vb, attn, smi)
+    emit(train_resnet_fp32)
+    check_train_resnet_fp32(train_resnet_fp32)
 
     csrc = f"{PKG}/ops/csrc"
     replaces = {
@@ -5266,8 +5801,13 @@ def turn(checkout: Path, label: str) -> int:
 
     checkout = checkout.resolve()
     sys.path.insert(0, str(checkout))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    try:
+        from distributed_training_comparison_tpu_torch._device import pin_fp32_math
+    except ImportError:  # a checkout from before the port pinned fp32 math itself
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        pin_fp32_math()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

@@ -63,7 +63,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", type=str, default=None, choices=["fp32", "bf16"],
                    help="Compute precision; overrides --amp when set")
     p.add_argument("--model", type=str, default="resnet18", choices=list(MODELS),
-                   help="Model zoo entry (the port runs the vit_* models)")
+                   help="Model zoo entry")
+    p.add_argument("--bn-dtype", type=str, default="fp32", choices=["fp32", "compute"],
+                   help="Dtype of the norms' output. 'fp32' (default) keeps BatchNorm's "
+                   "output, and with it the ResNet's residual stream, in fp32 under the "
+                   "bf16 policy; 'compute' casts it to the activation dtype. The "
+                   "statistics reduce in fp32 either way, as the JAX package's norm "
+                   "policy forces")
+    p.add_argument("--remat", action="store_true", default=False,
+                   help="Rematerialize residual blocks on backward "
+                   "(torch.utils.checkpoint): ~1/3 extra FLOPs for a large cut in peak "
+                   "activation memory; BatchNorm's running statistics advance once")
+    p.add_argument("--stem", type=str, default="cifar", choices=["cifar", "imagenet"],
+                   help="Model stem: 'cifar' = 3x3/1 conv, no maxpool (reference "
+                   "parity); 'imagenet' = 7x7/2 conv + 3x3/2 maxpool for large images")
     p.add_argument("--image-size", type=int, default=32,
                    help="Image edge length (synthetic data and requests; vit_long: 256)")
     p.add_argument("--patch-size", type=int, default=0,

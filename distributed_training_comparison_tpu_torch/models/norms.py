@@ -1,10 +1,21 @@
-"""The LayerNorm dtype policy (``distributed_training_comparison_tpu/models/norms.py``).
+"""The zoo's norm layers under the normalization-dtype policy
+(``distributed_training_comparison_tpu/models/norms.py``).
 
-Statistics reduce in ``norm_dtype`` (fp32 by default, under any compute
-dtype) and the result is cast to the compute dtype; ``norm_dtype=None``
-runs the norm on compute-dtype tensors instead (torch's kernel still
-accumulates bf16 statistics in fp32).  eps is flax's default, 1e-6, not
-torch's 1e-5.
+Whenever ``norm_dtype`` is set (fp32 by default, the compute dtype under
+``--bn-dtype compute``) the statistics reduce in fp32 and the affine runs
+in fp32 on fp32 parameters, as flax's forced fp32 reductions do;
+``norm_dtype=None`` runs the norm on compute-dtype tensors instead (torch's
+kernels still accumulate bf16 statistics in fp32).
+
+- ``LayerNorm``: eps is flax's default, 1e-6, not torch's 1e-5; the result
+  is cast to the compute dtype (it feeds only dense layers, which cast
+  their input to it).
+- ``BatchNorm2d``: flax ``nn.BatchNorm`` as the ResNets configure it
+  (``models/resnet.py``: decay 0.9, eps 1e-5), on NCHW tensors.  The batch
+  statistics reduce over N, H and W, and the *biased* batch variance both
+  normalizes and enters the running statistic (``torch.nn.BatchNorm2d``
+  keeps the unbiased one).  The output is in ``norm_dtype`` (fp32 by
+  default, so the ResNet's residual stream stays fp32 under bf16 compute).
 """
 
 from __future__ import annotations
@@ -14,6 +25,14 @@ import torch.nn.functional as F
 from torch import nn
 
 LN_EPS = 1e-6
+# torch BatchNorm2d's eps and running-statistic update factor (flax's
+# ``momentum`` is the decay of the running statistic: 0.9)
+BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
+
+
+def _work_dtype(norm_dtype: torch.dtype | None, dtype: torch.dtype) -> torch.dtype:
+    return torch.float32 if norm_dtype is not None else dtype
 
 
 class LayerNorm(nn.Module):
@@ -33,9 +52,61 @@ class LayerNorm(nn.Module):
         self.norm_dtype = norm_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        work = self.norm_dtype if self.norm_dtype is not None else self.dtype
+        work = _work_dtype(self.norm_dtype, self.dtype)
         y = F.layer_norm(
             x.to(work), self.weight.shape,
             self.weight.to(work), self.bias.to(work), eps=LN_EPS,
         )
         return y.to(self.dtype)
+
+
+class BatchNorm2d(nn.Module):
+    """flax ``nn.BatchNorm`` under the zoo's ``norm_policy``, with the torch
+    names: parameters ``weight`` (flax ``scale``) and ``bias``, buffers
+    ``running_mean`` and ``running_var`` (flax ``batch_stats`` ``mean`` and
+    ``var``), all fp32.  ``num_batches_tracked`` is kept so that a torch
+    reference ``state_dict`` loads strictly; flax has no such counter, so it
+    is never advanced or read.
+
+    In train mode the batch statistics normalize and the running ones
+    advance by ``BN_MOMENTUM``, unless ``recomputing`` is set (a
+    rematerialized forward, ``models/remat.py``); in eval mode the running
+    statistics normalize and stay as they are.
+    """
+
+    def __init__(
+        self,
+        features: int,
+        dtype: torch.dtype = torch.float32,
+        norm_dtype: torch.dtype | None = torch.float32,
+    ) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        self.dtype = dtype
+        self.norm_dtype = norm_dtype
+        self.recomputing = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(_work_dtype(self.norm_dtype, self.dtype))
+        if not self.training:
+            y = F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight, self.bias,
+                training=False, eps=BN_EPS,
+            )
+        else:
+            # the batch's mean and inverse std come back with the output:
+            # the biased variance is invstd^-2 - eps, with no second pass
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, BN_EPS
+            )
+            if not self.recomputing:
+                with torch.no_grad():
+                    var = invstd.pow(-2).sub_(BN_EPS)
+                    torch._foreach_lerp_(
+                        [self.running_mean, self.running_var], [mean, var], BN_MOMENTUM
+                    )
+        return y.to(self.norm_dtype if self.norm_dtype is not None else self.dtype)

@@ -43,6 +43,7 @@ from ..ops.vit_block import fused_vit_block
 from ..ops.vmem import fits_weight_budget, fused_block_weight_bytes
 from .moe import SwitchFFN
 from .norms import LayerNorm
+from .remat import remat_block
 
 BLOCK_FUSIONS = ("auto", "force", "off")
 
@@ -198,6 +199,9 @@ class ViT(nn.Module):
     """Patch embed → ``depth`` blocks → LN → mean pool → linear head.
 
     Input: normalized images (B, H, W, 3), NHWC like the JAX package.
+    ``remat`` rematerializes each block on the backward pass
+    (``models/remat.py``); ``stem`` is accepted and ignored, as in the JAX
+    package (the patch embed is the stem).
     """
 
     def __init__(
@@ -216,6 +220,8 @@ class ViT(nn.Module):
         num_experts: int = 0,
         capacity_factor: float = 1.25,
         moe_dispatch: str = "auto",
+        remat: bool = False,
+        stem: str = "cifar",
     ) -> None:
         super().__init__()
         if dim % heads:
@@ -230,6 +236,7 @@ class ViT(nn.Module):
         self.image_size = image_size
         self.num_classes = num_classes
         self.dtype = dtype
+        self.remat = remat
         self.patch_embed = nn.Conv2d(3, dim, patch, stride=patch)
         tokens = (image_size // patch) ** 2
         self.pos_emb = nn.Parameter(torch.zeros(1, tokens, dim))
@@ -278,7 +285,7 @@ class ViT(nn.Module):
 
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x)
+            x = remat_block(blk, x) if self.remat else blk(x)
         return x
 
     def head_out(self, x: torch.Tensor) -> torch.Tensor:

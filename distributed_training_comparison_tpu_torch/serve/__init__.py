@@ -51,14 +51,16 @@ log = logging.getLogger(__name__)
 def build_engine(hparams, attn_impl: str = "auto") -> ServeEngine:
     """A ``ServeEngine`` from a parsed flag namespace (``config.py``), with
     the JAX package's flag→model mapping: dtype from ``--precision`` /
-    ``--amp``, ViT image and patch sizing, the MoE dispatch, the
-    block-fusion policy.  Weights
-    are a fresh initialization seeded by ``--seed`` (no checkpoint reading
-    yet).  ``attn_impl`` pins the attention implementation, for holding the
+    ``--amp``, ``--stem`` for every model, and for a ViT the image and
+    patch sizing, the MoE dispatch and the block-fusion policy (the norms
+    keep their fp32 default, as the JAX engine builds them).  Weights are a
+    fresh initialization seeded by ``--seed`` (no checkpoint reading yet).
+    ``attn_impl`` pins a ViT's attention implementation, for holding the
     kernel path against the reference."""
     compute = "bf16" if hparams.precision == "bf16" else "fp32"
-    model_kw: dict = {"attn_impl": attn_impl}
+    model_kw: dict = {"stem": hparams.stem}
     if hparams.model.startswith("vit"):
+        model_kw["attn_impl"] = attn_impl
         model_kw["image_size"] = hparams.image_size
         if hparams.patch_size:
             model_kw["patch"] = hparams.patch_size

@@ -13,8 +13,10 @@ dtype; logits come back fp32.
 
 There is no mesh and no executable cache: PyTorch runs eagerly, and one
 CUDA graph per bucket is a later change.  Weights are a seeded fresh
-initialization or a ``state_dict`` (for example ``models.vit_from_jax`` of
-a JAX parameter tree); reading the JAX package's checkpoints comes later.
+initialization or a ``state_dict`` (for example ``models.vit_from_jax`` or
+``models.resnet_from_jax`` of a JAX variable tree); reading the JAX
+package's checkpoints comes later.  The model serves in eval mode: a
+BatchNorm normalizes with its running statistics.
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ model's load-balance loss → numerics guard → SGD update, with
 among the step's metrics.  PyTorch runs it eagerly
 and launches each kernel from the host; the JAX package's one compiled
 program per epoch would be a CUDA graph here, in a later change.
-``eval_totals`` is the exact eval over padded batches (``_make_eval_core``).
+``eval_totals`` is the exact eval over padded batches (``_make_eval_core``),
+in eval mode: a BatchNorm normalizes with its running statistics there.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 
 from ..data.augment import normalize_images, random_crop_flip
 from ..health.guards import global_norm, step_finite
+from ..models.norms import BatchNorm2d
 from ..utils.metrics import topk_hits
 from .optim import Schedule
 
@@ -55,7 +57,8 @@ def forward_backward(
     ``grad_accum > 1`` splits the batch into that many sequential
     micro-batches, sums their gradients and divides by their number, and
     averages their losses and routing health, as the JAX package's scan
-    does.  Returns ``(loss, top1_count, moe health)`` as device scalars
+    does; a BatchNorm in train mode advances its running statistics once a
+    micro-batch, in order, as the scan carries them.  Returns ``(loss, top1_count, moe health)`` as device scalars
     (the health empty for a dense model)."""
     model.zero_grad(set_to_none=True)
     b = images.shape[0]
@@ -90,7 +93,9 @@ class TrainStep:
 
     ``applied`` counts the updates applied: the schedule's step count.  A
     step whose loss or gradient norm is not finite applies nothing, so the
-    parameters, the momentum buffers and ``applied`` keep their old values.
+    parameters, the momentum buffers, BatchNorm's running statistics and
+    ``applied`` keep their old values.  The step runs the model in train
+    mode.
     """
 
     def __init__(
@@ -110,6 +115,8 @@ class TrainStep:
         self.augment = augment
         self.grad_accum = grad_accum
         self.applied = 0
+        # the forward advances these; a skipped step puts them back
+        self._norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
 
     def __call__(self, images, labels, draws=None) -> dict[str, torch.Tensor]:
         """``images`` uint8 NHWC and ``labels`` on the model's device;
@@ -119,6 +126,10 @@ class TrainStep:
         MoE model ``moe_dropped_frac`` and ``moe_load_max``."""
         if self.augment:
             images = random_crop_flip(images, *draws)
+        if not self.model.training:
+            self.model.train()
+        running = [b for m in self._norms for b in (m.running_mean, m.running_var)]
+        saved = torch.cat(running) if running else None  # one copy, before any micro-batch
         loss, top1, extras = forward_backward(
             self.model, images, labels, compute_dtype=self.compute_dtype,
             grad_accum=self.grad_accum,
@@ -134,6 +145,9 @@ class TrainStep:
                 group["lr"] = self.schedule(self.applied)
             self.optimizer.step()
             self.applied += 1
+        elif saved is not None:
+            for b, old in zip(running, saved.split([b.numel() for b in running])):
+                b.copy_(old)
         return {
             "loss": loss,
             "top1_count": top1,
@@ -153,19 +167,25 @@ def eval_totals(
 ) -> dict[str, float]:
     """Sums over ``(images, labels, weights)`` batches of the weighted
     cross-entropy and top-1/top-5 hits, and the weight total: every real
-    example counted once, padding at weight 0.  One host fetch at the end."""
+    example counted once, padding at weight 0.  One host fetch at the end.
+    The model runs in eval mode and is given back in the mode it came in."""
     dtype = COMPUTE_DTYPES[precision]
+    was_training = model.training
+    model.eval()
     totals = None
-    for images, labels, weights in batches:
-        logits = model(normalize_images(images, dtype=dtype)).float()
-        top1, top5 = topk_hits(logits, labels)
-        batch = torch.stack([
-            (F.cross_entropy(logits, labels, reduction="none") * weights).sum(),
-            (top1 * weights).sum(),
-            (top5 * weights).sum(),
-            weights.sum(),
-        ])
-        totals = batch if totals is None else totals + batch
+    try:
+        for images, labels, weights in batches:
+            logits = model(normalize_images(images, dtype=dtype)).float()
+            top1, top5 = topk_hits(logits, labels)
+            batch = torch.stack([
+                (F.cross_entropy(logits, labels, reduction="none") * weights).sum(),
+                (top1 * weights).sum(),
+                (top5 * weights).sum(),
+                weights.sum(),
+            ])
+            totals = batch if totals is None else totals + batch
+    finally:
+        model.train(was_training)
     if totals is None:
         raise ValueError("eval over an empty split")
     loss_sum, top1_count, top5_count, count = totals.tolist()

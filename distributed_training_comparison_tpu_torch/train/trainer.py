@@ -1,9 +1,9 @@
 """The trainer (``distributed_training_comparison_tpu/train/trainer.py``).
 
-``Trainer`` builds the model with the JAX package's ViT ``model_kw``
-(compute dtype from ``--precision``/``--amp``, LayerNorm in fp32, image and
-patch size, the MoE dispatch, the block-fusion policy), the three splits
-held on the device,
+``Trainer`` builds the model with the JAX package's ``model_kw`` (compute
+dtype from ``--precision``/``--amp``, the norms' dtype from ``--bn-dtype``,
+``--stem``, ``--remat``, and for a ViT the image and patch size, the MoE
+dispatch and the block-fusion policy), the three splits held on the device,
 the SGD and its schedule, and runs the epoch loop of ``Trainer.fit``: train
 steps, the per-epoch mean of the finite losses, the ``--eval-step`` loss
 lines and the per-epoch validation.  ``test`` evaluates the final
@@ -40,7 +40,13 @@ def build_model(hparams, attn_impl: str = "auto") -> torch.nn.Module:
     """The zoo model of ``--model`` with fresh weights seeded by ``--seed``,
     on the CPU; ``attn_impl`` pins the attention implementation."""
     init_generator = fix_seed(hparams.seed)
-    model_kw: dict = {"dtype": COMPUTE_DTYPES[hparams.precision], "norm_dtype": torch.float32}
+    compute = COMPUTE_DTYPES[hparams.precision]
+    model_kw: dict = {
+        "dtype": compute,
+        "norm_dtype": compute if hparams.bn_dtype == "compute" else torch.float32,
+        "stem": hparams.stem,
+        "remat": hparams.remat,
+    }
     if hparams.model.startswith("vit"):
         model_kw["image_size"] = hparams.image_size
         if hparams.patch_size:

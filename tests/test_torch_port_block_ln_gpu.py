@@ -22,6 +22,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from distributed_training_comparison_tpu_torch._device import pin_fp32_math
+
 vb = importlib.import_module("distributed_training_comparison_tpu_torch.ops.vit_block")
 
 WIDTHS = (16, 128, 192, 1024)
@@ -34,8 +36,7 @@ _CU = (Path(vb.__file__).parent / "csrc" / "vit_block_bwd.cu").read_text()
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_fp32_math()
     return torch.device("cuda")
 
 

@@ -19,6 +19,8 @@ import re
 import pytest
 import torch
 
+from distributed_training_comparison_tpu_torch._device import pin_fp32_math
+
 port = importlib.import_module("distributed_training_comparison_tpu_torch.ops.attention")
 vit = importlib.import_module("distributed_training_comparison_tpu_torch.models.vit")
 vb = importlib.import_module("distributed_training_comparison_tpu_torch.ops.vit_block")
@@ -31,8 +33,7 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     # the plain versions are held in true fp32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_fp32_math()
     return torch.device("cuda")
 
 

@@ -165,7 +165,8 @@ def test_port_imports_no_jax():
         "bad = {'jax', 'jaxlib', 'flax', 'optax', 'distributed_training_comparison_tpu'}\n"
         "found = sorted({n.split('.')[0] for n in sys.modules} & bad)\n"
         "n = sum(n.startswith(pkg.__name__) for n in sys.modules)\n"
-        "print(found, n)\n"
+        "new = all(f'{pkg.__name__}.models.{m}' in sys.modules for m in ('resnet', 'remat'))\n"
+        "print(found, n, new)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -174,3 +175,4 @@ def test_port_imports_no_jax():
     ).stdout.split()
     assert out[0] == "[]", out
     assert int(out[1]) >= 15  # every module of the port was imported
+    assert out[2] == "True"  # the ResNet's modules among them

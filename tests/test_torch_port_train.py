@@ -37,7 +37,11 @@ from distributed_training_comparison_tpu_torch.data import (
     train_val_split,
 )
 from distributed_training_comparison_tpu_torch.models import ViT, vit_from_jax
-from distributed_training_comparison_tpu_torch.train import TrainStep, configure_optimizers
+from distributed_training_comparison_tpu_torch.train import (
+    TrainStep,
+    build_model,
+    configure_optimizers,
+)
 from distributed_training_comparison_tpu_torch.utils import step_generator
 
 SMALL = dict(depth=2, dim=64, heads=2, image_size=32)
@@ -261,5 +265,15 @@ def test_entry_trains_and_tests_on_the_cpu():
 
 
 def test_models_without_a_port_raise_in_the_trainer():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        entry.run(["--device", "cpu", "--synthetic-data", "--limit-examples", "32"])
+    """Every model is ported now: no zoo name raises in the trainer's
+    ``build_model`` (built on the meta device, no weights drawn), and the
+    entry point's default, ``resnet18``, trains with no ``--model`` flag on
+    the CPU."""
+    for name in port_config.MODELS:
+        with torch.device("meta"):
+            model = build_model(port_config.load_config(["--device", "cpu", "--model", name]))
+        assert model.num_classes == 100, name
+    results = entry.run(["--device", "cpu", "--synthetic-data", "--limit-examples", "32",
+                         "--batch-size", "16", "--epoch", "1"])
+    (epoch,) = results["fit"]["epochs"]
+    assert results["fit"]["applied_steps"] == 1 and np.isfinite(epoch["train_loss"])

@@ -138,9 +138,12 @@ def test_vit_moe_widths_match_jax():
 
 
 def test_zoo_names_and_unported_models():
-    for name in ("resnet18", "resnet50"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_models.get_model(name)
+    """Every zoo name builds, the ResNets included (no model is left
+    unported); an unknown name raises ``ValueError``."""
+    for name, block in (("resnet18", port_models.BasicBlock), ("resnet50", port_models.Bottleneck)):
+        with torch.device("meta"):
+            model = port_models.get_model(name)
+        assert isinstance(model, port_models.ResNet) and isinstance(model.layer1[0], block)
     with pytest.raises(ValueError, match="unknown model"):
         port_models.get_model("vit_huge")
 
