@@ -292,12 +292,33 @@ last line:
              ``tf32``); the first batch's logits and one step's gradients
              against the port's CPU path within fp32 bounds a TF32 control
              exceeds; ms per step against the fp32 operation bound;
-8. the ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, then
+8. step_program — every train and serve phase above already runs the step
+             program (CUDA graphs: ``fit``'s replayed step and eval batch,
+             the engines' bucket graphs; the launch counts unchanged); this
+             phase holds it against eager on each train command
+             (``STEP_PROGRAM_TRAIN``): 1 + 3 replayed steps against the same
+             body run eagerly from one start, the state bit for bit (under
+             cuDNN's deterministic algorithms where its default fp32
+             weight gradient sums with atomics), the counters moved alike,
+             the port's kernels by symbol in one replay those of an eager
+             step, each launched on the device as often in one replay as
+             in one eager step and as the graph's ledger counts
+             (``ledger_against_device``), ms a step by CUDA events and
+             busy and idle shares of each; and on a bucket-32 dispatch of
+             ``serve_resnet``, ``serve_tiny`` and ``serve_moe`` against the
+             engine's eager forward (logits bit for bit, the same launch
+             checks, ms a dispatch, busy and idle).  A planted fault in a
+             serve phase runs the engine's eager forward
+             (``eager_logits``): a bucket graph replays what its capture
+             called;
+9. the ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 ``python3 chip_smoke.py --turn CHECKOUT LABEL`` instead times one checkout
 of the port (this one or a parent unpacked beside it) through the same
-functions, for comparisons made in turns within one call (``turn``).
+functions, for comparisons made in turns within one call (``turn``), and
+``python3 chip_smoke.py --step-program`` builds the kernels and runs the
+step_program phase alone.
 
 It imports nothing of JAX.  Without a CUDA device, or outside a checkout of
 the repository, it exits non-zero and prints no result.
@@ -307,6 +328,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import importlib
 import json
 import math
@@ -1813,6 +1835,7 @@ def profile_device(fn, reps: int) -> dict:
         "device_busy_ms": busy / reps / 1e3,
         "device_idle_share": max(0.0, 1.0 - busy / wall_us),
         "device_ms_by_name": {name: us / reps / 1e3 for name, us in by_name.items()},
+        "device_activities_per_call": len(spans) / reps,
     }
 
 
@@ -1875,6 +1898,19 @@ def dropped_v_tile(attn):
         attn.flash_attention = real
 
 
+def eager_logits(engine, images):
+    """The logits of ``images``, one whole bucket, by the engine's eager
+    forward: what a dispatch uploads, runs and downloads, without the
+    bucket's graph.  A planted fault runs here: a graph replays the
+    wrappers its capture called, and a capture under the fault would keep
+    it."""
+    import torch
+
+    if len(images) not in engine.buckets:
+        raise ValueError(f"{len(images)} images fill no bucket of {engine.buckets}")
+    return engine._forward(torch.from_numpy(images).to(engine.device)).cpu().numpy()
+
+
 def serve_phase(attn) -> dict:
     import numpy as np
     import torch
@@ -1903,7 +1939,7 @@ def serve_phase(attn) -> dict:
     logits = kernel_engine.predict_logits(images)
     ref = reference_engine.predict_logits(images)
     with dropped_v_tile(attn):
-        fault_logits = kernel_engine.predict_logits(images)
+        fault_logits = eager_logits(kernel_engine, images)
     # one bucket-8 request batch end to end (uint8 upload, forward, logits
     # download; predict_logits returns host arrays, so the clock stops after
     # the card has finished): where the time of a dispatch goes
@@ -3228,7 +3264,8 @@ def moe_layer_profile(engine, images) -> dict:
     seen = []
     handle = moe.register_forward_pre_hook(lambda mod, args: seen.append(args[0]))
     try:
-        engine.predict_logits(images)
+        # the engine's eager forward: a replayed bucket graph runs no hook
+        engine._forward(torch.from_numpy(images).to(engine.device))
     finally:
         handle.remove()
     h = seen[-1]
@@ -3343,7 +3380,7 @@ def bucket32_against_gather(gm, argv: list, tol_share: float):
         rec[f"logits_{name}"] = eng.predict_logits(images)
         rec[f"k7_launches_{name}"] = gm.grouped_ffn_fwd.launches - before
     with shifted_k7(gm):
-        fault = engines["gmm"].predict_logits(images)
+        fault = eager_logits(engines["gmm"], images)
     got, want = rec.pop("logits_gmm"), rec.pop("logits_gather")
     scale = float(np.abs(want).max())
     rec.update({
@@ -4136,7 +4173,7 @@ def serve_pinned_phase(small, gm, vb, attn, phase: str, argv: list, logit_checks
             rec[f"logits_{name}"] = eng.predict_logits(batch)
             rec[f"k10_launches_{name}"] = small.small_mha_fwd.launches - before
         with dropped_keys_k10(small, n=fault_keys):
-            fault = engines["fused_small"].predict_logits(batch)
+            fault = eager_logits(engines["fused_small"], batch)
         got, want = rec.pop("logits_fused_small"), rec.pop("logits_reference")
         scale = float(np.abs(want).max())
         rec.update({
@@ -5061,6 +5098,425 @@ def check_train_resnet_fp32(run: dict) -> None:
         raise RuntimeError(f"train_resnet_fp32's gradient bound passes the TF32 control: {check}")
 
 
+# The step program (``train/step.py``'s runners, ``serve/engine.py``'s
+# bucket graphs): for each train path, the replayed step against the eager
+# ``TrainStep`` and against the same step body run eagerly
+# (``eager_body_step``) from one start; for each serve path, a replayed
+# bucket-32 dispatch against the engine's eager forward (``eager_logits``).
+# (label, argv, attn_impl or None for the entry point's own model)
+STEP_PROGRAM_TRAIN = (
+    ("train_resnet", TRAIN_RESNET_ARGV, None),
+    ("train_resnet_fp32", TRAIN_RESNET_FP32_ARGV, None),
+    ("train_resnet50_remat", RESNET_REMAT_ARGV, None),
+    ("train_tiny", TRAIN_TINY_ARGV, None),
+    ("train_moe", TRAIN_MOE_ARGV, None),
+    ("train_small", TRAIN_SMALL_ARGV, "fused_small"),
+    ("train_vits_p2", TRAIN_VITS_P2_ARGV, "fused_small"),
+    ("train", TRAIN_ARGV, None),
+)
+STEP_PROGRAM_SERVE = (
+    ("serve_resnet", SERVE_RESNET_ARGV),
+    ("serve_tiny", SERVE_TINY_ARGV),
+    ("serve_moe", SERVE_MOE_ARGV),
+)
+# Replayed steps against the same body run eagerly, after 1 + 3 steps from
+# one start: the same kernels in the same order on the same inputs, so bit
+# for bit where every kernel is deterministic.  cuDNN's default fp32
+# weight-gradient convolution is not (it sums with atomics: two eager runs
+# of the fp32 ResNet step differ too, and BatchNorm's cancelling sums carry
+# that to ~40% of a bias's momentum in four steps), so such a path is run
+# again with cuDNN held to its deterministic algorithms, and that rerun
+# must be bit-identical.
+STEP_PROGRAM_REPLAYS = 3
+
+
+def _state_tensors(trainer) -> dict:
+    """A trainer's parameters, buffers and momentum buffers by name."""
+    out = dict(trainer.model.state_dict())
+    for name, p in trainer.model.named_parameters():
+        out[f"momentum:{name}"] = trainer.optimizer.state[p]["momentum_buffer"]
+    return out
+
+
+def state_agreement(got: dict, want: dict) -> dict:
+    """Relative L2 error of each state tensor (``got`` against ``want``),
+    the worst three, and whether every tensor is bit-identical."""
+    import torch
+
+    errors, bitwise = {}, True
+    for name, w in want.items():
+        g = got[name]
+        bitwise &= bool(torch.equal(g, w))
+        if w.is_floating_point():
+            diff = (g.float() - w.float()).norm()
+            errors[name] = float(diff / w.float().norm().clamp_min(1e-30)) if diff else 0.0
+        else:
+            errors[name] = float(not torch.equal(g, w))
+    return {"bitwise": bitwise, "rel_l2_max": max(errors.values()), "worst": _worst(errors)}
+
+
+def _counts(counters) -> list[int]:
+    return [c.launches for c in counters]
+
+
+# The port's kernels by the counted wrapper that launches them
+# (``ops.COUNTED_WRAPPERS``), as (first, then): one call launches one kernel
+# of ``first`` and, where it launches two, one of ``then`` after it (K6's
+# attention dk/dv kernel after its dq kernel; K11's tiled dk/dv kernel after
+# its dq kernel, where the one-tile kernel does not compute all three).
+# K5's and K6's block wrappers launch nothing of their own: their chains
+# count under the wrappers below them.
+WRAPPER_KERNELS = {
+    "flash_attention": (("flash_fwd_bf16", "flash_fwd_tf32x3"), ()),
+    "flash_attention_dq": (("flash_bwd_dq_bf16", "flash_bwd_dq_tf32x3"), ()),
+    "flash_attention_dkv": (("flash_bwd_dkv_bf16", "flash_bwd_dkv_tf32x3"), ()),
+    "small_mha_fwd": (("attn_small_fwd_onetile", "attn_small_fwd_bf16", "attn_small_fwd_f32"), ()),
+    "small_mha_bwd": (("attn_small_bwd_onetile", "attn_small_dq_bf16", "attn_small_dq_f32"),
+                      ("attn_small_dkv_bf16", "attn_small_dkv_f32")),
+    "grouped_ffn_fwd": (("moe_ffn_fwd_wgmma", "moe_ffn_fwd_tf32x3"), ()),
+    "grouped_ffn_dx": (("moe_ffn_dx_wgmma", "moe_ffn_dx_tf32x3"), ()),
+    "grouped_ffn_dw": (("moe_ffn_dw_wgmma", "moe_ffn_dw_tf32x3"), ()),
+    "fused_vit_block": ((), ()),
+    "block_gemm": (("block_gemm_wgmma", "block_gemm_tf32x3"), ()),
+    "block_attention": (("block_attn_wgmma", "block_attn_tf32x3"), ()),
+    "fused_vit_block_bwd": ((), ()),
+    "block_ln": (("ln_rows",), ()),
+    "block_gemm_dgrad": (("dgrad_wgmma", "dgrad_tf32x3"), ()),
+    "block_ln_bwd": (("ln_bwd",), ()),
+    "block_gemm_wgrad": (("wgrad_wgmma", "wgrad_tf32x3"), ()),
+    "block_attention_bwd": (("attn_dq_wgmma", "block_attn_dq_tf32x3"),
+                            ("attn_dkv_wgmma", "block_attn_dkv_tf32x3")),
+    "block_grad_reduce": (("grad_reduce",), ()),
+}
+
+
+def _wrapper_names() -> list[str]:
+    """The counted wrappers' names in ``ops.counted_wrappers()``'s order."""
+    from distributed_training_comparison_tpu_torch import ops
+
+    return [n for names in ops.COUNTED_WRAPPERS.values() for n in names]
+
+
+def check_wrapper_kernels() -> None:
+    """``WRAPPER_KERNELS`` names every counted wrapper and every kernel the
+    checkout's sources define, each kernel under one wrapper."""
+    symbols = [s for first, then in WRAPPER_KERNELS.values() for s in (*first, *then)]
+    defined = {m.group(1) for f in (ROOT / PKG / "ops" / "csrc").glob("*.cu")
+               for m in _GLOBAL_FN.finditer(f.read_text())}
+    if sorted(_wrapper_names()) != sorted(WRAPPER_KERNELS) or sorted(symbols) != sorted(defined):
+        raise RuntimeError(f"WRAPPER_KERNELS is not the registry's wrappers over the sources' "
+                           f"kernels: {sorted(set(symbols) ^ defined)}")
+
+
+def ledger_against_device(ledger, launches: dict) -> dict:
+    """A graph's launch counts against the port's kernels one replay ran on
+    the device: ``ledger`` the graph's ``LaunchLedger`` (each counted
+    wrapper's movement over the capture, which every replay adds),
+    ``launches`` one replay's launches by symbol under the profiler.  Each
+    wrapper's ``WRAPPER_KERNELS`` first kernels must have launched as often
+    as its count, and its then kernels at most as often; ``ok`` says
+    whether all did."""
+    rows, ok = {}, True
+    for name, count in zip(_wrapper_names(), ledger.deltas):
+        first, then = WRAPPER_KERNELS[name]
+        on_device = sum(launches.get(s, 0) for s in first)
+        after = sum(launches.get(s, 0) for s in then)
+        good = (not first or on_device == count) and after <= count
+        ok &= good
+        if count or on_device or after:
+            rows[name] = {"counted": count, "first_kernels_launched": on_device,
+                          "then_kernels_launched": after, "ok": good}
+    return {"ok": ok, "by_wrapper": rows}
+
+
+def device_launches(fn, reps: int = 1) -> dict:
+    """Launches a call by kernel name of ``reps`` calls of ``fn`` under the
+    profiler, after one call that the tracer runs and discards (a
+    schedule's warm-up step: a trace that begins with a replay can miss
+    kernels at its start).  A trace with no device activity is taken
+    again, at most five times in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for attempt in range(5):
+        time.sleep(0.5 * attempt)
+        counts: dict = {}
+
+        def take(prof):
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    counts[e.name] = counts.get(e.name, 0) + 1
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=take) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        if counts:
+            return {name: n / reps for name, n in counts.items()}
+    raise RuntimeError("the profiler saw no device activity in five traces")
+
+
+def eager_body_step(runner) -> None:
+    """The runner's next step by its body, run eagerly in train mode."""
+    runner.model.train()
+    runner.program.body()
+
+
+def _step_program_pair(hp, attn_impl: str | None) -> tuple:
+    """Two trainers of ``hp`` on the same seeded weights: one steps its
+    ``EpochRunner`` (a warm-up step, then the captured step replayed
+    ``STEP_PROGRAM_REPLAYS`` times), the other runs the same runner's body
+    eagerly (``eager_body_step``).  Returns the graphed trainer, the eager
+    one, and the record of their agreement: per-step losses,
+    ``state_agreement``, the counters' movement under each, the
+    applied-step counts."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch import ops
+    from distributed_training_comparison_tpu_torch.train import Trainer, build_model
+
+    def trainer():
+        return Trainer(hp, model=build_model(hp, attn_impl=attn_impl) if attn_impl else None)
+
+    graphed, eager = trainer(), trainer()
+    steps = 1 + STEP_PROGRAM_REPLAYS
+    step_of = {"eager": lambda: eager_body_step(eager.runner), "graphed": graphed.runner.step}
+    counters = ops.counted_wrappers()
+    launches = {}
+    for name, t in (("eager", eager), ("graphed", graphed)):
+        before = _counts(counters)
+        t.runner.start_epoch(0)
+        for _ in range(steps):
+            step_of[name]()
+        torch.cuda.synchronize()
+        launches[name] = [n - b for n, b in zip(_counts(counters), before)]
+    rows = min(steps, graphed.runner.steps)  # a one-step epoch wraps: its row holds the last step
+    losses = {name: t.runner.metrics[:rows, 0].tolist() for name, t in (
+        ("eager", eager), ("graphed", graphed))}
+    return graphed, eager, {
+        "steps": steps, "captured": graphed.runner.program.captured,
+        "launches_eager_body": launches["eager"], "launches_replayed": launches["graphed"],
+        "launches_equal": launches["eager"] == launches["graphed"],
+        "losses_replayed": losses["graphed"], "losses_eager_body": losses["eager"],
+        "loss_rel_err_max": max(abs(a - b) / abs(b) for a, b in zip(losses["graphed"],
+                                                                     losses["eager"])),
+        "skipped": float(graphed.runner.metrics[:rows, 3].sum()),
+        "applied": [int(graphed.sgd.applied), int(eager.sgd.applied)],
+        "state_vs_eager_body": state_agreement(_state_tensors(graphed), _state_tensors(eager)),
+    }
+
+
+def step_program_train(label: str, argv: list, attn_impl: str | None, reps: int = 10) -> dict:
+    """One train path's step program record (``_step_program_pair``); where
+    the replayed state is not bit-identical to the eager body's, the pair
+    again with cuDNN held to its deterministic algorithms
+    (``deterministic_rerun``: the fp32 ResNet's default weight-gradient
+    convolution sums with atomics, so two eager runs differ as well).  Then
+    ms a step by CUDA events of the replayed step and of the eager
+    ``TrainStep``, the device-busy ms and idle share of each under the
+    profiler, the port's kernels by symbol in one replay and in one eager
+    step, and their launches by symbol in one replay against one eager
+    body step and against the graph's ledger (``ledger_against_device``)."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.data import draw_crop_flip
+    from distributed_training_comparison_tpu_torch.utils import step_generator
+
+    hp = load_config(argv)
+    graphed, eager, agreement = _step_program_pair(hp, attn_impl)
+    record = {"label": label, "argv": argv, "attn_impl": attn_impl, "precision": hp.precision,
+              "batch": hp.batch_size, **agreement}
+    if not agreement["state_vs_eager_body"]["bitwise"]:
+        cudnn, was = torch.backends.cudnn, torch.backends.cudnn.deterministic
+        cudnn.deterministic = True
+        try:
+            g, e, again = _step_program_pair(hp, attn_impl)
+        finally:
+            cudnn.deterministic = was
+        record["deterministic_rerun"] = again
+        del g, e
+
+    images, labels = next(graphed.train_split.epoch_batches(hp.batch_size, hp.seed, 0))
+    draws = draw_crop_flip(len(labels), step_generator(hp.seed, 0, 0))
+    eager_ms = cuda_ms(lambda: eager.step(images, labels, draws), reps, warmup=1)
+    replay_ms = cuda_ms(graphed.runner.step, reps, warmup=1)
+    eager_prof = profile_device(lambda: eager.step(images, labels, draws), 2)
+    replay_prof = profile_device(graphed.runner.step, 2)
+    replay_launches = _port_kernel_ms(device_launches(graphed.runner.step))
+    body_launches = _port_kernel_ms(device_launches(lambda: eager_body_step(eager.runner)))
+    record.update({
+        "ms_per_step_eager": eager_ms, "ms_per_step_replayed": replay_ms,
+        "busy_ms_eager": eager_prof["device_busy_ms"],
+        "busy_ms_replayed": replay_prof["device_busy_ms"],
+        "idle_share_eager": eager_prof["device_idle_share"],
+        "idle_share_replayed": replay_prof["device_idle_share"],
+        "device_activities_eager": eager_prof["device_activities_per_call"],
+        "device_activities_replayed": replay_prof["device_activities_per_call"],
+        "port_kernels_eager": sorted(_port_kernel_ms(eager_prof["device_ms_by_name"])),
+        "port_kernels_one_replay": sorted(replay_launches),
+        "port_launches_one_replay": replay_launches,
+        "port_launches_one_eager": body_launches,
+        "ledger_vs_device": ledger_against_device(graphed.runner.program.ledger, replay_launches),
+        "port_kernels_ms_replayed": _port_kernel_ms(replay_prof["device_ms_by_name"]),
+        "top_device_ms_replayed": dict(sorted(
+            ((n[:60], ms) for n, ms in replay_prof["device_ms_by_name"].items()),
+            key=lambda kv: -kv[1])[:8]),
+    })
+    del graphed, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def step_program_serve(label: str, argv: list, reps: int = 20) -> dict:
+    """One serve path's step program record at bucket 32: an engine of
+    ``argv`` and one seeded batch of 32, dispatched through the bucket's
+    graph and run by the engine's eager forward (``eager_logits``); the
+    logits of the eager run, the warm-up dispatch and two replays compared,
+    the counters' movement of one dispatch under each, ms a dispatch by the
+    host clock (upload, forward, logits download), device-busy ms and idle
+    share of each under the profiler, and the port's kernels and their
+    launches by symbol in one replay against one eager forward and against
+    the graph's ledger (``ledger_against_device``)."""
+    import numpy as np
+    import torch
+
+    from distributed_training_comparison_tpu_torch import ops
+    from distributed_training_comparison_tpu_torch.config import load_config
+    from distributed_training_comparison_tpu_torch.serve import build_engine, request_pool
+
+    hp = load_config(argv)
+    images = request_pool(32, image_size=hp.image_size, seed=hp.seed, fold=("check", 0))
+    engine = build_engine(hp)
+    dispatch = {"eager": lambda: eager_logits(engine, images),
+                "graphed": lambda: engine.predict_logits(images)}
+    counters = ops.counted_wrappers()
+    want = dispatch["eager"]()
+    got = [dispatch["graphed"]() for _ in range(3)]  # warm-up, capture, replay
+    launches = {}
+    for name, fn in dispatch.items():
+        before = _counts(counters)
+        fn()
+        torch.cuda.synchronize()
+        launches[name] = [n - b for n, b in zip(_counts(counters), before)]
+    scale = float(np.abs(want).max())
+    err = max(float(np.abs(g - want).max()) for g in got)
+    out = {"label": label, "argv": argv, "bucket": 32,
+           "captured": 32 in engine.stats()["captured_buckets"],
+           "logits_bitwise": all(np.array_equal(g, want) for g in got),
+           "logits_max_abs_err": err, "logits_scale": scale, "logits_err_share": err / scale,
+           "launches_eager": launches["eager"], "launches_replayed": launches["graphed"],
+           "launches_equal": launches["eager"] == launches["graphed"]}
+    for name, fn in dispatch.items():
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[f"ms_per_dispatch_{name}"] = (time.perf_counter() - t0) / reps * 1e3
+        prof = profile_device(fn, 5)
+        out[f"busy_ms_{name}"] = prof["device_busy_ms"]
+        out[f"idle_share_{name}"] = prof["device_idle_share"]
+        out[f"device_activities_{name}"] = prof["device_activities_per_call"]
+        out[f"port_kernels_{name}"] = sorted(_port_kernel_ms(prof["device_ms_by_name"]))
+        out[f"port_launches_one_{name}"] = _port_kernel_ms(device_launches(fn))
+    out["port_launches_one_replay"] = out.pop("port_launches_one_graphed")
+    out["port_kernels_one_replay"] = sorted(out["port_launches_one_replay"])
+    out["ledger_vs_device"] = ledger_against_device(engine._programs[32][1].ledger,
+                                                    out["port_launches_one_replay"])
+    del engine, dispatch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_program_phase(smi: str) -> dict:
+    """Every ``STEP_PROGRAM_TRAIN`` and ``STEP_PROGRAM_SERVE`` record."""
+    check_wrapper_kernels()
+    return {"phase": "step_program", "nvidia_smi": smi,
+            "train": [step_program_train(*t) for t in STEP_PROGRAM_TRAIN],
+            "serve": [step_program_serve(*s) for s in STEP_PROGRAM_SERVE]}
+
+
+def _check_replayed_launches(r: dict) -> None:
+    """One replay ran the port kernels of an eager run, each as often as
+    that run launched it and as the graph's ledger counts: the counts are
+    measured on the device."""
+    if r["port_kernels_one_replay"] != r["port_kernels_eager"]:
+        raise RuntimeError(f"step program {r['label']}: a replay ran the port kernels "
+                           f"{r['port_kernels_one_replay']}, an eager run {r['port_kernels_eager']}")
+    if (r["port_launches_one_replay"] != r["port_launches_one_eager"]
+            or not r["ledger_vs_device"]["ok"]):
+        raise RuntimeError(f"step program {r['label']}: launches by symbol in one replay "
+                           f"{r['port_launches_one_replay']}, in one eager run "
+                           f"{r['port_launches_one_eager']}, ledger {r['ledger_vs_device']}")
+
+
+def check_step_program(rec: dict) -> None:
+    for r in rec["train"]:
+        for run in (r, r.get("deterministic_rerun", r)):
+            if not (run["captured"] and run["launches_equal"] and run["skipped"] == 0
+                    and run["applied"] == [run["steps"], run["steps"]]):
+                raise RuntimeError(f"step program {r['label']}: {r}")
+        # bit for bit; where cuDNN's default algorithms sum with atomics, bit
+        # for bit under its deterministic ones
+        agree = r["state_vs_eager_body"]
+        rerun = r.get("deterministic_rerun")
+        if not (agree["bitwise"] or (rerun is not None and rerun["state_vs_eager_body"]["bitwise"]
+                                     and rerun["loss_rel_err_max"] == 0.0)):
+            raise RuntimeError(f"step program {r['label']}: replayed state disagrees: {r}")
+        _check_replayed_launches(r)
+    for r in rec["serve"]:
+        # the same kernels on the same inputs: the logits bit for bit
+        if not (r["captured"] and r["launches_equal"] and r["logits_bitwise"]):
+            raise RuntimeError(f"step program {r['label']}: {r}")
+        _check_replayed_launches(r)
+
+
+def init_profiler_for_graphs() -> None:
+    """Start the profiler once before any CUDA graph is captured: with a
+    CUDA runtime older than 12 the tracer sees no kernel of a graph
+    instantiated before it first started (torch's own workaround)."""
+    from torch.profiler import _utils
+
+    if hasattr(_utils, "_init_for_cuda_graphs"):
+        _utils._init_for_cuda_graphs()
+
+
+def step_program_main() -> int:
+    """``--step-program``: the device line, the kernels built, and the
+    step program phase alone (``step_program_phase``), its check last."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from distributed_training_comparison_tpu_torch._device import pin_fp32_math
+    from distributed_training_comparison_tpu_torch.ops import _build
+
+    pin_fp32_math()
+    init_profiler_for_graphs()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    t0 = time.monotonic()
+    _build.build_all()
+    emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3), "nvidia_smi": smi})
+    rec = step_program_phase(smi)
+    emit(rec)
+    check_step_program(rec)
+    print(smi, flush=True)
+    return 0
+
+
 def main() -> int:
     if not (ROOT / PKG).is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
@@ -5077,6 +5533,7 @@ def main() -> int:
 
     # the plain versions and the fp32 kernel are held in true fp32
     pin_fp32_math()
+    init_profiler_for_graphs()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5312,6 +5769,10 @@ def main() -> int:
     train_resnet_fp32 = train_resnet_fp32_phase(small, gm, vb, attn, smi)
     emit(train_resnet_fp32)
     check_train_resnet_fp32(train_resnet_fp32)
+
+    step_program = step_program_phase(smi)
+    emit(step_program)
+    check_step_program(step_program)
 
     csrc = f"{PKG}/ops/csrc"
     replaces = {
@@ -6025,6 +6486,8 @@ if __name__ == "__main__":
     try:
         if len(sys.argv) == 4 and sys.argv[1] == "--turn":
             sys.exit(turn(Path(sys.argv[2]), sys.argv[3]))
+        if sys.argv[1:] == ["--step-program"]:
+            sys.exit(step_program_main())
         sys.exit(main())
     except Exception:
         traceback.print_exc()

@@ -17,8 +17,9 @@ WRITTEN_DELTAS = {
     "device": "new: where the model runs, cuda (default) or cpu",
     "serve_shape": "only auto/closed/open until the fleet's load shapes are ported",
     "serve_replicas": "only 1 until the router is ported",
-    "data_mode": "both modes take the host loader's numpy (seed, epoch) order; "
-    "the JAX device mode permutes with threefry",
+    "data_mode": "both modes take the host loader's numpy (seed, epoch) order and "
+    "replay one captured step a step over the resident split; the JAX device mode "
+    "permutes with threefry and compiles the epoch as one scan",
     "contain_test": "tests the final in-memory state; no checkpoint is written yet",
 }
 

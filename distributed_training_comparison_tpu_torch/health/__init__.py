@@ -1,5 +1,5 @@
 """Numerics guards of the train step."""
 
-from .guards import global_norm, step_finite
+from .guards import global_norm, select_tree, step_finite
 
-__all__ = ["global_norm", "step_finite"]
+__all__ = ["global_norm", "select_tree", "step_finite"]

@@ -32,7 +32,10 @@ def _recomputing(block: torch.nn.Module):
 
 def remat_block(block: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
     """``block(x)``, its activations recomputed on the backward pass."""
+    # The zoo draws no random numbers in a forward (no dropout), so the
+    # recompute needs no saved RNG state; saving it would read the CUDA
+    # generator's state, which a CUDA graph capture refuses.
     return checkpoint(
-        block, x, use_reentrant=False,
+        block, x, use_reentrant=False, preserve_rng_state=False,
         context_fn=lambda: (contextlib.nullcontext(), _recomputing(block)),
     )

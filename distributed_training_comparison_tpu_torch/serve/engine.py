@@ -7,12 +7,17 @@ runs, and the padding is sliced back off; a batch above the largest bucket
 runs in chunks.  Under ``vit_moe`` the padding rows' tokens are routed and
 take expert capacity, as on the TPU, so a request's logits depend on the
 bucket it rides in (and on its batch mates); compare them at one padded
-batch.  ``warmup()`` runs every bucket once.  Images travel to the
-device as uint8 and are normalized there in fp32, then cast to the compute
-dtype; logits come back fp32.
+batch.  Images travel to the device as uint8 into the bucket's static
+input and are normalized there in fp32, then cast to the compute dtype;
+logits come back fp32.
 
-There is no mesh and no executable cache: PyTorch runs eagerly, and one
-CUDA graph per bucket is a later change.  Weights are a seeded fresh
+On a card each bucket is a CUDA graph, the counterpart of the JAX
+engine's AOT-compiled bucket executables (``utils/graphs.py``):
+``warmup()`` runs every bucket once, largest first, and captures it, all
+buckets in one memory pool; a dispatch copies the padded batch into the
+bucket's static input, replays the graph and copies the logits out.  A
+bucket not warmed runs eagerly once and is captured at its second
+dispatch.  On the CPU every dispatch runs eagerly.  There is no mesh.  Weights are a seeded fresh
 initialization or a ``state_dict`` (for example ``models.vit_from_jax`` or
 ``models.resnet_from_jax`` of a JAX variable tree); reading the JAX
 package's checkpoints comes later.  The model serves in eval mode: a
@@ -30,6 +35,8 @@ import torch
 from .._device import resolve_device
 from ..data.augment import normalize_images
 from ..models import get_model
+from ..ops import counted_wrappers
+from ..utils.graphs import CapturedStep
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32)
 
@@ -74,6 +81,9 @@ class ServeEngine:
         self.num_classes = model.num_classes
         self._lock = threading.RLock()
         self.bucket_counts: dict[int, int] = {b: 0 for b in self.buckets}
+        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        # bucket -> (its static uint8 input, its step program)
+        self._programs: dict[int, tuple[torch.Tensor, CapturedStep]] = {}
 
     @property
     def max_bucket(self) -> int:
@@ -94,6 +104,15 @@ class ServeEngine:
         x = normalize_images(images_u8, dtype=self.compute_dtype)  # CIFAR-100 stats
         return self.model(x).float()
 
+    def _program(self, bucket: int, shape: tuple) -> tuple[torch.Tensor, CapturedStep]:
+        """The bucket's static input and step program, made at first use."""
+        if bucket not in self._programs:
+            static = torch.zeros((bucket, *shape), dtype=torch.uint8, device=self.device)
+            step = CapturedStep(lambda: self._forward(static), self.device,
+                                counters=counted_wrappers, pool=self._pool)
+            self._programs[bucket] = (static, step)
+        return self._programs[bucket]
+
     def _run_bucket(self, images: np.ndarray) -> np.ndarray:
         """Run one <= max_bucket chunk: pad to its bucket, execute, unpad."""
         n = len(images)
@@ -102,16 +121,19 @@ class ServeEngine:
             pad = np.zeros((bucket - n, *images.shape[1:]), dtype=images.dtype)
             images = np.concatenate([images, pad], axis=0)
         self.bucket_counts[bucket] += 1
-        staged = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-        return self._forward(staged)[:n].cpu().numpy()
+        static, step = self._program(bucket, images.shape[1:])
+        static.copy_(torch.from_numpy(np.ascontiguousarray(images)))
+        return step()[:n].cpu().numpy()
 
     def warmup(self) -> None:
-        """Run every bucket once before traffic."""
+        """Run every bucket once before traffic, largest first, and capture
+        its graph on a card."""
         with self._lock:
-            for b in self.buckets:
+            for b in reversed(self.buckets):
                 self._run_bucket(
                     np.zeros((b, self.image_size, self.image_size, 3), np.uint8)
                 )
+                self._programs[b][1].prepare()
 
     def predict_logits(self, images: np.ndarray) -> np.ndarray:
         """uint8 NHWC batch (any size) → fp32 logits, chunked over buckets."""
@@ -126,11 +148,14 @@ class ServeEngine:
         return np.concatenate(out) if out else np.zeros((0, self.num_classes), np.float32)
 
     def stats(self) -> dict:
-        """Bucket ladder and per-bucket dispatch counts (warmup included)."""
+        """Bucket ladder, per-bucket dispatch counts (warmup included) and
+        the buckets replayed from a CUDA graph."""
         with self._lock:
             return {
                 "buckets": list(self.buckets),
                 "bucket_counts": dict(self.bucket_counts),
                 "device": str(self.device),
                 "dtype": str(self.compute_dtype).removeprefix("torch."),
+                "captured_buckets": sorted(b for b, (_, step) in self._programs.items()
+                                           if step.captured),
             }

@@ -1,10 +1,19 @@
-"""Training: the optimizer and schedule, the guarded step, the trainer."""
+"""Training: the optimizer and schedule, the guarded step, the step
+program's runners, the trainer."""
 
-from .optim import configure_optimizers, step_lr_schedule
-from .step import TrainStep, eval_totals, forward_backward
+from .optim import DeviceSGD, configure_optimizers, lr_table, step_lr_schedule
+from .step import (
+    EpochRunner,
+    EvalRunner,
+    TrainStep,
+    eval_totals,
+    forward_backward,
+    guarded_step,
+)
 from .trainer import Trainer, build_model
 
 __all__ = [
-    "TrainStep", "Trainer", "build_model", "configure_optimizers",
-    "eval_totals", "forward_backward", "step_lr_schedule",
+    "DeviceSGD", "EpochRunner", "EvalRunner", "TrainStep", "Trainer", "build_model",
+    "configure_optimizers", "eval_totals", "forward_backward", "guarded_step", "lr_table",
+    "step_lr_schedule",
 ]

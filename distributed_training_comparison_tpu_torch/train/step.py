@@ -5,9 +5,20 @@ normalize → forward/backward → mean softmax cross-entropy plus an MoE
 model's load-balance loss → numerics guard → SGD update, with
 ``--grad-accum`` micro-batches; an MoE model's routing health
 (``moe_dropped_frac``, ``moe_load_max``, as ``_moe_health``) comes back
-among the step's metrics.  PyTorch runs it eagerly
-and launches each kernel from the host; the JAX package's one compiled
-program per epoch would be a CUDA graph here, in a later change.
+among the step's metrics.  It runs eagerly and reads the guard's flag on
+the host, once a step.
+
+The step program is the counterpart of the JAX package's compiled epoch and
+eval programs.  :func:`guarded_step` is ``_make_step_core``'s contract with
+nothing read on the host: the update is ``optim.DeviceSGD`` and a
+non-finite step is undone by ``health.select_tree`` over the whole state.
+:class:`EpochRunner` (``make_epoch_runner``) trains an epoch over the
+resident split by one step body, captured once as a CUDA graph on a card
+and replayed (``utils/graphs.py``); :class:`EvalRunner`
+(``make_eval_runner``) does the same for the padded eval batches.  Where
+JAX compiles the whole epoch as one ``lax.scan``, the port replays one
+captured step a step.  On the CPU the same bodies run eagerly.
+
 ``eval_totals`` is the exact eval over padded batches (``_make_eval_core``),
 in eval mode: a BatchNorm normalizes with its running statistics there.
 """
@@ -16,14 +27,21 @@ from __future__ import annotations
 
 from typing import Iterable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..data.augment import normalize_images, random_crop_flip
-from ..health.guards import global_norm, step_finite
+from ..data.augment import draw_epoch_crop_flip, normalize_images, random_crop_flip
+from ..data.loader import DeviceSplit
+from ..data.sampler import epoch_permutation
+from ..health.guards import global_norm, select_tree, step_finite
 from ..models.norms import BatchNorm2d
+from ..ops import counted_wrappers
+from ..utils.graphs import CapturedStep
 from ..utils.metrics import topk_hits
-from .optim import Schedule
+from .optim import DeviceSGD, Schedule
+
+STEP_METRICS = ("loss", "top1_count", "grad_norm", "skipped")
 
 COMPUTE_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -88,6 +106,30 @@ def forward_backward(
     return torch.stack(losses).mean(), top1, extras
 
 
+def _running_statistics(model: torch.nn.Module) -> list[torch.Tensor]:
+    """Every BatchNorm's running mean and variance: the forward advances
+    them, and a skipped step puts them back."""
+    return [b for m in model.modules() if isinstance(m, BatchNorm2d)
+            for b in (m.running_mean, m.running_var)]
+
+
+def _guarded_gradients(model, images, labels, draws, running, *, compute_dtype, grad_accum):
+    """The guarded step up to its update, shared by :class:`TrainStep` and
+    :func:`guarded_step`: crop/flip by ``draws`` when given, one copy of
+    the ``running`` statistics taken before any micro-batch,
+    forward/backward, the gradient global norm and the finite flag.
+    Returns ``(the running statistics' old values, loss, top1_count, MoE
+    health, grad_norm, finite)``."""
+    if draws is not None:
+        images = random_crop_flip(images, *draws)
+    saved = torch.cat(running).split([b.numel() for b in running]) if running else ()
+    loss, top1, extras = forward_backward(
+        model, images, labels, compute_dtype=compute_dtype, grad_accum=grad_accum,
+    )
+    grad_norm = global_norm([p.grad for p in model.parameters() if p.grad is not None])
+    return saved, loss, top1, extras, grad_norm, step_finite(loss, grad_norm)
+
+
 class TrainStep:
     """One guarded SGD step over a global batch.
 
@@ -115,8 +157,6 @@ class TrainStep:
         self.augment = augment
         self.grad_accum = grad_accum
         self.applied = 0
-        # the forward advances these; a skipped step puts them back
-        self._norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
 
     def __call__(self, images, labels, draws=None) -> dict[str, torch.Tensor]:
         """``images`` uint8 NHWC and ``labels`` on the model's device;
@@ -124,19 +164,13 @@ class TrainStep:
         augmenting.  Returns the step's metrics as device scalars: ``loss``,
         ``top1_count``, ``count``, ``grad_norm``, ``skipped``, and for an
         MoE model ``moe_dropped_frac`` and ``moe_load_max``."""
-        if self.augment:
-            images = random_crop_flip(images, *draws)
         if not self.model.training:
             self.model.train()
-        running = [b for m in self._norms for b in (m.running_mean, m.running_var)]
-        saved = torch.cat(running) if running else None  # one copy, before any micro-batch
-        loss, top1, extras = forward_backward(
-            self.model, images, labels, compute_dtype=self.compute_dtype,
-            grad_accum=self.grad_accum,
+        running = _running_statistics(self.model)
+        saved, loss, top1, extras, grad_norm, finite = _guarded_gradients(
+            self.model, images, labels, draws if self.augment else None, running,
+            compute_dtype=self.compute_dtype, grad_accum=self.grad_accum,
         )
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        grad_norm = global_norm(grads)
-        finite = step_finite(loss, grad_norm)
         # the guard reads the finite flag on the host, one device sync per
         # step (the JAX package selects between old and new state on the
         # device instead); a skipped step touches no state at all
@@ -145,8 +179,8 @@ class TrainStep:
                 group["lr"] = self.schedule(self.applied)
             self.optimizer.step()
             self.applied += 1
-        elif saved is not None:
-            for b, old in zip(running, saved.split([b.numel() for b in running])):
+        else:
+            for b, old in zip(running, saved):
                 b.copy_(old)
         return {
             "loss": loss,
@@ -156,6 +190,216 @@ class TrainStep:
             "skipped": (~finite).float(),
             **extras,
         }
+
+
+def guarded_step(
+    model: torch.nn.Module,
+    sgd: DeviceSGD,
+    images: torch.Tensor,
+    labels: torch.Tensor,
+    draws: tuple[torch.Tensor, torch.Tensor] | None = None,
+    *,
+    compute_dtype: torch.dtype = torch.float32,
+    grad_accum: int = 1,
+) -> dict[str, torch.Tensor]:
+    """One guarded SGD step with nothing read on the host: crop/flip by
+    ``draws`` when given, normalize, forward/backward, the gradient global
+    norm and the finite flag, ``sgd``'s update, then the running statistics
+    of every BatchNorm put back where the step is not finite (the update
+    keeps the parameters, momentum and step count itself).  The model runs
+    in the mode it is in (train mode for training).  Returns ``loss``,
+    ``top1_count``, ``grad_norm``, ``skipped`` and an MoE model's routing
+    health, as device scalars."""
+    running = _running_statistics(model)
+    saved, loss, top1, extras, grad_norm, finite = _guarded_gradients(
+        model, images, labels, draws, running, compute_dtype=compute_dtype, grad_accum=grad_accum,
+    )
+    sgd.step(finite)
+    with torch.no_grad():
+        select_tree(finite, running, list(saved), running)
+    return {
+        "loss": loss,
+        "top1_count": top1,
+        "grad_norm": grad_norm,
+        "skipped": (~finite).float(),
+        **extras,
+    }
+
+
+class EpochRunner:
+    """The epoch program (JAX ``make_epoch_runner``): the steps of an epoch
+    over ``split``, which stays on the device, in the ``(seed, epoch)``
+    order of ``split.epoch_batches`` with the draws of
+    ``draw_epoch_crop_flip``.
+
+    An epoch uploads its permutation and draws into static buffers once;
+    each step reads its row at a step counter on the device, runs
+    :func:`guarded_step` and writes its metrics into a static ``(steps,
+    k)`` buffer, fetched once at the end of the epoch.  On a card the step
+    is a :class:`~..utils.graphs.CapturedStep`: the first step runs eagerly
+    on a side stream (it is a step of the epoch), the next is captured, in
+    train mode, and every later step of this and later epochs replays it.
+    ``program.body()``, called in train mode, runs the next step eagerly."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        sgd: DeviceSGD,
+        split: DeviceSplit,
+        batch_size: int,
+        *,
+        seed: int,
+        precision: str = "fp32",
+        augment: bool = True,
+        grad_accum: int = 1,
+        pool=None,
+    ) -> None:
+        self.model, self.sgd, self.split = model, sgd, split
+        self.batch_size, self.seed = batch_size, seed
+        self.compute_dtype = COMPUTE_DTYPES[precision]
+        self.augment, self.grad_accum = augment, grad_accum
+        self.steps = split.steps_per_epoch(batch_size)
+        if self.steps == 0:
+            raise ValueError(f"{len(split)} examples make no whole batch of {batch_size}")
+        dev = split.labels.device
+        self.perm = torch.zeros((self.steps, batch_size), dtype=torch.int64, device=dev)
+        self.offsets = torch.zeros((self.steps, batch_size, 2), dtype=torch.int64, device=dev)
+        self.flips = torch.zeros((self.steps, batch_size), dtype=torch.bool, device=dev)
+        self.i = torch.zeros((), dtype=torch.int64, device=dev)  # the step of the epoch
+        self.keys: list[str] | None = None
+        self.metrics: torch.Tensor | None = None
+        self.program = CapturedStep(self._body, dev, counters=counted_wrappers, pool=pool)
+
+    def _body(self) -> None:
+        i = torch.remainder(self.i, self.steps).view(1)
+        idx = self.perm.index_select(0, i).view(-1)
+        draws = None
+        if self.augment:
+            draws = (self.offsets.index_select(0, i)[0], self.flips.index_select(0, i)[0])
+        m = guarded_step(
+            self.model, self.sgd, self.split.images.index_select(0, idx),
+            self.split.labels.index_select(0, idx), draws,
+            compute_dtype=self.compute_dtype, grad_accum=self.grad_accum,
+        )
+        if self.keys is None:  # the first step is eager: the buffer is static from then on
+            self.keys = [*STEP_METRICS, *sorted(k for k in m if k.startswith("moe_"))]
+            self.metrics = torch.zeros((self.steps, len(self.keys)), device=self.i.device)
+        row = torch.stack([m[k].float() for k in self.keys])
+        self.metrics.index_copy_(0, i, row[None])
+        self.i.add_(1)
+
+    def start_epoch(self, epoch: int) -> None:
+        """Upload ``epoch``'s batch order and draws; the next step is its
+        first."""
+        n = self.steps * self.batch_size
+        perm = epoch_permutation(len(self.split), self.seed, epoch)[:n]
+        self.perm.copy_(torch.from_numpy(np.ascontiguousarray(perm, dtype=np.int64)).view_as(self.perm))
+        if self.augment:
+            offsets, flips = draw_epoch_crop_flip(self.batch_size, self.steps, self.seed, epoch)
+            self.offsets.copy_(offsets)
+            self.flips.copy_(flips)
+        self.i.zero_()
+
+    def step(self) -> None:
+        """The next step of the epoch (after the last, the first again)."""
+        if not self.model.training:
+            self.model.train()
+        self.program()
+
+    def run_epoch(self, epoch: int) -> dict[str, np.ndarray]:
+        """Every step of ``epoch``; their metrics by key (``STEP_METRICS``,
+        then an MoE model's ``moe_*``), one array each, in one fetch."""
+        self.start_epoch(epoch)
+        for _ in range(self.steps):
+            self.step()
+        return dict(zip(self.keys, self.metrics.T.cpu().numpy()))
+
+
+def eval_batch_totals(
+    model: torch.nn.Module,
+    images: torch.Tensor,
+    labels: torch.Tensor,
+    weights: torch.Tensor,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """One padded batch's weighted cross-entropy sum, top-1 and top-5 hits
+    and weight total, as an fp32 (4,) device tensor (``_make_eval_core``);
+    the model runs in the mode it is in."""
+    logits = model(normalize_images(images, dtype=dtype)).float()
+    top1, top5 = topk_hits(logits, labels)
+    return torch.stack([
+        (F.cross_entropy(logits, labels, reduction="none") * weights).sum(),
+        (top1 * weights).sum(),
+        (top5 * weights).sum(),
+        weights.sum(),
+    ])
+
+
+def _totals(t: torch.Tensor) -> dict[str, float]:
+    loss_sum, top1_count, top5_count, count = t.tolist()
+    return {
+        "loss_sum": loss_sum, "top1_count": top1_count,
+        "top5_count": top5_count, "count": count,
+    }
+
+
+class EvalRunner:
+    """The eval program (JAX ``make_eval_runner``) over one ``split``: its
+    padded batches (``split.eval_batches``' order and weights) gathered at
+    a batch counter on the device, each batch's totals
+    (:func:`eval_batch_totals`) summed on the device, one ``.tolist()`` a
+    pass.  The model runs in eval mode and is given back in the mode it
+    came in.  On a card the batch is a
+    :class:`~..utils.graphs.CapturedStep`: the first pass's first batch
+    runs eagerly, the next is captured in eval mode and replayed from then
+    on; ``program.body()``, called in eval mode, runs the next batch
+    eagerly."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        split: DeviceSplit,
+        batch_size: int,
+        *,
+        precision: str = "fp32",
+        pool=None,
+    ) -> None:
+        if len(split) == 0:
+            raise ValueError("eval over an empty split")
+        self.model, self.split, self.batch_size = model, split, batch_size
+        self.dtype = COMPUTE_DTYPES[precision]
+        self.batches = -(-len(split) // batch_size)
+        dev = split.labels.device
+        self.rows = torch.arange(batch_size, device=dev)
+        self.j = torch.zeros((), dtype=torch.int64, device=dev)  # the batch of the pass
+        self.totals = torch.zeros(4, device=dev)
+        self.program = CapturedStep(self._body, dev, counters=counted_wrappers, pool=pool)
+
+    @torch.no_grad()
+    def _body(self) -> None:
+        n = len(self.split)
+        idx = self.j * self.batch_size + self.rows
+        weights = (idx < n).float()
+        idx = torch.where(idx < n, idx, 0)
+        self.totals += eval_batch_totals(
+            self.model, self.split.images.index_select(0, idx),
+            self.split.labels.index_select(0, idx), weights, self.dtype,
+        )
+        self.j.add_(1)
+
+    def run(self) -> dict[str, float]:
+        """The split's totals: ``loss_sum``, ``top1_count``, ``top5_count``
+        and ``count``, as ``eval_totals`` gives them."""
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            self.totals.zero_()
+            self.j.zero_()
+            for _ in range(self.batches):
+                self.program()
+        finally:
+            self.model.train(was_training)
+        return _totals(self.totals)
 
 
 @torch.inference_mode()
@@ -175,21 +419,10 @@ def eval_totals(
     totals = None
     try:
         for images, labels, weights in batches:
-            logits = model(normalize_images(images, dtype=dtype)).float()
-            top1, top5 = topk_hits(logits, labels)
-            batch = torch.stack([
-                (F.cross_entropy(logits, labels, reduction="none") * weights).sum(),
-                (top1 * weights).sum(),
-                (top5 * weights).sum(),
-                weights.sum(),
-            ])
+            batch = eval_batch_totals(model, images, labels, weights, dtype)
             totals = batch if totals is None else totals + batch
     finally:
         model.train(was_training)
     if totals is None:
         raise ValueError("eval over an empty split")
-    loss_sum, top1_count, top5_count, count = totals.tolist()
-    return {
-        "loss_sum": loss_sum, "top1_count": top1_count,
-        "top5_count": top5_count, "count": count,
-    }
+    return _totals(totals)

@@ -9,6 +9,14 @@ steps, the per-epoch mean of the finite losses, the ``--eval-step`` loss
 lines and the per-epoch validation.  ``test`` evaluates the final
 in-memory state.
 
+``fit`` trains through the step program (``train/step.py``): each epoch is
+``EpochRunner.run_epoch``, each validation or test pass ``EvalRunner.run``;
+on a card both replay CUDA graphs captured once, all of a trainer's graphs
+in one memory pool, and the host fetches the stacked metrics once an epoch
+and the totals once a pass.  ``Trainer.step``, the eager ``TrainStep``,
+shares the model, its buffers and the momentum with them and keeps its own
+step count: it is the eager yardstick, not part of ``fit``.
+
 Not ported yet (ROADMAP.md queue 1): checkpoints and ``version-{n}``
 directories, TensorBoard, ``experiment.log``, ``hparams.yaml``, resume,
 the event bus, the health watchdog (a skipped step is counted and logged,
@@ -25,13 +33,12 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..data.augment import draw_crop_flip
 from ..data.loader import DeviceSplit, get_datasets
 from ..models import get_model
 from ..utils.meters import AverageMeter
-from ..utils.seed import fix_seed, step_generator
-from .optim import configure_optimizers
-from .step import COMPUTE_DTYPES, TrainStep, eval_totals
+from ..utils.seed import fix_seed
+from .optim import DeviceSGD, configure_optimizers, lr_table
+from .step import COMPUTE_DTYPES, EpochRunner, EvalRunner, TrainStep
 
 log = logging.getLogger(__name__)
 
@@ -93,22 +100,23 @@ class Trainer:
             self.model, self.optimizer, self.lr_schedule,
             precision=self.precision, grad_accum=hparams.grad_accum,
         )
+        # the step program: the LR and the applied-step count on the device,
+        # one graph memory pool for the train and eval graphs
+        self.sgd = DeviceSGD(self.optimizer, lr_table(
+            self.lr_schedule, hparams.epoch * self.steps_per_epoch, self.device))
+        self.graph_pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
+                           else None)
+        self.runner = EpochRunner(
+            self.model, self.sgd, self.train_split, hparams.batch_size, seed=hparams.seed,
+            precision=self.precision, grad_accum=hparams.grad_accum, pool=self.graph_pool,
+        )
+        self.eval_runners: dict[str, EvalRunner] = {}
 
     def train_epoch(self, epoch: int) -> dict:
-        """One epoch of guarded steps; per-step metrics (with an MoE model's
-        ``moe_*`` routing health) come back to the host once, at its end."""
-        hp = self.hparams
-        keys = ["loss", "top1_count", "grad_norm", "skipped"]
-        metrics = []
-        for i, (images, labels) in enumerate(
-            self.train_split.epoch_batches(hp.batch_size, hp.seed, epoch)
-        ):
-            draws = draw_crop_flip(len(labels), step_generator(hp.seed, epoch, i))
-            m = self.step(images, labels, draws)
-            if i == 0:
-                keys += sorted(k for k in m if k.startswith("moe_"))
-            metrics.append(torch.stack([m[k].float() for k in keys]))
-        out = dict(zip(keys, torch.stack(metrics).T.cpu().numpy()))
+        """One epoch of guarded steps through the step program; per-step
+        metrics (with an MoE model's ``moe_*`` routing health) come back to
+        the host once, at its end."""
+        out = self.runner.run_epoch(epoch)
         out["top1"] = out.pop("top1_count")
         return out
 
@@ -170,12 +178,15 @@ class Trainer:
                     + ", ".join(f"{k[len('moe_'):]} {v:.4f}" for k, v in moe.items())
                 )
             history.append(record)
-        return {"epochs": history, "applied_steps": self.step.applied}
+        return {"epochs": history, "applied_steps": int(self.sgd.applied)}
 
-    def _evaluate(self, split: DeviceSplit) -> dict[str, float]:
-        t = eval_totals(
-            self.model, split.eval_batches(self.hparams.batch_size), precision=self.precision
-        )
+    def _evaluate(self, name: str, split: DeviceSplit) -> dict[str, float]:
+        if name not in self.eval_runners:
+            self.eval_runners[name] = EvalRunner(
+                self.model, split, self.hparams.batch_size, precision=self.precision,
+                pool=self.graph_pool,
+            )
+        t = self.eval_runners[name].run()
         count = t["count"] or math.nan
         return {
             "loss": t["loss_sum"] / count,
@@ -185,13 +196,13 @@ class Trainer:
 
     def validate(self) -> dict[str, float]:
         """Whole-validation-split loss and top-1 accuracy (%)."""
-        out = self._evaluate(self.val_split)
+        out = self._evaluate("val", self.val_split)
         return {"val_loss": out["loss"], "val_acc": out["top1"]}
 
     def test(self) -> dict[str, float]:
         """Test-split loss and top-1/top-5 accuracy (%) of the current
         (final) state: no best checkpoint exists to load yet."""
-        out = self._evaluate(self.test_split)
+        out = self._evaluate("test", self.test_split)
         log.info(
             f"[TORCH] test loss: {out['loss']:.4f}, test top-1 acc: {out['top1']:.2f}%, "
             f"top-5 acc: {out['top5']:.2f}%"
