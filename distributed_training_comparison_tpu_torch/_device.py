@@ -9,7 +9,14 @@ silently.
 
 A resolved card also gets fp32 math pinned to fp32 (:func:`pin_fp32_math`):
 PyTorch's default lets cuDNN run fp32 convolutions as TF32, which would
-change the default precision's numerics against the reference.
+change the default precision's numerics against the reference.  And it
+gets cuDNN held to its deterministic algorithms
+(:func:`pin_deterministic_convolutions`): cuDNN's default fp32 weight
+gradient sums with atomics, so one seed would not reproduce its own run,
+and a run resumed from ``last.ckpt`` would not continue bit for bit.
+``torch.use_deterministic_algorithms`` stays off: it fills every
+``torch.empty`` with a kernel and makes cuBLAS raise without a workspace
+setting, and no other training kernel of the port needs it.
 """
 
 from __future__ import annotations
@@ -48,9 +55,36 @@ def pin_fp32_math() -> dict[str, str]:
     return settings
 
 
+def cudnn_determinism() -> dict[str, bool]:
+    """cuDNN's algorithm choice as torch reads it: ``deterministic`` and
+    ``benchmark``."""
+    cudnn = torch.backends.cudnn
+    return {"deterministic": bool(cudnn.deterministic), "benchmark": bool(cudnn.benchmark)}
+
+
+def pin_deterministic_convolutions() -> dict[str, bool]:
+    """Hold cuDNN to its deterministic algorithms, with no benchmarking
+    (which may pick another algorithm from run to run), and return the
+    settings read back (the original reference's ``fix_seed`` sets the
+    same two)."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    settings = cudnn_determinism()
+    if settings != {"deterministic": True, "benchmark": False}:
+        raise RuntimeError(f"cuDNN did not hold to deterministic algorithms: {settings}")
+    return settings
+
+
+def pin_card_math() -> dict:
+    """The settings a resolved card runs under: :func:`pin_fp32_math` and
+    :func:`pin_deterministic_convolutions`, both read back."""
+    return {**pin_fp32_math(), **pin_deterministic_convolutions()}
+
+
 def resolve_device(name: str = "cuda") -> torch.device:
     """``torch.device`` for ``"cuda"`` (device 0, or ``"cuda:N"``) or
-    ``"cpu"``; a card also gets :func:`pin_fp32_math`."""
+    ``"cpu"``; a card also gets :func:`pin_card_math` (fp32 math off TF32,
+    cuDNN deterministic); the CPU changes no setting."""
     dev = torch.device(name)
     if dev.type == "cpu":
         return dev
@@ -67,5 +101,5 @@ def resolve_device(name: str = "cuda") -> torch.device:
             f"{torch.cuda.get_device_name(dev)} has compute capability {cap}; "
             f"the port's kernels are built for Hopper {HOPPER} (sm_90a)"
         )
-    pin_fp32_math()
+    pin_card_math()
     return dev

@@ -20,7 +20,14 @@ WRITTEN_DELTAS = {
     "data_mode": "both modes take the host loader's numpy (seed, epoch) order and "
     "replay one captured step a step over the resident split; the JAX device mode "
     "permutes with threefry and compiles the epoch as one scan",
-    "contain_test": "tests the final in-memory state; no checkpoint is written yet",
+    "resume": "reads the port's own checkpoints (torch.save of the JAX contents), "
+    "not the JAX package's msgpack files",
+    "save_last": "the write-behind writer has no ckpt_write span, no ckpt/jobs, "
+    "ckpt/write_s or live ckpt/queue_depth metrics and no writer event until the "
+    "event bus is ported; its stats reach TensorBoard once an epoch",
+    "ckpt_path": "a run dir holds hparams.yaml, experiment.log, tb/ and the "
+    "checkpoints; no event stream, goodput record or flight ring until the event "
+    "bus is ported",
 }
 
 MODELS = (
@@ -36,13 +43,16 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--dset", type=str, default="cifar100")
     p.add_argument("--dpath", type=str, default="data/")
+    p.add_argument("--ckpt-path", type=str, default="src/single/checkpoints/",
+                   help="Root of the version-{n} run dirs (checkpoints, hparams.yaml, "
+                   "experiment.log, tb/)")
     p.add_argument("--seed", type=int, default=42, help="Seed for reproducibility")
     p.add_argument("--eval-step", type=int, default=300,
                    help="Log the batch loss every N global steps")
     p.add_argument("--amp", action="store_true", default=False,
                    help="bfloat16 compute policy")
     p.add_argument("--contain-test", action="store_true", default=False,
-                   help="Test after fit (on the final state: no checkpoints yet)")
+                   help="Test the best checkpoint after fit")
     p.add_argument("--epoch", type=int, default=200)
     p.add_argument("--batch-size", type=int, default=128, help="GLOBAL batch size")
     p.add_argument("--lr", type=float, default=0.1)
@@ -58,6 +68,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Noise sigma around the per-class anchors of --synthetic-data")
     p.add_argument("--limit-examples", type=int, default=0,
                    help="Truncate each split to N examples (0 = full dataset)")
+    p.add_argument("--resume", type=str, default=None,
+                   help="Path to a last.ckpt of the port to resume from (the whole "
+                   "train state), in a fresh version dir")
+    p.add_argument("--auto-resume", action="store_true", default=False,
+                   help="Continue the newest run under --ckpt-path (its version dir "
+                   "and its verified last.ckpt, else prev-last.ckpt) if one exists; "
+                   "otherwise start fresh.  An explicit --resume wins")
+    p.add_argument("--save-last", action=argparse.BooleanOptionalAction, default=True,
+                   help="Also save a resumable last.ckpt (on top of the best-only "
+                   "policy); --no-save-last for best-only")
+    p.add_argument("--log-every-step", action="store_true", default=False,
+                   help="Write a TensorBoard loss point for every step (from the "
+                   "per-epoch metrics fetch)")
+    p.add_argument("--save-last-every", type=int, default=1,
+                   help="Write the resumable last.ckpt every N epochs (1 = every epoch)")
+    p.add_argument("--save-last-min-secs", type=float, default=20.0,
+                   help="Throttle resumable-state saves to at most one per this many "
+                   "seconds (the final epoch always saves); 0 disables the throttle")
     p.add_argument("--data-mode", type=str, default="device", choices=["device", "host"],
                    help="Both keep the split resident on the device and take the "
                    "host loader's numpy epoch order")
@@ -101,6 +129,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve", action="store_true", default=False,
                    help="Run the bucketed inference engine + load generator "
                    "and print a latency/throughput report")
+    p.add_argument("--serve-ckpt", type=str, default=None,
+                   help="Checkpoint to serve (a best_model_*.ckpt or last.ckpt of the "
+                   "port). Default: the newest version dir's best checkpoint under "
+                   "--ckpt-path; if there is none the engine serves fresh weights "
+                   "seeded by --seed, with a warning")
     p.add_argument("--serve-buckets", type=str, default="1,2,4,8,16,32",
                    help="Comma-separated padded batch-size buckets; the "
                    "largest is the micro-batcher's max coalesced batch")
@@ -134,6 +167,8 @@ def load_config(argv: Sequence[str] | None = None) -> argparse.Namespace:
     args = parser.parse_args(argv)
     if args.limit_examples < 0:
         parser.error(f"--limit-examples must be >= 0, got {args.limit_examples}")
+    if args.save_last_every < 1:
+        parser.error(f"--save-last-every must be >= 1, got {args.save_last_every}")
     if args.grad_accum < 1:
         parser.error(f"--grad-accum must be >= 1, got {args.grad_accum}")
     if args.precision is None:

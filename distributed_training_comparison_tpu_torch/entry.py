@@ -1,8 +1,11 @@
 """Entry point (``distributed_training_comparison_tpu/entry.py``).
 
-Without ``--serve``: build the ``Trainer``, ``fit()``, then under
-``--contain-test`` ``test()`` the final state.  With ``--serve``: the
-serving subsystem.  There is no supervisor and no preemption handling yet.
+Without ``--serve``: build the ``Trainer`` (which claims the run dir under
+``--ckpt-path``, or resumes by ``--resume`` / ``--auto-resume``), ``fit()``,
+then under ``--contain-test`` ``test()`` the run's best checkpoint, and
+close the trainer's writers whatever happened.  With ``--serve``: the
+serving subsystem, on ``--serve-ckpt`` or the checkpoint it discovers.
+There is no supervisor and no preemption handling yet.
 """
 
 from __future__ import annotations
@@ -14,7 +17,9 @@ from .config import load_config
 
 
 def run(argv: Sequence[str] | None = None) -> dict:
-    """Parse flags and run; prints and returns the results."""
+    """Parse flags and run; prints and returns the results (a training
+    run's ``fit`` records, and under ``--contain-test`` the test metrics
+    and ``test_checkpoint``, the best file they were taken on)."""
     hparams = load_config(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     if hparams.serve:
@@ -25,8 +30,13 @@ def run(argv: Sequence[str] | None = None) -> dict:
         from .train import Trainer
 
         trainer = Trainer(hparams)
-        results = {"fit": trainer.fit()}
-        if hparams.contain_test:
-            results.update(trainer.test())
+        try:
+            results = {"fit": trainer.fit()}
+            if hparams.contain_test:
+                results.update(trainer.test())
+                results["test_checkpoint"] = (str(trainer.test_checkpoint)
+                                              if trainer.test_checkpoint else None)
+        finally:
+            trainer.close()
     print(results)
     return results

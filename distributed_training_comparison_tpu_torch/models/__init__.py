@@ -4,7 +4,14 @@ included.
 ``get_model`` resolves the JAX package's zoo names.
 """
 
-from .from_jax import ResNetPortError, VitPortError, resnet_from_jax, vit_from_jax
+from .from_jax import (
+    ResNetPortError,
+    VitPortError,
+    resnet_from_jax,
+    resnet_to_jax,
+    vit_from_jax,
+    vit_to_jax,
+)
 from .moe import SwitchFFN
 from .norms import BatchNorm2d, LayerNorm
 from .resnet import (
@@ -39,5 +46,5 @@ __all__ = [
     "BasicBlock", "BatchNorm2d", "Bottleneck", "LayerNorm", "ResNet", "ResNet18",
     "ResNet34", "ResNet50", "ResNet101", "ResNet152", "ResNetPortError", "SwitchFFN",
     "ViT", "ViTBlock", "ViTLong", "ViTMoE", "ViTSmall", "ViTTiny", "VitPortError",
-    "get_model", "resnet_from_jax", "vit_from_jax",
+    "get_model", "resnet_from_jax", "resnet_to_jax", "vit_from_jax", "vit_to_jax",
 ]

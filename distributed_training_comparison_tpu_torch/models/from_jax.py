@@ -28,6 +28,13 @@ returns the port ``ResNet``'s ``state_dict``, the inverse of
 Every leaf's shape is checked against the model its widths describe, and a
 missing or left-over leaf raises, so a structural mismatch fails loudly
 instead of half-converting.
+
+``vit_to_jax`` and ``resnet_to_jax`` are the inverses: a port ``state_dict``
+(or any mapping with its parameter names, such as the momentum buffers by
+parameter) to the flax trees, as numpy arrays of the same dtype, with the
+keys of every level sorted as ``flax.serialization.to_state_dict`` gives
+them; ``num_batches_tracked`` is dropped.  Only the layout moves, so a
+round trip is bit for bit.
 """
 
 from __future__ import annotations
@@ -232,3 +239,120 @@ def resnet_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
     if missing:
         raise ResNetPortError(f"JAX ResNet variables are missing the port's {missing}")
     return sd
+
+
+def _sorted_tree(tree: dict) -> dict:
+    return {k: _sorted_tree(v) if isinstance(v, dict) else v for k, v in sorted(tree.items())}
+
+
+def _nest(flat: Mapping[str, np.ndarray]) -> dict:
+    """``{"a/b/c": leaf}`` as nested dicts, keys sorted at every level."""
+    tree: dict = {}
+    for key, leaf in flat.items():
+        *path, name = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = leaf
+    return _sorted_tree(tree)
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _hwio(w: np.ndarray) -> np.ndarray:
+    """A torch OIHW convolution kernel as flax's HWIO."""
+    return np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+
+
+def vit_to_jax(state: Mapping) -> dict:
+    """A JAX ViT ``params`` tree from the port ``ViT``'s ``state_dict`` (or
+    from any mapping under its parameter names): the inverse of
+    :func:`vit_from_jax`, the blocks stacked on a leading ``depth`` axis."""
+    flat: dict[str, np.ndarray] = {}
+    blocks: dict[str, dict[int, np.ndarray]] = {}
+    outer = {"pos_emb": "pos_emb", "patch_embed.bias": "patch_embed/bias",
+             "ln_head.weight": "ln_head/scale", "ln_head.bias": "ln_head/bias",
+             "head.bias": "head/bias"}
+    for name, value in state.items():
+        a = _host(value)
+        if name in outer:
+            flat[outer[name]] = np.ascontiguousarray(a)
+        elif name == "patch_embed.weight":
+            flat["patch_embed/kernel"] = _hwio(a)
+        elif name == "head.weight":
+            flat["head/kernel"] = np.ascontiguousarray(a.T)
+        elif name.startswith("blocks."):
+            _, index, rest = name.split(".", 2)
+            module, _, leaf = rest.rpartition(".")
+            if module in ("ln_attn", "ln_mlp"):
+                key = f"blocks/{module}/{'scale' if leaf == 'weight' else leaf}"
+            elif module in _DENSE or module == "moe.router":
+                key = f"blocks/{module.replace('.', '/')}/{'kernel' if leaf == 'weight' else leaf}"
+                if leaf == "weight":
+                    a = a.T
+            elif module == "moe" and leaf in _EXPERTS:
+                key = f"blocks/moe/{leaf}"
+            else:
+                raise VitPortError(f"port ViT leaf {name!r} has no JAX counterpart")
+            blocks.setdefault(key, {})[int(index)] = a
+        else:
+            raise VitPortError(f"port ViT leaf {name!r} has no JAX counterpart")
+    for key, by_block in blocks.items():
+        if sorted(by_block) != list(range(len(by_block))):
+            raise VitPortError(f"{key!r}: blocks {sorted(by_block)} are not 0..depth-1")
+        flat[key] = np.stack([by_block[i] for i in range(len(by_block))])
+    return _nest(flat)
+
+
+_PORT_BN_LEAVES = {v: k for k, v in _BN_LEAVES.items()}
+_PORT_OUTER_MODULES = {v: k for k, v in _OUTER_MODULES.items()}
+
+
+def _flax_module_name(name: str, body: int) -> str:
+    """The flax module path of a port ResNet module (``conv1``,
+    ``layer2.0.bn3``, ``layer3.1.shortcut.0``, ...), given the blocks' body
+    depth: the inverse of ``_resnet_module_name``."""
+    if name in _PORT_OUTER_MODULES:
+        return _PORT_OUTER_MODULES[name]
+    layer, dot, rest = name.partition(".")
+    index, _, sub = rest.partition(".")
+    if not (layer.startswith("layer") and dot and index.isdigit()):
+        raise ResNetPortError(f"unrecognized port module {name!r}")
+    if sub in ("shortcut.0", "shortcut.1"):
+        kind, j = ("Conv" if sub.endswith("0") else "BatchNorm"), body
+    elif sub[:4] == "conv" and sub[4:].isdigit():
+        kind, j = "Conv", int(sub[4:]) - 1
+    elif sub[:2] == "bn" and sub[2:].isdigit():
+        kind, j = "BatchNorm", int(sub[2:]) - 1
+    else:
+        raise ResNetPortError(f"unrecognized port module {name!r}")
+    return f"stage{layer.removeprefix('layer')}_block{index}/{kind}_{j}"
+
+
+def resnet_to_jax(state: Mapping) -> dict:
+    """A JAX ResNet's ``{"params", "batch_stats"}`` from the port
+    ``ResNet``'s ``state_dict`` (or any mapping under its names): the
+    inverse of :func:`resnet_from_jax`.  ``num_batches_tracked`` is
+    dropped; a mapping without running statistics (the momentum buffers by
+    parameter) gives an empty ``batch_stats``."""
+    body = 3 if any(k.startswith("layer1.0.conv3.") for k in state) else 2
+    flat: dict[str, np.ndarray] = {}
+    for name, value in state.items():
+        module, _, leaf = name.rpartition(".")
+        if leaf == "num_batches_tracked":
+            continue
+        a = _host(value)
+        target = _flax_module_name(module, body)
+        if name == "linear.bias":
+            flat["params/head/bias"] = np.ascontiguousarray(a)
+        elif leaf == "weight" and a.ndim > 1:  # a convolution's or the head's
+            flat[f"params/{target}/kernel"] = _hwio(a) if a.ndim == 4 else np.ascontiguousarray(a.T)
+        elif leaf in _PORT_BN_LEAVES and (target == "stem_bn" or "/BatchNorm_" in target):
+            collection = "batch_stats" if leaf.startswith("running_") else "params"
+            flat[f"{collection}/{target}/{_PORT_BN_LEAVES[leaf]}"] = np.ascontiguousarray(a)
+        else:
+            raise ResNetPortError(f"port ResNet leaf {name!r} has no JAX counterpart")
+    tree = _nest(flat)
+    return {"params": tree.get("params", {}), "batch_stats": tree.get("batch_stats", {})}

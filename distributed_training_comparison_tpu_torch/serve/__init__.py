@@ -10,14 +10,19 @@ Counterpart of ``distributed_training_comparison_tpu/serve/``:
 
 ``serve_main`` is the ``--serve`` entry: one engine behind one
 ``MicroBatcher`` (the JAX package's single-replica path), driven by the
-configured load shape.  The router and fleet, request tracing, the event
-bus and checkpoint reading come with later slices.
+configured load shape, on ``--serve-ckpt`` or the checkpoint
+``train/checkpoint.py::find_serving_checkpoint`` discovers under
+``--ckpt-path`` (with neither, fresh weights seeded by ``--seed`` and a
+warning).  The router and fleet, request tracing and the event bus come
+with later slices.
 """
 
 from __future__ import annotations
 
 import logging
+import warnings
 
+from ..train.checkpoint import find_serving_checkpoint
 from .batcher import (
     DEFAULT_CLASS,
     BatcherClosed,
@@ -53,10 +58,12 @@ def build_engine(hparams, attn_impl: str = "auto") -> ServeEngine:
     the JAX package's flag→model mapping: dtype from ``--precision`` /
     ``--amp``, ``--stem`` for every model, and for a ViT the image and
     patch sizing, the MoE dispatch and the block-fusion policy (the norms
-    keep their fp32 default, as the JAX engine builds them).  Weights are a
-    fresh initialization seeded by ``--seed`` (no checkpoint reading yet).
-    ``attn_impl`` pins a ViT's attention implementation, for holding the
-    kernel path against the reference."""
+    keep their fp32 default, as the JAX engine builds them).  Weights are
+    ``--serve-ckpt``'s, else those of the newest version dir's best
+    checkpoint under ``--ckpt-path`` (or its ``last.ckpt``); with neither
+    the engine serves a fresh initialization seeded by ``--seed`` and warns
+    (load-testing mode).  ``attn_impl`` pins a ViT's attention
+    implementation, for holding the kernel path against the reference."""
     compute = "bf16" if hparams.precision == "bf16" else "fp32"
     model_kw: dict = {"stem": hparams.stem}
     if hparams.model.startswith("vit"):
@@ -66,9 +73,19 @@ def build_engine(hparams, attn_impl: str = "auto") -> ServeEngine:
             model_kw["patch"] = hparams.patch_size
         model_kw["moe_dispatch"] = hparams.moe_dispatch
         model_kw["block_fusion"] = hparams.block_fusion
+    ckpt_path = hparams.serve_ckpt
+    if ckpt_path is None:
+        ckpt_path = find_serving_checkpoint(hparams.ckpt_path)
+        if ckpt_path is None:
+            warnings.warn(
+                f"no checkpoint under {hparams.ckpt_path!r}; serving "
+                "fresh-initialized weights (load-testing mode)",
+                UserWarning,
+            )
     return ServeEngine(
         model_name=hparams.model,
         model_kw=model_kw,
+        checkpoint_path=ckpt_path,
         seed=hparams.seed,
         buckets=hparams.serve_buckets,
         precision=compute,
@@ -99,15 +116,18 @@ def serve_main(hparams) -> dict:
 
     Returns the load generator's report (offered, completed, shed, expired,
     failed, duration, throughput, latency percentiles) plus the engine's
-    ``stats()`` under ``engine`` and the batcher's counters under
-    ``batcher``.
+    ``stats()`` under ``engine``, the batcher's counters under ``batcher``
+    and the served checkpoint's ``checkpoint_meta`` (its path, epoch and
+    accuracy; None for fresh weights) under ``checkpoint``.
     """
     engine = build_engine(hparams)
     engine.warmup()
+    ck = engine.checkpoint_meta
     log.info(
-        "[serve] model %s on %s (%s), buckets %s warmed, fresh weights (seed %d)",
+        "[serve] model %s on %s (%s), buckets %s warmed, %s",
         hparams.model, engine.device, hparams.precision, list(engine.buckets),
-        hparams.seed,
+        f"checkpoint epoch {ck['epoch']} (acc {ck['acc']:.4f})" if ck
+        else f"fresh weights (seed {hparams.seed}, no checkpoint)",
     )
     images = request_pool(
         max(256, engine.max_bucket), image_size=engine.image_size,
@@ -124,6 +144,7 @@ def serve_main(hparams) -> dict:
     finally:
         batcher.close()
     report["engine"] = engine.stats()
+    report["checkpoint"] = ck
     report["batcher"] = batcher.metrics.summary()
     lat = report["latency_ms"]
     log.info(

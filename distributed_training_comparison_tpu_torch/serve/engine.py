@@ -17,11 +17,14 @@ engine's AOT-compiled bucket executables (``utils/graphs.py``):
 buckets in one memory pool; a dispatch copies the padded batch into the
 bucket's static input, replays the graph and copies the logits out.  A
 bucket not warmed runs eagerly once and is captured at its second
-dispatch.  On the CPU every dispatch runs eagerly.  There is no mesh.  Weights are a seeded fresh
-initialization or a ``state_dict`` (for example ``models.vit_from_jax`` or
-``models.resnet_from_jax`` of a JAX variable tree); reading the JAX
-package's checkpoints comes later.  The model serves in eval mode: a
-BatchNorm normalizes with its running statistics.
+dispatch.  On the CPU every dispatch runs eagerly.  There is no mesh.
+Weights are a seeded fresh initialization, a checkpoint of the port
+(``checkpoint_path``: a best file or a ``last.ckpt``, read by
+``train/checkpoint.py::load_eval_variables`` and carried across by the
+``models.*_from_jax`` maps; ``checkpoint_meta`` records its path, epoch
+and accuracy), or a ``state_dict`` (for example ``models.vit_from_jax`` or
+``models.resnet_from_jax`` of a JAX variable tree).  The model serves in
+eval mode: a BatchNorm normalizes with its running statistics.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from .._device import resolve_device
 from ..data.augment import normalize_images
 from ..models import get_model
 from ..ops import counted_wrappers
+from ..train.checkpoint import load_eval_variables
+from ..train.state import model_state_dict
 from ..utils.graphs import CapturedStep
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32)
@@ -52,6 +57,7 @@ class ServeEngine:
         model_name: str = "resnet18",
         model_kw: dict | None = None,
         state_dict: dict | None = None,
+        checkpoint_path=None,
         seed: int = 0,
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         precision: str = "bf16",
@@ -75,6 +81,13 @@ class ServeEngine:
                 kw.setdefault("image_size", self.image_size)
             model = get_model(model_name, **kw)
             model.init_weights(torch.Generator().manual_seed(int(seed)))
+        self.checkpoint_meta: dict | None = None
+        if checkpoint_path is not None:
+            if state_dict is not None:
+                raise ValueError("pass a checkpoint_path or a state_dict, not both")
+            variables, meta = load_eval_variables(checkpoint_path)
+            self.checkpoint_meta = {"path": str(checkpoint_path), **meta}
+            state_dict = model_state_dict(model, variables)
         if state_dict is not None:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()

@@ -1,7 +1,9 @@
 """Training: the optimizer and schedule, the guarded step, the step
-program's runners, the trainer."""
+program's runners, the train state and its checkpoints, the trainer."""
 
+from .async_ckpt import AsyncCheckpointer
 from .optim import DeviceSGD, configure_optimizers, lr_table, step_lr_schedule
+from .state import StateSnapshot, TrainState
 from .step import (
     EpochRunner,
     EvalRunner,
@@ -13,7 +15,7 @@ from .step import (
 from .trainer import Trainer, build_model
 
 __all__ = [
-    "DeviceSGD", "EpochRunner", "EvalRunner", "TrainStep", "Trainer", "build_model",
-    "configure_optimizers", "eval_totals", "forward_backward", "guarded_step", "lr_table",
-    "step_lr_schedule",
+    "AsyncCheckpointer", "DeviceSGD", "EpochRunner", "EvalRunner", "StateSnapshot",
+    "TrainState", "TrainStep", "Trainer", "build_model", "configure_optimizers",
+    "eval_totals", "forward_backward", "guarded_step", "lr_table", "step_lr_schedule",
 ]

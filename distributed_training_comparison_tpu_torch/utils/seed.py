@@ -19,7 +19,10 @@ import torch
 
 def fix_seed(seed: int) -> torch.Generator:
     """Seed Python's and numpy's global generators and return the seeded
-    generator that initialises the model's weights."""
+    generator that initialises the model's weights.  The reference's
+    ``fix_seed`` also holds cuDNN to its deterministic algorithms; in the
+    port that is the device choice's (``_device.resolve_device`` pins it
+    wherever a card resolves), so that no run on the card skips it."""
     random.seed(seed)
     np.random.seed(seed)
     return torch.Generator().manual_seed(seed)

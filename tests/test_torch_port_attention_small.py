@@ -258,13 +258,14 @@ def test_vit_tiny_pinned_to_fused_small_matches_jax(monkeypatch):
         assert err <= 2e-5, (name, err)
 
 
-def test_trainer_takes_the_given_model_on_the_cpu(monkeypatch):
+def test_trainer_takes_the_given_model_on_the_cpu(monkeypatch, tmp_path):
     """``Trainer(hparams, model=...)`` (the JAX keyword) trains the model it
     is given: a ``vit_tiny`` pinned to ``fused_small``, whose every block's
     forward and backward go through the short-sequence attention's plain
     versions on the CPU (counted by wrapping them)."""
     hp = load_config(["--device", "cpu", "--model", "vit_tiny", "--synthetic-data",
-                      "--limit-examples", "40", "--batch-size", "8", "--epoch", "1"])
+                      "--limit-examples", "40", "--batch-size", "8", "--epoch", "1",
+                      "--ckpt-path", str(tmp_path)])
     model = build_model(hp, attn_impl="fused_small")
     counts = {"fwd": 0, "bwd": 0}
     for kind in counts:

@@ -250,13 +250,13 @@ def test_build_model_maps_bn_dtype_stem_and_remat():
     assert vit.blocks[0].ln_attn.norm_dtype == torch.bfloat16
 
 
-def test_entry_trains_resnet18_with_no_model_flag():
+def test_entry_trains_resnet18_with_no_model_flag(tmp_path):
     """The entry point's default model, ResNet-18, trained and tested on the
     CPU (augmentation on, train and eval modes in turn): every metric
     finite, no step skipped."""
     results = entry.run([
         "--device", "cpu", "--synthetic-data", "--limit-examples", "48",
-        "--batch-size", "16", "--epoch", "1", "--contain-test",
+        "--batch-size", "16", "--epoch", "1", "--contain-test", "--ckpt-path", str(tmp_path),
     ])
     (epoch,) = results["fit"]["epochs"]
     assert epoch["steps"] == 2 and epoch["skipped"] == epoch["nonfinite_losses"] == 0
@@ -265,11 +265,11 @@ def test_entry_trains_resnet18_with_no_model_flag():
     assert np.isfinite(results["test_loss"]) and 0 <= results["test_top1"] <= 100
 
 
-def test_serve_resnet18_on_the_cpu():
+def test_serve_resnet18_on_the_cpu(tmp_path):
     """``--serve`` with no ``--model`` serves ResNet-18 (eval mode) through
     the micro-batcher: every request completes."""
     hp = load_config(["--serve", "--device", "cpu", "--serve-requests", "16",
-                      "--serve-buckets", "1,2,4"])
+                      "--serve-buckets", "1,2,4", "--ckpt-path", str(tmp_path)])
     report = serve_main(hp)
     assert report["completed"] == 16 and report["failed"] == 0
     assert report["engine"]["device"] == "cpu" and report["engine"]["dtype"] == "float32"

@@ -110,10 +110,10 @@ def test_open_loop_and_typed_shedding():
     assert report["completed"] + report["shed"] == 40 and report["shed"] > 0
 
 
-def test_serve_main_from_argv_returns_the_report():
+def test_serve_main_from_argv_returns_the_report(tmp_path):
     hp = load_config([
         "--serve", "--device", "cpu", "--model", "vit_tiny",
-        "--serve-requests", "16", "--serve-buckets", "1,2,4",
+        "--serve-requests", "16", "--serve-buckets", "1,2,4", "--ckpt-path", str(tmp_path),
     ])
     report = serve_main(hp)
     keys = {"offered", "completed", "shed", "expired", "failed", "duration_s",

@@ -462,7 +462,7 @@ def test_the_registry_lists_every_counted_wrapper():
     assert ops.counted_wrappers() == wrappers
 
 
-def test_trainer_fit_runs_the_step_program_on_the_cpu():
+def test_trainer_fit_runs_the_step_program_on_the_cpu(tmp_path):
     """``Trainer.fit`` trains through ``EpochRunner`` and validates through
     ``EvalRunner``: the epoch records equal an eager ``TrainStep`` loop's
     and ``eval_totals``' on the same start (ResNet-18, 16 px, 32 images,
@@ -472,7 +472,7 @@ def test_trainer_fit_runs_the_step_program_on_the_cpu():
 
     hp = load_config(["--device", "cpu", "--synthetic-data", "--image-size", "16",
                       "--limit-examples", "40", "--batch-size", "8", "--epoch", "2",
-                      "--lr", "0.01"])
+                      "--lr", "0.01", "--ckpt-path", str(tmp_path)])
     trainer = Trainer(hp)
     reference = Trainer(hp)
     fit = trainer.fit()

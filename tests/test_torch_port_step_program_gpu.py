@@ -66,7 +66,7 @@ def _eager_logits(engine, images: np.ndarray) -> np.ndarray:
     ["--model", "resnet18"],
     ["--model", "vit_tiny", "--patch-size", "2", "--amp"],
 ])
-def test_replayed_steps_equal_eager_steps(cuda_device, monkeypatch, argv):
+def test_replayed_steps_equal_eager_steps(cuda_device, monkeypatch, argv, tmp_path):
     """Two trainers on the same seeded weights: one's ``EpochRunner`` takes
     a warm-up step and replays the captured step three times, the other
     runs its runner's body eagerly four times.  The same kernels on the same
@@ -77,7 +77,7 @@ def test_replayed_steps_equal_eager_steps(cuda_device, monkeypatch, argv):
     weight-gradient convolution sums with atomics, and two eager fp32
     ResNet steps differ as well."""
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
-    hp = load_config(argv + DATA)
+    hp = load_config(argv + DATA + ["--ckpt-path", str(tmp_path)])
     graphed, eager = Trainer(hp), Trainer(hp)
     launches = []
     for runner, step in ((eager.runner, lambda: _eager_step(eager.runner)),
@@ -102,11 +102,11 @@ def test_replayed_steps_equal_eager_steps(cuda_device, monkeypatch, argv):
 
 
 @pytest.mark.gpu
-def test_eval_graph_totals_equal_the_eager_pass(cuda_device):
+def test_eval_graph_totals_equal_the_eager_pass(cuda_device, tmp_path):
     """``Trainer.validate`` through the captured eval batch (three passes:
     a warm-up batch, then replays) against the same split evaluated by the
     eval body run eagerly: the totals bit for bit, in eval mode."""
-    hp = load_config(["--model", "resnet18", "--amp", *DATA])
+    hp = load_config(["--model", "resnet18", "--amp", *DATA, "--ckpt-path", str(tmp_path)])
     trainer = Trainer(hp)
     trainer.runner.start_epoch(0)
     for _ in range(2):  # the running statistics move
@@ -131,11 +131,11 @@ def test_eval_graph_totals_equal_the_eager_pass(cuda_device):
     ["--serve", "--model", "resnet18", "--amp"],
     ["--serve", "--model", "vit_tiny", "--patch-size", "2", "--amp"],
 ])
-def test_bucket_graph_logits_equal_the_eager_forward(cuda_device, argv):
+def test_bucket_graph_logits_equal_the_eager_forward(cuda_device, argv, tmp_path):
     """A bucket's graph (``warmup`` captures every bucket, largest first)
     against the engine's eager forward: the logits of a padded batch of 3
     in bucket 4 and of a full bucket 32, bit for bit."""
-    hp = load_config(argv + ["--serve-buckets", "1,4,32"])
+    hp = load_config(argv + ["--serve-buckets", "1,4,32", "--ckpt-path", str(tmp_path)])
     engine = build_engine(hp)
     engine.warmup()
     assert engine.stats()["captured_buckets"] == [1, 4, 32]
@@ -147,14 +147,14 @@ def test_bucket_graph_logits_equal_the_eager_forward(cuda_device, argv):
 
 
 @pytest.mark.gpu
-def test_a_graph_replays_what_its_capture_called(cuda_device):
+def test_a_graph_replays_what_its_capture_called(cuda_device, tmp_path):
     """A bucket's graph holds the wrappers its capture called: with
     ``block_attention`` rebound after the capture (a planted fault that
     zeroes its output) the graph replays the first logits bit for bit,
     while the eager forward and a new engine, captured under the fault,
     both give the fault's logits."""
     hp = load_config(["--serve", "--model", "vit_tiny", "--patch-size", "2", "--amp",
-                      "--serve-buckets", "4"])
+                      "--serve-buckets", "4", "--ckpt-path", str(tmp_path)])
     engine = build_engine(hp)
     images = request_pool(4, image_size=hp.image_size, seed=2, fold=("check", 4))
     first = [engine.predict_logits(images) for _ in range(3)][-1]

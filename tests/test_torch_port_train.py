@@ -246,13 +246,13 @@ def test_train_step_rejects_an_unsplittable_batch(mesh):
         port_step(torch.from_numpy(images), torch.from_numpy(labels).long())
 
 
-def test_entry_trains_and_tests_on_the_cpu():
+def test_entry_trains_and_tests_on_the_cpu(tmp_path):
     """The port's entry point without ``--serve``: fit then test, on the
     CPU, with augmentation on; every metric finite."""
     results = entry.run([
         "--device", "cpu", "--model", "vit_tiny", "--synthetic-data",
         "--limit-examples", "48", "--batch-size", "16", "--epoch", "2",
-        "--contain-test", "--eval-step", "2",
+        "--contain-test", "--eval-step", "2", "--ckpt-path", str(tmp_path),
     ])
     epochs = results["fit"]["epochs"]
     assert [e["steps"] for e in epochs] == [2, 2] and results["fit"]["applied_steps"] == 4
@@ -264,7 +264,7 @@ def test_entry_trains_and_tests_on_the_cpu():
     assert 0.0 <= results["test_top1"] <= results["test_top5"] <= 100.0
 
 
-def test_models_without_a_port_raise_in_the_trainer():
+def test_models_without_a_port_raise_in_the_trainer(tmp_path):
     """Every model is ported now: no zoo name raises in the trainer's
     ``build_model`` (built on the meta device, no weights drawn), and the
     entry point's default, ``resnet18``, trains with no ``--model`` flag on
@@ -274,6 +274,6 @@ def test_models_without_a_port_raise_in_the_trainer():
             model = build_model(port_config.load_config(["--device", "cpu", "--model", name]))
         assert model.num_classes == 100, name
     results = entry.run(["--device", "cpu", "--synthetic-data", "--limit-examples", "32",
-                         "--batch-size", "16", "--epoch", "1"])
+                         "--batch-size", "16", "--epoch", "1", "--ckpt-path", str(tmp_path)])
     (epoch,) = results["fit"]["epochs"]
     assert results["fit"]["applied_steps"] == 1 and np.isfinite(epoch["train_loss"])
