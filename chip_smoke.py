@@ -304,14 +304,29 @@ last line:
              step, each launched on the device as often in one replay as
              in one eager step and as the graph's ledger counts
              (``ledger_against_device``), ms a step by CUDA events and
-             busy and idle shares of each; and on a bucket-32 dispatch of
+             busy and idle shares of each, and on ``train_resnet`` and
+             ``train_tiny`` the guard and update alone (the flat gradients'
+             gather and norm, the flat update and its selects:
+             ``guard_update_profile``, busy ms, activities and kernels by
+             name against the six passes of the flat parameters' bytes);
+             and on a bucket-32 dispatch of
              ``serve_resnet``, ``serve_tiny`` and ``serve_moe`` against the
              engine's eager forward (logits bit for bit, the same launch
              checks, ms a dispatch, busy and idle).  A planted fault in a
              serve phase runs the engine's eager forward
              (``eager_logits``): a bucket graph replays what its capture
              called;
-9. checkpoint — the trainer's files: fp32 ResNet-18 (the entry point with
+9. host_data — ``--data-mode host``: bf16 ResNet-18, 2 epochs of 4 steps
+             of 128, chunks of 3 steps (each epoch ends on a partial
+             chunk), a ring of 2 slots, the loader on 2 threads, against
+             ``--data-mode device``: the state and every epoch's record bit
+             for bit, both steps captured, the ring's host buffers pinned;
+             then both modes at 30 steps an epoch (chunks of 8): ms a step
+             by the host clock, busy ms a step and idle share, the ring's
+             device MB, and one host-mode epoch traced: its pinned copies
+             on a stream no kernel ran on, and the share of their time
+             that overlapped a kernel;
+10. checkpoint — the trainer's files: fp32 ResNet-18 (the entry point with
              no ``--model``) trained 2 epochs straight against 1 epoch and
              then 2 by ``--auto-resume`` in the same version dir, and
              ``vit_tiny --patch-size 2 --amp`` (K5 and K6 in every block of
@@ -326,11 +341,12 @@ last line:
              entry point, and a bucket-32 batch's logits from engines of
              ``--serve-ckpt`` and of discovery under ``--ckpt-path`` bit for
              bit those of an engine on the trainer's in-memory weights; the
-             ResNet-18 best and last files' MB, the device snapshot's ms,
+             ResNet-18 best and last files' MB, the device snapshot's ms
+             (one copy of the flat state buffers),
              its device-to-host copy and each file's serialize and write
              seconds, and an epoch's seconds alone and with a ``last.ckpt``
              save in flight on the writer thread;
-10. the ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, then
+11. the ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Every parse of the port's flags gets a ``--ckpt-path`` of its own under one
@@ -340,8 +356,9 @@ version dirs there, and no serve path discovers another path's checkpoint.
 ``python3 chip_smoke.py --turn CHECKOUT LABEL`` instead times one checkout
 of the port (this one or a parent unpacked beside it) through the same
 functions, for comparisons made in turns within one call (``turn``), and
-``python3 chip_smoke.py --step-program`` (or ``--checkpoint``, or both)
-builds the kernels and runs those phases alone.
+``python3 chip_smoke.py --step-program`` (or ``--host-data``, or
+``--checkpoint``, or any of them together) builds the kernels and runs
+those phases alone.
 
 It imports nothing of JAX.  Without a CUDA device, or outside a checkout of
 the repository, it exits non-zero and prints no result.
@@ -5414,6 +5431,8 @@ def step_program_train(label: str, argv: list, attn_impl: str | None, reps: int 
             ((n[:60], ms) for n, ms in replay_prof["device_ms_by_name"].items()),
             key=lambda kv: -kv[1])[:8]),
     })
+    if label in GUARD_PROFILED:
+        record["guard_update"] = guard_update_profile(eager)
     del graphed, eager
     gc.collect()
     torch.cuda.empty_cache()
@@ -5478,6 +5497,52 @@ def step_program_serve(label: str, argv: list, reps: int = 20) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# The paths whose guard and update (``train/step.py::guard_and_update``) the
+# step program phase also profiles alone: bf16 ResNet-18 and bf16 vit_tiny p2.
+GUARD_PROFILED = ("train_resnet", "train_tiny")
+
+
+def guard_update_profile(trainer, reps: int = 10) -> dict:
+    """The guard and update of one step alone, as the step body runs them
+    after its backward (``guard_and_update`` after the running statistics'
+    copy): the gradients gathered into the flat buffers, their norm, the
+    finite flag, the flat update and one select a buffer, on ``trainer``'s
+    live state and last gradients (each call applies an update).  Device
+    busy ms, device activities and launches a call, ms by kernel name, the
+    flat buffers' sizes, and ``floor_ms``: the flat parameters' bytes read
+    as p, g and buf and written as p and buf, plus the norm's read of g
+    (six passes), at the card's memory rate."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch.train import (
+        guard_and_update,
+        statistics_buffers,
+    )
+
+    sgd, running = trainer.sgd, statistics_buffers(trainer.model)
+    loss = torch.ones((), device=trainer.device)
+    grad_accum = trainer.hparams.grad_accum
+
+    def call():
+        guard_and_update(sgd, loss, running, [t.clone() for t in running], grad_accum=grad_accum)
+
+    call()
+    torch.cuda.synchronize()
+    prof = profile_device(call, reps)
+    launches = device_launches(call)
+    nbytes = {"params": sum(f.numel() * f.element_size() for f in sgd.flat_params),
+              "statistics": sum(f.numel() * f.element_size() for f in running)}
+    return {
+        "busy_ms": prof["device_busy_ms"], "device_activities": prof["device_activities_per_call"],
+        "launches": sum(launches.values()), "kernels_by_name": {
+            n: {"ms": ms, "launches": launches.get(n, 0)}
+            for n, ms in sorted(prof["device_ms_by_name"].items(), key=lambda kv: -kv[1])},
+        "flat_buffers": {"params": len(sgd.flat_params), "momentum": len(sgd.flat_momentum),
+                         "statistics": len(running)},
+        "flat_bytes": nbytes, "floor_ms": 6 * nbytes["params"] / PEAK_BYTES * 1e3,
+    }
 
 
 def step_program_phase(smi: str) -> dict:
@@ -5778,6 +5843,166 @@ def check_checkpoint(rec: dict) -> None:
         raise RuntimeError(f"checkpoint: serving the best file: {serve}")
 
 
+# The host data phase (``--data-mode host``, ``data/loader.py``): bf16
+# ResNet-18 trained 2 epochs of 4 steps of 128 (522 training images) in the
+# device mode and in the host mode, chunks of 3 steps (each epoch ends on a
+# partial chunk), a ring of 2 slots and the loader on 2 threads: the host
+# mode ends bit for bit where the device mode ends.  Then both modes timed
+# over 2 epochs of 30 steps, chunks of 8, and one host-mode epoch traced:
+# which stream each pinned copy ran on, and how much of it overlapped a
+# kernel.
+HOST_DATA_ARGV = [
+    "--model", "resnet18", "--amp", "--synthetic-data", "--batch-size", "128",
+    "--limit-examples", "580", "--epoch", "2", "--lr-decay-step-size", "1",
+]
+HOST_DATA_FLAGS = ["--data-mode", "host", "--host-chunk-steps", "3", "--device-prefetch", "2",
+                   "--workers", "2"]
+HOST_TIMING_ARGV = [
+    "--model", "resnet18", "--amp", "--synthetic-data", "--batch-size", "128",
+    "--limit-examples", "4300", "--epoch", "2", "--lr-decay-step-size", "1",
+]
+HOST_TIMING_FLAGS = ["--data-mode", "host", "--host-chunk-steps", "8", "--device-prefetch", "2",
+                     "--workers", "2"]
+
+
+def copy_streams(trainer, epoch: int) -> dict:
+    """One host-mode epoch (``train_epoch``) under the profiler, its trace
+    read back: the streams of the ring's pinned host-to-device copies and
+    of the kernels, and the share of the copies' time that overlapped a
+    kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_epoch(epoch)
+        torch.cuda.synchronize()
+    path = Path(run_dir()) / "host_epoch_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "Pinned" in e.get("name", "") and "HtoD" in e.get("name", "")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    spans = sorted((k["ts"], k["ts"] + k["dur"]) for k in kernels)
+    overlap = 0.0
+    for c in copies:
+        c0, c1 = c["ts"], c["ts"] + c["dur"]
+        overlap += sum(max(0.0, min(c1, k1) - max(c0, k0)) for k0, k1 in spans
+                       if k0 < c1 and k1 > c0)
+    copy_us = sum(c["dur"] for c in copies)
+    return {
+        "pinned_copies": len(copies),
+        "copy_streams": sorted({c.get("args", {}).get("stream") for c in copies}, key=str),
+        "kernel_streams": sorted({k.get("args", {}).get("stream") for k in kernels}, key=str),
+        "copy_ms": copy_us / 1e3,
+        "copy_share_overlapping_kernels": overlap / copy_us if copy_us else None,
+    }
+
+
+def _mode_times(trainer, epochs: int = 3) -> dict:
+    """ms a step by the host clock over ``epochs`` replayed epochs (each
+    ``train_epoch``: its start, its steps and its metrics fetch), each
+    epoch's ms, the host's ms from an epoch's start to its first step's
+    launch (its chunk's wait included), and under the host mode the ms the training thread waited on
+    the ring for a chunk (``StagingRing.wait_seconds``); then the
+    device-busy ms a step and idle share of one more epoch under the
+    profiler."""
+    import torch
+
+    steps, ring = trainer.steps_per_epoch, trainer.runner.ring
+    trainer.train_epoch(2)  # warm: every graph is captured after the fit
+    torch.cuda.synchronize()
+    epoch_ms, first_ms = [], []
+    runner_step = trainer.runner.step
+    waited = ring.wait_seconds if ring is not None else 0.0
+    for e in range(epochs):
+        marks = []
+
+        def step():
+            runner_step()
+            if not marks:
+                marks.append(time.perf_counter())
+
+        trainer.runner.step = step
+        t0 = time.perf_counter()
+        trainer.train_epoch(3 + e)
+        torch.cuda.synchronize()
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)
+        first_ms.append((marks[0] - t0) * 1e3)
+    trainer.runner.step = runner_step
+    prof = profile_device(lambda: trainer.train_epoch(3 + epochs), 1)
+    out = {"steps_per_epoch": steps, "ms_per_step": sum(epoch_ms) / (epochs * steps),
+           "epoch_ms": epoch_ms, "ms_to_first_step": first_ms,
+           "busy_ms_per_step": prof["device_busy_ms"] / steps,
+           "idle_share": prof["device_idle_share"]}
+    if ring is not None:
+        out["chunk_wait_ms_per_epoch"] = (ring.wait_seconds - waited) * 1e3 / epochs
+    return out
+
+
+def host_data_phase(smi: str) -> dict:
+    """The host mode against the device mode: the bit-for-bit pair
+    (``HOST_DATA_ARGV``), then the timed pair (``HOST_TIMING_ARGV``), the
+    ring's pinned buffers and device bytes, and the streams of its copies
+    (``copy_streams``)."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch.train import Trainer
+
+    keys = ("steps", "skipped", "train_loss", "train_acc", "val_loss", "val_acc")
+    trainers, fits = {}, {}
+    for mode, extra in (("device", []), ("host", HOST_DATA_FLAGS)):
+        trainers[mode] = Trainer(load_config([*HOST_DATA_ARGV, *extra]))
+        fits[mode] = trainers[mode].fit()
+    host = trainers["host"]
+    ring = host.runner.ring
+    record = {
+        "phase": "host_data", "nvidia_smi": smi, "argv": HOST_DATA_ARGV,
+        "host_flags": HOST_DATA_FLAGS,
+        "captured": [t.runner.program.captured for t in trainers.values()],
+        "state": state_agreement(_state_tensors(host), _state_tensors(trainers["device"])),
+        "epochs_equal": [{k: e[k] for k in keys} for e in fits["host"]["epochs"]]
+        == [{k: e[k] for k in keys} for e in fits["device"]["epochs"]],
+        "epochs_host": [{k: e[k] for k in keys} for e in fits["host"]["epochs"]],
+        "applied": [fits["host"]["applied_steps"], fits["device"]["applied_steps"]],
+        "chunks_staged": ring.chunks_staged, "ring_slots": ring.slots,
+        "ring_chunk_steps": ring.chunk,
+        "pinned": all(t.is_pinned() for pair in ring.pinned for t in pair),
+    }
+    for t in trainers.values():
+        t.close()
+    del trainers, host, ring
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed = {}
+    for mode, extra in (("device", []), ("host", HOST_TIMING_FLAGS)):
+        t = Trainer(load_config([*HOST_TIMING_ARGV, *extra]))
+        t.fit()
+        timed[mode] = _mode_times(t)
+        if mode == "host":
+            timed[mode]["ring_mb"] = t.runner.ring.nbytes() / 1e6
+            timed[mode]["copies"] = copy_streams(t, 9)
+        t.close()
+        del t
+        gc.collect()
+        torch.cuda.empty_cache()
+    timed["host_over_device_ms"] = timed["host"]["ms_per_step"] / timed["device"]["ms_per_step"]
+    timed["argv"], timed["host_flags"] = HOST_TIMING_ARGV, HOST_TIMING_FLAGS
+    record["timed"] = timed
+    return record
+
+
+def check_host_data(rec: dict) -> None:
+    """Bit for bit with the device mode on the first run, both captured, the
+    ring's host buffers pinned, and its copies on a stream of their own."""
+    copies = rec["timed"]["host"]["copies"]
+    if not (all(rec["captured"]) and rec["state"]["bitwise"] and rec["epochs_equal"]
+            and rec["applied"] == [8, 8] and rec["pinned"]):
+        raise RuntimeError(f"host data mode: the host-mode run is not the device-mode run: {rec}")
+    streams = set(copies["copy_streams"])
+    if not (copies["pinned_copies"] and streams.isdisjoint(copies["kernel_streams"])):
+        raise RuntimeError(f"host data mode: the ring's copies ran on a kernel stream: {copies}")
+
+
 def init_profiler_for_graphs() -> None:
     """Start the profiler once before any CUDA graph is captured: with a
     CUDA runtime older than 12 the tracer sees no kernel of a graph
@@ -5789,7 +6014,7 @@ def init_profiler_for_graphs() -> None:
 
 
 def phases_main(flags: list) -> int:
-    """``--step-program`` and/or ``--checkpoint`` (``PHASE_FLAGS``): the
+    """``--step-program``, ``--host-data`` and/or ``--checkpoint`` (``PHASE_FLAGS``): the
     device line, the kernels built, and those phases alone, each checked
     after it is printed."""
     import torch
@@ -5822,6 +6047,7 @@ def phases_main(flags: list) -> int:
 
 
 PHASE_FLAGS = {"--step-program": (step_program_phase, check_step_program),
+               "--host-data": (host_data_phase, check_host_data),
                "--checkpoint": (checkpoint_phase, check_checkpoint)}
 
 
@@ -6082,6 +6308,10 @@ def main() -> int:
     step_program = step_program_phase(smi)
     emit(step_program)
     check_step_program(step_program)
+
+    host_data = host_data_phase(smi)
+    emit(host_data)
+    check_host_data(host_data)
 
     checkpoint = checkpoint_phase(smi)
     emit(checkpoint)

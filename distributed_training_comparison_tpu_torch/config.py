@@ -17,9 +17,21 @@ WRITTEN_DELTAS = {
     "device": "new: where the model runs, cuda (default) or cpu",
     "serve_shape": "only auto/closed/open until the fleet's load shapes are ported",
     "serve_replicas": "only 1 until the router is ported",
-    "data_mode": "both modes take the host loader's numpy (seed, epoch) order and "
-    "replay one captured step a step over the resident split; the JAX device mode "
-    "permutes with threefry and compiles the epoch as one scan",
+    "data_mode": "both modes take one epoch order, the JAX host loader's numpy "
+    "(seed, epoch) shuffle, and the SeedSequence crop/flip draws of utils/seed.py, so "
+    "they train on the same batches; the JAX device mode permutes with threefry "
+    "(data/sampler.py:64-68) and draws with split(fold_in(fold_in(data_key, epoch), 1), "
+    "steps) (train/step.py:800-803). Kept on purpose: the port's tests hold it step by "
+    "step against the JAX package on the same batches and draws, and host mode's "
+    "yardstick is the device mode's run, bit for bit. Both modes replay one captured "
+    "step a step where JAX compiles a scan over the epoch or the chunk",
+    "workers": "host data mode: one host, no per-host sharding until data parallelism "
+    "is ported (ROADMAP queue 1, item 5), and no quarantine of corrupt examples until "
+    "the health watchdog is (item 7)",
+    "device_prefetch": "'auto' needs the planner (ROADMAP queue 1, item 6) and raises "
+    "until then; 0 stages each chunk on the training thread",
+    "device_chunk_steps": "accepted and has no effect: every replayed step already "
+    "returns to the host, which the JAX flag's chunks exist to allow",
     "resume": "reads the port's own checkpoints (torch.save of the JAX contents), "
     "not the JAX package's msgpack files",
     "save_last": "the write-behind writer has no ckpt_write span, no ckpt/jobs, "
@@ -29,6 +41,11 @@ WRITTEN_DELTAS = {
     "checkpoints; no event stream, goodput record or flight ring until the event "
     "bus is ported",
 }
+
+# host data mode defaults (the JAX package's config.py)
+WORKERS_DEFAULT = 4
+HOST_CHUNK_STEPS_DEFAULT = 32
+DEVICE_PREFETCH_DEFAULT = 2
 
 MODELS = (
     "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
@@ -47,6 +64,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Root of the version-{n} run dirs (checkpoints, hparams.yaml, "
                    "experiment.log, tb/)")
     p.add_argument("--seed", type=int, default=42, help="Seed for reproducibility")
+    p.add_argument("--workers", type=int, default=WORKERS_DEFAULT,
+                   help="host data mode: batches assembled ahead on a background thread "
+                   "(the reference DataLoader's num_workers); 0 assembles them on the "
+                   "staging thread")
     p.add_argument("--eval-step", type=int, default=300,
                    help="Log the batch loss every N global steps")
     p.add_argument("--amp", action="store_true", default=False,
@@ -87,8 +108,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Throttle resumable-state saves to at most one per this many "
                    "seconds (the final epoch always saves); 0 disables the throttle")
     p.add_argument("--data-mode", type=str, default="device", choices=["device", "host"],
-                   help="Both keep the split resident on the device and take the "
-                   "host loader's numpy epoch order")
+                   help="'device': the whole train split resident on the device "
+                   "(CIFAR-scale). 'host': the train split stays in host memory and "
+                   "streams to the device in chunks (datasets that do not fit on the "
+                   "device). Both take the same numpy (seed, epoch) batch order")
+    p.add_argument("--host-chunk-steps", type=int, default=HOST_CHUNK_STEPS_DEFAULT,
+                   help="host data mode: loader steps staged per host-to-device copy "
+                   "(the loss trajectory is identical for any value)")
+    p.add_argument("--device-chunk-steps", type=int, default=0,
+                   help="device data mode: steps per dispatch in the JAX package; "
+                   "accepted and has no effect here, where every replayed step returns "
+                   "to the host")
+    p.add_argument("--device-prefetch", type=str, default=str(DEVICE_PREFETCH_DEFAULT),
+                   help="host data mode: staged device chunks in flight ahead of the "
+                   "running steps (bounds the extra device memory at N chunk slots; "
+                   "the copy hides behind compute). 0 = stage each chunk on the "
+                   "training thread before its steps. 'auto' needs the planner and "
+                   "raises until it is ported")
     p.add_argument("--precision", type=str, default=None, choices=["fp32", "bf16"],
                    help="Compute precision; overrides --amp when set")
     p.add_argument("--model", type=str, default="resnet18", choices=list(MODELS),
@@ -171,6 +207,19 @@ def load_config(argv: Sequence[str] | None = None) -> argparse.Namespace:
         parser.error(f"--save-last-every must be >= 1, got {args.save_last_every}")
     if args.grad_accum < 1:
         parser.error(f"--grad-accum must be >= 1, got {args.grad_accum}")
+    if args.host_chunk_steps < 1:
+        parser.error(f"--host-chunk-steps must be >= 1, got {args.host_chunk_steps}")
+    if args.device_chunk_steps < 0:
+        parser.error(f"--device-chunk-steps must be >= 0, got {args.device_chunk_steps}")
+    if args.device_prefetch.strip().lower() == "auto":
+        parser.error("--device-prefetch auto derives the depth from the free device memory "
+                     "by the planner, which is not ported yet (ROADMAP.md queue 1, item 6)")
+    try:
+        args.device_prefetch = int(args.device_prefetch)
+    except ValueError:
+        parser.error(f"--device-prefetch must be an integer >= 0, got {args.device_prefetch!r}")
+    if args.device_prefetch < 0:
+        parser.error(f"--device-prefetch must be >= 0, got {args.device_prefetch}")
     if args.precision is None:
         args.precision = "bf16" if args.amp else "fp32"
     try:

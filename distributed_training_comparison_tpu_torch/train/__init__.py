@@ -10,12 +10,15 @@ from .step import (
     TrainStep,
     eval_totals,
     forward_backward,
+    guard_and_update,
     guarded_step,
+    statistics_buffers,
 )
 from .trainer import Trainer, build_model
 
 __all__ = [
     "AsyncCheckpointer", "DeviceSGD", "EpochRunner", "EvalRunner", "StateSnapshot",
     "TrainState", "TrainStep", "Trainer", "build_model", "configure_optimizers",
-    "eval_totals", "forward_backward", "guarded_step", "lr_table", "step_lr_schedule",
+    "eval_totals", "forward_backward", "guard_and_update", "guarded_step", "lr_table",
+    "statistics_buffers", "step_lr_schedule",
 ]

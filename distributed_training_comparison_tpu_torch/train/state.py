@@ -25,11 +25,15 @@ rebinds one.  The learning rate follows from the count through the LR
 table at the next step.
 
 :meth:`TrainState.snapshot` is the copy a write-behind save takes: one
-device-side copy of every fp32 tensor of the state on the current stream,
-and an event recorded after it.  The step program updates the live tensors
+device-side copy of every storage the state's tensors lie in (the few flat
+buffers of the parameters, momentum and running statistics,
+``train/flat.py``, and any tensor outside them) on the current stream, and
+an event recorded after it.  The step program updates the live tensors
 in place, so the writer must never read them while the next epoch runs;
 it waits on the event on a stream of its own before its one device-to-host
-copy (:meth:`StateSnapshot.host_tensors`).
+copy (:meth:`StateSnapshot.host_tensors`), holding
+``utils.graphs.CAPTURE_LOCK`` so that the copy never runs while a step
+program's graph is being captured.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from ..models import ResNet, ViT, resnet_from_jax, resnet_to_jax, vit_from_jax, vit_to_jax
+from ..utils.graphs import CAPTURE_LOCK
 from .optim import DeviceSGD
 
 MOMENTUM = "momentum:"  # the prefix of a momentum buffer's name among the state's tensors
@@ -87,36 +92,38 @@ def jax_state_dict(model: torch.nn.Module, tensors: Mapping[str, torch.Tensor], 
 
 class StateSnapshot:
     """A copy of a :class:`TrainState`'s tensors, flat on the state's
-    device, with the event recorded after the copy on a card."""
+    device, with the event recorded after the copy on a card.  ``slots``
+    places each named tensor in ``flat``: ``(offset, shape, stride)``."""
 
-    def __init__(self, model, names, shapes, flat, applied, event) -> None:
-        self.model, self.names, self.shapes = model, names, shapes
+    def __init__(self, model, names, slots, flat, applied, event) -> None:
+        self.model, self.names, self.slots = model, names, slots
         self.flat, self.applied, self.event = flat, applied, event
         self._host: tuple[dict[str, torch.Tensor], int] | None = None
 
     def host_tensors(self) -> tuple[dict[str, torch.Tensor], int]:
-        """The tensors by name on the host and the applied-step count, copied
-        once however often asked.  On a card: one copy into pinned memory on
-        a stream of the caller's that waits on the snapshot's event (the
-        compute stream goes on)."""
+        """The tensors by name on the host, views into one host copy in the
+        live tensors' layout (a ``channels_last`` weight keeps its strides),
+        and the applied-step count, copied once however often asked.  On a
+        card: one copy into pinned memory on a stream of the caller's that
+        waits on the snapshot's event (the compute stream goes on)."""
         if self._host is None:
             self._host = self._copy_to_host()
         return self._host
 
     def _copy_to_host(self) -> tuple[dict[str, torch.Tensor], int]:
         flat, applied = self.flat, self.applied
-        if self.event is not None:
-            stream = torch.cuda.Stream(device=flat.device)
-            with torch.cuda.stream(stream):
-                stream.wait_event(self.event)
-                flat = torch.empty(self.flat.shape, dtype=self.flat.dtype, pin_memory=True)
-                flat.copy_(self.flat, non_blocking=True)
-                applied = torch.empty((), dtype=self.applied.dtype, pin_memory=True)
-                applied.copy_(self.applied, non_blocking=True)
-            stream.synchronize()
-        views = flat.split([int(np.prod(s)) for s in self.shapes])
-        return ({n: v.view(s) for n, v, s in zip(self.names, views, self.shapes)},
-                int(applied))
+        if self.event is not None:  # on a writer thread, beside the step program's captures
+            with CAPTURE_LOCK:
+                stream = torch.cuda.Stream(device=flat.device)
+                with torch.cuda.stream(stream):
+                    stream.wait_event(self.event)
+                    flat = torch.empty(self.flat.shape, dtype=self.flat.dtype, pin_memory=True)
+                    flat.copy_(self.flat, non_blocking=True)
+                    applied = torch.empty((), dtype=self.applied.dtype, pin_memory=True)
+                    applied.copy_(self.applied, non_blocking=True)
+                stream.synchronize()
+        return ({n: flat.as_strided(shape, stride, off)
+                 for n, (off, shape, stride) in zip(self.names, self.slots)}, int(applied))
 
     def state_dict(self) -> dict:
         """The JAX ``TrainState``'s state dict (numpy leaves)."""
@@ -152,16 +159,29 @@ class TrainState:
     @torch.no_grad()
     def snapshot(self) -> StateSnapshot:
         """A device-side copy of the state, on the current stream, and on a
-        card an event recorded after it (see the module docstring)."""
+        card an event recorded after it (see the module docstring): one
+        ``cat`` of the distinct storages the tensors lie in, each whole, and
+        each tensor's place in it."""
         tensors = self.tensors()
-        flat = torch.cat([t.reshape(-1) for t in tensors.values()])
+        pieces: dict[int, tuple[int, torch.Tensor]] = {}  # storage -> (offset in flat, 1-d view)
+        total = 0
+        slots = []
+        for t in tensors.values():
+            storage = t.untyped_storage()
+            key = storage.data_ptr()
+            if key not in pieces:
+                whole = torch.empty(0, dtype=t.dtype, device=t.device).set_(
+                    storage, 0, (storage.nbytes() // t.element_size(),), (1,))
+                pieces[key] = (total, whole)
+                total += whole.numel()
+            slots.append((pieces[key][0] + t.storage_offset(), tuple(t.shape), tuple(t.stride())))
+        flat = torch.cat([whole for _, whole in pieces.values()])
         applied = self.sgd.applied.clone()
         event = None
         if flat.is_cuda:
             event = torch.cuda.Event()
             event.record()
-        return StateSnapshot(self.model, list(tensors), [tuple(t.shape) for t in tensors.values()],
-                             flat, applied, event)
+        return StateSnapshot(self.model, list(tensors), slots, flat, applied, event)
 
     def state_dict(self) -> dict:
         """The JAX ``TrainState``'s state dict of the live state (it waits

@@ -3,8 +3,11 @@
 ``Trainer`` builds the model with the JAX package's ``model_kw`` (compute
 dtype from ``--precision``/``--amp``, the norms' dtype from ``--bn-dtype``,
 ``--stem``, ``--remat``, and for a ViT the image and patch size, the MoE
-dispatch and the block-fusion policy), the three splits held on the device,
-the SGD and its schedule, and runs the epoch loop of ``Trainer.fit``: train
+dispatch and the block-fusion policy), the three splits (held on the
+device; under ``--data-mode host`` the train split stays on the host and
+streams through the staging ring of ``data/loader.py``, ``--workers``,
+``--host-chunk-steps`` and ``--device-prefetch``), the SGD and its
+schedule, and runs the epoch loop of ``Trainer.fit``: train
 steps, the per-epoch mean of the finite losses, the ``--eval-step`` loss
 lines and the per-epoch validation.  ``test`` evaluates the best
 checkpoint.
@@ -24,9 +27,11 @@ first capture (``train/state.py``, ``train/checkpoint.py``).
 ``EpochRunner.run_epoch``, each validation or test pass ``EvalRunner.run``;
 on a card both replay CUDA graphs captured once, all of a trainer's graphs
 in one memory pool, and the host fetches the stacked metrics once an epoch
-and the totals once a pass.  ``Trainer.step``, the eager ``TrainStep``,
-shares the model, its buffers and the momentum with them and keeps its own
-step count: it is the eager yardstick, not part of ``fit``.
+and the totals once a pass.  The parameters, momentum and running
+statistics are views into flat buffers from construction on
+(``train/flat.py``).  ``Trainer.step``, the eager ``TrainStep`` on torch's
+own SGD, shares the model, its buffers, the momentum and the applied-step
+count with them: it is the eager yardstick, not part of ``fit``.
 
 Not ported yet (ROADMAP.md queue 1): the event bus and its ``writer`` and
 ``epoch_end`` events, goodput and the ``goodput/*``, ``overlap/*`` and
@@ -45,7 +50,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..data.loader import DeviceSplit, get_datasets
+from ..data.loader import DeviceSplit, HostLoader, PrefetchLoader, StagingRing, get_datasets
 from ..models import get_model
 from ..resilience.ckpt_io import read_and_hash, verify_checkpoint
 from ..utils.logging import setup_logger
@@ -105,30 +110,48 @@ class Trainer:
         self.precision = hparams.precision
         self.model = (build_model(hparams) if model is None else model).to(self.device)
         trn, val, tst = get_datasets(hparams)
-        self.train_split = DeviceSplit(*trn, self.device)
-        self.val_split = DeviceSplit(*val, self.device)
-        self.test_split = DeviceSplit(*tst, self.device)
-        self.steps_per_epoch = self.train_split.steps_per_epoch(hparams.batch_size)
+        self.data_mode = getattr(hparams, "data_mode", "device")
+        self.steps_per_epoch = len(trn[1]) // hparams.batch_size
         if self.steps_per_epoch == 0:
             raise ValueError(
-                f"{len(self.train_split)} training examples make no whole batch "
+                f"{len(trn[1])} training examples make no whole batch "
                 f"of {hparams.batch_size}"
             )
+        self.train_split: DeviceSplit | None = None
+        self.train_loader = None
+        if self.data_mode == "device":
+            self.train_split = source = DeviceSplit(*trn, self.device)
+        else:
+            # the train split streams from the host; --workers 0 assembles
+            # batches on the staging thread itself, --device-prefetch 0
+            # stages on the caller's
+            loader = HostLoader(*trn, hparams.batch_size, shuffle=True, drop_last=True,
+                                seed=hparams.seed)
+            workers = getattr(hparams, "workers", 4)
+            self.train_loader = PrefetchLoader(loader, depth=workers) if workers > 0 else loader
+            source = StagingRing(
+                self.train_loader, hparams.batch_size, self.steps_per_epoch, trn[0].shape[1:],
+                chunk_steps=max(1, getattr(hparams, "host_chunk_steps", 32)),
+                depth=int(getattr(hparams, "device_prefetch", 2)), device=self.device,
+            )
+        self.val_split = DeviceSplit(*val, self.device)
+        self.test_split = DeviceSplit(*tst, self.device)
         self.optimizer, self.lr_schedule = configure_optimizers(
             hparams, self.steps_per_epoch, self.model.parameters()
         )
-        self.step = TrainStep(
-            self.model, self.optimizer, self.lr_schedule,
-            precision=self.precision, grad_accum=hparams.grad_accum,
-        )
-        # the step program: the LR and the applied-step count on the device,
-        # one graph memory pool for the train and eval graphs
+        # the step program: the parameters and momentum in flat buffers, the
+        # LR and the applied-step count on the device, one graph memory pool
+        # for the train and eval graphs
         self.sgd = DeviceSGD(self.optimizer, lr_table(
             self.lr_schedule, hparams.epoch * self.steps_per_epoch, self.device))
+        self.step = TrainStep(
+            self.model, self.optimizer, self.lr_schedule,
+            precision=self.precision, grad_accum=hparams.grad_accum, counter=self.sgd.applied,
+        )
         self.graph_pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
                            else None)
         self.runner = EpochRunner(
-            self.model, self.sgd, self.train_split, hparams.batch_size, seed=hparams.seed,
+            self.model, self.sgd, source, hparams.batch_size, seed=hparams.seed,
             precision=self.precision, grad_accum=hparams.grad_accum, pool=self.graph_pool,
         )
         self.eval_runners: dict[str, EvalRunner] = {}
@@ -172,7 +195,6 @@ class Trainer:
                     raise ValueError(f"refusing to resume from {hp.resume}: {reason}")
             _, self.start_epoch, self.best_acc = ckpt.load_resume_state(
                 hp.resume, self.state, raw_bytes=resume_bytes)
-            self.step.applied = int(self.sgd.applied)  # the eager yardstick's host count
             self.logger.info(
                 f"Resumed from {hp.resume} at epoch {self.start_epoch} "
                 f"(best acc {self.best_acc:.4f})"
@@ -352,9 +374,10 @@ class Trainer:
         return {"test_loss": out["loss"], "test_top1": out["top1"], "test_top5": out["top5"]}
 
     def close(self) -> None:
-        """Drain and stop the checkpoint writer (a failed write raises here)
-        and close the TensorBoard file."""
+        """Stop the host loader's threads, drain and stop the checkpoint
+        writer (a failed write raises here) and close the TensorBoard file."""
         try:
             self.ckpt_writer.close()
         finally:
+            self.runner.close()
             self.writer.close()

@@ -21,6 +21,14 @@ without calling them.  :class:`LaunchLedger` keeps the counts true: each
 counter's movement over the capture is taken back off, and added again at
 every replay.
 
+A capture in global mode forbids every other thread's potentially unsafe
+CUDA calls (a blocking synchronize, a pinned host allocation) while it
+lasts, and a call that breaks the rule invalidates the capture.
+:data:`CAPTURE_LOCK` keeps them apart: :class:`CapturedStep` holds it while
+it captures, and a thread that makes CUDA calls beside the step program
+(``data/loader.py::StagingRing``'s staging thread, the checkpoint writer's
+copy in ``train/state.py``) holds it around them.
+
 A replay runs no Python: module hooks and other Python side effects of
 the body happen at the warm-up and capture calls only, and a graph replays
 what its capture recorded.  A step holds one graph: to run the body with
@@ -31,9 +39,12 @@ plain version), call ``body`` itself, or build a new step.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable, Sequence
 
 import torch
+
+CAPTURE_LOCK = threading.Lock()
 
 
 class LaunchLedger:
@@ -126,7 +137,7 @@ class CapturedStep:
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph()
         ledger = LaunchLedger(self.counters())
-        with ledger.capturing():
+        with CAPTURE_LOCK, ledger.capturing():
             with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="global"):
                 out = self.body()
         self.graph, self.ledger, self._out = graph, ledger, out
