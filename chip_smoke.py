@@ -346,7 +346,24 @@ last line:
              its device-to-host copy and each file's serialize and write
              seconds, and an epoch's seconds alone and with a ``last.ckpt``
              save in flight on the writer thread;
-11. the ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, then
+11. data_parallel — ``--backend ddp`` on one card over NCCL (one process,
+             the group joined in it): ``vit_tiny --patch-size 2 --amp``
+             trained one epoch through ``entry.run`` with the counters set
+             to 0 just before and read just after (every K5 and K6 wrapper
+             launched); then ``step_program_train`` on the ddp twins of
+             ``resnet18 --amp --batch-size 256`` (the reference's
+             ``run_ddp.sh`` recipe), bf16 ResNet-18 at batch 128, fp32
+             ResNet-18 and ``vit_tiny`` p2: every replay bit for bit its
+             eager body, the port's kernels by symbol in one replay; beside
+             each, the ``single`` backend's run from the same seed (4
+             replayed steps each: losses and state, bit for bit, since the
+             NCCL average over one process leaves the numbers alone), busy
+             ms, idle share and ms a step of both, and the NCCL kernels by
+             symbol in one replayed ddp step (one a flat gradient buffer;
+             the synced BatchNorms' collectives run only past one
+             process); last, ``--num-devices`` one past the visible cards
+             raises before any process starts;
+12. the ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Every parse of the port's flags gets a ``--ckpt-path`` of its own under one
@@ -357,8 +374,8 @@ version dirs there, and no serve path discovers another path's checkpoint.
 of the port (this one or a parent unpacked beside it) through the same
 functions, for comparisons made in turns within one call (``turn``), and
 ``python3 chip_smoke.py --step-program`` (or ``--host-data``, or
-``--checkpoint``, or any of them together) builds the kernels and runs
-those phases alone.
+``--checkpoint``, or ``--data-parallel``, or any of them together) builds
+the kernels and runs those phases alone.
 
 It imports nothing of JAX.  Without a CUDA device, or outside a checkout of
 the repository, it exits non-zero and prints no result.
@@ -375,6 +392,7 @@ import json
 import math
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -6003,6 +6021,149 @@ def check_host_data(rec: dict) -> None:
         raise RuntimeError(f"host data mode: the ring's copies ran on a kernel stream: {copies}")
 
 
+# The data-parallel phase (``parallel/``, ``--backend ddp``): one process on
+# one card, its group over NCCL.  The reference's ``run_ddp.sh`` trains
+# ResNet-18 at batch 256 with AMP; 1080 training images make 4 steps.
+RESNET_DDP_ARGV = [
+    "--model", "resnet18", "--amp", "--synthetic-data", "--batch-size", "256",
+    "--limit-examples", "1200", "--epoch", "1", "--lr-decay-step-size", "1",
+]
+DATA_PARALLEL_TRAIN = (
+    ("ddp_resnet_b256", RESNET_DDP_ARGV),
+    ("ddp_resnet", TRAIN_RESNET_ARGV),
+    ("ddp_resnet_fp32", TRAIN_RESNET_FP32_ARGV),
+    ("ddp_tiny", TRAIN_TINY_ARGV),
+)
+DDP_STEPS = 4
+
+
+def ddp_flags() -> list:
+    """``--backend ddp`` on one card, the group's rendezvous on a port the
+    OS picked."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return ["--backend", "ddp", "--num-devices", "1", "--dist-url", f"127.0.0.1:{port}"]
+
+
+def is_nccl_kernel(name: str) -> bool:
+    """An NCCL collective's kernel (``ncclDevKernel_*``; over one process
+    its average is ``oneRankReduce``)."""
+    return "nccl" in name.lower() or "onerankreduce" in name.lower()
+
+
+def ddp_entry_run(ddp: list) -> dict:
+    """``vit_tiny --patch-size 2 --amp`` under ``--backend ddp``, one epoch
+    through ``entry.run`` (which joins and leaves the group), the counters
+    set to 0 just before and read just after."""
+    from distributed_training_comparison_tpu_torch import ops
+
+    counters = ops.counted_wrappers()
+    for c in counters:
+        c.launches = 0
+    results = run_entry([*TRAIN_TINY_ARGV, *ddp, "--epoch", "1"])
+    launches = {n: c.launches for n, c in zip(_wrapper_names(), counters) if c.launches}
+    (epoch,) = results["fit"]["epochs"]
+    return {"argv": [*TRAIN_TINY_ARGV, *ddp, "--epoch", "1"], "launches": launches,
+            "steps": epoch["steps"], "skipped": epoch["skipped"],
+            "train_loss": epoch["train_loss"], "val_acc": epoch["val_acc"],
+            "images_per_s": epoch["images_per_s"]}
+
+
+def ddp_against_single(argv: list, ddp: list) -> dict:
+    """The ``single`` and ``ddp`` trainers of ``argv`` from one seed,
+    ``DDP_STEPS`` replayed steps each: their losses and state
+    (``state_agreement``), the group, busy ms, idle share and ms a step of
+    both (``profile_device``, ``cuda_ms``), and the NCCL kernels by symbol
+    in one replayed ddp step (``device_launches``) beside the flat
+    gradient buffers."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_training_comparison_tpu_torch.train import Trainer
+
+    trainers = {"single": Trainer(load_config(argv)), "ddp": Trainer(load_config([*argv, *ddp]))}
+    for t in trainers.values():
+        t.runner.start_epoch(0)
+        for _ in range(DDP_STEPS):
+            t.runner.step()
+    torch.cuda.synchronize()
+    rows = min(DDP_STEPS, trainers["ddp"].runner.steps)
+    out = {"steps": DDP_STEPS, "group": {"backend": dist.get_backend(),
+                                         "world": dist.get_world_size()},
+           "flat_gradient_buffers": len(trainers["ddp"].sgd.grads.flats),
+           "state_vs_single": state_agreement(_state_tensors(trainers["ddp"]),
+                                              _state_tensors(trainers["single"]))}
+    for name, t in trainers.items():
+        out[f"losses_{name}"] = t.runner.metrics[:rows, 0].tolist()
+        out[f"ms_per_step_{name}"] = cuda_ms(t.runner.step, 10, warmup=1)
+        prof = profile_device(t.runner.step, 5)
+        out[f"busy_ms_{name}"] = prof["device_busy_ms"]
+        out[f"idle_share_{name}"] = prof["device_idle_share"]
+        out[f"device_activities_{name}"] = prof["device_activities_per_call"]
+        if name == "ddp":
+            out["nccl_ms_ddp"] = {n: ms for n, ms in prof["device_ms_by_name"].items()
+                                  if is_nccl_kernel(n)}
+    launches = device_launches(trainers["ddp"].runner.step)
+    out["nccl_launches_one_replay"] = {n: c for n, c in launches.items() if is_nccl_kernel(n)}
+    for t in trainers.values():
+        t.close()
+    del trainers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def data_parallel_phase(smi: str) -> dict:
+    """``--backend ddp`` on one card (module docstring, phase 11)."""
+    import torch
+
+    from distributed_training_comparison_tpu_torch import entry
+    from distributed_training_comparison_tpu_torch.parallel import dist as pdist
+
+    check_wrapper_kernels()
+    rec = {"phase": "data_parallel", "nvidia_smi": smi, "entry_tiny": ddp_entry_run(ddp_flags()),
+           "train": []}
+    ddp = ddp_flags()  # a group for every trainer below, left at the end
+    try:
+        for label, argv in DATA_PARALLEL_TRAIN:
+            r = step_program_train(label, [*argv, *ddp], None)
+            r["against_single"] = ddp_against_single(argv, ddp)
+            rec["train"].append(r)
+    finally:
+        pdist.destroy()
+    have = torch.cuda.device_count()
+    try:
+        entry.run(ckpt_argv([*RESNET_DDP_ARGV, "--backend", "ddp",
+                             "--num-devices", str(have + 1)]))
+        rec["more_cards_than_visible"] = "ran"
+    except ValueError as e:
+        rec["more_cards_than_visible"] = f"raised: {e}"
+    return rec
+
+
+def check_data_parallel(rec: dict) -> None:
+    tiny = rec["entry_tiny"]
+    missing = [n for n in ("block_gemm", "block_attention", *K6_COUNTERS)
+               if not tiny["launches"].get(n)]
+    if missing or tiny["skipped"] or not math.isfinite(tiny["train_loss"]):
+        raise RuntimeError(f"data parallel: the ddp vit_tiny p2 entry run missed the fused "
+                           f"block wrappers {missing} or skipped: {tiny}")
+    check_step_program({"train": rec["train"], "serve": []})
+    for r in rec["train"]:
+        s = r["against_single"]
+        nccl = sum(s["nccl_launches_one_replay"].values())
+        if not (s["state_vs_single"]["bitwise"] and s["losses_ddp"] == s["losses_single"]):
+            raise RuntimeError(f"data parallel {r['label']}: ddp over one card is not the "
+                               f"single backend's run: {s}")
+        if s["group"] != {"backend": "nccl", "world": 1} or nccl != s["flat_gradient_buffers"]:
+            raise RuntimeError(f"data parallel {r['label']}: NCCL launches {nccl} in a replay "
+                               f"for {s['flat_gradient_buffers']} flat buffers: {s}")
+    if not rec["more_cards_than_visible"].startswith("raised: --num-devices"):
+        raise RuntimeError(f"data parallel: --num-devices past the cards: "
+                           f"{rec['more_cards_than_visible']}")
+
+
 def init_profiler_for_graphs() -> None:
     """Start the profiler once before any CUDA graph is captured: with a
     CUDA runtime older than 12 the tracer sees no kernel of a graph
@@ -6014,7 +6175,8 @@ def init_profiler_for_graphs() -> None:
 
 
 def phases_main(flags: list) -> int:
-    """``--step-program``, ``--host-data`` and/or ``--checkpoint`` (``PHASE_FLAGS``): the
+    """``--step-program``, ``--host-data``, ``--checkpoint`` and/or
+    ``--data-parallel`` (``PHASE_FLAGS``): the
     device line, the kernels built, and those phases alone, each checked
     after it is printed."""
     import torch
@@ -6048,7 +6210,8 @@ def phases_main(flags: list) -> int:
 
 PHASE_FLAGS = {"--step-program": (step_program_phase, check_step_program),
                "--host-data": (host_data_phase, check_host_data),
-               "--checkpoint": (checkpoint_phase, check_checkpoint)}
+               "--checkpoint": (checkpoint_phase, check_checkpoint),
+               "--data-parallel": (data_parallel_phase, check_data_parallel)}
 
 
 def main() -> int:
@@ -6316,6 +6479,10 @@ def main() -> int:
     checkpoint = checkpoint_phase(smi)
     emit(checkpoint)
     check_checkpoint(checkpoint)
+
+    data_parallel = data_parallel_phase(smi)
+    emit(data_parallel)
+    check_data_parallel(data_parallel)
 
     csrc = f"{PKG}/ops/csrc"
     replaces = {

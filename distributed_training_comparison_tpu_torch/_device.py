@@ -81,10 +81,12 @@ def pin_card_math() -> dict:
     return {**pin_fp32_math(), **pin_deterministic_convolutions()}
 
 
-def resolve_device(name: str = "cuda") -> torch.device:
+def resolve_device(name: str = "cuda", local_rank: int | None = None) -> torch.device:
     """``torch.device`` for ``"cuda"`` (device 0, or ``"cuda:N"``) or
-    ``"cpu"``; a card also gets :func:`pin_card_math` (fp32 math off TF32,
-    cuDNN deterministic); the CPU changes no setting."""
+    ``"cpu"``; with ``local_rank`` (a data-parallel process's index on its
+    host) ``"cuda"`` is that process's card, ``cuda:{local_rank}``, made
+    the current device.  A card also gets :func:`pin_card_math` (fp32 math
+    off TF32, cuDNN deterministic); the CPU changes no setting."""
     dev = torch.device(name)
     if dev.type == "cpu":
         return dev
@@ -95,6 +97,14 @@ def resolve_device(name: str = "cuda") -> torch.device:
             f"device {name!r} requested but no CUDA device is available; "
             "pass --device cpu to run the plain PyTorch path on the CPU"
         )
+    if local_rank is not None:
+        if dev.index not in (None, local_rank):
+            raise ValueError(f"device {name!r} is not local process {local_rank}'s card")
+        if local_rank >= torch.cuda.device_count():
+            raise RuntimeError(f"local process {local_rank} has no card: "
+                               f"{torch.cuda.device_count()} visible")
+        dev = torch.device("cuda", local_rank)
+        torch.cuda.set_device(dev)
     cap = torch.cuda.get_device_capability(dev)
     if cap != HOPPER:
         raise RuntimeError(

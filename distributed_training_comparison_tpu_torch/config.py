@@ -1,9 +1,19 @@
-"""Command-line flags of the port: the training and serving subset of
-``distributed_training_comparison_tpu/config.py``.
+"""Command-line flags of the port (``distributed_training_comparison_tpu/config.py``).
 
-Same names, defaults and choices as the JAX package's flags (its ``single``
-backend: one device, ``--epoch`` 200), with the written deltas of
-``WRITTEN_DELTAS``.  The JAX package's other flags are not parsed yet.
+Every flag of the JAX package, with its name, default and choices, and the
+JAX ``load_config(backend, argv)``: ``build_parser(backend)`` takes the
+backend's defaults (``--epoch`` 200 under ``single``, 100 under ``dp`` and
+``ddp``; ``--ckpt-path src/{backend}/checkpoints/``), and
+:func:`load_config` sets ``args.backend``.  The port adds ``--backend``, so
+that ``python -m distributed_training_comparison_tpu_torch --backend ddp``
+picks the backend the JAX package takes from its entry script, and
+``--device``.
+
+A flag either drives the port, or behaves otherwise on purpose
+(``WRITTEN_DELTAS``), or drives a module that is not ported yet
+(``UNPORTED``, by the ROADMAP item that ports it): such a flag parses at
+the JAX default and fails at the command line when it is set to anything
+else.
 """
 
 from __future__ import annotations
@@ -25,9 +35,30 @@ WRITTEN_DELTAS = {
     "step against the JAX package on the same batches and draws, and host mode's "
     "yardstick is the device mode's run, bit for bit. Both modes replay one captured "
     "step a step where JAX compiles a scan over the epoch or the chunk",
-    "workers": "host data mode: one host, no per-host sharding until data parallelism "
-    "is ported (ROADMAP queue 1, item 5), and no quarantine of corrupt examples until "
-    "the health watchdog is (item 7)",
+    "workers": "host data mode: each process streams its shard of the epoch order "
+    "(shard_indices, even) at B / world, as the JAX HostLoader streams one host's; "
+    "under --grad-accum a > 1 across processes, micro-batch i is every process's "
+    "local micro-batch i, not rows [i·B/a, (i+1)·B/a) of the processes' batches "
+    "concatenated (which would move rows between processes). No quarantine of "
+    "corrupt examples until the health watchdog is ported (ROADMAP queue 1, item 7)",
+    "backend": "new flag: the JAX package takes the backend from its entry script "
+    "(src/{single,dp,ddp}/main.py). dp and ddp are one program, as in the JAX package "
+    "(one SPMD program over the data axis): one process per card, the flat gradients "
+    "all-reduced inside the captured step, BatchNorm synced over the global batch; the "
+    "reference's dp is nn.DataParallel in one process. The JAX tpu backend is not "
+    "offered: its mesh is dp's",
+    "dist_backend": "'xla' (the JAX default) means the platform's own collective "
+    "fabric: nccl on the card, gloo on the CPU; nccl and gloo may be named where they "
+    "run (nccl on the CPU is an error, and so is gloo on the card, whose captured step "
+    "only nccl can join)",
+    "world_size": "counts hosts, as in the JAX package; each host runs one process per "
+    "card (--num-devices, 0 = every visible card; on the CPU --num-devices "
+    "processes), so the process group's world is hosts × local processes, and "
+    "--world-size > 1 needs --backend dp or ddp",
+    "progress": "accepted; the port draws no progress bar (the epoch records are "
+    "logged)",
+    "scan_unroll": "accepted and has no effect: the port's ViT trunk is a loop of "
+    "blocks, with no lax.scan to unroll",
     "device_prefetch": "'auto' needs the planner (ROADMAP queue 1, item 6) and raises "
     "until then; 0 stages each chunk on the training thread",
     "device_chunk_steps": "accepted and has no effect: every replayed step already "
@@ -42,6 +73,38 @@ WRITTEN_DELTAS = {
     "bus is ported",
 }
 
+# flags of modules not ported yet: each parses at its JAX default and fails at
+# the command line when set to anything else, naming the ROADMAP item
+_ITEM_6 = "ROADMAP queue 1, item 6 (the other parallel modules)"
+_ITEM_7 = "ROADMAP queue 1, item 7 (health/, obs/, resilience/, ops/policy.py, parity/)"
+_ITEM_8 = "ROADMAP queue 1, item 8 (serve/ beyond one replica)"
+UNPORTED = {
+    **dict.fromkeys((
+        "model_parallel", "parallel_style", "pipeline_parallel", "pipeline_microbatches",
+        "pipeline_virtual_stages", "pipeline_schedule", "pipeline_resident_layout",
+        "shard_optim", "grad_comms", "parallel_plan", "ckpt_comms_residual",
+    ), _ITEM_6),
+    **dict.fromkeys((
+        "profile_dir", "resilience", "supervise", "fleet_hosts", "fleet_min_hosts",
+        "fleet_local_devices", "fleet_grace_secs", "fleet_poll_secs", "fleet_probe",
+        "max_restarts", "restart_backoff", "fault_plan", "fault_seed", "parity_check",
+        "parity_tol", "parity_corrupt", "goodput_json", "health", "health_window",
+        "health_spike_mads", "health_bad_steps", "health_max_rollbacks",
+        "health_desync_every", "health_quarantine", "health_json", "obs",
+        "flight_recorder_size", "flight_ring", "metrics_flush_steps", "heartbeat_secs",
+        "metrics_port", "alert", "policy", "policy_mode", "policy_max_actions",
+        "control_boundary", "health_phase_baselines",
+    ), _ITEM_7),
+    **dict.fromkeys((
+        "serve_transport", "serve_scale_target", "serve_trace_sample", "serve_port_base",
+        "serve_max_replicas", "serve_classes", "serve_warm_buckets", "serve_aot_cache",
+        "serve_flash_mult",
+    ), _ITEM_8),
+}
+
+BACKENDS = ("single", "dp", "ddp")
+DIST_BACKENDS = ("xla", "nccl", "gloo")
+
 # host data mode defaults (the JAX package's config.py)
 WORKERS_DEFAULT = 4
 HOST_CHUNK_STEPS_DEFAULT = 32
@@ -53,14 +116,22 @@ MODELS = (
 )
 
 
-def build_parser() -> argparse.ArgumentParser:
+def build_parser(backend: str = "single") -> argparse.ArgumentParser:
+    """The parser of every flag, with ``backend``'s defaults (``--backend``
+    defaults to it)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     p = argparse.ArgumentParser(
         prog="python -m distributed_training_comparison_tpu_torch",
         description="PyTorch/CUDA port: train or serve a zoo model on the card",
     )
+    p.add_argument("--backend", type=str, default=backend, choices=list(BACKENDS),
+                   help="'single': one process, one card. 'dp' / 'ddp' (one program): "
+                   "one process per card, the global batch split over them, the "
+                   "gradients all-reduced and BatchNorm synced")
     p.add_argument("--dset", type=str, default="cifar100")
     p.add_argument("--dpath", type=str, default="data/")
-    p.add_argument("--ckpt-path", type=str, default="src/single/checkpoints/",
+    p.add_argument("--ckpt-path", type=str, default=f"src/{backend}/checkpoints/",
                    help="Root of the version-{n} run dirs (checkpoints, hparams.yaml, "
                    "experiment.log, tb/)")
     p.add_argument("--seed", type=int, default=42, help="Seed for reproducibility")
@@ -74,8 +145,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bfloat16 compute policy")
     p.add_argument("--contain-test", action="store_true", default=False,
                    help="Test the best checkpoint after fit")
-    p.add_argument("--epoch", type=int, default=200)
-    p.add_argument("--batch-size", type=int, default=128, help="GLOBAL batch size")
+    # the reference's single variant trains 200 epochs, dp/ddp 100
+    p.add_argument("--epoch", type=int, default=200 if backend == "single" else 100)
+    p.add_argument("--batch-size", type=int, default=128,
+                   help="GLOBAL batch size: split over --grad-accum micro-batches, each "
+                   "split over the processes")
     p.add_argument("--lr", type=float, default=0.1)
     p.add_argument("--weight-decay", type=float, default=0.0001)
     p.add_argument("--lr-decay-step-size", type=int, default=60)
@@ -194,13 +268,139 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Closed-loop in-flight requests")
     p.add_argument("--deadline-ms", type=float, default=0.0,
                    help="Per-request deadline (0 = none)")
+    # distributed (reference src/ddp/config.py:21-26; hosts, as in the JAX package)
+    p.add_argument("--world-size", type=int, default=1, help="Total number of hosts")
+    p.add_argument("--rank", type=int, default=0, help="This host's index")
+    p.add_argument("--dist-backend", type=str, default="xla",
+                   help="Collective backend: 'xla' (default) = the platform's own, "
+                   "nccl on the card and gloo on the CPU; or 'nccl', 'gloo'")
+    p.add_argument("--dist-url", type=str, default="127.0.0.1:3456",
+                   help="Rendezvous address of host 0: host:port (tcp://), or a "
+                   "tcp:// or file:// URL")
+    p.add_argument("--num-devices", type=int, default=0,
+                   help="dp/ddp: processes on this host, one per card (0 = every "
+                   "visible card; on the CPU 0 means one)")
+    p.add_argument("--legacy-test-stats", action="store_true", default=False,
+                   help="Reproduce the reference's test-set normalization quirk "
+                   "(ImageNet statistics at test time, src/single/dataset.py:130-133)")
+    p.add_argument("--progress", action=argparse.BooleanOptionalAction, default=True,
+                   help="Accepted; the port draws no progress bar")
+    p.add_argument("--scan-unroll", type=int, default=0,
+                   help="Accepted and has no effect (the ViT trunk is a loop of blocks)")
+    _add_unported(p)
     return p
 
 
-def load_config(argv: Sequence[str] | None = None) -> argparse.Namespace:
-    """Parse flags (``argv=None`` reads ``sys.argv``)."""
-    parser = build_parser()
+def _add_unported(p: argparse.ArgumentParser) -> None:
+    """The flags of ``UNPORTED``, at the JAX package's names, types,
+    defaults and choices."""
+    def later(dest: str) -> str:
+        return f"not ported yet ({UNPORTED[dest]}); only the default is accepted"
+
+    bool_opt = argparse.BooleanOptionalAction
+    # the other parallel modules
+    p.add_argument("--model-parallel", type=int, default=1, help=later("model_parallel"))
+    p.add_argument("--parallel-style", type=str, default="tensor",
+                   choices=["tensor", "pipeline", "sequence", "sequence-ulysses"],
+                   help=later("parallel_style"))
+    p.add_argument("--pipeline-parallel", type=int, default=1, help=later("pipeline_parallel"))
+    p.add_argument("--pipeline-microbatches", type=int, default=0,
+                   help=later("pipeline_microbatches"))
+    p.add_argument("--pipeline-virtual-stages", type=int, default=0,
+                   help=later("pipeline_virtual_stages"))
+    p.add_argument("--pipeline-schedule", type=str, default="gpipe",
+                   choices=["gpipe", "1f1b", "interleaved"], help=later("pipeline_schedule"))
+    p.add_argument("--pipeline-resident-layout", action=bool_opt, default=True,
+                   help=later("pipeline_resident_layout"))
+    p.add_argument("--shard-optim", action=bool_opt, default=False, help=later("shard_optim"))
+    p.add_argument("--grad-comms", type=str, default="fp32", choices=["fp32", "fp16", "int8"],
+                   help=later("grad_comms"))
+    p.add_argument("--parallel-plan", type=str, default="off", choices=["off", "auto", "dump"],
+                   help=later("parallel_plan"))
+    p.add_argument("--ckpt-comms-residual", action=bool_opt, default=False,
+                   help=later("ckpt_comms_residual"))
+    # health, observability, resilience, policy, parity
+    p.add_argument("--profile-dir", type=str, default=None, help=later("profile_dir"))
+    p.add_argument("--resilience", action="store_true", default=False, help=later("resilience"))
+    p.add_argument("--supervise", action="store_true", default=False, help=later("supervise"))
+    p.add_argument("--fleet-hosts", type=int, default=0, help=later("fleet_hosts"))
+    p.add_argument("--fleet-min-hosts", type=int, default=1, help=later("fleet_min_hosts"))
+    p.add_argument("--fleet-local-devices", type=int, default=0,
+                   help=later("fleet_local_devices"))
+    p.add_argument("--fleet-grace-secs", type=float, default=15.0, help=later("fleet_grace_secs"))
+    p.add_argument("--fleet-poll-secs", type=float, default=1.0, help=later("fleet_poll_secs"))
+    p.add_argument("--fleet-probe", type=str, default="", help=later("fleet_probe"))
+    p.add_argument("--max-restarts", type=int, default=3, help=later("max_restarts"))
+    p.add_argument("--restart-backoff", type=float, default=1.0, help=later("restart_backoff"))
+    p.add_argument("--fault-plan", type=str, default=None, help=later("fault_plan"))
+    p.add_argument("--fault-seed", type=int, default=0, help=later("fault_seed"))
+    p.add_argument("--parity-check", type=int, default=0, help=later("parity_check"))
+    p.add_argument("--parity-tol", type=str, default=f"ulp={1 << 26}", help=later("parity_tol"))
+    p.add_argument("--parity-corrupt", type=str, default=None, help=later("parity_corrupt"))
+    p.add_argument("--goodput-json", type=str, default=None, help=later("goodput_json"))
+    p.add_argument("--health", action=bool_opt, default=True, help=later("health"))
+    p.add_argument("--health-window", type=int, default=64, help=later("health_window"))
+    p.add_argument("--health-spike-mads", type=float, default=8.0,
+                   help=later("health_spike_mads"))
+    p.add_argument("--health-bad-steps", type=int, default=3, help=later("health_bad_steps"))
+    p.add_argument("--health-max-rollbacks", type=int, default=3,
+                   help=later("health_max_rollbacks"))
+    p.add_argument("--health-desync-every", type=int, default=1,
+                   help=later("health_desync_every"))
+    p.add_argument("--health-quarantine", action="store_true", default=False,
+                   help=later("health_quarantine"))
+    p.add_argument("--health-json", type=str, default=None, help=later("health_json"))
+    p.add_argument("--obs", action=bool_opt, default=True, help=later("obs"))
+    p.add_argument("--flight-recorder-size", type=int, default=256,
+                   help=later("flight_recorder_size"))
+    p.add_argument("--flight-ring", action=bool_opt, default=True, help=later("flight_ring"))
+    p.add_argument("--metrics-flush-steps", type=int, default=50,
+                   help=later("metrics_flush_steps"))
+    p.add_argument("--heartbeat-secs", type=float, default=10.0, help=later("heartbeat_secs"))
+    p.add_argument("--metrics-port", type=int, default=0, help=later("metrics_port"))
+    p.add_argument("--alert", action="append", default=None, help=later("alert"))
+    p.add_argument("--policy", action="append", default=None, help=later("policy"))
+    p.add_argument("--policy-mode", type=str, default="dry-run",
+                   choices=["off", "dry-run", "act"], help=later("policy_mode"))
+    p.add_argument("--policy-max-actions", type=int, default=4, help=later("policy_max_actions"))
+    p.add_argument("--control-boundary", type=str, default="chunk", choices=["chunk", "epoch"],
+                   help=later("control_boundary"))
+    p.add_argument("--health-phase-baselines", action=bool_opt, default=True,
+                   help=later("health_phase_baselines"))
+    # serving beyond one replica
+    p.add_argument("--serve-transport", type=str, default="thread", choices=("thread", "process"),
+                   help=later("serve_transport"))
+    p.add_argument("--serve-scale-target", type=str, default="", help=later("serve_scale_target"))
+    p.add_argument("--serve-trace-sample", type=float, default=0.0,
+                   help=later("serve_trace_sample"))
+    p.add_argument("--serve-port-base", type=int, default=0, help=later("serve_port_base"))
+    p.add_argument("--serve-max-replicas", type=int, default=8, help=later("serve_max_replicas"))
+    p.add_argument("--serve-classes", type=str, default="", help=later("serve_classes"))
+    p.add_argument("--serve-warm-buckets", type=str, default="", help=later("serve_warm_buckets"))
+    p.add_argument("--serve-aot-cache", type=str, default="auto", help=later("serve_aot_cache"))
+    p.add_argument("--serve-flash-mult", type=float, default=8.0, help=later("serve_flash_mult"))
+
+
+def _backend_of(argv: Sequence[str] | None, backend: str) -> str:
+    """The ``--backend`` that ``argv`` names (``backend`` if none): the
+    backend's defaults are the parser's, so it is read first."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--backend", type=str, default=backend, choices=list(BACKENDS))
+    known, _ = pre.parse_known_args(argv)
+    return known.backend
+
+
+def load_config(argv: Sequence[str] | None = None, backend: str = "single") -> argparse.Namespace:
+    """Parse flags (``argv=None`` reads ``sys.argv``) under ``backend``'s
+    defaults, or those of the ``--backend`` that ``argv`` names, and set
+    ``args.backend`` as the JAX ``load_config`` does."""
+    parser = build_parser(_backend_of(argv, backend))
     args = parser.parse_args(argv)
+    for dest, item in UNPORTED.items():
+        if getattr(args, dest) != parser.get_default(dest):
+            flag = "--" + dest.replace("_", "-")
+            parser.error(f"{flag} {getattr(args, dest)!r}: the port accepts only its "
+                         f"default, {parser.get_default(dest)!r}, until {item} is ported")
     if args.limit_examples < 0:
         parser.error(f"--limit-examples must be >= 0, got {args.limit_examples}")
     if args.save_last_every < 1:
@@ -220,6 +420,7 @@ def load_config(argv: Sequence[str] | None = None) -> argparse.Namespace:
         parser.error(f"--device-prefetch must be an integer >= 0, got {args.device_prefetch!r}")
     if args.device_prefetch < 0:
         parser.error(f"--device-prefetch must be >= 0, got {args.device_prefetch}")
+    _check_distributed(parser, args)
     if args.precision is None:
         args.precision = "bf16" if args.amp else "fp32"
     try:
@@ -231,9 +432,31 @@ def load_config(argv: Sequence[str] | None = None) -> argparse.Namespace:
             f"--serve-buckets must be positive integers, got {args.serve_buckets!r}"
         )
     args.serve_buckets = buckets
+    args.serve_warm_buckets = ()  # UNPORTED: only the default, the empty string, parses
     if args.serve_replicas != 1:
         parser.error(
             f"--serve-replicas {args.serve_replicas}: the port serves one replica "
             "until the router is ported (ROADMAP.md queue 1)"
         )
     return args
+
+
+def _check_distributed(parser: argparse.ArgumentParser, args: argparse.Namespace) -> None:
+    """The distributed flags: hosts, the process count and the fabric."""
+    if args.world_size < 1:
+        parser.error(f"--world-size must be >= 1, got {args.world_size}")
+    if not 0 <= args.rank < args.world_size:
+        parser.error(f"--rank must be in [0, {args.world_size}), got {args.rank}")
+    if args.world_size > 1 and args.backend == "single":
+        parser.error(f"--world-size {args.world_size} counts hosts of a data-parallel run: "
+                     "it needs --backend dp or ddp")
+    if args.num_devices < 0:
+        parser.error(f"--num-devices must be >= 0, got {args.num_devices}")
+    if args.dist_backend not in DIST_BACKENDS:
+        parser.error(f"--dist-backend must be one of {list(DIST_BACKENDS)}, got "
+                     f"{args.dist_backend!r}")
+    if args.dist_backend == "nccl" and args.device == "cpu":
+        parser.error("--dist-backend nccl needs the card; --device cpu runs over gloo")
+    if args.dist_backend == "gloo" and args.device == "cuda":
+        parser.error("--dist-backend gloo on the card: the step program captures its "
+                     "all-reduce in a CUDA graph, which only nccl can join")

@@ -19,6 +19,10 @@ import numpy as np
 # the reference's train/val normalisation (src/single/dataset.py:41-44)
 CIFAR100_MEAN = (0.4914, 0.4822, 0.4465)
 CIFAR100_STD = (0.2023, 0.1994, 0.2010)
+# the reference's test-time statistics, a train/test mismatch
+# (src/single/dataset.py:130-133), kept for --legacy-test-stats
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 _SPLIT_FILES = {"train": "train", "test": "test"}
 

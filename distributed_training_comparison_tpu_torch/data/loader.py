@@ -19,8 +19,10 @@ the JAX package's host data mode's.
   static device ring of ``--device-prefetch`` slots, on a stream of its
   own from pinned memory on a card, where the step program's captured
   step reads it (``train/step.py::EpochRunner``).  The JAX package's
-  ``DevicePrefetcher`` is the ring's counterpart.  Sharding across hosts
-  and the quarantine of corrupt examples are not ported yet.
+  ``DevicePrefetcher`` is the ring's counterpart.  Under data parallelism
+  each process streams its shard of the epoch order (``HostLoader``'s
+  ``num_shards``/``shard``).  The quarantine of corrupt examples is not
+  ported yet.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 
 from ..utils.graphs import CAPTURE_LOCK
 from .cifar100 import load_cifar100
-from .sampler import epoch_permutation, train_val_split
+from .sampler import epoch_permutation, shard_indices, train_val_split
 from .synthetic import synthetic_dataset
 
 
@@ -124,9 +126,12 @@ class DeviceSplit:
 
 
 class HostLoader:
-    """Streaming numpy batch iterator with an epoch reshuffle (the JAX
-    ``HostLoader`` on one host): call ``set_epoch`` before each pass for
-    the ``(seed, epoch)`` shuffle (``sampler.epoch_permutation``)."""
+    """Streaming numpy batch iterator with an epoch reshuffle and sharding
+    (the JAX ``HostLoader``): call ``set_epoch`` before each pass for the
+    ``(seed, epoch)`` shuffle (``sampler.epoch_permutation``); with
+    ``num_shards > 1`` it streams shard ``shard``'s block of each epoch's
+    permutation (``sampler.shard_indices``, padded by wrapping so that
+    every shard runs the same number of batches)."""
 
     def __init__(
         self,
@@ -137,6 +142,8 @@ class HostLoader:
         shuffle: bool = True,
         drop_last: bool = False,
         seed: int = 42,
+        num_shards: int = 1,
+        shard: int = 0,
     ) -> None:
         if len(images) != len(labels):
             raise ValueError(f"{len(images)} images but {len(labels)} labels")
@@ -145,18 +152,21 @@ class HostLoader:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.num_shards, self.shard = num_shards, shard
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
     def _indices(self) -> np.ndarray:
-        if self.shuffle:
-            return epoch_permutation(len(self.labels), self.seed, self.epoch)
-        return np.arange(len(self.labels))
+        idx = (epoch_permutation(len(self.labels), self.seed, self.epoch) if self.shuffle
+               else np.arange(len(self.labels)))
+        if self.num_shards > 1:
+            idx = shard_indices(idx, self.num_shards, self.shard, even=True)
+        return idx
 
     def __len__(self) -> int:
-        n = len(self.labels)
+        n = len(self._indices()) if self.num_shards > 1 else len(self.labels)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:

@@ -27,3 +27,21 @@ def epoch_permutation(n: int, seed: int, epoch: int) -> np.ndarray:
     idx = np.arange(n)
     np.random.default_rng((seed, epoch)).shuffle(idx)
     return idx
+
+
+def shard_indices(
+    indices: np.ndarray, num_shards: int, shard: int, *, even: bool = True
+) -> np.ndarray:
+    """This shard's slice of ``indices`` (the JAX package's, the
+    ``DistributedSampler`` analogue): with ``even`` the list is padded by
+    wrapping so that every shard has the same length, a contiguous block
+    each (lockstep processes run the same number of steps); without it a
+    no-duplicate cover, every ``num_shards``-th index."""
+    if not 0 <= shard < num_shards:
+        raise ValueError(f"shard {shard} out of range for {num_shards} shards")
+    n = len(indices)
+    if even:
+        per = -(-n // num_shards)  # ceil
+        padded = np.concatenate([indices, indices[: per * num_shards - n]])
+        return padded[shard * per : (shard + 1) * per]
+    return indices[shard::num_shards]

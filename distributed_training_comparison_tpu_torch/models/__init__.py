@@ -13,7 +13,7 @@ from .from_jax import (
     vit_to_jax,
 )
 from .moe import SwitchFFN
-from .norms import BatchNorm2d, LayerNorm
+from .norms import BatchNorm2d, LayerNorm, sync_batch_norm_
 from .resnet import (
     BasicBlock,
     Bottleneck,
@@ -46,5 +46,6 @@ __all__ = [
     "BasicBlock", "BatchNorm2d", "Bottleneck", "LayerNorm", "ResNet", "ResNet18",
     "ResNet34", "ResNet50", "ResNet101", "ResNet152", "ResNetPortError", "SwitchFFN",
     "ViT", "ViTBlock", "ViTLong", "ViTMoE", "ViTSmall", "ViTTiny", "VitPortError",
-    "get_model", "resnet_from_jax", "resnet_to_jax", "vit_from_jax", "vit_to_jax",
+    "get_model", "resnet_from_jax", "resnet_to_jax", "sync_batch_norm_", "vit_from_jax",
+    "vit_to_jax",
 ]

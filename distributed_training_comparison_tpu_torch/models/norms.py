@@ -16,11 +16,19 @@ kernels still accumulate bf16 statistics in fp32).
   normalizes and enters the running statistic (``torch.nn.BatchNorm2d``
   keeps the unbiased one).  The output is in ``norm_dtype`` (fp32 by
   default, so the ResNet's residual stream stays fp32 under bf16 compute).
+  Given a process group (:func:`sync_batch_norm_`; the trainer gives one
+  of more than one process), it reduces over the global batch, as the JAX
+  BatchNorm does over a batch sharded on the mesh's data axis: each
+  process's fp32 sums of x and x² and its count, all-reduced in one
+  collective, give the global mean and the biased variance (flax's
+  ``mean(x²) - mean(x)²``, held at 0 or above); the backward all-reduces
+  their gradients, Σdy and Σdy·x in effect, in one more.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -60,6 +68,24 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of a tensor over a process group, whose gradient is the sum
+    of the output's gradients over the group: one collective each way."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 class BatchNorm2d(nn.Module):
     """flax ``nn.BatchNorm`` under the zoo's ``norm_policy``, with the torch
     names: parameters ``weight`` (flax ``scale``) and ``bias``, buffers
@@ -71,7 +97,10 @@ class BatchNorm2d(nn.Module):
     In train mode the batch statistics normalize and the running ones
     advance by ``BN_MOMENTUM``, unless ``recomputing`` is set (a
     rematerialized forward, ``models/remat.py``); in eval mode the running
-    statistics normalize and stay as they are.
+    statistics normalize and stay as they are.  With ``group`` set to a
+    process group, train mode reduces the batch statistics over the group
+    (module docstring; a group of one process gives flax's formula over
+    its own batch); eval mode issues no collective.
     """
 
     def __init__(
@@ -89,6 +118,27 @@ class BatchNorm2d(nn.Module):
         self.dtype = dtype
         self.norm_dtype = norm_dtype
         self.recomputing = False
+        self.group = None
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over ``group``'s global batch: ``(x - mean) · γ /
+        sqrt(var + eps) + β`` with the all-reduced fp32 statistics, the
+        running ones advanced by them."""
+        c = x.shape[1]
+        xf = x.float()
+        count = xf.new_full((1,), x.numel() // c)
+        sums = _AllReduceSum.apply(
+            torch.cat([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3)), count]), self.group)
+        mean = sums[:c] / sums[2 * c]
+        var = (sums[c : 2 * c] / sums[2 * c] - mean.square()).clamp_min(0.0)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (x - mean.to(x.dtype)[:, None, None]) * mul.to(x.dtype)[:, None, None]
+        y = y + self.bias.to(x.dtype)[:, None, None]
+        if not self.recomputing:
+            with torch.no_grad():
+                torch._foreach_lerp_([self.running_mean, self.running_var],
+                                     [mean.detach(), var.detach()], BN_MOMENTUM)
+        return y
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(_work_dtype(self.norm_dtype, self.dtype))
@@ -97,6 +147,8 @@ class BatchNorm2d(nn.Module):
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 training=False, eps=BN_EPS,
             )
+        elif self.group is not None:
+            y = self._synced(x)
         else:
             # the batch's mean and inverse std come back with the output:
             # the biased variance is invstd^-2 - eps, with no second pass
@@ -110,3 +162,12 @@ class BatchNorm2d(nn.Module):
                         [self.running_mean, self.running_var], [mean, var], BN_MOMENTUM
                     )
         return y.to(self.norm_dtype if self.norm_dtype is not None else self.dtype)
+
+
+def sync_batch_norm_(model: nn.Module, group) -> int:
+    """Reduce every :class:`BatchNorm2d` of ``model`` over ``group`` (None:
+    each over its own batch, as without a group); returns how many."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.group = group
+    return len(norms)

@@ -20,8 +20,10 @@ and dtypes, and ``fmt`` is the JAX ``CKPT_FMT``.  File format: torch's,
 Writes are atomic, and ``last.ckpt`` carries an integrity manifest and a
 rotated ``prev-last.ckpt`` (``resilience/ckpt_io.py``).
 
-Left for later (ROADMAP.md queue 1): the multi-host ``agreed_version_dir``
-and collective fetches, the pipeline's canonical ``state_layout``, the
+Under data parallelism process 0 alone writes, in the version dir it
+claims and broadcasts (:func:`agreed_version_dir`); every process holds the
+same state, so there is nothing to fetch across processes.  Left for later
+(ROADMAP.md queue 1): the pipeline's canonical ``state_layout``, the
 ``--ckpt-comms-residual`` carry and ``FaultPlan.ckpt_hook``.
 """
 
@@ -36,6 +38,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..resilience.ckpt_io import (
     atomic_write_bytes,
@@ -111,6 +114,19 @@ def find_version_dir(ckpt_root: str | Path, create: bool = True) -> Path:
             return d
         except FileExistsError:  # lost the claim race; try the next slot
             n += 1
+
+
+def agreed_version_dir(ckpt_root: str | Path, group=None) -> Path:
+    """The version dir of a run of several processes: process 0 claims one
+    (:func:`find_version_dir`) and the others take its pick, broadcast over
+    ``group`` (``--ckpt-path`` is a filesystem every process shares).  A
+    collective: every process of the group calls it.  Without a group, or
+    in a group of one, the claim itself."""
+    if group is None or dist.get_world_size(group) == 1:
+        return find_version_dir(ckpt_root)
+    pick = [find_version_dir(ckpt_root).name if dist.get_rank(group) == 0 else None]
+    dist.broadcast_object_list(pick, src=0, group=group)
+    return Path(ckpt_root) / pick[0]
 
 
 def save_checkpoint(version_dir: str | Path, state, epoch: int, val_acc: float) -> Path:

@@ -174,3 +174,11 @@ class FlatGrads:
         if idx:
             torch._foreach_copy_([self._views[i] for i in idx], [self.params[i].grad for i in idx])
         return self.flats
+
+    def scatter(self) -> None:
+        """The flat buffers' values copied back into every gathered
+        ``.grad`` (for an optimizer that reads ``.grad``, after the
+        buffers were reduced in place)."""
+        idx = [i for i, has in enumerate(self.present or ()) if has]
+        if idx:
+            torch._foreach_copy_([self.params[i].grad for i in idx], [self._views[i] for i in idx])

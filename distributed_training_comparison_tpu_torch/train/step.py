@@ -29,6 +29,21 @@ step program's momentum exists from the start.
 
 ``eval_totals`` is the exact eval over padded batches (``_make_eval_core``),
 in eval mode: a BatchNorm normalizes with its running statistics there.
+
+**Data parallelism** (``--backend dp``/``ddp``; ``group`` a process group
+of ``n`` processes, one per card): each process takes its rows of every
+global batch (``parallel/sharding.py::rank_rows``: its contiguous part of
+each micro-batch) with the same rows of the global batch's crop and flip
+draws, BatchNorm reduces over the global micro-batch
+(``models/norms.py``), and after the gather each flat gradient buffer is
+all-reduced once, as a mean, and divided by the micro-batches
+(``parallel/dist.py::all_reduce_mean_``); the loss (a mean), ``top1_count``
+(a sum) and an MoE model's health (means) are all-reduced in one more
+collective before the guard, so the norm, the finite flag and the update
+are the same on every process, bit for bit.  All of it runs inside the
+captured step: one replay carries the collectives.  An eval pass
+evaluates each process's rows of every padded batch and sums the totals
+over the group once, outside the graph.
 """
 
 from __future__ import annotations
@@ -37,14 +52,18 @@ from typing import Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..data.augment import draw_epoch_crop_flip, normalize_images, random_crop_flip
+from ..data.cifar100 import CIFAR100_MEAN, CIFAR100_STD
 from ..data.loader import DeviceSplit, StagingRing
 from ..data.sampler import epoch_permutation
 from ..health.guards import global_norm, select_tree, step_finite
 from ..models.norms import BatchNorm2d
 from ..ops import counted_wrappers
+from ..parallel.dist import all_reduce_mean_
+from ..parallel.sharding import rank_rows
 from ..utils.graphs import CapturedStep
 from ..utils.metrics import topk_hits
 from .flat import FlatGrads, flat_buffers, flatten_
@@ -149,26 +168,47 @@ def _forward_backward_saved(model, images, labels, draws, running, *, compute_dt
     return saved, loss, top1, extras
 
 
-def flat_gradient_norm(grads: FlatGrads, grad_accum: int = 1):
+def flat_gradient_norm(grads: FlatGrads, grad_accum: int = 1, group=None):
     """The parameters' gradients gathered into ``grads``' flat buffers,
     divided there by ``grad_accum`` (once, not a tensor at a time), and
-    their global norm: ``(flat gradients, grad_norm)``."""
+    their global norm: ``(flat gradients, grad_norm)``.  With a process
+    ``group`` each buffer is all-reduced to its mean over the group first,
+    in one collective (``parallel.dist.all_reduce_mean_``)."""
     flat = grads.gather()
-    if grad_accum > 1:
+    if group is not None:
+        all_reduce_mean_(flat, group, grad_accum)
+    elif grad_accum > 1:
         for g in flat:
             g.div_(grad_accum)
     return flat, global_norm(flat)
 
 
+def reduce_step_metrics(loss: torch.Tensor, top1: torch.Tensor, extras: dict, group):
+    """A step's metrics over a process ``group`` in one collective, as the
+    JAX step reduces them over the global batch: the loss and an MoE
+    model's routing health as means, ``top1_count`` as a sum (the sum in
+    fp64, exact for any count).  Without a group they are returned as they
+    are."""
+    if group is None:
+        return loss, top1, extras
+    keys = sorted(extras)
+    row = torch.stack([loss.double(), top1.double(), *(extras[k].double() for k in keys)])
+    dist.all_reduce(row, group=group)
+    world = dist.get_world_size(group)
+    means = (row / world).float()
+    return means[0], row[1].long(), {k: means[2 + i] for i, k in enumerate(keys)}
+
+
 def guard_and_update(sgd: DeviceSGD, loss: torch.Tensor, running: list[torch.Tensor],
-                     saved: list[torch.Tensor], *, grad_accum: int = 1):
+                     saved: list[torch.Tensor], *, grad_accum: int = 1, group=None):
     """The guarded step after its backward, with nothing read on the host:
-    the flat gradients and their norm (:func:`flat_gradient_norm`), the
-    finite flag, ``sgd``'s update over the flat parameters and momentum
-    (which keeps them and the step count where the flag is down), and the
-    ``running`` statistics put back to ``saved`` where it is down, one
-    select a buffer.  Returns ``(grad_norm, finite)``."""
-    flat, grad_norm = flat_gradient_norm(sgd.grads, grad_accum)
+    the flat gradients (over a process ``group``, their mean over it) and
+    their norm (:func:`flat_gradient_norm`), the finite flag, ``sgd``'s
+    update over the flat parameters and momentum (which keeps them and the
+    step count where the flag is down), and the ``running`` statistics put
+    back to ``saved`` where it is down, one select a buffer.  ``loss`` is
+    the step's loss over the group.  Returns ``(grad_norm, finite)``."""
+    flat, grad_norm = flat_gradient_norm(sgd.grads, grad_accum, group)
     finite = step_finite(loss, grad_norm)
     sgd.step(finite, flat)
     with torch.no_grad():
@@ -186,7 +226,10 @@ class TrainStep:
     keep one count), by default a count of its own.  A step whose loss or
     gradient norm is not finite applies nothing, so the parameters, the
     momentum buffers, BatchNorm's running statistics and the count keep
-    their old values.  The step runs the model in train mode.
+    their old values.  The step runs the model in train mode.  With a
+    process ``group`` it takes the step program's collectives (module
+    docstring) on this process's rows of the global batch, and torch's SGD
+    reads the all-reduced gradients.
     """
 
     def __init__(
@@ -199,6 +242,7 @@ class TrainStep:
         augment: bool = True,
         grad_accum: int = 1,
         counter: torch.Tensor | None = None,
+        group=None,
     ) -> None:
         self.model = model
         self.optimizer = optimizer
@@ -206,6 +250,7 @@ class TrainStep:
         self.compute_dtype = COMPUTE_DTYPES[precision]
         self.augment = augment
         self.grad_accum = grad_accum
+        self.group = group
         self.counter = torch.zeros((), dtype=torch.int64) if counter is None else counter
         self.grads = FlatGrads([p for g in optimizer.param_groups for p in g["params"]])
 
@@ -226,16 +271,14 @@ class TrainStep:
             self.model, images, labels, draws if self.augment else None, running,
             compute_dtype=self.compute_dtype, grad_accum=self.grad_accum,
         )
-        _, grad_norm = flat_gradient_norm(self.grads, self.grad_accum)
+        loss, top1, extras = reduce_step_metrics(loss, top1, extras, self.group)
+        _, grad_norm = flat_gradient_norm(self.grads, self.grad_accum, self.group)
         finite = step_finite(loss, grad_norm)
         # the guard reads the finite flag on the host, one device sync per
         # step (the JAX package selects between old and new state on the
         # device instead); a skipped step touches no state at all
         if bool(finite):
-            if self.grad_accum > 1:  # torch's SGD reads .grad: the flat buffer's values
-                for p in self.model.parameters():
-                    if p.grad is not None:
-                        p.grad /= self.grad_accum
+            self.grads.scatter()  # torch's SGD reads .grad: the flat buffers' values
             for group in self.optimizer.param_groups:
                 group["lr"] = self.schedule(self.applied)
             self.optimizer.step()
@@ -246,7 +289,8 @@ class TrainStep:
         return {
             "loss": loss,
             "top1_count": top1,
-            "count": labels.shape[0],
+            "count": labels.shape[0] * (1 if self.group is None
+                                        else dist.get_world_size(self.group)),
             "grad_norm": grad_norm,
             "skipped": (~finite).float(),
             **extras,
@@ -262,6 +306,7 @@ def guarded_step(
     *,
     compute_dtype: torch.dtype = torch.float32,
     grad_accum: int = 1,
+    group=None,
 ) -> dict[str, torch.Tensor]:
     """One guarded SGD step with nothing read on the host: crop/flip by
     ``draws`` when given, normalize, forward/backward, the gradients
@@ -269,15 +314,19 @@ def guarded_step(
     finite flag, ``sgd``'s update over the flat parameters and momentum,
     then the running statistics of every BatchNorm put back where the step
     is not finite, one select over their flat buffer (the update keeps the
-    parameters, momentum and step count itself).  The model runs in the
-    mode it is in (train mode for training).  Returns ``loss``,
-    ``top1_count``, ``grad_norm``, ``skipped`` and an MoE model's routing
-    health, as device scalars."""
+    parameters, momentum and step count itself).  With a process ``group``
+    the images are this process's rows, and the metrics and gradients are
+    reduced over the group before the guard (module docstring).  The model
+    runs in the mode it is in (train mode for training).  Returns
+    ``loss``, ``top1_count``, ``grad_norm``, ``skipped`` and an MoE
+    model's routing health, as device scalars."""
     running = statistics_buffers(model)
     saved, loss, top1, extras = _forward_backward_saved(
         model, images, labels, draws, running, compute_dtype=compute_dtype, grad_accum=grad_accum,
     )
-    grad_norm, finite = guard_and_update(sgd, loss, running, saved, grad_accum=grad_accum)
+    loss, top1, extras = reduce_step_metrics(loss, top1, extras, group)
+    grad_norm, finite = guard_and_update(sgd, loss, running, saved, grad_accum=grad_accum,
+                                         group=group)
     return {
         "loss": loss,
         "top1_count": top1,
@@ -306,7 +355,14 @@ class EpochRunner:
     :class:`~..utils.graphs.CapturedStep`: the first step runs eagerly on a
     side stream (it is a step of the epoch), the next is captured, in train
     mode, and every later step of this and later epochs replays it.
-    ``program.body()``, called in train mode, runs the next step eagerly."""
+    ``program.body()``, called in train mode, runs the next step eagerly.
+
+    ``batch_size`` is the global batch.  With a process ``group`` this
+    process runs on its rows of it (``parallel.sharding.rank_rows``): of
+    the permutation's batch over a ``DeviceSplit``, which every process
+    holds whole, and of the global batch's draws; a ring holds only this
+    process's rows, its shard's batches.  The step is then captured in
+    ``thread_local`` mode (``utils/graphs.py``)."""
 
     def __init__(
         self,
@@ -320,28 +376,40 @@ class EpochRunner:
         augment: bool = True,
         grad_accum: int = 1,
         pool=None,
+        group=None,
     ) -> None:
         self.model, self.sgd, self.split = model, sgd, split
         self.batch_size, self.seed = batch_size, seed
         self.compute_dtype = COMPUTE_DTYPES[precision]
         self.augment, self.grad_accum = augment, grad_accum
+        self.group = group
+        world = 1 if group is None else dist.get_world_size(group)
+        rank = 0 if group is None else dist.get_rank(group)
+        self.rows = rank_rows(batch_size, grad_accum, world, rank)
+        local = len(self.rows)
         self.ring = split if isinstance(split, StagingRing) else None
         if self.ring is None:
             self.steps = split.steps_per_epoch(batch_size)
             if self.steps == 0:
                 raise ValueError(f"{len(split)} examples make no whole batch of {batch_size}")
             dev = split.labels.device
-            self.perm = torch.zeros((self.steps, batch_size), dtype=torch.int64, device=dev)
+            self.perm = torch.zeros((self.steps, local), dtype=torch.int64, device=dev)
         else:
+            if self.ring.batch_size != local:
+                raise ValueError(f"a ring of batches of {self.ring.batch_size} for this "
+                                 f"process's {local} rows of {batch_size}")
             self.steps, dev = self.ring.steps, self.ring.device
         flatten_(_running_statistics(model))
-        self.offsets = torch.zeros((self.steps, batch_size, 2), dtype=torch.int64, device=dev)
-        self.flips = torch.zeros((self.steps, batch_size), dtype=torch.bool, device=dev)
+        self.offsets = torch.zeros((self.steps, local, 2), dtype=torch.int64, device=dev)
+        self.flips = torch.zeros((self.steps, local), dtype=torch.bool, device=dev)
         self.i = torch.zeros((), dtype=torch.int64, device=dev)  # the step of the epoch
         self.k = 0  # the same count on the host, for the ring's chunk boundaries
         self.keys: list[str] | None = None
         self.metrics: torch.Tensor | None = None
-        self.program = CapturedStep(self._body, dev, counters=counted_wrappers, pool=pool)
+        self.program = CapturedStep(
+            self._body, dev, counters=counted_wrappers, pool=pool,
+            capture_error_mode="global" if group is None else "thread_local",
+        )
 
     def _batch(self, i: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         if self.ring is not None:
@@ -357,7 +425,7 @@ class EpochRunner:
             draws = (self.offsets.index_select(0, i)[0], self.flips.index_select(0, i)[0])
         m = guarded_step(
             self.model, self.sgd, images, labels, draws,
-            compute_dtype=self.compute_dtype, grad_accum=self.grad_accum,
+            compute_dtype=self.compute_dtype, grad_accum=self.grad_accum, group=self.group,
         )
         if self.keys is None:  # the first step is eager: the buffer is static from then on
             self.keys = [*STEP_METRICS, *sorted(k for k in m if k.startswith("moe_"))]
@@ -370,17 +438,18 @@ class EpochRunner:
         """Upload ``epoch``'s draws (and its batch order over a
         ``DeviceSplit``; a ring starts staging the epoch); the next step is
         its first."""
+        rows = torch.from_numpy(self.rows)
         if self.ring is None:
             n = self.steps * self.batch_size
             perm = epoch_permutation(len(self.split), self.seed, epoch)[:n]
-            self.perm.copy_(torch.from_numpy(np.ascontiguousarray(perm, dtype=np.int64))
-                            .view_as(self.perm))
+            perm = torch.from_numpy(np.asarray(perm, dtype=np.int64)).view(self.steps, -1)
+            self.perm.copy_(perm[:, rows])
         else:
             self.ring.start_epoch(epoch)
         if self.augment:
             offsets, flips = draw_epoch_crop_flip(self.batch_size, self.steps, self.seed, epoch)
-            self.offsets.copy_(offsets)
-            self.flips.copy_(flips)
+            self.offsets.copy_(offsets[:, rows])
+            self.flips.copy_(flips[:, rows])
         self.i.zero_()
         self.k = 0
 
@@ -422,11 +491,13 @@ def eval_batch_totals(
     labels: torch.Tensor,
     weights: torch.Tensor,
     dtype: torch.dtype = torch.float32,
+    stats: tuple = (CIFAR100_MEAN, CIFAR100_STD),
 ) -> torch.Tensor:
     """One padded batch's weighted cross-entropy sum, top-1 and top-5 hits
-    and weight total, as an fp32 (4,) device tensor (``_make_eval_core``);
-    the model runs in the mode it is in."""
-    logits = model(normalize_images(images, dtype=dtype)).float()
+    and weight total, as an fp32 (4,) device tensor (``_make_eval_core``),
+    the images normalized by ``stats`` (mean, std); the model runs in the
+    mode it is in."""
+    logits = model(normalize_images(images, *stats, dtype=dtype)).float()
     top1, top5 = topk_hits(logits, labels)
     return torch.stack([
         (F.cross_entropy(logits, labels, reduction="none") * weights).sum(),
@@ -454,7 +525,13 @@ class EvalRunner:
     :class:`~..utils.graphs.CapturedStep`: the first pass's first batch
     runs eagerly, the next is captured in eval mode and replayed from then
     on; ``program.body()``, called in eval mode, runs the next batch
-    eagerly."""
+    eagerly.
+
+    ``stats`` are the normalization's (mean, std) (the reference's test
+    split under ``--legacy-test-stats`` takes ImageNet's).  With a process
+    ``group`` each process evaluates its contiguous share of every padded
+    batch, and a pass ends with one all-reduce of the totals, outside the
+    graph: every example is counted once."""
 
     def __init__(
         self,
@@ -464,14 +541,19 @@ class EvalRunner:
         *,
         precision: str = "fp32",
         pool=None,
+        group=None,
+        stats: tuple = (CIFAR100_MEAN, CIFAR100_STD),
     ) -> None:
         if len(split) == 0:
             raise ValueError("eval over an empty split")
         self.model, self.split, self.batch_size = model, split, batch_size
         self.dtype = COMPUTE_DTYPES[precision]
+        self.stats, self.group = stats, group
         self.batches = -(-len(split) // batch_size)
         dev = split.labels.device
-        self.rows = torch.arange(batch_size, device=dev)
+        self.rows = torch.from_numpy(rank_rows(
+            batch_size, 1, 1 if group is None else dist.get_world_size(group),
+            0 if group is None else dist.get_rank(group))).to(dev)
         self.j = torch.zeros((), dtype=torch.int64, device=dev)  # the batch of the pass
         self.totals = torch.zeros(4, device=dev)
         self.program = CapturedStep(self._body, dev, counters=counted_wrappers, pool=pool)
@@ -484,7 +566,7 @@ class EvalRunner:
         idx = torch.where(idx < n, idx, 0)
         self.totals += eval_batch_totals(
             self.model, self.split.images.index_select(0, idx),
-            self.split.labels.index_select(0, idx), weights, self.dtype,
+            self.split.labels.index_select(0, idx), weights, self.dtype, self.stats,
         )
         self.j.add_(1)
 
@@ -500,6 +582,8 @@ class EvalRunner:
                 self.program()
         finally:
             self.model.train(was_training)
+        if self.group is not None:
+            dist.all_reduce(self.totals, group=self.group)
         return _totals(self.totals)
 
 

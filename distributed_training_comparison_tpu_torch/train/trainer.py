@@ -33,11 +33,27 @@ statistics are views into flat buffers from construction on
 own SGD, shares the model, its buffers, the momentum and the applied-step
 count with them: it is the eager yardstick, not part of ``fit``.
 
+Data parallelism (``--backend dp``/``ddp``, as the JAX trainer on a mesh
+whose data axis has several devices): the trainer runs in each process of
+a process group (``parallel/dist.py``; a run of one process joins it
+here), one card each.  The global batch must split into ``--grad-accum``
+micro-batches over the processes, checked before any group work; every
+process holds the whole train split (device mode) or streams its shard of
+it (host mode), the BatchNorms reduce over the group
+(``models/norms.py::sync_batch_norm_``), and the step program all-reduces
+the gradients and metrics inside its captured step (``train/step.py``).
+Process 0 alone writes the run's files, in the version dir it claims and
+broadcasts (``checkpoint.agreed_version_dir``); ``--auto-resume``'s
+discovery is broadcast and checked for agreement, ``--resume`` loads the
+same file everywhere, and ``fit`` ends at a barrier.  ``vit_moe`` over
+several processes raises: its capacity, drops and load-balance loss are
+the global batch's in the JAX package (ROADMAP queue 1, item 6).
+
 Not ported yet (ROADMAP.md queue 1): the event bus and its ``writer`` and
 ``epoch_end`` events, goodput and the ``goodput/*``, ``overlap/*`` and
 ``health/*`` scalars, the health watchdog (a skipped step is counted and
-logged, never rolled back) and its preemption drain, supervision, the
-multi-host run dir and the parity rail.
+logged, never rolled back) and its preemption drain, supervision and the
+parity rail.
 """
 
 from __future__ import annotations
@@ -48,10 +64,15 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
+from ..data.cifar100 import CIFAR100_MEAN, CIFAR100_STD, IMAGENET_MEAN, IMAGENET_STD
 from ..data.loader import DeviceSplit, HostLoader, PrefetchLoader, StagingRing, get_datasets
-from ..models import get_model
+from ..models import get_model, sync_batch_norm_
+from ..parallel import dist as pdist
+from ..parallel.mesh import make_mesh
+from ..parallel.sharding import check_global_batch, host_local_batch_slice
 from ..resilience.ckpt_io import read_and_hash, verify_checkpoint
 from ..utils.logging import setup_logger
 from ..utils.meters import AverageMeter
@@ -63,8 +84,15 @@ from .optim import DeviceSGD, configure_optimizers, lr_table
 from .state import TrainState
 from .step import COMPUTE_DTYPES, EpochRunner, EvalRunner, TrainStep
 
-# the log lines' tag: the port's flags are the JAX package's ``single`` backend's
-BACKEND = "SINGLE"
+
+class _NullWriter:
+    """The TensorBoard writer of a process that is not process 0."""
+
+    def add_scalar(self, tag: str, value: float, global_step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def build_model(hparams, attn_impl: str = "auto") -> torch.nn.Module:
@@ -90,8 +118,38 @@ def build_model(hparams, attn_impl: str = "auto") -> torch.nn.Module:
     return model
 
 
+def check_world(hparams, world: int) -> None:
+    """Raise, before any process group work, unless a run of ``hparams``
+    can train over ``world`` processes: its global batch splits over them
+    (``parallel.sharding.check_global_batch``), and it is not ``vit_moe``
+    over several (the JAX package routes over the global batch: capacity,
+    drops, load-balance loss; per-process routing would train another
+    model, ROADMAP queue 1, item 6)."""
+    check_global_batch(hparams.batch_size, hparams.grad_accum, world)
+    if world > 1 and hparams.model == "vit_moe":
+        raise NotImplementedError(
+            f"vit_moe over {world} processes routes over the global batch in the JAX package; "
+            "the port's global routing statistics wait for ROADMAP queue 1, item 6")
+
+
+def _join_group(hparams):
+    """The process group of a ``dp``/``ddp`` run: the one this process is
+    in, or, for a run of one local process, a new one joined here (local
+    process 0), after :func:`check_world`."""
+    check_world(hparams, dist.get_world_size() if dist.is_initialized()
+                else pdist.world_size_of(hparams))
+    if dist.is_initialized():
+        return dist.group.WORLD
+    if pdist.local_world_size(hparams) > 1:
+        raise RuntimeError("a run of several local processes starts them through "
+                           "entry.run (python -m distributed_training_comparison_tpu_torch)")
+    return pdist.init_distributed(hparams, 0)
+
+
 class Trainer:
-    """Trains one run on one device (``--device``, the card by default).
+    """Trains one run on one device (``--device``, the card by default),
+    or, under ``--backend dp``/``ddp``, this process's part of a run over a
+    process group (module docstring).
 
     ``model`` (the JAX ``Trainer(hparams, model=...)``) is trained in place
     of :func:`build_model`'s, moved to the device: for example a zoo model
@@ -101,14 +159,25 @@ class Trainer:
 
     def __init__(self, hparams, model: torch.nn.Module | None = None) -> None:
         self.hparams = hparams
+        self.backend = getattr(hparams, "backend", "single")
         if hparams.batch_size % hparams.grad_accum:
             raise ValueError(
                 f"--batch-size {hparams.batch_size} does not split into "
                 f"--grad-accum {hparams.grad_accum} micro-batches"
             )
-        self.device = resolve_device(hparams.device)
+        self.group = None if self.backend == "single" else _join_group(hparams)
+        self.rank, self.world = ((0, 1) if self.group is None
+                                 else (pdist.process_index(), pdist.process_count()))
+        self.is_main = self.rank == 0
+        self.mesh = make_mesh(self.world, getattr(hparams, "model_parallel", 1),
+                              getattr(hparams, "pipeline_parallel", 1), backend=self.backend)
+        self.device = resolve_device(
+            hparams.device, None if self.group is None else pdist.local_rank())
         self.precision = hparams.precision
         self.model = (build_model(hparams) if model is None else model).to(self.device)
+        if self.world > 1:
+            sync_batch_norm_(self.model, self.group)
+        local_batch = host_local_batch_slice(hparams.batch_size, self.mesh.shape["data"])
         trn, val, tst = get_datasets(hparams)
         self.data_mode = getattr(hparams, "data_mode", "device")
         self.steps_per_epoch = len(trn[1]) // hparams.batch_size
@@ -125,12 +194,12 @@ class Trainer:
             # the train split streams from the host; --workers 0 assembles
             # batches on the staging thread itself, --device-prefetch 0
             # stages on the caller's
-            loader = HostLoader(*trn, hparams.batch_size, shuffle=True, drop_last=True,
-                                seed=hparams.seed)
+            loader = HostLoader(*trn, local_batch, shuffle=True, drop_last=True,
+                                seed=hparams.seed, num_shards=self.world, shard=self.rank)
             workers = getattr(hparams, "workers", 4)
             self.train_loader = PrefetchLoader(loader, depth=workers) if workers > 0 else loader
             source = StagingRing(
-                self.train_loader, hparams.batch_size, self.steps_per_epoch, trn[0].shape[1:],
+                self.train_loader, local_batch, self.steps_per_epoch, trn[0].shape[1:],
                 chunk_steps=max(1, getattr(hparams, "host_chunk_steps", 32)),
                 depth=int(getattr(hparams, "device_prefetch", 2)), device=self.device,
             )
@@ -145,16 +214,18 @@ class Trainer:
         self.sgd = DeviceSGD(self.optimizer, lr_table(
             self.lr_schedule, hparams.epoch * self.steps_per_epoch, self.device))
         self.step = TrainStep(
-            self.model, self.optimizer, self.lr_schedule,
-            precision=self.precision, grad_accum=hparams.grad_accum, counter=self.sgd.applied,
+            self.model, self.optimizer, self.lr_schedule, precision=self.precision,
+            grad_accum=hparams.grad_accum, counter=self.sgd.applied, group=self.group,
         )
         self.graph_pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
                            else None)
         self.runner = EpochRunner(
             self.model, self.sgd, source, hparams.batch_size, seed=hparams.seed,
             precision=self.precision, grad_accum=hparams.grad_accum, pool=self.graph_pool,
+            group=self.group,
         )
         self.eval_runners: dict[str, EvalRunner] = {}
+        self.eval_counts: dict[str, int] = {}  # examples the last pass of each split counted
         self.state = TrainState(self.model, self.sgd)
         self._open_run_dir()
 
@@ -163,7 +234,7 @@ class Trainer:
         dir, TensorBoard, ``hparams.yaml``, the logger, and the restore of
         ``--resume`` (or of the newest run, under ``--auto-resume``)."""
         hp = self.hparams
-        self.ckpt_writer = AsyncCheckpointer()
+        self.ckpt_writer = AsyncCheckpointer() if self.is_main else None
         self._last_resume_save = float("-inf")
         # -1 so that the first validation always writes a best checkpoint,
         # even at 0.0% accuracy
@@ -181,12 +252,25 @@ class Trainer:
                 hp.resume = str(hit[0])
                 resume_bytes = hit[1]
                 auto_resumed = True
+        if self.world > 1:
+            # every process must take the same branch: process 0's discovery
+            # is broadcast, and another one raises (--ckpt-path is shared)
+            mine = [hp.resume if auto_resumed else None]
+            first = list(mine)
+            dist.broadcast_object_list(first, src=0, group=self.group)
+            if first != mine:
+                raise RuntimeError(
+                    f"--auto-resume discovery disagrees across processes (process 0: "
+                    f"{first[0]}, process {self.rank}: {mine[0]}); --ckpt-path must be a "
+                    "filesystem every process shares")
         self.version_dir = (Path(hp.resume).parent if auto_resumed
-                            else ckpt.find_version_dir(hp.ckpt_path))
+                            else ckpt.agreed_version_dir(hp.ckpt_path, self.group))
         self.version = int(self.version_dir.name.split("-")[1])
-        self.writer = SummaryWriter(self.version_dir / "tb")
-        self._dump_hparams()
-        self.logger = setup_logger(self.version_dir)
+        self.writer = SummaryWriter(self.version_dir / "tb") if self.is_main else _NullWriter()
+        if self.is_main:
+            self._dump_hparams()
+        self.logger = setup_logger(self.version_dir if self.is_main else None,
+                                   is_main_process=self.is_main)
         if hp.resume:
             if resume_bytes is None:
                 resume_bytes, digest = read_and_hash(hp.resume)
@@ -229,12 +313,12 @@ class Trainer:
         ``epochs``, the applied-step count, the version and the best
         validation accuracy."""
         hp = self.hparams
-        tag = f"[{BACKEND} Version {self.version}"
+        tag = f"[{self.backend.upper()} Version {self.version}"
         t_start = time.perf_counter()
         self.logger.info(
             f"{tag}] start training: epochs {self.start_epoch}..{hp.epoch - 1}, "
             f"{self.steps_per_epoch} steps/epoch, global batch {hp.batch_size}, "
-            f"{self.device}, {self.precision}"
+            f"{self.device}, {self.precision}, {self.world} process(es)"
         )
         history = []
         for epoch in range(self.start_epoch, hp.epoch):
@@ -294,7 +378,10 @@ class Trainer:
                 )
             record.update(self._save(epoch, val["val_acc"]))
             history.append(record)
-        self.ckpt_writer.wait()
+        if self.ckpt_writer is not None:
+            self.ckpt_writer.wait()
+        if self.group is not None:  # no process leaves while another is in a collective
+            dist.barrier(group=self.group)
         self.logger.info(
             f"{tag}] done in {time.perf_counter() - t_start:.1f}s, "
             f"best val acc {self.best_acc:.2f}%"
@@ -317,6 +404,10 @@ class Trainer:
         throttled = time.monotonic() - self._last_resume_save < (hp.save_last_min_secs or 0.0)
         want_last = hp.save_last and (epoch == hp.epoch - 1 or (due and not throttled))
         vdir = self.version_dir
+        if want_last:
+            self._last_resume_save = time.monotonic()
+        if not self.is_main:  # the same decisions; process 0 writes
+            return {"saved_best": want_best, "saved_last": bool(want_last)}
         if want_best or want_last:
             snap = self.state.snapshot()
         if want_best:
@@ -325,7 +416,6 @@ class Trainer:
                 key="best",
             )
         if want_last:
-            self._last_resume_save = time.monotonic()
             self.ckpt_writer.submit(
                 lambda s=snap, e=epoch, b=self.best_acc: ckpt.save_resume_state(vdir, s, e, b),
                 key="last",
@@ -337,11 +427,14 @@ class Trainer:
 
     def _evaluate(self, name: str, split: DeviceSplit) -> dict[str, float]:
         if name not in self.eval_runners:
+            legacy = name == "test" and getattr(self.hparams, "legacy_test_stats", False)
             self.eval_runners[name] = EvalRunner(
                 self.model, split, self.hparams.batch_size, precision=self.precision,
-                pool=self.graph_pool,
+                pool=self.graph_pool, group=self.group,
+                stats=(IMAGENET_MEAN, IMAGENET_STD) if legacy else (CIFAR100_MEAN, CIFAR100_STD),
             )
         t = self.eval_runners[name].run()
+        self.eval_counts[name] = int(t["count"])
         count = t["count"] or math.nan
         return {
             "loss": t["loss_sum"] / count,
@@ -359,16 +452,23 @@ class Trainer:
         checkpoint, as the reference's test phase globs and loads it
         (``src/single/main.py:22-28``): pending writes are drained, the best
         file's weights copied into the model (``test_checkpoint`` names it);
-        with no best file the in-memory state is tested."""
-        self.ckpt_writer.wait()
-        best = ckpt.find_best_checkpoint(self.version_dir)
+        with no best file the in-memory state is tested.  Over several
+        processes each loads process 0's best file, once its writes are
+        done.  ``--legacy-test-stats`` normalizes by ImageNet's statistics."""
+        if self.ckpt_writer is not None:
+            self.ckpt_writer.wait()
+        best = ckpt.find_best_checkpoint(self.version_dir) if self.is_main else None
+        if self.world > 1:  # process 0's pick, after its writes
+            pick = [None if best is None else best.name]
+            dist.broadcast_object_list(pick, src=0, group=self.group)
+            best = None if pick[0] is None else self.version_dir / pick[0]
         if best is not None:
             self.logger.info(f"Loading best checkpoint: {best.name}")
             ckpt.load_checkpoint(best, self.state)
         self.test_checkpoint = best
         out = self._evaluate("test", self.test_split)
         self.logger.info(
-            f"[{BACKEND} Version {self.version}] test loss: {out['loss']:.4f}, "
+            f"[{self.backend.upper()} Version {self.version}] test loss: {out['loss']:.4f}, "
             f"test top-1 acc: {out['top1']:.2f}%, top-5 acc: {out['top5']:.2f}%"
         )
         return {"test_loss": out["loss"], "test_top1": out["top1"], "test_top5": out["top5"]}
@@ -377,7 +477,8 @@ class Trainer:
         """Stop the host loader's threads, drain and stop the checkpoint
         writer (a failed write raises here) and close the TensorBoard file."""
         try:
-            self.ckpt_writer.close()
+            if self.ckpt_writer is not None:
+                self.ckpt_writer.close()
         finally:
             self.runner.close()
             self.writer.close()

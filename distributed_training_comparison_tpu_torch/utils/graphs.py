@@ -29,6 +29,20 @@ it captures, and a thread that makes CUDA calls beside the step program
 (``data/loader.py::StagingRing``'s staging thread, the checkpoint writer's
 copy in ``train/state.py``) holds it around them.
 
+A body that carries NCCL collectives (the data-parallel step,
+``train/step.py``) is captured in ``"thread_local"`` mode instead.
+ProcessGroupNCCL's watchdog thread polls the events of the group's earlier,
+eager work (``cudaEventQuery``), on its own schedule: in global mode one
+poll during the capture invalidates it, the same failure as a writer
+thread's copy, and the watchdog cannot take :data:`CAPTURE_LOCK`.
+Synchronizing before the capture (which ``torch.cuda.graph`` already does)
+does not stop the polls, since the watchdog keeps the finished work until
+its next poll.  In ``"thread_local"`` mode only the capturing thread's
+unsafe calls are refused; the threads of the port that make CUDA calls
+still hold :data:`CAPTURE_LOCK`, so they stay out of the capture as
+before.  The collectives a capture records are not handed to the watchdog
+(ProcessGroupNCCL enqueues no work while its stream captures).
+
 A replay runs no Python: module hooks and other Python side effects of
 the body happen at the warm-up and capture calls only, and a graph replays
 what its capture recorded.  A step holds one graph: to run the body with
@@ -77,7 +91,9 @@ class CapturedStep:
     graph after one eager call and replayed; see the module docstring.
     ``counters()`` gives the counted wrappers at the capture
     (``ops.counted_wrappers``); ``pool`` is the graph memory pool shared by
-    one model's graphs (``torch.cuda.graph_pool_handle()``).  A call
+    one model's graphs (``torch.cuda.graph_pool_handle()``);
+    ``capture_error_mode`` is ``"global"``, or ``"thread_local"`` for a body
+    that carries NCCL collectives (module docstring).  A call
     returns what the body returned, a replay the tensors its capture
     returned (overwritten by every replay).  ``ledger`` is the capture's
     :class:`LaunchLedger`, None before it."""
@@ -89,11 +105,13 @@ class CapturedStep:
         *,
         counters: Callable[[], Sequence],
         pool=None,
+        capture_error_mode: str = "global",
     ) -> None:
         self.body = body
         self.cuda = torch.device(device).type == "cuda"
         self.counters = counters
         self.pool = pool
+        self.capture_error_mode = capture_error_mode
         self.warm = False  # the warm-up call is done
         self.graph: torch.cuda.CUDAGraph | None = None
         self.ledger: LaunchLedger | None = None
@@ -138,6 +156,7 @@ class CapturedStep:
         graph = torch.cuda.CUDAGraph()
         ledger = LaunchLedger(self.counters())
         with CAPTURE_LOCK, ledger.capturing():
-            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="global"):
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode=self.capture_error_mode):
                 out = self.body()
         self.graph, self.ledger, self._out = graph, ledger, out
